@@ -1,0 +1,9 @@
+"""Courier on PyTorch and CUDA — the port of the JAX package to an NVIDIA H100.
+
+The paper's Fig. 1 flow (trace → module-database lookup → fusion → balanced
+partition → pipeline → off-loaded wrapper) runs on the card through CUDA
+kernels written by hand for Hopper.  Nothing here imports JAX or the JAX
+package: ``repro`` stays the reference the port is held against.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+"""

@@ -1,0 +1,48 @@
+"""Courier core — the paper's contribution as a composable PyTorch library.
+
+Flow (paper Fig. 1):
+  Frontend.trace        Steps 1-5  — runtime trace of an unmodified callable
+  (user edit_ir hook)   Steps 6-7  — inspect/modify the Courier IR
+  PipelineGenerator     Step 8     — DB lookup, fusion, balanced partition,
+                                     mixed sw/hw token pipeline
+  courier_offload       Step 9     — deployable wrapper w/ Off-load Switcher
+"""
+from .costmodel import (DEVICE_CLASSES, H100, SMEM_BYTES, CostModel,
+                        DeviceClass, FusionEstimate, NodeCost, device_class,
+                        elementwise_cost, fused_cost, measure_ms,
+                        replicated_bottleneck_ms, stencil_cost, synchronize,
+                        transfer_ms)
+from .database import ModuleDatabase, ModuleEntry, default_db
+from .ir import CourierIR, Node, Value, linear_ir
+from .offloader import OffloadedFunction, OffloadPlan, courier_offload
+from .partition import (PipelinePlan, StagePlan, assign_replicas,
+                        assign_stage_devices, clear_stage_devices,
+                        fuse_adjacent_hw, fused_working_set_bytes,
+                        make_model_fused_cost, partition_optimal,
+                        partition_paper, split_fused_node, working_set_bytes)
+from .pipeline import (BuiltPipeline, PipelineGenerator, StageFn,
+                       assign_placements, make_stage_fns)
+from .placement import (AUTO_BUDGET, DeviceInventory, DeviceSpec, Placement,
+                        default_worker_budget, is_hw, is_sw, placement_kind,
+                        resolve_device, resolve_worker_budget)
+from .tracer import Frontend, Library, deploy
+
+__all__ = [
+    "DEVICE_CLASSES", "H100", "SMEM_BYTES", "CostModel", "DeviceClass",
+    "FusionEstimate", "NodeCost", "device_class", "elementwise_cost",
+    "fused_cost", "measure_ms", "replicated_bottleneck_ms", "stencil_cost",
+    "synchronize", "transfer_ms",
+    "ModuleDatabase", "ModuleEntry", "default_db",
+    "CourierIR", "Node", "Value", "linear_ir",
+    "OffloadedFunction", "OffloadPlan", "courier_offload",
+    "PipelinePlan", "StagePlan", "assign_replicas", "assign_stage_devices",
+    "clear_stage_devices", "fuse_adjacent_hw", "fused_working_set_bytes",
+    "make_model_fused_cost", "partition_optimal", "partition_paper",
+    "split_fused_node", "working_set_bytes",
+    "BuiltPipeline", "PipelineGenerator", "StageFn", "assign_placements",
+    "make_stage_fns",
+    "AUTO_BUDGET", "DeviceInventory", "DeviceSpec", "Placement",
+    "default_worker_budget", "is_hw", "is_sw", "placement_kind",
+    "resolve_device", "resolve_worker_budget",
+    "Frontend", "Library", "deploy",
+]

@@ -1,0 +1,1 @@
+"""Workloads the port runs: the paper's Harris case study."""

@@ -1,0 +1,348 @@
+"""The port's planning core held against the JAX package.
+
+The traced IR and the generated plan of the Harris demo are compared
+through ``to_json`` (timings excluded: the port's roofline uses H100 priors,
+the reference TPU v5e constants); JSON written by the JAX package loads
+through the port's ``from_json``; verifier corruptions give the same rule
+ids; and planning at the paper's full 1080x1920 frame fuses
+cvtColor+cornerHarris in both packages.
+"""
+import json
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import repro.core as jcore
+import repro.core.partition as jpart
+import repro.models.harris as jmh
+import repro_torch.core as tcore
+from repro.analysis import verify_plan as jax_verify_plan
+from repro_torch.analysis import PlanVerificationError, check_plan, verify_plan
+from repro_torch.core import (H100, SMEM_BYTES, CourierIR, DeviceInventory,
+                              Frontend, Library, ModuleDatabase, NodeCost,
+                              PipelineGenerator, PipelinePlan,
+                              assign_replicas, device_class, fused_cost,
+                              fused_working_set_bytes, linear_ir, measure_ms,
+                              partition_optimal, partition_paper,
+                              resolve_device, split_fused_node)
+from repro_torch.core.ir import Node, dtype_name
+from repro_torch.core.tracer import TraceBindingError
+from repro_torch.models import harris as mh
+
+torch.set_num_threads(1)
+
+TIMING_KEYS = {"time_ms", "t_start", "t_end"}
+
+
+def _frame(h, w, seed=0):
+    return (np.random.default_rng(seed).random((h, w, 3), dtype=np.float32)
+            * 255).astype(np.float32)
+
+
+def _ir_json(ir) -> dict:
+    d = json.loads(ir.to_json())
+    for n in d["nodes"]:
+        for k in TIMING_KEYS:
+            n.pop(k)
+    return d
+
+
+def _plan_json(plan) -> dict:
+    d = json.loads(plan.to_json())
+    for s in d["stages"]:
+        s.pop("est_time_ms")
+        s.pop("xfer_in_ms")
+    return d
+
+
+def _generate(core, models, frame, *, fuse, policy):
+    """Trace the Harris demo without a profile and generate its pipeline,
+    the one sw row (normalize) costed by a CostModel."""
+    db = models.make_harris_db(with_hw=True)
+    app = models.corner_harris_demo(core.Library(db))
+    ir, _ = core.Frontend(db).trace(app, frame, profile=False)
+    cm = core.CostModel()
+    cm.register("normalize", models._c_norm)
+    pipe = core.PipelineGenerator(db, cost_model=cm).generate(
+        ir, n_threads=2, policy=policy, fuse=fuse)
+    return pipe.ir, pipe.plan
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+@pytest.mark.parametrize("policy", ["paper", "optimal"])
+def test_ir_and_plan_equal_to_jax(fuse, policy):
+    frame = _frame(32, 64)
+    jir, jplan = _generate(jcore, jmh, jnp.asarray(frame), fuse=fuse,
+                           policy=policy)
+    tir, tplan = _generate(tcore, mh, torch.from_numpy(frame), fuse=fuse,
+                           policy=policy)
+    assert _ir_json(tir) == _ir_json(jir)
+    assert _plan_json(tplan) == _plan_json(jplan)
+    fused = [n.fn_key for n in tir.nodes if n.fused_from]
+    assert fused == (["cvtColor+cornerHarris"] if fuse else [])
+
+
+def test_jax_written_ir_and_plan_load_in_port():
+    jir, jplan = _generate(jcore, jmh, jnp.asarray(_frame(16, 24)),
+                           fuse=True, policy="optimal")
+    tir = CourierIR.from_json(jir.to_json())
+    tplan = PipelinePlan.from_json(jplan.to_json())
+    assert json.loads(tir.to_json()) == json.loads(jir.to_json())
+    assert json.loads(tplan.to_json()) == json.loads(jplan.to_json())
+    assert verify_plan(tir, tplan, db=mh.make_harris_db()) == []
+
+
+def test_full_width_planning_fuses_in_both_packages():
+    """At the paper's 1080x1920 frame the pair fuses in both packages.
+
+    The TPU gate reckons a full-width row slab (460,800 B here), which
+    would spill one H100 block's 232,448 B of shared memory; the port's
+    gate reckons its own kernel's 2-D tile, which fits at any width.
+    """
+    frame = _frame(1080, 1920)
+    keys = {}
+    for name, core, models, x in (
+            ("jax", jcore, jmh, jnp.asarray(frame)),
+            ("torch", tcore, mh, torch.from_numpy(frame))):
+        db = models.make_harris_db(with_hw=True)
+        ir, _ = core.Frontend(db).trace(
+            models.corner_harris_demo(core.Library(db)), x, profile=False)
+        core.assign_placements(ir, db)
+        run = ir.nodes[:2]
+        if name == "jax":
+            assert jpart.fused_working_set_bytes(ir, run) == 460_800 > SMEM_BYTES
+        else:
+            assert fused_working_set_bytes(ir, run) <= SMEM_BYTES
+        fused = core.fuse_adjacent_hw(ir, db, fused_cost_ms="model")
+        keys[name] = [n.fn_key for n in fused.nodes if n.fused_from]
+    assert keys == {"jax": ["cvtColor+cornerHarris"],
+                    "torch": ["cvtColor+cornerHarris"]}
+
+
+# --------------------------------------------------------------------------- #
+# verifier: the same corruptions give the same rule ids
+# --------------------------------------------------------------------------- #
+def _linear(core):
+    ir = core.linear_ir("t", ["a", "b", "c", "d"], [1.0, 4.0, 2.0, 1.0],
+                        io_shape=(64, 96))
+    return ir, core.partition_optimal(ir, max_stages=3)
+
+
+def _mut_drop_producer(ir, plan):
+    ir.nodes = [n for n in ir.nodes if n.name != "b_1"]
+    for s in plan.stages:
+        s.node_names = [nn for nn in s.node_names if nn != "b_1"]
+
+
+CORRUPTIONS = {
+    "drop-producer": _mut_drop_producer,
+    "reverse-stages": lambda ir, plan: setattr(
+        plan, "stages", list(reversed(plan.stages))),
+    "duplicate-node": lambda ir, plan: plan.stages[-1].node_names.append("a_0"),
+    "phantom-node": lambda ir, plan: plan.stages[0].node_names.append("ghost_9"),
+    "missing-output": lambda ir, plan: setattr(ir, "graph_outputs",
+                                               ["never_made"]),
+    "phantom-xfer": lambda ir, plan: setattr(plan.stages[0], "xfer_in_ms", 1.5),
+    "zero-replicas": lambda ir, plan: setattr(plan.stages[1], "replicas", 0),
+    "nan-stage-time": lambda ir, plan: setattr(plan.stages[0], "est_time_ms",
+                                               float("nan")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CORRUPTIONS))
+def test_corruption_gives_jax_rule_ids(name):
+    rules = {}
+    for pkg, core, verify in (("jax", jcore, jax_verify_plan),
+                              ("torch", tcore, verify_plan)):
+        ir, plan = _linear(core)
+        assert verify(ir, plan) == []
+        CORRUPTIONS[name](ir, plan)
+        rules[pkg] = sorted({(d.rule, d.severity) for d in verify(ir, plan)})
+    assert rules["torch"] == rules["jax"] and rules["torch"]
+
+
+def _fused_ir(rows, cols, *extra):
+    ir = CourierIR("fz")
+    for v in ("d0", "d1", "d2"):
+        ir.add_value(v, (rows, cols, *extra), "float32")
+    ir.add_node(Node(
+        name="a_0+b_1", fn_key="a+b", inputs=["d0"], outputs=["d2"],
+        time_ms=1.0, placement="hw", fused_from=["a_0", "b_1"],
+        fused_input_shapes=[[(rows, cols, *extra)]] * 2,
+        fused_params=[{}, {}], fused_part_inputs=[["d0"], ["d1"]],
+        fused_part_outputs=[["d1"], ["d2"]]))
+    ir.graph_inputs, ir.graph_outputs = ["d0"], ["d2"]
+    return ir, partition_optimal(ir, max_stages=1)
+
+
+def test_smem_spill_rule_reckons_the_tile_not_the_width():
+    ir, plan = _fused_ir(4096, 4_000_000)       # the JAX test's VMEM spill
+    assert verify_plan(ir, plan) == []          # a 2-D tile fits at any width
+    ir, plan = _fused_ir(64, 96, 4096)          # deep pixels do not
+    diags = verify_plan(ir, plan)
+    assert [d.rule for d in diags] == ["smem-spill"]
+    with pytest.raises(PlanVerificationError) as e:
+        check_plan(ir, plan)
+    assert e.value.rules == ["smem-spill"]
+
+
+# --------------------------------------------------------------------------- #
+# partitioners and replication on the paper's own profile
+# --------------------------------------------------------------------------- #
+PAPER_KEYS = ["cvtColor", "cornerHarris", "normalize", "convertScaleAbs"]
+PAPER_MS = [39.8, 13.6, 80.2, 13.2]             # Table I, off-loaded
+
+
+@pytest.mark.parametrize("n_threads", [1, 2, 3])
+def test_partitioners_cut_like_jax(n_threads):
+    jir = jcore.linear_ir("p", PAPER_KEYS, PAPER_MS)
+    tir = linear_ir("p", PAPER_KEYS, PAPER_MS)
+    for jp, tp in ((jcore.partition_paper(jir, n_threads),
+                    partition_paper(tir, n_threads)),
+                   (jcore.partition_optimal(jir, max_stages=n_threads + 1),
+                    partition_optimal(tir, max_stages=n_threads + 1))):
+        assert json.loads(tp.to_json()) == json.loads(jp.to_json())
+        assert tp.bottleneck_ms == jp.bottleneck_ms
+
+
+def test_assign_replicas_like_jax():
+    jir = jcore.linear_ir("p", PAPER_KEYS, PAPER_MS)
+    tir = linear_ir("p", PAPER_KEYS, PAPER_MS)
+    jp = jcore.assign_replicas(jcore.partition_optimal(jir, max_stages=3), jir,
+                               worker_budget=6,
+                               inventory=jcore.DeviceInventory.host(4))
+    tp = assign_replicas(partition_optimal(tir, max_stages=3), tir,
+                         worker_budget=6, inventory=DeviceInventory.host(4))
+    assert _plan_json(tp) == _plan_json(jp)
+    assert tp.replicas == jp.replicas and max(tp.replicas) > 1
+
+
+def test_split_fused_node_round_trips():
+    tir, _ = _generate(tcore, mh,
+                       torch.from_numpy(_frame(16, 24)), fuse=True,
+                       policy="paper")
+    fused = next(n for n in tir.nodes if n.fused_from)
+    back = split_fused_node(tir, fused.name)
+    assert [n.fn_key for n in back.nodes] == PAPER_KEYS
+    assert back.nodes[0].inputs == fused.inputs
+
+
+# --------------------------------------------------------------------------- #
+# cost model, dtypes, devices
+# --------------------------------------------------------------------------- #
+def test_cost_model_defaults_to_h100_priors():
+    assert device_class("gpu") is H100 and device_class("unknown") is H100
+    assert NodeCost(bytes_rw=3.35e12).time_ms() == pytest.approx(1000.0)
+    assert NodeCost(flops=989e12).time_ms() == pytest.approx(1000.0)
+    fe = fused_cost([NodeCost(bytes_rw=8.0)], 1.0, smem_required=SMEM_BYTES + 1)
+    assert not fe.fits_smem and fe.fused_ms == float("inf")
+    assert measure_ms(lambda x: {"out": (x * 2,)}, torch.ones(4), iters=2) > 0
+
+
+def test_dtype_names_are_numpy_names():
+    assert dtype_name(torch.float32) == "float32"
+    assert dtype_name(torch.bfloat16) == "bfloat16"
+    assert dtype_name(np.dtype("uint8")) == "uint8"
+    ir = CourierIR()
+    assert ir.add_value("b", (2, 3), torch.bfloat16).nbytes == 12
+    with pytest.raises(ValueError):
+        dtype_name("torch.quint8")
+
+
+def test_default_device_is_the_card():
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+        assert DeviceInventory.detect().specs[0].platform == "gpu"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            resolve_device(None)
+        with pytest.raises(RuntimeError):
+            DeviceInventory.detect()
+    assert resolve_device("cpu").type == "cpu"
+    assert [s.platform for s in DeviceInventory.detect(device="cpu")] == ["cpu"]
+
+
+# --------------------------------------------------------------------------- #
+# tracer: the JAX package's bug classes, and torch's in-place aliasing
+# --------------------------------------------------------------------------- #
+def _tdb() -> ModuleDatabase:
+    db = ModuleDatabase("t")
+    db.register("mul2", software=lambda x: x * 2.0)
+    db.register("add", software=lambda x, y: x + y)
+    db.register("scale_", software=lambda x: x.mul_(3.0))   # in place
+
+    def scale(x, *, w):
+        return x * w
+    db.register("scale", software=scale)
+
+    def shift(x, k, y):
+        return x * k + y
+    db.register("shift", software=shift)
+
+    def cat(*xs):
+        return torch.cat([x.reshape(-1) for x in xs])
+    db.register("cat", software=cat)
+    return db
+
+
+def _pipe(fn, *args, max_stages=2):
+    db = _tdb()
+    lib = Library(db)
+
+    def app(*a):
+        return fn(lib, *a)
+    ir, out = Frontend(db).trace(app, *args)
+    pipe = PipelineGenerator(db).generate(ir, policy="optimal",
+                                          max_stages=max_stages)
+    return ir, out, pipe
+
+
+X = torch.arange(6.0).reshape(2, 3)
+Y = torch.full((2, 3), 0.5)
+
+
+def test_constant_and_passthrough_outputs_are_registered():
+    const = torch.full((2, 3), 7.0)
+    ir, _, pipe = _pipe(lambda lib, x: (lib.mul2(x), const, x), X)
+    assert len(ir.graph_outputs) == 3
+    assert ir.graph_outputs[1] in ir.captured
+    assert ir.graph_outputs[2] in ir.graph_inputs
+    y, c, x2 = pipe(X)
+    assert torch.equal(y, X * 2) and torch.equal(c, const)
+    assert torch.equal(x2, X)
+
+
+def test_keyword_and_shifted_arrays_replay_by_name():
+    ir, _, pipe = _pipe(lambda lib, x, w: lib.scale(x, w=w), X, Y)
+    assert ir.nodes[0].input_kw == [None, "w"]
+    assert torch.equal(pipe(X, Y), X * Y)
+    ir, _, pipe = _pipe(lambda lib, x, y: lib.shift(x, 3.0, y), X, Y)
+    assert ir.nodes[0].params == {"k": 3.0}
+    assert ir.nodes[0].input_kw == [None, "y"]
+    assert torch.equal(pipe(X, Y), X * 3.0 + Y)
+    with pytest.raises(TraceBindingError):
+        _pipe(lambda lib, x, y: lib.cat(x, 2.0, y), X, Y)
+
+
+def test_closure_captured_weight_becomes_a_captured_input():
+    w = torch.full((2, 3), 4.0)
+    ir, _, pipe = _pipe(lambda lib, x: lib.add(lib.mul2(x), w), X)
+    (cap,) = ir.captured
+    assert cap in ir.graph_inputs and pipe.graph_inputs == ["d0"]
+    assert torch.equal(pipe(X), X * 2 + w)
+
+
+def test_in_place_op_takes_the_alias_path():
+    """``x.mul_`` returns its operand itself: the tracer mints a fresh value
+    and an identity edge rather than one value read and written by a node."""
+    ir, out, pipe = _pipe(lambda lib, x: lib.add(lib.scale_(lib.mul2(x)), x),
+                          X.clone())
+    scale_node = ir.node("scale__0")
+    assert scale_node.inputs != scale_node.outputs
+    assert ir.values[scale_node.outputs[0]].producer == "scale__0"
+    assert ir.node("add_0").inputs[0] == scale_node.outputs[0]
+    ir.validate()
+    assert torch.equal(pipe(X.clone()), X * 6 + X)

@@ -1,0 +1,84 @@
+"""The port's CUDA kernels on the card, held to their plain versions.
+
+These need an NVIDIA GPU (the kernels have no CPU mode) and skip without
+one. The file imports neither JAX nor the JAX package, so it runs on a
+machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import Library, courier_offload
+from repro_torch.kernels import harris as hk
+from repro_torch.models import harris as mh
+
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _frame(h, w, seed, device):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.random((h, w, 3), dtype=np.float32) * 255
+                            ).to(device)
+
+
+def _close_scaled(got, want, atol=1e-5):
+    """Harris responses: compare after dividing both by max |reference|."""
+    scale = want.abs().max().item() + 1e-9
+    torch.testing.assert_close(got / scale, want / scale, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("H,W", [(17, 23), (33, 130), (1081, 1919)])
+def test_kernels_match_plain_versions_on_card(cuda_device, H, W):
+    img = _frame(H, W, H, cuda_device)
+    gray = hk.cvt_color_ref(img)
+    torch.testing.assert_close(hk.cvt_color(img), gray, rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(hk.convert_scale_abs(gray, -2.0, 100.0),
+                               hk.convert_scale_abs_ref(gray, -2.0, 100.0),
+                               rtol=1e-5, atol=1e-3)
+    for bs in (2, 3):
+        want = hk.corner_harris_ref(gray, bs)
+        _close_scaled(hk.corner_harris(gray, bs), want)
+        _close_scaled(hk.harris_fused(img, bs, with_csa=False), want)
+        torch.testing.assert_close(
+            hk.harris_fused(img, bs, alpha=1e-6, beta=3.0),
+            hk.harris_fused_ref(img, bs, alpha=1e-6, beta=3.0),
+            rtol=1e-5, atol=1e-3)
+
+
+def test_kernels_reject_what_they_do_not_take(cuda_device):
+    with pytest.raises(TypeError, match="float32"):
+        hk.cvt_color(torch.zeros((4, 4, 3), dtype=torch.float64,
+                                 device=cuda_device))
+    with pytest.raises(ValueError, match="contiguous"):
+        hk.corner_harris(torch.zeros((8, 8), device=cuda_device).t())
+    with pytest.raises(ValueError, match="block_size"):
+        hk.corner_harris(torch.zeros((8, 8), device=cuda_device), 4)
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+def test_offload_on_card_goes_through_the_kernels(cuda_device, fuse):
+    frames = mh.make_frames(2, 68, 130, seed=1, device=cuda_device)
+    db = mh.make_harris_db(with_hw=True)
+    app = mh.corner_harris_demo(Library(db))
+    off = courier_offload(app, frames[0], db=db, fuse=fuse)
+    plain = mh.corner_harris_demo(Library(mh.make_harris_db(with_hw=False)))
+    hk.reset_launches()
+    outs = off.map(frames)
+    torch.cuda.synchronize()
+    launched = {k for k, v in hk.LAUNCHES.items() if v}
+    assert launched == ({"harris_fused", "convert_scale_abs"} if fuse else
+                        {"cvt_color", "corner_harris", "convert_scale_abs"})
+    for got, f in zip(outs, frames):
+        torch.testing.assert_close(got, plain(f), rtol=1e-3, atol=1e-3)
+    assert off.fallbacks == [] and off.plan.fallback_log == []
