@@ -28,7 +28,7 @@ from typing import Callable, Iterable, Optional
 from ..core.costmodel import SMEM_BYTES
 from ..core.database import ModuleDatabase
 from ..core.ir import CourierIR, Node
-from ..core.partition import PipelinePlan, working_set_bytes
+from ..core.partition import PipelinePlan, kernel_tile, working_set_bytes
 from ..core.placement import DeviceInventory, Placement
 
 from .diagnostics import (ERROR, WARNING, VERIFY_ENV, Diagnostic,
@@ -488,7 +488,8 @@ def _rule_phantom_xfer(ctx: VerifyContext) -> Iterable[Diagnostic]:
 @verify_rule("smem-spill")
 def _rule_smem_spill(ctx: VerifyContext) -> Iterable[Diagnostic]:
     """Re-check the shared-memory gate on the committed plan: a fused hw
-    node whose per-block tile set (one 2-D tile plus halo of every value it
+    node whose kernel's per-block tile (the one its module declares in the
+    database, else one 2-D stencil tile plus halo of every value it
     touches) overflows a block's shared memory must not ship, no matter
     what the fusion-time estimate said."""
     out: list[Diagnostic] = []
@@ -504,7 +505,8 @@ def _rule_smem_spill(ctx: VerifyContext) -> Iterable[Diagnostic]:
         for pouts in node.fused_part_outputs:
             names.update(pouts)
         names &= set(ctx.ir.values)        # missing values flagged elsewhere
-        ws = working_set_bytes(ctx.ir, names)
+        ws = working_set_bytes(ctx.ir, names,
+                               kernel_tile(ctx.db, node.fn_key))
         if ws > ctx.smem_bytes:
             out.append(Diagnostic(
                 rule="smem-spill", stage=_stage_label(si), node=nn,

@@ -9,19 +9,23 @@ Flow (paper Fig. 1):
 """
 from .costmodel import (DEVICE_CLASSES, H100, SMEM_BYTES, CostModel,
                         DeviceClass, FusionEstimate, NodeCost, device_class,
-                        elementwise_cost, fused_cost, measure_ms,
+                        elementwise_cost, fused_cost, matmul_cost, measure_ms,
                         replicated_bottleneck_ms, stencil_cost, synchronize,
                         transfer_ms)
 from .database import ModuleDatabase, ModuleEntry, default_db
+from .executor import (ExecutorClosed, ExecutorStats, PendingToken,
+                       PipelineExecutor, StageCounters, SubmitError)
 from .ir import CourierIR, Node, Value, linear_ir
 from .offloader import OffloadedFunction, OffloadPlan, courier_offload
 from .partition import (PipelinePlan, StagePlan, assign_replicas,
                         assign_stage_devices, clear_stage_devices,
                         fuse_adjacent_hw, fused_working_set_bytes,
-                        make_model_fused_cost, partition_optimal,
-                        partition_paper, split_fused_node, working_set_bytes)
+                        kernel_tile, make_model_fused_cost, partition_optimal,
+                        partition_paper, split_fused_node, stencil_tile_bytes,
+                        widen_for_deployment, working_set_bytes)
 from .pipeline import (BuiltPipeline, PipelineGenerator, StageFn,
-                       assign_placements, make_stage_fns)
+                       assign_placements, loop_batched, make_stage_fns)
+from .profiler import StageProfiler
 from .placement import (AUTO_BUDGET, DeviceInventory, DeviceSpec, Placement,
                         default_worker_budget, is_hw, is_sw, placement_kind,
                         resolve_device, resolve_worker_budget)
@@ -30,17 +34,20 @@ from .tracer import Frontend, Library, deploy
 __all__ = [
     "DEVICE_CLASSES", "H100", "SMEM_BYTES", "CostModel", "DeviceClass",
     "FusionEstimate", "NodeCost", "device_class", "elementwise_cost",
-    "fused_cost", "measure_ms", "replicated_bottleneck_ms", "stencil_cost",
+    "fused_cost", "matmul_cost", "measure_ms", "replicated_bottleneck_ms", "stencil_cost",
     "synchronize", "transfer_ms",
     "ModuleDatabase", "ModuleEntry", "default_db",
+    "ExecutorClosed", "ExecutorStats", "PendingToken", "PipelineExecutor",
+    "StageCounters", "SubmitError",
     "CourierIR", "Node", "Value", "linear_ir",
     "OffloadedFunction", "OffloadPlan", "courier_offload",
     "PipelinePlan", "StagePlan", "assign_replicas", "assign_stage_devices",
     "clear_stage_devices", "fuse_adjacent_hw", "fused_working_set_bytes",
     "make_model_fused_cost", "partition_optimal", "partition_paper",
-    "split_fused_node", "working_set_bytes",
+    "split_fused_node", "working_set_bytes", "stencil_tile_bytes",
+    "kernel_tile", "widen_for_deployment",
     "BuiltPipeline", "PipelineGenerator", "StageFn", "assign_placements",
-    "make_stage_fns",
+    "loop_batched", "make_stage_fns", "StageProfiler",
     "AUTO_BUDGET", "DeviceInventory", "DeviceSpec", "Placement",
     "default_worker_budget", "is_hw", "is_sw", "placement_kind",
     "resolve_device", "resolve_worker_budget",

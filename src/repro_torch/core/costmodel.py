@@ -183,6 +183,15 @@ def fused_cost(parts: "list[NodeCost]", intermediate_bytes: float, *,
 # --------------------------------------------------------------------------- #
 # Analytical costs for common op families
 # --------------------------------------------------------------------------- #
+def matmul_cost(m: int, n: int, k: int, bytes_per_el: int = 2,
+                batch: int = 1) -> NodeCost:
+    """An [m, k] @ [k, n] product (``batch`` of them): 2mnk flops, each
+    operand read once and the result written once."""
+    flops = 2.0 * batch * m * n * k
+    byts = bytes_per_el * batch * (m * k + k * n + m * n)
+    return NodeCost(flops=flops, bytes_rw=byts)
+
+
 def elementwise_cost(numel: int, flops_per_el: float = 1.0,
                      bytes_per_el: int = 2, n_operands: int = 2) -> NodeCost:
     return NodeCost(flops=flops_per_el * numel,

@@ -35,6 +35,14 @@ class ModuleEntry:
     # name of the mutable per-request state this function touches, or None
     # for pure functions; stateful entries never resolve to hw
     state: str | None = None
+    # True when every implementation takes leading batch dims ([..., T, d]):
+    # the executor then hands a micro-batched group to the stage in one
+    # call, and otherwise loops the stage over the group's rows
+    batch_dims: bool = False
+    # a fused module's shared-memory tile: (ir, value names) -> bytes one
+    # block of its kernel holds; None reckons the stencil tile
+    # (partition.stencil_tile_bytes)
+    smem_tile: Callable[..., int] | None = None
 
     def has_hw(self, *shape_args: Any) -> bool:
         if self.accelerated is None:
@@ -75,14 +83,15 @@ class ModuleDatabase:
                  cost_hw: Callable[..., NodeCost] | None = None,
                  cost_sw: Callable[..., NodeCost] | None = None,
                  tags: tuple[str, ...] = (),
-                 state: str | None = None) -> ModuleEntry:
+                 state: str | None = None,
+                 batch_dims: bool = False) -> ModuleEntry:
         if state is not None and accelerated is not None:
             raise ValueError(
                 f"{name!r}: a stateful module cannot carry an accelerated "
                 "impl — the slot state lives host-side")
         e = ModuleEntry(name=name, software=software, accelerated=accelerated,
                         applicable=applicable, cost_hw=cost_hw, cost_sw=cost_sw,
-                        tags=tags, state=state)
+                        tags=tags, state=state, batch_dims=batch_dims)
         self.entries[name] = e
         return e
 
@@ -103,7 +112,9 @@ class ModuleDatabase:
                        accelerated: Callable,
                        applicable: Callable[..., bool] | None = None,
                        cost_hw: Callable[..., NodeCost] | None = None,
-                       tags: tuple[str, ...] = ()) -> ModuleEntry:
+                       tags: tuple[str, ...] = (),
+                       smem_tile: Callable[..., int] | None = None,
+                       batch_dims: bool = False) -> ModuleEntry:
         """Register a dedicated fused hw module for a run of functions.
 
         The entry lives under the joined key (``"a+b+c"``) — the key
@@ -111,7 +122,9 @@ class ModuleDatabase:
         node — so the backend resolves the *single-pass fused kernel*
         instead of composing the parts' kernels.  The software fallback
         composes the parts' software impls, keeping the Off-load Switcher's
-        "original behavior always available" guarantee.
+        "original behavior always available" guarantee.  ``smem_tile``
+        declares the fused kernel's shared-memory tile, which the fusion
+        gate and the verifier's ``smem-spill`` rule reckon.
         """
         keys = list(parts)
         if len(keys) < 2:
@@ -139,7 +152,8 @@ class ModuleDatabase:
 
         e = ModuleEntry(name=self.fused_key(keys), software=composed_software,
                         accelerated=accelerated, applicable=applicable,
-                        cost_hw=cost_hw, tags=tags + ("fused",))
+                        cost_hw=cost_hw, tags=tags + ("fused",),
+                        batch_dims=batch_dims, smem_tile=smem_tile)
         self.entries[e.name] = e
         return e
 

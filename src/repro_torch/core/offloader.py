@@ -102,6 +102,24 @@ class OffloadedFunction:
                     for t in tokens]
         return self.pipeline.run(tokens)
 
+    def map_async(self, tokens: Iterable[Any], *,
+                  max_in_flight: int | None = None,
+                  microbatch: int = 1) -> list[Any]:
+        """Token stream through the asynchronous executor (serving path):
+        the same results and order as :meth:`map`, with stages issued
+        eagerly under a bounded token pool and optional micro-batching (see
+        :class:`repro_torch.core.executor.PipelineExecutor`)."""
+        # validate before the mode branch so a bad serving config fails
+        # deterministically, not only after a switch to "pipeline" mode
+        if max_in_flight is not None and max_in_flight < 1:
+            raise ValueError(f"max_in_flight must be >= 1, got {max_in_flight}")
+        if microbatch < 1:
+            raise ValueError(f"microbatch must be >= 1, got {microbatch}")
+        if self.mode == "original":
+            return self.map(tokens)
+        return self.pipeline.run_async(tokens, max_in_flight=max_in_flight,
+                                       microbatch=microbatch)
+
     def switch(self, mode: str) -> None:
         if mode not in ("pipeline", "original"):
             raise ValueError(mode)

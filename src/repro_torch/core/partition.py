@@ -16,10 +16,11 @@ Two partitioners:
 Plus :func:`fuse_adjacent_hw` — the ``#pragma HLS dataflow`` analog: merge
 maximal runs of adjacent database-hit functions with no branch, keeping the
 paper's observed behavior that a fusion estimated slower than its pipelined
-parts is rejected.  On the H100 the fusion gate reckons the fused kernel's
-own 2-D tile with its halo in one block's shared memory
-(:func:`working_set_bytes`), against the 232,448 B a block can have — not a
-TPU row slab against VMEM.
+parts is rejected.  On the H100 the fusion gate reckons the tile the fused
+kernel itself keeps in one block's shared memory (:func:`working_set_bytes`:
+K4's 2-D stencil tile with its halo, K6's GEMM slices, as each fused module
+declares), against the 232,448 B a block can have — not a TPU row slab
+against VMEM.
 """
 from __future__ import annotations
 
@@ -38,9 +39,10 @@ from .placement import DeviceInventory, Placement, resolve_worker_budget
 __all__ = [
     "StagePlan", "PipelinePlan",
     "partition_paper", "partition_optimal", "fuse_adjacent_hw",
-    "fused_working_set_bytes", "working_set_bytes", "make_model_fused_cost",
-    "split_fused_node",
+    "fused_working_set_bytes", "working_set_bytes", "stencil_tile_bytes",
+    "kernel_tile", "make_model_fused_cost", "split_fused_node",
     "assign_replicas", "assign_stage_devices", "clear_stage_devices",
+    "widen_for_deployment",
 ]
 
 
@@ -81,6 +83,13 @@ class PipelinePlan:
     @property
     def replicas(self) -> list[int]:
         return [s.replicas for s in self.stages]
+
+    @property
+    def stage_devices(self) -> list[list[int]] | None:
+        """Per-stage per-replica device ordinals; None when unpinned."""
+        if not any(s.devices for s in self.stages):
+            return None
+        return [list(s.devices) for s in self.stages]
 
     @property
     def effective_bottleneck_ms(self) -> float:
@@ -399,6 +408,32 @@ def clear_stage_devices(plan: PipelinePlan) -> PipelinePlan:
     return plan
 
 
+def widen_for_deployment(plan: PipelinePlan, ir: CourierIR | None = None, *,
+                         worker_budget: "int | str | None" = None,
+                         inventory: DeviceInventory | None = None,
+                         ) -> "tuple[list[int] | None, list[list[int]] | None]":
+    """The widening pass as every deployment site must apply it.
+
+    Resolves the budget (:func:`~repro_torch.core.placement.
+    resolve_worker_budget`), runs :func:`assign_replicas` (device-pinned
+    when an ``inventory`` is given), and returns the ``(replicas,
+    devices)`` pair to hand the executor.  When no budget resolves or no
+    stage widens it returns ``(None, None)`` **and clears any pinnings
+    off the plan** — the executor then runs unpinned, and a plan that
+    kept device speeds / transfer charges would feed wrong effective
+    periods to the serving batcher.
+    """
+    wb = resolve_worker_budget(worker_budget, len(plan.stages), inventory)
+    if wb is None:
+        clear_stage_devices(plan)
+        return None, None
+    assign_replicas(plan, ir, worker_budget=wb, inventory=inventory)
+    if not any(s.replicas > 1 for s in plan.stages):
+        clear_stage_devices(plan)
+        return None, None
+    return plan.replicas, plan.stage_devices
+
+
 def assign_stage_devices(plan: PipelinePlan, inventory: DeviceInventory,
                          ir: CourierIR | None = None) -> PipelinePlan:
     """Map every stage replica onto a concrete device of ``inventory``.
@@ -490,9 +525,9 @@ def _clone_ir_shell(ir: CourierIR, name: str) -> CourierIR:
     return out
 
 
-def working_set_bytes(ir: CourierIR, value_names: "Iterable[str]") -> int:
-    """Shared memory one block of a fused stencil kernel holds: one 2-D
-    output tile plus its halo of every named value.
+def stencil_tile_bytes(ir: CourierIR, value_names: "Iterable[str]") -> int:
+    """K4's tile: shared memory one block of a fused stencil kernel holds,
+    one 2-D output tile plus its halo of every named value.
 
     A value shaped ``(rows, cols, ...)`` contributes ``min(rows, th + halo)
     x min(cols, tw + halo)`` pixels of ``prod(shape[2:])`` elements each, in
@@ -500,8 +535,6 @@ def working_set_bytes(ir: CourierIR, value_names: "Iterable[str]") -> int:
     The tile is the fused kernel's own (``kernels.harris.fused_tile`` at the
     paper's frame), so a full-width frame costs no more than a small one:
     the TPU kernels' full-width row slabs are what made width matter there.
-    Shared by the fusion-time gate (:func:`fused_working_set_bytes`) and the
-    verifier's ``smem-spill`` re-check on committed plans.
     """
     th, tw = FUSED_TILE
     halo = FUSED_HALO
@@ -518,25 +551,46 @@ def working_set_bytes(ir: CourierIR, value_names: "Iterable[str]") -> int:
     return total
 
 
-def fused_working_set_bytes(ir: CourierIR, run: Sequence[Node]) -> int:
-    """Shared memory a fused kernel's block needs for ``run``: one tile of
+def kernel_tile(db: ModuleDatabase | None, fn_key: str
+                ) -> Callable[..., int] | None:
+    """The shared-memory tile the fused module under ``fn_key`` declares
+    (``ModuleEntry.smem_tile``); None when there is no such declaration."""
+    e = db.lookup(fn_key) if db is not None else None
+    return e.smem_tile if e is not None else None
+
+
+def working_set_bytes(ir: CourierIR, value_names: "Iterable[str]",
+                      tile: Callable[..., int] | None = None) -> int:
+    """Shared memory one block of a fused kernel holds for the named values,
+    reckoned by the kernel's own ``tile`` (default: the stencil tile,
+    :func:`stencil_tile_bytes`).  Shared by the fusion-time gate
+    (:func:`fused_working_set_bytes`) and the verifier's ``smem-spill``
+    re-check on committed plans."""
+    return (tile or stencil_tile_bytes)(ir, list(value_names))
+
+
+def fused_working_set_bytes(ir: CourierIR, run: Sequence[Node],
+                            tile: Callable[..., int] | None = None) -> int:
+    """Shared memory a fused kernel's block needs for ``run``: its tile of
     every value the run touches (inputs, intermediates, outputs)."""
     seen: set[str] = set()
     for n in run:
         seen.update(n.inputs)
         seen.update(n.outputs)
-    return working_set_bytes(ir, seen)
+    return working_set_bytes(ir, seen, tile)
 
 
-def make_model_fused_cost(ir: CourierIR, *, smem_bytes: int = SMEM_BYTES,
+def make_model_fused_cost(ir: CourierIR, db: ModuleDatabase | None = None, *,
+                          smem_bytes: int = SMEM_BYTES,
                           ) -> Callable[[list[Node]], FusionEstimate]:
     """Build the cost-model fusion estimator for ``fuse_adjacent_hw``.
 
     Returns a ``run -> FusionEstimate`` callable: the fused kernel's roofline
     with the intermediates' HBM write+read traffic removed, gated by the
-    shared-memory tile check (a spilling fusion reports ``fused_ms = inf``
-    and is always rejected).  A run containing a node without
-    ``flops``/``bytes_rw`` annotations is conservatively unfusable.
+    shared-memory check of the tile the fused module declares in ``db`` (a
+    spilling fusion reports ``fused_ms = inf`` and is always rejected).  A
+    run containing a node without ``flops``/``bytes_rw`` annotations is
+    conservatively unfusable.
     """
     def estimate(run: list[Node]) -> FusionEstimate | float:
         parts = []
@@ -547,7 +601,8 @@ def make_model_fused_cost(ir: CourierIR, *, smem_bytes: int = SMEM_BYTES,
                                   measured_ms=n.time_ms))
         inter = sum(ir.values[o].nbytes
                     for n in run[:-1] for o in n.outputs)
-        ws = fused_working_set_bytes(ir, run)
+        tile = kernel_tile(db, "+".join(n.fn_key for n in run))
+        ws = fused_working_set_bytes(ir, run, tile)
         return fused_cost(parts, inter, smem_required=ws,
                           smem_bytes=smem_bytes)
     return estimate
@@ -616,14 +671,15 @@ def fuse_adjacent_hw(ir: CourierIR, db: ModuleDatabase,
 
     ``fused_cost_ms`` may be ``None`` (fuse nothing), ``"model"`` (use
     :func:`make_model_fused_cost`: accept what the roofline says wins,
-    reject tile sets that overflow shared memory), or a callable ``run ->
+    reject runs whose kernel's tile overflows shared memory), or a callable
+    ``run ->
     float | FusionEstimate``; a returned estimate also annotates the fused
     node with the modeled flops / HBM bytes.
     """
     if fused_cost_ms is None:
         return ir
     if fused_cost_ms == "model":
-        fused_cost_ms = make_model_fused_cost(ir, smem_bytes=smem_bytes)
+        fused_cost_ms = make_model_fused_cost(ir, db, smem_bytes=smem_bytes)
     out = _clone_ir_shell(ir, ir.name + "+fused")
 
     def hw(n: Node) -> bool:

@@ -16,6 +16,16 @@ Given a traced CourierIR and the module database, the generator
    TBB-style token pipeline: a wavefront schedule with a bounded number of
    in-flight tokens, first/last stages serial-in-order.
 
+Two token-stream execution paths are exposed:
+
+* ``BuiltPipeline.run`` — the synchronous wavefront schedule (the host
+  steps every in-flight token one stage at a time); the paper-faithful
+  baseline.
+* ``BuiltPipeline.run_async`` / ``BuiltPipeline.executor()`` — the
+  asynchronous executor (:mod:`repro_torch.core.executor`): eager stage
+  issue, bounded token pool, optional per-stage micro-batching, threaded
+  and replicated stages.  This is the serving path.
+
 Stages run eagerly.  PyTorch's CUDA launches return before the card
 finishes, on the current stream, so stage s can be issued for token k+1
 while token k is still executing — the paper's "Task #0 can take the second
@@ -26,7 +36,9 @@ from __future__ import annotations
 
 import inspect
 from dataclasses import dataclass, field
-from typing import Any, Callable, Iterable, Sequence
+from typing import TYPE_CHECKING, Any, Callable, Iterable, Sequence
+
+import torch
 
 from .costmodel import CostModel
 from .database import ModuleDatabase
@@ -35,8 +47,38 @@ from .partition import (PipelinePlan, fuse_adjacent_hw, partition_optimal,
                         partition_paper)
 from .placement import HW, SW, Placement, is_hw
 
+if TYPE_CHECKING:                                    # pragma: no cover
+    from .executor import PipelineExecutor
+
 __all__ = ["PipelineGenerator", "BuiltPipeline", "StageFn",
-           "assign_placements", "make_stage_fns"]
+           "assign_placements", "make_stage_fns", "loop_batched",
+           "batched_stage_fn"]
+
+
+def loop_batched(fn: Callable) -> Callable:
+    """Run a stage body once per leading-axis row of its env and restack.
+
+    The executor's micro-batching for a stage that cannot take a stacked
+    group in one call (a library row without leading batch dims, such as
+    the Harris kernels, whose tiles do not cross image borders): each row
+    runs exactly as a single token would, in row order.
+    """
+    def batched(env: dict) -> dict:
+        b = next(iter(env.values())).shape[0]
+        outs = [fn({k: v[i] for k, v in env.items()}) for i in range(b)]
+        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+    batched.__name__ = f"loop_batched_{getattr(fn, '__name__', 'stage')}"
+    return batched
+
+
+def batched_stage_fn(f: Callable) -> Callable:
+    """The group-wide form of one stage: its raw body when every node in
+    it takes leading batch dims (``StageFn.batchable``), which hands the
+    stacked group to each kernel in one launch; else :func:`loop_batched`.
+    It replaces the JAX package's ``jit(vmap(stage))``: ``torch.func.vmap``
+    cannot see inside a kernel called through ``ctypes``."""
+    raw = getattr(f, "raw", f)
+    return raw if getattr(f, "batchable", False) else loop_batched(raw)
 
 
 # --------------------------------------------------------------------------- #
@@ -189,12 +231,15 @@ class StageFn:
     The JAX package wraps each stage in a hoisted ``jax.jit`` and counts its
     compiles; PyTorch runs the body as written and launches each kernel as
     it is reached, so there is nothing to compile and :attr:`compiles` is 0.
+    ``batchable`` is True when every node's library row takes leading batch
+    dims, so the body accepts a micro-batched (stacked) env as it is.
     """
 
-    __slots__ = ("raw", "__name__")
+    __slots__ = ("raw", "batchable", "__name__")
 
-    def __init__(self, fn: Callable):
+    def __init__(self, fn: Callable, batchable: bool = False):
         self.raw = fn
+        self.batchable = batchable
         self.__name__ = getattr(fn, "__name__", "stage")
 
     def __call__(self, env: dict) -> dict:
@@ -203,6 +248,14 @@ class StageFn:
     @property
     def compiles(self) -> int:
         return 0
+
+
+def _batch_dims(node: Node, db: ModuleDatabase) -> bool:
+    """True when the node's database row says its implementations take
+    leading batch dims (a fused node without a dedicated row: False, so its
+    stage loops over the group's rows)."""
+    e = db.lookup(node.fn_key)
+    return e is not None and e.batch_dims
 
 
 def make_stage_fns(ir: CourierIR, db: ModuleDatabase, plan: PipelinePlan,
@@ -244,7 +297,7 @@ def make_stage_fns(ir: CourierIR, db: ModuleDatabase, plan: PipelinePlan,
                     env[name] = o
             return {k2: env[k2] if k2 in env else _cap[k2] for k2 in _live}
 
-        sf = StageFn(stage)
+        sf = StageFn(stage, batchable=all(_batch_dims(n, db) for n in nodes))
         if cache is not None:
             cache[key] = sf
         fns.append(sf)
@@ -265,6 +318,9 @@ class BuiltPipeline:
     # captured graph inputs, bound by the stage closures, never passed per
     # token — ``graph_inputs`` above already excludes them
     captured: dict[str, Any] = field(default_factory=dict)
+    # the group-wide stage list, built once and shared by every executor
+    # over this pipeline
+    _batched_fns: list[Callable] | None = field(default=None, repr=False)
 
     # -- single token, through all stages (also the reference semantics) --- #
     def __call__(self, *args: Any):
@@ -309,6 +365,60 @@ class BuiltPipeline:
     def run_sequential(self, tokens: Iterable[tuple | Any]) -> list[Any]:
         """No pipelining — the original binary's behavior (baseline)."""
         return [self(*t) if isinstance(t, tuple) else self(t) for t in tokens]
+
+    # -- async executor (TBB parallel_pipeline analog) ---------------------- #
+    def executor(self, *, max_in_flight: int | None = None,
+                 microbatch: int = 1, pad_microbatches: bool = False,
+                 buckets: "Sequence[int] | None" = None,
+                 profiler: Any = None, stage_workers: bool = False,
+                 replicas: "Sequence[int] | None" = None,
+                 devices: "Sequence[Sequence[int]] | None" = None,
+                 inventory: Any = None, fault_injector: Any = None,
+                 max_group_retries: int = 3, quarantine_after: int = 1,
+                 retry_budget_ms: float | None = None,
+                 ) -> "PipelineExecutor":
+        """Build a :class:`~repro_torch.core.executor.PipelineExecutor` over
+        these stages (bounded token pool, eager issue, optional per-stage
+        micro-batching with bucketed ragged-group padding, threaded or
+        replicated stages, fault injection with retry and quarantine; see
+        the executor for each argument).  ``max_in_flight`` defaults to
+        this pipeline's own setting."""
+        from .executor import PipelineExecutor
+        return PipelineExecutor.from_pipeline(
+            self, max_in_flight=max_in_flight, microbatch=microbatch,
+            pad_microbatches=pad_microbatches, buckets=buckets,
+            profiler=profiler, stage_workers=stage_workers,
+            replicas=replicas, devices=devices, inventory=inventory,
+            fault_injector=fault_injector,
+            max_group_retries=max_group_retries,
+            quarantine_after=quarantine_after,
+            retry_budget_ms=retry_budget_ms)
+
+    def run_async(self, tokens: Iterable[tuple | Any], *,
+                  max_in_flight: int | None = None,
+                  microbatch: int = 1) -> list[Any]:
+        """Run a token stream through the asynchronous executor: every
+        stage of an admitted token is issued at once, and the host blocks
+        only when the token pool is full or at retirement.  Results arrive
+        in submission order, equal to :meth:`run`'s."""
+        ex = self.executor(max_in_flight=max_in_flight, microbatch=microbatch)
+        try:
+            return ex.run(tokens)
+        finally:
+            ex.close()
+
+    def batched_stage_fns(self) -> list[Callable]:
+        """The group-wide stage list for micro-batched execution
+        (:func:`batched_stage_fn` of each stage), built once per pipeline
+        and handed to every executor."""
+        if self._batched_fns is None:
+            self._batched_fns = [batched_stage_fn(f) for f in self.stage_fns]
+        return self._batched_fns
+
+    def compile_count(self) -> int:
+        """Executables compiled for the stages: 0, since PyTorch runs them
+        eagerly (the JAX package counts its jit caches here)."""
+        return sum(getattr(f, "compiles", 0) for f in self.stage_fns)
 
     def describe(self) -> str:
         return self.plan.describe()

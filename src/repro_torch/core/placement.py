@@ -242,6 +242,15 @@ class DeviceInventory:
                              f"{len(self.specs)}-device inventory")
         return self.specs[ordinal]
 
+    def torch_device(self, ordinal: int):
+        """The ``torch.device`` a replica pinned to ``ordinal`` runs on."""
+        import torch
+
+        spec = self.spec(ordinal)
+        if spec.platform == "cpu":
+            return torch.device("cpu")
+        return torch.device("cuda", spec.device_id or 0)
+
     def device_class(self, ordinal: int):
         """Roofline constants for the device's platform class."""
         from .costmodel import device_class

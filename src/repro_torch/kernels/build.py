@@ -98,3 +98,42 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _loaded[name] = lib
         return lib
+
+
+# --------------------------------------------------------------------------- #
+# what every kernel wrapper does around its launch
+# --------------------------------------------------------------------------- #
+def check_input(x, name: str, shape_ok, what: str) -> bool:
+    """Validate a kernel input; True when it lies on a CUDA device (launch
+    the kernel), False when it lies on the CPU (take the plain version)."""
+    import torch
+
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name}: expected a torch.Tensor, got "
+                        f"{type(x).__name__}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.device.type == "cpu":
+        return False
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name}: the kernel takes float32, got {x.dtype}")
+    if not shape_ok(x.shape):
+        raise ValueError(f"{name}: expected {what}, got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: the kernel takes a contiguous tensor")
+    return True
+
+
+def launch(counts: dict, name: str, fn, error_string, x, *args) -> None:
+    """Call ``fn(*args, stream)`` on ``x``'s device and current stream;
+    raise with the CUDA error if the launch was refused, else count it in
+    ``counts[name]`` (the one place a launch is counted)."""
+    import torch
+
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed "
+                           f"({err}: {error_string(err).decode()})")
+    counts[name] += 1

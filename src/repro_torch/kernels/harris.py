@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from ..core.costmodel import H100, DeviceClass, MAX_THREADS_PER_SM
 from .autotune import AutotuneCache, autotune, device_key
+from .build import check_input, launch
 
 LAUNCHES: dict[str, int] = {"cvt_color": 0, "corner_harris": 0,
                             "convert_scale_abs": 0, "harris_fused": 0}
@@ -206,32 +207,8 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def _check(x: torch.Tensor, name: str, shape_ok, what: str) -> bool:
-    """Validate a kernel input; True when it lies on a CUDA device."""
-    if not isinstance(x, torch.Tensor):
-        raise TypeError(f"{name}: expected a torch.Tensor, got "
-                        f"{type(x).__name__}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {x.device}")
-    if x.device.type == "cpu":
-        return False
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name}: the kernel takes float32, got {x.dtype}")
-    if not shape_ok(x.shape):
-        raise ValueError(f"{name}: expected {what}, got {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: the kernel takes a contiguous tensor")
-    return True
-
-
 def _launch(name: str, fn, x: torch.Tensor, *args) -> None:
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(*args, stream)
-    if err != 0:
-        msg = library().repro_cuda_error_string(err).decode()
-        raise RuntimeError(f"{name}: kernel launch failed ({err}: {msg})")
-    LAUNCHES[name] += 1
+    launch(LAUNCHES, name, fn, library().repro_cuda_error_string, x, *args)
 
 
 def _block_size_ok(name: str, block_size: int) -> None:
@@ -242,8 +219,8 @@ def _block_size_ok(name: str, block_size: int) -> None:
 
 def cvt_color(img: torch.Tensor) -> torch.Tensor:
     """K1: RGB [H, W, 3] f32 → gray [H, W] f32."""
-    if not _check(img, "cvt_color", lambda s: len(s) == 3 and s[2] == 3,
-                  "[H, W, 3]"):
+    if not check_input(img, "cvt_color",
+                       lambda s: len(s) == 3 and s[2] == 3, "[H, W, 3]"):
         return cvt_color_ref(img)
     H, W, _ = img.shape
     out = torch.empty((H, W), dtype=torch.float32, device=img.device)
@@ -256,7 +233,7 @@ def cvt_color(img: torch.Tensor) -> torch.Tensor:
 def convert_scale_abs(x: torch.Tensor, alpha: float = 1.0,
                       beta: float = 0.0) -> torch.Tensor:
     """K3: clip(|alpha * x + beta|, 0, 255), f32."""
-    if not _check(x, "convert_scale_abs", lambda s: True, "any shape"):
+    if not check_input(x, "convert_scale_abs", lambda s: True, "any shape"):
         return convert_scale_abs_ref(x, alpha, beta)
     out = torch.empty_like(x)
     if out.numel():
@@ -270,7 +247,8 @@ def corner_harris(gray: torch.Tensor, block_size: int = 2, k: float = 0.04, *,
                   tile: tuple[int, int] | None = None) -> torch.Tensor:
     """K2: Harris response of a gray [H, W] f32 image; ``tile`` defaults to
     the autotuned :func:`fused_tile`."""
-    if not _check(gray, "corner_harris", lambda s: len(s) == 2, "[H, W]"):
+    if not check_input(gray, "corner_harris", lambda s: len(s) == 2,
+                       "[H, W]"):
         return corner_harris_ref(gray, block_size, k)
     _block_size_ok("corner_harris", block_size)
     H, W = gray.shape
@@ -290,8 +268,8 @@ def harris_fused(img: torch.Tensor, block_size: int = 2, k: float = 0.04,
     """K4: cvtColor → cornerHarris [→ convertScaleAbs] in one pass over an
     RGB [H, W, 3] f32 frame; the gray tile lives in shared memory and never
     reaches HBM."""
-    if not _check(img, "harris_fused", lambda s: len(s) == 3 and s[2] == 3,
-                  "[H, W, 3]"):
+    if not check_input(img, "harris_fused",
+                       lambda s: len(s) == 3 and s[2] == 3, "[H, W, 3]"):
         return harris_fused_ref(img, block_size, k, alpha, beta,
                                 with_csa=with_csa)
     _block_size_ok("harris_fused", block_size)

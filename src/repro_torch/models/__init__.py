@@ -1,1 +1,2 @@
-"""Workloads the port runs: the paper's Harris case study."""
+"""Workloads the port runs: the paper's Harris case study and the model-zoo
+transformer."""

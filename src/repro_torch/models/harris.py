@@ -27,6 +27,7 @@ import torch
 from ..core.costmodel import (NodeCost, elementwise_cost, fused_cost,
                               stencil_cost)
 from ..core.database import ModuleDatabase
+from ..core.partition import stencil_tile_bytes
 from ..core.placement import resolve_device
 from ..kernels import harris as hk
 
@@ -151,7 +152,9 @@ def make_harris_db(with_hw: bool = True) -> ModuleDatabase:
         # convertScaleAbs, so the fusable run is the pair; the 3-op module
         # serves normalize-free variants of the chain.
         db.register_fused(("cvtColor", "cornerHarris"),
-                          hk.harris_fused_pair, cost_hw=_c_fused_pair)
+                          hk.harris_fused_pair, cost_hw=_c_fused_pair,
+                          smem_tile=stencil_tile_bytes)
         db.register_fused(("cvtColor", "cornerHarris", "convertScaleAbs"),
-                          hk.harris_fused, cost_hw=_c_fused_mega)
+                          hk.harris_fused, cost_hw=_c_fused_mega,
+                          smem_tile=stencil_tile_bytes)
     return db

@@ -12,6 +12,8 @@ import torch
 
 from repro_torch.core import Library, courier_offload
 from repro_torch.kernels import harris as hk
+from repro_torch.kernels import rmsnorm as rk
+from repro_torch.launch import serve
 from repro_torch.models import harris as mh
 
 torch.set_num_threads(1)
@@ -82,3 +84,55 @@ def test_offload_on_card_goes_through_the_kernels(cuda_device, fuse):
     for got, f in zip(outs, frames):
         torch.testing.assert_close(got, plain(f), rtol=1e-3, atol=1e-3)
     assert off.fallbacks == [] and off.plan.fallback_log == []
+
+
+@pytest.mark.parametrize("N,d,dout", [(7, 130, 77), (513, 130, 77),
+                                      (513, 64, 96), (129, 8192, 260)])
+def test_rmsnorm_kernels_match_plain_versions_on_card(cuda_device, N, d, dout):
+    g = torch.Generator(cuda_device).manual_seed(N + d)
+    x = torch.randn((N, d), generator=g, device=cuda_device)
+    s = torch.randn((d,), generator=g, device=cuda_device) * 0.2
+    w = torch.randn((d, dout), generator=g, device=cuda_device) * d ** -0.5
+    torch.testing.assert_close(rk.rmsnorm(x, s), rk.rmsnorm_ref(x, s),
+                               rtol=1e-5, atol=1e-5)
+    want = rk.rmsnorm_matmul_ref(x, s, w)
+    got = rk.rmsnorm_matmul(x, s, w)
+    torch.cuda.synchronize()
+    assert got.shape == (N, dout)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    # leading dims flatten to rows: one launch for a stacked group
+    before = rk.LAUNCHES["rmsnorm_matmul"]
+    torch.testing.assert_close(rk.rmsnorm_matmul(x[None], s, w)[0], got)
+    assert rk.LAUNCHES["rmsnorm_matmul"] == before + 1
+
+
+def test_rmsnorm_kernels_reject_what_they_do_not_take(cuda_device):
+    x = torch.zeros((4, 8), device=cuda_device)
+    s = torch.zeros((8,), device=cuda_device)
+    w = torch.zeros((8, 3), device=cuda_device)
+    with pytest.raises(TypeError, match="float32"):
+        rk.rmsnorm(x.double(), s)
+    with pytest.raises(ValueError, match="scale"):
+        rk.rmsnorm(x, torch.zeros((7,), device=cuda_device))
+    with pytest.raises(ValueError, match="contiguous"):
+        rk.rmsnorm(torch.zeros((8, 4), device=cuda_device).t(), s)
+    with pytest.raises(ValueError, match="scale"):
+        rk.rmsnorm(x, s.cpu())
+    with pytest.raises(ValueError, match="w"):
+        rk.rmsnorm_matmul(x, s, torch.zeros((7, 3), device=cuda_device))
+    with pytest.raises(ValueError, match="contiguous"):
+        rk.rmsnorm_matmul(x, s, torch.zeros((3, 8), device=cuda_device).t())
+    with pytest.raises(TypeError, match="float32"):
+        rk.rmsnorm_matmul(x, s, w.half())
+
+
+def test_served_traced_transformer_goes_through_both_kernels(cuda_device):
+    rk.reset_launches()
+    stats = serve.serve_traced_transformer_demo(
+        n_requests=6, max_batch=3, seq_len=32, d=256, n_layers=2, ff=512,
+        n_heads=4, vocab=384, device=cuda_device)
+    torch.cuda.synchronize()
+    groups = stats["warmup_groups"] + stats["executor"]["groups_admitted"]
+    assert stats["requests_served"] == 6 and stats["results_match"]
+    assert stats["fused_nodes"] == ["rmsnorm_4+matmul_0"]
+    assert rk.LAUNCHES == {"rmsnorm": 4 * groups, "rmsnorm_matmul": groups}

@@ -94,7 +94,11 @@ def test_switcher_falls_back_and_logs():
 def test_import_loads_no_jax_and_no_reference_package():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.analysis, "
             "repro_torch.kernels.harris, repro_torch.kernels.build, "
-            "repro_torch.models.harris, repro_torch.configs.harris, "
+            "repro_torch.kernels.rmsnorm, repro_torch.kernels.ops, "
+            "repro_torch.models.harris, repro_torch.models.zoo, "
+            "repro_torch.configs.harris, repro_torch.configs.deepseek_67b, "
+            "repro_torch.core.executor, repro_torch.core.profiler, "
+            "repro_torch.runtime.faults, repro_torch.launch.serve, "
             "repro_torch.quickstart\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
