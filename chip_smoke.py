@@ -14,7 +14,12 @@ version there:
   heads, d_ff 22016, vocab 102400; 2 of its 95 layers, ~9.8 GB of f32
   weights): 8 requests of [512, 8192] in groups of 4 (K5, K6);
 * the Harris pipeline served the same way, ``serve_pipeline_demo``, at
-  1080x1920 (K1-K3 on the serving path).
+  1080x1920 (K1-K3 on the serving path);
+* the LM serving mode, ``serve_lm``, at gemma3-12b's full widths (d 3840,
+  16 heads x 256, 8 kv heads, d_ff 15360, vocab 262144, window 1024 with
+  every 6th layer global; bf16, 6 of its 48 layers, 4.70 GB of weights):
+  batched prefill of 4 prompts of 4096 tokens, then 32 greedy decode steps
+  (K7 on every prefill self-attention).
 
 Phases:
 
@@ -33,7 +38,16 @@ Phases:
               equal the untraced app (2e-4); latency p50/p95, requests/s,
               the card's own ms per group beside the wall ms.  Then the
               Harris pipeline behind the same server.
-6. the ``kernels`` JSON line, the nvidia-smi line, and the result line
+6. lm       — K7 at the serving shape, on q/k/v of the real prompt at layer
+              0 (local) and layer 5 (global), against its plain version
+              (o element by element, within one bf16 ulp plus 2^-8 rms);
+              its device time beside the bound, the plain version and
+              F.scaled_dot_product_attention.  Then serve_lm: 6 K7 launches
+              in the prefill, none in the decode loop; the decode loop's
+              logits equal LM.apply over prompt + generated tokens (K7 at
+              T = 4128) within 2.5e-2 of the largest; prefill and decode
+              ms and tokens/s, the card's own prefill ms and K7's share
+7. the ``kernels`` JSON line, the nvidia-smi line, and the result line
 
 Any failed check raises: the script then exits non-zero without the result
 line.  Imports nothing of JAX or the JAX package.
@@ -51,8 +65,10 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "src/repro_torch/kernels/csrc/harris.cu"
 RMS_SOURCE = "src/repro_torch/kernels/csrc/rmsnorm.cu"
+FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 HBM_BW = 3.35e12              # H100 SXM HBM3, bytes/s (data sheet)
 FP32_PEAK = 67e12             # H100 SXM float32 outside the tensor cores
+BF16_PEAK = 989e12            # H100 SXM bf16 dense, tensor cores
 N_FRAMES = 16
 H, W = 1080, 1920
 RAGGED = [(17, 23), (33, 130), (1081, 1919)]
@@ -61,6 +77,14 @@ L2_BYTES = 50 * 10**6
 TRAFFIC = dict(n_requests=8, max_batch=4, seq_len=512)
 GROUP_ROWS = TRAFFIC["max_batch"] * TRAFFIC["seq_len"]  # 2048 rows a group
 RMS_RAGGED = [(7, 130, 77), (513, 130, 77)]
+# the LM serving mode: gemma3-12b at full widths, 6 of 48 layers (one
+# 5-local + 1-global period), 4 prompts of 4096 tokens, 32 new tokens
+LM_TRAFFIC = dict(arch="gemma3-12b", layers=6, batch=4, prompt_len=4096,
+                  tokens=32)
+# K7's small and ragged shapes (B, T, H, M), run at every head_dim and type;
+# T > M + 40 - 1 gives rows that see no key under the window of 40
+FA_RAGGED = [(2, 77, 3, 131), (1, 300, 2, 200)]
+FA_MASKS = [(True, 0), (True, 64), (False, 0), (False, 40)]
 
 
 class SmokeFailure(RuntimeError):
@@ -275,12 +299,13 @@ def phase_kernels():
 
 def serve_args() -> dict:
     """The traced transformer at DeepSeek-67B widths
-    (``repro_torch.configs.deepseek_67b``) under the serving traffic."""
+    (``repro_torch.configs.deepseek_67b.zoo_widths``) under the serving
+    traffic."""
     from dataclasses import asdict
 
-    from repro_torch.configs.deepseek_67b import config
+    from repro_torch.configs.deepseek_67b import zoo_widths
 
-    return {**TRAFFIC, **asdict(config)}
+    return {**TRAFFIC, **asdict(zoo_widths)}
 
 
 def phase_rmsnorm_kernels():
@@ -529,6 +554,314 @@ def phase_serve(k6_ms: float):
     return counts, hcounts, out
 
 
+# --------------------------------------------------------------------------- #
+# K7 flash attention, and 6. the LM serving mode
+# --------------------------------------------------------------------------- #
+def visible_pairs(T: int, M: int, causal: bool, window: int) -> int:
+    """(t, m) pairs a query row sees, summed over the T rows of one head."""
+    import numpy as np
+
+    t = np.arange(T)
+    hi = np.minimum(t + 1, M) if causal else np.full(T, M)
+    lo = np.maximum(t - window + 1, 0) if window > 0 else np.zeros(T, int)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def attention_bound(q, k, causal: bool, window: int) -> tuple[float, str]:
+    """The least time for K7's work on these inputs: 4*hd FLOP per visible
+    pair at the peak for their type, against q, k, v and o read or written
+    once plus the f32 lse."""
+    import torch
+
+    B, T, H, hd = q.shape
+    M = k.shape[1]
+    flops = 4.0 * hd * B * H * visible_pairs(T, M, causal, window)
+    peak = BF16_PEAK if q.dtype == torch.bfloat16 else FP32_PEAK
+    nbytes = q.element_size() * 2 * B * H * hd * (T + M) + 4 * B * H * T
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BW * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def flash_err(q, k, v, causal: bool, window: int) -> tuple[float, float]:
+    """K7 against its plain version; returns max |o - o_ref| and the largest
+    |o - o_ref| as a share of its element-wise limit.
+
+    o within 2e-5 (f32) or 2.5e-2 (bf16) of max |o_ref|, and element by
+    element: |o - o_ref| <= 2e-5 * (|o_ref| + rms(o_ref)) in f32, and
+    <= 2^-7 * |o_ref| + 2^-8 * rms(o_ref) in bf16 (one bf16 ulp of the
+    value, plus a margin for values near 0).  max |o_ref| is set by rows
+    that see few keys, while rows deep in a causal span or a window average
+    many v rows and are far smaller, so only the element-wise limit holds
+    those rows' P.V sums.  lse within 1e-5 of max(1, |lse_ref|), element by
+    element (rows that see no key have lse near -1e30)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, window)
+    ro, rlse = fa.flash_attention_ref(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(o).all() and torch.isfinite(lse).all()),
+          "non-finite K7 output")
+    bf16 = q.dtype == torch.bfloat16
+    ro = ro.float()
+    diff = (o.float() - ro).abs()
+    d, scale = diff.max().item(), ro.abs().max().item()
+    rms = ro.square().mean().sqrt().item()
+    limit = (2.0**-7 * ro.abs() + 2.0**-8 * rms if bf16
+             else 2e-5 * (ro.abs() + rms))
+    worst = (diff / limit).max().item()
+    dl = ((lse - rlse).abs() / rlse.abs().clamp(min=1.0)).max().item()
+    check(d <= (2.5e-2 if bf16 else 2e-5) * scale and worst <= 1.0
+          and dl <= 1e-5,
+          f"K7 {tuple(q.shape)} x {tuple(k.shape)} {q.dtype} causal={causal} "
+          f"window={window}: o off by {d / scale} of max and by {worst} of "
+          f"the element-wise limit, lse by {dl}")
+    return d, worst
+
+
+def phase_flash_kernels() -> float:
+    """K7 at small and ragged shapes (T != M, lengths off the tile), at
+    every head_dim it is built for, f32 and bf16, causal with and without a
+    window, and non-causal with and without one."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator("cuda").manual_seed(7)
+    err = worst = 0.0
+    for hd in fa.HEAD_DIMS:
+        for dt in (torch.float32, torch.bfloat16):
+            for B, T, H, M in FA_RAGGED:
+                q, k, v = (torch.randn((B, L, H, hd), generator=g,
+                                       device="cuda").to(dt)
+                           for L in (T, M, M))
+                for causal, window in FA_MASKS:
+                    d, w = flash_err(q, k, v, causal, window)
+                    err, worst = max(err, d), max(worst, w)
+    print(f"[kernels] flash_attention: hd {fa.HEAD_DIMS} x (f32, bf16) x "
+          f"{FA_RAGGED} (B, T, H, M) x (causal, window) {FA_MASKS} match the "
+          f"plain version (max abs err {err}, at most {worst} of the "
+          f"element-wise limit)")
+    return err
+
+
+def sdpa_backend(qt, kt, vt, mask, is_causal: bool) -> str:
+    """The backend PyTorch's dispatcher picks for this SDPA call."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    i = int(torch._fused_sdp_choice(qt, kt, vt, mask, 0.0, is_causal))
+    return next((n for n, b in SDPBackend.__members__.items()
+                 if int(b) == i), str(i))
+
+
+def device_profile(fn) -> dict:
+    """One run of ``fn`` under torch.profiler: the card's busy ms (the sum of
+    its kernels' self times), the window's wall ms, the idle share, and the
+    kernels that took the most time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    busy = sum(k[0] for k in kern)
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall if kern else None,
+            "kernels": len(kern),
+            "top": [{"ms": ms, "count": n, "name": name[:90]}
+                    for ms, n, name in kern[:8]]}
+
+
+def profile_lm(model, params, ids, n_decode: int) -> dict:
+    """Where the LM's time goes: one prefill (with its first token), then
+    ``n_decode`` decode steps, each window under the profiler."""
+    import torch
+
+    B, P = ids.shape
+    state = {"cache": model.init_cache(B, P + n_decode, device="cuda")}
+
+    def prefill():
+        hp, state["cache"] = model.prefill(params, ids, state["cache"])
+        state["tok"] = torch.argmax(model.logits(params, hp)[:, -1],
+                                    dim=-1)[:, None]
+
+    def decode():
+        for t in range(n_decode):
+            lg, state["cache"] = model.decode_step(params, state["tok"],
+                                                   state["cache"], P + t)
+            state["tok"] = torch.argmax(lg[:, -1], dim=-1)[:, None]
+
+    out = {"prefill": device_profile(prefill),
+           f"decode_{n_decode}_steps": device_profile(decode)}
+    for k, v in out.items():
+        print(f"[lm] profile {k}: wall {v['wall_ms']:.3f} ms, card busy "
+              f"{v['device_busy_ms']:.3f} ms, idle share "
+              f"{v['device_idle_share']}, {v['kernels']} kernel names")
+        for t in v["top"]:
+            print(f"[lm]   {t['ms']:10.3f} ms x{t['count']:<5d} {t['name']}")
+    return out
+
+
+def phase_lm(small_err: float):
+    """K7 at the serving shape, then the LM serving mode's main path."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import lm_config, serve_lm
+    from repro_torch.models import LM
+    from repro_torch.models import layers as ml
+
+    gc.collect()
+    torch.cuda.empty_cache()                 # the zoo's weights are gone
+    print(f"[lm] {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated "
+          f"before the LM")
+    tr = LM_TRAFFIC
+    cfg = lm_config(tr["arch"], reduced=False, layers=tr["layers"])
+    check(cfg.dtype == "bfloat16" and cfg.hd == 256
+          and list(cfg.layer_windows) == [1024] * 5 + [0],
+          f"unexpected config {cfg}")
+    model = LM(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    B, P, N = tr["batch"], tr["prompt_len"], tr["tokens"]
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab, (B, P))
+    ids = torch.as_tensor(prompt, device="cuda")
+    print(f"[lm] {cfg.arch_id} at full widths, {cfg.n_layers} layers, "
+          f"{cfg.n_params * 2 / 1e9:.3f} GB of bf16 weights "
+          f"({torch.cuda.memory_allocated() / 1e9:.3f} GB allocated)")
+
+    # the forward pass over the prompt (it warms cuBLAS for the prefill's
+    # shapes), keeping K7's inputs at layer 0 (local) and 5 (global)
+    taken, calls, real = {}, [], ml.ops.attention
+
+    def record(q, k, v, causal=True, window=0):
+        if len(calls) in (0, 5):
+            taken[len(calls)] = (q, k, v, causal, window)
+        calls.append(window)
+        return real(q, k, v, causal, window)
+
+    ml.ops.attention = record
+    try:
+        model.apply(params, ids)
+    finally:
+        ml.ops.attention = real
+    check(calls == [1024] * 5 + [0], f"attention calls {calls}")
+
+    err, per = small_err, {}
+    for layer, kind in ((0, "local"), (5, "global")):
+        q, k, v, causal, window = taken[layer]
+        check(tuple(q.shape) == (B, P, cfg.n_heads, cfg.hd)
+              and q.dtype == torch.bfloat16, f"K7 input {tuple(q.shape)}")
+        d, worst = flash_err(q, k, v, causal, window)
+        err = max(err, d)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if window:
+            pos = torch.arange(P, device="cuda")
+            mask = ml.attn_mask(pos, pos, window)
+            lib = (lambda q, k, v: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask))
+            backend = sdpa_backend(qt, kt, vt, mask, False)
+        else:
+            lib = (lambda q, k, v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True))
+            backend = sdpa_backend(qt, kt, vt, None, True)
+        kw = dict(reps=5, cycles=int(4e7))
+        bound, by = attention_bound(q, k, causal, window)
+        per[kind] = {
+            "ms": device_ms(lambda q, k, v: fa.flash_attention_fwd(
+                q, k, v, causal, window), [(q, k, v)], label=f"K7 {kind}",
+                **kw),
+            "plain_ms": device_ms(lambda q, k, v: fa.flash_attention_ref(
+                q, k, v, causal, window), [(q, k, v)],
+                label=f"K7 {kind} plain", **kw),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": device_ms(lib, [(qt, kt, vt)],
+                                    label=f"K7 {kind} library", **kw),
+            "library": f"F.scaled_dot_product_attention ({backend})",
+            "pairs": B * cfg.n_heads * visible_pairs(P, P, causal, window),
+            "max_abs_err": d, "err_of_elementwise_limit": worst}
+        r = per[kind]
+        print(f"[lm] K7 {kind} layer {layer} (window {window}) at "
+              f"[{B}, {P}, {cfg.n_heads}, {cfg.hd}] bf16: kernel_ms="
+              f"{r['ms']:.5f} plain_ms={r['plain_ms']:.5f} bound_ms="
+              f"{r['bound_ms']:.5f} ({by}) library_ms={r['library_ms']:.5f} "
+              f"[{r['library']}] pairs={r['pairs']} max_abs_err={d} "
+              f"({worst} of the element-wise limit)")
+        del q, k, v, qt, kt, vt
+    taken.clear()
+    torch.cuda.empty_cache()
+
+    # the main path: serve_lm, after one short warm-up run (decode shapes)
+    serve_lm(cfg, params, prompt, tokens=2, device="cuda")
+    fa.reset_launches()
+    st = serve_lm(cfg, params, prompt, tokens=N, device="cuda",
+                  keep_logits=True)
+    torch.cuda.synchronize()
+    counts = dict(fa.LAUNCHES)
+    check(st["k7_launches_prefill"] == cfg.n_layers
+          and st["k7_launches_decode"] == 0
+          and counts == {"flash_attention": cfg.n_layers},
+          f"K7 launches {counts}: prefill {st['k7_launches_prefill']}, "
+          f"decode {st['k7_launches_decode']}")
+    check(st["finite"] and st["ids"].shape == (B, N),
+          f"decode produced {st['ids'].shape}, finite={st['finite']}")
+
+    # the decode loop's logits against LM.apply over prompt + generated
+    full = torch.cat([ids, torch.as_tensor(st["ids"], device="cuda")], dim=1)
+    h = model.apply(params, full)                        # K7 at T = 4128
+    want = model.logits(params, h[:, P - 1:P + N])
+    got = st["logits"]
+    check(got.shape == want.shape == (B, N + 1, cfg.vocab),
+          f"logits {tuple(got.shape)} vs {tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
+          "non-finite logits")
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    check(rel <= 2.5e-2, f"decode logits differ from LM.apply by {rel} of "
+                         f"the largest")
+    agree = (torch.argmax(want, dim=-1)[:, :N].cpu().numpy()
+             == st["ids"]).mean()
+    k7_ms = ((cfg.n_layers - 1) * per["local"]["ms"] + per["global"]["ms"])
+    out = {k: st[k] for k in ("prefill_ms", "prefill_tok_s",
+                              "prefill_device_ms", "decode_ms_per_token",
+                              "decode_tok_s", "k7_launches_prefill",
+                              "k7_launches_decode")}
+    out.update({"k7_ms_per_prefill": k7_ms,
+                "k7_share_of_prefill_device_time":
+                    k7_ms / st["prefill_device_ms"],
+                "logits_max_rel_err": rel,
+                "greedy_agreement_with_apply": float(agree),
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "k7": per})
+    print(f"[lm] serve_lm: {B} x {P} prompt, {N} tokens; K7 launches "
+          f"{counts} (all in the prefill); decode logits equal LM.apply "
+          f"within {rel} of the largest (greedy agreement {agree})")
+    print("[lm] " + "  ".join(f"{k}={out[k]}" for k in (
+        "prefill_ms", "prefill_tok_s", "prefill_device_ms",
+        "decode_ms_per_token", "decode_tok_s", "k7_ms_per_prefill",
+        "k7_share_of_prefill_device_time")))
+    out["profile"] = profile_lm(model, params, ids, n_decode=8)
+    row = {**per["global"], "max_abs_err": err,
+           **{f"local_{k}": per["local"][k] for k in (
+               "ms", "plain_ms", "bound_ms", "library_ms", "library",
+               "max_abs_err", "err_of_elementwise_limit")}}
+    return row, counts, out
+
+
 def main() -> int:
     sys.path.insert(0, os.path.join(HERE, "src"))
     name, smi = phase_device()
@@ -537,18 +870,22 @@ def main() -> int:
     build_s = phase_build()
     rows = phase_kernels()
     rows.update(phase_rmsnorm_kernels())
+    fa_err = phase_flash_kernels()
     launches, times = phase_main_path()
     counts, hcounts, served = phase_serve(rows["rmsnorm_matmul"]["ms"])
-    for k, v in (*counts.items(), *hcounts.items()):
+    rows["flash_attention"], fcounts, lm = phase_lm(fa_err)
+    for k, v in (*counts.items(), *hcounts.items(), *fcounts.items()):
         launches[k] = launches.get(k, 0) + v
     replaces = {"cvt_color": "src/repro/kernels/harris.py:44",
                 "corner_harris": "src/repro/kernels/harris.py:101",
                 "convert_scale_abs": "src/repro/kernels/harris.py:124",
                 "harris_fused": "src/repro/kernels/harris.py:247",
                 "rmsnorm": "src/repro/kernels/rmsnorm.py:28",
-                "rmsnorm_matmul": "src/repro/kernels/rmsnorm.py:67"}
-    kernels = [{"name": k, "route": "cuda",
-                "source": RMS_SOURCE if k.startswith("rmsnorm") else SOURCE,
+                "rmsnorm_matmul": "src/repro/kernels/rmsnorm.py:67",
+                "flash_attention": "src/repro/kernels/flash_attention.py:96"}
+    sources = {"rmsnorm": RMS_SOURCE, "rmsnorm_matmul": RMS_SOURCE,
+               "flash_attention": FA_SOURCE}
+    kernels = [{"name": k, "route": "cuda", "source": sources.get(k, SOURCE),
                 "replaces": replaces[k], "launches": launches[k],
                 **{f: rows[k][f] for f in ("max_abs_err", "ms", "plain_ms",
                                            "bound_ms", "bound_by",
@@ -559,7 +896,9 @@ def main() -> int:
                                  f"main paths")
     print(json.dumps({"build_s": build_s, "main_path": times,
                       "frame": [H, W], "frames": N_FRAMES,
-                      "serve_transformer": served}))
+                      "serve_transformer": served, "serve_lm": lm,
+                      "k7_local": {k: v for k, v in rows["flash_attention"]
+                                   .items() if k.startswith("local_")}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

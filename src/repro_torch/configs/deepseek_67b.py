@@ -1,11 +1,12 @@
-"""DeepSeek-67B's widths, as the zoo transformer demo reads them.
+"""deepseek-67b [dense] — llama-arch (arXiv:2401.02954).
 
-Source: ``src/repro/configs/deepseek_67b.py:6-7`` (DeepSeek LLM,
-arXiv:2401.02954): d_model 8192, 64 heads x 128, d_ff 22016, vocab 102400,
-rope_theta 1e4.  ``repro_torch.launch.serve.serve_traced_transformer_demo``
-and ``chip_smoke.py`` serve the zoo transformer at these widths.
+``config`` is the architecture, as in the JAX package's
+``configs/deepseek_67b.py``; ``get_config("deepseek-67b")`` returns it.
 
-What the served model computes differently from DeepSeek-67B (the cuts):
+``zoo_widths`` are the same widths as the zoo transformer demo reads them
+(``repro_torch.launch.serve.serve_traced_transformer_demo`` and
+``chip_smoke.py`` serve it at these).  What the served zoo model computes
+differently from DeepSeek-67B (the cuts):
 
 * depth: 2 layers of the published 95 (the zoo demo's default);
 * attention: the zoo's multi-head attention, so wk and wv are 8192 x 8192;
@@ -14,17 +15,26 @@ What the served model computes differently from DeepSeek-67B (the cuts):
 """
 from dataclasses import dataclass
 
+from ..models.config import ArchConfig
+
+config = ArchConfig(
+    arch_id="deepseek-67b", family="dense",
+    n_layers=95, d_model=8192, n_heads=64, n_kv_heads=8, head_dim=128,
+    d_ff=22016, vocab=102400, rope_theta=1e4,
+)
+
 
 @dataclass(frozen=True)
 class ZooWidths:
     """The keyword arguments of ``serve_traced_transformer_demo`` that set
     the model (its rope_theta, 1e4, is the zoo's default)."""
 
-    d: int = 8192               # d_model
-    n_heads: int = 64           # x head_dim 128
-    ff: int = 22016             # SwiGLU d_ff
-    vocab: int = 102400
+    d: int                      # d_model
+    n_heads: int                # x head_dim d // n_heads
+    ff: int                     # SwiGLU d_ff
+    vocab: int
     n_layers: int = 2           # cut from 95
 
 
-config = ZooWidths()
+zoo_widths = ZooWidths(d=config.d_model, n_heads=config.n_heads,
+                       ff=config.d_ff, vocab=config.vocab)

@@ -103,10 +103,13 @@ def load(name: str) -> ctypes.CDLL:
 # --------------------------------------------------------------------------- #
 # what every kernel wrapper does around its launch
 # --------------------------------------------------------------------------- #
-def check_input(x, name: str, shape_ok, what: str) -> bool:
+def check_input(x, name: str, shape_ok, what: str, dtypes=None) -> bool:
     """Validate a kernel input; True when it lies on a CUDA device (launch
-    the kernel), False when it lies on the CPU (take the plain version)."""
+    the kernel), False when it lies on the CPU (take the plain version).
+    ``dtypes`` are the types the kernel takes (float32 alone by default)."""
     import torch
+
+    dtypes = tuple(dtypes or (torch.float32,))
 
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"{name}: expected a torch.Tensor, got "
@@ -115,8 +118,9 @@ def check_input(x, name: str, shape_ok, what: str) -> bool:
         raise ValueError(f"{name}: unsupported device {x.device}")
     if x.device.type == "cpu":
         return False
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name}: the kernel takes float32, got {x.dtype}")
+    if x.dtype not in dtypes:
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise TypeError(f"{name}: the kernel takes {names}, got {x.dtype}")
     if not shape_ok(x.shape):
         raise ValueError(f"{name}: expected {what}, got {tuple(x.shape)}")
     if not x.is_contiguous():

@@ -7,7 +7,8 @@ CUDA tensor launches the hand-written kernel (or raises), a CPU tensor takes
 the plain PyTorch version.  So the entry points below are the wrappers
 themselves, and there is no switch to set.
 
-``attention`` waits for the flash-attention kernel (K7).
+``attention`` is the flash-attention forward (K7), the route the LM's
+self-attention takes (``models/layers.py:attention``).
 """
 from __future__ import annotations
 
@@ -15,12 +16,13 @@ import torch
 
 from ..core.costmodel import (NodeCost, elementwise_cost, fused_cost,
                               matmul_cost)
+from .flash_attention import flash_attention as attention
 from .harris import convert_scale_abs, corner_harris, cvt_color, harris_fused
 from .rmsnorm import (gemm_smem_bytes, gemm_tile_bytes, rmsnorm,
                       rmsnorm_matmul, rmsnorm_ref)
 
-__all__ = ["rmsnorm", "rmsnorm_matmul", "cvt_color", "corner_harris",
-           "convert_scale_abs", "harris_response",
+__all__ = ["attention", "rmsnorm", "rmsnorm_matmul", "cvt_color",
+           "corner_harris", "convert_scale_abs", "harris_response",
            "register_rmsnorm_matmul_modules"]
 
 

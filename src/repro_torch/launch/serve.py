@@ -1,11 +1,21 @@
-"""Serving launcher — the request-queue server over a Courier-built pipeline.
+"""Serving launcher — the LM decode loop and the request-queue server over a
+Courier-built pipeline.
 
-Two demos, each a request-queue serving loop over a token pipeline (the
-ROADMAP's "serve heavy traffic" front-end), on the card unless the caller
-asks for the CPU with ``--device cpu``::
+Three serving modes, on the card unless the caller asks for the CPU with
+``--device cpu``:
 
-    python -m repro_torch.launch.serve --mode trace     # traced transformer
-    python -m repro_torch.launch.serve --mode pipeline  # Harris pipeline
+* ``lm`` (default) — batched prefill into a KV cache, then greedy decode, on
+  the dense LM stack (:func:`serve_lm`); every prefill self-attention runs
+  the flash-attention kernel (K7)::
+
+      python -m repro_torch.launch.serve --mode lm --arch gemma3-12b \\
+          --no-reduced --layers 6 --batch 4 --prompt-len 4096 --tokens 32
+
+* ``trace`` and ``pipeline`` — a request-queue serving loop over a token
+  pipeline (the ROADMAP's "serve heavy traffic" front-end)::
+
+      python -m repro_torch.launch.serve --mode trace     # traced transformer
+      python -m repro_torch.launch.serve --mode pipeline  # Harris pipeline
 
 :class:`RequestQueueServer` accepts requests into per-priority-class queues
 (interactive / batch / best-effort), forms dynamic batches (up to
@@ -36,13 +46,16 @@ Overload-protection model:
   :class:`DeadlineExceeded` wherever it is caught: at submit (predicted),
   at dispatch (still queued), or at retirement — never returned late.
 
-The JAX package's LM decode mode (``--mode lm``) waits for the model stack;
-continuous batching at the executor seam, and the executor hot-swap the
-elastic planner drives, wait for the KV-slot and elastic slices.
+Unlike the JAX package's CLI, ``--reduced`` can be turned off
+(``--no-reduced``), so the LM mode runs at an architecture's full widths;
+``--layers N`` cuts depth only.  Continuous batching at the executor seam,
+and the executor hot-swap the elastic planner drives, wait for the KV-slot
+and elastic slices.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import heapq
 import math
 import threading
@@ -1072,6 +1085,117 @@ def serve_traced_transformer_demo(n_requests: int = 24, max_batch: int = 4,
     return stats
 
 
+def lm_config(arch: str = "gemma3-12b", *, reduced: bool = True,
+              layers: int | None = None):
+    """The ``ArchConfig`` the LM mode serves: ``arch``, reduced to a tiny
+    same-family config unless ``reduced=False``, cut to ``layers`` layers
+    when given (widths unchanged)."""
+    from ..configs import get_config
+
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return cfg
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve_lm(cfg, params: Any = None, prompt: Any = None, *, batch: int = 4,
+             prompt_len: int = 32, tokens: int = 32, device=None,
+             keep_logits: bool = False) -> dict:
+    """Batched prefill + KV-cache greedy decode on the LM stack.
+
+    The JAX package's ``--mode lm`` loop: prefill the prompt into a cache of
+    ``prompt_len + tokens`` rows, take the argmax of the last position's
+    logits, then ``tokens`` decode steps, each feeding back its argmax.
+    ``params`` default to ``LM.init`` from a ``torch.Generator`` seeded with
+    0 on the device; ``prompt`` (ids ``[B, P]``, any array) defaults to
+    numpy ``default_rng(1)`` draws of ``[batch, prompt_len]``.
+
+    Returns the stats: prefill ms and tokens/s, the card's own prefill ms
+    (CUDA events; None on the CPU), decode ms/token and tokens/s, the
+    generated ``ids`` (numpy ``[B, tokens]``), K7's launches in the prefill
+    and in the decode loop, and whether every logit was finite.  With
+    ``keep_logits`` also ``logits``, ``[B, tokens + 1, vocab]`` f32: the
+    prefill's last position and every decode step's, i.e. the logits at
+    positions ``P - 1 .. P + tokens - 1``.
+    """
+    from ..core import resolve_device
+    from ..kernels.flash_attention import LAUNCHES
+    from ..models import LM
+
+    dev = resolve_device(device)
+    model = LM(cfg)
+    if params is None:
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+    if prompt is None:
+        prompt = np.random.default_rng(1).integers(
+            0, cfg.vocab, (batch, prompt_len))
+    ids = torch.as_tensor(np.asarray(prompt), dtype=torch.long, device=dev)
+    B, P = ids.shape
+    table = params["embed"]["table"]
+
+    def step_in(t):          # (ids, embeds) of a step, as the JAX loop feeds
+        return (None, table[t]) if cfg.embeds_in else (t, None)
+
+    cache = model.init_cache(B, P + tokens, device=dev)
+    _sync(dev)
+    k7 = LAUNCHES["flash_attention"]
+    ev = ((torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) if dev.type == "cuda"
+          else None)
+    t0 = time.perf_counter()
+    if ev:
+        ev[0].record()
+    x, e = step_in(ids)
+    hp, cache = model.prefill(params, x, cache, embeds=e)
+    logits = model.logits(params, hp)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    if ev:
+        ev[1].record()
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+    k7_prefill = LAUNCHES["flash_attention"] - k7
+
+    kept = [logits[:, -1]] if keep_logits else []
+    finite = torch.isfinite(logits).all()       # on the device: no sync
+    out = []
+    t0 = time.perf_counter()
+    for t in range(tokens):
+        out.append(tok)
+        x, e = step_in(tok)
+        logits, cache = model.decode_step(params, x, cache, P + t, embeds=e)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        finite = finite & torch.isfinite(logits).all()
+        if keep_logits:
+            kept.append(logits[:, -1])
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+
+    stats = {
+        "arch": cfg.arch_id, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+        "batch": B, "prompt_len": P, "tokens": tokens, "device": str(dev),
+        "prefill_ms": 1e3 * t_prefill,
+        "prefill_tok_s": B * P / t_prefill,
+        "prefill_device_ms": ev[0].elapsed_time(ev[1]) if ev else None,
+        "decode_ms_per_token": 1e3 * t_decode / tokens if tokens else None,
+        "decode_tok_s": B * tokens / t_decode if tokens else None,
+        "ids": (torch.cat(out, dim=1).cpu().numpy() if out
+                else np.zeros((B, 0), np.int64)),
+        "k7_launches_prefill": k7_prefill,
+        "k7_launches_decode": LAUNCHES["flash_attention"] - k7 - k7_prefill,
+        "finite": bool(finite),
+    }
+    if keep_logits:
+        stats["logits"] = torch.stack(kept, dim=1)
+    return stats
+
+
 def _budget_arg(v: str):
     """argparse type for --worker-budget: an int or the 'auto' sentinel,
     rejected with a clean argparse error instead of an int() traceback."""
@@ -1087,10 +1211,23 @@ def _budget_arg(v: str):
 
 
 def main(argv: list[str] | None = None) -> None:
+    from ..configs import ARCH_IDS
+
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", choices=["trace", "pipeline"], default="trace")
+    ap.add_argument("--mode", choices=["lm", "pipeline", "trace"],
+                    default="lm")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu for the plain PyTorch path")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="gemma3-12b")
+    ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="a tiny same-family config (default); "
+                         "--no-reduced serves the full widths")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to N layers (widths unchanged)")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--tokens", type=int, default=32)
     ap.add_argument("--requests", type=int, default=64)
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--max-wait-ms", type=float, default=4.0)
@@ -1104,6 +1241,24 @@ def main(argv: list[str] | None = None) -> None:
                          "cards; each replica of a widened stage is pinned "
                          "to its own card")
     args = ap.parse_args(argv)
+
+    if args.mode == "lm":
+        cfg = lm_config(args.arch, reduced=args.reduced, layers=args.layers)
+        st = serve_lm(cfg, batch=args.batch, prompt_len=args.prompt_len,
+                      tokens=args.tokens, device=args.device)
+        if not st["finite"]:
+            raise RuntimeError("non-finite logits")
+        print(f"[serve] arch={cfg.arch_id} layers={cfg.n_layers} "
+              f"dtype={cfg.dtype} batch={st['batch']} "
+              f"prompt={st['prompt_len']} device={st['device']}")
+        print(f"[serve] prefill: {st['prefill_ms']:.1f} ms "
+              f"({st['prefill_tok_s']:.0f} tok/s), flash-attention launches "
+              f"{st['k7_launches_prefill']}")
+        if args.tokens:
+            print(f"[serve] decode: {st['decode_ms_per_token']:.2f} ms/token "
+                  f"({st['decode_tok_s']:.0f} tok/s), generated "
+                  f"{tuple(st['ids'].shape)}")
+        return
 
     if args.mode == "trace":
         stats = serve_traced_transformer_demo(

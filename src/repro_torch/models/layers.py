@@ -1,0 +1,224 @@
+"""Transformer building blocks — functional, param-dict style.
+
+The port of the JAX package's ``models/layers.py`` for the dense family.
+Conventions, as there:
+
+* params are nested dicts of tensors; layer stacks have leading dim L;
+* compute dtype = config dtype (bf16 on the card); softmax and norms
+  accumulate in f32;
+* attention is GQA with an optional sliding window passed as data (a
+  per-layer int), so gemma3's local/global stack is one loop.
+
+Every self-attention over a whole prompt (the forward pass, and prefill
+into an empty cache) goes through :func:`repro_torch.kernels.ops.attention`,
+the flash-attention kernel (K7) on the card.  Decode (new tokens at
+``cache_pos > 0``) stays plain PyTorch, as the JAX package computes it
+outside any Pallas kernel: K7's masks are aligned at position 0.
+
+The JAX module's sharding anchors (``_con_*``, ``set_attention_mesh``) wait
+for the sharding slice; without a mesh they are the identity, so they are
+left out.  Random init draws from a ``torch.Generator`` on the device the
+parameters live on.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+
+Params = Any
+NEG_INF = -1e30
+
+
+# --------------------------------------------------------------------------- #
+# init helpers
+# --------------------------------------------------------------------------- #
+def _dense_init(generator: torch.Generator, shape: tuple, dtype: torch.dtype,
+                scale: float | None = None) -> torch.Tensor:
+    fan_in = shape[0] if len(shape) >= 2 else 1
+    scale = scale if scale is not None else fan_in ** -0.5
+    return (torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=generator.device) * scale).to(dtype)
+
+
+# --------------------------------------------------------------------------- #
+# RMSNorm
+# --------------------------------------------------------------------------- #
+def rmsnorm_init(d: int, dtype: torch.dtype, device=None) -> Params:
+    return {"scale": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + p["scale"].to(torch.float32))).to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# RoPE (theta passed as data → a per-layer theta)
+# --------------------------------------------------------------------------- #
+def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta) -> torch.Tensor:
+    """x: [..., T, n, hd]; pos: [..., T] absolute positions."""
+    hd = x.shape[-1]
+    half = hd // 2
+    theta = torch.as_tensor(theta, dtype=torch.float32, device=x.device)
+    freq = torch.exp(-torch.log(theta)
+                     * torch.arange(half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = pos[..., None].to(torch.float32) * freq          # [..., T, half]
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1 = x[..., :half].to(torch.float32)
+    x2 = x[..., half:].to(torch.float32)
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# GQA attention (full / sliding-window), optional KV cache
+# --------------------------------------------------------------------------- #
+def attention_init(generator: torch.Generator, d: int, n_heads: int,
+                   n_kv: int, hd: int, dtype: torch.dtype) -> Params:
+    return {
+        "wq": _dense_init(generator, (d, n_heads, hd), dtype),
+        "wk": _dense_init(generator, (d, n_kv, hd), dtype),
+        "wv": _dense_init(generator, (d, n_kv, hd), dtype),
+        "wo": _dense_init(generator, (n_heads * hd, d), dtype),
+    }
+
+
+def expand_kv(kv: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """[B, M, KV, hd] → [B, M, H, hd]; q-head h uses kv-head h // (H/KV).
+
+    The gather form of the JAX function (a head-index take), which leaves a
+    new contiguous tensor, the layout K7 reads.
+    """
+    G = n_heads // kv.shape[2]
+    idx = torch.arange(n_heads, device=kv.device) // G
+    return torch.index_select(kv, 2, idx)
+
+
+def gqa_scores(q: torch.Tensor, k_exp: torch.Tensor) -> torch.Tensor:
+    """q: [B, T, H, hd], k_exp: [B, M, H, hd] → scores [B, H, T, M] f32."""
+    hd = q.shape[-1]
+    return torch.einsum("bthd,bmhd->bhtm", q.to(torch.float32),
+                        k_exp.to(torch.float32)) / math.sqrt(hd)
+
+
+def gqa_combine(probs: torch.Tensor, v_exp: torch.Tensor) -> torch.Tensor:
+    """probs: [B, H, T, M], v_exp: [B, M, H, hd] → [B, T, H*hd]."""
+    B, H, T, M = probs.shape
+    hd = v_exp.shape[-1]
+    out = torch.einsum("bhtm,bmhd->bthd", probs, v_exp)
+    return out.reshape(B, T, H * hd)
+
+
+def attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int,
+              causal: bool = True) -> torch.Tensor:
+    """[T, M] bool. window: 0/negative → unbounded."""
+    d = q_pos[:, None] - k_pos[None, :]
+    m = (d >= 0) if causal else torch.ones(d.shape, dtype=torch.bool,
+                                           device=d.device)
+    if window > 0:
+        m = m & (d < window)
+    return m
+
+
+def attention(p: Params, x: torch.Tensor, pos=None, *, theta, window: int = 0,
+              kv_x: torch.Tensor | None = None, cache: Params | None = None,
+              cache_pos: int | None = None
+              ) -> tuple[torch.Tensor, Params | None]:
+    """Self-attention, causal (+ window).
+
+    * forward (cache=None): the whole sequence through K7;
+    * prefill (cache given, ``cache_pos == 0``): k/v written into the cache
+      (in place), then K7 over the first T cache rows — the rows beyond T
+      are causally masked in the JAX function, so the result is the same;
+    * decode (``cache_pos > 0``): plain masked softmax over the cache.
+
+    Cross-attention (``kv_x``, the vlm family) is not ported yet.
+    """
+    del pos                                     # positions come from T
+    if kv_x is not None:
+        raise NotImplementedError(
+            "cross-attention (the vlm family) waits for the vlm path of "
+            "ROADMAP item 9")
+    window = int(window)
+    B, T, _ = x.shape
+    q = torch.einsum("btd,dnh->btnh", x, p["wq"])
+    k = torch.einsum("btd,dnh->btnh", x, p["wk"])
+    v = torch.einsum("btd,dnh->btnh", x, p["wv"])
+    H, hd = q.shape[2], q.shape[3]
+
+    new_cache = None
+    if cache is not None:
+        start = int(cache_pos)
+        q_pos = start + torch.arange(T, device=x.device)
+        q = apply_rope(q, q_pos[None, :], theta)
+        k = apply_rope(k, q_pos[None, :], theta)
+        ck, cv = cache["k"], cache["v"]
+        ck[:, start:start + T] = k.to(ck.dtype)
+        cv[:, start:start + T] = v.to(cv.dtype)
+        new_cache = {"k": ck, "v": cv}
+        if start == 0:                          # prefill: K7
+            out = ops.attention(q, expand_kv(ck[:, :T], H),
+                                expand_kv(cv[:, :T], H), True,
+                                window).reshape(B, T, H * hd)
+        else:                                   # decode
+            k_pos = torch.arange(ck.shape[1], device=x.device)
+            mask = attn_mask(q_pos, k_pos, window)
+            scores = gqa_scores(q, expand_kv(ck, H))
+            scores = torch.where(mask[None, None], scores,
+                                 torch.full((), NEG_INF, device=x.device))
+            probs = torch.softmax(scores, dim=-1).to(x.dtype)
+            out = gqa_combine(probs, expand_kv(cv, H))
+    else:                                       # forward: K7
+        q_pos = torch.arange(T, device=x.device)
+        q = apply_rope(q, q_pos[None, :], theta)
+        k = apply_rope(k, q_pos[None, :], theta)
+        out = ops.attention(q, expand_kv(k, H), expand_kv(v, H), True,
+                            window).reshape(B, T, H * hd)
+
+    y = torch.einsum("btf,fd->btd", out, p["wo"])
+    return y, new_cache
+
+
+# --------------------------------------------------------------------------- #
+# SwiGLU MLP
+# --------------------------------------------------------------------------- #
+def mlp_init(generator: torch.Generator, d: int, ff: int,
+             dtype: torch.dtype) -> Params:
+    return {"wi": _dense_init(generator, (d, 2, ff), dtype),
+            "wo": _dense_init(generator, (ff, d), dtype)}
+
+
+def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    gu = torch.einsum("btd,dcf->btcf", x, p["wi"])
+    g, u = gu[:, :, 0], gu[:, :, 1]
+    h = F.silu(g) * u
+    return torch.einsum("btf,fd->btd", h, p["wo"])
+
+
+# --------------------------------------------------------------------------- #
+# Embedding / LM head
+# --------------------------------------------------------------------------- #
+def embed_init(generator: torch.Generator, vocab_padded: int, d: int,
+               dtype: torch.dtype) -> Params:
+    return {"table": _dense_init(generator, (vocab_padded, d), dtype,
+                                 scale=1.0)}
+
+
+def embed(p: Params, ids: torch.Tensor) -> torch.Tensor:
+    return p["table"][ids]
+
+
+def lm_logits(p: Params, h: torch.Tensor, vocab: int) -> torch.Tensor:
+    """[B, T, d] → [B, T, vocab] f32 (products of the input type, summed in
+    f32, as the JAX einsum's ``preferred_element_type``)."""
+    table = p["table"][:vocab]
+    return torch.matmul(h.to(torch.float32), table.to(torch.float32).t())

@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from repro_torch.core import Library, courier_offload
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import harris as hk
+from repro_torch.kernels import ops
 from repro_torch.kernels import rmsnorm as rk
 from repro_torch.launch import serve
 from repro_torch.models import harris as mh
@@ -136,3 +138,67 @@ def test_served_traced_transformer_goes_through_both_kernels(cuda_device):
     assert stats["requests_served"] == 6 and stats["results_match"]
     assert stats["fused_nodes"] == ["rmsnorm_4+matmul_0"]
     assert rk.LAUNCHES == {"rmsnorm": 4 * groups, "rmsnorm_matmul": groups}
+
+
+@pytest.mark.parametrize("B,T,H,hd,M", [(1, 128, 1, 64, 128),
+                                        (2, 77, 3, 16, 131),
+                                        (2, 128, 4, 32, 384),
+                                        (1, 300, 2, 256, 200),
+                                        (2, 33, 2, 128, 97)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64), (False, 0),
+                                           (False, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain_version_on_card(cuda_device, B, T, H,
+                                                       hd, M, causal, window,
+                                                       dtype):
+    g = torch.Generator(cuda_device).manual_seed(T + M + hd)
+    q, k, v = (torch.randn((B, L, H, hd), generator=g, device=cuda_device
+                           ).to(dtype) for L in (T, M, M))
+    before = fa.LAUNCHES["flash_attention"]
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, window)
+    want_o, want_lse = fa.flash_attention_ref(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert o.dtype == dtype and lse.shape == (B * H, T)
+    tol = 2.5e-2 if dtype == torch.bfloat16 else 2e-5
+    want = want_o.float()
+    diff = (o.float() - want).abs()
+    assert diff.max() <= tol * want.abs().max()
+    # element by element too: max |o| comes from rows that see few keys, and
+    # would hide a fault in the small averages of rows that see many
+    rms = want.square().mean().sqrt()
+    limit = (2.0**-7 * want.abs() + 2.0**-8 * rms if dtype == torch.bfloat16
+             else 2e-5 * (want.abs() + rms))
+    assert (diff <= limit).all()
+    assert ((lse - want_lse).abs() <= 1e-5 * want_lse.abs().clamp(min=1.0)
+            ).all()
+    torch.testing.assert_close(ops.attention(q, k, v, causal, window), o,
+                               rtol=0, atol=0)
+
+
+def test_flash_attention_rejects_what_it_does_not_take(cuda_device):
+    q = torch.zeros((1, 8, 2, 64), device=cuda_device)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        x = torch.zeros((1, 8, 2, 48), device=cuda_device)
+        fa.flash_attention(x, x, x)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q, q.transpose(1, 2).contiguous().transpose(1, 2),
+                           q)
+    with pytest.raises(ValueError, match="pre-expanded"):
+        fa.flash_attention(q, q[:, :, :1].contiguous(), q)
+    with pytest.raises(ValueError, match="must be a tensor on"):
+        fa.flash_attention(q, q.cpu(), q)
+
+
+def test_lm_on_card_runs_every_prefill_attention_through_the_kernel(
+        cuda_device):
+    cfg = serve.lm_config("gemma3-12b", layers=6)
+    st = serve.serve_lm(cfg, batch=2, prompt_len=37, tokens=5,
+                        device=cuda_device, keep_logits=True)
+    assert st["k7_launches_prefill"] == 6 and st["k7_launches_decode"] == 0
+    assert st["finite"] and st["ids"].shape == (2, 5)
+    assert st["prefill_device_ms"] > 0

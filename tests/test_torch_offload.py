@@ -97,9 +97,13 @@ def test_import_loads_no_jax_and_no_reference_package():
             "repro_torch.kernels.rmsnorm, repro_torch.kernels.ops, "
             "repro_torch.models.harris, repro_torch.models.zoo, "
             "repro_torch.configs.harris, repro_torch.configs.deepseek_67b, "
+            "repro_torch.configs, repro_torch.kernels.flash_attention, "
+            "repro_torch.models.config, repro_torch.models.layers, "
+            "repro_torch.models.transformer, "
             "repro_torch.core.executor, repro_torch.core.profiler, "
             "repro_torch.runtime.faults, repro_torch.launch.serve, "
             "repro_torch.quickstart\n"
+            "repro_torch.configs.all_configs()\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "assert not bad, bad\n")

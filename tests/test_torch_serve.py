@@ -72,6 +72,72 @@ def test_entry_points_run_on_the_card_unless_asked():
         serve.serve_traced_transformer_demo(n_requests=1)
 
 
+def test_cli_lm_mode_on_the_cpu(capsys):
+    serve.main(["--mode", "lm", "--device", "cpu", "--prompt-len", "12",
+                "--tokens", "4"])
+    out = capsys.readouterr().out
+    assert "arch=gemma3-12b layers=4 dtype=float32 batch=4 prompt=12" in out
+    assert "decode:" in out and "generated (4, 4)" in out
+
+
+def test_lm_mode_is_the_default_and_runs_on_the_card_unless_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main([])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.serve_lm(serve.lm_config())
+
+
+def test_lm_config_runs_full_widths_when_asked():
+    full = serve.lm_config("gemma3-12b", reduced=False, layers=6)
+    assert (full.d_model, full.n_heads, full.n_kv_heads, full.hd, full.d_ff,
+            full.vocab, full.window, full.dtype) == (
+        3840, 16, 8, 256, 15360, 262144, 1024, "bfloat16")
+    assert list(full.layer_windows) == [1024] * 5 + [0]
+    assert round(full.n_params * 2 / 1e9, 2) == 4.70         # GB of bf16
+    assert serve.lm_config().d_model == 64                  # reduced default
+    assert serve.lm_config(layers=6) == serve.lm_config().__class__(
+        **{**serve.lm_config().__dict__, "n_layers": 6})
+
+
+def test_serve_lm_greedy_ids_match_a_jax_loop():
+    """The port's prefill + greedy decode picks the JAX package's tokens
+    for the same prompt and weights (reduced gemma3-12b at 6 layers, f32,
+    one global layer)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.configs import get_config as jget_config
+    from repro.models import LM as JLM
+    from repro_torch.models.transformer import params_from_numpy
+
+    cfg = jget_config("gemma3-12b").reduced(n_layers=6)
+    m = JLM(cfg)
+    params = m.init(jax.random.PRNGKey(0))
+    prompt = np.random.default_rng(5).integers(0, cfg.vocab, (2, 10))
+    n_tok = 6
+    cache = m.init_cache(2, 10 + n_tok)
+    hp, cache = m.prefill(params, jnp.asarray(prompt), cache)
+    tok = jnp.argmax(m.logits(params, hp)[:, -1], axis=-1)[:, None]
+    step = jax.jit(lambda p, c, ids, pos: m.decode_step(p, ids, c, pos))
+    want = []
+    for t in range(n_tok):
+        want.append(np.asarray(tok))
+        logits, cache = step(params, cache, tok, 10 + t)
+        tok = jnp.argmax(logits[:, -1], axis=-1)[:, None]
+
+    tcfg = serve.lm_config("gemma3-12b", layers=6)
+    st = serve.serve_lm(tcfg, params_from_numpy(
+        jax.tree.map(np.asarray, params), tcfg.dtype, device="cpu"),
+        prompt, tokens=n_tok, device="cpu", keep_logits=True)
+    np.testing.assert_array_equal(st["ids"], np.concatenate(want, axis=1))
+    assert st["finite"] and st["logits"].shape == (2, n_tok + 1, cfg.vocab)
+    assert st["k7_launches_prefill"] == st["k7_launches_decode"] == 0
+    assert st["prefill_device_ms"] is None and st["prefill_ms"] > 0
+
+
 def test_cli_trace_mode_on_the_cpu(capsys):
     serve.main(["--mode", "trace", "--device", "cpu", "--requests", "4",
                 "--max-batch", "2"])
