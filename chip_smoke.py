@@ -19,7 +19,13 @@ version there:
   16 heads x 256, 8 kv heads, d_ff 15360, vocab 262144, window 1024 with
   every 6th layer global; bf16, 6 of its 48 layers, 4.70 GB of weights):
   batched prefill of 4 prompts of 4096 tokens, then 32 greedy decode steps
-  (K7 on every prefill self-attention).
+  (K7 on every prefill self-attention);
+* training, ``repro_torch.launch.train.build``'s step, at the same widths
+  (bf16, 6 layers, batch 2 x 4096 tokens, loss chunk 512, per-layer remat,
+  AdamW; ~28 GB of weights, gradients and moments): K7 on every
+  self-attention's forward and its recompute, K8 and K9 on its backward;
+  then ``FaultTolerantDriver`` over ``examples/train_100m.py``'s widths
+  with a checkpoint store and one scripted step fault.
 
 Phases:
 
@@ -47,7 +53,18 @@ Phases:
               logits equal LM.apply over prompt + generated tokens (K7 at
               T = 4128) within 2.5e-2 of the largest; prefill and decode
               ms and tokens/s, the card's own prefill ms and K7's share
-7. the ``kernels`` JSON line, the nvidia-smi line, and the result line
+7. train    — K8 and K9 against autograd through K7's plain version at
+              every head_dim x (f32, bf16), T != M, ragged lengths, the four
+              masks (rows that see no key included), and at the driver
+              run's [8, 64, 10, 64] f32 (window 32 and none), element by
+              element; at [2, 4096, 16, 256] bf16 (causal and window 1024)
+              K7 element by element, then K8/K9's times beside the bound,
+              the plain backward and SDPA's backward.  Then full-width training steps (12/6/6 K7/K8/K9
+              launches each, finite losses, step ms, tokens/s, peak memory,
+              a profile), a kernel step against a plain-attention step
+              (loss and every gradient leaf within 2.5e-2), and the driver
+              at 100M widths: 80 steps, 1 restart, the loss falls
+8. the ``kernels`` JSON line, the nvidia-smi line, and the result line
 
 Any failed check raises: the script then exits non-zero without the result
 line.  Imports nothing of JAX or the JAX package.
@@ -57,6 +74,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -66,6 +84,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "src/repro_torch/kernels/csrc/harris.cu"
 RMS_SOURCE = "src/repro_torch/kernels/csrc/rmsnorm.cu"
 FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FA_BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 HBM_BW = 3.35e12              # H100 SXM HBM3, bytes/s (data sheet)
 FP32_PEAK = 67e12             # H100 SXM float32 outside the tensor cores
 BF16_PEAK = 989e12            # H100 SXM bf16 dense, tensor cores
@@ -85,6 +104,23 @@ LM_TRAFFIC = dict(arch="gemma3-12b", layers=6, batch=4, prompt_len=4096,
 # T > M + 40 - 1 gives rows that see no key under the window of 40
 FA_RAGGED = [(2, 77, 3, 131), (1, 300, 2, 200)]
 FA_MASKS = [(True, 0), (True, 64), (False, 0), (False, 40)]
+# training: gemma3-12b at full widths, 6 of 48 layers, batch 2 x 4096,
+# one warm-up step, 4 timed steps, one profiled step
+TRAIN = dict(arch="gemma3-12b", layers=6, batch=2, seq_len=4096, timed=4,
+             lr=3e-3)
+# the driver at examples/train_100m.py's widths (:28-31)
+DRIVER = dict(n_layers=10, d_model=640, n_heads=10, n_kv_heads=5,
+              head_dim=64, d_ff=2560, vocab=32768, window=32, global_every=6,
+              dtype="float32")
+DRIVER_RUN = dict(steps=80, batch=8, seq_len=64, ckpt_every=20, fail_at=50)
+
+
+def driver_attention() -> tuple[tuple, int, list]:
+    """The driver run's self-attention: (B, T, H, M), head_dim and masks
+    (the local layers' window and the global layer's none), f32."""
+    T = DRIVER_RUN["seq_len"]
+    return ((DRIVER_RUN["batch"], T, DRIVER["n_heads"], T),
+            DRIVER["head_dim"], [(True, DRIVER["window"]), (True, 0)])
 
 
 class SmokeFailure(RuntimeError):
@@ -129,9 +165,18 @@ def phase_build():
     print(f"[build] {sources} built in {secs:.2f} s "
           f"(per source: {build.build_seconds})")
     for src in sources:
+        entry = ""
         for line in build.build_logs.get(src, "").splitlines():
+            if "Compiling entry function" in line:
+                # the kernel's name, head_dim and type in the mangled name
+                m = re.search(r"(?<=\d)([a-z][a-z_]*_kernel)"
+                              r"(?:ILi(\d+)E(f|13__nv_bfloat16))?", line)
+                dt = "f32" if m and m.group(3) == "f" else "bf16"
+                entry = (" " + m.group(1) + (f"<{m.group(2)}, {dt}>"
+                                             if m.group(2) else "")
+                         if m else "")
             if "registers" in line or "spill" in line:
-                print(f"[build] ptxas {src}: {line.strip()}")
+                print(f"[build] ptxas {src}{entry}: {line.strip()}")
     for th, tw, bs in ((32, 32, 2), (16, 64, 3)):
         check(lib.repro_harris_tile_smem_bytes(th, tw, bs)
               == hk.tile_smem_bytes(th, tw, bs),
@@ -624,24 +669,27 @@ def flash_err(q, k, v, causal: bool, window: int) -> tuple[float, float]:
 def phase_flash_kernels() -> float:
     """K7 at small and ragged shapes (T != M, lengths off the tile), at
     every head_dim it is built for, f32 and bf16, causal with and without a
-    window, and non-causal with and without one."""
+    window, and non-causal with and without one; then at the driver run's
+    shape, f32, with its two masks."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
 
     g = torch.Generator("cuda").manual_seed(7)
     err = worst = 0.0
-    for hd in fa.HEAD_DIMS:
-        for dt in (torch.float32, torch.bfloat16):
-            for B, T, H, M in FA_RAGGED:
-                q, k, v = (torch.randn((B, L, H, hd), generator=g,
-                                       device="cuda").to(dt)
-                           for L in (T, M, M))
-                for causal, window in FA_MASKS:
-                    d, w = flash_err(q, k, v, causal, window)
-                    err, worst = max(err, d), max(worst, w)
+    (dB, dT, dH, dM), dhd, dmasks = driver_attention()
+    cases = [(hd, dt, shape, FA_MASKS) for hd in fa.HEAD_DIMS
+             for dt in (torch.float32, torch.bfloat16) for shape in FA_RAGGED]
+    cases.append((dhd, torch.float32, (dB, dT, dH, dM), dmasks))
+    for hd, dt, (B, T, H, M), masks in cases:
+        q, k, v = (torch.randn((B, L, H, hd), generator=g,
+                               device="cuda").to(dt) for L in (T, M, M))
+        for causal, window in masks:
+            d, w = flash_err(q, k, v, causal, window)
+            err, worst = max(err, d), max(worst, w)
     print(f"[kernels] flash_attention: hd {fa.HEAD_DIMS} x (f32, bf16) x "
-          f"{FA_RAGGED} (B, T, H, M) x (causal, window) {FA_MASKS} match the "
+          f"{FA_RAGGED} (B, T, H, M) x (causal, window) {FA_MASKS}, and the "
+          f"driver's [{dB}, {dT}, {dH}, {dhd}] f32 x {dmasks}, match the "
           f"plain version (max abs err {err}, at most {worst} of the "
           f"element-wise limit)")
     return err
@@ -657,10 +705,11 @@ def sdpa_backend(qt, kt, vt, mask, is_causal: bool) -> str:
                  if int(b) == i), str(i))
 
 
-def device_profile(fn) -> dict:
+def device_profile(fn, groups: dict | None = None) -> dict:
     """One run of ``fn`` under torch.profiler: the card's busy ms (the sum of
-    its kernels' self times), the window's wall ms, the idle share, and the
-    kernels that took the most time."""
+    its kernels' self times), the window's wall ms, the idle share, the
+    kernels that took the most time, and (``groups``: label -> substring of
+    a kernel's name) the summed ms of each group."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -681,7 +730,9 @@ def device_profile(fn) -> dict:
             "device_idle_share": 1.0 - busy / wall if kern else None,
             "kernels": len(kern),
             "top": [{"ms": ms, "count": n, "name": name[:90]}
-                    for ms, n, name in kern[:8]]}
+                    for ms, n, name in kern[:8]],
+            "groups": {g: sum(ms for ms, _, name in kern if sub in name)
+                       for g, sub in (groups or {}).items()}}
 
 
 def profile_lm(model, params, ids, n_decode: int) -> dict:
@@ -815,7 +866,9 @@ def phase_lm(small_err: float):
     counts = dict(fa.LAUNCHES)
     check(st["k7_launches_prefill"] == cfg.n_layers
           and st["k7_launches_decode"] == 0
-          and counts == {"flash_attention": cfg.n_layers},
+          and counts == {"flash_attention": cfg.n_layers,
+                         "flash_attention_bwd_dq": 0,
+                         "flash_attention_bwd_dkv": 0},
           f"K7 launches {counts}: prefill {st['k7_launches_prefill']}, "
           f"decode {st['k7_launches_decode']}")
     check(st["finite"] and st["ids"].shape == (B, N),
@@ -855,11 +908,382 @@ def phase_lm(small_err: float):
         "decode_ms_per_token", "decode_tok_s", "k7_ms_per_prefill",
         "k7_share_of_prefill_device_time")))
     out["profile"] = profile_lm(model, params, ids, n_decode=8)
+    del model, params, ids, full, h, want, got, st
+    gc.collect()
+    torch.cuda.empty_cache()
     row = {**per["global"], "max_abs_err": err,
            **{f"local_{k}": per["local"][k] for k in (
                "ms", "plain_ms", "bound_ms", "library_ms", "library",
                "max_abs_err", "err_of_elementwise_limit")}}
     return row, counts, out
+
+
+# --------------------------------------------------------------------------- #
+# 7. training: K8 and K9, full-width steps, the fault-tolerant driver
+# --------------------------------------------------------------------------- #
+def grad_err(got, want) -> tuple[float, float]:
+    """max |g - g_ref| and its largest share of the element-wise limit:
+    |g - g_ref| <= 2^-7 |g_ref| + 2^-8 rms(g_ref) in bf16 (one ulp plus a
+    margin near 0), <= 2e-4 (|g_ref| + rms(g_ref)) in f32."""
+    import torch
+
+    check(bool(torch.isfinite(got).all()), "non-finite gradient")
+    bf16 = got.dtype == torch.bfloat16
+    want = want.float()
+    diff = (got.float() - want).abs()
+    rms = want.square().mean().sqrt()
+    limit = (2.0**-7 * want.abs() + 2.0**-8 * rms if bf16
+             else 2e-4 * (want.abs() + rms))
+    return diff.max().item(), (diff / limit).max().item()
+
+
+def flash_bwd_err(q, k, v, do, causal: bool, window: int) -> dict:
+    """The Function's (dq, dk, dv) — K7, then K8 and K9 — against
+    ``torch.autograd.grad`` through ``flash_attention_ref``."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(fa.flash_attention(*leaves, causal, window),
+                              leaves, do)
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(fa.flash_attention_ref(*ref, causal,
+                                                      window)[0], ref, do)
+    torch.cuda.synchronize()
+    e = {n: grad_err(g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+    worst = max(w for _, w in e.values())
+    check(worst <= 1.0,
+          f"K8/K9 {tuple(q.shape)} x {tuple(k.shape)} {q.dtype} "
+          f"causal={causal} window={window}: a gradient is off by {worst} "
+          f"of its element-wise limit ({e})")
+    return {"flash_attention_bwd_dq": e["dq"],
+            "flash_attention_bwd_dkv": max(e["dk"], e["dv"])}
+
+
+def phase_flash_bwd_kernels() -> dict:
+    """K8 and K9 at small and ragged shapes (T != M, lengths off the tile;
+    rows that see no key under window 40 at T = 300, M = 200), at every
+    head_dim, f32 and bf16, with the four masks; then at the driver run's
+    shape, f32, with its two masks."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator("cuda").manual_seed(17)
+    errs = {"flash_attention_bwd_dq": (0.0, 0.0),
+            "flash_attention_bwd_dkv": (0.0, 0.0)}
+    (dB, dT, dH, dM), dhd, dmasks = driver_attention()
+    shapes = [(hd, dt, shape, FA_MASKS) for hd in fa.HEAD_DIMS
+              for dt in (torch.float32, torch.bfloat16) for shape in FA_RAGGED]
+    shapes.append((dhd, torch.float32, (dB, dT, dH, dM), dmasks))
+    cases = 0
+    for hd, dt, (B, T, H, M), masks in shapes:
+        q, k, v, do = (torch.randn((B, L, H, hd), generator=g,
+                                   device="cuda").to(dt)
+                       for L in (T, M, M, T))
+        for causal, window in masks:
+            for n, (d, w) in flash_bwd_err(q, k, v, do, causal,
+                                           window).items():
+                errs[n] = (max(errs[n][0], d), max(errs[n][1], w))
+            cases += 1
+    for n, (d, w) in errs.items():
+        print(f"[train] {n}: {cases} cases (hd {fa.HEAD_DIMS} x (f32, "
+              f"bf16) x {FA_RAGGED} (B, T, H, M) x {FA_MASKS}, and the "
+              f"driver's [{dB}, {dT}, {dH}, {dhd}] f32 x {dmasks}) match "
+              f"autograd through the plain forward: max abs err {d}, worst "
+              f"case {w} of its element-wise limit")
+    return errs
+
+
+def bwd_bound(q, k, causal: bool, window: int, flops_per_hd: int,
+              t_rows: int, m_rows: int) -> tuple[float, str, int]:
+    """The least time for a backward kernel on these inputs: ``flops_per_hd``
+    * hd FLOP per visible pair at the peak for the type, against
+    ``t_rows`` tensors of T rows and ``m_rows`` of M rows (each [B, *, H,
+    hd], read or written once) plus two f32 [B*H, T] rows (lse, delta)."""
+    import torch
+
+    B, T, H, hd = q.shape
+    M = k.shape[1]
+    pairs = B * H * visible_pairs(T, M, causal, window)
+    peak = BF16_PEAK if q.dtype == torch.bfloat16 else FP32_PEAK
+    nbytes = (q.element_size() * B * H * hd * (t_rows * T + m_rows * M)
+              + 8 * B * H * T)
+    t_ops = flops_per_hd * hd * pairs / peak * 1e3
+    t_bytes = nbytes / HBM_BW * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", pairs)
+
+
+def phase_bwd_timing(small: dict) -> dict:
+    """K8 and K9 at the training shape, [2, 4096, 16, 256] bf16, on the
+    global (causal) and a local (window 1024) layer: K7's o and lse held to
+    the plain forward and K8/K9 to the plain backward from K7's lse, then
+    timed beside the bound, the plain version and the backward of
+    F.scaled_dot_product_attention."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers as ml
+
+    B, T, H, hd = TRAIN["batch"], TRAIN["seq_len"], 16, 256
+    g = torch.Generator("cuda").manual_seed(11)
+    q, k, v, do = (torch.randn((B, T, H, hd), generator=g, device="cuda"
+                               ).bfloat16() for _ in range(4))
+    per, errs = {}, dict(small)
+    kw = dict(reps=5, cycles=int(4e7))
+    for kind, causal, window in (("global", True, 0), ("local", True, 1024)):
+        d, w = flash_err(q, k, v, causal, window)
+        print(f"[train] flash_attention {kind} (window {window}) at [{B}, "
+              f"{T}, {H}, {hd}] bf16 matches the plain forward: max abs err "
+              f"{d}, {w} of the element-wise limit")
+        lse = fa.flash_attention_fwd(q, k, v, causal, window)[1]
+        dq, delta = fa.flash_attention_bwd_dq(q, k, v, lse, do, causal,
+                                              window)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal,
+                                            window)
+        want = fa.flash_attention_bwd_ref(q, k, v, lse, do, causal, window)
+        e = {n: grad_err(a, b) for n, a, b in zip(("dq", "dk", "dv"),
+                                                  (dq, dk, dv), want)}
+        check(max(w for _, w in e.values()) <= 1.0,
+              f"K8/K9 at the training shape ({kind}): {e}")
+        del dq, dk, dv, want
+        errs["flash_attention_bwd_dq"] = max(errs["flash_attention_bwd_dq"],
+                                             e["dq"])
+        errs["flash_attention_bwd_dkv"] = max(
+            errs["flash_attention_bwd_dkv"], e["dk"], e["dv"])
+
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        if window:
+            pos = torch.arange(T, device="cuda")
+            mask = ml.attn_mask(pos, pos, window)
+            out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+            backend = sdpa_backend(qt, kt, vt, mask, False)
+        else:
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            backend = sdpa_backend(qt, kt, vt, None, True)
+        dot = do.transpose(1, 2)
+        lib_ms = device_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), [()],
+            label=f"SDPA backward {kind}", **kw)
+        del out, qt, kt, vt
+        for name, fn, plain, flops, rows in (
+                ("flash_attention_bwd_dq",
+                 lambda: fa.flash_attention_bwd_dq(q, k, v, lse, do,
+                                                   causal, window),
+                 lambda: fa.flash_attention_bwd_dq_ref(q, k, v, lse, do,
+                                                       causal, window),
+                 6, (3, 2)),
+                ("flash_attention_bwd_dkv",
+                 lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                    causal, window),
+                 lambda: fa.flash_attention_bwd_dkv_ref(q, k, v, do, lse,
+                                                        delta, causal,
+                                                        window),
+                 8, (2, 4))):
+            bound, by, pairs = bwd_bound(q, k, causal, window, flops, *rows)
+            r = per.setdefault(name, {})[kind] = {
+                "ms": device_ms(fn, [()], label=f"{name} {kind}", **kw),
+                "plain_ms": device_ms(plain, [()], label=f"{name} {kind} "
+                                      f"plain", **kw),
+                "bound_ms": bound, "bound_by": by, "pairs": pairs,
+                "library_ms": lib_ms,
+                "library": f"backward of F.scaled_dot_product_attention "
+                           f"({backend}; dq, dk and dv together)",
+                "max_abs_err": (e["dq"] if name.endswith("dq")
+                                else max(e["dk"], e["dv"]))[0]}
+            print(f"[train] {name} {kind} (window {window}) at [{B}, {T}, "
+                  f"{H}, {hd}] bf16: kernel_ms={r['ms']:.5f} plain_ms="
+                  f"{r['plain_ms']:.5f} bound_ms={r['bound_ms']:.5f} ({by}) "
+                  f"library_ms={r['library_ms']:.5f} [{r['library']}] "
+                  f"pairs={pairs}")
+        del lse, delta
+    torch.cuda.empty_cache()
+    rows = {}
+    for name, r in per.items():
+        rows[name] = {**r["global"], "max_abs_err": errs[name][0],
+                      "err_of_elementwise_limit": errs[name][1],
+                      **{f"local_{f}": r["local"][f] for f in (
+                          "ms", "plain_ms", "bound_ms", "library_ms",
+                          "pairs")}}
+    return rows
+
+
+def phase_train() -> tuple[dict, dict]:
+    """Full-width training through ``launch.train.build``'s step."""
+    import gc
+
+    import torch
+
+    from repro_torch.core.tree import leaves
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import lm_config
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.launch.train import build
+    from repro_torch.models import LM
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[train] {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated "
+          f"before training")
+    tr = TRAIN
+    cfg = lm_config(tr["arch"], reduced=False, layers=tr["layers"])
+    check(cfg.dtype == "bfloat16" and cfg.hd == 256
+          and list(cfg.layer_windows) == [1024] * 5 + [0],
+          f"unexpected config {cfg}")
+    n_steps = 1 + tr["timed"] + 1
+    torch.cuda.reset_peak_memory_stats()
+    state, step, data = build(cfg, n_steps, tr["lr"], tr["seq_len"],
+                              tr["batch"], device="cuda")
+    n_params = sum(p.numel() for p in leaves(state["params"]))
+    torch.cuda.synchronize()
+    print(f"[train] {cfg.arch_id} at full widths, {cfg.n_layers} layers, "
+          f"{n_params} parameters; {torch.cuda.memory_allocated() / 1e9:.3f} "
+          f"GB of weights and AdamW moments allocated")
+    tokens = tr["batch"] * tr["seq_len"]
+    per_step = {"flash_attention": 2 * cfg.n_layers,
+                "flash_attention_bwd_dq": cfg.n_layers,
+                "flash_attention_bwd_dkv": cfg.n_layers}
+
+    # the main path: one warm-up step, then the timed steps
+    fa.reset_launches()
+    losses, wall, card = [], [], []
+    for i in range(1 + tr["timed"]):
+        before = dict(fa.LAUNCHES)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        batch = data.batch(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.record()
+        state, met = step(state, batch)
+        b.record()
+        loss = float(met["loss"])
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        card.append(a.elapsed_time(b))
+        losses.append(loss)
+        got = {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES}
+        check(got == per_step, f"step {i}: launches {got}, expected "
+                               f"{per_step}")
+        check(math.isfinite(loss), f"step {i}: loss {loss}")
+        print(f"[train] step {i}: loss {loss} grad_norm "
+              f"{float(met['grad_norm'])} lr {float(met['lr'])} wall "
+              f"{wall[-1]:.3f} ms card {card[-1]:.3f} ms launches {got}")
+    counts = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = statistics.median(wall[1:])
+    out = {"losses": losses, "step_ms": wall, "card_step_ms": card,
+           "median_step_ms": step_ms,
+           "median_card_step_ms": statistics.median(card[1:]),
+           "tokens_per_s": tokens / step_ms * 1e3,
+           "peak_gb": peak, "n_params": n_params,
+           "launches_per_step": per_step}
+    prof = device_profile(
+        lambda: step(state, data.batch(1 + tr["timed"])),
+        groups={"K7": "flash_fwd_kernel", "K8": "flash_bwd_dq_kernel",
+                "K9": "flash_bwd_dkv_kernel"})
+    prof["k7_k8_k9_share_of_busy"] = (sum(prof["groups"].values())
+                                      / prof["device_busy_ms"])
+    out["profile"] = prof
+    print(f"[train] {tr['timed']} timed steps: median {step_ms:.3f} ms wall, "
+          f"{out['median_card_step_ms']:.3f} ms card, "
+          f"{out['tokens_per_s']:.1f} tokens/s, peak {peak:.3f} GB; losses "
+          f"{losses}")
+    print(f"[train] profile of one step: wall {prof['wall_ms']:.3f} ms, card "
+          f"busy {prof['device_busy_ms']:.3f} ms, idle share "
+          f"{prof['device_idle_share']}, K7/K8/K9 ms {prof['groups']} "
+          f"({prof['k7_k8_k9_share_of_busy']} of the busy time)")
+    for t in prof["top"]:
+        print(f"[train]   {t['ms']:10.3f} ms x{t['count']:<5d} {t['name']}")
+
+    # one more step's loss and gradients from the same state and batch,
+    # with the kernels and with the plain attention under autograd
+    model, batch = LM(cfg), data.batch(n_steps)
+    b = {"ids": torch.as_tensor(batch.ids, device="cuda").long(),
+         "labels": torch.as_tensor(batch.labels, device="cuda").long(),
+         "mask": torch.as_tensor(batch.mask, device="cuda")}
+    k_loss, k_grads = loss_and_grads(model, state["params"], b)
+    real = ops.attention
+    ops.attention = (lambda q, k, v, causal=True, window=0:
+                     fa.flash_attention_ref(q, k, v, causal, window)[0])
+    try:
+        p_loss, p_grads = loss_and_grads(model, state["params"], b)
+    finally:
+        ops.attention = real
+    torch.cuda.synchronize()
+    g_err = max(((kg.float() - pg.float()).abs().max()
+                 / pg.float().abs().max()).item()
+                for kg, pg in zip(k_grads, p_grads))
+    l_err = abs(float(k_loss) - float(p_loss)) / abs(float(p_loss))
+    check(math.isfinite(float(k_loss)) and l_err <= 2.5e-2
+          and g_err <= 2.5e-2,
+          f"kernel step vs plain-attention step: loss {float(k_loss)} vs "
+          f"{float(p_loss)}, largest per-leaf gradient error {g_err}")
+    out.update({"kernel_vs_plain_loss": [float(k_loss), float(p_loss)],
+                "kernel_vs_plain_loss_rel_err": l_err,
+                "kernel_vs_plain_grad_max_rel_err": g_err})
+    print(f"[train] kernel step vs plain-attention step: loss "
+          f"{float(k_loss)} vs {float(p_loss)} (rel err {l_err}); largest "
+          f"per-leaf max|dg|/max|g_ref| {g_err} (limit 2.5e-2)")
+    del state, k_grads, p_grads, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def phase_driver() -> tuple[dict, dict]:
+    """FaultTolerantDriver on the card at examples/train_100m.py's widths,
+    with a checkpoint store in a temporary directory and one scripted step
+    fault."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.train import build
+    from repro_torch.runtime import FaultPlan, FaultTolerantDriver
+
+    cfg = dataclasses.replace(get_config("gemma3-12b"), **DRIVER)
+    run = DRIVER_RUN
+    state, step, data = build(cfg, run["steps"], 3e-3, run["seq_len"],
+                              run["batch"], device="cuda")
+    fa.reset_launches()
+    with tempfile.TemporaryDirectory() as root:
+        store = CheckpointStore(root, keep=2)
+        drv = FaultTolerantDriver(step, store, data,
+                                  ckpt_every=run["ckpt_every"],
+                                  faults=FaultPlan().fail_step(
+                                      [run["fail_at"]]))
+        t0 = time.perf_counter()
+        state, res = drv.run(state, run["steps"])
+        secs = time.perf_counter() - t0
+        kept = store.steps()
+    counts = dict(fa.LAUNCHES)
+    first, last = np.mean(res.losses[:10]), np.mean(res.losses[-10:])
+    check(res.restarts == 1 and res.steps_done == run["steps"]
+          and len(res.losses) == run["steps"] and last < first
+          and all(map(math.isfinite, res.losses)),
+          f"driver: restarts {res.restarts}, steps {res.steps_done}, loss "
+          f"{first} -> {last}")
+    out = {"n_params": cfg.n_params, "steps_done": res.steps_done,
+           "restarts": res.restarts, "loss_first10": float(first),
+           "loss_last10": float(last), "seconds": secs,
+           "checkpoints_kept": kept, "launches": counts}
+    print(f"[train] driver at 100M widths ({cfg.n_params / 1e6:.1f}M "
+          f"params, f32): {res.steps_done} steps in {secs:.3f} s, restarts "
+          f"{res.restarts} (step {run['fail_at']} failed once), loss "
+          f"{first} -> {last}, checkpoints {kept}, launches {counts}")
+    del state
+    torch.cuda.empty_cache()
+    return counts, out
 
 
 def main() -> int:
@@ -874,7 +1298,11 @@ def main() -> int:
     launches, times = phase_main_path()
     counts, hcounts, served = phase_serve(rows["rmsnorm_matmul"]["ms"])
     rows["flash_attention"], fcounts, lm = phase_lm(fa_err)
-    for k, v in (*counts.items(), *hcounts.items(), *fcounts.items()):
+    rows.update(phase_bwd_timing(phase_flash_bwd_kernels()))
+    tcounts, trained = phase_train()
+    dcounts, driven = phase_driver()
+    for k, v in (*counts.items(), *hcounts.items(), *fcounts.items(),
+                 *tcounts.items(), *dcounts.items()):
         launches[k] = launches.get(k, 0) + v
     replaces = {"cvt_color": "src/repro/kernels/harris.py:44",
                 "corner_harris": "src/repro/kernels/harris.py:101",
@@ -882,9 +1310,15 @@ def main() -> int:
                 "harris_fused": "src/repro/kernels/harris.py:247",
                 "rmsnorm": "src/repro/kernels/rmsnorm.py:28",
                 "rmsnorm_matmul": "src/repro/kernels/rmsnorm.py:67",
-                "flash_attention": "src/repro/kernels/flash_attention.py:96"}
+                "flash_attention": "src/repro/kernels/flash_attention.py:96",
+                "flash_attention_bwd_dq":
+                    "src/repro/kernels/flash_attention.py:206",
+                "flash_attention_bwd_dkv":
+                    "src/repro/kernels/flash_attention.py:223"}
     sources = {"rmsnorm": RMS_SOURCE, "rmsnorm_matmul": RMS_SOURCE,
-               "flash_attention": FA_SOURCE}
+               "flash_attention": FA_SOURCE,
+               "flash_attention_bwd_dq": FA_BWD_SOURCE,
+               "flash_attention_bwd_dkv": FA_BWD_SOURCE}
     kernels = [{"name": k, "route": "cuda", "source": sources.get(k, SOURCE),
                 "replaces": replaces[k], "launches": launches[k],
                 **{f: rows[k][f] for f in ("max_abs_err", "ms", "plain_ms",
@@ -897,8 +1331,12 @@ def main() -> int:
     print(json.dumps({"build_s": build_s, "main_path": times,
                       "frame": [H, W], "frames": N_FRAMES,
                       "serve_transformer": served, "serve_lm": lm,
-                      "k7_local": {k: v for k, v in rows["flash_attention"]
-                                   .items() if k.startswith("local_")}}))
+                      "train": trained, "driver": driven,
+                      "local_layer": {n: {k: v for k, v in rows[n].items()
+                                          if k.startswith("local_")}
+                                      for n in ("flash_attention",
+                                                "flash_attention_bwd_dq",
+                                                "flash_attention_bwd_dkv")}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,9 @@ Conventions, as there:
 
 Every self-attention over a whole prompt (the forward pass, and prefill
 into an empty cache) goes through :func:`repro_torch.kernels.ops.attention`,
-the flash-attention kernel (K7) on the card.  Decode (new tokens at
+the flash-attention kernel (K7) on the card, whose backward is K8 and K9
+under autograd (``expand_kv``'s gather then sums each group's gradient
+back onto its kv head).  Decode (new tokens at
 ``cache_pos > 0``) stays plain PyTorch, as the JAX package computes it
 outside any Pallas kernel: K7's masks are aligned at position 0.
 
@@ -217,8 +219,62 @@ def embed(p: Params, ids: torch.Tensor) -> torch.Tensor:
     return p["table"][ids]
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b summed in f32, f32 out: bf16 operands on the card go through
+    ``torch.mm(out_dtype=float32)`` (no f32 copy of either); elsewhere both
+    are cast to f32, which holds their products exactly."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.to(torch.float32), b.to(torch.float32))
+
+
+def bf16_terms(x: torch.Tensor) -> torch.Tensor:
+    """f32 x -> [3, *x.shape] bf16 whose f32 sum is x exactly: each term
+    takes the next 8 significant bits of what the ones before left over."""
+    out = torch.empty((3, *x.shape), dtype=torch.bfloat16, device=x.device)
+    rest = x
+    for i in range(3):
+        out[i] = rest
+        rest = rest - out[i].to(torch.float32)
+    return out
+
+
+class _LogitsF32(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(h, table)
+        return _mm_f32(h, table.t())
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        h, table = ctx.saved_tensors
+        if not (g.is_cuda and h.dtype == table.dtype == torch.bfloat16):
+            return (_mm_f32(g, table).to(h.dtype),
+                    _mm_f32(g.t(), h).to(table.dtype))
+        n = g.shape[0]
+        terms = bf16_terms(g).reshape(3 * n, -1)
+        dh = torch.mm(terms, table, out_dtype=torch.float32)
+        dt = torch.mm(terms.t(), h.repeat(3, 1), out_dtype=torch.float32)
+        return dh.reshape(3, n, -1).sum(0).to(h.dtype), dt.to(table.dtype)
+
+
+def logits_f32(h: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """h [N, d] @ table [V, d]ᵀ → [N, V] f32: the training loss's logits,
+    the JAX einsum's arithmetic (products of the input type summed in f32,
+    ``preferred_element_type=float32``) without an f32 copy of the table.
+    The backward keeps the f32 gradient g as it is, as JAX's transpose rule
+    does (``lax._dot_general_transpose_lhs``/``_rhs`` multiply the f32
+    cotangent by the other operand with ``preferred_element_type`` f32): on
+    the card g goes in as the three bf16 terms of :func:`bf16_terms`, so
+    each product is bf16 x bf16 summed in f32 and equals the f32 product
+    up to the order of sums.  f32 sums come out in the inputs' types."""
+    return _LogitsF32.apply(h, table)
+
+
 def lm_logits(p: Params, h: torch.Tensor, vocab: int) -> torch.Tensor:
     """[B, T, d] → [B, T, vocab] f32 (products of the input type, summed in
-    f32, as the JAX einsum's ``preferred_element_type``)."""
-    table = p["table"][:vocab]
-    return torch.matmul(h.to(torch.float32), table.to(torch.float32).t())
+    f32, as the JAX einsum's ``preferred_element_type``), without an f32
+    copy of the table."""
+    B, T, d = h.shape
+    return _mm_f32(h.reshape(B * T, d),
+                   p["table"][:vocab].t()).reshape(B, T, vocab)

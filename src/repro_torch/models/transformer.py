@@ -10,9 +10,13 @@ The JAX ``lax.scan`` over the stacked ``[L, ...]`` parameters is a Python
 loop over the same stacked tensors; per-layer heterogeneity (gemma3's
 sliding window and rope theta) rides along as per-layer data, so the
 parameter tree has the JAX tree's layout and :func:`params_from_numpy`
-carries JAX weights across unchanged.  The forward pass has no remat and
-no ``scan_chunks`` (training waits for its slice).  The KV cache is
-updated in place.
+carries JAX weights across unchanged.  The KV cache is updated in place.
+
+Training: ``apply(remat=True)`` checkpoints every layer with
+``torch.utils.checkpoint`` (the JAX ``jax.checkpoint`` body), and with
+``scan_chunks=c`` every chunk of c layers as well; :meth:`LM.loss` is the
+chunked cross-entropy, one checkpointed chunk of ``[B, chunk, V]`` f32
+logits alive at a time.
 """
 from __future__ import annotations
 
@@ -20,11 +24,13 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.placement import resolve_device
+from ..core.tree import flatten, tree_map, unflatten
 from .config import ArchConfig
 from .layers import (attention, attention_init, embed, embed_init, lm_logits,
-                     mlp, mlp_init, rmsnorm, rmsnorm_init)
+                     logits_f32, mlp, mlp_init, rmsnorm, rmsnorm_init)
 
 Params = Any
 
@@ -76,15 +82,31 @@ def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
     return x, new_cache
 
 
-def _tree_map(fn, *trees):
-    if isinstance(trees[0], dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
+def _unstack(tree: Params) -> list[Params]:
+    """The layers of a stacked ``[L, ...]`` tree (views, no copies): one
+    ``unbind`` per leaf, so autograd stacks the layers' gradients once."""
+    flat, treedef = flatten(tree)
+    cols = [a.unbind(0) for a in flat]
+    return [unflatten(treedef, [c[i] for c in cols])
+            for i in range(len(cols[0]))]
 
 
-def _layer(tree: Params, i: int) -> Params:
-    """Layer ``i`` of a stacked ``[L, ...]`` tree (views, no copies)."""
-    return _tree_map(lambda a: a[i], tree)
+def _remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass (the
+    JAX ``jax.checkpoint``); a plain call where no gradient is recorded."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _chunk_nll(h: torch.Tensor, table: torch.Tensor, t: torch.Tensor,
+               m: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Masked negative log-likelihood summed over one [B, chunk] chunk."""
+    B, c, d = h.shape
+    logits = logits_f32(h.reshape(B * c, d), table)[:, :vocab]
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, 1, t.reshape(B * c, 1).long())[:, 0]
+    return ((lse - gold) * m.reshape(B * c)).sum()
 
 
 # =========================================================================== #
@@ -109,7 +131,7 @@ class LM:
             "final_norm": rmsnorm_init(cfg.d_model, dtype, generator.device),
         }
         layers = [_block_init(cfg, generator) for _ in range(cfg.n_layers)]
-        params["layers"] = _tree_map(lambda *a: torch.stack(a), *layers)
+        params["layers"] = tree_map(lambda *a: torch.stack(a), *layers)
         return params
 
     def _layer_meta(self) -> list[tuple[int, float]]:
@@ -123,16 +145,61 @@ class LM:
 
     # -- full-sequence forward ------------------------------------------------ #
     def apply(self, params: Params, ids: torch.Tensor | None = None, *,
-              embeds: torch.Tensor | None = None
-              ) -> torch.Tensor:
-        """→ hidden [B, S, d]. Use :meth:`logits` after.  (The JAX ``apply``
-        also returns the MoE aux losses; the dense family has none.)"""
+              embeds: torch.Tensor | None = None, remat: bool = True,
+              scan_chunks: int = 0) -> torch.Tensor:
+        """→ hidden [B, S, d]. Use :meth:`loss` / :meth:`logits` after.  (The
+        JAX ``apply`` also returns the MoE aux losses; the dense family has
+        none.)
+
+        ``remat``: recompute each layer's activations in the backward pass.
+        ``scan_chunks=c``: also checkpoint each chunk of c layers (the JAX
+        nested-remat scan), ignored unless c divides ``n_layers``."""
+        cfg = self.cfg
         x = self._embed_in(params, ids, embeds)
-        for i, (w, th) in enumerate(self._layer_meta()):
-            x, _ = _block_apply(self.cfg, _layer(params["layers"], i), x,
-                                window=w, theta=th)
-        x = rmsnorm(params["final_norm"], x)
-        return x
+        layers = _unstack(params["layers"])
+        meta = self._layer_meta()
+
+        def layer(i: int, h: torch.Tensor) -> torch.Tensor:
+            w, th = meta[i]
+            return _block_apply(cfg, layers[i], h, window=w, theta=th)[0]
+
+        def run(lo: int, hi: int, h: torch.Tensor) -> torch.Tensor:
+            for i in range(lo, hi):
+                h = _remat(layer, i, h) if remat else layer(i, h)
+            return h
+
+        c = scan_chunks
+        if remat and c and cfg.n_layers % c == 0:
+            for lo in range(0, cfg.n_layers, c):
+                x = _remat(run, lo, lo + c, x)
+        else:
+            x = run(0, cfg.n_layers, x)
+        return rmsnorm(params["final_norm"], x)
+
+    def loss(self, params: Params, hidden: torch.Tensor,
+             targets: torch.Tensor, mask: torch.Tensor | None = None,
+             chunk: int = 512) -> torch.Tensor:
+        """Mean next-token cross-entropy over the masked tokens, f32.
+
+        As the JAX ``LM.loss``: ``S // chunk`` chunks (the tail tokens are
+        dropped), logits of the embedding table (bf16 products summed in
+        f32, f32 out; :func:`~repro_torch.models.layers.logits_f32`) sliced
+        to the vocab; each chunk checkpointed, so one chunk's logits are
+        alive at a time."""
+        B, S, _ = hidden.shape
+        chunk = min(chunk, S)
+        table = params["embed"]["table"]
+        tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for lo in range(0, S // chunk * chunk, chunk):
+            sl = slice(lo, lo + chunk)
+            t = targets[:, sl]
+            m = (mask[:, sl].to(torch.float32) if mask is not None else
+                 torch.ones(t.shape, dtype=torch.float32, device=t.device))
+            tot = tot + _remat(_chunk_nll, hidden[:, sl], table, t, m,
+                               self.cfg.vocab)
+            cnt = cnt + m.sum()
+        return tot / torch.clamp(cnt, min=1.0)
 
     def logits(self, params: Params, hidden: torch.Tensor) -> torch.Tensor:
         return lm_logits(params["embed"], hidden, self.cfg.vocab)
@@ -167,10 +234,10 @@ class LM:
     def _forward_cached(self, params: Params, ids, cache: Params, pos: int, *,
                         embeds=None) -> tuple[torch.Tensor, Params]:
         x = self._embed_in(params, ids, embeds)
-        for i, (w, th) in enumerate(self._layer_meta()):
-            x, _ = _block_apply(self.cfg, _layer(params["layers"], i), x,
-                                window=w, theta=th,
-                                cache=_layer(cache, i), cache_pos=int(pos))
+        for lp, lc, (w, th) in zip(_unstack(params["layers"]),
+                                   _unstack(cache), self._layer_meta()):
+            x, _ = _block_apply(self.cfg, lp, x, window=w, theta=th,
+                                cache=lc, cache_pos=int(pos))
         x = rmsnorm(params["final_norm"], x)
         return x, cache
 

@@ -1,4 +1,5 @@
-"""Deterministic fault injection for the executor's retry and quarantine paths.
+"""Deterministic fault injection for the executor's retry and quarantine
+paths and for the training loop's checkpoint-restart.
 
 Testing that a pipeline survives a failing stage without a chip to unplug
 needs scripted faults:
@@ -9,26 +10,31 @@ needs scripted faults:
   N-th invocation of a stage; ``lose_device(ordinal, after_calls=...)``
   makes every stage call placed on that device ordinal raise
   :class:`DeviceLostError` permanently — the scripted analog of a card
-  dropping out.
+  dropping out; ``fail_step(at_steps=...)`` scripts training-step faults, each firing
+  once, so a checkpoint-restart replay of the same step succeeds.
 
 * :class:`FaultInjector` — the built plan, hooked into the executor's
   stage call-sites (``PipelineExecutor(fault_injector=...)`` calls
-  :meth:`FaultInjector.on_stage_call` before every stage body).  Injection
-  happens BEFORE the stage function runs, so a retried call never
-  re-executes a stage that already wrote part of its output.
+  :meth:`FaultInjector.on_stage_call` before every stage body) and into
+  the training loop (``FaultTolerantDriver(faults=...)`` calls
+  :meth:`FaultInjector.on_step`; a legacy ``fail_hook(step)`` callback is
+  wrapped by :meth:`FaultInjector.from_hook`).  Injection happens BEFORE
+  the stage function runs, so a retried call never re-executes a stage
+  that already wrote part of its output.
 
 The injector is also scriptable *after* construction (``lose_device`` on a
 live injector).  The JAX package's ``slowdown`` and ``random_transients``
-scripts (for its replication and chaos benchmarks), training-loop hook
-(``fail_step``, ``on_step``, ``as_injector``) and elastic-inventory helpers
-(``surviving``, ``remap_devices``) wait for the slices that use them.
+scripts (for its replication and chaos benchmarks) and elastic-inventory
+helpers (``surviving``, ``remap_devices``) wait for the slices that use
+them.
 """
 from __future__ import annotations
 
 import threading
-from typing import Iterable
+from typing import Any, Callable, Iterable
 
-__all__ = ["FaultPlan", "FaultInjector", "InjectedFault", "DeviceLostError"]
+__all__ = ["FaultPlan", "FaultInjector", "InjectedFault", "DeviceLostError",
+           "as_injector"]
 
 
 class InjectedFault(RuntimeError):
@@ -58,6 +64,7 @@ class FaultPlan:
     def __init__(self) -> None:
         self.transients: dict[int, set[int]] = {}     # stage -> call counts
         self.device_losses: dict[int, int] = {}       # ordinal -> after_calls
+        self.step_faults: set[int] = set()            # training steps
 
     def transient(self, stage: int, at_calls: Iterable[int]) -> "FaultPlan":
         """Raise :class:`InjectedFault` on the given invocation counts of
@@ -71,6 +78,12 @@ class FaultPlan:
         calls have been placed on it: that call and every later one on the
         ordinal raise :class:`DeviceLostError`."""
         self.device_losses[int(ordinal)] = int(after_calls)
+        return self
+
+    def fail_step(self, at_steps: Iterable[int]) -> "FaultPlan":
+        """Raise :class:`InjectedFault` at the given training steps — each
+        fires ONCE, so a checkpoint-restart replay of the step succeeds."""
+        self.step_faults.update(int(s) for s in at_steps)
         return self
 
     def build(self) -> "FaultInjector":
@@ -93,8 +106,18 @@ class FaultInjector:
         self._stage_calls: dict[int, int] = {}
         self._device_calls: dict[int, int] = {}
         self._lost: set[int] = set()          # ordinals whose loss triggered
+        self._steps_fired: set[int] = set()
+        self._hook: Callable[[int], None] | None = None
         self.injected = 0                     # transient faults raised
         self.device_faults = 0                # device-loss faults raised
+
+    @classmethod
+    def from_hook(cls, hook: Callable[[int], None]) -> "FaultInjector":
+        """Wrap a legacy ``fail_hook(step)`` callback so training code has
+        one injection API."""
+        inj = cls()
+        inj._hook = hook
+        return inj
 
     # -- live scripting (benchmarks pull devices mid-run) -------------------- #
     def lose_device(self, ordinal: int, *, after_calls: int = 0) -> None:
@@ -130,6 +153,19 @@ class FaultInjector:
                     f"injected transient: stage {stage} call {n}"
                     + (f" (replica {replica})" if replica is not None else ""))
 
+    # -- training hook -------------------------------------------------------- #
+    def on_step(self, step: int) -> None:
+        """Called by the training driver before each step; raises the
+        scripted step fault (once per scripted step)."""
+        if self._hook is not None:
+            self._hook(step)
+            return
+        with self._lock:
+            if step in self.plan.step_faults and step not in self._steps_fired:
+                self._steps_fired.add(step)
+                self.injected += 1
+                raise InjectedFault(f"injected step fault at step {step}")
+
     # -- queries --------------------------------------------------------------- #
     def lost_ordinals(self) -> frozenset[int]:
         """Ordinals whose scripted loss has TRIGGERED (a loss scripted but
@@ -147,3 +183,14 @@ class FaultInjector:
             return {"injected": self.injected,
                     "device_faults": self.device_faults,
                     "lost_ordinals": sorted(self._lost)}
+
+
+def as_injector(faults: Any) -> FaultInjector | None:
+    """Normalize a ``faults=`` argument: a plan is built, an injector
+    passes through, ``None`` stays ``None``."""
+    if faults is None or isinstance(faults, FaultInjector):
+        return faults
+    if isinstance(faults, FaultPlan):
+        return faults.build()
+    raise TypeError(f"faults must be a FaultPlan or FaultInjector, "
+                    f"got {type(faults).__name__}")

@@ -202,3 +202,117 @@ def test_lm_on_card_runs_every_prefill_attention_through_the_kernel(
     assert st["k7_launches_prefill"] == 6 and st["k7_launches_decode"] == 0
     assert st["finite"] and st["ids"].shape == (2, 5)
     assert st["prefill_device_ms"] > 0
+
+
+def _grads_close(got, want, bf16: bool) -> None:
+    """K8/K9's gradient against autograd through the plain forward, element
+    by element: one bf16 ulp plus 2^-8 rms, or 2e-4 of |g| + rms in f32."""
+    want = want.float()
+    diff = (got.float() - want).abs()
+    rms = want.square().mean().sqrt()
+    limit = (2.0**-7 * want.abs() + 2.0**-8 * rms if bf16
+             else 2e-4 * (want.abs() + rms))
+    assert torch.isfinite(got).all() and (diff <= limit).all(), \
+        float((diff / limit).max())
+
+
+@pytest.mark.parametrize("B,T,H,hd,M", [(1, 128, 1, 64, 128),
+                                        (2, 77, 3, 16, 131),
+                                        (2, 128, 4, 32, 384),
+                                        (1, 300, 2, 256, 200),
+                                        (2, 33, 2, 128, 97)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64), (False, 0),
+                                           (False, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_matches_plain_version_on_card(
+        cuda_device, B, T, H, hd, M, causal, window, dtype):
+    g = torch.Generator(cuda_device).manual_seed(T + M + hd + 1)
+    q, k, v, do = (torch.randn((B, L, H, hd), generator=g, device=cuda_device
+                               ).to(dtype) for L in (T, M, M, T))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(fa.LAUNCHES)
+    o = fa.flash_attention(*leaves, causal, window)
+    got = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    assert {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES} == {
+        "flash_attention": 1, "flash_attention_bwd_dq": 1,
+        "flash_attention_bwd_dkv": 1}
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(
+        fa.flash_attention_ref(*ref, causal, window)[0], ref, do)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        _grads_close(a, b, dtype == torch.bfloat16)
+
+
+def test_reduced_train_step_on_card_runs_k7_k8_k9_per_layer(cuda_device):
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import LM
+    from repro_torch.optim import adamw_init
+
+    cfg = serve.lm_config("gemma3-12b", layers=6)
+    L = cfg.n_layers
+    params = LM(cfg).init(torch.Generator("cpu").manual_seed(0))
+    rng = np.random.default_rng(0)
+    ids, labels = (torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40)))
+                   for _ in range(2))
+    losses = {}
+    for dev in ("cpu", cuda_device):
+        p = tree_map(lambda t: t.to(dev, copy=True), params)  # updated in place
+        _, step = make_train_step(cfg, lr=1e-3, warmup=2, total_steps=10,
+                                  loss_chunk=16)
+        state = {"params": p, "opt": adamw_init(p)}
+        fa.reset_launches()
+        batch = {"ids": ids.to(dev), "labels": labels.to(dev),
+                 "mask": torch.ones((2, 40), device=dev)}
+        state, met = step(state, batch)
+        losses[str(dev)] = float(met["loss"])
+        counts = dict(fa.LAUNCHES)
+    assert counts == {"flash_attention": 2 * L, "flash_attention_bwd_dq": L,
+                      "flash_attention_bwd_dkv": L}
+    assert np.isfinite(losses["cuda"])
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+def test_logits_backward_on_card_keeps_the_f32_gradient(cuda_device):
+    """The loss's logits product in bf16: its backward carries the f32
+    gradient as three bf16 terms, so it equals the product with the f32
+    gradient (as JAX's transpose takes it) within one bf16 ulp, and on all
+    but 1% of the elements."""
+    from repro_torch.models import layers as ml
+
+    g = torch.Generator(cuda_device).manual_seed(3)
+    h, table = (torch.randn(s, generator=g, device=cuda_device).bfloat16()
+                .requires_grad_() for s in ((96, 256), (4096, 256)))
+    out = ml.logits_f32(h, table)
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, h.float() @ table.float().t(),
+                               rtol=1e-5, atol=1e-4)
+    dout = torch.randn(out.shape, generator=g, device=cuda_device)
+    got = torch.autograd.grad(out, (h, table), dout)
+    want = ((dout @ table.detach().float()).bfloat16(),
+            (dout.t() @ h.detach().float()).bfloat16())
+    for a, w in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        a, w = a.float(), w.float()
+        rms = w.square().mean().sqrt()
+        assert ((a - w).abs() <= 2.0**-7 * w.abs() + 2.0**-8 * rms).all()
+        assert (a != w).float().mean().item() <= 0.01
+
+
+def test_backward_wrappers_take_a_strided_output_gradient(cuda_device):
+    """K8's and K9's wrappers refuse a strided do; flash_attention_bwd (the
+    Function's backward) makes it contiguous once for both."""
+    g = torch.Generator(cuda_device).manual_seed(4)
+    q, k, v = (torch.randn((1, 40, 2, 32), generator=g, device=cuda_device)
+               for _ in range(3))
+    do = torch.randn((1, 2, 40, 32), generator=g,
+                     device=cuda_device).transpose(1, 2)
+    _, lse = fa.flash_attention_fwd(q, k, v, True, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_bwd_dq(q, k, v, lse, do, True, 0)
+    got = fa.flash_attention_bwd(q, k, v, lse, do, True, 0)
+    want = fa.flash_attention_bwd_ref(q, k, v, lse, do.contiguous(), True, 0)
+    for a, w in zip(got, want):
+        _grads_close(a, w, False)

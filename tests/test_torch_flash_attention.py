@@ -81,7 +81,9 @@ def test_plain_version_matches_the_jax_reference(shape, causal, window,
                                rtol=0, atol=0)
     torch.testing.assert_close(ops.attention(q, k, v, causal, window), o,
                                rtol=0, atol=0)
-    assert fa.LAUNCHES == {"flash_attention": 0}     # CPU: no kernel launched
+    assert fa.LAUNCHES == {"flash_attention": 0,     # CPU: no kernel launched
+                           "flash_attention_bwd_dq": 0,
+                           "flash_attention_bwd_dkv": 0}
 
 
 def test_rows_that_see_no_key_get_the_references_uniform_softmax():

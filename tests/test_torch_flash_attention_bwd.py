@@ -1,0 +1,163 @@
+"""K8 and K9, the port's flash-attention backward, on the CPU, held against
+the JAX package.
+
+The JAX Pallas kernels cannot run here (the installed
+``jax.experimental.pallas`` has no ``load``), so the oracle is ``jax.grad``
+through the JAX package's software function,
+``repro.kernels.ref.reference_attention``.  On the CPU the port's wrapper
+(``flash_attention_bwd``) takes its plain version,
+``flash_attention_bwd_ref``, and ``FlashAttention`` (the autograd Function
+behind ``kernels.ops.attention``) runs the plain forward and backward; the
+CUDA kernels are held to those plain versions on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+
+Cases: ``tests/test_kernels.py:39-66``'s (2, 256, 2, 64) causal and
+(1, 256, 2, 64) with window 128, plus T != M and lengths off any tile, and
+rows that see no key (T > M + window - 1), whose stored lse cannot give
+their probabilities.  The limit is f32's 2e-4, relative to the gradient's
+largest value.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
+
+torch.set_num_threads(1)
+
+# (B, T, H, hd, M, causal, window)
+CASES = [(2, 256, 2, 64, 256, True, 0),
+         (1, 256, 2, 64, 256, True, 128),
+         (2, 77, 3, 16, 131, True, 0),
+         (1, 100, 2, 32, 45, False, 0),
+         (2, 70, 2, 16, 50, False, 24),
+         (1, 90, 2, 32, 40, True, 16)]        # rows 55.. see no key
+TOL = 2e-4
+
+
+def _inputs(B, T, H, hd, M, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s, dtype=np.float32)
+            for s in ((B, T, H, hd), (B, M, H, hd), (B, M, H, hd),
+                      (B, T, H, hd))]
+
+
+def _jax_grads(q, k, v, do, causal, window):
+    """(dq, dk, dv) of sum(reference_attention(q, k, v) * do)."""
+    def f(q, k, v):
+        return jnp.sum(ref.reference_attention(q, k, v, causal, window) * do)
+    return [np.asarray(g) for g in jax.grad(f, argnums=(0, 1, 2))(q, k, v)]
+
+
+def _close(got, want, name):
+    scale = np.abs(want).max()
+    err = np.abs(got - want).max() / scale
+    assert err <= TOL, f"{name}: {err} of max |ref|"
+
+
+def _ids(c):
+    return "B{}T{}H{}hd{}M{}-c{}w{}".format(*c)
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+def test_plain_backward_matches_jax_grad_of_the_reference(case):
+    B, T, H, hd, M, causal, window = case
+    q, k, v, do = _inputs(B, T, H, hd, M, seed=sum(case[:5]))
+    want = _jax_grads(*map(jnp.asarray, (q, k, v, do)), causal, window)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = fa.flash_attention_fwd(tq, tk, tv, causal, window)
+    fa.reset_launches()
+    got = fa.flash_attention_bwd(tq, tk, tv, lse, tdo, causal, window)
+    assert all(fa.LAUNCHES[k] == 0 for k in fa.LAUNCHES)   # CPU: plain
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape
+        _close(g.numpy(), w, name)
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+def test_function_gradients_match_jax_grad_of_the_reference(case):
+    B, T, H, hd, M, causal, window = case
+    q, k, v, do = _inputs(B, T, H, hd, M, seed=7 + sum(case[:5]))
+    want = _jax_grads(*map(jnp.asarray, (q, k, v, do)), causal, window)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    o = ops.attention(*leaves, causal, window)
+    want_o = ref.reference_attention(*map(jnp.asarray, (q, k, v)), causal,
+                                     window)
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(want_o),
+                               rtol=2e-5, atol=2e-5)
+    got = torch.autograd.grad(o, leaves, torch.from_numpy(do))
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        _close(g.numpy(), w, name)
+
+
+def test_rows_that_see_no_key_send_do_over_m_to_every_dv_row():
+    """The trap of the stored lse: such a row's p is 1/M, not 1."""
+    B, T, H, hd, M, window = 1, 12, 1, 16, 4, 2       # rows 5.. see no key
+    q, k, v, do = (torch.from_numpy(a) for a in
+                   _inputs(B, T, H, hd, M, seed=3))
+    blind = ~fa.visible(T, M, True, window).any(dim=1)
+    assert blind.tolist() == [False] * 5 + [True] * 7
+    do = do * blind[None, :, None, None]      # only the blind rows' gradient
+    o, lse = fa.flash_attention_fwd(q, k, v, True, window)
+    assert bool((lse[0, 5:] <= -1e29).all())  # lse says nothing of M
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, lse, do, True, window)
+    assert float(dq.abs().max()) == 0.0 and float(dk.abs().max()) == 0.0
+    want = do.sum(dim=1, keepdim=True) / M
+    torch.testing.assert_close(dv, want.expand_as(dv), rtol=1e-6, atol=1e-6)
+
+
+def test_bf16_gradients_on_the_cpu_stay_in_bf16():
+    q, k, v, do = (torch.from_numpy(a).bfloat16() for a in
+                   _inputs(1, 33, 2, 32, 33, seed=5))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = ops.attention(*leaves, True, 8)
+    got = torch.autograd.grad(o, leaves, do)
+    want = _jax_grads(*(jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                        for t in (q, k, v, do)), True, 8)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(g.float().numpy(), w.astype(np.float32),
+                                   rtol=2.5e-2,
+                                   atol=2.5e-2 * np.abs(w).max())
+
+
+def test_k8_and_k9_plain_parts_make_the_whole_backward():
+    """On the CPU the K8 wrapper gives (dq, delta) and the K9 wrapper
+    (dk, dv) from that delta: together, the plain backward.  delta is
+    rowsum(o * do) of the forward's o, and 0 on rows 37.. that see no key
+    (their ds is 0 whatever delta is)."""
+    B, T, H, hd, M = 2, 40, 2, 16, 30
+    q, k, v, do = map(torch.from_numpy, _inputs(B, T, H, hd, M, seed=11))
+    o, lse = fa.flash_attention_fwd(q, k, v, True, 8)
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, lse, do, True, 8)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True, 8)
+    assert delta.shape == (B * H, T) and delta.dtype == torch.float32
+    want = (o * do).sum(-1).permute(0, 2, 1).reshape(B * H, T)
+    torch.testing.assert_close(delta[:, :37], want[:, :37], rtol=1e-5,
+                               atol=1e-5)
+    assert float(delta[:, 37:].abs().max()) == 0.0
+    for got, want in zip((dq, dk, dv), fa.flash_attention_bwd_ref(
+            q, k, v, lse, do, True, 8)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_backward_launch_checks_refuse_what_the_kernels_do_not_take():
+    q, k, v, do = map(torch.from_numpy, _inputs(1, 8, 2, 16, 6, seed=1))
+    lse = torch.zeros((2, 8))
+    assert fa._check_bwd(q, k, v, {"do": do},
+                         {"lse": lse}) == (1, 8, 6, 2, 16)
+    with pytest.raises(ValueError, match=r"do of \[1, 8, 2, 16\]"):
+        fa._check_bwd(q, k, v, {"do": do[:, :5].contiguous()}, {"lse": lse})
+    with pytest.raises(ValueError, match="f32 delta"):
+        fa._check_bwd(q, k, v, {"do": do}, {"lse": lse,
+                                            "delta": lse[:1].contiguous()})
+    with pytest.raises(ValueError, match="head_dim 8"):
+        x = torch.zeros((1, 8, 2, 8))
+        fa._check_bwd(x, x[:, :6].contiguous(), x[:, :6].contiguous(),
+                      {"do": x}, {"lse": lse})
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa._check_bwd(q, k, v, {"do": do.bfloat16()}, {"lse": lse})

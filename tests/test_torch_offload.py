@@ -102,10 +102,14 @@ def test_import_loads_no_jax_and_no_reference_package():
             "repro_torch.models.transformer, "
             "repro_torch.core.executor, repro_torch.core.profiler, "
             "repro_torch.runtime.faults, repro_torch.launch.serve, "
-            "repro_torch.quickstart\n"
+            "repro_torch.quickstart, repro_torch.optim, repro_torch.data, "
+            "repro_torch.checkpoint, repro_torch.runtime.driver, "
+            "repro_torch.launch.steps, repro_torch.launch.train, "
+            "repro_torch.core.tree\n"
             "repro_torch.configs.all_configs()\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
-            "or m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+            "or m.startswith('jax.') or m == 'repro' or m.startswith('repro.') "
+            "or m == 'ml_dtypes' or m.startswith('ml_dtypes.'))\n"
             "assert not bad, bad\n")
     env = {**os.environ, "PYTHONPATH": SRC, "OMP_NUM_THREADS": "1"}
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
