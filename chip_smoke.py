@@ -34,7 +34,10 @@ Phases:
 3. kernels  — each kernel against its plain version at the main paths'
               shapes and at ragged shapes, with the reference's tolerances;
               device times (median of back-to-back runs, input cold in L2)
-              beside the bound, the plain version and the library call
+              beside the bound, the plain version and the library call;
+              K7's registers, spills and shared memory, the route each K7
+              case took (bf16 on the tensor cores, f32 on the SIMT kernel),
+              and cuobjdump's proof that bf16 K7 issues K7_TC_SASS
 4. main     — the offload path, fuse=False then fuse=True: hw rows resolved,
               launch counts moved, no host sync on the path, Switcher logs
               empty, outputs equal the plain app; ms/frame of the original
@@ -47,18 +50,20 @@ Phases:
 6. lm       — K7 at the serving shape, on q/k/v of the real prompt at layer
               0 (local) and layer 5 (global), against its plain version
               (o element by element, within one bf16 ulp plus 2^-8 rms);
-              its device time beside the bound, the plain version and
-              F.scaled_dot_product_attention.  Then serve_lm: 6 K7 launches
-              in the prefill, none in the decode loop; the decode loop's
-              logits equal LM.apply over prompt + generated tokens (K7 at
-              T = 4128) within 2.5e-2 of the largest; prefill and decode
-              ms and tokens/s, the card's own prefill ms and K7's share
+              its device time and TFLOP/s beside the bound, the plain
+              version and F.scaled_dot_product_attention.  Then serve_lm:
+              6 K7 launches in the prefill, none in the decode loop; the
+              decode loop's logits equal LM.apply over prompt + generated
+              tokens (K7 at T = 4128) within 2.5e-2 of the largest; prefill
+              and decode ms and tokens/s, the card's own prefill ms and
+              K7's share
 7. train    — K8 and K9 against autograd through K7's plain version at
               every head_dim x (f32, bf16), T != M, ragged lengths, the four
               masks (rows that see no key included), and at the driver
               run's [8, 64, 10, 64] f32 (window 32 and none), element by
               element; at [2, 4096, 16, 256] bf16 (causal and window 1024)
-              K7 element by element, then K8/K9's times beside the bound,
+              K7 element by element and its time and TFLOP/s beside the
+              bound, then K8/K9's times beside the bound,
               the plain backward and SDPA's backward.  Then full-width training steps (12/6/6 K7/K8/K9
               launches each, finite losses, step ms, tokens/s, peak memory,
               a profile), a kernel step against a plain-attention step
@@ -104,6 +109,8 @@ LM_TRAFFIC = dict(arch="gemma3-12b", layers=6, batch=4, prompt_len=4096,
 # T > M + 40 - 1 gives rows that see no key under the window of 40
 FA_RAGGED = [(2, 77, 3, 131), (1, 300, 2, 200)]
 FA_MASKS = [(True, 0), (True, 64), (False, 0), (False, 40)]
+# what bf16 K7 must run: wgmma on the tensor cores (SASS HGMMA)
+K7_TC_SASS = "HGMMA"
 # training: gemma3-12b at full widths, 6 of 48 layers, batch 2 x 4096,
 # one warm-up step, 4 timed steps, one profiled step
 TRAIN = dict(arch="gemma3-12b", layers=6, batch=2, seq_len=4096, timed=4,
@@ -165,18 +172,9 @@ def phase_build():
     print(f"[build] {sources} built in {secs:.2f} s "
           f"(per source: {build.build_seconds})")
     for src in sources:
-        entry = ""
-        for line in build.build_logs.get(src, "").splitlines():
-            if "Compiling entry function" in line:
-                # the kernel's name, head_dim and type in the mangled name
-                m = re.search(r"(?<=\d)([a-z][a-z_]*_kernel)"
-                              r"(?:ILi(\d+)E(f|13__nv_bfloat16))?", line)
-                dt = "f32" if m and m.group(3) == "f" else "bf16"
-                entry = (" " + m.group(1) + (f"<{m.group(2)}, {dt}>"
-                                             if m.group(2) else "")
-                         if m else "")
-            if "registers" in line or "spill" in line:
-                print(f"[build] ptxas {src}{entry}: {line.strip()}")
+        for entry, lines in ptxas_report(build.build_logs.get(src, "")):
+            for line in lines:
+                print(f"[build] ptxas {src} {entry}: {line}")
     for th, tw, bs in ((32, 32, 2), (16, 64, 3)):
         check(lib.repro_harris_tile_smem_bytes(th, tw, bs)
               == hk.tile_smem_bytes(th, tw, bs),
@@ -185,6 +183,69 @@ def phase_build():
           == rk.gemm_smem_bytes(),
           "K6's shared-memory tile differs between rmsnorm.cu and Python")
     return secs
+
+
+def kernel_entry(mangled: str) -> str:
+    """``name<head_dim, type>`` of a kernel from its mangled name."""
+    m = re.search(r"(?<=\d)([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?", mangled)
+    if not m:
+        return mangled[:60]
+    dt = "bf16" if "__nv_bfloat16" in mangled else "f32"
+    return m.group(1) + (f"<{m.group(2)}, {dt}>" if m.group(2) else "")
+
+
+def ptxas_report(log: str) -> list:
+    """[(kernel entry, its ptxas -v lines on registers and spills)] from an
+    nvcc log."""
+    out = []
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            out.append((kernel_entry(line), []))
+        elif out and ("registers" in line or "spill" in line):
+            out[-1][1].append(line.strip().removeprefix("ptxas info    : "))
+    return out
+
+
+def k7_resources() -> dict:
+    """K7's kernels: registers and spills from the ptxas -v log that
+    ``kernels/build.py`` keeps, the dynamic shared memory a block takes,
+    and the tensor-core instructions ``cuobjdump -sass`` finds in each.
+    Fails unless every bf16 entry runs ``K7_TC_SASS`` and no f32 entry
+    runs a tensor-core instruction."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+
+    lib = fa.library()
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump"),
+         "-sass", str(build.library_path("flash_attention"))],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    tc = {}
+    for chunk in sass.split("Function : ")[1:]:
+        ops = re.findall(r"\b(HGMMA|HMMA)\.", chunk)
+        tc[kernel_entry(chunk.split()[0])] = {o: ops.count(o)
+                                              for o in set(ops)}
+    out = {}
+    for entry, lines in ptxas_report(build.build_logs.get("flash_attention",
+                                                          "")):
+        hd = int(re.search(r"<(\d+),", entry).group(1))
+        regs = re.search(r"Used (\d+) registers", " ".join(lines))
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", " ".join(lines))
+        bf16 = entry.endswith("bf16>")
+        out[entry] = {"registers": int(regs.group(1)) if regs else None,
+                      "spill_stores": int(spill.group(1)) if spill else None,
+                      "spill_loads": int(spill.group(2)) if spill else None,
+                      "smem_bytes": lib.repro_flash_attention_smem_bytes(
+                          hd, int(bf16)),
+                      "sass": tc.get(entry, {})}
+        print(f"[kernels] K7 {entry}: {out[entry]}")
+        check(bool(out[entry]["sass"].get(K7_TC_SASS)) if bf16
+              else not out[entry]["sass"],
+              f"K7 {entry}: tensor-core instructions {out[entry]['sass']}")
+    check(len(out) == 2 * len(fa.HEAD_DIMS),
+          f"K7's ptxas log names {sorted(out)}")
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -675,24 +736,42 @@ def phase_flash_kernels() -> float:
 
     from repro_torch.kernels import flash_attention as fa
 
+    resources = k7_resources()
     g = torch.Generator("cuda").manual_seed(7)
     err = worst = 0.0
     (dB, dT, dH, dM), dhd, dmasks = driver_attention()
     cases = [(hd, dt, shape, FA_MASKS) for hd in fa.HEAD_DIMS
              for dt in (torch.float32, torch.bfloat16) for shape in FA_RAGGED]
     cases.append((dhd, torch.float32, (dB, dT, dH, dM), dmasks))
+    routes = {}
     for hd, dt, (B, T, H, M), masks in cases:
         q, k, v = (torch.randn((B, L, H, hd), generator=g,
                                device="cuda").to(dt) for L in (T, M, M))
         for causal, window in masks:
             d, w = flash_err(q, k, v, causal, window)
             err, worst = max(err, d), max(worst, w)
+        routes[(hd, str(dt).removeprefix("torch."))] = k7_routes(len(masks))
     print(f"[kernels] flash_attention: hd {fa.HEAD_DIMS} x (f32, bf16) x "
           f"{FA_RAGGED} (B, T, H, M) x (causal, window) {FA_MASKS}, and the "
           f"driver's [{dB}, {dT}, {dH}, {dhd}] f32 x {dmasks}, match the "
           f"plain version (max abs err {err}, at most {worst} of the "
           f"element-wise limit)")
-    return err
+    print(f"[kernels] K7 routes by (head_dim, type): {routes}")
+    return err, resources
+
+
+def k7_routes(n: int) -> str:
+    """The route K7's last ``n`` launches took (read from the wrapper's
+    per-route counts, which it then zeroes); fails unless one route took
+    them all and it is the one ``fa.ROUTES`` names for their type."""
+    from repro_torch.kernels import flash_attention as fa
+
+    took = {r: c for r, c in fa.ROUTE_LAUNCHES.items() if c}
+    for r in fa.ROUTE_LAUNCHES:
+        fa.ROUTE_LAUNCHES[r] = 0
+    check(len(took) == 1 and sum(took.values()) == n,
+          f"K7's last {n} launches took the routes {took}")
+    return next(iter(took))
 
 
 def sdpa_backend(qt, kt, vt, mask, is_causal: bool) -> str:
@@ -818,7 +897,9 @@ def phase_lm(small_err: float):
         q, k, v, causal, window = taken[layer]
         check(tuple(q.shape) == (B, P, cfg.n_heads, cfg.hd)
               and q.dtype == torch.bfloat16, f"K7 input {tuple(q.shape)}")
+        fa.reset_launches()
         d, worst = flash_err(q, k, v, causal, window)
+        route = k7_routes(1)
         err = max(err, d)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         if window:
@@ -845,14 +926,18 @@ def phase_lm(small_err: float):
                                     label=f"K7 {kind} library", **kw),
             "library": f"F.scaled_dot_product_attention ({backend})",
             "pairs": B * cfg.n_heads * visible_pairs(P, P, causal, window),
-            "max_abs_err": d, "err_of_elementwise_limit": worst}
+            "max_abs_err": d, "err_of_elementwise_limit": worst,
+            "route": route}
         r = per[kind]
+        r["tflops"] = 4.0 * cfg.hd * r["pairs"] / r["ms"] / 1e9
+        r["bound_tflops"] = 4.0 * cfg.hd * r["pairs"] / r["bound_ms"] / 1e9
         print(f"[lm] K7 {kind} layer {layer} (window {window}) at "
-              f"[{B}, {P}, {cfg.n_heads}, {cfg.hd}] bf16: kernel_ms="
-              f"{r['ms']:.5f} plain_ms={r['plain_ms']:.5f} bound_ms="
-              f"{r['bound_ms']:.5f} ({by}) library_ms={r['library_ms']:.5f} "
-              f"[{r['library']}] pairs={r['pairs']} max_abs_err={d} "
-              f"({worst} of the element-wise limit)")
+              f"[{B}, {P}, {cfg.n_heads}, {cfg.hd}] bf16 (route {route}): "
+              f"kernel_ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} "
+              f"bound_ms={r['bound_ms']:.5f} ({by}) library_ms="
+              f"{r['library_ms']:.5f} [{r['library']}] pairs={r['pairs']} "
+              f"TFLOP/s={r['tflops']:.2f} (bound {r['bound_tflops']:.2f}) "
+              f"max_abs_err={d} ({worst} of the element-wise limit)")
         del q, k, v, qt, kt, vt
     taken.clear()
     torch.cuda.empty_cache()
@@ -914,7 +999,7 @@ def phase_lm(small_err: float):
     row = {**per["global"], "max_abs_err": err,
            **{f"local_{k}": per["local"][k] for k in (
                "ms", "plain_ms", "bound_ms", "library_ms", "library",
-               "max_abs_err", "err_of_elementwise_limit")}}
+               "max_abs_err", "err_of_elementwise_limit", "tflops")}}
     return row, counts, out
 
 
@@ -1016,12 +1101,12 @@ def bwd_bound(q, k, causal: bool, window: int, flops_per_hd: int,
             else "bytes", pairs)
 
 
-def phase_bwd_timing(small: dict) -> dict:
+def phase_bwd_timing(small: dict) -> tuple[dict, dict]:
     """K8 and K9 at the training shape, [2, 4096, 16, 256] bf16, on the
     global (causal) and a local (window 1024) layer: K7's o and lse held to
-    the plain forward and K8/K9 to the plain backward from K7's lse, then
-    timed beside the bound, the plain version and the backward of
-    F.scaled_dot_product_attention."""
+    the plain forward (and K7 timed beside its bound), K8/K9 to the plain
+    backward from K7's lse, then timed beside the bound, the plain version
+    and the backward of F.scaled_dot_product_attention."""
     import torch
     import torch.nn.functional as F
 
@@ -1034,11 +1119,25 @@ def phase_bwd_timing(small: dict) -> dict:
                                ).bfloat16() for _ in range(4))
     per, errs = {}, dict(small)
     kw = dict(reps=5, cycles=int(4e7))
+    k7 = {}
     for kind, causal, window in (("global", True, 0), ("local", True, 1024)):
+        fa.reset_launches()
         d, w = flash_err(q, k, v, causal, window)
+        route = k7_routes(1)
+        bound, by = attention_bound(q, k, causal, window)
+        flops = 4.0 * hd * B * H * visible_pairs(T, T, causal, window)
+        ms = device_ms(lambda q, k, v: fa.flash_attention_fwd(
+            q, k, v, causal, window), [(q, k, v)], label=f"K7 {kind} train",
+            **kw)
+        k7[kind] = {"ms": ms, "bound_ms": bound, "bound_by": by,
+                    "tflops": flops / ms / 1e9,
+                    "bound_tflops": flops / bound / 1e9, "route": route,
+                    "max_abs_err": d, "err_of_elementwise_limit": w}
         print(f"[train] flash_attention {kind} (window {window}) at [{B}, "
-              f"{T}, {H}, {hd}] bf16 matches the plain forward: max abs err "
-              f"{d}, {w} of the element-wise limit")
+              f"{T}, {H}, {hd}] bf16 (route {route}) matches the plain "
+              f"forward: max abs err {d}, {w} of the element-wise limit; "
+              f"kernel_ms={ms:.5f} TFLOP/s={flops / ms / 1e9:.2f} bound_ms="
+              f"{bound:.5f} ({by}, {flops / bound / 1e9:.2f} TFLOP/s)")
         lse = fa.flash_attention_fwd(q, k, v, causal, window)[1]
         dq, delta = fa.flash_attention_bwd_dq(q, k, v, lse, do, causal,
                                               window)
@@ -1109,7 +1208,7 @@ def phase_bwd_timing(small: dict) -> dict:
                       **{f"local_{f}": r["local"][f] for f in (
                           "ms", "plain_ms", "bound_ms", "library_ms",
                           "pairs")}}
-    return rows
+    return rows, k7
 
 
 def phase_train() -> tuple[dict, dict]:
@@ -1184,7 +1283,7 @@ def phase_train() -> tuple[dict, dict]:
            "launches_per_step": per_step}
     prof = device_profile(
         lambda: step(state, data.batch(1 + tr["timed"])),
-        groups={"K7": "flash_fwd_kernel", "K8": "flash_bwd_dq_kernel",
+        groups={"K7": "flash_fwd", "K8": "flash_bwd_dq_kernel",
                 "K9": "flash_bwd_dkv_kernel"})
     prof["k7_k8_k9_share_of_busy"] = (sum(prof["groups"].values())
                                       / prof["device_busy_ms"])
@@ -1294,11 +1393,12 @@ def main() -> int:
     build_s = phase_build()
     rows = phase_kernels()
     rows.update(phase_rmsnorm_kernels())
-    fa_err = phase_flash_kernels()
+    fa_err, k7_res = phase_flash_kernels()
     launches, times = phase_main_path()
     counts, hcounts, served = phase_serve(rows["rmsnorm_matmul"]["ms"])
     rows["flash_attention"], fcounts, lm = phase_lm(fa_err)
-    rows.update(phase_bwd_timing(phase_flash_bwd_kernels()))
+    bwd_rows, k7_train = phase_bwd_timing(phase_flash_bwd_kernels())
+    rows.update(bwd_rows)
     tcounts, trained = phase_train()
     dcounts, driven = phase_driver()
     for k, v in (*counts.items(), *hcounts.items(), *fcounts.items(),
@@ -1332,6 +1432,7 @@ def main() -> int:
                       "frame": [H, W], "frames": N_FRAMES,
                       "serve_transformer": served, "serve_lm": lm,
                       "train": trained, "driver": driven,
+                      "k7_resources": k7_res, "k7_train_shape": k7_train,
                       "local_layer": {n: {k: v for k, v in rows[n].items()
                                           if k.startswith("local_")}
                                       for n in ("flash_attention",

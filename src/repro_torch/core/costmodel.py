@@ -6,12 +6,18 @@ latency report for hardware modules (paper Sect. III-B.4).  The port has no
 synthesis report either, so the "hardware" estimate is an analytical
 roofline:
 
-    t = max(flops / PEAK_FLOPS, bytes / HBM_BW)  (+ collective term)
+    t = max(bf16 flops / PEAK_FLOPS_BF16 + f32 flops / PEAK_FLOPS_F32,
+            bytes / HBM_BW)  (+ collective term)
 
 against NVIDIA H100 SXM **spec-sheet priors** (not measurements): 989 TFLOP/s
-dense bf16, 3.35 TB/s HBM3, 450 GB/s NVLink each way, and 232,448 B of shared
-memory a block can opt into.  Measured times replace the priors wherever the
-Frontend or a profiler supplies one.
+dense bf16 on the tensor cores, 67 TFLOP/s of f32 outside them, 3.35 TB/s
+HBM3, 450 GB/s NVLink each way, and 232,448 B of shared memory a block can
+opt into.  Work on f32 operands (4-byte elements in the cost helpers below)
+is timed at the f32 peak: the port's f32 kernels take no bf16 or TF32
+operands, since their tolerance (2e-4 of the largest value) leaves no room.
+The JAX package's cost model keeps its single peak, so the two packages'
+estimates of f32 work differ by design.  Measured times replace the priors
+wherever the Frontend or a profiler supplies one.
 
 Both sources feed the same ``NodeCost`` record so the Pipeline Generator's
 balanced partitioning is agnostic to where a time came from — exactly as in
@@ -25,6 +31,7 @@ from typing import Callable, Sequence
 
 # ---- NVIDIA H100 SXM priors (data sheet; per card) ------------------------ #
 PEAK_FLOPS_BF16 = 989e12        # FLOP/s, dense bf16 tensor cores
+PEAK_FLOPS_F32 = 67e12          # FLOP/s, f32 outside the tensor cores
 HBM_BW = 3.35e12                # bytes/s
 NVLINK_BW = 450e9               # bytes/s per direction
 SMEM_BYTES = 232_448            # shared memory one block can opt into
@@ -62,6 +69,7 @@ class DeviceClass:
 
     name: str
     peak_flops: float = PEAK_FLOPS_BF16
+    peak_flops_f32: float = PEAK_FLOPS_F32
     hbm_bw: float = HBM_BW
     link_bw: float = NVLINK_BW
     xfer_bw: float = HOST_XFER_BW       # host<->device staging bandwidth
@@ -76,9 +84,10 @@ DEVICE_CLASSES: dict[str, DeviceClass] = {
     "h100": H100,
     "gpu": H100,           # the port's CUDA devices are H100s
     # one beefy host core + DDR: the "software filter on a CPU core" class
-    "cpu": DeviceClass("cpu", peak_flops=1e11, hbm_bw=3e10, link_bw=1e10,
-                       xfer_bw=30e9, smem_bytes=32 * 1024**2,
-                       smem_per_sm=32 * 1024**2, sm_count=1),
+    "cpu": DeviceClass("cpu", peak_flops=1e11, peak_flops_f32=1e11,
+                       hbm_bw=3e10, link_bw=1e10, xfer_bw=30e9,
+                       smem_bytes=32 * 1024**2, smem_per_sm=32 * 1024**2,
+                       sm_count=1),
 }
 
 
@@ -100,12 +109,17 @@ def transfer_ms(nbytes: float, bw_bytes_per_s: float = HOST_XFER_BW) -> float:
 
 @dataclass
 class NodeCost:
-    """Roofline terms for one IR node (or one compiled step)."""
+    """Roofline terms for one IR node (or one compiled step).
+
+    ``f32_flops`` is the part of ``flops`` done on f32 operands, timed at
+    the device's f32 peak; the rest is timed at its bf16 peak.  Costs that
+    are summed sum it too."""
 
     flops: float = 0.0
     bytes_rw: float = 0.0            # HBM traffic (read+write)
     coll_bytes: float = 0.0          # inter-card bytes over NVLink
     measured_ms: float | None = None  # Frontend profile, wins when present
+    f32_flops: float = 0.0           # of ``flops``: on f32 operands
 
     def time_ms(self, chips: int = 1, links: int = 1,
                 device: DeviceClass = H100) -> float:
@@ -113,7 +127,8 @@ class NodeCost:
         measured times still win — a profile is of the device that ran it."""
         if self.measured_ms is not None:
             return self.measured_ms
-        t_compute = self.flops / (chips * device.peak_flops)
+        t_compute = ((self.flops - self.f32_flops) / device.peak_flops
+                     + self.f32_flops / device.peak_flops_f32) / chips
         t_memory = self.bytes_rw / (chips * device.hbm_bw)
         t_coll = self.coll_bytes / (chips * links * device.link_bw)
         return 1e3 * (max(t_compute, t_memory) + t_coll)
@@ -173,7 +188,8 @@ def fused_cost(parts: "list[NodeCost]", intermediate_bytes: float, *,
     byts = sum(p.bytes_rw for p in parts)
     coll = sum(p.coll_bytes for p in parts)
     saved = min(2.0 * intermediate_bytes, byts)     # can't save more than all
-    cost = NodeCost(flops=flops, bytes_rw=byts - saved, coll_bytes=coll)
+    cost = NodeCost(flops=flops, bytes_rw=byts - saved, coll_bytes=coll,
+                    f32_flops=sum(p.f32_flops for p in parts))
     unfused_ms = sum(p.time_ms() for p in parts)
     return FusionEstimate(cost=cost, hbm_bytes_saved=saved,
                           smem_required=int(smem_required),
@@ -186,23 +202,28 @@ def fused_cost(parts: "list[NodeCost]", intermediate_bytes: float, *,
 def matmul_cost(m: int, n: int, k: int, bytes_per_el: int = 2,
                 batch: int = 1) -> NodeCost:
     """An [m, k] @ [k, n] product (``batch`` of them): 2mnk flops, each
-    operand read once and the result written once."""
+    operand read once and the result written once; f32 flops when the
+    elements take 4 bytes."""
     flops = 2.0 * batch * m * n * k
     byts = bytes_per_el * batch * (m * k + k * n + m * n)
-    return NodeCost(flops=flops, bytes_rw=byts)
+    return NodeCost(flops=flops, bytes_rw=byts,
+                    f32_flops=flops if bytes_per_el == 4 else 0.0)
 
 
 def elementwise_cost(numel: int, flops_per_el: float = 1.0,
                      bytes_per_el: int = 2, n_operands: int = 2) -> NodeCost:
-    return NodeCost(flops=flops_per_el * numel,
-                    bytes_rw=bytes_per_el * numel * n_operands)
+    flops = flops_per_el * numel
+    return NodeCost(flops=flops, bytes_rw=bytes_per_el * numel * n_operands,
+                    f32_flops=flops if bytes_per_el == 4 else 0.0)
 
 
 def stencil_cost(h: int, w: int, c: int, taps: int,
                  bytes_per_el: int = 4) -> NodeCost:
     """k-tap 2-D stencil (Sobel, box filter ...) — the Harris building block."""
     numel = h * w * c
-    return NodeCost(flops=2.0 * taps * numel, bytes_rw=2.0 * bytes_per_el * numel)
+    flops = 2.0 * taps * numel
+    return NodeCost(flops=flops, bytes_rw=2.0 * bytes_per_el * numel,
+                    f32_flops=flops if bytes_per_el == 4 else 0.0)
 
 
 # --------------------------------------------------------------------------- #

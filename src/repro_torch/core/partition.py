@@ -597,6 +597,9 @@ def make_model_fused_cost(ir: CourierIR, db: ModuleDatabase | None = None, *,
         for n in run:
             if n.flops is None or n.bytes_rw is None:
                 return float("inf")        # no model → don't gamble on fusion
+            # a node keeps flops and bytes only (its JSON is the reference's),
+            # so the fused run's compute is timed at the bf16 peak; the parts
+            # keep their own times
             parts.append(NodeCost(flops=n.flops, bytes_rw=n.bytes_rw,
                                   measured_ms=n.time_ms))
         inter = sum(ir.values[o].nbytes

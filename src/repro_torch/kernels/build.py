@@ -28,7 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 build_seconds: dict[str, float] = {}      # name -> wall seconds of its nvcc
-build_logs: dict[str, str] = {}           # name -> nvcc's output (ptxas -v)
+build_logs: dict[str, str] = {}           # name -> nvcc's output (ptxas -v),
+                                          # kept beside the library
 
 
 def nvcc_path() -> str:
@@ -63,6 +64,9 @@ def start_build(name: str) -> Build | None:
     """
     out = library_path(name)
     if out.exists():
+        log = out.with_suffix(".log")
+        if log.exists():
+            build_logs[name] = log.read_text()
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -85,6 +89,7 @@ def finish_build(build: Build | None) -> None:
         build.tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for csrc/{build.name}.cu "
                            f"(exit {build.proc.returncode}):\n{log}")
+    library_path(build.name).with_suffix(".log").write_text(log)
     os.replace(build.tmp, library_path(build.name))
 
 

@@ -9,53 +9,95 @@
 //   o[t]    = softmax(s[t]) @ v             in the input type (f32 or bf16)
 //   lse[t]  = log(sum_m exp(s[t, m]))       f32, laid out [B*H, T]
 //
-// with f32 math whatever the input type.  One extern "C" function launches
-// on the caller's stream and returns cudaGetLastError() (0 on success); the
-// wrapper in repro_torch/kernels/flash_attention.py checks dtype, shape,
-// head_dim, contiguity and alignment first.
+// One extern "C" function launches on the caller's stream and returns
+// cudaGetLastError() (0 on success); the wrapper in
+// repro_torch/kernels/flash_attention.py checks dtype, shape, head_dim,
+// contiguity and alignment first.  The route is chosen by the input type:
+//
+//   bf16 -> flash_fwd_wgmma_kernel, on the tensor cores (wgmma, bf16 in,
+//           f32 accumulate, fed by TMA), at every head_dim;
+//   f32  -> flash_fwd_kernel, SIMT in f32: the f32 limit (2e-5 of |o|)
+//           leaves no room for bf16 or TF32 operands.
 //
 // Bound: operations.  At the LM's prefill (B*H 64, T = M 4096, hd 256,
 // bf16) the causal layer needs 537.0 M unmasked (t, m) pairs x 4*hd =
 // 5.50e11 FLOP, 0.556 ms at the card's 989 TFLOP/s of bf16, against 538 MB
-// of q, k, v, o and lse, 0.161 ms at 3.35 TB/s.  This first kernel uses no
-// tensor cores: it is a SIMT kernel in f32, so the f32 rate outside the
-// tensor cores (67 TFLOP/s) bounds it, ~15x above the bf16 bound.
+// of q, k, v, o and lse, 0.161 ms at 3.35 TB/s.
 //
-// Design (not the TPU kernel block by block):
-//   * one block per (b*h, tile of BQ query rows); TPR threads share a query
-//     row, each holding its q slice and its slice of the f32 accumulator in
-//     registers (columns in float4 chunks sub, sub + TPR, ...); a score is
-//     the sum of the TPR partial dots, reduced by warp shuffles;
-//   * k and v tiles of BK = 32 rows are staged in shared memory as f32 and
-//     read as float4 broadcasts (a warp reads TPR consecutive chunks);
-//   * softmax runs online per tile in f32: running max m, sum l and the
-//     accumulator, rescaled by exp(m_old - m_new); o = acc / l, lse = m +
-//     log(l), as _fwd_kernel:80-82;
+// Shared by both kernels:
 //   * whole k tiles outside [q_first - window + 1, q_last] are skipped at
 //     both ends (the causal prune of the TPU kernel, plus the window's);
-//     a tile holding a row that sees no key at all (only when T > M +
+//     a query tile holding a row that sees no key at all (only when T > M +
 //     window - 1) visits every tile, so that row gets the reference's
-//     uniform softmax over the -1e30 scores;
+//     uniform softmax over its -1e30 scores;
 //   * T and M need not be multiples of a tile: rows beyond T are computed
-//     from zeros and not stored, keys beyond M are zero in shared memory
-//     and take no weight;
+//     from zeros and not stored, keys beyond M take no weight;
 //   * the [B, T, H, hd] layout is read in place (row stride H*hd): no
 //     transposes to [B*H, T, hd];
 //   * query tiles are launched heaviest first (the last causal tiles see
 //     the most keys), so the short ones fill the tail of the grid.
-// Build flags keep --fmad=false (K1-K4 rely on it); the products here ask
-// for their FMAs explicitly (fmaf).  Tensor cores (mma.sync / wgmma), TMA
-// and a kv-head-indexed GQA read are later work.
+// Build flags keep --fmad=false (K1-K4 rely on it); the kernels ask for
+// their FMAs explicitly (fmaf).
+//
+// The tensor-core kernel (bf16), warp-specialised:
+//   * a block owns 128 query rows of one (b, h): two consumer warpgroups of
+//     64 rows each, and a producer warpgroup whose one thread keeps TMA
+//     loads of the k and v tiles (64 keys) in flight through a 2-stage
+//     ring of shared memory, guarded by mbarriers: per stage, k landed and
+//     v landed; k free (both consumers' S products done) and v free (their
+//     P.V products done), so the next k loads while this tile's P.V runs;
+//     setmaxnreg hands the producer's registers to the consumers (24 / 240
+//     a thread);
+//   * q, k and v are read by 4-D tensor maps over (hd, H, T|M, B), so the
+//     [B, T, H, hd] layout needs no transpose; a box is 64 rows of at most
+//     64 head_dim elements (128 bytes, 128-byte swizzle; hd 32 and 16 use
+//     the 64- and 32-byte swizzles), so an hd-256 row lands as four boxes
+//     and the wgmma descriptors step through them; TMA fills rows beyond T
+//     or M with zeros;
+//   * S = Q K^T by wgmma m64n64k16 with both operands in shared memory
+//     (K-major); the online softmax runs on the f32 accumulator registers:
+//     running max m and sum l per row in the log2 domain (log2(e) folded
+//     into the scale, p = 2^fmaf(s, scale*log2e, -m) by the SFU's
+//     ex2.approx, within 2^-22 of exp2), l summed from the f32 p's, o
+//     rescaled by 2^(m_old - m_new) when some row's max moved;
+//   * a warpgroup issues tile j's S product before tile j-1's P.V, so its
+//     softmax of tile j runs while the tensor cores do that P.V;
+//   * p goes to the P.V product as two bf16 terms, hi = bf16(p) and lo =
+//     bf16(p - hi), each multiplied by v (wgmma m64n{hd}k16 with A from
+//     registers and v transposed in shared memory): 2^-17 of p in place of
+//     one term's 2^-9; a single term misses the element-wise limit of
+//     chip_smoke.flash_err by up to 5x in the CPU emulation of
+//     tests/test_torch_flash_attention.py, so P.V costs two products;
+//   * o = acc / max(l, 1e-30) in bf16, lse = (m + log2 l) * ln 2 in f32.
+// At hd 256 a block takes 193 KB of shared memory (q 64 KB, two stages of
+// k and v 128 KB), so one block (3 warpgroups) runs on an SM; the o
+// accumulator of a 64 x 256 tile is 128 registers a thread.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr float kNegInf = -1e30f;      // the reference's mask value
+
+// The key range [lo, hi) that query rows [qa, qb] must visit: the causal
+// and window prunes, and the rule for rows that see no key.
+__device__ __forceinline__ void key_range(int qa, int qb, int M, int causal,
+                                          int window, int& lo, int& hi) {
+  hi = causal ? min(M, qb + 1) : M;
+  lo = 0;
+  if (window > 0 && qb < M + window - 1)   // every row sees some key
+    lo = max(0, qa - window + 1);
+}
+
+// --------------------------------------------------------------------------
+// f32: the SIMT kernel
+// --------------------------------------------------------------------------
 constexpr int kThreads = 256;
 constexpr int BK = 32;                 // keys per shared-memory tile
-constexpr float kNegInf = -1e30f;      // the reference's mask value
 
 template <int HD>
 struct Tile {
@@ -69,27 +111,19 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 a = __bfloat1622float2(p2[0]);
-  const float2 b = __bfloat1622float2(p2[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(p);
-  p2[0] = __floats2bfloat162_rn(v.x, v.y);
-  p2[1] = __floats2bfloat162_rn(v.z, v.w);
-}
-
-template <int HD, typename T>
+// One block per (b*h, tile of BQ query rows); TPR threads share a query
+// row, each holding its q slice and its slice of the f32 accumulator in
+// registers (columns in float4 chunks sub, sub + TPR, ...); a score is the
+// sum of the TPR partial dots, reduced by warp shuffles; k and v tiles of
+// BK rows are staged in shared memory and read as float4 broadcasts.
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int T_len, int M, int H,
                  int causal, int window, float scale) {
   using S = Tile<HD>;
@@ -106,8 +140,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t rs = (int64_t)H * HD;  // row stride of [B, *, H, hd]
   const int64_t q_off = ((int64_t)b * T_len + (live ? qi : 0)) * rs +
                         (int64_t)h * HD;
-  const T* kb = k + (int64_t)b * M * rs + (int64_t)h * HD;
-  const T* vb = v + (int64_t)b * M * rs + (int64_t)h * HD;
+  const float* kb = k + (int64_t)b * M * rs + (int64_t)h * HD;
+  const float* vb = v + (int64_t)b * M * rs + (int64_t)h * HD;
 
   float4 qr[S::CH], acc[S::CH];
 #pragma unroll
@@ -118,12 +152,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   float m = kNegInf, l = 0.0f;
 
-  // the k tiles this query tile can see
-  const int q_last = min(q0 + S::BQ, T_len) - 1;
-  const int hi = causal ? min(M, q_last + 1) : M;
-  int lo = 0;
-  if (window > 0 && q_last < M + window - 1)   // every row sees some key
-    lo = max(0, q0 - window + 1);
+  int lo, hi;                          // the keys this query tile sees
+  key_range(q0, min(q0 + S::BQ, T_len) - 1, M, causal, window, lo, hi);
 
   for (int k0 = lo / BK * BK; k0 < hi; k0 += BK) {
     const int nk = min(BK, M - k0);
@@ -206,49 +236,684 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (sub == 0) lse[(int64_t)bh * T_len + qi] = m + logf(den);
 }
 
-template <int HD, typename T>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int B, int T_len, int M, int H, int causal, int window,
-           float scale, cudaStream_t stream) {
+template <int HD>
+int launch_simt(const void* q, const void* k, const void* v, void* o,
+                void* lse, int B, int T_len, int M, int H, int causal,
+                int window, float scale, cudaStream_t stream) {
   using S = Tile<HD>;
   const int64_t tiles = ((int64_t)T_len + S::BQ - 1) / S::BQ;
   if ((int64_t)B * H > 65535 || tiles > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const size_t smem = 2 * sizeof(float) * BK * HD;   // 64 KB at hd 256
-  auto kernel = flash_fwd_kernel<HD, T>;
+  auto kernel = flash_fwd_kernel<HD>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)tiles, (unsigned)(B * H));
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
       static_cast<float*>(lse), T_len, M, H, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(int hd, const void* q, const void* k, const void* v, void* o,
-             void* lse, int B, int T_len, int M, int H, int causal,
-             int window, float scale, cudaStream_t stream) {
+// --------------------------------------------------------------------------
+// bf16: the tensor-core kernel (wgmma fed by TMA)
+// --------------------------------------------------------------------------
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kNeg2 = kNegInf * kLog2e;   // -1e30 in the log2 domain
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// (x, y) -> bf16x2 (x in the low half) and the two residuals x - bf16(x)
+__device__ __forceinline__ uint32_t split2(float x, float y, float& rx,
+                                          float& ry) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  rx = x - __low2float(h);
+  ry = y - __high2float(h);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ uint32_t pack2(float x, float y) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+constexpr int kConsumerWGs = 2;                  // 64 query rows each
+constexpr int kThreadsWG = 128 * (kConsumerWGs + 1);  // + the producer's
+constexpr int BQ_WG = 64 * kConsumerWGs;         // 128 query rows a block
+constexpr int BK_WG = 64;                        // keys a tile
+constexpr int kStages = 2;
+
+template <int HD>
+struct WG {
+  static constexpr int SW = HD < 64 ? HD : 64;   // elements a swizzled row
+  static constexpr int NB = HD / SW;             // boxes across head_dim
+  static constexpr int BOX = 64 * SW * 2;        // bytes of a 64-row box
+  static constexpr int Q_BYTES = BQ_WG * HD * 2;
+  static constexpr int KV_BYTES = BK_WG * HD * 2;  // one k or v tile
+  // q, the ring of (k, v), barriers; +1024 to align the tiles
+  static constexpr int SMEM =
+      Q_BYTES + 2 * kStages * KV_BYTES + 8 * (1 + 4 * kStages) + 1024;
+  // the swizzle of a TMA box and of the wgmma descriptors: 128, 64 or 32 B
+  static constexpr int LAYOUT = SW == 64 ? 1 : (SW == 32 ? 2 : 3);
+  static constexpr int SBO = 8 * SW * 2;         // 8 rows of the atom
+};
+
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t saddr, uint32_t lbo,
+                                              uint32_t sbo, int layout) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// one box of a 4-D [B, L, H, hd] tensor map into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d, int h, int row,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(d), "r"(h), "r"(row), "r"(b),
+      "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving accumulator registers across the
+// asynchronous products
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (+)= A (64x16, shared memory, K-major) * B (16x64, shared memory,
+// K-major): d[32] a thread, in the accumulator layout
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A (64x16, registers) * B (16x16, shared memory, MN-major)
+__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A (64x16, registers) * B (16x32, shared memory, MN-major)
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A (64x16, registers) * B (16x64, shared memory, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A (64x16, registers) * B (16x128, shared memory, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A (64x16, registers) * B (16x256, shared memory, MN-major)
+__device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int HD>
+__device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (HD == 16) wgmma_rs_n16(d, a, db);
+  else if constexpr (HD == 32) wgmma_rs_n32(d, a, db);
+  else if constexpr (HD == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (HD == 128) wgmma_rs_n128(d, a, db);
+  else wgmma_rs_n256(d, a, db);
+}
+
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// Issue S = Q K^T for a warpgroup's 64 query rows against a 64-key tile:
+// HD/16 products of m64n64k16 over the boxes of q and k (both K-major).
+template <int HD>
+__device__ __forceinline__ void issue_qk(float* sacc, uint32_t q_tile,
+                                         uint32_t k_tile) {
+  using C = WG<HD>;
+  fence_regs<BK_WG / 2>(sacc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int c = kk * 16 / C::SW, off = (kk * 16 % C::SW) * 2;
+    wgmma_ss_n64(sacc,
+                 gmma_desc(q_tile + c * C::BOX + off, 16, C::SBO, C::LAYOUT),
+                 gmma_desc(k_tile + c * C::BOX + off, 16, C::SBO, C::LAYOUT),
+                 kk > 0);
+  }
+  wgmma_commit();
+}
+
+// Issue O += P V for a 64-key tile, P as its hi and lo bf16 terms
+// (registers), v transposed in shared memory (MN-major).
+template <int HD>
+__device__ __forceinline__ void issue_pv(float* acc, uint32_t (*ph)[4],
+                                         uint32_t (*pl)[4], uint32_t v_tile) {
+  using C = WG<HD>;
+  fence_regs<HD / 2>(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK_WG / 16; ++kk) {
+    const uint64_t db = gmma_desc(v_tile + kk * 16 * C::SW * 2, C::BOX,
+                                  C::SBO, C::LAYOUT);
+    wgmma_pv<HD>(acc, ph[kk], db);
+    wgmma_pv<HD>(acc, pl[kk], db);
+  }
+  wgmma_commit();
+}
+
+// 2^x by the SFU (relative error ~2^-22; results below 2^-126 flush to 0,
+// far below the largest p of a row, which is 1)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax of one S tile (keys k0..k0+63) on the accumulator
+// registers, in the log2 domain: the new running max and sum of this
+// thread's two rows, the factor alpha that rescales their o, and p in
+// place of s.  ``full``: every key of the tile is visible to every row.
+template <int NT>
+__device__ __forceinline__ void softmax_tile(float* sacc, float* m_run,
+                                             float* l_run, float* alpha,
+                                             bool full, const int* qrow,
+                                             int k0, int t4, int M,
+                                             int causal, int window,
+                                             float scale_log2) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = kNeg2;
+    if (full) {
+      float raw = sacc[2 * r];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        raw = fmaxf(raw, fmaxf(sacc[4 * n + 2 * r], sacc[4 * n + 2 * r + 1]));
+      mx = raw * scale_log2;
+    } else {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int kj = k0 + n * 8 + 2 * t4 + c, d = qrow[r] - kj;
+          const bool seen = kj < M && (!causal || d >= 0) &&
+                            (window <= 0 || d < window);
+          if (seen) mx = fmaxf(mx, sacc[4 * n + 2 * r + c] * scale_log2);
+        }
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m_run[r], mx);
+    alpha[r] = ex2(m_run[r] - m_new);
+    m_run[r] = m_new;
+    float psum = 0.0f;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float p = ex2(fmaf(sacc[4 * n + 2 * r + c], scale_log2, -m_new));
+        if (!full) {
+          const int kj = k0 + n * 8 + 2 * t4 + c, d = qrow[r] - kj;
+          const bool seen = kj < M && (!causal || d >= 0) &&
+                            (window <= 0 || d < window);
+          // a masked key scores -1e30: weight 1 only while its row has
+          // seen nothing else (then a later key's alpha is 0)
+          if (!seen) p = kj < M ? ex2(kNeg2 - m_new) : 0.0f;
+        }
+        sacc[4 * n + 2 * r + c] = p;
+        psum += p;
+      }
+    l_run[r] = fmaf(l_run[r], alpha[r], psum);
+  }
+}
+
+// p (f32, accumulator layout) -> the A fragments of P.V: hi = bf16(p), lo =
+// bf16(p - hi), one k16 step of 16 keys each
+__device__ __forceinline__ void split_p(const float* sacc, uint32_t (*ph)[4],
+                                        uint32_t (*pl)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < BK_WG / 16; ++kk) {
+    float r[8];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      ph[kk][j] = split2(sacc[8 * kk + 2 * j], sacc[8 * kk + 2 * j + 1],
+                         r[2 * j], r[2 * j + 1]);
+      pl[kk][j] = pack2(r[2 * j], r[2 * j + 1]);
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreadsWG, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                       int T_len, int M, int H, int causal, int window,
+                       float scale_log2) {
+  using C = WG<HD>;
+  constexpr int NT = BK_WG / 8;        // key n-tiles of S
+  constexpr int DT = HD / 8;           // head_dim n-tiles of o
+  extern __shared__ uint8_t smem_wg[];
+  const uint32_t base = (smem_u32(smem_wg) + 1023) & ~1023u;
+  const uint32_t q_s = base;                         // 2 x [NB][64][SW]
+  const uint32_t k_s = q_s + C::Q_BYTES;             // kStages x [NB][64][SW]
+  const uint32_t v_s = k_s + kStages * C::KV_BYTES;  // kStages x [NB][64][SW]
+  const uint32_t q_full = v_s + kStages * C::KV_BYTES;
+  // per stage: k landed, v landed; k free (S done), v free (P.V done)
+  const uint32_t full_k = q_full + 8, full_v = full_k + 8 * kStages;
+  const uint32_t empty_k = full_v + 8 * kStages;
+  const uint32_t empty_v = empty_k + 8 * kStages;
+
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ_WG;   // heaviest first
+  int lo, hi;
+  key_range(q0, min(q0 + BQ_WG, T_len) - 1, M, causal, window, lo, hi);
+  const int kt_lo = lo / BK_WG, kt_hi = (hi + BK_WG - 1) / BK_WG;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty_k + 8 * s, 128 * kConsumerWGs);
+      mbar_init(empty_v + 8 * s, 128 * kConsumerWGs);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kConsumerWGs) {
+    // the producer: one thread keeps the TMA loads of the ring in flight
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 128 * kConsumerWGs) {
+      mbar_expect_tx(q_full, C::Q_BYTES);
+      for (int r = 0; r < kConsumerWGs; ++r)
+        for (int c = 0; c < C::NB; ++c)
+          tma_load(q_s + (r * C::NB + c) * C::BOX, &tq, q_full, c * C::SW,
+                   h, q0 + 64 * r, b);
+      for (int kt = kt_lo; kt < kt_hi; ++kt) {
+        const int i = kt - kt_lo, s = i % kStages;
+        const int par = ((i / kStages) & 1) ^ 1;
+        mbar_wait(empty_k + 8 * s, par);
+        mbar_expect_tx(full_k + 8 * s, C::KV_BYTES);
+        for (int c = 0; c < C::NB; ++c)
+          tma_load(k_s + s * C::KV_BYTES + c * C::BOX, &tk, full_k + 8 * s,
+                   c * C::SW, h, kt * BK_WG, b);
+        mbar_wait(empty_v + 8 * s, par);
+        mbar_expect_tx(full_v + 8 * s, C::KV_BYTES);
+        for (int c = 0; c < C::NB; ++c)
+          tma_load(v_s + s * C::KV_BYTES + c * C::BOX, &tv, full_v + 8 * s,
+                   c * C::SW, h, kt * BK_WG, b);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int qw = q0 + 64 * wg;                    // this warpgroup's rows
+    const int qrow[2] = {qw + 16 * warp + g, qw + 16 * warp + g + 8};
+    const uint32_t q_tile = q_s + wg * C::NB * C::BOX;
+    // the key tiles this warpgroup's rows see: [wt_lo, wt_hi)
+    int wlo, whi;
+    key_range(qw, min(qw + 63, T_len - 1), M, causal, window, wlo, whi);
+    const int wt_lo = max(kt_lo, wlo / BK_WG);
+    const int wt_hi = qw < T_len ? min(kt_hi, (whi + BK_WG - 1) / BK_WG)
+                                 : wt_lo;
+    // a tile of the block's range that these rows skip: wait until it
+    // landed (so the ring's phases stay in step) and hand it back
+    auto skip = [&](int kt) {
+      const int i = kt - kt_lo, s = i % kStages, par = (i / kStages) & 1;
+      mbar_wait(full_k + 8 * s, par);
+      mbar_wait(full_v + 8 * s, par);
+      mbar_arrive(empty_k + 8 * s);
+      mbar_arrive(empty_v + 8 * s);
+    };
+    auto is_full = [&](int k0) {
+      return k0 + BK_WG <= M && (!causal || k0 + BK_WG - 1 <= qw) &&
+             (window <= 0 || qw + 63 - k0 < window);
+    };
+
+    float acc[DT * 4];
+#pragma unroll
+    for (int i = 0; i < DT * 4; ++i) acc[i] = 0.0f;
+    float m_run[2] = {kNeg2, kNeg2};
+    float l_run[2] = {0.0f, 0.0f};     // this thread's share of the row sum
+
+    mbar_wait(q_full, 0);
+    for (int kt = kt_lo; kt < min(wt_lo, kt_hi); ++kt) skip(kt);
+    if (wt_lo < wt_hi) {
+      float sacc[NT * 4] = {}, alpha[2];
+      uint32_t ph[BK_WG / 16][4], pl[BK_WG / 16][4];
+      int s = (wt_lo - kt_lo) % kStages;
+      mbar_wait(full_k + 8 * s, ((wt_lo - kt_lo) / kStages) & 1);
+      issue_qk<HD>(sacc, q_tile, k_s + s * C::KV_BYTES);
+      wgmma_wait0();
+      fence_regs<NT * 4>(sacc);
+      mbar_arrive(empty_k + 8 * s);
+      softmax_tile<NT>(sacc, m_run, l_run, alpha, is_full(wt_lo * BK_WG),
+                       qrow, wt_lo * BK_WG, t4, M, causal, window,
+                       scale_log2);
+      split_p(sacc, ph, pl);
+      // tile kt's S = Q K^T and softmax overlap tile kt-1's P.V
+      for (int kt = wt_lo + 1; kt < wt_hi; ++kt) {
+        const int i = kt - kt_lo, sp = s;
+        s = i % kStages;
+        mbar_wait(full_k + 8 * s, (i / kStages) & 1);
+        issue_qk<HD>(sacc, q_tile, k_s + s * C::KV_BYTES);
+        mbar_wait(full_v + 8 * sp, ((i - 1) / kStages) & 1);
+        issue_pv<HD>(acc, ph, pl, v_s + sp * C::KV_BYTES);
+        wgmma_wait1();                 // S has landed; P.V runs on
+        fence_regs<NT * 4>(sacc);
+        mbar_arrive(empty_k + 8 * s);
+        softmax_tile<NT>(sacc, m_run, l_run, alpha, is_full(kt * BK_WG),
+                         qrow, kt * BK_WG, t4, M, causal, window,
+                         scale_log2);
+        wgmma_wait0();
+        fence_regs<DT * 4>(acc);
+        mbar_arrive(empty_v + 8 * sp);
+        if (__any_sync(0xffffffffu, alpha[0] != 1.0f || alpha[1] != 1.0f)) {
+#pragma unroll
+          for (int n = 0; n < DT; ++n) {
+            acc[4 * n] *= alpha[0];
+            acc[4 * n + 1] *= alpha[0];
+            acc[4 * n + 2] *= alpha[1];
+            acc[4 * n + 3] *= alpha[1];
+          }
+        }
+        split_p(sacc, ph, pl);
+      }
+      mbar_wait(full_v + 8 * s, ((wt_hi - 1 - kt_lo) / kStages) & 1);
+      issue_pv<HD>(acc, ph, pl, v_s + s * C::KV_BYTES);
+      wgmma_wait0();
+      fence_regs<DT * 4>(acc);
+      mbar_arrive(empty_v + 8 * s);
+    }
+    for (int kt = max(wt_hi, wt_lo); kt < kt_hi; ++kt) skip(kt);
+
+    // o = acc / l, lse = (m + log2 l) ln 2
+    const int64_t rs = (int64_t)H * HD;
+    __nv_bfloat16* ob = o + (int64_t)b * T_len * rs + (int64_t)h * HD;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_run[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float den = fmaxf(l, 1e-30f);
+      if (qrow[r] >= T_len) continue;
+      __nv_bfloat16* orow = ob + (int64_t)qrow[r] * rs + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < DT; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
+            __floats2bfloat162_rn(acc[4 * n + 2 * r] / den,
+                                  acc[4 * n + 2 * r + 1] / den);
+      if (t4 == 0)
+        lse[(int64_t)bh * T_len + qrow[r]] =
+            (m_run[r] + log2f(den)) * kLn2;
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found at run time (the library
+// links the CUDA runtime only)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// the [B, L, H, HD] bf16 tensor at ptr as a 4-D map (hd, H, L, B) whose box
+// is SW head_dim elements of one head over 64 rows, swizzled as C::LAYOUT
+template <int HD>
+bool tensor_map(CUtensorMap* map, const void* ptr, int B, int L, int H) {
+  using C = WG<HD>;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)H, (cuuint64_t)L,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)HD * 2, (cuuint64_t)H * HD * 2,
+                                 (cuuint64_t)L * H * HD * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)C::SW, 1, 64, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      C::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                  : (C::SW == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                 : CU_TENSOR_MAP_SWIZZLE_32B);
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 void* lse, int B, int T_len, int M, int H, int causal,
+                 int window, float scale, cudaStream_t stream) {
+  const int64_t tiles = ((int64_t)T_len + BQ_WG - 1) / BQ_WG;
+  if ((int64_t)B * H > 65535 || tiles > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map<HD>(&tq, q, B, T_len, H) ||
+      !tensor_map<HD>(&tk, k, B, M, H) || !tensor_map<HD>(&tv, v, B, M, H))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = flash_fwd_wgmma_kernel<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG<HD>::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((unsigned)tiles, (unsigned)(B * H));
+  kernel<<<grid, kThreadsWG, WG<HD>::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+      T_len, M, H, causal, window, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+#define REPRO_FA_DISPATCH(FN, hd, ...)         \
+  switch (hd) {                                \
+    case 16: return FN<16>(__VA_ARGS__);       \
+    case 32: return FN<32>(__VA_ARGS__);       \
+    case 64: return FN<64>(__VA_ARGS__);       \
+    case 128: return FN<128>(__VA_ARGS__);     \
+    case 256: return FN<256>(__VA_ARGS__);     \
+    default: return (int)cudaErrorInvalidValue; \
+  }
+
+int smem_wgmma(int hd) {
   switch (hd) {
-    case 16:
-      return launch<16, T>(q, k, v, o, lse, B, T_len, M, H, causal, window,
-                           scale, stream);
-    case 32:
-      return launch<32, T>(q, k, v, o, lse, B, T_len, M, H, causal, window,
-                           scale, stream);
-    case 64:
-      return launch<64, T>(q, k, v, o, lse, B, T_len, M, H, causal, window,
-                           scale, stream);
-    case 128:
-      return launch<128, T>(q, k, v, o, lse, B, T_len, M, H, causal, window,
-                            scale, stream);
-    case 256:
-      return launch<256, T>(q, k, v, o, lse, B, T_len, M, H, causal, window,
-                            scale, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 16: return WG<16>::SMEM;
+    case 32: return WG<32>::SMEM;
+    case 64: return WG<64>::SMEM;
+    case 128: return WG<128>::SMEM;
+    case 256: return WG<256>::SMEM;
+    default: return -1;
   }
 }
 
@@ -260,8 +925,15 @@ const char* repro_flash_attention_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+// Dynamic shared memory a block of the route for (hd, bf16) takes, or -1.
+int repro_flash_attention_smem_bytes(int hd, int bf16) {
+  if (bf16) return smem_wgmma(hd);
+  return smem_wgmma(hd) < 0 ? -1 : (int)(2 * sizeof(float) * BK * hd);
+}
+
 // q [B, T, H, hd], k and v [B, M, H, hd], o like q, lse [B*H, T] f32; all
-// contiguous and 16-byte aligned; bf16 != 0 for __nv_bfloat16, else float.
+// contiguous and 16-byte aligned; bf16 != 0 for __nv_bfloat16 (the
+// tensor-core kernel), else float (the SIMT kernel).
 int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, int B, int T_len, int M,
                               int H, int hd, int bf16, int causal, int window,
@@ -269,10 +941,12 @@ int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
   if (B <= 0 || T_len <= 0 || M <= 0 || H <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return bf16 ? dispatch<__nv_bfloat16>(hd, q, k, v, o, lse, B, T_len, M, H,
-                                        causal, window, scale, st)
-              : dispatch<float>(hd, q, k, v, o, lse, B, T_len, M, H, causal,
-                                window, scale, st);
+  if (bf16) {
+    REPRO_FA_DISPATCH(launch_wgmma, hd, q, k, v, o, lse, B, T_len, M, H,
+                      causal, window, scale, st)
+  }
+  REPRO_FA_DISPATCH(launch_simt, hd, q, k, v, o, lse, B, T_len, M, H,
+                    causal, window, scale, st)
 }
 
 }  // extern "C"

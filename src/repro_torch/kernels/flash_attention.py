@@ -6,10 +6,17 @@ kernels (``src/repro/kernels/flash_attention.py``): K7
 (``csrc/flash_attention.cu``, for ``_fwd``) computes online-softmax
 attention of q ``[B, T, H, hd]`` against k, v ``[B, M, H, hd]`` (kv
 pre-expanded to the H query heads), causal and/or sliding-window masked,
-f32 math, o in the input type and an f32 log-sum-exp ``[B*H, T]``; K8 (dq)
-and K9 (dk, dv) (``csrc/flash_attention_bwd.cu``, for ``_bwd``) recompute
-the probabilities from that lse, and take delta as rowsum(p * (do . v)),
-the f32 o's rowsum with do (the JAX kernels read the stored o, whose bf16
+o in the input type and an f32 log-sum-exp ``[B*H, T]``.  K7's route is
+chosen by the input type, at every head_dim of :data:`HEAD_DIMS`: bf16
+runs on the tensor cores (``flash_fwd_wgmma_kernel``: wgmma with bf16
+operands and f32 sums, fed by TMA; p carried into P.V as two bf16 terms),
+f32 on the SIMT kernel (``flash_fwd_kernel``, f32 throughout), since the
+f32 limit of 2e-5 of |o| leaves no room for bf16 or TF32 operands.
+Neither route falls back to the other or to the plain version;
+:data:`ROUTE_LAUNCHES` counts the launches of each.  K8 (dq) and K9 (dk,
+dv) (``csrc/flash_attention_bwd.cu``, for ``_bwd``) recompute the
+probabilities from that lse, and take delta as rowsum(p * (do . v)), the
+f32 o's rowsum with do (the JAX kernels read the stored o, whose bf16
 rounding moves the gradient by more than a bf16 ulp).
 :class:`FlashAttention` binds them into one ``torch.autograd.Function``, so
 :func:`flash_attention` is differentiable.
@@ -47,11 +54,15 @@ LAUNCHES: dict[str, int] = {"flash_attention": 0,
 HEAD_DIMS = (16, 32, 64, 128, 256)        # the kernel's templated head_dims
 DTYPES = (torch.float32, torch.bfloat16)
 NEG_INF = -1e30                           # the reference's mask value
+# K7's two routes, by input type: their kernels in csrc/flash_attention.cu
+ROUTES = {torch.bfloat16: "wgmma_bf16", torch.float32: "simt_f32"}
+ROUTE_LAUNCHES: dict[str, int] = {r: 0 for r in ROUTES.values()}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, ROUTE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 # --------------------------------------------------------------------------- #
@@ -170,6 +181,8 @@ def library() -> ctypes.CDLL:
         lib.repro_flash_attention_fwd.restype = ctypes.c_int
         lib.repro_flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.repro_flash_attention_error_string.restype = ctypes.c_char_p
+        lib.repro_flash_attention_smem_bytes.argtypes = [_I, _I]
+        lib.repro_flash_attention_smem_bytes.restype = ctypes.c_int
         lib._repro_typed = True
     return lib
 
@@ -216,7 +229,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: int = 0
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """K7: (o, lse) of q [B, T, H, hd] against k/v [B, M, H, hd]; f32 or
-    bf16, head_dim in :data:`HEAD_DIMS`; one block per (b*h, query tile)."""
+    bf16, head_dim in :data:`HEAD_DIMS`; one block per (b*h, query tile),
+    on the route :data:`ROUTES` names for the type."""
     if not check_input(q, "flash_attention", lambda s: len(s) == 4,
                        "q of [B, T, H, hd]", dtypes=DTYPES):
         return flash_attention_ref(q, k, v, causal, window)
@@ -247,6 +261,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                lse.data_ptr(), B, T, M, H, hd,
                int(q.dtype == torch.bfloat16), int(bool(causal)),
                int(window), 1.0 / math.sqrt(hd))
+        ROUTE_LAUNCHES[ROUTES[q.dtype]] += 1
     return o, lse
 
 

@@ -133,7 +133,8 @@ def _c_attn(shapes, dtypes, params) -> NodeCost:
     proj = matmul_cost(T, d, d, bytes_per_el=4, batch=4)   # q/k/v/o projections
     mix = matmul_cost(T, T, d, bytes_per_el=4, batch=2)    # QK^T and PV
     return NodeCost(flops=proj.flops + mix.flops,
-                    bytes_rw=proj.bytes_rw + mix.bytes_rw)
+                    bytes_rw=proj.bytes_rw + mix.bytes_rw,
+                    f32_flops=proj.f32_flops + mix.f32_flops)
 
 
 def _c_add(shapes, dtypes, params) -> NodeCost:
@@ -146,14 +147,14 @@ def _c_swiglu(shapes, dtypes, params) -> NodeCost:
     up = matmul_cost(T, two_ff, d, bytes_per_el=4)
     down = matmul_cost(T, d, ff, bytes_per_el=4)
     return NodeCost(flops=up.flops + down.flops,
-                    bytes_rw=up.bytes_rw + down.bytes_rw)
+                    bytes_rw=up.bytes_rw + down.bytes_rw,
+                    f32_flops=up.f32_flops + down.f32_flops)
 
 
 def _c_moe(shapes, dtypes, params) -> NodeCost:
     (T, d), (_, E) = shapes[0], shapes[1]
     ff = shapes[2][2]
-    expert = matmul_cost(T, ff, d, bytes_per_el=4, batch=2 * E)
-    return NodeCost(flops=expert.flops, bytes_rw=expert.bytes_rw)
+    return matmul_cost(T, ff, d, bytes_per_el=4, batch=2 * E)
 
 
 def _c_scan(shapes, dtypes, params) -> NodeCost:

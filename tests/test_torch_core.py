@@ -242,6 +242,39 @@ def test_cost_model_defaults_to_h100_priors():
     assert measure_ms(lambda x: {"out": (x * 2,)}, torch.ones(4), iters=2) > 0
 
 
+def test_f32_work_is_timed_at_the_f32_peak():
+    """The serving group's fused rmsnorm + lm head (K6), [2048, 8192] @
+    [8192, 102400] in f32, is timed at the f32 peak (67 TFLOP/s), not the
+    bf16 tensor cores' 989: at least the 51.28 ms of its f32 products."""
+    from repro_torch.core import matmul_cost
+    from repro_torch.kernels.ops import _c_fused
+
+    k6 = _c_fused([(2048, 8192), (8192,), (8192, 102400)], None, None)
+    assert k6.f32_flops == k6.flops
+    assert k6.time_ms() >= 2.0 * 2048 * 8192 * 102400 / 67e12 * 1e3 >= 51.28
+    bf16 = matmul_cost(2048, 102400, 8192, bytes_per_el=2)
+    assert bf16.f32_flops == 0.0
+    assert bf16.time_ms() == pytest.approx(2.0 * 2048 * 8192 * 102400
+                                           / 989e12 * 1e3)
+    mixed = NodeCost(flops=989e12 + 67e12, f32_flops=67e12)
+    assert mixed.time_ms() == pytest.approx(2000.0)
+
+
+@pytest.mark.parametrize("provider,shapes", [
+    ("_c_attn", [(4096, 8192)]),
+    ("_c_swiglu", [(4096, 8192), (8192, 2 * 22016)]),
+    ("_c_moe", [(4096, 8192), (8192, 8), (8, 8192, 2048)])])
+def test_summed_f32_products_keep_the_f32_peak(provider, shapes):
+    """The zoo's providers that add f32 products together are timed at the
+    f32 peak as a whole."""
+    from repro_torch.models import zoo
+
+    c = getattr(zoo, provider)(shapes, None, None)
+    assert c.f32_flops == c.flops > 0
+    assert c.time_ms() == pytest.approx(max(c.flops / 67e12,
+                                            c.bytes_rw / 3.35e12) * 1e3)
+
+
 def test_dtype_names_are_numpy_names():
     assert dtype_name(torch.float32) == "float32"
     assert dtype_name(torch.bfloat16) == "bfloat16"

@@ -176,6 +176,62 @@ def test_flash_attention_matches_plain_version_on_card(cuda_device, B, T, H,
                                rtol=0, atol=0)
 
 
+def _k7_within_element_wise_limit(q, k, v, causal, window):
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, window)
+    want_o, want_lse = fa.flash_attention_ref(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    want = want_o.float()
+    rms = want.square().mean().sqrt()
+    limit = 2.0**-7 * want.abs() + 2.0**-8 * rms
+    assert ((o.float() - want).abs() <= limit).all()
+    assert ((lse - want_lse).abs() <= 1e-5 * want_lse.abs().clamp(min=1.0)
+            ).all()
+
+
+@pytest.mark.parametrize("T", [4096, 4128])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 1024)])
+def test_flash_attention_tensor_core_kernel_at_long_lengths_on_card(
+        cuda_device, T, causal, window):
+    """bf16 K7 on the tensor cores at the LM's lengths (T = 4128: the
+    prompt plus the generated tokens, off any tile), element by element."""
+    g = torch.Generator(cuda_device).manual_seed(T + window)
+    q, k, v = (torch.randn((1, T, 2, 256), generator=g, device=cuda_device
+                           ).bfloat16() for _ in range(3))
+    fa.reset_launches()
+    _k7_within_element_wise_limit(q, k, v, causal, window)
+    assert fa.ROUTE_LAUNCHES == {"wgmma_bf16": 1, "simt_f32": 0}
+
+
+def test_flash_attention_routes_by_type_on_card(cuda_device):
+    """bf16 takes the tensor-core kernel, f32 the SIMT kernel; one launch
+    each, counted once in LAUNCHES and once on its route."""
+    g = torch.Generator(cuda_device).manual_seed(5)
+    x = torch.randn((2, 77, 3, 64), generator=g, device=cuda_device)
+    fa.reset_launches()
+    fa.flash_attention_fwd(x, x, x, True, 0)
+    assert fa.ROUTE_LAUNCHES == {"wgmma_bf16": 0, "simt_f32": 1}
+    fa.flash_attention_fwd(x.bfloat16(), x.bfloat16(), x.bfloat16(), True, 0)
+    assert fa.ROUTE_LAUNCHES == {"wgmma_bf16": 1, "simt_f32": 1}
+    assert fa.LAUNCHES["flash_attention"] == 2
+
+
+def test_flash_attention_raises_on_a_bf16_case_it_cannot_take(cuda_device):
+    """A bf16 case the tensor-core kernel cannot take raises: nothing is
+    launched, and neither the f32 kernel nor the plain version runs."""
+    n = 1 * 64 * 2 * 64
+    x = torch.zeros(n + 1, dtype=torch.bfloat16, device=cuda_device
+                    )[1:].view(1, 64, 2, 64)       # contiguous, 2 B aligned
+    assert x.is_contiguous() and x.data_ptr() % 16
+    y = torch.zeros((1, 64, 2, 48), dtype=torch.bfloat16, device=cuda_device)
+    fa.reset_launches()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention_fwd(x, x, x, True, 0)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        fa.flash_attention_fwd(y, y, y, True, 0)
+    assert fa.LAUNCHES["flash_attention"] == 0
+    assert fa.ROUTE_LAUNCHES == {"wgmma_bf16": 0, "simt_f32": 0}
+
+
 def test_flash_attention_rejects_what_it_does_not_take(cuda_device):
     q = torch.zeros((1, 8, 2, 64), device=cuda_device)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
