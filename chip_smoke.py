@@ -35,9 +35,11 @@ Phases:
               shapes and at ragged shapes, with the reference's tolerances;
               device times (median of back-to-back runs, input cold in L2)
               beside the bound, the plain version and the library call;
-              K7's registers, spills and shared memory, the route each K7
-              case took (bf16 on the tensor cores, f32 on the SIMT kernel),
-              and cuobjdump's proof that bf16 K7 issues K7_TC_SASS
+              K7's, K8's and K9's registers, spills and shared memory, the
+              route each of their cases took (bf16 on the tensor cores, f32
+              on the SIMT kernels), and cuobjdump's proof that every bf16
+              entry of the two flash-attention sources issues TC_SASS and
+              no f32 entry a tensor-core instruction
 4. main     — the offload path, fuse=False then fuse=True: hw rows resolved,
               launch counts moved, no host sync on the path, Switcher logs
               empty, outputs equal the plain app; ms/frame of the original
@@ -63,12 +65,14 @@ Phases:
               run's [8, 64, 10, 64] f32 (window 32 and none), element by
               element; at [2, 4096, 16, 256] bf16 (causal and window 1024)
               K7 element by element and its time and TFLOP/s beside the
-              bound, then K8/K9's times beside the bound,
-              the plain backward and SDPA's backward.  Then full-width training steps (12/6/6 K7/K8/K9
-              launches each, finite losses, step ms, tokens/s, peak memory,
-              a profile), a kernel step against a plain-attention step
-              (loss and every gradient leaf within 2.5e-2), and the driver
-              at 100M widths: 80 steps, 1 restart, the loss falls
+              bound, then K8/K9's times beside the bound, the plain
+              backward and SDPA's backward, with TFLOP/s (the launches on
+              the wgmma route).  Then full-width training steps (12/6/6
+              K7/K8/K9 launches each, all on the wgmma route, finite
+              losses, step ms, tokens/s, peak memory, a profile), a kernel
+              step against a plain-attention step (loss and every gradient
+              leaf within 2.5e-2), and the driver at 100M widths (f32, the
+              SIMT route): 80 steps, 1 restart, the loss falls
 8. the ``kernels`` JSON line, the nvidia-smi line, and the result line
 
 Any failed check raises: the script then exits non-zero without the result
@@ -109,8 +113,10 @@ LM_TRAFFIC = dict(arch="gemma3-12b", layers=6, batch=4, prompt_len=4096,
 # T > M + 40 - 1 gives rows that see no key under the window of 40
 FA_RAGGED = [(2, 77, 3, 131), (1, 300, 2, 200)]
 FA_MASKS = [(True, 0), (True, 64), (False, 0), (False, 40)]
-# what bf16 K7 must run: wgmma on the tensor cores (SASS HGMMA)
-K7_TC_SASS = "HGMMA"
+# what bf16 K7, K8 and K9 must run: wgmma on the tensor cores (SASS HGMMA)
+TC_SASS = "HGMMA"
+# the sources whose entries cuobjdump checks: library -> K numbers
+TC_LIBRARIES = {"flash_attention": "K7", "flash_attention_bwd": "K8/K9"}
 # training: gemma3-12b at full widths, 6 of 48 layers, batch 2 x 4096,
 # one warm-up step, 4 timed steps, one profiled step
 TRAIN = dict(arch="gemma3-12b", layers=6, batch=2, seq_len=4096, timed=4,
@@ -172,9 +178,13 @@ def phase_build():
     print(f"[build] {sources} built in {secs:.2f} s "
           f"(per source: {build.build_seconds})")
     for src in sources:
-        for entry, lines in ptxas_report(build.build_logs.get(src, "")):
+        log = build.build_logs.get(src, "")
+        for entry, lines in ptxas_report(log):
             for line in lines:
                 print(f"[build] ptxas {src} {entry}: {line}")
+        for line in log.splitlines():       # e.g. wgmma serialized by ptxas
+            if "warning" in line.lower():
+                print(f"[build] nvcc {src}: {line.strip()}")
     for th, tw, bs in ((32, 32, 2), (16, 64, 3)):
         check(lib.repro_harris_tile_smem_bytes(th, tw, bs)
               == hk.tile_smem_bytes(th, tw, bs),
@@ -206,45 +216,53 @@ def ptxas_report(log: str) -> list:
     return out
 
 
-def k7_resources() -> dict:
-    """K7's kernels: registers and spills from the ptxas -v log that
-    ``kernels/build.py`` keeps, the dynamic shared memory a block takes,
-    and the tensor-core instructions ``cuobjdump -sass`` finds in each.
-    Fails unless every bf16 entry runs ``K7_TC_SASS`` and no f32 entry
+def tc_resources() -> dict:
+    """K7's, K8's and K9's kernels: registers and spills from the ptxas -v
+    log that ``kernels/build.py`` keeps, the dynamic shared memory a block
+    takes, and the tensor-core instructions ``cuobjdump -sass`` finds in
+    each.  Fails unless every bf16 entry runs ``TC_SASS`` and no f32 entry
     runs a tensor-core instruction."""
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
 
-    lib = fa.library()
-    sass = subprocess.run(
-        [os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump"),
-         "-sass", str(build.library_path("flash_attention"))],
-        capture_output=True, text=True, timeout=300, check=True).stdout
-    tc = {}
-    for chunk in sass.split("Function : ")[1:]:
-        ops = re.findall(r"\b(HGMMA|HMMA)\.", chunk)
-        tc[kernel_entry(chunk.split()[0])] = {o: ops.count(o)
-                                              for o in set(ops)}
+    fwd, bwd = fa.library(), fa.bwd_library()       # built and loaded
+
+    def smem_bytes(entry: str, hd: int, bf16: int) -> int:
+        if "bwd" not in entry:
+            return fwd.repro_flash_attention_smem_bytes(hd, bf16)
+        return bwd.repro_flash_attention_bwd_smem_bytes(int("dkv" in entry),
+                                                        hd, bf16)
+
     out = {}
-    for entry, lines in ptxas_report(build.build_logs.get("flash_attention",
-                                                          "")):
-        hd = int(re.search(r"<(\d+),", entry).group(1))
-        regs = re.search(r"Used (\d+) registers", " ".join(lines))
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", " ".join(lines))
-        bf16 = entry.endswith("bf16>")
-        out[entry] = {"registers": int(regs.group(1)) if regs else None,
-                      "spill_stores": int(spill.group(1)) if spill else None,
-                      "spill_loads": int(spill.group(2)) if spill else None,
-                      "smem_bytes": lib.repro_flash_attention_smem_bytes(
-                          hd, int(bf16)),
-                      "sass": tc.get(entry, {})}
-        print(f"[kernels] K7 {entry}: {out[entry]}")
-        check(bool(out[entry]["sass"].get(K7_TC_SASS)) if bf16
-              else not out[entry]["sass"],
-              f"K7 {entry}: tensor-core instructions {out[entry]['sass']}")
-    check(len(out) == 2 * len(fa.HEAD_DIMS),
-          f"K7's ptxas log names {sorted(out)}")
+    for name, label in TC_LIBRARIES.items():
+        sass = subprocess.run(
+            [os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump"),
+             "-sass", str(build.library_path(name))],
+            capture_output=True, text=True, timeout=300, check=True).stdout
+        tc = {}
+        for chunk in sass.split("Function : ")[1:]:
+            ops = re.findall(r"\b(HGMMA|HMMA)\.", chunk)
+            tc[kernel_entry(chunk.split()[0])] = {o: ops.count(o)
+                                                  for o in set(ops)}
+        entries = ptxas_report(build.build_logs.get(name, ""))
+        for entry, lines in entries:
+            hd = int(re.search(r"<(\d+),", entry).group(1))
+            regs = re.search(r"Used (\d+) registers", " ".join(lines))
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                              r"spill loads", " ".join(lines))
+            bf16 = entry.endswith("bf16>")
+            r = out[entry] = {
+                "registers": int(regs.group(1)) if regs else None,
+                "spill_stores": int(spill.group(1)) if spill else None,
+                "spill_loads": int(spill.group(2)) if spill else None,
+                "smem_bytes": smem_bytes(entry, hd, int(bf16)),
+                "sass": tc.get(entry, {})}
+            print(f"[kernels] {label} {entry}: {r}")
+            check(bool(r["sass"].get(TC_SASS)) if bf16 else not r["sass"],
+                  f"{label} {entry}: tensor-core instructions {r['sass']}")
+        kernels = 1 if name == "flash_attention" else 2
+        check(len(entries) == 2 * kernels * len(fa.HEAD_DIMS),
+              f"{label}'s ptxas log names {[e for e, _ in entries]}")
     return out
 
 
@@ -736,7 +754,7 @@ def phase_flash_kernels() -> float:
 
     from repro_torch.kernels import flash_attention as fa
 
-    resources = k7_resources()
+    resources = tc_resources()
     g = torch.Generator("cuda").manual_seed(7)
     err = worst = 0.0
     (dB, dT, dH, dM), dhd, dmasks = driver_attention()
@@ -750,7 +768,8 @@ def phase_flash_kernels() -> float:
         for causal, window in masks:
             d, w = flash_err(q, k, v, causal, window)
             err, worst = max(err, d), max(worst, w)
-        routes[(hd, str(dt).removeprefix("torch."))] = k7_routes(len(masks))
+        routes[(hd, str(dt).removeprefix("torch."))] = kernel_routes(
+            "flash_attention", len(masks))
     print(f"[kernels] flash_attention: hd {fa.HEAD_DIMS} x (f32, bf16) x "
           f"{FA_RAGGED} (B, T, H, M) x (causal, window) {FA_MASKS}, and the "
           f"driver's [{dB}, {dT}, {dH}, {dhd}] f32 x {dmasks}, match the "
@@ -760,17 +779,19 @@ def phase_flash_kernels() -> float:
     return err, resources
 
 
-def k7_routes(n: int) -> str:
-    """The route K7's last ``n`` launches took (read from the wrapper's
-    per-route counts, which it then zeroes); fails unless one route took
-    them all and it is the one ``fa.ROUTES`` names for their type."""
+def kernel_routes(name: str, n: int) -> str:
+    """The route kernel ``name``'s last ``n`` launches took (read from the
+    wrapper's per-route counts, which it then zeroes); fails unless one
+    route took them all and it is the one ``fa.ROUTES`` names for their
+    type."""
     from repro_torch.kernels import flash_attention as fa
 
-    took = {r: c for r, c in fa.ROUTE_LAUNCHES.items() if c}
-    for r in fa.ROUTE_LAUNCHES:
-        fa.ROUTE_LAUNCHES[r] = 0
+    counts = fa.ROUTE_LAUNCHES[name]
+    took = {r: c for r, c in counts.items() if c}
+    for r in counts:
+        counts[r] = 0
     check(len(took) == 1 and sum(took.values()) == n,
-          f"K7's last {n} launches took the routes {took}")
+          f"{name}'s last {n} launches took the routes {took}")
     return next(iter(took))
 
 
@@ -899,7 +920,7 @@ def phase_lm(small_err: float):
               and q.dtype == torch.bfloat16, f"K7 input {tuple(q.shape)}")
         fa.reset_launches()
         d, worst = flash_err(q, k, v, causal, window)
-        route = k7_routes(1)
+        route = kernel_routes("flash_attention", 1)
         err = max(err, d)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         if window:
@@ -1062,7 +1083,8 @@ def phase_flash_bwd_kernels() -> dict:
     shapes = [(hd, dt, shape, FA_MASKS) for hd in fa.HEAD_DIMS
               for dt in (torch.float32, torch.bfloat16) for shape in FA_RAGGED]
     shapes.append((dhd, torch.float32, (dB, dT, dH, dM), dmasks))
-    cases = 0
+    cases, routes = 0, {}
+    fa.reset_launches()
     for hd, dt, (B, T, H, M), masks in shapes:
         q, k, v, do = (torch.randn((B, L, H, hd), generator=g,
                                    device="cuda").to(dt)
@@ -1072,12 +1094,15 @@ def phase_flash_bwd_kernels() -> dict:
                                            window).items():
                 errs[n] = (max(errs[n][0], d), max(errs[n][1], w))
             cases += 1
+        routes[(hd, str(dt).removeprefix("torch."))] = tuple(
+            kernel_routes(n, len(masks)) for n in fa.LAUNCHES)
     for n, (d, w) in errs.items():
         print(f"[train] {n}: {cases} cases (hd {fa.HEAD_DIMS} x (f32, "
               f"bf16) x {FA_RAGGED} (B, T, H, M) x {FA_MASKS}, and the "
               f"driver's [{dB}, {dT}, {dH}, {dhd}] f32 x {dmasks}) match "
               f"autograd through the plain forward: max abs err {d}, worst "
               f"case {w} of its element-wise limit")
+    print(f"[train] K7/K8/K9 routes by (head_dim, type): {routes}")
     return errs
 
 
@@ -1123,7 +1148,7 @@ def phase_bwd_timing(small: dict) -> tuple[dict, dict]:
     for kind, causal, window in (("global", True, 0), ("local", True, 1024)):
         fa.reset_launches()
         d, w = flash_err(q, k, v, causal, window)
-        route = k7_routes(1)
+        route = kernel_routes("flash_attention", 1)
         bound, by = attention_bound(q, k, causal, window)
         flops = 4.0 * hd * B * H * visible_pairs(T, T, causal, window)
         ms = device_ms(lambda q, k, v: fa.flash_attention_fwd(
@@ -1138,11 +1163,16 @@ def phase_bwd_timing(small: dict) -> tuple[dict, dict]:
               f"forward: max abs err {d}, {w} of the element-wise limit; "
               f"kernel_ms={ms:.5f} TFLOP/s={flops / ms / 1e9:.2f} bound_ms="
               f"{bound:.5f} ({by}, {flops / bound / 1e9:.2f} TFLOP/s)")
+        fa.reset_launches()
         lse = fa.flash_attention_fwd(q, k, v, causal, window)[1]
         dq, delta = fa.flash_attention_bwd_dq(q, k, v, lse, do, causal,
                                               window)
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal,
                                             window)
+        bwd_route = [kernel_routes(n, 1) for n in (
+            "flash_attention_bwd_dq", "flash_attention_bwd_dkv")]
+        check(bwd_route == ["wgmma_bf16"] * 2,
+              f"K8/K9 at the training shape took {bwd_route}")
         want = fa.flash_attention_bwd_ref(q, k, v, lse, do, causal, window)
         e = {n: grad_err(a, b) for n, a, b in zip(("dq", "dk", "dv"),
                                                   (dq, dk, dv), want)}
@@ -1193,12 +1223,16 @@ def phase_bwd_timing(small: dict) -> tuple[dict, dict]:
                 "library": f"backward of F.scaled_dot_product_attention "
                            f"({backend}; dq, dk and dv together)",
                 "max_abs_err": (e["dq"] if name.endswith("dq")
-                                else max(e["dk"], e["dv"]))[0]}
+                                else max(e["dk"], e["dv"]))[0],
+                "route": bwd_route[0]}
+            r["tflops"] = flops * hd * pairs / r["ms"] / 1e9
             print(f"[train] {name} {kind} (window {window}) at [{B}, {T}, "
-                  f"{H}, {hd}] bf16: kernel_ms={r['ms']:.5f} plain_ms="
+                  f"{H}, {hd}] bf16 (route {r['route']}): kernel_ms="
+                  f"{r['ms']:.5f} TFLOP/s={r['tflops']:.2f} plain_ms="
                   f"{r['plain_ms']:.5f} bound_ms={r['bound_ms']:.5f} ({by}) "
                   f"library_ms={r['library_ms']:.5f} [{r['library']}] "
                   f"pairs={pairs}")
+        fa.reset_launches()
         del lse, delta
     torch.cuda.empty_cache()
     rows = {}
@@ -1207,7 +1241,7 @@ def phase_bwd_timing(small: dict) -> tuple[dict, dict]:
                       "err_of_elementwise_limit": errs[name][1],
                       **{f"local_{f}": r["local"][f] for f in (
                           "ms", "plain_ms", "bound_ms", "library_ms",
-                          "pairs")}}
+                          "pairs", "tflops")}}
     return rows, k7
 
 
@@ -1273,6 +1307,12 @@ def phase_train() -> tuple[dict, dict]:
               f"{float(met['grad_norm'])} lr {float(met['lr'])} wall "
               f"{wall[-1]:.3f} ms card {card[-1]:.3f} ms launches {got}")
     counts = dict(fa.LAUNCHES)
+    routes = {k: dict(v) for k, v in fa.ROUTE_LAUNCHES.items()}
+    check(all(routes[k] == {"wgmma_bf16": n, "simt_f32": 0}
+              for k, n in counts.items()),
+          f"training steps' K7/K8/K9 routes {routes}")
+    print(f"[train] every K7/K8/K9 launch of the steps took the tensor-core "
+          f"route: {routes}")
     peak = torch.cuda.max_memory_allocated() / 1e9
     step_ms = statistics.median(wall[1:])
     out = {"losses": losses, "step_ms": wall, "card_step_ms": card,
@@ -1283,8 +1323,8 @@ def phase_train() -> tuple[dict, dict]:
            "launches_per_step": per_step}
     prof = device_profile(
         lambda: step(state, data.batch(1 + tr["timed"])),
-        groups={"K7": "flash_fwd", "K8": "flash_bwd_dq_kernel",
-                "K9": "flash_bwd_dkv_kernel"})
+        groups={"K7": "flash_fwd", "K8": "flash_bwd_dq",
+                "K9": "flash_bwd_dkv"})
     prof["k7_k8_k9_share_of_busy"] = (sum(prof["groups"].values())
                                       / prof["device_busy_ms"])
     out["profile"] = prof
@@ -1366,6 +1406,9 @@ def phase_driver() -> tuple[dict, dict]:
         secs = time.perf_counter() - t0
         kept = store.steps()
     counts = dict(fa.LAUNCHES)
+    check(all(fa.ROUTE_LAUNCHES[k] == {"wgmma_bf16": 0, "simt_f32": n}
+              for k, n in counts.items()),
+          f"driver's K7/K8/K9 routes {fa.ROUTE_LAUNCHES} (f32: SIMT)")
     first, last = np.mean(res.losses[:10]), np.mean(res.losses[-10:])
     check(res.restarts == 1 and res.steps_done == run["steps"]
           and len(res.losses) == run["steps"] and last < first
@@ -1379,7 +1422,8 @@ def phase_driver() -> tuple[dict, dict]:
     print(f"[train] driver at 100M widths ({cfg.n_params / 1e6:.1f}M "
           f"params, f32): {res.steps_done} steps in {secs:.3f} s, restarts "
           f"{res.restarts} (step {run['fail_at']} failed once), loss "
-          f"{first} -> {last}, checkpoints {kept}, launches {counts}")
+          f"{first} -> {last}, checkpoints {kept}, launches {counts}, all "
+          f"on the SIMT f32 route")
     del state
     torch.cuda.empty_cache()
     return counts, out
@@ -1393,7 +1437,7 @@ def main() -> int:
     build_s = phase_build()
     rows = phase_kernels()
     rows.update(phase_rmsnorm_kernels())
-    fa_err, k7_res = phase_flash_kernels()
+    fa_err, tc_res = phase_flash_kernels()
     launches, times = phase_main_path()
     counts, hcounts, served = phase_serve(rows["rmsnorm_matmul"]["ms"])
     rows["flash_attention"], fcounts, lm = phase_lm(fa_err)
@@ -1432,7 +1476,7 @@ def main() -> int:
                       "frame": [H, W], "frames": N_FRAMES,
                       "serve_transformer": served, "serve_lm": lm,
                       "train": trained, "driver": driven,
-                      "k7_resources": k7_res, "k7_train_shape": k7_train,
+                      "tc_resources": tc_res, "k7_train_shape": k7_train,
                       "local_layer": {n: {k: v for k, v in rows[n].items()
                                           if k.startswith("local_")}
                                       for n in ("flash_attention",

@@ -180,7 +180,8 @@ def fused_cost(parts: "list[NodeCost]", intermediate_bytes: float, *,
     ``smem_required`` is one block's resident tile set; above ``smem_bytes``
     the estimate reports ``fused_ms = inf`` so callers reject it.  The parts'
     ``measured_ms`` make up ``unfused_ms`` only: the fused kernel is new
-    code, so only the roofline speaks for it.
+    code, so only the roofline speaks for it.  Their ``f32_flops`` sum into
+    the fused cost, which is timed at the f32 peak for that share.
     """
     if not parts:
         raise ValueError("fused_cost needs at least one part")

@@ -580,13 +580,43 @@ def fused_working_set_bytes(ir: CourierIR, run: Sequence[Node],
     return working_set_bytes(ir, seen, tile)
 
 
+def f32_flops(ir: CourierIR, node: Node) -> float:
+    """The FLOP of ``node`` on f32 operands, from its values' dtypes: all of
+    them when every floating-point input takes 4 bytes or more (the cost
+    helpers' rule for a 4-byte element), else none."""
+    floats = [ir.values[i].dtype for i in node.inputs
+              if ir.values[i].dtype.startswith(("float", "bfloat"))]
+    wide = bool(floats) and all(ITEMSIZE[d] >= 4 for d in floats)
+    return float(node.flops or 0.0) if wide else 0.0
+
+
+def one_peak_gate_ms(fe: FusionEstimate, run: Sequence[Node],
+                     ) -> tuple[float, float]:
+    """(fused ms, slowest part's ms) with every FLOP at the bf16 peak: the
+    JAX package's gate, whose one peak prices the fused run and its parts
+    alike.  :func:`fuse_adjacent_hw` decides on these two, so it takes the
+    JAX package's decisions, and the fused node carries ``fe.fused_ms``,
+    its f32-aware price.  A part's profiled time is kept and any other is
+    recomputed from its flops and bytes, so the decisions match the JAX
+    package's while a provider's time is ``NodeCost(flops,
+    bytes_rw).time_ms()``."""
+    c = fe.cost
+    fused = NodeCost(flops=c.flops, bytes_rw=c.bytes_rw,
+                     coll_bytes=c.coll_bytes).time_ms()
+    worst = max(NodeCost(flops=n.flops or 0.0, bytes_rw=n.bytes_rw or 0.0,
+                         measured_ms=(n.time_ms if n.time_source == "profile"
+                                      else None)).time_ms() for n in run)
+    return fused, worst
+
+
 def make_model_fused_cost(ir: CourierIR, db: ModuleDatabase | None = None, *,
                           smem_bytes: int = SMEM_BYTES,
                           ) -> Callable[[list[Node]], FusionEstimate]:
     """Build the cost-model fusion estimator for ``fuse_adjacent_hw``.
 
     Returns a ``run -> FusionEstimate`` callable: the fused kernel's roofline
-    with the intermediates' HBM write+read traffic removed, gated by the
+    with the intermediates' HBM write+read traffic removed, its f32 share
+    (:func:`f32_flops`) timed at the f32 peak as its parts' is, gated by the
     shared-memory check of the tile the fused module declares in ``db`` (a
     spilling fusion reports ``fused_ms = inf`` and is always rejected).  A
     run containing a node without ``flops``/``bytes_rw`` annotations is
@@ -597,10 +627,10 @@ def make_model_fused_cost(ir: CourierIR, db: ModuleDatabase | None = None, *,
         for n in run:
             if n.flops is None or n.bytes_rw is None:
                 return float("inf")        # no model → don't gamble on fusion
-            # a node keeps flops and bytes only (its JSON is the reference's),
-            # so the fused run's compute is timed at the bf16 peak; the parts
-            # keep their own times
+            # a node keeps flops and bytes only (its JSON is the reference's):
+            # its f32 share comes from its values' dtypes
             parts.append(NodeCost(flops=n.flops, bytes_rw=n.bytes_rw,
+                                  f32_flops=f32_flops(ir, n),
                                   measured_ms=n.time_ms))
         inter = sum(ir.values[o].nbytes
                     for n in run[:-1] for o in n.outputs)
@@ -719,8 +749,10 @@ def fuse_adjacent_hw(ir: CourierIR, db: ModuleDatabase,
             est = fused_cost_ms(run)
             fe = est if isinstance(est, FusionEstimate) else None
             est_ms = fe.fused_ms if fe is not None else float(est)
-            worst = max(n.time_ms or 0.0 for n in run)
-            if est_ms <= accept_threshold * worst:
+            gate_ms, worst = est_ms, max(n.time_ms or 0.0 for n in run)
+            if fe is not None and fe.fits_smem:
+                gate_ms, worst = one_peak_gate_ms(fe, run)
+            if gate_ms <= accept_threshold * worst:
                 merged_params: dict = {}
                 for n in run:
                     merged_params.update(n.params)

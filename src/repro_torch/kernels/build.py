@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``build/kernels/lib<name>-<digest>.so`` in the checkout, at first use:
 nothing is built when a module is imported, so a machine without ``nvcc``
-still imports (and tests) the whole package.  The digest covers the source
-and the flags, so an edited source is rebuilt and a stale library is never
-loaded.
+still imports (and tests) the whole package.  The digest covers the source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header is rebuilt and a stale library is never loaded.
 """
 from __future__ import annotations
 
@@ -42,6 +42,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
@@ -133,10 +134,12 @@ def check_input(x, name: str, shape_ok, what: str, dtypes=None) -> bool:
     return True
 
 
-def launch(counts: dict, name: str, fn, error_string, x, *args) -> None:
+def launch(counts: dict, name: str, fn, error_string, x, *args,
+           route: str | None = None) -> None:
     """Call ``fn(*args, stream)`` on ``x``'s device and current stream;
     raise with the CUDA error if the launch was refused, else count it in
-    ``counts[name]`` (the one place a launch is counted)."""
+    ``counts[name]``, or ``counts[name][route]`` for a kernel with routes
+    (the one place a launch is counted)."""
     import torch
 
     with torch.cuda.device(x.device):
@@ -145,4 +148,7 @@ def launch(counts: dict, name: str, fn, error_string, x, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed "
                            f"({err}: {error_string(err).decode()})")
-    counts[name] += 1
+    if route is None:
+        counts[name] += 1
+    else:
+        counts[name][route] += 1

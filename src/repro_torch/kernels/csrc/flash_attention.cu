@@ -73,11 +73,9 @@
 // k and v 128 KB), so one block (3 warpgroups) runs on an SM; the o
 // accumulator of a 64 x 256 tile is 128 registers a thread.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -260,27 +258,7 @@ int launch_simt(const void* q, const void* k, const void* v, void* o,
 // --------------------------------------------------------------------------
 // bf16: the tensor-core kernel (wgmma fed by TMA)
 // --------------------------------------------------------------------------
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNeg2 = kNegInf * kLog2e;   // -1e30 in the log2 domain
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// (x, y) -> bf16x2 (x in the low half) and the two residuals x - bf16(x)
-__device__ __forceinline__ uint32_t split2(float x, float y, float& rx,
-                                          float& ry) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  rx = x - __low2float(h);
-  ry = y - __high2float(h);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint32_t pack2(float x, float y) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
 
 constexpr int kConsumerWGs = 2;                  // 64 query rows each
 constexpr int kThreadsWG = 128 * (kConsumerWGs + 1);  // + the producer's
@@ -290,266 +268,19 @@ constexpr int kStages = 2;
 
 template <int HD>
 struct WG {
-  static constexpr int SW = HD < 64 ? HD : 64;   // elements a swizzled row
-  static constexpr int NB = HD / SW;             // boxes across head_dim
-  static constexpr int BOX = 64 * SW * 2;        // bytes of a 64-row box
+  static constexpr int TILE = 64 * HD * 2;      // 64 rows of q, k or v
   static constexpr int Q_BYTES = BQ_WG * HD * 2;
   static constexpr int KV_BYTES = BK_WG * HD * 2;  // one k or v tile
   // q, the ring of (k, v), barriers; +1024 to align the tiles
   static constexpr int SMEM =
       Q_BYTES + 2 * kStages * KV_BYTES + 8 * (1 + 4 * kStages) + 1024;
-  // the swizzle of a TMA box and of the wgmma descriptors: 128, 64 or 32 B
-  static constexpr int LAYOUT = SW == 64 ? 1 : (SW == 32 ? 2 : 3);
-  static constexpr int SBO = 8 * SW * 2;         // 8 rows of the atom
 };
 
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t saddr, uint32_t lbo,
-                                              uint32_t sbo, int layout) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// one box of a 4-D [B, L, H, hd] tensor map into shared memory
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int d, int h, int row,
-                                         int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(d), "r"(h), "r"(row), "r"(b),
-      "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep the compiler from moving accumulator registers across the
-// asynchronous products
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// d (+)= A (64x16, shared memory, K-major) * B (16x64, shared memory,
-// K-major): d[32] a thread, in the accumulator layout
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d += A (64x16, registers) * B (16x16, shared memory, MN-major)
-__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d += A (64x16, registers) * B (16x32, shared memory, MN-major)
-__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d += A (64x16, registers) * B (16x64, shared memory, MN-major)
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d += A (64x16, registers) * B (16x128, shared memory, MN-major)
-__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d += A (64x16, registers) * B (16x256, shared memory, MN-major)
-__device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
-      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
-      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
-        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
-        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
-        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
-        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a,
-                                         uint64_t db) {
-  if constexpr (HD == 16) wgmma_rs_n16(d, a, db);
-  else if constexpr (HD == 32) wgmma_rs_n32(d, a, db);
-  else if constexpr (HD == 64) wgmma_rs_n64(d, a, db);
-  else if constexpr (HD == 128) wgmma_rs_n128(d, a, db);
-  else wgmma_rs_n256(d, a, db);
-}
-
-__device__ __forceinline__ void wgmma_wait1() {
-  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-}
-
-// Issue S = Q K^T for a warpgroup's 64 query rows against a 64-key tile:
-// HD/16 products of m64n64k16 over the boxes of q and k (both K-major).
+// Issue S = Q K^T for a warpgroup's 64 query rows against a 64-key tile.
 template <int HD>
 __device__ __forceinline__ void issue_qk(float* sacc, uint32_t q_tile,
                                          uint32_t k_tile) {
-  using C = WG<HD>;
-  fence_regs<BK_WG / 2>(sacc);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const int c = kk * 16 / C::SW, off = (kk * 16 % C::SW) * 2;
-    wgmma_ss_n64(sacc,
-                 gmma_desc(q_tile + c * C::BOX + off, 16, C::SBO, C::LAYOUT),
-                 gmma_desc(k_tile + c * C::BOX + off, 16, C::SBO, C::LAYOUT),
-                 kk > 0);
-  }
+  issue_ss<HD>(sacc, q_tile, k_tile);
   wgmma_commit();
 }
 
@@ -558,25 +289,8 @@ __device__ __forceinline__ void issue_qk(float* sacc, uint32_t q_tile,
 template <int HD>
 __device__ __forceinline__ void issue_pv(float* acc, uint32_t (*ph)[4],
                                          uint32_t (*pl)[4], uint32_t v_tile) {
-  using C = WG<HD>;
-  fence_regs<HD / 2>(acc);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < BK_WG / 16; ++kk) {
-    const uint64_t db = gmma_desc(v_tile + kk * 16 * C::SW * 2, C::BOX,
-                                  C::SBO, C::LAYOUT);
-    wgmma_pv<HD>(acc, ph[kk], db);
-    wgmma_pv<HD>(acc, pl[kk], db);
-  }
+  issue_rs<HD>(acc, ph, pl, v_tile);
   wgmma_commit();
-}
-
-// 2^x by the SFU (relative error ~2^-22; results below 2^-126 flush to 0,
-// far below the largest p of a row, which is 1)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // The online softmax of one S tile (keys k0..k0+63) on the accumulator
@@ -636,22 +350,6 @@ __device__ __forceinline__ void softmax_tile(float* sacc, float* m_run,
   }
 }
 
-// p (f32, accumulator layout) -> the A fragments of P.V: hi = bf16(p), lo =
-// bf16(p - hi), one k16 step of 16 keys each
-__device__ __forceinline__ void split_p(const float* sacc, uint32_t (*ph)[4],
-                                        uint32_t (*pl)[4]) {
-#pragma unroll
-  for (int kk = 0; kk < BK_WG / 16; ++kk) {
-    float r[8];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      ph[kk][j] = split2(sacc[8 * kk + 2 * j], sacc[8 * kk + 2 * j + 1],
-                         r[2 * j], r[2 * j + 1]);
-      pl[kk][j] = pack2(r[2 * j], r[2 * j + 1]);
-    }
-  }
-}
-
 template <int HD>
 __global__ void __launch_bounds__(kThreadsWG, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -699,22 +397,18 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x == 128 * kConsumerWGs) {
       mbar_expect_tx(q_full, C::Q_BYTES);
       for (int r = 0; r < kConsumerWGs; ++r)
-        for (int c = 0; c < C::NB; ++c)
-          tma_load(q_s + (r * C::NB + c) * C::BOX, &tq, q_full, c * C::SW,
-                   h, q0 + 64 * r, b);
+        tma_tile<HD>(q_s + r * C::TILE, &tq, q_full, h, q0 + 64 * r, b);
       for (int kt = kt_lo; kt < kt_hi; ++kt) {
         const int i = kt - kt_lo, s = i % kStages;
         const int par = ((i / kStages) & 1) ^ 1;
         mbar_wait(empty_k + 8 * s, par);
         mbar_expect_tx(full_k + 8 * s, C::KV_BYTES);
-        for (int c = 0; c < C::NB; ++c)
-          tma_load(k_s + s * C::KV_BYTES + c * C::BOX, &tk, full_k + 8 * s,
-                   c * C::SW, h, kt * BK_WG, b);
+        tma_tile<HD>(k_s + s * C::KV_BYTES, &tk, full_k + 8 * s, h,
+                     kt * BK_WG, b);
         mbar_wait(empty_v + 8 * s, par);
         mbar_expect_tx(full_v + 8 * s, C::KV_BYTES);
-        for (int c = 0; c < C::NB; ++c)
-          tma_load(v_s + s * C::KV_BYTES + c * C::BOX, &tv, full_v + 8 * s,
-                   c * C::SW, h, kt * BK_WG, b);
+        tma_tile<HD>(v_s + s * C::KV_BYTES, &tv, full_v + 8 * s, h,
+                     kt * BK_WG, b);
       }
     }
   } else {
@@ -723,7 +417,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int g = lane >> 2, t4 = lane & 3;
     const int qw = q0 + 64 * wg;                    // this warpgroup's rows
     const int qrow[2] = {qw + 16 * warp + g, qw + 16 * warp + g + 8};
-    const uint32_t q_tile = q_s + wg * C::NB * C::BOX;
+    const uint32_t q_tile = q_s + wg * C::TILE;
     // the key tiles this warpgroup's rows see: [wt_lo, wt_hi)
     int wlo, whi;
     key_range(qw, min(qw + 63, T_len - 1), M, causal, window, wlo, whi);
@@ -764,7 +458,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       softmax_tile<NT>(sacc, m_run, l_run, alpha, is_full(wt_lo * BK_WG),
                        qrow, wt_lo * BK_WG, t4, M, causal, window,
                        scale_log2);
-      split_p(sacc, ph, pl);
+      split_frag(sacc, ph, pl);
       // tile kt's S = Q K^T and softmax overlap tile kt-1's P.V
       for (int kt = wt_lo + 1; kt < wt_hi; ++kt) {
         const int i = kt - kt_lo, sp = s;
@@ -791,7 +485,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
             acc[4 * n + 3] *= alpha[1];
           }
         }
-        split_p(sacc, ph, pl);
+        split_frag(sacc, ph, pl);
       }
       mbar_wait(full_v + 8 * s, ((wt_hi - 1 - kt_lo) / kStages) & 1);
       issue_pv<HD>(acc, ph, pl, v_s + s * C::KV_BYTES);
@@ -824,56 +518,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found at run time (the library
-// links the CUDA runtime only)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
-// the [B, L, H, HD] bf16 tensor at ptr as a 4-D map (hd, H, L, B) whose box
-// is SW head_dim elements of one head over 64 rows, swizzled as C::LAYOUT
-template <int HD>
-bool tensor_map(CUtensorMap* map, const void* ptr, int B, int L, int H) {
-  using C = WG<HD>;
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)H, (cuuint64_t)L,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)HD * 2, (cuuint64_t)H * HD * 2,
-                                 (cuuint64_t)L * H * HD * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)C::SW, 1, 64, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle =
-      C::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                  : (C::SW == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                 : CU_TENSOR_MAP_SWIZZLE_32B);
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int HD>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  void* lse, int B, int T_len, int M, int H, int causal,
@@ -895,16 +539,6 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
       T_len, M, H, causal, window, scale * kLog2e);
   return (int)cudaGetLastError();
 }
-
-#define REPRO_FA_DISPATCH(FN, hd, ...)         \
-  switch (hd) {                                \
-    case 16: return FN<16>(__VA_ARGS__);       \
-    case 32: return FN<32>(__VA_ARGS__);       \
-    case 64: return FN<64>(__VA_ARGS__);       \
-    case 128: return FN<128>(__VA_ARGS__);     \
-    case 256: return FN<256>(__VA_ARGS__);     \
-    default: return (int)cudaErrorInvalidValue; \
-  }
 
 int smem_wgmma(int hd) {
   switch (hd) {

@@ -6,18 +6,20 @@ kernels (``src/repro/kernels/flash_attention.py``): K7
 (``csrc/flash_attention.cu``, for ``_fwd``) computes online-softmax
 attention of q ``[B, T, H, hd]`` against k, v ``[B, M, H, hd]`` (kv
 pre-expanded to the H query heads), causal and/or sliding-window masked,
-o in the input type and an f32 log-sum-exp ``[B*H, T]``.  K7's route is
-chosen by the input type, at every head_dim of :data:`HEAD_DIMS`: bf16
-runs on the tensor cores (``flash_fwd_wgmma_kernel``: wgmma with bf16
-operands and f32 sums, fed by TMA; p carried into P.V as two bf16 terms),
-f32 on the SIMT kernel (``flash_fwd_kernel``, f32 throughout), since the
-f32 limit of 2e-5 of |o| leaves no room for bf16 or TF32 operands.
-Neither route falls back to the other or to the plain version;
-:data:`ROUTE_LAUNCHES` counts the launches of each.  K8 (dq) and K9 (dk,
-dv) (``csrc/flash_attention_bwd.cu``, for ``_bwd``) recompute the
-probabilities from that lse, and take delta as rowsum(p * (do . v)), the
-f32 o's rowsum with do (the JAX kernels read the stored o, whose bf16
-rounding moves the gradient by more than a bf16 ulp).
+o in the input type and an f32 log-sum-exp ``[B*H, T]``.  Each kernel's
+route is chosen by the input type, at every head_dim of :data:`HEAD_DIMS`:
+bf16 runs on the tensor cores (K7 ``flash_fwd_wgmma_kernel``, K8
+``flash_bwd_dq_wgmma_kernel``, K9 ``flash_bwd_dkv_wgmma_kernel``: wgmma
+with bf16 operands and f32 sums, fed by TMA; p, and in the backward ds,
+carried into their products as two bf16 terms), f32 on the SIMT kernels
+(``flash_fwd_kernel``, ``flash_bwd_dq_kernel``, ``flash_bwd_dkv_kernel``,
+f32 throughout), since the f32 limits (2e-5 of |o|, 2e-4 of |g|) leave no
+room for bf16 or TF32 operands.  Neither route falls back to the other or
+to the plain version; :data:`ROUTE_LAUNCHES` counts the launches of each.
+K8 (dq) and K9 (dk, dv) (``csrc/flash_attention_bwd.cu``, for ``_bwd``)
+recompute the probabilities from K7's lse, and take delta as rowsum(p *
+(do . v)), the f32 o's rowsum with do (the JAX kernels read the stored o,
+whose bf16 rounding moves the gradient by more than a bf16 ulp).
 :class:`FlashAttention` binds them into one ``torch.autograd.Function``, so
 :func:`flash_attention` is differentiable.
 
@@ -27,7 +29,8 @@ launch is refused); plain PyTorch versions, :func:`flash_attention_ref`
 (the reference's order of operations, ``src/repro/kernels/ref.py:
 reference_attention``) and :func:`flash_attention_bwd_ref` (the backward
 kernels' recompute formulas), which the wrappers take for a tensor on the
-CPU and nowhere else; and launch counts in :data:`LAUNCHES`.
+CPU and nowhere else; and launch counts in :data:`ROUTE_LAUNCHES`, with
+each kernel's total in :data:`LAUNCHES`.
 
 The masks are aligned at position 0 (query t sees key m when ``t - m >= 0``
 if causal, and ``t - m < window`` if ``window > 0``), as in the TPU kernel.
@@ -42,27 +45,52 @@ from __future__ import annotations
 
 import ctypes
 import math
+from collections.abc import Mapping
 
 import torch
 
 from .build import check_input, launch
 
-LAUNCHES: dict[str, int] = {"flash_attention": 0,
-                             "flash_attention_bwd_dq": 0,
-                             "flash_attention_bwd_dkv": 0}
-
 HEAD_DIMS = (16, 32, 64, 128, 256)        # the kernel's templated head_dims
 DTYPES = (torch.float32, torch.bfloat16)
 NEG_INF = -1e30                           # the reference's mask value
-# K7's two routes, by input type: their kernels in csrc/flash_attention.cu
+# each kernel's two routes, by input type (csrc/flash_attention.cu and
+# csrc/flash_attention_bwd.cu): launches by kernel, then by route
 ROUTES = {torch.bfloat16: "wgmma_bf16", torch.float32: "simt_f32"}
-ROUTE_LAUNCHES: dict[str, int] = {r: 0 for r in ROUTES.values()}
+ROUTE_LAUNCHES: dict[str, dict[str, int]] = {
+    k: {r: 0 for r in ROUTES.values()}
+    for k in ("flash_attention", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv")}
+
+
+class _Totals(Mapping):
+    """Each kernel's launches over both routes, read from
+    :data:`ROUTE_LAUNCHES` (the one count kept)."""
+
+    def __getitem__(self, name: str) -> int:
+        return sum(ROUTE_LAUNCHES[name].values())
+
+    def __iter__(self):
+        return iter(ROUTE_LAUNCHES)
+
+    def __len__(self) -> int:
+        return len(ROUTE_LAUNCHES)
+
+
+LAUNCHES: Mapping[str, int] = _Totals()
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, ROUTE_LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    for counts in ROUTE_LAUNCHES.values():
+        for r in counts:
+            counts[r] = 0
+
+
+def _launch(name: str, fn, error_string, q: torch.Tensor, *args) -> None:
+    """Launch one of the three kernels on ``q``'s device and count it on
+    its route in :data:`ROUTE_LAUNCHES`."""
+    launch(ROUTE_LAUNCHES, name, fn, error_string, q, *args,
+           route=ROUTES[q.dtype])
 
 
 # --------------------------------------------------------------------------- #
@@ -199,6 +227,8 @@ def bwd_library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.repro_flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
         lib.repro_flash_attention_bwd_error_string.restype = ctypes.c_char_p
+        lib.repro_flash_attention_bwd_smem_bytes.argtypes = [_I, _I, _I]
+        lib.repro_flash_attention_bwd_smem_bytes.restype = ctypes.c_int
         lib._repro_typed = True
     return lib
 
@@ -255,13 +285,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"flash_attention: [{B}, {T}, {H}, {hd}] "
                              f"exceeds the kernel's grid")
         lib = library()
-        launch(LAUNCHES, "flash_attention", lib.repro_flash_attention_fwd,
-               lib.repro_flash_attention_error_string, q,
-               q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-               lse.data_ptr(), B, T, M, H, hd,
-               int(q.dtype == torch.bfloat16), int(bool(causal)),
-               int(window), 1.0 / math.sqrt(hd))
-        ROUTE_LAUNCHES[ROUTES[q.dtype]] += 1
+        _launch("flash_attention", lib.repro_flash_attention_fwd,
+                lib.repro_flash_attention_error_string, q,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr(), B, T, M, H, hd,
+                int(q.dtype == torch.bfloat16), int(bool(causal)),
+                int(window), 1.0 / math.sqrt(hd))
     return o, lse
 
 
@@ -305,7 +334,8 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """K8: (dq, delta) — dq of o = attention(q, k, v) for the output's
     gradient ``do`` (contiguous; :func:`flash_attention_bwd` makes it so),
-    and the f32 delta = rowsum(p * (do . v)) [B*H, T] that K9 takes."""
+    and the f32 delta = rowsum(p * (do . v)) [B*H, T] that K9 takes; on
+    the route :data:`ROUTES` names for the type."""
     if not check_input(q, "flash_attention_bwd", lambda s: len(s) == 4,
                        "q of [B, T, H, hd]", dtypes=DTYPES):
         return flash_attention_bwd_dq_ref(q, k, v, lse, do, causal, window)
@@ -316,12 +346,11 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if 0 in dims:
         return dq.zero_(), delta.zero_()
     lib = bwd_library()
-    launch(LAUNCHES, "flash_attention_bwd_dq",
-           lib.repro_flash_attention_bwd_dq,
-           lib.repro_flash_attention_bwd_error_string, q, q.data_ptr(),
-           k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-           delta.data_ptr(), dq.data_ptr(),
-           *_bwd_shape(q, dims, causal, window))
+    _launch("flash_attention_bwd_dq", lib.repro_flash_attention_bwd_dq,
+            lib.repro_flash_attention_bwd_error_string, q, q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(),
+            *_bwd_shape(q, dims, causal, window))
     return dq, delta
 
 
@@ -340,12 +369,11 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
     if 0 in dims:
         return dk.zero_(), dv.zero_()
     lib = bwd_library()
-    launch(LAUNCHES, "flash_attention_bwd_dkv",
-           lib.repro_flash_attention_bwd_dkv,
-           lib.repro_flash_attention_bwd_error_string, q, q.data_ptr(),
-           k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-           delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-           *_bwd_shape(q, dims, causal, window))
+    _launch("flash_attention_bwd_dkv", lib.repro_flash_attention_bwd_dkv,
+            lib.repro_flash_attention_bwd_error_string, q, q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *_bwd_shape(q, dims, causal, window))
     return dk, dv
 
 

@@ -260,6 +260,62 @@ def test_f32_work_is_timed_at_the_f32_peak():
     assert mixed.time_ms() == pytest.approx(2000.0)
 
 
+def _lm_head_ir(core, rows):
+    """The traced transformer's lm head at DeepSeek-67B widths, f32: the
+    final rmsnorm of [rows, 8192] and its product with [8192, 102400]."""
+    ir = core.CourierIR("lm_head")
+    for name, shape in (("x", (rows, 8192)), ("g", (8192,)),
+                        ("h", (rows, 8192)), ("w", (8192, 102400)),
+                        ("y", (rows, 102400))):
+        ir.add_value(name, shape, "float32")
+    ir.graph_inputs, ir.graph_outputs = ["x", "g", "w"], ["y"]
+    ir.add_node(core.Node(name="rmsnorm_4", fn_key="rmsnorm",
+                          inputs=["x", "g"], outputs=["h"]))
+    ir.add_node(core.Node(name="matmul_0", fn_key="matmul",
+                          inputs=["h", "w"], outputs=["y"]))
+    return ir
+
+
+@pytest.mark.parametrize("rows,fused_ms,part_ms,gate,fuses", [
+    # a served request (the plan's traced shape): the gate ties on the HBM
+    # term, as the JAX package's (4.373548 against 4.373548 ms) does
+    (512, 12.821048, 12.820798, (1.0692345, 1.0692345), True),
+    # the serving group's rows: the compute term decides, in both packages
+    # (JAX: 17.441832 against 17.441492 ms)
+    (2048, 51.284193, 51.283192, (3.4742578, 3.4741899), False)])
+def test_fusion_gate_prices_f32_at_the_f32_peak_and_decides_as_jax(
+        rows, fused_ms, part_ms, gate, fuses):
+    """The fused rmsnorm + lm head (K6) is priced with its f32 share (from
+    its values' dtypes) at the f32 peak, as its parts are; the gate decides
+    on both sides at one peak, as the JAX package's gate does, and takes
+    its decision."""
+    from repro.models import zoo as jzoo
+    from repro_torch.models import zoo as tzoo
+
+    ir = _lm_head_ir(tcore, rows)
+    db = tzoo.make_zoo_db()
+    tcore.assign_placements(ir, db)
+    assert tcore.partition.f32_flops(ir, ir.nodes[1]) == ir.nodes[1].flops
+    fe = tcore.make_model_fused_cost(ir, db)(ir.nodes)
+    assert fe.cost.f32_flops == fe.cost.flops
+    assert fe.fused_ms == pytest.approx(fused_ms, rel=1e-7)
+    assert max(n.time_ms for n in ir.nodes) == pytest.approx(part_ms,
+                                                             rel=1e-7)
+    assert tcore.partition.one_peak_gate_ms(fe, ir.nodes) == pytest.approx(
+        gate, rel=1e-7)
+    out = tcore.fuse_adjacent_hw(ir, db, fused_cost_ms="model")
+    jir = _lm_head_ir(jcore, rows)
+    jcore.assign_placements(jir, jzoo.make_zoo_db())
+    jout = jcore.fuse_adjacent_hw(jir, jzoo.make_zoo_db(),
+                                  fused_cost_ms="model")
+    names = [n.name for n in out.nodes]
+    assert names == [n.name for n in jout.nodes]
+    assert names == (["rmsnorm_4+matmul_0"] if fuses
+                     else ["rmsnorm_4", "matmul_0"])
+    if fuses:                     # the fused node carries its f32 price
+        assert out.nodes[0].time_ms == pytest.approx(fused_ms, rel=1e-7)
+
+
 @pytest.mark.parametrize("provider,shapes", [
     ("_c_attn", [(4096, 8192)]),
     ("_c_swiglu", [(4096, 8192), (8192, 2 * 22016)]),

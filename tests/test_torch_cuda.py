@@ -199,7 +199,8 @@ def test_flash_attention_tensor_core_kernel_at_long_lengths_on_card(
                            ).bfloat16() for _ in range(3))
     fa.reset_launches()
     _k7_within_element_wise_limit(q, k, v, causal, window)
-    assert fa.ROUTE_LAUNCHES == {"wgmma_bf16": 1, "simt_f32": 0}
+    assert fa.ROUTE_LAUNCHES["flash_attention"] == {"wgmma_bf16": 1,
+                                                    "simt_f32": 0}
 
 
 def test_flash_attention_routes_by_type_on_card(cuda_device):
@@ -209,9 +210,11 @@ def test_flash_attention_routes_by_type_on_card(cuda_device):
     x = torch.randn((2, 77, 3, 64), generator=g, device=cuda_device)
     fa.reset_launches()
     fa.flash_attention_fwd(x, x, x, True, 0)
-    assert fa.ROUTE_LAUNCHES == {"wgmma_bf16": 0, "simt_f32": 1}
+    assert fa.ROUTE_LAUNCHES["flash_attention"] == {"wgmma_bf16": 0,
+                                                    "simt_f32": 1}
     fa.flash_attention_fwd(x.bfloat16(), x.bfloat16(), x.bfloat16(), True, 0)
-    assert fa.ROUTE_LAUNCHES == {"wgmma_bf16": 1, "simt_f32": 1}
+    assert fa.ROUTE_LAUNCHES["flash_attention"] == {"wgmma_bf16": 1,
+                                                    "simt_f32": 1}
     assert fa.LAUNCHES["flash_attention"] == 2
 
 
@@ -229,7 +232,8 @@ def test_flash_attention_raises_on_a_bf16_case_it_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="head_dim 48"):
         fa.flash_attention_fwd(y, y, y, True, 0)
     assert fa.LAUNCHES["flash_attention"] == 0
-    assert fa.ROUTE_LAUNCHES == {"wgmma_bf16": 0, "simt_f32": 0}
+    assert fa.ROUTE_LAUNCHES["flash_attention"] == {"wgmma_bf16": 0,
+                                                    "simt_f32": 0}
 
 
 def test_flash_attention_rejects_what_it_does_not_take(cuda_device):
@@ -299,6 +303,45 @@ def test_flash_attention_backward_matches_plain_version_on_card(
     for a, b in zip(got, want):
         assert a.dtype == dtype and a.shape == b.shape
         _grads_close(a, b, dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("T", [4096, 4128])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 1024)])
+def test_flash_attention_backward_tensor_core_kernels_at_long_lengths_on_card(
+        cuda_device, T, causal, window):
+    """bf16 K8 and K9 on the tensor cores at the training length (T = 4128:
+    off any tile), against the plain backward from K7's lse, element by
+    element."""
+    g = torch.Generator(cuda_device).manual_seed(T + window + 1)
+    q, k, v, do = (torch.randn((1, T, 2, 256), generator=g,
+                               device=cuda_device).bfloat16()
+                   for _ in range(4))
+    _, lse = fa.flash_attention_fwd(q, k, v, causal, window)
+    fa.reset_launches()
+    got = fa.flash_attention_bwd(q, k, v, lse, do, causal, window)
+    want = fa.flash_attention_bwd_ref(q, k, v, lse, do, causal, window)
+    torch.cuda.synchronize()
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert fa.ROUTE_LAUNCHES[name] == {"wgmma_bf16": 1, "simt_f32": 0}
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        _grads_close(a, b, True)
+
+
+def test_flash_attention_backward_routes_by_type_on_card(cuda_device):
+    """bf16 K8/K9 take the tensor-core kernels, f32 the SIMT kernels."""
+    g = torch.Generator(cuda_device).manual_seed(6)
+    q, k, v, do = (torch.randn((2, 77, 3, 64), generator=g,
+                               device=cuda_device) for _ in range(4))
+    for dt, route in ((torch.float32, "simt_f32"),
+                      (torch.bfloat16, "wgmma_bf16")):
+        x = [t.to(dt) for t in (q, k, v, do)]
+        _, lse = fa.flash_attention_fwd(*x[:3], True, 0)
+        fa.reset_launches()
+        fa.flash_attention_bwd(*x[:3], lse, x[3], True, 0)
+        for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            assert fa.ROUTE_LAUNCHES[name] == {
+                r: int(r == route) for r in ("wgmma_bf16", "simt_f32")}
 
 
 def test_reduced_train_step_on_card_runs_k7_k8_k9_per_layer(cuda_device):

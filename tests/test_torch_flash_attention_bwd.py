@@ -16,6 +16,12 @@ Cases: ``tests/test_kernels.py:39-66``'s (2, 256, 2, 64) causal and
 rows that see no key (T > M + window - 1), whose stored lse cannot give
 their probabilities.  The limit is f32's 2e-4, relative to the gradient's
 largest value.
+
+The bf16 kernels' arithmetic (tensor-core products with bf16 operands and
+f32 sums, p from K7's lse in the log2 domain, delta from the f32 p * dp,
+p and ds carried into their products as two bf16 terms) is emulated here
+in plain torch, in their order of operations, and held to the plain
+backward with ``chip_smoke.grad_err``'s element-wise bf16 limit.
 """
 import jax
 import jax.numpy as jnp
@@ -26,6 +32,8 @@ import torch
 from repro.kernels import ref
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+from test_torch_flash_attention import (FA_MASKS, FA_RAGGED, LOG2E, _fmaf,
+                                        _emulate_tensor_core_kernel)
 
 torch.set_num_threads(1)
 
@@ -161,3 +169,97 @@ def test_backward_launch_checks_refuse_what_the_kernels_do_not_take():
                       {"do": x}, {"lse": lse})
     with pytest.raises(TypeError, match="bfloat16"):
         fa._check_bwd(q, k, v, {"do": do.bfloat16()}, {"lse": lse})
+
+
+# --------------------------------------------------------------------------- #
+# the bf16 tensor-core kernels' arithmetic, emulated on the CPU
+# --------------------------------------------------------------------------- #
+def _bf16_terms(x, terms: int):
+    """x as the kernels feed it to a product: hi = bf16(x), plus lo =
+    bf16(x - hi) when ``terms`` is 2."""
+    hi = x.bfloat16().float()
+    return hi if terms == 1 else hi + (x - hi).bfloat16().float()
+
+
+def _emulate_tensor_core_bwd(q, k, v, do, lse, causal, window, terms=(2, 2)):
+    """``flash_bwd_dq_wgmma_kernel`` and ``flash_bwd_dkv_wgmma_kernel`` step
+    by step: s = q . k and dp = do . v with bf16 operands and f32 sums; p =
+    exp2(fmaf(s, scale*log2e, -lse*log2e)) on visible pairs (K7's lse read
+    in the log2 domain it was written in; both factors are f32 constants),
+    0 elsewhere; K8's first sweep sums delta = rowsum(p * dp) of those f32
+    values; ds = p * (dp - delta); dq = (dS K) * scale, dk = (dS^T Q) *
+    scale, dv = P^T dO with f32 sums, P (p, and 1/M on the rows that see no
+    key, found by their position) as ``terms[0]`` bf16 terms and dS as
+    ``terms[1]``; dq, dk, dv rounded to bf16.  Whole [T, M] products stand
+    in for the kernels' tiles: a tile they skip or a pair they mask adds
+    exactly 0.  The SFU's ex2.approx (within 2^-22 of exp2) and the order
+    of the f32 sums are not emulated."""
+    B, T, H, hd = q.shape
+    M = k.shape[1]
+    qf, kf, vf, dof = (x.float().permute(0, 2, 1, 3) for x in (q, k, v, do))
+    scale = torch.tensor(np.float32(1.0 / np.sqrt(hd)))
+    sl2 = scale * torch.tensor(LOG2E)
+    lse2 = (lse * torch.tensor(LOG2E)).reshape(B, H, T, 1)
+    vis = fa.visible(T, M, causal, window)
+    blind = ~vis.any(dim=1, keepdim=True)                 # [T, 1]
+    zero = torch.zeros(())
+    p = torch.where(vis, torch.exp2(_fmaf(qf @ kf.transpose(-1, -2), sl2,
+                                          -lse2)), zero)
+    dp = dof @ vf.transpose(-1, -2)
+    delta = (p * dp).sum(-1, keepdim=True)                # K8's first sweep
+    ds = _bf16_terms(torch.where(vis, p * (dp - delta), zero), terms[1])
+    pv = torch.where(blind, torch.tensor(np.float32(1.0) / np.float32(M)), p)
+    dq = (ds @ kf) * scale
+    dk = (ds.transpose(-1, -2) @ qf) * scale
+    dv = _bf16_terms(pv, terms[0]).transpose(-1, -2) @ dof
+    return [x.permute(0, 2, 1, 3).bfloat16() for x in (dq, dk, dv)]
+
+
+def _grad_share_of_bf16_limit(got, want):
+    """``chip_smoke.grad_err``'s bf16 check: the largest |g - g_ref| /
+    (2^-7 |g_ref| + 2^-8 rms(g_ref)), element by element."""
+    want = want.float()
+    rms = want.square().mean().sqrt()
+    limit = 2.0**-7 * want.abs() + 2.0**-8 * rms
+    return ((got.float() - want).abs() / limit).max().item()
+
+
+def _tc_case(shape, causal, window, hd, terms=(2, 2)):
+    """Shares of the limit of the emulated (dq, dk, dv) against the plain
+    backward from the same (K7's emulated) lse."""
+    B, T, H, M = shape
+    rng = np.random.default_rng(T + M + hd)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((B, L, H, hd),
+                                                        dtype=np.float32)
+                                    ).bfloat16() for L in (T, M, M, T))
+    _, lse = _emulate_tensor_core_kernel(q, k, v, causal, window)
+    got = _emulate_tensor_core_bwd(q, k, v, do, lse, causal, window, terms)
+    want = fa.flash_attention_bwd_ref(q, k, v, lse, do, causal, window)
+    return [_grad_share_of_bf16_limit(g, w) for g, w in zip(got, want)]
+
+
+# chip_smoke.py's K8/K9 cases at every head_dim (rows that see no key under
+# window 40 at T = 300, M = 200), plus a long causal row
+BWD_TC_CASES = [(shape, causal, window, hd) for shape in FA_RAGGED
+                for causal, window in FA_MASKS for hd in fa.HEAD_DIMS]
+BWD_TC_CASES.append(((1, 2048, 2, 2048), True, 0, 256))
+
+
+@pytest.mark.parametrize("shape,causal,window,hd", BWD_TC_CASES,
+                         ids=lambda x: ("x".join(map(str, x))
+                                        if isinstance(x, tuple) else str(x)))
+def test_tensor_core_backward_arithmetic_meets_the_element_wise_bf16_limit(
+        shape, causal, window, hd):
+    shares = _tc_case(shape, causal, window, hd)
+    assert max(shares) <= 1.0, shares
+
+
+def test_one_bf16_term_of_p_or_ds_misses_the_element_wise_limit():
+    """Why the kernels carry p and ds as two bf16 terms: with one, the
+    rounding of ds (2^-9 of it) moves dq and dk, and that of p moves dv,
+    past one bf16 ulp of the reference's gradient on a long causal row."""
+    case = ((1, 2048, 2, 2048), True, 0, 256)
+    one_ds = _tc_case(*case, terms=(2, 1))
+    one_p = _tc_case(*case, terms=(1, 2))
+    assert one_ds[0] > 1.0 and one_ds[1] > 1.0 and one_ds[2] <= 1.0, one_ds
+    assert one_p[2] > 1.0 and max(one_p[:2]) <= 1.0, one_p
