@@ -12,7 +12,8 @@ version there:
 * the traced transformer served behind the request queue and the executor,
   ``serve_traced_transformer_demo``, at DeepSeek-67B widths (d 8192, 64
   heads, d_ff 22016, vocab 102400; 2 of its 95 layers, ~9.8 GB of f32
-  weights): 8 requests of [512, 8192] in groups of 4 (K5, K6);
+  weights): 8 requests of [512, 8192] in groups of 4 (K5, K6 on the
+  tensor cores: 3xTF32 wgmma);
 * the Harris pipeline served the same way, ``serve_pipeline_demo``, at
   1080x1920 (K1-K3 on the serving path);
 * the LM serving mode, ``serve_lm``, at gemma3-12b's full widths (d 3840,
@@ -39,13 +40,18 @@ Phases:
               route each of their cases took (bf16 on the tensor cores, f32
               on the SIMT kernels), and cuobjdump's proof that every bf16
               entry of the two flash-attention sources issues TC_SASS and
-              no f32 entry a tensor-core instruction
+              no f32 entry a tensor-core instruction; K6's registers,
+              spills (none allowed) and shared memory, and TC_SASS in
+              every K6 entry (its one route, 3xTF32 wgmma), with TF32 off
+              for the plain version; K6's bound is the 3xTF32 tensor work
+              at the TF32 peak, the f32 FMA bound beside it
 4. main     — the offload path, fuse=False then fuse=True: hw rows resolved,
               launch counts moved, no host sync on the path, Switcher logs
               empty, outputs equal the plain app; ms/frame of the original
               app, run_sequential, run, and the card's own ms/frame
 5. serve    — the traced transformer: K6 fused on the lm head, every rmsnorm
-              on K5, launch counts moved by the expected numbers, results
+              on K5, launch counts moved by the expected numbers (K6's all
+              on its tensor-core route), results
               equal the untraced app (2e-4); latency p50/p95, requests/s,
               the card's own ms per group beside the wall ms.  Then the
               Harris pipeline behind the same server.
@@ -97,6 +103,7 @@ FA_BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 HBM_BW = 3.35e12              # H100 SXM HBM3, bytes/s (data sheet)
 FP32_PEAK = 67e12             # H100 SXM float32 outside the tensor cores
 BF16_PEAK = 989e12            # H100 SXM bf16 dense, tensor cores
+TF32_PEAK = 495e12            # H100 SXM TF32 dense, tensor cores
 N_FRAMES = 16
 H, W = 1080, 1920
 RAGGED = [(17, 23), (33, 130), (1081, 1919)]
@@ -196,12 +203,16 @@ def phase_build():
 
 
 def kernel_entry(mangled: str) -> str:
-    """``name<head_dim, type>`` of a kernel from its mangled name."""
-    m = re.search(r"(?<=\d)([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?", mangled)
+    """``name<head_dim, type>`` (or ``name<true|false>`` for a kernel
+    templated on a bool) of a kernel from its mangled name."""
+    m = re.search(r"(?<=\d)([a-z][a-z_]*_kernel)(?:IL([ib])(\d+)E)?",
+                  mangled)
     if not m:
         return mangled[:60]
+    if m.group(2) == "b":
+        return f"{m.group(1)}<{'true' if m.group(3) == '1' else 'false'}>"
     dt = "bf16" if "__nv_bfloat16" in mangled else "f32"
-    return m.group(1) + (f"<{m.group(2)}, {dt}>" if m.group(2) else "")
+    return m.group(1) + (f"<{m.group(3)}, {dt}>" if m.group(3) else "")
 
 
 def ptxas_report(log: str) -> list:
@@ -235,26 +246,13 @@ def tc_resources() -> dict:
 
     out = {}
     for name, label in TC_LIBRARIES.items():
-        sass = subprocess.run(
-            [os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump"),
-             "-sass", str(build.library_path(name))],
-            capture_output=True, text=True, timeout=300, check=True).stdout
-        tc = {}
-        for chunk in sass.split("Function : ")[1:]:
-            ops = re.findall(r"\b(HGMMA|HMMA)\.", chunk)
-            tc[kernel_entry(chunk.split()[0])] = {o: ops.count(o)
-                                                  for o in set(ops)}
+        tc = sass_tensor_ops(name)
         entries = ptxas_report(build.build_logs.get(name, ""))
         for entry, lines in entries:
             hd = int(re.search(r"<(\d+),", entry).group(1))
-            regs = re.search(r"Used (\d+) registers", " ".join(lines))
-            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
-                              r"spill loads", " ".join(lines))
             bf16 = entry.endswith("bf16>")
             r = out[entry] = {
-                "registers": int(regs.group(1)) if regs else None,
-                "spill_stores": int(spill.group(1)) if spill else None,
-                "spill_loads": int(spill.group(2)) if spill else None,
+                **ptxas_resources(lines),
                 "smem_bytes": smem_bytes(entry, hd, int(bf16)),
                 "sass": tc.get(entry, {})}
             print(f"[kernels] {label} {entry}: {r}")
@@ -263,6 +261,62 @@ def tc_resources() -> dict:
         kernels = 1 if name == "flash_attention" else 2
         check(len(entries) == 2 * kernels * len(fa.HEAD_DIMS),
               f"{label}'s ptxas log names {[e for e, _ in entries]}")
+    return out
+
+
+def sass_tensor_ops(name: str) -> dict:
+    """{kernel entry: {tensor-core SASS op: count}} of the built library
+    ``lib<name>``, from ``cuobjdump -sass``."""
+    from repro_torch.kernels import build
+
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump"),
+         "-sass", str(build.library_path(name))],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    tc = {}
+    for chunk in sass.split("Function : ")[1:]:
+        ops = re.findall(r"\b(HGMMA|HMMA)\.", chunk)
+        tc[kernel_entry(chunk.split()[0])] = {o: ops.count(o)
+                                              for o in set(ops)}
+    return tc
+
+
+def ptxas_resources(lines: list) -> dict:
+    """Registers and spill bytes from one entry's ptxas -v lines."""
+    regs = re.search(r"Used (\d+) registers", " ".join(lines))
+    spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      " ".join(lines))
+    return {"registers": int(regs.group(1)) if regs else None,
+            "spill_stores": int(spill.group(1)) if spill else None,
+            "spill_loads": int(spill.group(2)) if spill else None}
+
+
+def k6_resources() -> dict:
+    """K6's (and K5's) kernels in rmsnorm.cu: registers and spills from the
+    ptxas -v log, the dynamic shared memory a K6 block takes, and the
+    tensor-core instructions ``cuobjdump -sass`` finds.  Fails unless every
+    K6 entry issues ``TC_SASS`` without spills and no K5 entry a
+    tensor-core instruction."""
+    from repro_torch.kernels import build, rmsnorm as rk
+
+    tc = sass_tensor_ops("rmsnorm")
+    out = {}
+    for entry, lines in ptxas_report(build.build_logs.get("rmsnorm", "")):
+        k6 = entry.startswith("rmsnorm_matmul_kernel")
+        r = out[entry] = {**ptxas_resources(lines),
+                          "smem_bytes": (rk.library()
+                                         .repro_rmsnorm_matmul_smem_bytes()
+                                         if k6 else None),
+                          "sass": tc.get(entry, {})}
+        print(f"[kernels] {'K6' if k6 else 'K5'} {entry}: {r}")
+        check(bool(r["sass"].get(TC_SASS)) if k6 else not r["sass"],
+              f"{entry}: tensor-core instructions {r['sass']}")
+        check(not k6 or (r["spill_stores"], r["spill_loads"]) == (0, 0),
+              f"{entry} spills: {r}")
+    check(sorted(out) == ["rmsnorm_kernel<false>", "rmsnorm_kernel<true>",
+                          "rmsnorm_matmul_kernel<false>",
+                          "rmsnorm_matmul_kernel<true>"],
+          f"rmsnorm's ptxas log names {sorted(out)}")
     return out
 
 
@@ -435,15 +489,22 @@ def serve_args() -> dict:
 def phase_rmsnorm_kernels():
     """K5 and K6 against their plain versions at the serving path's group
     shapes (K5 [2048, 8192]; K6 [2048, 8192] @ [8192, 102400]) and at ragged
-    shapes; K5 to 1e-5 and K6 to 1e-4 (the reference's tolerances), then
-    their device times beside the bound, the plain version and the library
+    shapes; K5 to 1e-5 and K6 to 1e-4 (the reference's tolerances), with
+    the plain version's float32 products in full f32 (no TF32); K6's
+    registers, spills, shared memory and tensor-core SASS; then their
+    device times beside the bound, the plain version and the library
     yardstick (F.rms_norm; for K6 the composition F.rms_norm + matmul, as
-    no single PyTorch call computes it)."""
+    no single PyTorch call computes it).  K6's bound is its route's: the
+    3xTF32 tensor work at the TF32 peak, with the f32 FMA bound beside it."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import rmsnorm as rk
 
+    check(torch.get_float32_matmul_precision() == "highest"
+          and not torch.backends.cuda.matmul.allow_tf32,
+          "float32 matmuls would run in TF32")
+    resources = k6_resources()
     g = torch.Generator("cuda").manual_seed(5)
     errs = {"rmsnorm": 0.0, "rmsnorm_matmul": 0.0}
 
@@ -488,20 +549,25 @@ def phase_rmsnorm_kernels():
     # K6 at the lm head of a group of 4: w alone (3.36 GB) is 67x the L2
     x, s, w = inputs(GROUP_ROWS, d, vocab)
     s1 = 1.0 + s
-    t_ops = 2.0 * GROUP_ROWS * d * vocab / FP32_PEAK * 1e3
+    flop = 2.0 * GROUP_ROWS * d * vocab
+    t_ops = 3 * flop / TF32_PEAK * 1e3          # 3xTF32: three products
     t_bytes = 4.0 * (GROUP_ROWS * d + d + d * vocab
                      + GROUP_ROWS * vocab) / HBM_BW * 1e3
     kw = dict(reps=5, cycles=int(4e7))
+    k6_ms = device_ms(rk.rmsnorm_matmul, [(x, s, w)], label="K6", **kw)
     rows["rmsnorm_matmul"] = {
-        "ms": device_ms(rk.rmsnorm_matmul, [(x, s, w)], label="K6", **kw),
+        "ms": k6_ms,
         "plain_ms": device_ms(rk.rmsnorm_matmul_ref, [(x, s, w)],
                               label="K6 plain", **kw),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "fma_bound_ms": flop / FP32_PEAK * 1e3,
+        "tensor_tflops": 3 * flop / k6_ms / 1e9,
         "library_ms": device_ms(
             lambda x, w: torch.matmul(F.rms_norm(x, (d,), s1, rk.EPS), w),
             [(x, w)], label="K6 library", **kw),
-        "library": "F.rms_norm + torch.matmul (a composition)"}
+        "library": "F.rms_norm + torch.matmul (a composition)",
+        "kernel_route": rk.GEMM_ROUTE, "resources": resources}
     del x, s, w, s1
     torch.cuda.empty_cache()
     for name, r in rows.items():
@@ -510,6 +576,10 @@ def phase_rmsnorm_kernels():
               f"plain_ms={r['plain_ms']:.5f} bound_ms={r['bound_ms']:.5f} "
               f"({r['bound_by']}) library_ms={r['library_ms']:.5f} "
               f"[{r['library']}] max_abs_err={r['max_abs_err']}")
+    r = rows["rmsnorm_matmul"]
+    print(f"[kernels] rmsnorm_matmul route {r['kernel_route']}: "
+          f"{r['tensor_tflops']:.1f} TFLOP/s of tensor work (3 products), "
+          f"f32 FMA bound {r['fma_bound_ms']:.5f} ms")
     return rows
 
 
@@ -630,6 +700,9 @@ def phase_serve(k6_ms: float):
           f"hw nodes {st['hw_nodes']}")
     check(counts == {"rmsnorm": 4 * groups, "rmsnorm_matmul": groups},
           f"launches {counts} for {groups} groups")
+    # K6 has one route, whose kernels phase 3 found HGMMA in: every K6
+    # launch (one a group, checked above) ran on the tensor cores
+    routes = {rk.GEMM_ROUTE: counts["rmsnorm_matmul"]}
     check(st["requests_served"] == args["n_requests"] and st["failed"] == 0,
           f"served {st['requests_served']} of {args['n_requests']}")
     check(st["results_match"],
@@ -645,7 +718,7 @@ def phase_serve(k6_ms: float):
            "requests_per_s": st["throughput_rps"],
            "wall_ms_per_group": wall, "device_ms_per_group": dev,
            "device_idle_share": 1.0 - dev / wall,
-           "k6_share_of_device_time": k6_ms / dev,
+           "k6_share_of_device_time": k6_ms / dev, "k6_routes": routes,
            "max_rel_err": st["max_rel_err"], "stages": st["stages"],
            "profile": st["profile"], "seconds": secs}
     print(f"[serve] traced transformer at DeepSeek-67B widths: "
@@ -657,7 +730,7 @@ def phase_serve(k6_ms: float):
         f"{k}={out[k]}" for k in ("latency_p50_ms", "latency_p95_ms",
                                   "requests_per_s", "wall_ms_per_group",
                                   "device_ms_per_group", "device_idle_share",
-                                  "k6_share_of_device_time")))
+                                  "k6_share_of_device_time", "k6_routes")))
     torch.cuda.empty_cache()
 
     hk.reset_launches()
@@ -1467,7 +1540,8 @@ def main() -> int:
                 "replaces": replaces[k], "launches": launches[k],
                 **{f: rows[k][f] for f in ("max_abs_err", "ms", "plain_ms",
                                            "bound_ms", "bound_by",
-                                           "library_ms")}}
+                                           "library_ms", "kernel_route")
+                   if f in rows[k]}}
                for k in replaces]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was never launched on the "
@@ -1477,6 +1551,7 @@ def main() -> int:
                       "serve_transformer": served, "serve_lm": lm,
                       "train": trained, "driver": driven,
                       "tc_resources": tc_res, "k7_train_shape": k7_train,
+                      "k6_resources": rows["rmsnorm_matmul"]["resources"],
                       "local_layer": {n: {k: v for k, v in rows[n].items()
                                           if k.startswith("local_")}
                                       for n in ("flash_attention",

@@ -11,11 +11,13 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC
 // --fmad=false stops nvcc contracting a separate multiply and add into an
-// FMA; the GEMM's inner product asks for its FMAs explicitly (fmaf), which
-// that flag leaves alone.
+// FMA: K6's split of w (1 + s) into TF32 terms takes its residual from the
+// rounded product, and the row sums ask for their FMAs explicitly (fmaf).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -84,130 +86,386 @@ rmsnorm_kernel(const float* __restrict__ x, const float* __restrict__ s,
 
 // --------------------------------------------------------------------------
 // K6 rmsnorm_matmul — replaces kernels/rmsnorm.py:rmsnorm_matmul
-// (_rmsnorm_matmul_kernel).
+// (_rmsnorm_matmul_kernel, pallas_call at :67).
 //
 // out[m, n] = rsqrt(mean_k x[m,k]^2 + eps) * sum_k x[m,k] * (1 + s[k]) * w[k,n]
 //
-// The Pallas kernel holds all of w in one block; at the lm head's
-// d 8192 x dout 102400 that is 3.36 GB, so this kernel tiles it.  Bound:
-// operations.  A group of 4 requests (N = 2048 rows) is 2*2048*8192*102400 =
-// 3.44 TFLOP, ~51 ms at the card's 67 TFLOP/s of f32 outside the tensor
-// cores, while its bytes (w once, x once, out once) take ~1.27 ms.  So the
-// design is a plain f32 SIMT GEMM with enough reuse to stay compute-bound:
-//   * one block owns a BM x BN = 128 x 128 output tile; 256 threads each
-//     hold 8 x 8 accumulators in registers (64 FMAs per 4 shared loads);
-//   * the K-loop stages a BK = 8 slice of x (transposed, As[k][m]) and of w
-//     (scaled by (1 + s[k]) on the way in, Bs[k][n]) in shared memory, and
-//     prefetches the next slice into registers while computing this one;
-//   * the norm is taken apart: the per-row rsqrt commutes out of the sum,
-//     so 128 threads accumulate sum(x^2) of their row from As in the same
-//     K-loop and the epilogue multiplies each output row by its scale.  The
-//     normalised [N, d] activations never exist, in HBM or anywhere.
-// No tensor cores and no TF32, so the products stay in f32; the sum runs in
-// another order than the plain version's, hence a 1e-4 tolerance.
+// The Pallas kernel holds all of w in one block; at the lm head's d 8192 x
+// dout 102400 that is 3.36 GB, so this kernel tiles it.  Bound: operations.
+// A group of 4 requests (M = 2048 rows) is 2*2048*8192*102400 = 3.44 TFLOP:
+// 51.3 ms at the card's 67 TFLOP/s of f32 on the CUDA cores, a floor that
+// no f32 FMA kernel passes.  So the products run on the tensor cores, in
+// TF32, as three terms ("3xTF32"): each f32 operand a is split into
+//   hi = cvt.rna.tf32(a),  lo = cvt.rna.tf32(a - hi)
+// (a - hi is exact; wgmma reads only the top 19 bits of an operand, so hi is
+// rounded here, not truncated by the hardware), and a*b is taken as
+// lo*hi + hi*lo + hi*hi: 2^-22 of |a| per operand in place of one term's
+// 2^-11.  One term misses the 1e-4 element-wise limit at K = 8192 by ~10x
+// (tests/test_torch_rmsnorm.py emulates both).  The tensor work is 3 x 3.44
+// = 10.3 TFLOP, 20.8 ms at 495 TFLOP/s of TF32; its bytes (x, w and out
+// once) take 1.27 ms.
+//
+// The tensor core's f32 sum is not an f32 add: each product it adds into
+// the accumulator is rounded toward zero, a bias that grows with the number
+// of products added to one accumulator (3 per k8 step).  Accumulating all
+// of K = 8192 that way missed the limit at the served shape on an H100.
+// So each k step (BK = 32, 12 products) goes into a fresh accumulator (the
+// first product with scale-d 0), and the consumer adds it into an f32 sum
+// in registers (rounded to nearest): the truncation then acts on a 32-term
+// partial sum whose sign varies from step to step, well inside the limit.
+//
+// The norm is taken apart as before: the row's rsqrt commutes out of the
+// sum, (1 + s[k]) is folded into the w element before it is split, each
+// consumer thread sums x^2 of its two rows in f32 from the raw x it splits,
+// and the epilogue multiplies each output row by its rsqrt.  The
+// normalised [M, d] activations never exist, in HBM or anywhere.
+//
+// The layout trap: TF32 wgmma takes B (and A from shared memory) K-major
+// only; the transpose bits exist for 16-bit types alone.  x [M, K] is
+// K-major, w [K, N] is N-contiguous.  So (route (a) of the two):
+//   * x feeds A from registers: each consumer thread reads its fragment
+//     from the raw x tile and splits it there;
+//   * each raw w tile [BK][BN] is read, scaled by (1 + s), split and
+//     written K-major, hi and lo, into 128-byte-swizzled B tiles (one
+//     128-byte row of 32 k per n) by the consumers themselves, for the
+//     next k step while the tensor cores run this one's products.
+// (The transposed product out^T = w'^T x^T would put the split of x in
+// shared memory and the transpose in the epilogue instead; this way the
+// output rows, the row sums and the stores stay as they are.)  The split
+// costs ~6 instructions per w element a block, 1/128 of one per MAC; left
+// to the producer warpgroup alone it was latency-bound and set the pace.
+//
+// Shape, warp-specialised (384 threads, one block an SM):
+//   * a block owns a BM x BN = 128 x 128 output tile; two consumer
+//     warpgroups own 64 rows each: a 64 x 128 step accumulator and a
+//     64 x 128 f32 sum in registers (64 + 64 a thread; a 64 x 256 tile
+//     would need 256), issuing per k8 step m64n128k8 products with A from
+//     registers: lo*B_hi, hi*B_lo, hi*B_hi;
+//   * the B tiles sit in a ring of 3 stages guarded by mbarriers (split:
+//     both consumers' halves; free: both consumers' products done), so the
+//     two consumers need not run in step: one's split, promotion and
+//     fragments run under the other's products (ordering their issues
+//     with named barriers, consumer 0's step i before consumer 1's, was
+//     slower);
+//   * the producer warpgroup (setmaxnreg 56, the consumers 224) keeps
+//     cp.async copies of x, w and s in flight through a raw ring of 3
+//     stages (cp.async.mbarrier.arrive marks a stage landed; both
+//     consumers free it);
+//   * cp.async, not TMA: TMA needs 16-byte global strides, which K = 130 or
+//     N = 77 lack, and one route serves every shape; 16-byte copies where
+//     K % 4 == N % 4 == 0 and the pointers are 16-byte aligned (VEC), else
+//     4-byte ones; out-of-range elements are zero-filled;
+//   * tiles are ordered M tile fastest, so the M / 128 blocks that share a
+//     w column tile run together and w comes from HBM about once.  At the
+//     served shape that is w 3.36 GB once, x about once a wave of 132
+//     blocks (97 waves x 67 MB = 6.5 GB), out 0.84 GB once: ~10.7 GB,
+//     3.2 ms at 3.35 TB/s, so the kernel stays bound by operations.
+//     Each block still streams its x rows and w columns from L2, 107 GB
+//     in all.  Copying half of each step's x rows, or half of its w rows
+//     (a quarter less), saves about 2% or 5% of the kernel's SM cycles,
+//     both halves about 8% (tools/k6_fetch_probe.py): the L2 fetch is a
+//     small share of its time.  Run back to back, it holds the card at
+//     its power limit, below its top clock (PERF.md).
+//     A 256 x 128 tile (registers then leave the split to the producer)
+//     and clusters sharing one split of w through distributed shared
+//     memory both streamed less and ran slower (PERF.md).
+// Shared memory: 3 x (B hi 16 KB + B lo 16 KB) + 3 x (x 16 KB + w 16 KB +
+// s 128 B) + 12 barriers + 1 KB to align = 198,112 B
+// (repro_rmsnorm_matmul_smem_bytes; kernels/rmsnorm.py:gemm_smem_bytes).
 // --------------------------------------------------------------------------
-constexpr int BM = 128, BN = 128, BK = 8, kGemmThreads = 256;
+constexpr int BM = 128, BN = 128, BK = 32;
+constexpr int kRawStages = 3;            // x, w and s of a k step, raw
+constexpr int kBStages = 3;              // w's hi and lo TF32 terms
+constexpr int kGemmThreads = 384;        // 2 consumer warpgroups + producer
+constexpr int B_TILE = BN * BK * 4;      // one of B hi / B lo: 16 KB
+constexpr int X_TILE = BM * BK * 4;      // 16 KB
+constexpr int W_TILE = BK * BN * 4;      // 16 KB
+constexpr int S_TILE = BK * 4;
+constexpr int RAW_STAGE = X_TILE + W_TILE + S_TILE;
+constexpr int kGemmBarriers = 2 * kRawStages + 2 * kBStages;
+constexpr int GEMM_SMEM = kBStages * 2 * B_TILE + kRawStages * RAW_STAGE +
+                          8 * kGemmBarriers + 1024;
+static_assert(BK * 4 == 128, "a B row is one 128-byte swizzle row");
+static_assert(BN == 128 && BM == 128, "the split's thread map");
+
+__device__ __forceinline__ uint32_t to_tf32(float a) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(a));
+  return r;
+}
+
+// a -> its hi and lo TF32 terms (lo from the exact residual a - hi)
+__device__ __forceinline__ void split_tf32(float a, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(a);
+  lo = to_tf32(a - __uint_as_float(hi));
+}
+
+// 16 or 4 bytes global -> shared, zero-filled beyond src_bytes
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// arrive on the barrier once this thread's earlier cp.async copies landed
+// (counted in the barrier's arrivals: .noinc)
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+
+// d (+)= A (64x8 TF32, registers) * B (8x128 TF32, shared memory, K-major)
+__device__ __forceinline__ void wgmma_tf32_n128(float* d, const uint32_t* a,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// The split of a raw w tile into the B tiles, by the 256 consumer threads:
+// thread u owns n 4q..4q+3 (q = 4 (u / 32) + lane / 8) at k 4c..4c+3
+// (c = lane % 8): four 16-byte loads of raw w (row k's chunk q lies at
+// q ^ (k / 4 % 8), so the 8 lanes of a phase hit 8 bank groups), w (1 + s)
+// split into hi and lo, and per n one 16-byte store of its 4 k to each of
+// B hi and B lo (row n's chunk c at c ^ (n % 8), again 8 bank groups).
+__device__ __forceinline__ void split_w(const uint8_t* raw, uint8_t* b_tile,
+                                        int u) {
+  const int lane = u & 31, c = lane & 7, q = 4 * (u >> 5) + (lane >> 3);
+  const float4 g = reinterpret_cast<const float4*>(raw + X_TILE + W_TILE)[c];
+  const float gk[4] = {1.0f + g.x, 1.0f + g.y, 1.0f + g.z, 1.0f + g.w};
+  float v[4][4];                        // [k][n]
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int k = 4 * c + j;
+    const float4 r = *reinterpret_cast<const float4*>(
+        raw + X_TILE + k * (BN * 4) + ((q ^ c) << 4));
+    v[j][0] = r.x * gk[j];
+    v[j][1] = r.y * gk[j];
+    v[j][2] = r.z * gk[j];
+    v[j][3] = r.w * gk[j];
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int n = 4 * q + e;
+    uint4 hi, lo;
+    split_tf32(v[0][e], hi.x, lo.x);
+    split_tf32(v[1][e], hi.y, lo.y);
+    split_tf32(v[2][e], hi.z, lo.z);
+    split_tf32(v[3][e], hi.w, lo.w);
+    const int off = n * 128 + ((c ^ (n & 7)) << 4);
+    *reinterpret_cast<uint4*>(b_tile + off) = hi;
+    *reinterpret_cast<uint4*>(b_tile + B_TILE + off) = lo;
+  }
+}
 
 template <bool VEC>
-__global__ void __launch_bounds__(kGemmThreads)
+__global__ void __launch_bounds__(kGemmThreads, 1)
 rmsnorm_matmul_kernel(const float* __restrict__ x, const float* __restrict__ s,
                       const float* __restrict__ w, float* __restrict__ out,
-                      int M, int N, int K, float eps) {
-  __shared__ __align__(16) float As[BK][BM];
-  __shared__ __align__(16) float Bs[BK][BN];
-  __shared__ float rs[BM];
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  // loaders: x rows am, k offsets ak..ak+3; w row bk, columns bn..bn+3
-  const int am = tid >> 1, ak = (tid & 1) * 4;
-  const int bk = tid >> 5, bn = (tid & 31) * 4;
-  // compute: rows ty*4+i and 64+ty*4+i, columns tx*4+j and 64+tx*4+j
-  const int ty = tid >> 4, tx = tid & 15;
+                      int M, int N, int K, int tiles_m, float eps) {
+  extern __shared__ uint8_t smem_k6[];
+  const uint32_t base = (smem_u32(smem_k6) + 1023) & ~1023u;
+  uint8_t* const gbase = smem_k6 + (base - smem_u32(smem_k6));
+  // the B ring, stage b: B hi, B lo (swizzled, K-major); then the raw
+  // ring, stage r: x [BM][BK] (swizzled), w [BK][BN] (swizzled), s [BK]
+  const uint32_t raw_s = base + kBStages * 2 * B_TILE;
+  const uint32_t raw_full = raw_s + kRawStages * RAW_STAGE;   // landed
+  const uint32_t raw_empty = raw_full + 8 * kRawStages;       // consumed
+  const uint32_t b_full = raw_empty + 8 * kRawStages;         // split
+  const uint32_t b_empty = b_full + 8 * kBStages;             // multiplied
 
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-  float sq = 0.0f;                     // sum of x^2 of row m0 + tid (tid < BM)
-  float a_reg[4], b_reg[4];
+  const int m0 = (blockIdx.x % tiles_m) * BM;   // the M tile runs fastest
+  const int n0 = (blockIdx.x / tiles_m) * BN;
+  const int nk = (K + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
 
-  auto load = [&](int k0) {
-    const int gm = m0 + am, ka = k0 + ak;
-    if (VEC) {
-      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (gm < M && ka < K)
-        v = *reinterpret_cast<const float4*>(x + (int64_t)gm * K + ka);
-      a_reg[0] = v.x; a_reg[1] = v.y; a_reg[2] = v.z; a_reg[3] = v.w;
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a_reg[i] = (gm < M && ka + i < K) ? x[(int64_t)gm * K + ka + i] : 0.0f;
+  if (threadIdx.x == 0) {
+    for (int r = 0; r < kRawStages; ++r) {
+      mbar_init(raw_full + 8 * r, 128);    // the producer's copies
+      mbar_init(raw_empty + 8 * r, 256);   // both consumers
     }
-    const int kb = k0 + bk, gn = n0 + bn;
-    const float g = kb < K ? 1.0f + s[kb] : 0.0f;
-    if (VEC) {
-      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (kb < K && gn < N)
-        v = *reinterpret_cast<const float4*>(w + (int64_t)kb * N + gn);
-      b_reg[0] = v.x * g; b_reg[1] = v.y * g;
-      b_reg[2] = v.z * g; b_reg[3] = v.w * g;
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        b_reg[j] = (kb < K && gn + j < N) ? w[(int64_t)kb * N + gn + j] * g
-                                          : 0.0f;
+    for (int b = 0; b < kBStages; ++b) {
+      mbar_init(b_full + 8 * b, 256);      // both consumers' halves
+      mbar_init(b_empty + 8 * b, 256);     // both consumers' products
     }
-  };
-
-  load(0);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) As[ak + i][am] = a_reg[i];
-    *reinterpret_cast<float4*>(&Bs[bk][bn]) =
-        make_float4(b_reg[0], b_reg[1], b_reg[2], b_reg[3]);
-    __syncthreads();
-    if (k0 + BK < K) load(k0 + BK);    // next slice in flight during compute
-    if (tid < BM) {
-#pragma unroll
-      for (int k = 0; k < BK; ++k) sq = fmaf(As[k][tid], As[k][tid], sq);
-    }
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[k][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[k][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if (tid < BM) rs[tid] = rsqrtf(sq / (float)K + eps);
   __syncthreads();
 
+  if (wg == 2) {
+    // the producer: cp.async copies of x, w and s into the raw ring
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    const int t = threadIdx.x - 256;
+    for (int i = 0; i < nk; ++i) {
+      const int r = i % kRawStages, k0 = i * BK;
+      mbar_wait(raw_empty + 8 * r, ((i / kRawStages) & 1) ^ 1);
+      const uint32_t xd = raw_s + r * RAW_STAGE, wd = xd + X_TILE,
+                     sd = wd + W_TILE;
+      if (VEC) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int lm = (i < 4 ? 0 : 64) + ty * 4 + (i & 3);
-    const int gm = m0 + lm;
-    if (gm >= M) continue;
-    const float r = rs[lm];
-    float* orow = out + (int64_t)gm * N;
+        for (int j = 0; j < 8; ++j) {          // x: row's chunk c at c ^ r
+          const int row = (t >> 3) + 16 * j, c = t & 7;
+          const int gm = m0 + row, gk = k0 + 4 * c;
+          const bool ok = gm < M && gk < K;
+          cp_async16(xd + row * 128 + ((c ^ (row & 7)) << 4),
+                     ok ? x + (int64_t)gm * K + gk : x, ok ? 16 : 0);
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {          // w: k's chunk q at q ^ k/4
+          const int kr = (t >> 5) + 4 * j, q = t & 31;
+          const int gk = k0 + kr, gn = n0 + 4 * q;
+          const bool ok = gk < K && gn < N;
+          cp_async16(wd + kr * (BN * 4) + ((q ^ ((kr >> 2) & 7)) << 4),
+                     ok ? w + (int64_t)gk * N + gn : w, ok ? 16 : 0);
+        }
+        if (t < BK / 4) {
+          const bool ok = k0 + 4 * t < K;
+          cp_async16(sd + 16 * t, ok ? s + k0 + 4 * t : s, ok ? 16 : 0);
+        }
+      } else {
+#pragma unroll 4
+        for (int j = 0; j < BM * BK / 128; ++j) {
+          const int e = t + 128 * j, row = e / BK, kk = e % BK;
+          const int gm = m0 + row, gk = k0 + kk;
+          const bool ok = gm < M && gk < K;
+          cp_async4(xd + row * 128 + (((kk >> 2) ^ (row & 7)) << 4) +
+                        4 * (kk & 3),
+                    ok ? x + (int64_t)gm * K + gk : x, ok ? 4 : 0);
+        }
+#pragma unroll 4
+        for (int j = 0; j < BK * BN / 128; ++j) {
+          const int e = t + 128 * j, kr = e / BN, n = e % BN;
+          const int gk = k0 + kr, gn = n0 + n;
+          const bool ok = gk < K && gn < N;
+          cp_async4(wd + kr * (BN * 4) + (((n >> 2) ^ ((kr >> 2) & 7)) << 4) +
+                        4 * (n & 3),
+                    ok ? w + (int64_t)gk * N + gn : w, ok ? 4 : 0);
+        }
+        if (t < BK) {
+          const bool ok = k0 + t < K;
+          cp_async4(sd + 4 * t, ok ? s + k0 + t : s, ok ? 4 : 0);
+        }
+      }
+      cp_async_arrive(raw_full + 8 * r);
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+    const int u = threadIdx.x, t = u % 128, warp = t / 32, lane = t % 32;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int row = 64 * wg + 16 * warp + g;     // and row + 8; both & 7 == g
+    auto raw = [&](int r) {
+      return gbase + kBStages * 2 * B_TILE + r * RAW_STAGE;
+    };
+    // split the w of k step j into B stage j % kBStages (this warpgroup's
+    // half of the columns), once both consumers are done with its last use
+    auto split_step = [&](int j) {
+      const int r = j % kRawStages, b = j % kBStages;
+      mbar_wait(raw_full + 8 * r, (j / kRawStages) & 1);
+      mbar_wait(b_empty + 8 * b, ((j / kBStages) & 1) ^ 1);
+      split_w(raw(r), gbase + 2 * B_TILE * b, u);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(b_full + 8 * b);
+    };
+
+    float acc[BN / 2], part[BN / 2];             // the f32 sum, this step's
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = part[i] = 0.0f;
+    float sq[2] = {0.0f, 0.0f};                  // sum of x^2, rows row, +8
+
+    split_step(0);
+    for (int i = 0; i < nk; ++i) {
+      const int r = i % kRawStages, b = i % kBStages;
+      // the A fragments of the 4 k8 steps: (row, k t4), (row + 8, t4),
+      // (row, t4 + 4), (row + 8, t4 + 4); chunk 2kk + (k >= 4) of a row
+      // lies at chunk ^ g (x of step i landed: split_step(i) waited)
+      const float* xs = reinterpret_cast<const float*>(raw(r));
+      uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int rr = row + 8 * (j & 1), c = 2 * kk + (j >> 1);
+          const float a = xs[rr * BK + ((c ^ g) << 2) + t4];
+          sq[j & 1] = fmaf(a, a, sq[j & 1]);
+          split_tf32(a, hi[kk][j], lo[kk][j]);
+        }
+      }
+      mbar_wait(b_full + 8 * b, (i / kBStages) & 1);
+      const uint32_t bh = base + 2 * B_TILE * b, bl = bh + B_TILE;
+      fence_regs<BN / 2>(part);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t dh = gmma_desc(bh + 32 * kk, 16, 1024, 1);
+        const uint64_t dl = gmma_desc(bl + 32 * kk, 16, 1024, 1);
+        wgmma_tf32_n128(part, lo[kk], dh, kk > 0);
+        wgmma_tf32_n128(part, hi[kk], dl, 1);
+        wgmma_tf32_n128(part, hi[kk], dh, 1);
+      }
+      wgmma_commit();
+      // while the tensor cores run: the next step's B tiles
+      if (i + 1 < nk) split_step(i + 1);
+      mbar_arrive(raw_empty + 8 * r);    // x read, w split a step ago
+      wgmma_wait0();
+      fence_regs<BN / 2>(part);
+      mbar_arrive(b_empty + 8 * b);
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) acc[e] += part[e];
+    }
+
+    // out = acc * rsqrt(sum x^2 / K + eps), row by row
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int gn = n0 + h * 64 + tx * 4;
-      const float* c = &acc[i][h * 4];
-      if (VEC && gn + 3 < N) {
-        *reinterpret_cast<float4*>(orow + gn) =
-            make_float4(c[0] * r, c[1] * r, c[2] * r, c[3] * r);
-      } else {
+      float v = sq[h];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      const float rs = rsqrtf(v / (float)K + eps);
+      const int gm = m0 + row + 8 * h;
+      if (gm >= M) continue;
+      float* orow = out + (int64_t)gm * N;
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (gn + j < N) orow[gn + j] = c[j] * r;
+      for (int j = 0; j < BN / 8; ++j) {
+        const int gn = n0 + 8 * j + 2 * t4;
+        const float c0 = acc[4 * j + 2 * h] * rs;
+        const float c1 = acc[4 * j + 2 * h + 1] * rs;
+        if (VEC) {
+          if (gn < N) *reinterpret_cast<float2*>(orow + gn) =
+                          make_float2(c0, c1);
+        } else {
+          if (gn < N) orow[gn] = c0;
+          if (gn + 1 < N) orow[gn + 1] = c1;
+        }
       }
     }
   }
@@ -240,23 +498,25 @@ int repro_rmsnorm_f32(const void* x, const void* s, void* out, int64_t rows,
 int repro_rmsnorm_matmul_f32(const void* x, const void* s, const void* w,
                              void* out, int M, int N, int K, float eps,
                              void* stream) {
-  const int grid_y = (M + BM - 1) / BM;
-  if (M <= 0 || N <= 0 || K <= 0 || grid_y > 65535)
-    return (int)cudaErrorInvalidValue;
-  const bool vec = K % 4 == 0 && N % 4 == 0 && aligned16(x) && aligned16(w) &&
-                   aligned16(out);
+  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  const int64_t tiles_m = (M + BM - 1) / BM, tiles_n = (N + BN - 1) / BN;
+  if (tiles_m * tiles_n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const bool vec = K % 4 == 0 && N % 4 == 0 && aligned16(x) && aligned16(s) &&
+                   aligned16(w) && aligned16(out);
   auto kernel = vec ? rmsnorm_matmul_kernel<true>
                     : rmsnorm_matmul_kernel<false>;
-  dim3 grid((N + BN - 1) / BN, grid_y);
-  kernel<<<grid, kGemmThreads, 0, (cudaStream_t)stream>>>(
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)(tiles_m * tiles_n), kGemmThreads, GEMM_SMEM,
+           (cudaStream_t)stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(s),
-      static_cast<const float*>(w), static_cast<float*>(out), M, N, K, eps);
+      static_cast<const float*>(w), static_cast<float*>(out), M, N, K,
+      (int)tiles_m, eps);
   return (int)cudaGetLastError();
 }
 
 // Shared memory one K6 block holds (the fusion gate reckons this tile).
-int64_t repro_rmsnorm_matmul_smem_bytes(void) {
-  return (int64_t)sizeof(float) * (BK * BM + BK * BN + BM);
-}
+int64_t repro_rmsnorm_matmul_smem_bytes(void) { return GEMM_SMEM; }
 
 }  // extern "C"

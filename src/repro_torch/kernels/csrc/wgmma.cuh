@@ -3,7 +3,9 @@
 // 4-D TMA loads over the [B, L, H, hd] layout, wgmma with bf16 operands and
 // f32 accumulators (A and B from shared memory, or A from registers), the
 // split of an f32 accumulator into the hi and lo bf16 A fragments of the
-// next product, and the SFU's exp2.
+// next product, and the SFU's exp2.  rmsnorm.cu (K6) takes the mbarriers,
+// the wgmma descriptors and fences from here; its TF32 products and
+// cp.async copies are its own.
 //
 // Layout of a tile in shared memory: rows of at most 64 head_dim elements
 // (128 bytes) per TMA box, so an hd-256 row lands as four boxes; the box is

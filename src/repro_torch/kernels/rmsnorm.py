@@ -5,7 +5,9 @@ in for the JAX package's Pallas kernels (``src/repro/kernels/rmsnorm.py``):
 
 * K5 :func:`rmsnorm` — ``x * rsqrt(mean(x²) + eps) * (1 + scale)``, f32 math;
 * K6 :func:`rmsnorm_matmul` — ``rmsnorm(x, scale) @ w`` with f32
-  accumulation, the normalised rows never written to HBM.
+  accumulation, the normalised rows never written to HBM; its products run
+  on the tensor cores (:data:`GEMM_ROUTE`: ``wgmma`` with each f32 operand
+  split into two TF32 terms, three products summed in f32), at every shape.
 
 Each has, as in :mod:`repro_torch.kernels.harris`, a wrapper that checks
 its inputs, allocates the output and launches on the current CUDA stream
@@ -30,8 +32,15 @@ LAUNCHES: dict[str, int] = {"rmsnorm": 0, "rmsnorm_matmul": 0}
 
 EPS = 1e-6
 # K6's block tile (BM, BN, BK in rmsnorm.cu): output rows x output columns
-# x the K-slice staged in shared memory per step
-GEMM_TILE = (128, 128, 8)
+# x the k slice of a step; the ring of w's hi and lo TF32 terms
+# (kBStages) and the raw ring of x, w and s (kRawStages), two barriers a
+# stage each
+GEMM_TILE = (128, 128, 32)
+GEMM_B_STAGES = 3
+GEMM_RAW_STAGES = 3
+# K6's one route: 3xTF32 on wgmma, for every shape (16- or 4-byte copies by
+# alignment inside the kernel)
+GEMM_ROUTE = "wgmma_tf32x3"
 
 
 def reset_launches() -> None:
@@ -59,11 +68,15 @@ def rmsnorm_matmul_ref(x: torch.Tensor, scale: torch.Tensor, w: torch.Tensor,
 
 
 def gemm_smem_bytes() -> int:
-    """Shared memory one K6 block holds: a BK-slice of BM rows of x, a
-    BK-slice of BN columns of w, and one float per row for the norm (the
-    same sum as ``repro_rmsnorm_matmul_smem_bytes`` in rmsnorm.cu)."""
+    """Shared memory one K6 block holds (the same sum as
+    ``repro_rmsnorm_matmul_smem_bytes`` in rmsnorm.cu): the ring of w's
+    hi and lo TF32 terms over a BK slice of BN columns, the raw ring (a BK
+    slice of BM rows of x, of BN columns of w, and of the scale), 8 bytes a
+    barrier, and 1 KB to align the swizzled tiles."""
     bm, bn, bk = GEMM_TILE
-    return 4 * (bk * bm + bk * bn + bm)
+    bs, raw = GEMM_B_STAGES, GEMM_RAW_STAGES
+    return (4 * (bs * 2 * bn * bk + raw * (bm * bk + bk * bn + bk))
+            + 8 * 2 * (bs + raw) + 1024)
 
 
 def gemm_tile_bytes(ir, value_names) -> int:
@@ -141,7 +154,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
 def rmsnorm_matmul(x: torch.Tensor, scale: torch.Tensor, w: torch.Tensor,
                    eps: float = EPS) -> torch.Tensor:
     """K6: fused ``rmsnorm(x, scale) @ w``; x [..., d], scale [d],
-    w [d, out] f32 → [..., out]."""
+    w [d, out] f32 → [..., out], on the tensor cores (3xTF32)."""
     if not check_input(x, "rmsnorm_matmul", lambda s: len(s) >= 1,
                        "[..., d]"):
         return rmsnorm_matmul_ref(x, scale, w, eps)
@@ -155,7 +168,9 @@ def rmsnorm_matmul(x: torch.Tensor, scale: torch.Tensor, w: torch.Tensor,
     out = torch.empty((*x.shape[:-1], dout), dtype=torch.float32,
                       device=x.device)
     if rows and dout and d:
-        if max(rows, dout, d) >= 2**31 or math.ceil(rows / GEMM_TILE[0]) > 65535:
+        blocks = (math.ceil(rows / GEMM_TILE[0])
+                  * math.ceil(dout / GEMM_TILE[1]))
+        if max(rows, dout, d, blocks) >= 2**31:
             raise ValueError(f"rmsnorm_matmul: [{rows}, {d}] @ [{d}, {dout}] "
                              f"exceeds the kernel's grid")
         _launch("rmsnorm_matmul", library().repro_rmsnorm_matmul_f32, x,

@@ -6,6 +6,8 @@ machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -106,6 +108,42 @@ def test_rmsnorm_kernels_match_plain_versions_on_card(cuda_device, N, d, dout):
     before = rk.LAUNCHES["rmsnorm_matmul"]
     torch.testing.assert_close(rk.rmsnorm_matmul(x[None], s, w)[0], got)
     assert rk.LAUNCHES["rmsnorm_matmul"] == before + 1
+
+
+@pytest.mark.parametrize("N,d,dout,offset", [
+    (192, 8192, 102400, 0),   # the served width: a slab of rows, the lm head
+    (64, 8224, 260, 0),       # K % 32 != 0 (16-byte copies still)
+    (33, 8200, 1001, 0),      # K % 32 != 0 and N % 4 != 0
+    (7, 130, 77, 0),          # M < 64, K % 4 != 0, N % 4 != 0
+    (100, 256, 384, 1)])      # x and w 4 bytes off 16-byte alignment
+def test_k6_tensor_core_route_matches_plain_version(cuda_device, N, d, dout,
+                                                   offset):
+    """K6's one route, 3xTF32 on wgmma, at the served width and at every
+    kind of edge, element by element to 1e-4 against the plain version in
+    full f32 (TF32 off); leading dims still make one launch."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    g = torch.Generator(cuda_device).manual_seed(N + d + dout)
+
+    def randn(*shape):
+        buf = torch.randn(math.prod(shape) + offset, generator=g,
+                          device=cuda_device)
+        return buf[offset:].view(shape)
+
+    x, s, w = randn(N, d), randn(d) * 0.2, randn(d, dout) * d ** -0.5
+    assert (x.data_ptr() % 16 != 0) == bool(offset)
+    want = rk.rmsnorm_matmul_ref(x, s, w)
+    before = rk.LAUNCHES["rmsnorm_matmul"]
+    got = rk.rmsnorm_matmul(x, s, w)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES["rmsnorm_matmul"] == before + 1
+    assert got.shape == (N, dout) and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    if N % 3 == 0:                      # [3, N / 3, d]: one launch
+        stacked = rk.rmsnorm_matmul(x.reshape(3, N // 3, d), s, w)
+        torch.cuda.synchronize()
+        assert rk.LAUNCHES["rmsnorm_matmul"] == before + 2
+        torch.testing.assert_close(stacked.reshape(N, dout), got)
 
 
 def test_rmsnorm_kernels_reject_what_they_do_not_take(cuda_device):

@@ -90,8 +90,79 @@ def test_cpu_wrappers_take_leading_dims_and_launch_nothing():
 
 def test_gemm_tile_is_the_kernels_shared_memory():
     bm, bn, bk = rk.GEMM_TILE
-    assert rk.gemm_smem_bytes() == 4 * (bk * bm + bk * bn + bm) == 8704
+    b_stages, raw_stages = rk.GEMM_B_STAGES, rk.GEMM_RAW_STAGES
+    # the ring of w's hi and lo TF32 terms, the raw ring of x, w and the
+    # scale, two barriers a stage and 1 KB to align the swizzled tiles
+    assert rk.gemm_smem_bytes() == (
+        4 * (b_stages * 2 * bn * bk + raw_stages * (bm * bk + bk * bn + bk))
+        + 8 * 2 * (b_stages + raw_stages) + 1024) == 198112
     assert rk.gemm_smem_bytes() <= SMEM_BYTES
+
+
+# --------------------------------------------------------------------------- #
+# K6's arithmetic on the tensor cores (3xTF32), emulated on the CPU
+# --------------------------------------------------------------------------- #
+def _tf32(a: torch.Tensor) -> torch.Tensor:
+    """f32 -> TF32 (10 mantissa bits), rounded to nearest, ties away from
+    zero: cvt.rna.tf32.f32, by integer operations on the bits."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _emulate_k6(x, s, w, terms: int, eps: float = rk.EPS) -> torch.Tensor:
+    """K6's arithmetic in plain torch: (1 + s) folded into w before the
+    split, each operand as hi = tf32(a) and lo = tf32(a - hi), each k step
+    of ``GEMM_TILE[2]`` taken as lo*hi + hi*lo + hi*hi (``terms`` 3) or
+    hi*hi alone (``terms`` 1) from exact TF32 products summed in f32, and
+    added into an f32 sum; the row's rsqrt(mean x^2 + eps) applied last.
+    (The tensor core truncates its own sums, which no CPU product does.)"""
+    wg = w * (1.0 + s)[:, None]
+    xh, wh = _tf32(x), _tf32(wg)
+    xl, wl = _tf32(x - xh), _tf32(wg - wh)
+    acc = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32)
+    bk = rk.GEMM_TILE[2]
+    for k0 in range(0, x.shape[1], bk):
+        k = slice(k0, k0 + bk)
+        hh = xh[:, k] @ wh[k]
+        acc += (xl[:, k] @ wh[k] + xh[:, k] @ wl[k]) + hh if terms == 3 else hh
+    r = torch.rsqrt((x * x).sum(-1, keepdim=True) / x.shape[1] + eps)
+    return acc * r
+
+
+def _chip_inputs(n, d, dout, seed):
+    """x, s and w drawn as chip_smoke.py draws K6's (randn, 0.2 randn,
+    randn / sqrt(d)), from numpy."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    s = (rng.standard_normal(d) * 0.2).astype(np.float32)
+    w = (rng.standard_normal((d, dout)) * d ** -0.5).astype(np.float32)
+    return tuple(map(torch.from_numpy, (x, s, w)))
+
+
+def _share_of_limit(got, want, tol=1e-4) -> float:
+    """The worst element's |got - want| over chip_smoke's limit for K6,
+    tol + tol |want|."""
+    return ((got - want).abs() / (tol + tol * want.abs())).max().item()
+
+
+@pytest.mark.parametrize("N,d,dout", [(64, 8192, 256), (7, 130, 77),
+                                      (513, 130, 77)])
+def test_tf32x3_emulation_holds_k6_limit(N, d, dout):
+    x, s, w = _chip_inputs(N, d, dout, N + d)
+    want = rk.rmsnorm_matmul_ref(x, s, w)
+    got = _emulate_k6(x, s, w, terms=3)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert _share_of_limit(got, want) < 0.1
+
+
+def test_one_tf32_term_misses_k6_limit():
+    """hi*hi alone (TF32 GEMM) misses K6's limit at the served width d =
+    8192: why the kernel takes three products."""
+    x, s, w = _chip_inputs(64, 8192, 256, 64 + 8192)
+    want = rk.rmsnorm_matmul_ref(x, s, w)
+    ratio = _share_of_limit(_emulate_k6(x, s, w, terms=1), want)
+    print(f"one TF32 term: {ratio:.2f}x K6's element-wise limit")
+    assert ratio > 5.0
 
 
 def test_database_rows_match_the_reference():
