@@ -33,9 +33,14 @@ Phases:
 1. device   — fail without CUDA; print the card's name and power limit
 2. build    — nvcc every CUDA source at once; print the build seconds
 3. kernels  — each kernel against its plain version at the main paths'
-              shapes and at ragged shapes, with the reference's tolerances;
-              device times (median of back-to-back runs, input cold in L2)
-              beside the bound, the plain version and the library call;
+              shapes and at ragged shapes, with the reference's tolerances
+              (K2-K4 also bit for bit); device times (median of
+              back-to-back runs, input cold in L2) beside the bound, the
+              plain version and the library call; harris.cu's registers,
+              spills (none allowed) and shared memory, K2's and K4's ms by
+              tile, and beside K2's and K3's bound a same-bytes copy of the
+              gray plane (what HBM gives at this size) and a launch with no
+              bytes to move (what this timing adds to any kernel);
               K7's, K8's and K9's registers, spills and shared memory, the
               route each of their cases took (bf16 on the tensor cores, f32
               on the SIMT kernels), and cuobjdump's proof that every bf16
@@ -86,6 +91,7 @@ line.  Imports nothing of JAX or the JAX package.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -192,9 +198,10 @@ def phase_build():
         for line in log.splitlines():       # e.g. wgmma serialized by ptxas
             if "warning" in line.lower():
                 print(f"[build] nvcc {src}: {line.strip()}")
-    for th, tw, bs in ((32, 32, 2), (16, 64, 3)):
-        check(lib.repro_harris_tile_smem_bytes(th, tw, bs)
-              == hk.tile_smem_bytes(th, tw, bs),
+    for (th, tw), bs, rgb in itertools.product(hk.TILE_CANDIDATES, (2, 3),
+                                               (False, True)):
+        check(lib.repro_harris_tile_smem_bytes(th, tw, bs, rgb)
+              == hk.tile_smem_bytes(th, tw, bs, rgb),
               "shared-memory reckoning differs between harris.cu and Python")
     check(rk.library().repro_rmsnorm_matmul_smem_bytes()
           == rk.gemm_smem_bytes(),
@@ -204,11 +211,22 @@ def phase_build():
 
 def kernel_entry(mangled: str) -> str:
     """``name<head_dim, type>`` (or ``name<true|false>`` for a kernel
-    templated on a bool) of a kernel from its mangled name."""
+    templated on a bool, ``name<BS, FROM_RGB, CSA>`` for Harris's tile
+    kernel, ``name<float|float4>`` for K3) of a kernel from its mangled
+    name."""
     m = re.search(r"(?<=\d)([a-z][a-z_]*_kernel)(?:IL([ib])(\d+)E)?",
                   mangled)
     if not m:
         return mangled[:60]
+    rest = mangled[m.end(1):]
+    lits = re.findall(r"L([ib])(\d+)E", rest.split("Ev", 1)[0])
+    if len(lits) > 1:
+        return m.group(1) + "<" + ", ".join(
+            v if t == "i" else ("true" if v == "1" else "false")
+            for t, v in lits) + ">"
+    vt = re.match(r"I(f|6float4)E", rest)
+    if vt:
+        return f"{m.group(1)}<{'float' if vt.group(1) == 'f' else 'float4'}>"
     if m.group(2) == "b":
         return f"{m.group(1)}<{'true' if m.group(3) == '1' else 'false'}>"
     dt = "bf16" if "__nv_bfloat16" in mangled else "f32"
@@ -289,6 +307,34 @@ def ptxas_resources(lines: list) -> dict:
     return {"registers": int(regs.group(1)) if regs else None,
             "spill_stores": int(spill.group(1)) if spill else None,
             "spill_loads": int(spill.group(2)) if spill else None}
+
+
+def harris_resources() -> dict:
+    """Every kernel of harris.cu: registers and spills from the ptxas -v
+    log, and the dynamic shared memory a K2/K4 block takes at the main
+    path's tile.  Fails on a spill, or unless the log names the nine
+    entries."""
+    from repro_torch.kernels import build, harris as hk
+
+    out = {}
+    for entry, lines in ptxas_report(build.build_logs.get("harris", "")):
+        tile = re.match(r"harris_tile_kernel<(\d), (\w+), \w+>", entry)
+        smem = None
+        if tile:
+            bs = int(tile.group(1))
+            smem = hk.tile_smem_bytes(*hk.fused_tile(H, W, bs, device="cuda"),
+                                      bs, tile.group(2) == "true")
+        r = out[entry] = {**ptxas_resources(lines), "smem_bytes": smem}
+        print(f"[kernels] harris.cu {entry}: {r}")
+        check((r["spill_stores"], r["spill_loads"]) == (0, 0),
+              f"{entry} spills: {r}")
+    want = {"cvt_color_kernel", "convert_scale_abs_kernel<float>",
+            "convert_scale_abs_kernel<float4>"} | {
+        f"harris_tile_kernel<{bs}, {rgb}, {csa}>"
+        for bs in (2, 3) for rgb, csa in (("false", "false"),
+                                          ("true", "false"), ("true", "true"))}
+    check(set(out) == want, f"harris's ptxas log names {sorted(out)}")
+    return out
 
 
 def k6_resources() -> dict:
@@ -401,6 +447,13 @@ def phase_kernels():
 
     from repro_torch.kernels import harris as hk
 
+    harris_resources()
+
+    def same(got, want):                       # K2-K4: bit for bit
+        check(torch.equal(got, want), "kernel differs from its plain version "
+                                      "in some bit")
+        return got
+
     errs = {k: 0.0 for k in hk.LAUNCHES}
     for i, (h, w) in enumerate([(H, W), *RAGGED]):
         img = frame(h, w, 100 + i)
@@ -410,23 +463,29 @@ def phase_kernels():
         x = torch.randn((h, w), device="cuda",
                         generator=torch.Generator("cuda").manual_seed(i)) * 300
         for a, b in ((1.0, 0.0), (0.01, 5.0), (-2.0, 100.0)):
+            want = hk.convert_scale_abs_ref(x, a, b)
             errs["convert_scale_abs"] = max(
                 errs["convert_scale_abs"],
-                err_close(hk.convert_scale_abs(x, a, b),
-                          hk.convert_scale_abs_ref(x, a, b)))
+                err_close(same(hk.convert_scale_abs(x, a, b), want), want))
+        # a view 4 bytes past an aligned start takes the 4-byte loads
+        xs = x.view(-1)[1:]
+        same(hk.convert_scale_abs(xs, -2.0, 100.0),
+             hk.convert_scale_abs_ref(xs, -2.0, 100.0))
         for bs in (2, 3):
             want = hk.corner_harris_ref(gray, bs)
-            errs["corner_harris"] = max(errs["corner_harris"],
-                                        err_scaled(hk.corner_harris(gray, bs),
-                                                   want))
+            errs["corner_harris"] = max(
+                errs["corner_harris"],
+                err_scaled(same(hk.corner_harris(gray, bs), want), want))
+            want_csa = hk.harris_fused_ref(img, bs, alpha=1e-6, beta=3.0)
             errs["harris_fused"] = max(
                 errs["harris_fused"],
-                err_scaled(hk.harris_fused(img, bs, with_csa=False), want),
-                err_close(hk.harris_fused(img, bs, alpha=1e-6, beta=3.0),
-                          hk.harris_fused_ref(img, bs, alpha=1e-6, beta=3.0)))
+                err_scaled(same(hk.harris_fused(img, bs, with_csa=False),
+                                want), want),
+                err_close(same(hk.harris_fused(img, bs, alpha=1e-6, beta=3.0),
+                               want_csa), want_csa))
         torch.cuda.synchronize()
         print(f"[kernels] {h}x{w}: K1-K4 (bs 2 and 3, K4 with and without "
-              f"the epilogue) match their plain versions")
+              f"the epilogue) match their plain versions; K2-K4 bit for bit")
 
     # device times at the main path's shapes and parameters (bs 2; K4 as
     # the pair module the fused path resolves)
@@ -466,13 +525,32 @@ def phase_kernels():
               f"plain_ms={r['plain_ms']:.5f} bound_ms={r['bound_ms']:.5f} "
               f"({r['bound_by']}) library_ms={r['library_ms']} "
               f"max_abs_err={r['max_abs_err']}")
-    tiles = {f"{th}x{tw}": round(device_ms(
-        lambda im, t=(th, tw): hk.harris_fused(im, with_csa=False, tile=t),
-        imgs, label=f"tile {th}x{tw}"), 5)
-        for th, tw in hk.TILE_CANDIDATES[:-1]}
-    print(f"[kernels] harris_fused ms by tile (autotuned "
-          f"{hk.fused_tile(H, W, 2, device='cuda')}): {json.dumps(tiles)}")
-    return rows
+    feasible = [t for t in hk.TILE_CANDIDATES
+                if hk.tile_score(t, H, W, 2, hk._device_class("cuda"))
+                < math.inf]
+    for name, inputs, kern in (
+            ("corner_harris", grays, hk.corner_harris),
+            ("harris_fused", imgs,
+             lambda im, **kw: hk.harris_fused(im, with_csa=False, **kw))):
+        tiles = {f"{th}x{tw}": round(device_ms(
+            lambda x, t=(th, tw): kern(x, tile=t), inputs,
+            label=f"{name} tile {th}x{tw}"), 5) for th, tw in feasible}
+        print(f"[kernels] {name} ms by tile (autotuned "
+              f"{hk.fused_tile(H, W, 2, device='cuda')}): {json.dumps(tiles)}")
+    # what HBM gives at this size: a same-bytes copy of the gray plane (the
+    # 8 B a pixel of K2's and K3's bound), not a call for the same function;
+    # and what any launch costs timed this way, with no bytes to move
+    plane = torch.empty((H, W), device="cuda")
+    tiny = torch.ones(4, device="cuda")
+    copy_ms = device_ms(lambda g: plane.copy_(g), grays, label="copy")
+    floor_ms = device_ms(lambda t: t.add_(1.0), [(tiny,)], label="floor")
+    print(f"[kernels] hbm_copy_ms={copy_ms:.5f} (out.copy_(gray), "
+          f"{8 * n_px} bytes moved) launch_floor_ms={floor_ms:.5f} (add_ on "
+          f"4 elements) beside K2's and K3's bound_ms="
+          f"{rows['corner_harris']['bound_ms']:.5f}: K2 "
+          f"{rows['corner_harris']['ms']:.5f}, K3 "
+          f"{rows['convert_scale_abs']['ms']:.5f}")
+    return rows, {"hbm_copy_ms": copy_ms, "launch_floor_ms": floor_ms}
 
 
 def serve_args() -> dict:
@@ -1508,7 +1586,7 @@ def main() -> int:
     import torch
 
     build_s = phase_build()
-    rows = phase_kernels()
+    rows, yardsticks = phase_kernels()
     rows.update(phase_rmsnorm_kernels())
     fa_err, tc_res = phase_flash_kernels()
     launches, times = phase_main_path()
@@ -1546,7 +1624,7 @@ def main() -> int:
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was never launched on the "
                                  f"main paths")
-    print(json.dumps({"build_s": build_s, "main_path": times,
+    print(json.dumps({"build_s": build_s, "main_path": times, **yardsticks,
                       "frame": [H, W], "frames": N_FRAMES,
                       "serve_transformer": served, "serve_lm": lm,
                       "train": trained, "driver": driven,

@@ -49,7 +49,7 @@ HOST_XFER_BW = 64e9             # bytes/s
 # fusion gate and the verifier's shared-memory rule reckon one such tile per
 # value a fused run touches; ``kernels.harris.fused_tile`` picks this tile at
 # the paper's 1080x1920 frame on the H100.
-FUSED_TILE = (32, 32)
+FUSED_TILE = (16, 64)
 FUSED_HALO = 4
 
 

@@ -14,15 +14,26 @@
 //
 // All four are bound by HBM bytes, not arithmetic: at 1080x1920 f32 the
 // Harris stencil does ~64 flops per 8 bytes moved, far below the H100's
-// ~295 flops/byte ridge.  So each design moves every input byte once and
-// keeps intermediates on chip.
+// ~295 flops/byte ridge.  So each design moves every input byte once, keeps
+// intermediates on chip, and keeps enough bytes in flight to cover HBM's
+// latency: ~3.35e12 B/s x ~700 ns / 132 SMs ~ 18 KB an SM.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;      // K1 and K3 threads a block
+constexpr int kCsaUnroll = 4;      // K3: loads a thread issues before any use
+
+constexpr int kTileThreads = 128;  // K2/K4 threads a block
+constexpr int kMY = 2, kMX = 4;    // K2/K4: one thread's output micro-tile
+constexpr int kHalo = 2;           // 1 + BS / 2 for BS 2 and 3
+constexpr int kPadX = 4;           // columns copied beside the tile, each side
+// K2/K4 blocks resident an SM that ptxas builds for (at most 85 registers a
+// thread): with no minimum it gave K4 at BS 3 72 registers and a 4-byte
+// spill; with this one, 80 and none
+constexpr int kTileMinBlocks = 6;
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -30,6 +41,34 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 
 __device__ __forceinline__ float gray_of(const float* p) {
   return 0.299f * p[0] + 0.587f * p[1] + 0.114f * p[2];
+}
+
+__device__ __forceinline__ float csa(float x, float alpha, float beta) {
+  const float v = fabsf(x * alpha + beta);
+  return v < 0.0f ? 0.0f : (v > 255.0f ? 255.0f : v);   // NaN passes
+}
+
+__device__ __forceinline__ float4 csa(float4 x, float alpha, float beta) {
+  return make_float4(csa(x.x, alpha, beta), csa(x.y, alpha, beta),
+                     csa(x.z, alpha, beta), csa(x.w, alpha, beta));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // K1 cvtColor — replaces kernels/harris.py:cvt_color (_cvt_kernel).
@@ -44,124 +83,248 @@ cvt_color_kernel(const float* __restrict__ img, float* __restrict__ out,
 }
 
 // K3 convertScaleAbs — replaces kernels/harris.py:convert_scale_abs
-// (_csa_kernel).  Bound: 8 bytes per element.  Elementwise; the comparisons
-// pass NaN through as torch.clamp does.
+// (_csa_kernel).  Bound: 8 bytes per element.  A grid sized to the SMs
+// walks the input in strides; each thread issues kCsaUnroll independent
+// loads before it uses any (16-byte float4 loads where both pointers are
+// 16-byte aligned, V = float4; 4-byte ones otherwise, V = float), so an SM
+// has up to 2048 x 64 B in flight instead of one 4-byte load a thread.  The
+// n % 4 elements past the last float4 (`tail`) go to block 0.
+template <typename V>
 __global__ void __launch_bounds__(kThreads)
-convert_scale_abs_kernel(const float* __restrict__ x, float* __restrict__ out,
-                         int64_t n, float alpha, float beta) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) {
-    float v = fabsf(x[i] * alpha + beta);
-    out[i] = v < 0.0f ? 0.0f : (v > 255.0f ? 255.0f : v);
+convert_scale_abs_kernel(const V* __restrict__ x, V* __restrict__ out,
+                         int64_t nv, const float* __restrict__ x_tail,
+                         float* __restrict__ out_tail, int tail, float alpha,
+                         float beta) {
+  const int64_t step = (int64_t)kThreads * kCsaUnroll;
+  for (int64_t i0 = blockIdx.x * step + threadIdx.x; i0 < nv;
+       i0 += gridDim.x * step) {
+    V v[kCsaUnroll];
+#pragma unroll
+    for (int j = 0; j < kCsaUnroll; ++j)
+      if (i0 + j * kThreads < nv) v[j] = x[i0 + j * kThreads];
+#pragma unroll
+    for (int j = 0; j < kCsaUnroll; ++j)
+      if (i0 + j * kThreads < nv)
+        out[i0 + j * kThreads] = csa(v[j], alpha, beta);
   }
+  if (blockIdx.x == 0 && threadIdx.x < tail)
+    out_tail[threadIdx.x] = csa(x_tail[threadIdx.x], alpha, beta);
 }
 
 // K2 cornerHarris and K4 fused cvtColor -> cornerHarris [-> convertScaleAbs]
 // — replace kernels/harris.py:corner_harris (_harris_kernel) and
 // harris_fused / harris_fused_pair (_fused_harris_kernel).
 //
-// One block owns a TH x TW output tile.  The TPU kernels read an
+// Bound: K2 8 bytes per pixel, K4 16.  The TPU kernels read an
 // (rb + 2*halo)-row slab of an image the host had edge-padded with jnp.pad;
-// here the block loads its tile plus halo straight from the unpadded input
-// with clamped indices (padded coordinate p -> original clamp(p - halo)), so
-// the padding pass and its HBM round trip are gone.  Shared memory holds
-//   gray    (TH + BS + 1) x (TW + BS + 1)   the tile's gray values + halo
-//   Ixx, Iyy, Ixy  3 x (TH + BS - 1) x (TW + BS - 1)   Sobel products
-// and HBM sees one read of the input tile (plus a thin halo) and one write
-// of the output tile.  For K4 the gray tile is computed from RGB on the way
-// into shared memory and never reaches HBM, which is what the fusion saves:
-// the unfused chain writes and re-reads the 8.3 MB gray plane.
+// here a block copies each TH x TW output tile's source straight from the
+// unpadded input, edge-replicated by clamped source addresses (padded
+// coordinate p -> original clamp(p - halo)), so the padding pass and its
+// HBM round trip are gone, and HBM sees one read of the input (the halo
+// rows and columns that neighbouring tiles share come mostly from L2) and
+// one write of the output.
 //
-// Bound: K2 8 bytes per pixel, K4 16.  The halo re-read costs
-// (TH+BS+1)(TW+BS+1)/(TH*TW) - 1 of the input traffic (~20% at 32x32, much
-// of it served by L2).
-template <int BS, bool FROM_RGB, bool CSA>
-__global__ void __launch_bounds__(kThreads)
-harris_tile_kernel(const float* __restrict__ src, float* __restrict__ out,
-                   int H, int W, int TH, int TW, float k, float alpha,
-                   float beta) {
-  extern __shared__ float smem[];
-  constexpr int HALO = 1 + BS / 2;
-  const int GH = TH + BS + 1, GW = TW + BS + 1;
-  const int PH = TH + BS - 1, PW = TW + BS - 1;
-  float* g = smem;
-  float* ixx = g + GH * GW;
-  float* iyy = ixx + PH * PW;
-  float* ixy = iyy + PH * PW;
-  const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
-  const int tid = threadIdx.x;
-
-  // 1) the tile and its halo, edge-replicated at the image border
-  for (int i = tid; i < GH * GW; i += kThreads) {
-    const int gy = i / GW, gx = i - gy * GW;
-    const int r = clampi(y0 - HALO + gy, 0, H - 1);
-    const int c = clampi(x0 - HALO + gx, 0, W - 1);
-    const int64_t off = (int64_t)r * W + c;
-    g[i] = FROM_RGB ? gray_of(src + 3 * off) : src[off];
-  }
-  __syncthreads();
-
-  // 2) 3x3 Sobel at every position the box filter reads, in the
-  //    reference's order of operations
-  for (int i = tid; i < PH * PW; i += kThreads) {
-    const int py = i / PW, px = i - py * PW;
-    const float* a = g + py * GW + px;
-    const float* b = a + GW;
-    const float* c = b + GW;
-    const float dx = a[2] + 2.0f * b[2] + c[2] - a[0] - 2.0f * b[0] - c[0];
-    const float dy = c[0] + 2.0f * c[1] + c[2] - a[0] - 2.0f * a[1] - a[2];
-    ixx[i] = dx * dx;
-    iyy[i] = dy * dy;
-    ixy[i] = dx * dy;
-  }
-  __syncthreads();
-
-  // 3) BS x BS box sums and the response R = det - k * tr^2
-  for (int i = tid; i < TH * TW; i += kThreads) {
-    const int oy = i / TW, ox = i - oy * TW;
-    const int y = y0 + oy, x = x0 + ox;
-    if (y >= H || x >= W) continue;
-    float sxx = 0.0f, syy = 0.0f, sxy = 0.0f;
+// Bytes in flight.  One block a tile; a block issues all of its tile's
+// copies with cp.async, which needs no register and no wait, before it
+// waits for any, so the blocks resident on an SM keep tens of KB in
+// flight, past the ~18 KB HBM's latency asks.  (A grid of at most the
+// blocks that fit, each walking several tiles with the next one's copies
+// in flight, was slower on the H100 for K2 and K4.)  A tile's source is
+// (TH + BS + 1) rows of TW + 2 * kPadX pixels starting kPadX left of it:
+// at a 16-byte aligned column, so when W % 4 == 0 and the pointer is
+// 16-byte aligned every row is a run of 16-byte copies, each wholly inside
+// the image or wholly outside (then four clamped 4-byte copies); otherwise
+// all copies are clamped 4-byte ones.  No division an element: thread i starts at
+// (row, vector) = divmod(i, vectors a row) and steps by kTileThreads.
+//
+// Compute.  No product arrays: each thread owns a kMY x kMX micro-tile of
+// outputs, streams its (kMY + BS + 1) gray rows from shared memory with
+// 16-byte loads, computes the Sobel products its box sums need in registers
+// (those shared with a neighbouring thread are recomputed: flops are spare)
+// and accumulates the box sums there.  The order of operations is the
+// reference's: dx, dy, the products, the box sum by rows then columns from
+// 0.0f, then det - k * tr^2.
+//
+// K4 (FROM_RGB) copies the RGB source (3 floats a pixel) the same way and
+// converts each landed tile to a gray tile in shared memory before the
+// stencil; the gray plane never reaches HBM, which is what the fusion saves.
+template <bool FROM_RGB>
+__device__ __forceinline__ void copy_tile(float* dst, const float* src, int H,
+                                          int W, int y0, int x0, int GH,
+                                          int L, bool vec) {
+  constexpr int C = FROM_RGB ? 3 : 1;
+  const int nv = L / 4;                        // 16-byte vectors a row
+  const int row_step = kTileThreads / nv, v_step = kTileThreads - row_step * nv;
+  int r = threadIdx.x / nv, v = threadIdx.x - r * nv;
+  for (; r < GH; r += row_step) {
+    const float* row =
+        src + (int64_t)clampi(y0 - kHalo + r, 0, H - 1) * W * C;
+    const int f = 4 * v;                       // float in the row segment
+    const int c = (x0 - kPadX) * C + f;        // float in the image row
+    if (vec && c >= 0 && c + 4 <= W * C) {
+      cp_async16(dst + r * L + f, row + c);
+    } else {
 #pragma unroll
-    for (int by = 0; by < BS; ++by) {
-#pragma unroll
-      for (int bx = 0; bx < BS; ++bx) {
-        const int j = (oy + by) * PW + ox + bx;
-        sxx += ixx[j];
-        syy += iyy[j];
-        sxy += ixy[j];
+      for (int j = 0; j < 4; ++j) {
+        const int p = (f + j) / C;             // C is 1 or 3: no divide
+        cp_async4(dst + r * L + f + j,
+                  row + clampi(x0 - kPadX + p, 0, W - 1) * C + (f + j - p * C));
       }
     }
-    const float det = sxx * syy - sxy * sxy;
-    const float tr = sxx + syy;
-    float r = det - k * tr * tr;
-    if (CSA) {
-      r = fabsf(r * alpha + beta);
-      r = r < 0.0f ? 0.0f : (r > 255.0f ? 255.0f : r);
+    v += v_step;
+    if (v >= nv) {
+      v -= nv;
+      ++r;
     }
-    out[(int64_t)y * W + x] = r;
   }
 }
 
-size_t tile_smem_bytes(int th, int tw, int bs) {
-  return sizeof(float) * ((size_t)(th + bs + 1) * (tw + bs + 1) +
-                          3 * (size_t)(th + bs - 1) * (tw + bs - 1));
+// one thread's kMY x kMX outputs at tile offset (oy, ox); g is the gray
+// tile (row pitch GP), whose column ox + 2 + j holds the padded column j of
+// the outputs' window
+template <int BS, bool CSA>
+__device__ __forceinline__ void micro_tile(const float* g, int GP, int oy,
+                                           int ox, int y, int x, int H, int W,
+                                           float* __restrict__ out, bool vec,
+                                           float k, float alpha, float beta) {
+  constexpr int PX = kMX + BS - 1;             // product columns
+  float sxx[kMY][kMX], syy[kMY][kMX], sxy[kMY][kMX];
+#pragma unroll
+  for (int my = 0; my < kMY; ++my)
+#pragma unroll
+    for (int mx = 0; mx < kMX; ++mx)
+      sxx[my][mx] = syy[my][mx] = sxy[my][mx] = 0.0f;
+
+  // gray rows py, py + 1 and py + 2 of the window, smem columns ox .. ox + 11
+  float a[12], b[12], c[12];
+  auto load = [&](float (&d)[12], int r) {
+    const float4* p = reinterpret_cast<const float4*>(g + (oy + r) * GP + ox);
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const float4 t = p[q];
+      d[4 * q] = t.x;
+      d[4 * q + 1] = t.y;
+      d[4 * q + 2] = t.z;
+      d[4 * q + 3] = t.w;
+    }
+  };
+  load(a, 0);
+  load(b, 1);
+#pragma unroll
+  for (int py = 0; py < kMY + BS - 1; ++py) {
+    load(c, py + 2);
+    float pxx[PX], pyy[PX], pxy[PX];
+#pragma unroll
+    for (int px = 0; px < PX; ++px) {
+      const int j = 2 + px;                    // window column 0 of product px
+      const float dx = a[j + 2] + 2.0f * b[j + 2] + c[j + 2] - a[j] -
+                       2.0f * b[j] - c[j];
+      const float dy = c[j] + 2.0f * c[j + 1] + c[j + 2] - a[j] -
+                       2.0f * a[j + 1] - a[j + 2];
+      pxx[px] = dx * dx;
+      pyy[px] = dy * dy;
+      pxy[px] = dx * dy;
+    }
+#pragma unroll
+    for (int my = 0; my < kMY; ++my) {
+      if (py - my < 0 || py - my >= BS) continue;   // box row by = py - my
+#pragma unroll
+      for (int mx = 0; mx < kMX; ++mx)
+#pragma unroll
+        for (int bx = 0; bx < BS; ++bx) {
+          sxx[my][mx] += pxx[mx + bx];
+          syy[my][mx] += pyy[mx + bx];
+          sxy[my][mx] += pxy[mx + bx];
+        }
+    }
+#pragma unroll
+    for (int q = 0; q < 12; ++q) {             // slide the window down a row
+      a[q] = b[q];
+      b[q] = c[q];
+    }
+  }
+
+#pragma unroll
+  for (int my = 0; my < kMY; ++my) {
+    if (y + my >= H) break;
+    float r[kMX];
+#pragma unroll
+    for (int mx = 0; mx < kMX; ++mx) {
+      const float det = sxx[my][mx] * syy[my][mx] - sxy[my][mx] * sxy[my][mx];
+      const float tr = sxx[my][mx] + syy[my][mx];
+      r[mx] = det - k * tr * tr;
+      if (CSA) r[mx] = csa(r[mx], alpha, beta);
+    }
+    float* o = out + (int64_t)(y + my) * W + x;
+    if (vec) {                                 // x % 4 == 0 == W % 4
+      if (x < W)
+        *reinterpret_cast<float4*>(o) = make_float4(r[0], r[1], r[2], r[3]);
+    } else {
+#pragma unroll
+      for (int mx = 0; mx < kMX; ++mx)
+        if (x + mx < W) o[mx] = r[mx];
+    }
+  }
+}
+
+template <int BS, bool FROM_RGB, bool CSA>
+__global__ void __launch_bounds__(kTileThreads, kTileMinBlocks)
+harris_tile_kernel(const float* __restrict__ src, float* __restrict__ out,
+                   int H, int W, int TH, int TW, bool vec, float k,
+                   float alpha, float beta) {
+  constexpr int C = FROM_RGB ? 3 : 1;
+  extern __shared__ __align__(16) float smem[];
+  const int GH = TH + BS + 1, GP = TW + 2 * kPadX, L = GP * C;
+  const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
+  copy_tile<FROM_RGB>(smem, src, H, W, y0, x0, GH, L, vec);
+  cp_async_wait_all();
+  __syncthreads();
+  const float* g = smem;
+  if (FROM_RGB) {
+    float* gray = smem + GH * L;               // the converted tile
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    for (int r = warp; r < GH; r += kTileThreads / 32)
+      for (int c = lane; c < GP; c += 32)
+        gray[r * GP + c] = gray_of(smem + r * L + C * c);
+    __syncthreads();
+    g = gray;
+  }
+  const int mxn = TW / kMX;                    // micro-tiles across a tile
+  const int tx = threadIdx.x % mxn, ty = threadIdx.x / mxn;
+  for (int oy = kMY * ty; oy < TH; oy += kMY * (kTileThreads / mxn))
+    micro_tile<BS, CSA>(g, GP, oy, kMX * tx, y0 + oy, x0 + kMX * tx, H, W,
+                        out, vec, k, alpha, beta);
+}
+
+// a tile the kernel takes: whole micro-tiles, and micro-tile columns that
+// divide the block's threads
+bool tile_ok(int th, int tw) {
+  return th >= kMY && tw >= kMX && th % kMY == 0 && tw % kMX == 0 &&
+         tw / kMX <= kTileThreads && kTileThreads % (tw / kMX) == 0;
+}
+
+size_t tile_smem_bytes(int th, int tw, int bs, bool from_rgb) {
+  const size_t px = (size_t)(th + bs + 1) * (tw + 2 * kPadX);
+  return sizeof(float) * px * (from_rgb ? 4 : 1);   // K4: RGB, then gray
 }
 
 template <int BS, bool FROM_RGB, bool CSA>
 int launch_tile(const void* src, void* out, int H, int W, int th, int tw,
                 float k, float alpha, float beta, cudaStream_t stream) {
+  if (!tile_ok(th, tw)) return (int)cudaErrorInvalidValue;
   auto kernel = harris_tile_kernel<BS, FROM_RGB, CSA>;
-  const size_t smem = tile_smem_bytes(th, tw, BS);
+  const size_t smem = tile_smem_bytes(th, tw, BS, FROM_RGB);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
+  const bool vec = W % 4 == 0 && (uintptr_t)src % 16 == 0 &&
+                   (uintptr_t)out % 16 == 0;
   dim3 grid((W + tw - 1) / tw, (H + th - 1) / th);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kTileThreads, smem, stream>>>(
       static_cast<const float*>(src), static_cast<float*>(out), H, W, th, tw,
-      k, alpha, beta);
+      vec, k, alpha, beta);
   return (int)cudaGetLastError();
 }
 
@@ -182,6 +345,23 @@ int launch_bs(int bs, const void* src, void* out, int H, int W, int th,
 
 int blocks_for(int64_t n) { return (int)((n + kThreads - 1) / kThreads); }
 
+// K3's grid: enough blocks for one pass, at most as many as fit on the SMs
+template <typename V>
+int csa_grid(int64_t nv, int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, convert_scale_abs_kernel<V>, kThreads, 0);
+  const int64_t need = (nv + (int64_t)kThreads * kCsaUnroll - 1) /
+                       ((int64_t)kThreads * kCsaUnroll);
+  const int64_t slots = (int64_t)(per_sm > 0 ? per_sm : 1) * sms;
+  *grid = (int)(need < slots ? (need > 0 ? need : 1) : slots);
+  return (int)e;
+}
+
 }  // namespace
 
 extern "C" {
@@ -200,9 +380,22 @@ int repro_cvt_color_f32(const void* img, void* out, int64_t n_pixels,
 
 int repro_convert_scale_abs_f32(const void* x, void* out, int64_t n,
                                 float alpha, float beta, void* stream) {
-  convert_scale_abs_kernel<<<blocks_for(n), kThreads, 0,
-                             (cudaStream_t)stream>>>(
-      static_cast<const float*>(x), static_cast<float*>(out), n, alpha, beta);
+  const float* xf = static_cast<const float*>(x);
+  float* of = static_cast<float*>(out);
+  int grid = 0, e = 0;
+  if ((uintptr_t)x % 16 == 0 && (uintptr_t)out % 16 == 0) {
+    const int64_t nv = n / 4;
+    if ((e = csa_grid<float4>(nv, &grid)) != 0) return e;
+    convert_scale_abs_kernel<float4><<<grid, kThreads, 0,
+                                       (cudaStream_t)stream>>>(
+        reinterpret_cast<const float4*>(xf), reinterpret_cast<float4*>(of),
+        nv, xf + 4 * nv, of + 4 * nv, (int)(n - 4 * nv), alpha, beta);
+  } else {
+    if ((e = csa_grid<float>(n, &grid)) != 0) return e;
+    convert_scale_abs_kernel<float><<<grid, kThreads, 0,
+                                      (cudaStream_t)stream>>>(
+        xf, of, n, xf, of, 0, alpha, beta);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -222,8 +415,8 @@ int repro_harris_fused_f32(const void* img, void* out, int H, int W, int bs,
                                 (cudaStream_t)stream);
 }
 
-int64_t repro_harris_tile_smem_bytes(int th, int tw, int bs) {
-  return (int64_t)tile_smem_bytes(th, tw, bs);
+int64_t repro_harris_tile_smem_bytes(int th, int tw, int bs, int from_rgb) {
+  return (int64_t)tile_smem_bytes(th, tw, bs, from_rgb != 0);
 }
 
 }  // extern "C"

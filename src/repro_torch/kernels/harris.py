@@ -39,7 +39,12 @@ from .build import check_input, launch
 LAUNCHES: dict[str, int] = {"cvt_color": 0, "corner_harris": 0,
                             "convert_scale_abs": 0, "harris_fused": 0}
 
-THREADS = 256                    # threads a block (kThreads in harris.cu)
+# K2/K4's block geometry (the constants of the same names in harris.cu)
+TILE_THREADS = 128               # threads a block (kTileThreads)
+MICRO_TILE = (2, 4)              # one thread's outputs, rows x cols (kMY, kMX)
+HALO = 2                         # 1 + block_size // 2 for block_size 2 and 3
+PAD_X = 4                        # source columns copied beside a tile (kPadX)
+INFLIGHT_BYTES = 18 * 1024       # an SM's share of 3.35 TB/s x ~700 ns
 TILE_CANDIDATES = ((8, 32), (16, 32), (16, 64), (32, 32), (32, 64),
                    (64, 64), (64, 128), (128, 128))
 
@@ -114,13 +119,22 @@ def harris_fused_ref(img: torch.Tensor, block_size: int = 2, k: float = 0.04,
 # --------------------------------------------------------------------------- #
 # tile choice for the stencil kernels
 # --------------------------------------------------------------------------- #
-def tile_smem_bytes(th: int, tw: int, block_size: int) -> int:
-    """Shared memory one K2/K4 block holds for a ``th x tw`` output tile:
-    the gray tile with its halo and the three Sobel product tiles (the same
-    sum as ``tile_smem_bytes`` in harris.cu)."""
-    gray = (th + block_size + 1) * (tw + block_size + 1)
-    prods = 3 * (th + block_size - 1) * (tw + block_size - 1)
-    return 4 * (gray + prods)
+def tile_ok(th: int, tw: int) -> bool:
+    """A tile K2/K4 take (``tile_ok`` in harris.cu): whole micro-tiles, and
+    micro-tile columns that divide the block's threads."""
+    my, mx = MICRO_TILE
+    return (th >= my and tw >= mx and th % my == 0 and tw % mx == 0
+            and tw // mx <= TILE_THREADS and TILE_THREADS % (tw // mx) == 0)
+
+
+def tile_smem_bytes(th: int, tw: int, block_size: int,
+                    from_rgb: bool = False) -> int:
+    """Shared memory one K2 (gray) or K4 (``from_rgb``) block holds for a
+    ``th x tw`` output tile: the tile's source, (th + block_size + 1) rows of
+    tw + 2 * PAD_X pixels, 3 floats a pixel for K4, plus K4's converted gray
+    tile (the same sum as ``tile_smem_bytes`` in harris.cu)."""
+    px = (th + block_size + 1) * (tw + 2 * PAD_X)
+    return 4 * px * (4 if from_rgb else 1)
 
 
 def _device_class(device) -> DeviceClass:
@@ -141,25 +155,34 @@ def tile_score(tile: tuple[int, int], H: int, W: int, block_size: int,
     """Lower-is-better analytic score of a K2/K4 tile (the TPU kernels'
     ``_roofline_rb_score`` with shared memory in place of VMEM).
 
-    HBM read amplification from the halo, ``tile+halo / tile``, divided by
-    two shares: the share of the grid's block slots that are busy (blocks
-    resident per SM are limited by shared memory and threads, and a grid
-    that ends in a part-empty wave leaves SMs idle), and the share of an
-    SM's thread slots filled, counted up to half — a memory-bound kernel
-    needs many warps in flight to hide HBM latency.  A tile over the
-    per-block shared memory limit is infeasible.
+    The bytes a tile copies per output byte (its halo and the 16-byte
+    aligned columns beside it), divided by three shares: the share of the
+    block's threads that own a micro-tile; the share of the grid's block
+    slots that are busy (one block a tile; blocks resident per SM are
+    limited by K2's shared memory and by threads, not by registers, which
+    are known only once the kernel is built; a grid that ends in a
+    part-empty wave leaves SMs idle); and the bytes the resident blocks keep
+    in flight (a tile each) against the ``INFLIGHT_BYTES`` an SM needs to
+    cover HBM's latency.  A tile the
+    kernel does not take, or one whose K4 layout (the larger) is over the
+    per-block shared memory limit, is infeasible.
     """
     th, tw = tile
     smem = tile_smem_bytes(th, tw, block_size)
-    if smem > dev.smem_bytes:
+    if not tile_ok(th, tw) or tile_smem_bytes(th, tw, block_size,
+                                              True) > dev.smem_bytes:
         return float("inf")
-    amp = ((th + block_size + 1) * (tw + block_size + 1)) / (th * tw)
-    per_sm = max(1, min(dev.smem_per_sm // smem, MAX_THREADS_PER_SM // THREADS))
-    n_blocks = math.ceil(H / th) * math.ceil(W / tw)
-    per_wave = dev.sm_count * per_sm
-    busy = n_blocks / (math.ceil(n_blocks / per_wave) * per_wave)
-    occupancy = min(1.0, 2.0 * per_sm * THREADS / MAX_THREADS_PER_SM)
-    return amp / (busy * occupancy)
+    copied = (th + block_size + 1) * (tw + 2 * PAD_X)
+    amp = copied / (th * tw)
+    my, mx = MICRO_TILE
+    util = min(1.0, (th // my) * (tw // mx) / TILE_THREADS)
+    per_sm = max(1, min(dev.smem_per_sm // smem,
+                        MAX_THREADS_PER_SM // TILE_THREADS))
+    n_tiles = math.ceil(H / th) * math.ceil(W / tw)
+    slots = dev.sm_count * per_sm
+    busy = n_tiles / (math.ceil(n_tiles / slots) * slots)
+    inflight = min(1.0, per_sm * 4 * copied / INFLIGHT_BYTES)
+    return amp / (util * busy * inflight)
 
 
 def fused_tile(H: int, W: int, block_size: int = 2, *, device=None,
@@ -169,7 +192,8 @@ def fused_tile(H: int, W: int, block_size: int = 2, *, device=None,
     memoised on disk under the card's name and compute capability."""
     dev = _device_class(device)
     res = autotune("harris_tile",
-                   (H, W, "float32", block_size, *device_key(device)),
+                   (H, W, "float32", block_size, TILE_THREADS, *MICRO_TILE,
+                    *device_key(device)),
                    [list(t) for t in TILE_CANDIDATES],
                    lambda t: tile_score(tuple(t), H, W, block_size, dev),
                    cache=cache)
@@ -185,7 +209,7 @@ _SIGNATURES = {
     "repro_convert_scale_abs_f32": (_P, _P, _I64, _F, _F, _P),
     "repro_corner_harris_f32": (_P, _P, _I, _I, _I, _F, _I, _I, _P),
     "repro_harris_fused_f32": (_P, _P, _I, _I, _I, _F, _I, _F, _F, _I, _I, _P),
-    "repro_harris_tile_smem_bytes": (_I, _I, _I),
+    "repro_harris_tile_smem_bytes": (_I, _I, _I, _I),
 }
 
 
@@ -215,6 +239,14 @@ def _block_size_ok(name: str, block_size: int) -> None:
     if block_size not in (2, 3):
         raise ValueError(f"{name}: the kernel takes block_size 2 or 3, "
                          f"got {block_size}")
+
+
+def _tile_ok(name: str, tile: tuple[int, int]) -> tuple[int, int]:
+    if not tile_ok(*tile):
+        raise ValueError(f"{name}: the kernel takes a tile of whole "
+                         f"{MICRO_TILE[0]}x{MICRO_TILE[1]} micro-tiles whose "
+                         f"columns divide {TILE_THREADS} threads, got {tile}")
+    return tile
 
 
 def cvt_color(img: torch.Tensor) -> torch.Tensor:
@@ -254,7 +286,8 @@ def corner_harris(gray: torch.Tensor, block_size: int = 2, k: float = 0.04, *,
     H, W = gray.shape
     out = torch.empty((H, W), dtype=torch.float32, device=gray.device)
     if out.numel():
-        th, tw = tile or fused_tile(H, W, block_size, device=gray.device)
+        th, tw = _tile_ok("corner_harris", tile or fused_tile(
+            H, W, block_size, device=gray.device))
         _launch("corner_harris", library().repro_corner_harris_f32, gray,
                 gray.data_ptr(), out.data_ptr(), H, W, block_size, float(k),
                 th, tw)
@@ -276,7 +309,8 @@ def harris_fused(img: torch.Tensor, block_size: int = 2, k: float = 0.04,
     H, W, _ = img.shape
     out = torch.empty((H, W), dtype=torch.float32, device=img.device)
     if out.numel():
-        th, tw = tile or fused_tile(H, W, block_size, device=img.device)
+        th, tw = _tile_ok("harris_fused", tile or fused_tile(
+            H, W, block_size, device=img.device))
         _launch("harris_fused", library().repro_harris_fused_f32, img,
                 img.data_ptr(), out.data_ptr(), H, W, block_size, float(k),
                 int(with_csa), float(alpha), float(beta), th, tw)

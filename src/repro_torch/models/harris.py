@@ -98,10 +98,10 @@ def _c_csa(shapes, dtypes, params) -> NodeCost:
 
 def _fused_harris_smem(h: int, w: int, block_size: int = 2) -> int:
     """Shared memory one block of the fused kernel holds at the tile the
-    autotuner picks for an ``h x w`` frame: the gray tile with its halo and
-    the three Sobel product tiles (the epilogue adds none)."""
+    autotuner picks for an ``h x w`` frame: its RGB source copies in flight
+    and the gray tile they convert to (the epilogue adds none)."""
     th, tw = hk.fused_tile(h, w, block_size)
-    return hk.tile_smem_bytes(th, tw, block_size)
+    return hk.tile_smem_bytes(th, tw, block_size, from_rgb=True)
 
 
 def _c_fused_pair(shapes, dtypes, params) -> NodeCost:

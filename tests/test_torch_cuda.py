@@ -72,6 +72,65 @@ def test_kernels_reject_what_they_do_not_take(cuda_device):
         hk.corner_harris(torch.zeros((8, 8), device=cuda_device), 4)
 
 
+# one tile or less, one row or column, and every W % 4 (W % 4 == 0 takes
+# the 16-byte copies and stores)
+EDGE_SHAPES = [(1, 1), (1, 37), (29, 1), (3, 5), (7, 13), (20, 65), (20, 66),
+               (20, 67), (24, 68)]
+FEASIBLE_TILES = [t for t in hk.TILE_CANDIDATES
+                  if hk.tile_score(t, 1080, 1920, 2) < math.inf]
+
+
+def _harris_bit_exact(img, bs, tile=None):
+    gray = hk.cvt_color_ref(img)
+    want = hk.corner_harris_ref(gray, bs)
+    assert torch.equal(hk.corner_harris(gray, bs, tile=tile), want)
+    assert torch.equal(hk.harris_fused(img, bs, with_csa=False, tile=tile),
+                       want)
+    assert torch.equal(hk.harris_fused(img, bs, alpha=1e-6, beta=3.0,
+                                       tile=tile),
+                       hk.harris_fused_ref(img, bs, alpha=1e-6, beta=3.0))
+
+
+@pytest.mark.parametrize("H,W", EDGE_SHAPES)
+@pytest.mark.parametrize("bs", [2, 3])
+def test_harris_stencils_bit_exact_at_edge_shapes_on_card(cuda_device, H, W,
+                                                          bs):
+    _harris_bit_exact(_frame(H, W, 100 * H + W, cuda_device), bs)
+
+
+@pytest.mark.parametrize("tile", FEASIBLE_TILES)
+@pytest.mark.parametrize("H,W", [(1080, 1920), (1081, 1919)])
+def test_harris_stencils_bit_exact_at_every_tile_on_card(cuda_device, tile,
+                                                         H, W):
+    # a grid sized to the SMs: blocks walk several tiles at these frames
+    for bs in (2, 3):
+        _harris_bit_exact(_frame(H, W, 5, cuda_device), bs, tile)
+
+
+@pytest.mark.parametrize("n", [4096, 4097, 4098, 4099, 9_000_001])
+def test_convert_scale_abs_bit_exact_on_card(cuda_device, n):
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32) * 300)
+    x[:4] = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0])
+    x = x.to(cuda_device)
+    # x itself (16-byte aligned), and a view 4 bytes past it
+    for v in (x, x.view(-1)[1:]):
+        for a, b in ((1.0, 0.0), (-2.0, 100.0), (0.0, -1.0)):
+            torch.testing.assert_close(hk.convert_scale_abs(v, a, b),
+                                       hk.convert_scale_abs_ref(v, a, b),
+                                       rtol=0, atol=0, equal_nan=True)
+
+
+def test_harris_kernels_reject_a_tile_they_do_not_take(cuda_device):
+    gray = torch.zeros((40, 40), device=cuda_device)
+    for tile in ((9, 32), (16, 30), (16, 24)):
+        with pytest.raises(ValueError, match="micro-tiles"):
+            hk.corner_harris(gray, tile=tile)
+        with pytest.raises(ValueError, match="micro-tiles"):
+            hk.harris_fused(torch.zeros((40, 40, 3), device=cuda_device),
+                            tile=tile)
+
+
 @pytest.mark.parametrize("fuse", [False, True])
 def test_offload_on_card_goes_through_the_kernels(cuda_device, fuse):
     frames = mh.make_frames(2, 68, 130, seed=1, device=cuda_device)

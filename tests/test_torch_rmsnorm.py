@@ -251,4 +251,5 @@ def test_stencil_tile_unchanged_for_undeclared_runs():
     for v in ("a", "b"):
         ir.add_value(v, (1080, 1920, 3), "float32")
     ir.add_node(Node(name="f_0", fn_key="f", inputs=["a"], outputs=["b"]))
-    assert fused_working_set_bytes(ir, ir.nodes) == 2 * 36 * 36 * 3 * 4
+    # FUSED_TILE (16, 64) and FUSED_HALO 4: (16 + 4) x (64 + 4) pixels a value
+    assert fused_working_set_bytes(ir, ir.nodes) == 2 * 20 * 68 * 3 * 4
