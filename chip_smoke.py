@@ -16,6 +16,18 @@ version there:
   tensor cores: 3xTF32 wgmma);
 * the Harris pipeline served the same way, ``serve_pipeline_demo``, at
   1080x1920 (K1-K3 on the serving path);
+* the replan loop at the same widths: an ``ElasticPlanner`` over the traced
+  transformer serves requests of [512, 8192] through ``executor_for(3)``
+  with a ``StageProfiler``, decides with ``replan_from_profile`` on the
+  card's own stage times, and hot-swaps (``swap_executor``) to the
+  decision's executor — or to the widened one if it keeps its plan — with
+  requests in flight (K5, and K6 unless the decision defused it);
+* KV-slot serving at the same widths: the zoo transformer's rows with a
+  stateful ``attention_decode`` a layer (``register_decode_modules``, one
+  ``KVSlotPool`` of 12 slots x 17 positions a layer on the card), traced
+  and planned, serving 12 greedy sessions of 16 steps through
+  ``RequestQueueServer(continuous=True)`` over an ``open_groups`` executor,
+  then the same sessions with ``continuous=False`` (K5, K6 on the lm head);
 * the LM serving mode, ``serve_lm``, at gemma3-12b's full widths (d 3840,
   16 heads x 256, 8 kv heads, d_ff 15360, vocab 262144, window 1024 with
   every 6th layer global; bf16, 6 of its 48 layers, 4.70 GB of weights):
@@ -60,6 +72,18 @@ Phases:
               equal the untraced app (2e-4); latency p50/p95, requests/s,
               the card's own ms per group beside the wall ms.  Then the
               Harris pipeline behind the same server.
+5a. replan  — the ReplanDecision made from the card's stage times, the
+              measured p50 of each stage, each node's modeled ms before
+              apply_to_ir and measured ms after; the hot swap with requests
+              in flight: 0 dropped, 0 failed, 0 out of order, results
+              within 2e-4 of the untraced app on both sides, K5 on both
+              executors; wall ms a request and requests/s on each side;
+              the card's DeviceInventory and an empty refresh() diff
+5b. decode  — both modes: every step's logits within 2e-4 of a full-prefix
+              rerun of the untraced app, 0 drops, 0 out of order, seam
+              joins (continuous), no slot leaked, stateful nodes serial and
+              off the hw rows, K5 launched; p50 time to the first token,
+              steps/s, card ms a step, idle share, seam fill
 6. lm       — K7 at the serving shape, on q/k/v of the real prompt at layer
               0 (local) and layer 5 (global), against its plain version
               (o element by element, within one bf16 ulp plus 2^-8 rms);
@@ -74,7 +98,9 @@ Phases:
               every head_dim x (f32, bf16), T != M, ragged lengths, the four
               masks (rows that see no key included), and at the driver
               run's [8, 64, 10, 64] f32 (window 32 and none), element by
-              element; at [2, 4096, 16, 256] bf16 (causal and window 1024)
+              element, and there K7, K8 and K9 on the f32 route timed
+              beside their bound, the plain version, SDPA (forward or
+              backward) and the launch floor; at [2, 4096, 16, 256] bf16 (causal and window 1024)
               K7 element by element and its time and TFLOP/s beside the
               bound, then K8/K9's times beside the bound, the plain
               backward and SDPA's backward, with TFLOP/s (the launches on
@@ -147,6 +173,18 @@ def driver_attention() -> tuple[tuple, int, list]:
     T = DRIVER_RUN["seq_len"]
     return ((DRIVER_RUN["batch"], T, DRIVER["n_heads"], T),
             DRIVER["head_dim"], [(True, DRIVER["window"]), (True, 0)])
+
+
+# the replan phase: the served transformer's weights and requests of
+# [512, 8192], one a group (executor_for's default), so the profile times
+# what the IR's priors price; 8 fill the profile, 4 are in flight at the
+# swap, 8 follow it.  Each side's requests/s is timed over a window of 120
+# requests (~5.4 s on the card) kept 8 deep in flight, in three parts
+REPLAN = dict(seq_len=512, profile=8, in_flight=4, after=8, min_samples=4,
+              worker_budget=4, window=120, depth=8, parts=3)
+# the continuous-decode phase: 12 greedy sessions of 16 steps over KV slots
+# (12 slots of 17 positions a layer), groups of 4
+DECODE = dict(sessions=12, steps=16, max_batch=4, max_seq=17)
 
 
 class SmokeFailure(RuntimeError):
@@ -830,6 +868,446 @@ def phase_serve(k6_ms: float):
 
 
 # --------------------------------------------------------------------------- #
+# 5a. the replan loop and the hot swap; 5b. continuous decode on KV slots
+# --------------------------------------------------------------------------- #
+def zoo_params() -> dict:
+    """The served transformer's weights, as phase 5 draws them (the same
+    generator, seed and widths as ``serve_traced_transformer_demo``)."""
+    import torch
+
+    from repro_torch.models.zoo import init_transformer_params
+
+    w = {k: serve_args()[k] for k in ("d", "n_layers", "ff", "n_heads",
+                                      "vocab")}
+    return init_transformer_params(
+        torch.Generator(device="cuda").manual_seed(0), device="cuda", **w)
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want| (inf when ``got`` is not finite)."""
+    import torch
+
+    if not bool(torch.isfinite(got).all()):
+        return math.inf
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def wait_all(reqs, timeout: float = 600.0) -> list:
+    return [r.wait(timeout=timeout) for r in reqs]
+
+
+def rate_window(srv, seqs: list, refs: list, n: int, depth: int,
+                parts: int) -> dict:
+    """Serve ``n`` requests (the inputs in turn) keeping ``depth`` in
+    flight, each result held to its untraced reference as it lands (and
+    then dropped, also from the server's record of finished requests: a
+    result is [512, vocab] f32, 210 MB).  Returns the window's
+    requests/s from the first submit to the last result, the same for each
+    of ``parts`` consecutive slices of the results (their spread), and the
+    worst relative error."""
+    from collections import deque
+
+    pending, done, worst = deque(), [], 0.0
+
+    def land():
+        i, r = pending.popleft()
+        worst_i = rel_err(r.wait(timeout=600.0), refs[i % len(refs)])
+        done.append(r.t_done)
+        r.result = None       # the server keeps every finished request
+        return worst_i
+
+    t0 = time.perf_counter()
+    for i in range(n):
+        if len(pending) == depth:
+            worst = max(worst, land())
+        pending.append((i, srv.submit(seqs[i % len(seqs)])))
+    while pending:
+        worst = max(worst, land())
+    done.sort()
+    ends = [0] + [(k + 1) * n // parts for k in range(parts)]
+    edges = [t0] + [done[e - 1] for e in ends[1:]]
+    return {"requests": n, "depth": depth, "wall_ms": 1e3 * (done[-1] - t0),
+            "requests_per_s": n / (done[-1] - t0),
+            "requests_per_s_parts": [
+                (ends[k + 1] - ends[k]) / (edges[k + 1] - edges[k])
+                for k in range(parts)],
+            "max_rel_err": worst}
+
+
+def phase_replan(params: dict) -> tuple[dict, dict]:
+    """The elastic planner over the traced transformer on the card: serve
+    through ``executor_for(3)`` with a profiler, decide with
+    ``replan_from_profile`` on the card's own stage times, then hot-swap to
+    the decision's executor (or, if the planner keeps its plan, to the
+    widened one) while requests are in flight."""
+    import torch
+
+    from repro_torch.analysis.verify import verify_enabled
+    from repro_torch.core import (DeviceInventory, Frontend, Library,
+                                  PipelineGenerator, StageProfiler)
+    from repro_torch.core.placement import is_hw
+    from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.launch.serve import RequestQueueServer
+    from repro_torch.models.zoo import make_zoo_db, transformer_demo
+    from repro_torch.runtime import ElasticPlanner
+
+    cfg = REPLAN
+    d = serve_args()["d"]
+    torch.cuda.reset_peak_memory_stats()
+    db = make_zoo_db()
+    app = transformer_demo(Library(db), params)
+    gen = torch.Generator(device="cuda").manual_seed(200)
+    n_req = cfg["profile"] + cfg["in_flight"] + cfg["after"]
+    seqs = [torch.randn((cfg["seq_len"], d), generator=gen, device="cuda")
+            for _ in range(n_req)]
+    refs = [app(x) for x in seqs]              # the untraced app, on the card
+    ir, _ = Frontend(db).trace(app, seqs[0])
+    pipe = PipelineGenerator(db).generate(ir, policy="optimal", fuse=True,
+                                          max_stages=4)
+    fused = [n.name for n in pipe.ir.nodes if n.fused_from]
+    check(fused == ["rmsnorm_4+matmul_0"], f"lm head not fused: {fused}")
+    planner = ElasticPlanner(pipe.ir, db=db, min_samples=cfg["min_samples"],
+                             device="cuda")
+    prof = StageProfiler(3, sample_every=1, min_samples=cfg["min_samples"])
+    ex_a, _ = planner.executor_for(3, profiler=prof)
+    rms_a = sum(n.fn_key == "rmsnorm" and is_hw(n.placement)
+                for n in planner.layer_ir.nodes)
+    stages_a = [list(s.node_names) for s in planner.current_plan.stages]
+    ex_a.warmup(seqs[0])
+    srv = RequestQueueServer(ex_a, max_batch=1, max_wait_ms=0.0)
+    srv.start()
+    try:
+        p = cfg["profile"]
+        results = wait_all([srv.submit(x) for x in seqs[:p]])
+
+        # decide on the card's own stage times
+        old_ir = planner.layer_ir
+        modeled = {n.name: n.time_ms for n in old_ir.nodes}
+        p50 = [prof.percentile_ms(k) for k in range(3)]
+        decision = planner.replan_from_profile(prof)
+        measured = {n.name: n.time_ms for n in old_ir.nodes}
+        if decision.replanned:
+            ex_b, how = decision.executor, "the decision's executor"
+        else:
+            ex_b, _ = planner.executor_for(
+                3, profiler=prof.clone_for(3),
+                worker_budget=cfg["worker_budget"])
+            how = (f"the widened executor (worker budget "
+                   f"{cfg['worker_budget']}, replicas {ex_b.replicas})")
+        rms_b = sum(n.fn_key == "rmsnorm" and is_hw(n.placement)
+                    for n in planner.layer_ir.nodes)
+        k6_b = sum(n.fn_key == "rmsnorm+matmul" and is_hw(n.placement)
+                   for n in planner.layer_ir.nodes)
+        ex_b.warmup(seqs[0])                  # off the serving path
+        window_a = rate_window(srv, seqs, refs, cfg["window"], cfg["depth"],
+                               cfg["parts"])
+
+        # swap with the next wave in flight on the old executor; the verify
+        # gate (check_plan) runs on the new plan and IR before the swap
+        rk.reset_launches()
+        ex_a.reset_stats()
+        wave_b = [srv.submit(x) for x in seqs[p:p + cfg["in_flight"]]]
+        t_end = time.monotonic() + 600.0
+        while any(r.t_batch is None for r in wave_b):
+            check(time.monotonic() < t_end, "wave B never dispatched")
+            time.sleep(0.001)
+        check(verify_enabled(), "REPRO_VERIFY=off: the swap's verify gate "
+                                "would not run")
+        old = srv.swap_executor(ex_b, timeout=600.0, db=db,
+                                plan=planner.current_plan,
+                                ir=planner.layer_ir)
+        in_flight_at_swap = sum(not r._event.is_set() for r in wave_b)
+        check(old is ex_a and srv.swaps == 1 and in_flight_at_swap >= 1,
+              f"swap: old is ex_a {old is ex_a}, swaps {srv.swaps}, "
+              f"{in_flight_at_swap} requests in flight")
+        wave_c = [srv.submit(x) for x in seqs[p + cfg["in_flight"]:]]
+        results += wait_all(wave_b)
+        results += wait_all(wave_c)
+        window_b = rate_window(srv, seqs, refs, cfg["window"], cfg["depth"],
+                               cfg["parts"])
+    finally:
+        srv.stop()
+    torch.cuda.synchronize()
+    counts = dict(rk.LAUNCHES)
+    st, sa, sb = srv.stats(), ex_a.stats(), ex_b.stats()
+    ex_a.close()
+    ex_b.close()
+    n_all = n_req + 2 * cfg["window"]
+    check(st["requests_served"] == n_all and st["failed"] == 0
+          and st["shed"] == 0 and st["expired"] == 0,
+          f"replan serving: served {st['requests_served']} of {n_all}, "
+          f"failed {st['failed']}, shed {st['shed']}, "
+          f"expired {st['expired']}")
+    check(sa.out_of_order_retired == 0 and sb.out_of_order_retired == 0
+          and sa.tokens_failed == 0 and sb.tokens_failed == 0,
+          f"retirement: {sa.as_dict()} {sb.as_dict()}")
+    after_swap = cfg["after"] + cfg["window"]
+    check(sa.tokens_retired >= 1 and sb.tokens_retired == after_swap
+          and sa.tokens_retired + sb.tokens_retired
+          == cfg["in_flight"] + after_swap,
+          f"retired {sa.tokens_retired} on the old executor and "
+          f"{sb.tokens_retired} on the new")
+    want_k5 = sa.groups_admitted * rms_a + sb.groups_admitted * rms_b
+    check(counts["rmsnorm"] == want_k5 and rms_a > 0 and rms_b > 0,
+          f"K5 launches {counts['rmsnorm']}, expected {want_k5} "
+          f"({sa.groups_admitted} x {rms_a} + {sb.groups_admitted} x "
+          f"{rms_b})")
+    errs = [rel_err(y, want) for y, want in zip(results, refs)]
+    del results, refs
+    before = max(errs[:p + cfg["in_flight"]] + [window_a["max_rel_err"]])
+    after = max(errs[-cfg["after"]:] + [window_b["max_rel_err"]])
+    check(max(before, after) <= 2e-4,
+          f"served results differ from the untraced app by {errs}, "
+          f"{window_a['max_rel_err']} and {window_b['max_rel_err']} (the "
+          f"windows) of their largest value")
+    print(f"[replan] {decision.describe()}")
+    print(f"[replan] plan {stages_a}: measured stage p50 ms {p50}")
+    for name in modeled:
+        print(f"[replan]   node {name}: modeled {modeled[name]} ms -> "
+              f"measured {measured[name]} ms")
+    if decision.defused:
+        print(f"[replan] the decision defused {decision.defused}: K6 is "
+              f"not on the new executor (phase 5 launched it)")
+    out = {"decision": decision.describe(), "replanned": decision.replanned,
+           "defused": list(decision.defused), "stage_p50_ms": p50,
+           "stages_before": stages_a,
+           "stages_after": [list(s.node_names)
+                            for s in planner.current_plan.stages],
+           "swapped_to": how, "in_flight_at_swap": in_flight_at_swap,
+           "verify_gate": "check_plan", "modeled_ms": modeled,
+           "measured_ms": measured,
+           "window_before": window_a, "window_after": window_b,
+           "max_rel_err_before_swap": before,
+           "max_rel_err_after_swap": after,
+           "k5_launches": counts["rmsnorm"],
+           "k6_launches": counts["rmsnorm_matmul"],
+           "k6_on_new_executor": k6_b,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"[replan] swapped mid-stream to {how} with {in_flight_at_swap} "
+          f"requests in flight, after check_plan passed: "
+          f"{st['requests_served']} served, 0 failed, 0 out of order; max "
+          f"rel err {before} before, {after} after; launches {counts}")
+    for side, w in (("before", window_a), ("after", window_b)):
+        print(f"[replan] {side} the swap: {w['requests']} requests "
+              f"{w['depth']} deep in {w['wall_ms']} ms: requests_per_s="
+              f"{w['requests_per_s']} (by thirds "
+              f"{w['requests_per_s_parts']})")
+    print(f"[replan] peak {out['peak_gb']} GB allocated")
+
+    inv = DeviceInventory.detect()
+    diff = inv.refresh()
+    check(len(inv) == 1 and not diff.changed
+          and inv.spec(0).platform == "gpu",
+          f"inventory {inv.describe()} refresh {diff.describe()}")
+    print(f"[replan] {inv.describe()}; refresh: {diff.describe()}")
+    out["inventory"] = diff.describe()
+    del seqs, app, pipe, planner, ir
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def decode_app(lib, params: dict):
+    """One new token ``x: [1, d]`` and its slot id through the zoo
+    transformer's rows with per-layer decode attention (rmsnorm,
+    attention_decode_<i>, add, rmsnorm, swiglu, add), then the lm head's
+    rmsnorm and matmul."""
+    def app(x, slot):
+        for i, ly in enumerate(params["layers"]):
+            h = lib.rmsnorm(x, ly["ln1"])
+            a = getattr(lib, f"attention_decode_{i}")(
+                h, slot, ly["wq"], ly["wk"], ly["wv"], ly["wo"])
+            x = lib.add(x, a)
+            h = lib.rmsnorm(x, ly["ln2"])
+            f = lib.swiglu(h, ly["wi"], ly["wo_ffn"])
+            x = lib.add(x, f)
+        h = lib.rmsnorm(x, params["ln_f"])
+        return lib.matmul(h, params["w_out"])
+    app.__name__ = "decode"
+    return app
+
+
+def serve_decode(srv, pools: list, firsts: list, w_out) -> list:
+    """Greedy sessions: step t+1's token is the tied embedding (a column of
+    the lm head) of step t's argmax; one session arrives each time an
+    earlier step completes, so later sessions meet groups in flight.  The
+    last step frees the session's slots through ``on_finish``.  Returns
+    per session the (x, logits, latency ms) of every step."""
+    import torch
+
+    n, steps = len(firsts), DECODE["steps"]
+    runs: list = [[] for _ in range(n)]
+    slots: list = [None] * n
+    xs = list(firsts)
+    active: dict = {}
+
+    def release(sess):
+        for pool in pools:
+            pool.free(slots[sess])
+
+    def submit(sess):
+        last = len(runs[sess]) == steps - 1
+        active[sess] = srv.submit(
+            xs[sess], slots[sess],
+            priority="interactive" if not runs[sess] else "batch",
+            on_finish=(lambda _r, s=sess: release(s)) if last else None)
+
+    def admit(sess):
+        ids = {pool.alloc() for pool in pools}
+        check(len(ids) == 1, f"the layers' pools disagree on a slot: {ids}")
+        slots[sess] = ids.pop()
+        submit(sess)
+
+    admit(0)
+    nxt, t_end = 1, time.monotonic() + 600.0
+    while active:
+        check(time.monotonic() < t_end, "decode sessions did not finish")
+        done = [s for s, r in active.items() if r._event.is_set()]
+        if not done:
+            time.sleep(0.0002)
+            continue
+        for sess in done:
+            r = active.pop(sess)
+            logits = r.wait(0)
+            runs[sess].append((xs[sess], logits, r.latency_ms))
+            xs[sess] = w_out[:, int(torch.argmax(logits))][None].clone()
+            if len(runs[sess]) < steps:
+                submit(sess)
+            if nxt < n:
+                admit(nxt)
+                nxt += 1
+    return runs
+
+
+def phase_continuous(params: dict) -> tuple[dict, dict]:
+    """KV-slot serving on the card: the traced decode app (per-layer
+    KVSlotPools of 12 slots x 17 positions, k and v [64, 128] f32) behind
+    ``RequestQueueServer(continuous=True)`` over an ``open_groups``
+    executor, then the same sessions with ``continuous=False``; every
+    step's logits against a full-prefix rerun of the untraced app."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (Frontend, Library, PipelineGenerator,
+                                  StageProfiler)
+    from repro_torch.core.placement import is_hw
+    from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.launch.serve import RequestQueueServer
+    from repro_torch.models.zoo import (make_zoo_db, register_decode_modules,
+                                        transformer_demo)
+    from repro_torch.runtime import KVSlotPool
+
+    cfg, a = DECODE, serve_args()
+    d, n_heads = a["d"], a["n_heads"]
+    db = make_zoo_db()
+    pools = [KVSlotPool(cfg["sessions"], cfg["max_seq"],
+                        {"k": (n_heads, d // n_heads),
+                         "v": (n_heads, d // n_heads)}, device="cuda")
+             for _ in params["layers"]]
+    for i, pool in enumerate(pools):
+        register_decode_modules(db, pool, n_heads=n_heads,
+                                name=f"attention_decode_{i}")
+    app = decode_app(Library(db), params)
+    x0 = torch.zeros((1, d), device="cuda")
+    ir, _ = Frontend(db).trace(app, x0, torch.tensor(-1))
+    check(all(p.allocs == 0 for p in pools), "the trace touched a slot")
+    pipe = PipelineGenerator(db).generate(ir, policy="optimal", fuse=True,
+                                          max_stages=3)
+    stateful = [n for n in pipe.ir.nodes if n.state]
+    check(len(stateful) == len(pools)
+          and all(n.serial_only and not is_hw(n.placement) for n in stateful),
+          f"stateful nodes {[(n.name, n.serial_only, str(n.placement)) for n in stateful]}")
+    hw_rows = {n.name: n.fn_key for n in pipe.ir.nodes if is_hw(n.placement)}
+    stages = [list(s.node_names) for s in pipe.plan.stages]
+    print(f"[decode] plan {stages}; on K5/K6: {hw_rows}")
+    plain = transformer_demo(Library(make_zoo_db()), params)
+    gen = torch.Generator(device="cuda").manual_seed(300)
+    firsts = [torch.randn((1, d), generator=gen, device="cuda")
+              for _ in range(cfg["sessions"])]
+    n_steps = cfg["sessions"] * cfg["steps"]
+    counts_all = {k: 0 for k in rk.LAUNCHES}
+    out = {"plan": stages, "hw_rows": hw_rows}
+    for continuous in (True, False):
+        mode = "continuous" if continuous else "batch-boundary"
+        prof = StageProfiler(pipe.plan.n_stages, sample_every=1)
+        ex = pipe.executor(microbatch=cfg["max_batch"], pad_microbatches=True,
+                           buckets=(cfg["max_batch"],),
+                           replicas=[1] * pipe.plan.n_stages,
+                           open_groups=continuous, pad_token=(x0, -1),
+                           max_in_flight=4 * cfg["max_batch"], profiler=prof)
+        ex.warmup(x0, -1)
+        rk.reset_launches()
+        srv = RequestQueueServer(ex, max_batch=cfg["max_batch"],
+                                 max_wait_ms=2.0, queue_depth=64,
+                                 continuous=continuous)
+        srv.start()
+        box: dict = {}
+        try:
+            profile = device_profile(lambda: box.setdefault(
+                "runs", serve_decode(srv, pools, firsts, params["w_out"])))
+        finally:
+            srv.stop()
+        torch.cuda.synchronize()
+        counts = dict(rk.LAUNCHES)
+        for k, v in counts.items():
+            counts_all[k] += v
+        st, xst = srv.stats(), ex.stats()
+        ex.close()
+        for pool in pools:
+            pool.check_no_leaks()
+        check(st["requests_served"] == n_steps and st["failed"] == 0
+              and st["shed"] == 0 and st["expired"] == 0
+              and st["release_errors"] == 0,
+              f"{mode}: served {st['requests_served']} of {n_steps} "
+              f"({st['failed']} failed, {st['shed']} shed, {st['expired']} "
+              f"expired, {st['release_errors']} release errors)")
+        check(xst.out_of_order_retired == 0, f"{mode}: out of order")
+        check(counts["rmsnorm"] > 0, f"{mode}: K5 never launched")
+        if continuous:
+            check(st["seam_joins"] >= 1, "no request joined at the seam")
+        worst = 0.0
+        for run in box["runs"]:
+            check(len(run) == cfg["steps"], f"{mode}: a session ran "
+                                             f"{len(run)} steps")
+            xs = torch.cat([x for x, _, _ in run])
+            for t, (_, logits, _) in enumerate(run):
+                check(logits.shape == (1, a["vocab"]),
+                      f"logits {tuple(logits.shape)}")
+                worst = max(worst, rel_err(logits, plain(xs[:t + 1])[-1:]))
+        check(worst <= 2e-4, f"{mode}: decode logits differ from the "
+                             f"full-prefix rerun by {worst} of the largest")
+        ttft = [run[0][2] for run in box["runs"]]
+        # every group is padded to the one bucket of max_batch rows; the
+        # window's mean fill is its seated rows (the steps) over all rows,
+        # where seam_fill is the profiler's EMA over the last seals
+        check(xst.tokens_retired == n_steps, f"{mode}: retired "
+                                             f"{xst.tokens_retired} steps")
+        r = {"ttft_p50_ms": float(np.percentile(ttft, 50)),
+             "ttft_samples": len(ttft),
+             "steps_per_s": 1e3 * n_steps / profile["wall_ms"],
+             "device_ms_per_step": profile["device_busy_ms"] / n_steps,
+             "device_idle_share": profile["device_idle_share"],
+             "seam_joins": st["seam_joins"],
+             "mean_fill": n_steps / (xst.groups_admitted * cfg["max_batch"]),
+             "seam_fill_ema": prof.seam_fill(),
+             "groups": xst.groups_admitted, "max_rel_err": worst,
+             "launches": counts, "wall_ms": profile["wall_ms"]}
+        out[mode] = r
+        print(f"[decode] {mode}: {cfg['sessions']} sessions x "
+              f"{cfg['steps']} steps in {xst.groups_admitted} groups; "
+              f"launches {counts}; every step within {worst} of the "
+              f"full-prefix rerun; slots leak-free")
+        print(f"[decode] {mode}: " + "  ".join(
+            f"{k}={r[k]}" for k in ("ttft_p50_ms", "ttft_samples",
+                                    "steps_per_s", "device_ms_per_step",
+                                    "device_idle_share", "seam_joins",
+                                    "mean_fill", "seam_fill_ema")))
+        del box
+    del pools, pipe, ir, plain
+    torch.cuda.empty_cache()
+    return counts_all, out
+
+
+# --------------------------------------------------------------------------- #
 # K7 flash attention, and 6. the LM serving mode
 # --------------------------------------------------------------------------- #
 def visible_pairs(T: int, M: int, causal: bool, window: int) -> int:
@@ -1031,6 +1509,7 @@ def phase_lm(small_err: float):
 
     gc.collect()
     torch.cuda.empty_cache()                 # the zoo's weights are gone
+    torch.cuda.reset_peak_memory_stats()     # peak_gb: this phase's own
     print(f"[lm] {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated "
           f"before the LM")
     tr = LM_TRAFFIC
@@ -1218,11 +1697,130 @@ def flash_bwd_err(q, k, v, do, causal: bool, window: int) -> dict:
             "flash_attention_bwd_dkv": max(e["dk"], e["dv"])}
 
 
-def phase_flash_bwd_kernels() -> dict:
+def driver_inputs(g, n: int) -> list:
+    """``n`` tensors at the driver run's attention shape ([B, T, H, hd],
+    f32), enough copies of each set that together they exceed the L2."""
+    import torch
+
+    (B, T, H, _), hd, _ = driver_attention()
+    nbytes = 4 * n * B * T * H * hd
+    return rotation(lambda: tuple(torch.randn((B, T, H, hd), generator=g,
+                                              device="cuda")
+                                  for _ in range(n)), nbytes)
+
+
+def sdpa_f32(window: int):
+    """F.scaled_dot_product_attention over [B, H, T, hd] f32 tensors with
+    the driver's mask (causal, and the window when there is one), and the
+    backend PyTorch picks for it."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import layers as ml
+
+    (B, T, H, _), hd, _ = driver_attention()
+    mask = None
+    if window:
+        pos = torch.arange(T, device="cuda")
+        mask = ml.attn_mask(pos, pos, window)
+    q = torch.zeros((B, H, T, hd), device="cuda")
+    backend = sdpa_backend(q, q, q, mask, mask is None)
+
+    def call(q, k, v):
+        if mask is None:
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    return call, backend
+
+
+def f32_route_timing(floor_ms: float) -> dict:
+    """K7 (forward), K8 and K9 on their f32 SIMT route at the driver run's
+    shape, the one with the most launches, under both of its masks: each
+    kernel's device time beside its bound, the plain version and
+    F.scaled_dot_product_attention (its backward for K8/K9), with the
+    launch floor of this timing (a launch with no bytes) beside them."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator("cuda").manual_seed(23)
+    (B, T, H, _), hd, masks = driver_attention()
+    rows = {}
+    for causal, window in masks:
+        kind = f"window {window}" if window else "causal"
+        fwd_in = driver_inputs(g, 3)
+        q, k, v = fwd_in[0]
+        bound, by = attention_bound(q, k, causal, window)
+        lib, backend = sdpa_f32(window)
+        rows.setdefault("flash_attention", {})[kind] = {
+            "ms": device_ms(lambda q, k, v: fa.flash_attention_fwd(
+                q, k, v, causal, window), fwd_in, label=f"K7 f32 {kind}"),
+            "plain_ms": device_ms(lambda q, k, v: fa.flash_attention_ref(
+                q, k, v, causal, window), fwd_in,
+                label=f"K7 f32 {kind} plain"),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": device_ms(
+                lib, [tuple(t.transpose(1, 2) for t in x) for x in fwd_in],
+                label=f"K7 f32 {kind} library"),
+            "library": f"F.scaled_dot_product_attention ({backend})"}
+        bwd_in = []
+        for q, k, v, do in driver_inputs(g, 4):
+            lse = fa.flash_attention_fwd(q, k, v, causal, window)[1]
+            delta = fa.flash_attention_bwd_dq(q, k, v, lse, do, causal,
+                                              window)[1]
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            bwd_in.append((q, k, v, do, lse, delta,
+                           lib(qt, kt, vt), (qt, kt, vt), do.transpose(1, 2)))
+        lib_ms = device_ms(lambda *a: torch.autograd.grad(
+            a[6], a[7], a[8], retain_graph=True), bwd_in,
+            label=f"SDPA f32 backward {kind}")
+        for name, fn, plain, flops, t_rows, m_rows in (
+                ("flash_attention_bwd_dq",
+                 lambda q, k, v, do, lse, delta, *_: fa.flash_attention_bwd_dq(
+                     q, k, v, lse, do, causal, window),
+                 lambda q, k, v, do, lse, delta, *_:
+                     fa.flash_attention_bwd_dq_ref(q, k, v, lse, do, causal,
+                                                   window), 6, 3, 2),
+                ("flash_attention_bwd_dkv",
+                 lambda q, k, v, do, lse, delta, *_:
+                     fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                causal, window),
+                 lambda q, k, v, do, lse, delta, *_:
+                     fa.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                                    causal, window),
+                 8, 2, 4)):
+            q, k = bwd_in[0][:2]
+            bound, by, _ = bwd_bound(q, k, causal, window, flops, t_rows,
+                                     m_rows)
+            rows.setdefault(name, {})[kind] = {
+                "ms": device_ms(fn, bwd_in, label=f"{name} f32 {kind}"),
+                "plain_ms": device_ms(plain, bwd_in,
+                                      label=f"{name} f32 {kind} plain"),
+                "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+                "library": f"backward of F.scaled_dot_product_attention "
+                           f"({backend}; dq, dk and dv together)"}
+        del fwd_in, bwd_in
+    fa.reset_launches()
+    torch.cuda.empty_cache()
+    for name, per in rows.items():
+        for kind, r in per.items():
+            r["launch_floor_ms"] = floor_ms
+            print(f"[train] {name} f32 (route simt_f32) at the driver's "
+                  f"[{B}, {T}, {H}, {hd}] {kind}: kernel_ms={r['ms']:.5f} "
+                  f"plain_ms={r['plain_ms']:.5f} bound_ms="
+                  f"{r['bound_ms']:.5f} ({r['bound_by']}) library_ms="
+                  f"{r['library_ms']:.5f} [{r['library']}] launch_floor_ms="
+                  f"{floor_ms:.5f}")
+    return rows
+
+
+def phase_flash_bwd_kernels(floor_ms: float) -> tuple[dict, dict]:
     """K8 and K9 at small and ragged shapes (T != M, lengths off the tile;
     rows that see no key under window 40 at T = 300, M = 200), at every
     head_dim, f32 and bf16, with the four masks; then at the driver run's
-    shape, f32, with its two masks."""
+    shape, f32, with its two masks, where K7, K8 and K9 are also timed
+    (``f32_route_timing``)."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -1254,7 +1852,7 @@ def phase_flash_bwd_kernels() -> dict:
               f"autograd through the plain forward: max abs err {d}, worst "
               f"case {w} of its element-wise limit")
     print(f"[train] K7/K8/K9 routes by (head_dim, type): {routes}")
-    return errs
+    return errs, f32_route_timing(floor_ms)
 
 
 def bwd_bound(q, k, causal: bool, window: int, flops_per_hd: int,
@@ -1591,13 +2189,20 @@ def main() -> int:
     fa_err, tc_res = phase_flash_kernels()
     launches, times = phase_main_path()
     counts, hcounts, served = phase_serve(rows["rmsnorm_matmul"]["ms"])
+    params = zoo_params()
+    rcounts, replanned = phase_replan(params)
+    ccounts, decoded = phase_continuous(params)
+    del params
     rows["flash_attention"], fcounts, lm = phase_lm(fa_err)
-    bwd_rows, k7_train = phase_bwd_timing(phase_flash_bwd_kernels())
+    bwd_small, f32_route = phase_flash_bwd_kernels(
+        yardsticks["launch_floor_ms"])
+    bwd_rows, k7_train = phase_bwd_timing(bwd_small)
     rows.update(bwd_rows)
     tcounts, trained = phase_train()
     dcounts, driven = phase_driver()
-    for k, v in (*counts.items(), *hcounts.items(), *fcounts.items(),
-                 *tcounts.items(), *dcounts.items()):
+    for k, v in (*counts.items(), *hcounts.items(), *rcounts.items(),
+                 *ccounts.items(), *fcounts.items(), *tcounts.items(),
+                 *dcounts.items()):
         launches[k] = launches.get(k, 0) + v
     replaces = {"cvt_color": "src/repro/kernels/harris.py:44",
                 "corner_harris": "src/repro/kernels/harris.py:101",
@@ -1626,7 +2231,9 @@ def main() -> int:
                                  f"main paths")
     print(json.dumps({"build_s": build_s, "main_path": times, **yardsticks,
                       "frame": [H, W], "frames": N_FRAMES,
-                      "serve_transformer": served, "serve_lm": lm,
+                      "serve_transformer": served, "replan": replanned,
+                      "continuous_decode": decoded, "serve_lm": lm,
+                      "f32_route_driver_shape": f32_route,
                       "train": trained, "driver": driven,
                       "tc_resources": tc_res, "k7_train_shape": k7_train,
                       "k6_resources": rows["rmsnorm_matmul"]["resources"],

@@ -7,11 +7,12 @@ Flow (paper Fig. 1):
                                      mixed sw/hw token pipeline
   courier_offload       Step 9     — deployable wrapper w/ Off-load Switcher
 """
-from .costmodel import (DEVICE_CLASSES, H100, SMEM_BYTES, CostModel,
-                        DeviceClass, FusionEstimate, NodeCost, device_class,
-                        elementwise_cost, fused_cost, matmul_cost, measure_ms,
-                        replicated_bottleneck_ms, stencil_cost, synchronize,
-                        transfer_ms)
+from .costmodel import (DEVICE_CLASSES, H100, PROFILE_MARGIN, SMEM_BYTES,
+                        CostModel, DeviceClass, FusionEstimate, NodeCost,
+                        attention_cost, device_class, elementwise_cost,
+                        fused_cost, matmul_cost, measure_ms,
+                        measured_contradicts, replicated_bottleneck_ms,
+                        stencil_cost, synchronize, transfer_ms)
 from .database import ModuleDatabase, ModuleEntry, default_db
 from .executor import (ExecutorClosed, ExecutorStats, PendingToken,
                        PipelineExecutor, StageCounters, SubmitError)
@@ -26,16 +27,18 @@ from .partition import (PipelinePlan, StagePlan, assign_replicas,
 from .pipeline import (BuiltPipeline, PipelineGenerator, StageFn,
                        assign_placements, loop_batched, make_stage_fns)
 from .profiler import StageProfiler
-from .placement import (AUTO_BUDGET, DeviceInventory, DeviceSpec, Placement,
-                        default_worker_budget, is_hw, is_sw, placement_kind,
-                        resolve_device, resolve_worker_budget)
+from .placement import (AUTO_BUDGET, DeviceInventory, DeviceSpec,
+                        InventoryDiff, Placement, default_worker_budget, is_hw,
+                        is_sw, placement_kind, resolve_device,
+                        resolve_worker_budget)
 from .tracer import Frontend, Library, deploy
 
 __all__ = [
-    "DEVICE_CLASSES", "H100", "SMEM_BYTES", "CostModel", "DeviceClass",
-    "FusionEstimate", "NodeCost", "device_class", "elementwise_cost",
-    "fused_cost", "matmul_cost", "measure_ms", "replicated_bottleneck_ms", "stencil_cost",
-    "synchronize", "transfer_ms",
+    "DEVICE_CLASSES", "H100", "PROFILE_MARGIN", "SMEM_BYTES", "CostModel",
+    "DeviceClass", "FusionEstimate", "NodeCost", "attention_cost",
+    "device_class", "elementwise_cost", "fused_cost", "matmul_cost",
+    "measure_ms", "measured_contradicts", "replicated_bottleneck_ms",
+    "stencil_cost", "synchronize", "transfer_ms",
     "ModuleDatabase", "ModuleEntry", "default_db",
     "ExecutorClosed", "ExecutorStats", "PendingToken", "PipelineExecutor",
     "StageCounters", "SubmitError",
@@ -48,7 +51,8 @@ __all__ = [
     "kernel_tile", "widen_for_deployment",
     "BuiltPipeline", "PipelineGenerator", "StageFn", "assign_placements",
     "loop_batched", "make_stage_fns", "StageProfiler",
-    "AUTO_BUDGET", "DeviceInventory", "DeviceSpec", "Placement",
+    "AUTO_BUDGET", "DeviceInventory", "DeviceSpec", "InventoryDiff",
+    "Placement",
     "default_worker_budget", "is_hw", "is_sw", "placement_kind",
     "resolve_device", "resolve_worker_budget",
     "Frontend", "Library", "deploy",

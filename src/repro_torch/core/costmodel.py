@@ -29,6 +29,8 @@ import time
 from dataclasses import dataclass, field
 from typing import Callable, Sequence
 
+import numpy as np
+
 # ---- NVIDIA H100 SXM priors (data sheet; per card) ------------------------ #
 PEAK_FLOPS_BF16 = 989e12        # FLOP/s, dense bf16 tensor cores
 PEAK_FLOPS_F32 = 67e12          # FLOP/s, f32 outside the tensor cores
@@ -133,6 +135,21 @@ class NodeCost:
         t_coll = self.coll_bytes / (chips * links * device.link_bw)
         return 1e3 * (max(t_compute, t_memory) + t_coll)
 
+    @property
+    def arithmetic_intensity(self) -> float:
+        return self.flops / max(self.bytes_rw, 1.0)
+
+    def dominant(self, device: DeviceClass = H100) -> str:
+        """Which roofline term bounds this cost on ``device``: "compute",
+        "memory" or "collective" (compute timed per type, as
+        :meth:`time_ms` does)."""
+        t_c = ((self.flops - self.f32_flops) / device.peak_flops
+               + self.f32_flops / device.peak_flops_f32)
+        t_m = self.bytes_rw / device.hbm_bw
+        t_x = self.coll_bytes / device.link_bw
+        return ("compute", "memory", "collective")[
+            int(np.argmax([t_c, t_m, t_x]))]
+
 
 # --------------------------------------------------------------------------- #
 # Fusion model — shared-memory-resident intermediates
@@ -165,6 +182,10 @@ class FusionEstimate:
         if not self.fits_smem:
             return float("inf")
         return self.cost.time_ms()
+
+    @property
+    def wins(self) -> bool:
+        return self.fits_smem and self.fused_ms < self.unfused_ms
 
 
 def fused_cost(parts: "list[NodeCost]", intermediate_bytes: float, *,
@@ -227,6 +248,23 @@ def stencil_cost(h: int, w: int, c: int, taps: int,
                     f32_flops=flops if bytes_per_el == 4 else 0.0)
 
 
+def attention_cost(batch: int, q_len: int, kv_len: int, heads: int,
+                   head_dim: int, kv_heads: int | None = None,
+                   window: int | None = None,
+                   bytes_per_el: int = 2) -> NodeCost:
+    """QK^T + softmax + PV cost; a sliding window caps kv_len at window."""
+    kv_heads = kv_heads or heads
+    eff_kv = min(kv_len, window) if window else kv_len
+    flops = 2.0 * batch * heads * q_len * eff_kv * head_dim * 2  # QK^T and PV
+    flops += 5.0 * batch * heads * q_len * eff_kv                # softmax-ish
+    byts = bytes_per_el * batch * (
+        heads * q_len * head_dim                      # Q
+        + 2 * kv_heads * eff_kv * head_dim            # K, V
+        + heads * q_len * head_dim)                   # out
+    return NodeCost(flops=flops, bytes_rw=byts,
+                    f32_flops=flops if bytes_per_el == 4 else 0.0)
+
+
 # --------------------------------------------------------------------------- #
 # Stage replication (TBB parallel filters — widen instead of re-balance)
 # --------------------------------------------------------------------------- #
@@ -266,6 +304,32 @@ def replicated_bottleneck_ms(stage_ms: "Sequence[float]",
 
 
 # --------------------------------------------------------------------------- #
+# Measured vs modeled (the online-profile write-back contract)
+# --------------------------------------------------------------------------- #
+PROFILE_MARGIN = 1.5      # default measured-vs-model contradiction factor
+
+
+def measured_contradicts(model_ms: float | None, measured_ms: float | None,
+                         margin: float = PROFILE_MARGIN) -> bool:
+    """True when a measurement deviates from the model by ``margin``x.
+
+    The re-planner's trigger condition: a measured stage/node time that is
+    ``>= margin`` times the estimate (or ``<= 1/margin`` of it) means the
+    cost table the current plan was balanced on is wrong, so fuse/no-fuse
+    and stage-boundary decisions deserve a revisit.  ``None`` on either
+    side never contradicts (nothing measured, or nothing modeled).
+    """
+    if model_ms is None or measured_ms is None:
+        return False
+    if margin < 1.0:
+        raise ValueError(f"margin must be >= 1.0 (got {margin})")
+    if model_ms <= 0.0:
+        return measured_ms > 0.0
+    ratio = measured_ms / model_ms
+    return ratio >= margin or ratio <= 1.0 / margin
+
+
+# --------------------------------------------------------------------------- #
 # Measured profiles (the Frontend's profile log)
 # --------------------------------------------------------------------------- #
 def synchronize(out) -> None:
@@ -298,18 +362,28 @@ def measure_ms(fn: Callable, *args, warmup: int = 1, iters: int = 3) -> float:
 class CostModel:
     """Per-fn_key cost providers; mixes measured and analytical sources.
 
-    ``measured`` holds per-function wall times; they supersede the
-    analytical providers during :meth:`annotate` — the paper's rule that a
-    runtime profile outranks a synthesis-report estimate.
+    ``measured`` holds per-function EMA wall times fed by the online
+    profiler (:meth:`observe`); they supersede the analytical providers
+    during :meth:`annotate` — the paper's rule that a runtime profile
+    outranks a synthesis-report estimate, kept live while serving.
     """
 
     chips: int = 1
     links: int = 1
     providers: dict[str, Callable[..., NodeCost]] = field(default_factory=dict)
     measured: dict[str, float] = field(default_factory=dict)
+    measure_alpha: float = 0.25
 
     def register(self, fn_key: str, provider: Callable[..., NodeCost]) -> None:
         self.providers[fn_key] = provider
+
+    def observe(self, fn_key: str, ms: float) -> float:
+        """Fold one measured wall time into the per-function EMA."""
+        prev = self.measured.get(fn_key)
+        a = self.measure_alpha
+        self.measured[fn_key] = float(ms) if prev is None \
+            else (1.0 - a) * prev + a * float(ms)
+        return self.measured[fn_key]
 
     def annotate(self, ir) -> None:
         """Fill Node.flops / bytes from providers when a node has no profile;

@@ -48,6 +48,13 @@ leans on CUDA's asynchronous launches the way TBB leans on its thread pool:
   quarantined, and unreplicated stages error the group.  Scripted faults
   come from a :class:`~repro_torch.runtime.faults.FaultInjector` called in
   front of every stage body.
+* **Continuous batching** (``open_groups=True``) — an admitted group stays
+  *open* while it waits in the stage-0 ring: :meth:`PipelineExecutor.
+  try_join` writes a newly arrived token into one of its padding seats,
+  and :meth:`PipelineExecutor.try_evict` turns a seat back into a dead row
+  (``pad_token``), until the stage-0 worker *seals* the group the instant
+  it claims it.  Every group pads to a bucket, so a join rewrites a row of
+  tensors the group already holds: same shapes, no new group.
 
 **Streams.** Every stage runs on its device's default stream, whichever
 thread issues it: a new thread's current stream is the default one, and the
@@ -58,9 +65,8 @@ same stream, cannot hand a tensor's memory out early.  A thread that must
 see a result on the host waits on a CUDA event recorded behind it.
 
 Completion is in-order (tokens retire oldest-first), matching the paper's
-``serial_in_order`` first/last filters.  The continuous-batching seam of the
-JAX package (``open_groups``, ``try_join``, ``try_evict``) waits for the
-per-request KV-slot slice.
+``serial_in_order`` first/last filters.  A token joined at the seam retires
+with its adoptive group, in that group's place.
 """
 from __future__ import annotations
 
@@ -153,6 +159,8 @@ class ExecutorStats:
     tokens_failed: int = 0         # tokens retired carrying an error
     retries: int = 0               # failed stage calls re-executed
     quarantined: int = 0           # replicas evicted after repeated errors
+    seam_joins: int = 0            # tokens admitted into in-flight groups
+    seam_evictions: int = 0        # seats evicted before their group sealed
     # failed stage calls per CONFIGURED device ordinal — the replanner's
     # unhealthy-device signal (populated only for device-placed replicas)
     device_errors: dict = field(default_factory=dict)
@@ -181,6 +189,8 @@ class ExecutorStats:
             "tokens_failed": self.tokens_failed,
             "retries": self.retries,
             "quarantined": self.quarantined,
+            "seam_joins": self.seam_joins,
+            "seam_evictions": self.seam_evictions,
             "device_errors": {str(k): v
                               for k, v in sorted(self.device_errors.items())},
             "quarantined_replicas": [list(t)
@@ -211,6 +221,15 @@ def _stack(column: Sequence[Any]) -> torch.Tensor:
     """Stack one graph input's rows into a new leading axis."""
     return torch.stack([v if isinstance(v, torch.Tensor)
                         else torch.as_tensor(v) for v in column])
+
+
+def _set_row(env: dict, row: int, values: Sequence[Any]) -> None:
+    """Write one token's values into row ``row`` of a stacked group's env,
+    in place (the group owns these tensors: ``_stack`` made them)."""
+    for v, a in zip(env.values(), values):
+        if isinstance(v, torch.Tensor):
+            v[row] = (a if isinstance(a, torch.Tensor)
+                      else torch.as_tensor(a, dtype=v.dtype))
 
 
 def _cuda_device(tree: Any) -> "torch.device | None":
@@ -249,7 +268,7 @@ class _Group:
 
     __slots__ = ("env", "size", "stacked", "results", "done", "error", "lock",
                  "future", "seq", "fns", "evt", "retries", "t_admit",
-                 "samples")
+                 "samples", "sealed", "rows", "sig", "evicted")
 
     def __init__(self, env: dict | None, size: int, stacked: bool):
         self.env = env                # None until all stages are issued
@@ -268,6 +287,15 @@ class _Group:
         # profiler samples of a sampled group on the card: (stage, start
         # event, end event), read when the group retires
         self.samples: list[tuple] = []
+        # --- continuous-batching seam state (open_groups mode) ---
+        # sealed flips True (under the EXECUTOR lock) the instant a stage-0
+        # worker claims the group; joins/evictions are only legal before.
+        self.sealed = True
+        self.rows = size              # stacked rows incl. padding seats
+        self.sig: tuple | None = None  # token signature (join compat check)
+        # row idx -> error for seats evicted at the seam; the row still
+        # flows (as a dead pad row) and result() raises the stored error
+        self.evicted: dict[int, BaseException] = {}
 
 
 class _SeqRing:
@@ -364,6 +392,8 @@ class PendingToken:
     def result(self) -> Any:
         """Block until this token's final outputs are ready and return them."""
         self._executor._retire_through(self._group)
+        if self._idx in self._group.evicted:
+            raise self._group.evicted[self._idx]
         if self._group.error is not None:
             raise self._group.error
         return self._group.results[self._idx]
@@ -459,6 +489,23 @@ class PipelineExecutor:
         long, a failing stage call errors the group instead of retrying —
         late work is degraded, not re-queued forever.  ``None`` (default)
         leaves retries bounded only by ``max_group_retries``.
+    open_groups:
+        **Continuous batching.**  Admitted groups stay *open* while they
+        sit in the stage-0 ring: :meth:`try_join` can claim their padding
+        seats for newly arrived tokens, and :meth:`try_evict` can turn a
+        seat into a dead row, until the stage-0 worker *seals* the group
+        the instant it claims it.  Groups pad to a bucket anyway (the
+        singleton exemption is off, so EVERY group is stacked), so a join
+        rewrites a pad row in place: same shapes, nothing new to warm.
+        Requires replicated mode (``replicas=``; the seam IS the
+        ring-residency window), ``pad_microbatches`` and ``microbatch > 1``.
+    pad_token:
+        Neutral token written into padding rows instead of repeating the
+        last real token (one value per graph input).  Required with
+        ``open_groups`` when a stage is stateful: a repeated row would
+        replay its slot mutation, double-writing a live request's cache,
+        and an evicted seat must read as dead.  Use slot id ``-1`` (the KV
+        pool's dead row) and zeros for the tensor operands.
     """
 
     def __init__(self, stage_fns: Sequence[Callable],
@@ -472,7 +519,9 @@ class PipelineExecutor:
                  devices: Sequence[Sequence[int]] | None = None,
                  inventory: Any = None, fault_injector: Any = None,
                  max_group_retries: int = 3, quarantine_after: int = 1,
-                 retry_budget_ms: float | None = None):
+                 retry_budget_ms: float | None = None,
+                 open_groups: bool = False,
+                 pad_token: tuple | None = None):
         if max_in_flight is not None and max_in_flight < 1:
             raise ValueError(
                 f"max_in_flight must be >= 1 (got {max_in_flight}); "
@@ -557,6 +606,27 @@ class PipelineExecutor:
         self.quarantine_after = int(quarantine_after)
         self.retry_budget_ms = (None if retry_budget_ms is None
                                 else float(retry_budget_ms))
+        self.open_groups = bool(open_groups)
+        if self.open_groups:
+            if replicas is None:
+                raise ValueError(
+                    "open_groups requires replicated mode (replicas=): the "
+                    "join seam is the stage-0 ring-residency window")
+            if not self.pad_microbatches:
+                raise ValueError(
+                    "open_groups requires pad_microbatches with "
+                    "microbatch > 1 — padding seats are what joins claim")
+        self.pad_token: tuple | None = None
+        if pad_token is not None:
+            pt = pad_token if isinstance(pad_token, tuple) else (pad_token,)
+            if len(pt) != len(self.graph_inputs):
+                raise ValueError(
+                    f"pad_token must carry one value per graph input "
+                    f"({len(self.graph_inputs)}), got {len(pt)}")
+            self.pad_token = pt
+        # open (unsealed) groups, oldest first — joins scan this under
+        # self._lock; stage-0 workers remove a group here when they seal it
+        self._open: deque[_Group] = deque()
         self._inflight: deque[_Group] = deque()
         self._occupancy = 0               # live (non-retired) tokens
         self._lock = threading.RLock()
@@ -605,6 +675,8 @@ class PipelineExecutor:
                       inventory: Any = None, fault_injector: Any = None,
                       max_group_retries: int = 3, quarantine_after: int = 1,
                       retry_budget_ms: float | None = None,
+                      open_groups: bool = False,
+                      pad_token: tuple | None = None,
                       ) -> "PipelineExecutor":
         """Build from a :class:`repro_torch.core.pipeline.BuiltPipeline`,
         sharing the pipeline's group-wide stage list."""
@@ -619,7 +691,8 @@ class PipelineExecutor:
                    fault_injector=fault_injector,
                    max_group_retries=max_group_retries,
                    quarantine_after=quarantine_after,
-                   retry_budget_ms=retry_budget_ms)
+                   retry_budget_ms=retry_budget_ms,
+                   open_groups=open_groups, pad_token=pad_token)
 
     # -- public API ---------------------------------------------------------- #
     def submit(self, *args: Any) -> PendingToken:
@@ -662,6 +735,92 @@ class PipelineExecutor:
                     f"submit failed at token {len(handles)}: {e}",
                     handles) from e
         return handles
+
+    # -- continuous batching (open_groups mode) ------------------------------ #
+    def try_join(self, args: tuple | Any) -> PendingToken | None:
+        """Admit one token into an already in-flight group's padding seat.
+
+        Scans the open (unsealed) groups oldest-first for one whose token
+        signature matches, that has a free padding seat, no error, and
+        pool headroom; claims the next seat (rows ``[0, size)`` stay
+        contiguous real tokens), writes that env row in place, and returns
+        a handle that retires WITH the group — the token skips the
+        queue-to-group-formation wait entirely.  Returns ``None`` when no
+        seam is open (the caller falls back to :meth:`submit` /
+        :meth:`submit_many`).  The row write is issued under the executor
+        lock, strictly before the stage-0 worker's seal flip under the same
+        lock, so a joined row is either visible to the stage or the join
+        never happened; on the card the write is queued on the stream the
+        stage then runs on, so it lands first.
+        """
+        if not self.open_groups:
+            return None
+        toks = args if isinstance(args, tuple) else (args,)
+        if len(toks) != len(self.graph_inputs):
+            raise ValueError(
+                f"expected {len(self.graph_inputs)} inputs, got {len(toks)}")
+        sig = _sig_of(toks)
+        with self._lock:
+            if self.closed:
+                raise ExecutorClosed("executor is closed; build a fresh one")
+            if self._occupancy + 1 > self.pool:
+                return None
+            for g in self._open:
+                if (g.sealed or g.error is not None or g.size >= g.rows
+                        or g.sig != sig):
+                    continue
+                row = g.size
+                _set_row(g.env, row, toks)
+                g.size += 1
+                self._occupancy += 1
+                self._stats.tokens_admitted += 1
+                self._stats.seam_joins += 1
+                self._stats.max_in_flight_seen = max(
+                    self._stats.max_in_flight_seen, self._occupancy)
+                self._stats.occupancy_samples += 1
+                self._stats.occupancy_sum += self._occupancy
+                for c in self._stats.per_stage:
+                    c.tokens += 1
+                return PendingToken(self, g, row)
+        return None
+
+    def try_evict(self, handle: PendingToken,
+                  error: BaseException | None = None) -> bool:
+        """Turn an unsealed seat into a dead row (seam-side cancellation).
+
+        Only legal before the seat's group seals; the row is overwritten
+        with ``pad_token`` (when configured) so a stateful stage treats it
+        as dead, and ``handle.result()`` raises ``error``.  Group
+        accounting is unchanged — the seat still retires with its group,
+        it just carries no live request.  Returns False once the group
+        sealed (too late: the token runs; cancel at the serving layer
+        instead).
+        """
+        g = handle._group
+        with self._lock:
+            if not self.open_groups or g.sealed or g.done \
+                    or g.error is not None:
+                return False
+            idx = handle._idx
+            if idx in g.evicted:
+                return True
+            if self.pad_token is not None:
+                _set_row(g.env, idx, self.pad_token)
+            g.evicted[idx] = error if error is not None else RuntimeError(
+                "token evicted at the batch seam")
+            self._stats.seam_evictions += 1
+            return True
+
+    def seam_capacity(self) -> int:
+        """Free padding seats across open unsealed groups, capped by pool
+        headroom — the serving layer's 'how many arrivals can jump the
+        queue right now' signal (predicted-wait input)."""
+        if not self.open_groups:
+            return 0
+        with self._lock:
+            free = sum(g.rows - g.size for g in self._open
+                       if not g.sealed and g.error is None)
+            return max(0, min(free, self.pool - self._occupancy))
 
     def run(self, tokens: Iterable[tuple | Any]) -> list[Any]:
         """Blocking map over a token stream; results in submission order."""
@@ -799,11 +958,14 @@ class PipelineExecutor:
         constructor appends it), so every padded size lands on a shape
         ``warmup`` ran; a size no bucket fits — only reachable by bypassing
         ``_group_tokens``'s microbatch cap — is an error.  Singleton groups
-        are never padded: padding one real row up to a bucket would only
-        buy a stack/unstack round-trip plus wasted padded compute.
+        are not padded: padding one real row up to a bucket would only buy
+        a stack/unstack round-trip plus wasted padded compute.  EXCEPT in
+        ``open_groups`` mode — there a singleton pads to a bucket like any
+        other ragged group, because its padding seats are exactly what
+        later arrivals join into.
         """
         if not self.pad_microbatches or size >= self.microbatch \
-                or size == 1:
+                or (size == 1 and not self.open_groups):
             return 0
         if self.buckets:
             for b in self.buckets:
@@ -820,9 +982,13 @@ class PipelineExecutor:
         pad = self._pad_for(size)
         stacked = size > 1 or pad > 0
         if stacked:
-            # padding rows repeat the last token, so every group of a
-            # bucket has the same [bucket, ...] shapes
-            rows = group_toks + [group_toks[-1]] * pad
+            # padding rows: a neutral pad_token when one is configured
+            # (dead rows a stateful stage must not mutate — and the seats
+            # open-group joins rewrite), else repeat the last token; either
+            # way every group of a bucket has the same [bucket, ...] shapes
+            filler = (self.pad_token if self.pad_token is not None
+                      else group_toks[-1])
+            rows = group_toks + [filler] * pad
             args = tuple(_stack(c) for c in zip(*rows))
         else:
             args = group_toks[0]
@@ -833,6 +999,9 @@ class PipelineExecutor:
         #    issue completes — the executor lock itself is only held for
         #    O(us) bookkeeping, never across a stage call.
         g = _Group(None, size, stacked)
+        g.rows = size + pad if stacked else size
+        if self.open_groups:
+            g.sig = _sig_of(group_toks[0])
         g.lock.acquire()
         while True:
             with self._lock:
@@ -872,6 +1041,13 @@ class PipelineExecutor:
                 g.env = env
                 g.fns = tuple(fns)
                 g.evt = threading.Event()
+                if self.open_groups and g.rows > g.size:
+                    # publish the group as OPEN before routing: joins may
+                    # claim its padding seats until the stage-0 worker
+                    # seals it (both transitions under self._lock)
+                    with self._lock:
+                        g.sealed = False
+                        self._open.append(g)
                 self._route(0, g.seq, g)
                 enq = (time.perf_counter() - t0) * 1e3 / max(len(fns), 1)
                 counters = [(si, enq) for si in range(len(fns))]
@@ -910,11 +1086,18 @@ class PipelineExecutor:
             g.error = e
             g.done = True
             with self._lock:
+                g.sealed = True          # no joins into a poisoned group
+                # g.size, not size: any seat joined between registration
+                # and the failure is unwound with its group
                 self._occupancy -= g.size
                 self._stats.tokens_admitted -= g.size
                 self._stats.groups_admitted -= 1
                 try:
                     self._inflight.remove(g)
+                except ValueError:
+                    pass
+                try:
+                    self._open.remove(g)
                 except ValueError:
                     pass
             if self._rings is not None and g.seq is not None \
@@ -987,6 +1170,22 @@ class PipelineExecutor:
             if item is None:
                 return
             seq, g = item
+            if si == 0 and not g.sealed:
+                # SEAL: membership freezes the instant the stage-0 worker
+                # claims the group.  Under the executor lock, so a
+                # concurrent try_join either issued its row write before
+                # this flip (its row runs with the group) or observes
+                # sealed and moves on — never a torn env.
+                with self._lock:
+                    g.sealed = True
+                    try:
+                        self._open.remove(g)
+                    except ValueError:
+                        pass
+                if self.profiler is not None and g.rows > 0:
+                    rec = getattr(self.profiler, "record_seam", None)
+                    if rec is not None:
+                        rec(g.size, g.rows)
             forward = True
             if g.error is None:
                 forward = self._exec_replicated(si, w, seq, g, dev,

@@ -85,6 +85,10 @@ class PipelinePlan:
         return [s.replicas for s in self.stages]
 
     @property
+    def total_workers(self) -> int:
+        return sum(s.replicas for s in self.stages)
+
+    @property
     def stage_devices(self) -> list[list[int]] | None:
         """Per-stage per-replica device ordinals; None when unpinned."""
         if not any(s.devices for s in self.stages):

@@ -376,12 +376,15 @@ class BuiltPipeline:
                  inventory: Any = None, fault_injector: Any = None,
                  max_group_retries: int = 3, quarantine_after: int = 1,
                  retry_budget_ms: float | None = None,
+                 open_groups: bool = False,
+                 pad_token: tuple | None = None,
                  ) -> "PipelineExecutor":
         """Build a :class:`~repro_torch.core.executor.PipelineExecutor` over
         these stages (bounded token pool, eager issue, optional per-stage
         micro-batching with bucketed ragged-group padding, threaded or
-        replicated stages, fault injection with retry and quarantine; see
-        the executor for each argument).  ``max_in_flight`` defaults to
+        replicated stages, fault injection with retry and quarantine,
+        continuous batching at the seam with ``open_groups``/``pad_token``;
+        see the executor for each argument).  ``max_in_flight`` defaults to
         this pipeline's own setting."""
         from .executor import PipelineExecutor
         return PipelineExecutor.from_pipeline(
@@ -392,7 +395,8 @@ class BuiltPipeline:
             fault_injector=fault_injector,
             max_group_retries=max_group_retries,
             quarantine_after=quarantine_after,
-            retry_budget_ms=retry_budget_ms)
+            retry_budget_ms=retry_budget_ms,
+            open_groups=open_groups, pad_token=pad_token)
 
     def run_async(self, tokens: Iterable[tuple | Any], *,
                   max_in_flight: int | None = None,

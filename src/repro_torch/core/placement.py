@@ -15,7 +15,7 @@ everything else goes through the :data:`HW`/:data:`SW` constants and the
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from typing import Any, Iterator, Sequence
 
 # --------------------------------------------------------------------------- #
@@ -107,6 +107,10 @@ class Placement:
                    mesh_coord=mesh_coord)
 
     @classmethod
+    def unassigned(cls) -> "Placement":
+        return cls()
+
+    @classmethod
     def parse(cls, value: Any) -> "Placement":
         """THE back-compat parser: legacy strings / dicts → Placement."""
         if isinstance(value, cls):
@@ -127,6 +131,12 @@ class Placement:
         """Same device/replica pinning, new backend kind."""
         return replace(self, kind=kind)
 
+    def on(self, device: int | None, replica: int = 0,
+           mesh_coord: tuple[int, ...] | None = None) -> "Placement":
+        """Same kind, pinned to ``device`` as replica ``replica``."""
+        return replace(self, device=device, replica=replica,
+                       mesh_coord=mesh_coord)
+
     @property
     def key(self) -> tuple:
         """Hashable identity used in StageFn cache keys."""
@@ -141,6 +151,9 @@ class Placement:
             if self.replica:
                 s += f".{self.replica}"
         return s
+
+    def __str__(self) -> str:
+        return self.short()
 
     def __repr__(self) -> str:
         return f"Placement({self.short()!r})"
@@ -165,6 +178,32 @@ def is_sw(value: Any) -> bool:
 # Device inventory — what the planner places replicas onto
 # --------------------------------------------------------------------------- #
 @dataclass(frozen=True)
+class InventoryDiff:
+    """Structured result of :meth:`DeviceInventory.refresh`.
+
+    ``old``/``new`` are the inventories before/after the probe; ``lost``
+    and ``gained`` name ordinals in the respective inventory's numbering;
+    ``survivors`` maps each surviving OLD ordinal to its NEW ordinal (the
+    re-densified numbering after a loss), which is how profiler stats
+    keyed by old ordinals follow their device across a re-plan.
+    """
+
+    old: "DeviceInventory"
+    new: "DeviceInventory"
+    lost: tuple[int, ...] = ()         # old ordinals no longer present
+    gained: tuple[int, ...] = ()       # new ordinals with no old identity
+    survivors: dict = field(default_factory=dict)   # old ordinal -> new
+
+    @property
+    def changed(self) -> bool:
+        return bool(self.lost or self.gained)
+
+    def describe(self) -> str:
+        return (f"InventoryDiff({len(self.old)} -> {len(self.new)} devices; "
+                f"lost {list(self.lost)}, gained {list(self.gained)})")
+
+
+@dataclass(frozen=True)
 class DeviceSpec:
     """One placeable device: ordinal + platform + optional topology."""
 
@@ -187,7 +226,10 @@ class DeviceInventory:
 
     Built from ``torch.cuda`` (:meth:`detect`) or synthetically
     (:meth:`host`, for planner unit tests that need an N-device inventory
-    without N cards).
+    without N cards).  :meth:`refresh` re-probes the device set and diffs it
+    by identity, :meth:`drop` and :meth:`reweighted` derive the survivors'
+    inventory the elastic planner re-plans onto.  The JAX package's
+    ``from_mesh`` waits for the sharding slice.
     """
 
     def __init__(self, specs: Sequence[DeviceSpec]):
@@ -234,13 +276,16 @@ class DeviceInventory:
     def __iter__(self) -> Iterator[DeviceSpec]:
         return iter(self.specs)
 
-    def spec(self, ordinal: int) -> DeviceSpec:
+    def _check(self, ordinal: int) -> int:
         # explicit range check: negative indexing would silently alias
         # ordinal -1 to the last device
         if not 0 <= ordinal < len(self.specs):
             raise IndexError(f"device ordinal {ordinal} out of range for a "
                              f"{len(self.specs)}-device inventory")
-        return self.specs[ordinal]
+        return ordinal
+
+    def spec(self, ordinal: int) -> DeviceSpec:
+        return self.specs[self._check(ordinal)]
 
     def torch_device(self, ordinal: int):
         """The ``torch.device`` a replica pinned to ``ordinal`` runs on."""
@@ -256,12 +301,73 @@ class DeviceInventory:
         from .costmodel import device_class
         return device_class(self.spec(ordinal).platform)
 
+    @property
+    def homogeneous(self) -> bool:
+        return len({(s.platform, s.speed) for s in self.specs}) <= 1
+
     def worker_budget(self, n_stages: int = 1,
                       reserved_cores: int | None = None) -> int:
         """Budget governor over this inventory: never below one worker per
         stage or one worker per device."""
         return max(default_worker_budget(n_stages, reserved_cores),
                    len(self.specs))
+
+    def describe(self) -> str:
+        rows = [f"DeviceInventory({len(self.specs)} devices)"]
+        for s in self.specs:
+            c = f" coord={s.coord}" if s.coord else ""
+            rows.append(f"  #{s.ordinal} {s.platform}"
+                        f"(id={s.device_id}){c} x{s.speed:g}")
+        return "\n".join(rows)
+
+    # -- elastic inventory --------------------------------------------------- #
+    def _identity(self, ordinal: int) -> tuple:
+        # device identity across probes: the backend index when one exists,
+        # the ordinal itself otherwise (position IS identity there)
+        s = self.specs[ordinal]
+        return (s.platform, s.device_id if s.device_id is not None
+                else ("ordinal", ordinal))
+
+    def refresh(self, probe: Any = None) -> InventoryDiff:
+        """Re-detect the device set and diff it against this inventory.
+
+        ``probe`` is a zero-arg callable returning the NEW
+        :class:`DeviceInventory` (default: :meth:`detect` over
+        ``torch.cuda`` — the real re-probe, which needs a card; tests pass
+        ``FaultInjector.surviving``).  Devices are matched by identity
+        ``(platform, device_id)``, so a loss that re-densifies the ordinals
+        still maps every survivor old→new in the returned
+        :class:`InventoryDiff`.
+        """
+        new = probe() if probe is not None else DeviceInventory.detect()
+        old_ids = {self._identity(i): i for i in range(len(self.specs))}
+        new_ids = {new._identity(j): j for j in range(len(new.specs))}
+        survivors = {old_ids[k]: new_ids[k] for k in old_ids if k in new_ids}
+        lost = tuple(sorted(i for k, i in old_ids.items() if k not in new_ids))
+        gained = tuple(sorted(j for k, j in new_ids.items()
+                              if k not in old_ids))
+        return InventoryDiff(old=self, new=new, lost=lost, gained=gained,
+                             survivors=survivors)
+
+    def drop(self, ordinals: Any) -> "DeviceInventory":
+        """Survivors-only inventory: this one minus ``ordinals``,
+        re-densified (survivor k becomes ordinal ``rank(k)``) with
+        platform/id/coord/speed preserved."""
+        gone = {self._check(int(o)) for o in ordinals}
+        keep = [i for i in range(len(self.specs)) if i not in gone]
+        if not keep:
+            raise ValueError("cannot drop every device in the inventory")
+        return DeviceInventory([replace(self.specs[i], ordinal=j)
+                                for j, i in enumerate(keep)])
+
+    def reweighted(self, factors: dict) -> "DeviceInventory":
+        """Copy with per-ordinal speed multipliers applied (clamped
+        positive) — how the replanner de-weights an unhealthy device so
+        ``assign_replicas`` widens onto its healthy peers instead."""
+        return DeviceInventory([
+            replace(s, speed=max(s.speed * float(factors.get(s.ordinal, 1.0)),
+                                 1e-6))
+            for s in self.specs])
 
 
 # --------------------------------------------------------------------------- #

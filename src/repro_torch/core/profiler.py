@@ -24,9 +24,14 @@ from its issue/retire hooks:
 Per stage it maintains an **EMA** (fast trend signal) and a bounded
 **percentile window** (robust location — the median is what re-planning
 and the serving layer's admission control read, so a single straggler
-sample cannot move them).  The JAX package's write-back of measured times
-into the IR (``apply_to_ir``) waits for the elastic re-planner that reads
-it.
+sample cannot move them).
+
+:meth:`StageProfiler.apply_to_ir` closes the loop: measured stage times are
+written back into the IR's per-node ``time_ms`` (attributed proportionally
+to the nodes' prior estimates), marked ``time_source="profile"`` so they
+*supersede* roofline estimates everywhere downstream — the elastic
+re-planner (:class:`~repro_torch.runtime.driver.ElasticPlanner`) balances
+the next plan on them.
 """
 from __future__ import annotations
 
@@ -38,6 +43,9 @@ import numpy as np
 
 if TYPE_CHECKING:                                    # pragma: no cover
     from typing import Sequence
+
+    from .ir import CourierIR
+    from .partition import PipelinePlan
 
 __all__ = ["StageProfiler"]
 
@@ -100,6 +108,17 @@ class StageProfiler:
         # device instead of re-widening onto it
         self._errors: list[int] = [0] * n_stages
         self._device_errors: dict[int, int] = {}
+        # seam occupancy (continuous batching): EMA of the fill fraction
+        # each group sealed with (real seats / total rows) plus a seal
+        # count — low fill = admission leaves seats on the table
+        self._seam_fill: float | None = None
+        self._seam_seals = 0
+
+    def clone_for(self, n_stages: int) -> "StageProfiler":
+        """Fresh profiler with the same knobs for a re-planned stage count."""
+        return StageProfiler(n_stages, alpha=self.alpha, window=self.window,
+                             sample_every=self.sample_every,
+                             min_samples=self.min_samples)
 
     # -- executor-side hooks -------------------------------------------------- #
     def tick(self) -> bool:
@@ -139,6 +158,22 @@ class StageProfiler:
                 rec[0] += 1
                 rec[1] = ms if rec[1] is None \
                     else (1.0 - self.alpha) * rec[1] + self.alpha * ms
+
+    def record_seam(self, filled: int, capacity: int) -> None:
+        """Record one sealed group's seam occupancy (continuous batching):
+        ``filled`` real seats out of ``capacity`` stacked rows."""
+        if capacity <= 0:
+            return
+        frac = min(max(filled / capacity, 0.0), 1.0)
+        with self._lock:
+            self._seam_fill = frac if self._seam_fill is None \
+                else (1.0 - self.alpha) * self._seam_fill + self.alpha * frac
+            self._seam_seals += 1
+
+    def seam_fill(self) -> float | None:
+        """EMA seam fill fraction (None before any group sealed)."""
+        with self._lock:
+            return self._seam_fill
 
     def record_error(self, stage: int, replica: int | None = None,
                      device: int | None = None) -> None:
@@ -263,8 +298,13 @@ class StageProfiler:
             if self.error_count(k):
                 entry["errors"] = self.error_count(k)
             stages.append(entry)
-        return {"n_stages": self.n_stages, "sample_every": self.sample_every,
-                "window": self.window, "per_stage": stages}
+        out = {"n_stages": self.n_stages, "sample_every": self.sample_every,
+               "window": self.window, "per_stage": stages}
+        with self._lock:
+            if self._seam_seals:
+                out["seam"] = {"fill_ema": _round(self._seam_fill),
+                               "seals": self._seam_seals}
+        return out
 
     def reset(self) -> None:
         with self._lock:
@@ -277,6 +317,44 @@ class StageProfiler:
             self._device.clear()
             self._errors = [0] * self.n_stages
             self._device_errors.clear()
+            self._seam_fill = None
+            self._seam_seals = 0
+
+    # -- cost-model write-back -------------------------------------------------- #
+    def apply_to_ir(self, ir: "CourierIR", plan: "PipelinePlan", *,
+                    min_samples: int | None = None) -> dict[str, float]:
+        """Write measured stage times back into the IR as per-node costs.
+
+        For every stage with a trusted measurement, the stage's median time
+        is attributed to its nodes proportionally to their *prior*
+        ``time_ms`` (uniformly when no priors exist), and each updated node
+        is marked ``time_source="profile"`` so downstream estimators never
+        overwrite the measurement with a model.  Returns ``{node_name:
+        previous time_ms}`` for every node updated (the planner uses it to
+        detect measured-vs-model contradictions).
+        """
+        need = self.min_samples if min_samples is None else min_samples
+        replaced: dict[str, float] = {}
+        for k, s in enumerate(plan.stages):
+            if k >= self.n_stages or self.samples(k) < need:
+                continue
+            m = self.percentile_ms(k, 50.0)
+            if m is None:
+                continue
+            nodes = [ir.node(nn) for nn in s.node_names]
+            priors = [n.time_ms for n in nodes]
+            # proportional attribution needs a full, positive prior vector;
+            # otherwise fall back to uniform — attributing 0 ms to a
+            # None-prior node would pin it as a "measured" free node that
+            # no estimator may ever correct
+            total = sum(p for p in priors if p is not None)
+            proportional = all(p is not None for p in priors) and total > 0
+            for n, prior in zip(nodes, priors):
+                share = (prior / total) if proportional else 1.0 / len(nodes)
+                replaced[n.name] = prior if prior is not None else 0.0
+                n.time_ms = m * share
+                n.time_source = "profile"
+        return replaced
 
 
 def _round(x: float | None, nd: int = 4) -> float | None:

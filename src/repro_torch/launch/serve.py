@@ -45,12 +45,17 @@ Overload-protection model:
 * **End-to-end deadlines** — a request past its deadline is failed with
   :class:`DeadlineExceeded` wherever it is caught: at submit (predicted),
   at dispatch (still queued), or at retirement — never returned late.
+* **Continuous batching** (``continuous=True``) — requests join in-flight
+  groups at the executor's seam instead of waiting out a batching window;
+  ``Request.on_finish`` returns per-request state (a KV slot) on every
+  terminal path.
+* **Hot swap** — :meth:`RequestQueueServer.swap_executor` installs the
+  executor an elastic re-plan built at a batch boundary, while the batches
+  already issued drain on the old one.
 
 Unlike the JAX package's CLI, ``--reduced`` can be turned off
 (``--no-reduced``), so the LM mode runs at an architecture's full widths;
-``--layers N`` cuts depth only.  Continuous batching at the executor seam,
-and the executor hot-swap the elastic planner drives, wait for the KV-slot
-and elastic slices.
+``--layers N`` cuts depth only.
 """
 from __future__ import annotations
 
@@ -124,6 +129,12 @@ class Request:
     error: BaseException | None = None
     deadline_ms: float | None = None  # end-to-end deadline (degrade if past)
     priority: int = INTERACTIVE      # class index into PRIORITY_CLASSES
+    # release hook: called exactly once with the request AFTER it resolved
+    # (every terminal outcome — served/shed/expired/failed), outside the
+    # server lock.  This is where per-request resources pinned at submit
+    # time (a KV-cache slot) are returned: a shed or expired request must
+    # free its slot exactly like a served one, or the arena leaks.
+    on_finish: Any = None
     _event: threading.Event = field(default_factory=threading.Event)
     _finished: bool = False           # owner: RequestQueueServer._lock
 
@@ -586,17 +597,35 @@ class RequestQueueServer:
     while queued or in flight — :class:`DeadlineExceeded`, the SLO
     violation signal), ``failed`` (executor error).
 
+    **Continuous batching** (``continuous=True``, executor built with
+    ``open_groups=True``): the batcher never waits out ``max_wait_ms`` to
+    fill a batch.  Each collected request is first *offered to the seam*
+    (``executor.try_join``) — a free pad seat in a group still inside its
+    stage-0 ring-residency window serves it with zero batching delay —
+    and only seam misses are dispatched as a fresh (padded, open) group
+    that later arrivals can join in flight.  Admission predictions
+    subtract ``executor.seam_capacity()`` from the queue depth, since
+    open seats serve queued work without a new dispatch group.
     """
 
     def __init__(self, executor: PipelineExecutor, *, max_batch: int = 8,
                  max_wait_ms: float = 5.0, queue_depth: int | None = None,
                  plan: Any = None, admission: AdmissionController | None = None,
-                 starvation_credit: int = 4):
+                 starvation_credit: int = 4, continuous: bool = False):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        if continuous and not getattr(executor, "open_groups", False):
+            raise ValueError(
+                "continuous batching needs an executor built with "
+                "open_groups=True (the join seam is the stage-0 "
+                "ring-residency window)")
         self.executor = executor
         self.max_batch = max_batch
         self.max_wait_ms = max_wait_ms
+        # continuous batching: requests join in-flight groups at the
+        # executor's seam (try_join) instead of waiting for the batcher's
+        # max-wait window; a miss seeds a new (padded, open) group at once
+        self.continuous = bool(continuous)
         if plan is not None:
             # replication-aware sizing: the plan's effective (widened)
             # bottleneck period drives the batching knobs, not the serial one
@@ -612,12 +641,18 @@ class RequestQueueServer:
         self._retirer: threading.Thread | None = None
         self._done: list[Request] = []
         self._batch_sizes: list[int] = []
+        self._seam_joined = 0            # requests admitted via try_join
+        self._release_errors: list[BaseException] = []
         self._class_counts = [
             {"submitted": 0, "served": 0, "shed": 0, "expired": 0, "failed": 0}
             for _ in range(N_CLASSES)]
         self._rejected = 0               # failed without serving (stop/shed)
         self._stopped = False
         self._lock = threading.Lock()
+        # zero-downtime executor hot-swap (see swap_executor)
+        self._swap_lock = threading.Lock()
+        self._pending_swap: tuple[PipelineExecutor, threading.Event] | None = None
+        self.swaps = 0
 
     # -- lifecycle ----------------------------------------------------------- #
     def start(self) -> "RequestQueueServer":
@@ -673,6 +708,15 @@ class RequestQueueServer:
             if dispatched:
                 self._done.append(r)
         r._event.set()
+        cb = r.on_finish
+        if cb is not None:
+            # outside the lock: the hook may free a KV slot / touch the
+            # executor; exactly-once is inherited from the _finished guard
+            try:
+                cb(r)
+            except BaseException as e:
+                with self._lock:
+                    self._release_errors.append(e)
 
     def _fail_request(self, r: Request, err: BaseException) -> None:
         outcome = "shed"
@@ -690,7 +734,8 @@ class RequestQueueServer:
 
     # -- client API ---------------------------------------------------------- #
     def submit(self, *args: Any, deadline_ms: float | None = None,
-               priority: "int | str" = INTERACTIVE) -> Request:
+               priority: "int | str" = INTERACTIVE,
+               on_finish: Any = None) -> Request:
         """Enqueue one request into its priority class.
 
         Without an admission controller the put blocks when the bounded
@@ -704,10 +749,16 @@ class RequestQueueServer:
         failed with :class:`DeadlineExceeded` at whichever point catches
         it first (submit-time prediction, dispatch, or retirement) — never
         returned late.
+
+        ``on_finish`` (called exactly once with the request, on every
+        terminal outcome) is where per-request resources — a KV-cache
+        slot — are released; it is installed *before* any shed path can
+        fire, so a fast-failed request still returns its slot.
         """
         pri = priority_of(priority)
         r = Request(args=args, t_submit=time.perf_counter(),
-                    deadline_ms=deadline_ms, priority=pri)
+                    deadline_ms=deadline_ms, priority=pri,
+                    on_finish=on_finish)
         with self._lock:
             self._class_counts[pri]["submitted"] += 1
         if self._stopped:
@@ -717,10 +768,20 @@ class RequestQueueServer:
         adm = self._admission
         if adm is not None:
             in_flight = self.executor.in_flight
+            # seam-aware admission: seats already open at the batch seam
+            # serve queued work without a fresh dispatch group, so they
+            # come off the predicted depth (floored at 0)
+            seam = 0
+            if self.continuous:
+                cap = getattr(self.executor, "seam_capacity", None)
+                if cap is not None:
+                    seam = int(cap())
             reason = adm.admit(
                 priority=pri, deadline_ms=deadline_ms,
-                depth_ahead=self._queues.depth_upto(pri) + in_flight,
-                depth_total=self._queues.qsize() + in_flight)
+                depth_ahead=max(
+                    self._queues.depth_upto(pri) + in_flight - seam, 0),
+                depth_total=max(
+                    self._queues.qsize() + in_flight - seam, 0))
             if reason is not None:
                 self._finish(r, "shed", Overloaded(reason))
                 return r
@@ -740,10 +801,83 @@ class RequestQueueServer:
             self._reject_pending()
         return r
 
+    def swap_executor(self, new_executor: PipelineExecutor, *,
+                      warm_args: tuple | None = None,
+                      timeout: float = 120.0,
+                      plan: Any = None, ir: Any = None,
+                      db: Any = None, inventory: Any = None,
+                      ) -> PipelineExecutor:
+        """Zero-downtime executor hot-swap (the adaptive re-plan deploy).
+
+        0. **Verify off-path** — when the caller hands over the candidate's
+           ``plan`` + ``ir`` (and optionally its ``db``/``inventory``),
+           the static verifier re-checks the plan *before* warmup or
+           publication; a failing candidate raises
+           :class:`~repro_torch.analysis.diagnostics.PlanVerificationError`
+           and the server keeps serving on the old executor
+           (``REPRO_VERIFY=off`` skips the gate).
+        1. **Warm off-path** — when ``warm_args`` is given, the new
+           executor's ``warmup`` runs every bucket shape *before* it sees
+           traffic (first-call costs: kernel builds, library handles, the
+           allocator's growth).
+        2. **Swap at a batch boundary** — the batcher thread installs the
+           new executor between batches, so no batch is split across
+           executors.
+        3. **Drain in flight** — batches already issued keep their
+           ``PendingToken`` handles into the *old* executor; the retire
+           thread resolves them as usual.  Nothing is cancelled, no
+           request is dropped.
+
+        Blocks until the batcher performed the swap (immediately when the
+        server is not running) and returns the old executor — the caller
+        may ``drain()``/``close()`` it once its stats are harvested.
+        """
+        if plan is not None and ir is not None:
+            from ..analysis.verify import check_plan
+            check_plan(ir, plan, db=db, inventory=inventory,
+                       where="RequestQueueServer.swap_executor")
+        if warm_args is not None:
+            new_executor.warmup(*warm_args)
+        done = threading.Event()
+        with self._swap_lock:
+            if self._pending_swap is not None:
+                raise RuntimeError("another executor swap is in progress")
+            # capture BEFORE publishing: once the pending swap is visible a
+            # fast batcher may install new_executor at any moment
+            old = self.executor
+            self._pending_swap = (new_executor, done)
+        if not self._running:             # no batcher: swap synchronously
+            self._maybe_swap()
+        else:
+            self._queues.wake()           # idle batcher blocks on the queue
+            if not done.wait(timeout):
+                # withdraw the offer so a stalled batcher can't install a
+                # swap the caller already gave up on; if the batcher took
+                # it in this instant, the swap DID happen
+                with self._swap_lock:
+                    if self._pending_swap is not None \
+                            and self._pending_swap[1] is done:
+                        self._pending_swap = None
+                        raise TimeoutError(
+                            "executor swap not performed within timeout")
+        return old
+
+    def _maybe_swap(self) -> None:
+        """Install a pending executor; called between batches (batcher)."""
+        with self._swap_lock:
+            pend, self._pending_swap = self._pending_swap, None
+        if pend is None:
+            return
+        new_ex, done = pend
+        self.executor = new_ex
+        self.swaps += 1
+        done.set()
+
     def slo_violation_rate(self, priority: int | None = None) -> float:
         """Fraction of *completed* requests (served or expired) that
-        missed their deadline — the SLO signal a re-planner reads beside
-        the stage medians."""
+        missed their deadline — the SLO signal
+        :meth:`~repro_torch.runtime.driver.ElasticPlanner.
+        replan_from_profile` takes beside the stage medians."""
         with self._lock:
             classes = range(N_CLASSES) if priority is None else [priority]
             served = sum(self._class_counts[c]["served"] for c in classes)
@@ -789,9 +923,12 @@ class RequestQueueServer:
             "failed": sum(c["failed"] for c in counts),
             "submitted": sum(c["submitted"] for c in counts),
             "classes": classes,
+            "seam_joins": self._seam_joined,
+            "release_errors": len(self._release_errors),
             "slo_violation_rate": self.slo_violation_rate(),
             "admission": (self._admission.snapshot()
                           if self._admission is not None else None),
+            "swaps": self.swaps,
             "executor": self.executor.stats().as_dict(),
             "profile": (self.executor.profiler.snapshot()
                         if getattr(self.executor, "profiler", None) is not None
@@ -800,7 +937,9 @@ class RequestQueueServer:
 
     # -- server threads ------------------------------------------------------ #
     def _abort_collect(self) -> bool:
-        return not self._running
+        # read without _swap_lock: a stale None only delays the swap by one
+        # wake (swap_executor wakes the queue after publishing)
+        return not self._running or self._pending_swap is not None
 
     def _collect_batch(self) -> list[Request]:
         first, credit_override = self._queues.get_first(self._abort_collect)
@@ -816,6 +955,15 @@ class RequestQueueServer:
             wait_ms *= self._admission.max_wait_scale()
         deadline = time.perf_counter() + wait_ms / 1e3
         while len(batch) < self.max_batch:
+            if self.continuous:
+                # continuous batching never holds a request back to fill
+                # a batch: take what is queued right now, dispatch, and
+                # let late arrivals join the group at the executor seam
+                nxt = self._queues.get_from(first.priority, 0.0)
+                if nxt is None:
+                    break
+                batch.append(nxt)
+                continue
             remaining = deadline - time.perf_counter()
             if remaining <= 0:
                 break
@@ -844,6 +992,7 @@ class RequestQueueServer:
 
     def _batch_loop(self) -> None:
         while self._running or not self._queues.empty():
+            self._maybe_swap()            # executor swaps at batch boundaries
             batch = self._collect_batch()
             if not batch:
                 continue
@@ -865,6 +1014,35 @@ class RequestQueueServer:
                 continue
             for r in batch:
                 r.t_batch = t_batch
+            if self.continuous:
+                # offer every request to the seam first: a free seat in an
+                # in-flight group serves it without waiting for a fresh
+                # dispatch group (the joined token retires with its
+                # adoptive group, in that group's place)
+                rest: list[Request] = []
+                joined = 0
+                for r in batch:
+                    try:
+                        h = self.executor.try_join(r.args)
+                    except ExecutorClosed:
+                        h = None         # submit_many below reports it
+                    except BaseException as e:
+                        self._finish(r, "failed", e)
+                        continue
+                    if h is not None:
+                        joined += 1
+                        self._issued.put((r, h))
+                    else:
+                        rest.append(r)
+                if joined:
+                    # seam joins rode along inside groups already
+                    # dispatched, so _batch_sizes (the dispatch-group log)
+                    # deliberately excludes them
+                    with self._lock:
+                        self._seam_joined += joined
+                batch = rest
+                if not batch:
+                    continue
             try:
                 # eager async issue; blocks only on token-pool backpressure
                 handles = self.executor.submit_many([r.args for r in batch])
@@ -889,6 +1067,7 @@ class RequestQueueServer:
                 self._batch_sizes.append(len(batch))
             for r, h in zip(batch, handles):
                 self._issued.put((r, h))
+        self._maybe_swap()                # never leave a swap waiter hanging
 
     def _retire_loop(self) -> None:
         while True:

@@ -22,6 +22,12 @@ stacked group of B sequences goes through each row in one call.
 
 The functions keep the JAX package's layouts and order of operations
 (``src/repro/models/zoo.py``), so the parity tests compare like with like.
+
+Incremental decode (:func:`make_decode_attention`, registered by
+:func:`register_decode_modules`) is the one stateful row: one new token
+per call, its keys and values appended to a
+:class:`~repro_torch.runtime.kvstate.KVSlotPool` slot on the pool's device.
+Like the JAX package's, it is plain tensor code, not a kernel.
 """
 from __future__ import annotations
 
@@ -38,7 +44,8 @@ from ..core.placement import resolve_device
 from ..kernels.ops import register_rmsnorm_matmul_modules
 
 __all__ = ["make_zoo_db", "transformer_demo", "init_transformer_params",
-           "params_from_numpy", "recurrent_demo", "init_recurrent_params"]
+           "params_from_numpy", "recurrent_demo", "init_recurrent_params",
+           "make_decode_attention", "register_decode_modules"]
 
 
 # --------------------------------------------------------------------------- #
@@ -75,6 +82,87 @@ def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+def _rope_at(x: torch.Tensor, pos: int, theta: float) -> torch.Tensor:
+    """Rotary embedding of ONE token at absolute position ``pos``;
+    x: [1, H, hd].  The same f32 angle math as row ``pos`` of :func:`_rope`
+    over the full prefix, which is what makes incremental decode agree
+    with re-running the prefix."""
+    half = x.shape[-1] // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = torch.tensor(float(pos), dtype=torch.float32,
+                       device=x.device) * freq                   # [half]
+    cos, sin = torch.cos(ang)[None, None, :], torch.sin(ang)[None, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def make_decode_attention(pool: Any, *, n_heads: int,
+                          theta: float = 10000.0,
+                          k_buf: str = "k", v_buf: str = "v") -> Callable:
+    """Incremental decode attention over a KV slot pool (STATEFUL).
+
+    Returns ``attn(x, slot, wq, wk, wv, wo) -> [1, d]``: one new token
+    ``x: [1, d]`` plus its request's ``slot`` id (an int or a 0-d tensor;
+    ``-1`` = dead row).  The op reads the slot's cached (rotated)
+    keys/values, projects and RoPE-rotates the new token at absolute
+    position ``len(slot)``, appends its k/v row to the cache, and attends
+    over cache + self — an O(prefix) step instead of the O(prefix²)
+    full-prefix re-run of :func:`sw_attention`, which it equals up to the
+    rounding of the two orders of work.
+
+    The cache lives on the pool's device, so on the card a step reads and
+    appends the slot there.  Register it with ``state=`` (see
+    :func:`register_decode_modules`) so the tracer marks the node
+    ``serial_only``; its row takes no batch dims, so a micro-batched group
+    runs it once per row, in row order.  A dead row (``slot < 0``) appends
+    nothing and attends over only itself, so padding and evicted seats in
+    a continuously batched group leave the pool untouched.
+    """
+    def attention_decode(x: torch.Tensor, slot: Any, wq: torch.Tensor,
+                         wk: torch.Tensor, wv: torch.Tensor,
+                         wo: torch.Tensor) -> torch.Tensor:
+        d = x.shape[-1]
+        hd = d // n_heads
+        s_id = int(slot)
+        pos = pool.length(s_id)
+        q = (x @ wq).reshape(1, n_heads, hd)
+        k = (x @ wk).reshape(1, n_heads, hd)
+        v = (x @ wv).reshape(1, n_heads, hd)
+        q, k = _rope_at(q, pos, theta), _rope_at(k, pos, theta)
+        cache = pool.read(s_id)
+        pool.append(s_id, **{k_buf: k[0], v_buf: v[0]})
+        K = torch.cat([cache[k_buf].to(device=x.device, dtype=x.dtype), k])
+        V = torch.cat([cache[v_buf].to(device=x.device, dtype=x.dtype), v])
+        s = torch.einsum("thi,mhi->htm", q.to(torch.float32),
+                         K.to(torch.float32)) / math.sqrt(hd)
+        # causality is structural: the cache holds only positions < pos
+        p = torch.softmax(s, dim=-1)
+        y = torch.einsum("htm,mhi->thi", p, V.to(torch.float32))
+        return y.reshape(1, d).to(x.dtype) @ wo
+
+    attention_decode.__name__ = "attention_decode"
+    return attention_decode
+
+
+def register_decode_modules(db: ModuleDatabase, pool: Any, *,
+                            n_heads: int, theta: float = 10000.0,
+                            name: str = "attention_decode",
+                            state: str = "kv") -> None:
+    """Register the stateful incremental-decode attention row.
+
+    ``state=`` marks the row stateful: the tracer threads it onto the
+    traced ``Node.state`` (implying ``serial_only``), and fusion,
+    replication and hw placement all refuse it (the ``state-slot`` verify
+    rule enforces the same).  Multi-layer models register one row per
+    layer, each with its own pool.
+    """
+    db.register(name, software=make_decode_attention(
+        pool, n_heads=n_heads, theta=theta),
+        cost_sw=_c_attn, tags=("zoo", "decode"), state=state)
 
 
 def sw_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -7,11 +7,14 @@ needs scripted faults:
 * :class:`FaultPlan` — a builder that scripts *what* fails and *when*, in
   terms of deterministic invocation counts (never wall clock):
   ``transient(stage, at_calls=...)`` raises :class:`InjectedFault` on the
-  N-th invocation of a stage; ``lose_device(ordinal, after_calls=...)``
-  makes every stage call placed on that device ordinal raise
-  :class:`DeviceLostError` permanently — the scripted analog of a card
-  dropping out; ``fail_step(at_steps=...)`` scripts training-step faults, each firing
-  once, so a checkpoint-restart replay of the same step succeeds.
+  N-th invocation of a stage; ``slowdown(stage, extra_ms, ...)`` stretches
+  a call window; ``lose_device(ordinal, after_calls=...)`` makes every
+  stage call placed on that device ordinal raise :class:`DeviceLostError`
+  permanently — the scripted analog of a card dropping out;
+  ``fail_step(at_steps=...)`` scripts training-step faults, each firing
+  once, so a checkpoint-restart replay of the same step succeeds;
+  ``random_transients(rate, seed, ...)`` draws per-invocation faults from a
+  seeded hash, reproducible regardless of thread interleaving.
 
 * :class:`FaultInjector` — the built plan, hooked into the executor's
   stage call-sites (``PipelineExecutor(fault_injector=...)`` calls
@@ -20,17 +23,22 @@ needs scripted faults:
   :meth:`FaultInjector.on_step`; a legacy ``fail_hook(step)`` callback is
   wrapped by :meth:`FaultInjector.from_hook`).  Injection happens BEFORE
   the stage function runs, so a retried call never re-executes a stage
-  that already wrote part of its output.
+  that already wrote part of its output.  :meth:`FaultInjector.surviving`
+  closes the elastic loop: it derives the post-loss
+  :class:`~repro_torch.core.placement.DeviceInventory` for
+  ``DeviceInventory.refresh(probe=...)``, and
+  :meth:`FaultInjector.remap_devices` follows the survivors into the
+  re-densified numbering.
 
 The injector is also scriptable *after* construction (``lose_device`` on a
-live injector).  The JAX package's ``slowdown`` and ``random_transients``
-scripts (for its replication and chaos benchmarks) and elastic-inventory
-helpers (``surviving``, ``remap_devices``) wait for the slices that use
-them.
+live injector), which is how a benchmark pulls a device out from under a
+serving loop mid-run.
 """
 from __future__ import annotations
 
+import hashlib
 import threading
+import time
 from typing import Any, Callable, Iterable
 
 __all__ = ["FaultPlan", "FaultInjector", "InjectedFault", "DeviceLostError",
@@ -63,14 +71,27 @@ class FaultPlan:
 
     def __init__(self) -> None:
         self.transients: dict[int, set[int]] = {}     # stage -> call counts
+        self.slowdowns: list[tuple[int, float, int, int | None]] = []
         self.device_losses: dict[int, int] = {}       # ordinal -> after_calls
         self.step_faults: set[int] = set()            # training steps
+        # (seed, rate, stages, from_call)
+        self.random_spec: tuple[int, float, tuple[int, ...] | None, int] | None = None
 
     def transient(self, stage: int, at_calls: Iterable[int]) -> "FaultPlan":
         """Raise :class:`InjectedFault` on the given invocation counts of
         ``stage`` (counted across all replicas of the stage)."""
         self.transients.setdefault(int(stage), set()).update(
             int(c) for c in at_calls)
+        return self
+
+    def slowdown(self, stage: int, extra_ms: float, *, from_call: int = 0,
+                 to_call: int | None = None) -> "FaultPlan":
+        """Sleep ``extra_ms`` before each invocation of ``stage`` in the
+        call window ``[from_call, to_call)`` (``None`` = forever)."""
+        if extra_ms < 0:
+            raise ValueError(f"extra_ms must be >= 0 (got {extra_ms})")
+        self.slowdowns.append((int(stage), float(extra_ms), int(from_call),
+                               None if to_call is None else int(to_call)))
         return self
 
     def lose_device(self, ordinal: int, *, after_calls: int = 0) -> "FaultPlan":
@@ -86,8 +107,32 @@ class FaultPlan:
         self.step_faults.update(int(s) for s in at_steps)
         return self
 
+    def random_transients(self, rate: float, seed: int, *,
+                          stages: Iterable[int] | None = None,
+                          from_call: int = 0) -> "FaultPlan":
+        """Seeded random transients: invocation ``n`` of stage ``s`` faults
+        when ``hash(seed, s, n) < rate`` — a pure function of the counts,
+        so the schedule reproduces exactly under any thread interleaving.
+        ``from_call`` exempts the first invocations of each stage (calls
+        ``n < from_call`` never draw), so a warmup phase stays fault-free."""
+        if not 0.0 <= rate < 1.0:
+            raise ValueError(f"rate must be in [0, 1) (got {rate})")
+        if from_call < 0:
+            raise ValueError(f"from_call must be >= 0 (got {from_call})")
+        self.random_spec = (int(seed), float(rate),
+                            tuple(int(s) for s in stages)
+                            if stages is not None else None,
+                            int(from_call))
+        return self
+
     def build(self) -> "FaultInjector":
         return FaultInjector(self)
+
+
+def _hash_draw(seed: int, stage: int, call: int) -> float:
+    """Deterministic uniform draw in [0, 1) from (seed, stage, call)."""
+    h = hashlib.sha256(f"{seed}:{stage}:{call}".encode()).digest()
+    return int.from_bytes(h[:8], "big") / float(1 << 64)
 
 
 class FaultInjector:
@@ -110,6 +155,7 @@ class FaultInjector:
         self._hook: Callable[[int], None] | None = None
         self.injected = 0                     # transient faults raised
         self.device_faults = 0                # device-loss faults raised
+        self.slowed = 0                       # slowdown sleeps applied
 
     @classmethod
     def from_hook(cls, hook: Callable[[int], None]) -> "FaultInjector":
@@ -127,12 +173,29 @@ class FaultInjector:
             base = self._device_calls.get(int(ordinal), 0)
             self.plan.device_losses[int(ordinal)] = base + int(after_calls)
 
+    def remap_devices(self, mapping: Any) -> None:
+        """Renumber device-keyed state after an inventory re-densification
+        (old ordinal -> new ordinal, i.e. ``InventoryDiff.survivors``).
+        Entries for ordinals absent from the mapping — the lost devices —
+        are dropped: their loss is now encoded in the inventory itself,
+        so the re-planned executor must not re-trigger it on whichever
+        survivor inherited the ordinal."""
+        with self._lock:
+            m = {int(k): int(v) for k, v in dict(mapping).items()}
+            self.plan.device_losses = {
+                m[o]: c for o, c in self.plan.device_losses.items() if o in m}
+            self._device_calls = {
+                m[o]: c for o, c in self._device_calls.items() if o in m}
+            self._lost = {m[o] for o in self._lost if o in m}
+
     # -- executor hook -------------------------------------------------------- #
     def on_stage_call(self, stage: int, *, replica: int | None = None,
                       device: int | None = None) -> None:
         """Called by the executor before every stage body.  Raises the
-        scripted fault for this invocation; returns normally otherwise."""
+        scripted fault for this invocation (or sleeps for a scripted
+        slowdown); returns normally otherwise."""
         plan = self.plan
+        sleep_ms = 0.0
         with self._lock:
             n = self._stage_calls.get(stage, 0)
             self._stage_calls[stage] = n + 1
@@ -152,6 +215,20 @@ class FaultInjector:
                 raise InjectedFault(
                     f"injected transient: stage {stage} call {n}"
                     + (f" (replica {replica})" if replica is not None else ""))
+            if plan.random_spec is not None:
+                seed, rate, stages, from_call = plan.random_spec
+                if (stages is None or stage in stages) and n >= from_call \
+                        and _hash_draw(seed, stage, n) < rate:
+                    self.injected += 1
+                    raise InjectedFault(
+                        f"injected random transient: stage {stage} call {n}")
+            for s, extra_ms, lo, hi in plan.slowdowns:
+                if s == stage and lo <= n and (hi is None or n < hi):
+                    sleep_ms += extra_ms
+            if sleep_ms:
+                self.slowed += 1
+        if sleep_ms:                          # sleep OUTSIDE the lock
+            time.sleep(sleep_ms / 1e3)
 
     # -- training hook -------------------------------------------------------- #
     def on_step(self, step: int) -> None:
@@ -166,13 +243,19 @@ class FaultInjector:
                 self.injected += 1
                 raise InjectedFault(f"injected step fault at step {step}")
 
-    # -- queries --------------------------------------------------------------- #
+    # -- elastic-inventory hook ------------------------------------------------ #
     def lost_ordinals(self) -> frozenset[int]:
         """Ordinals whose scripted loss has TRIGGERED (a loss scripted but
         never hit by a stage call is not yet observable, exactly like a
         real chip that failed while idle and unprobed)."""
         with self._lock:
             return frozenset(self._lost)
+
+    def surviving(self, inventory: Any) -> Any:
+        """Post-loss inventory: ``inventory`` minus the triggered losses —
+        the ``probe`` argument for ``DeviceInventory.refresh``."""
+        lost = self.lost_ordinals()
+        return inventory.drop(lost) if lost else inventory
 
     def stage_calls(self, stage: int) -> int:
         with self._lock:
@@ -182,6 +265,7 @@ class FaultInjector:
         with self._lock:
             return {"injected": self.injected,
                     "device_faults": self.device_faults,
+                    "slowed": self.slowed,
                     "lost_ordinals": sorted(self._lost)}
 
 

@@ -512,3 +512,130 @@ def test_backward_wrappers_take_a_strided_output_gradient(cuda_device):
     want = fa.flash_attention_bwd_ref(q, k, v, lse, do.contiguous(), True, 0)
     for a, w in zip(got, want):
         _grads_close(a, w, False)
+
+
+# --------------------------------------------------------------------------- #
+# the KV-slot slice on the card: the pool, decode attention, the hot swap
+# --------------------------------------------------------------------------- #
+def test_kv_pool_arena_lives_on_the_card(cuda_device):
+    from repro_torch.runtime import DecodeSession, KVSlotPool, SlotError
+
+    pool = KVSlotPool(2, 4, {"k": (2, 3), "v": (2, 3)})   # the card
+    assert pool.device.type == "cuda" and pool._buf["k"].is_cuda
+    g = torch.Generator(cuda_device).manual_seed(8)
+    with DecodeSession(pool) as ses:
+        rows = [torch.randn((2, 3), generator=g, device=cuda_device)
+                for _ in range(3)]
+        for t, r in enumerate(rows):
+            assert pool.append(ses.slot, k=r, v=-r) == t
+        got = pool.read(ses.slot)
+        assert got["k"].is_cuda and torch.equal(got["k"], torch.stack(rows))
+        assert torch.equal(got["v"], -torch.stack(rows))
+        assert pool.read(-1)["k"].shape == (0, 2, 3)
+        assert pool.append(-1, k=rows[0], v=rows[0]) == -1
+        pool.append(ses.slot, k=rows[0].cpu(), v=rows[0].cpu())  # from host
+        with pytest.raises(SlotError, match="full"):
+            pool.append(ses.slot, k=rows[0], v=rows[0])
+    pool.check_no_leaks()
+
+
+def test_decode_attention_on_the_card_matches_the_cpu(cuda_device):
+    """Step by step, the incremental decode on the card (pool, weights and
+    tokens there) against the same steps on the CPU, within the f32
+    tolerance 2e-4 of the largest; the cache stays on the card."""
+    from repro_torch.core import ModuleDatabase
+    from repro_torch.models.zoo import register_decode_modules, sw_attention
+    from repro_torch.runtime import KVSlotPool
+
+    d, heads, T = 128, 4, 8
+    rng = np.random.default_rng(2)
+    ws = [torch.from_numpy((rng.standard_normal((d, d)) * 0.1)
+                           .astype(np.float32)) for _ in range(4)]
+    x = torch.from_numpy(rng.standard_normal((T, d)).astype(np.float32))
+    attn = {}
+    for dev in ("cpu", cuda_device):
+        pool = KVSlotPool(1, T, {"k": (heads, d // heads),
+                                 "v": (heads, d // heads)}, device=dev)
+        db = ModuleDatabase()
+        register_decode_modules(db, pool, n_heads=heads)
+        attn[str(dev)] = (db.lookup("attention_decode").software, pool,
+                          pool.alloc())
+    (fc, pc, sc), (fg, pg, sg) = attn["cpu"], attn[str(cuda_device)]
+    wg = [w.to(cuda_device) for w in ws]
+    for t in range(T):
+        want = fc(x[t:t + 1], sc, *ws)
+        got = fg(x[t:t + 1].to(cuda_device), sg, *wg)
+        assert got.is_cuda and pg.read(sg)["k"].is_cuda
+        scale = want.abs().max().item()
+        assert (got.cpu() - want).abs().max().item() <= 2e-4 * scale, t
+        full = sw_attention(x[:t + 1].to(cuda_device), *wg, n_heads=heads)
+        assert (got - full[-1:]).abs().max().item() <= 2e-4 * scale, t
+    assert pg.length(sg) == pc.length(sc) == T
+
+
+def test_planner_and_hot_swap_on_the_card(cuda_device):
+    """An ElasticPlanner over a traced chain on card tensors (the card is
+    its default device): serve serially, hot-swap to its widened executor
+    mid-stream, zero drops, results equal the pipeline run token by
+    token."""
+    from repro_torch.core import (Frontend, Library, ModuleDatabase,
+                                  PipelineGenerator)
+    from repro_torch.runtime import ElasticPlanner
+
+    db = ModuleDatabase("t")
+    db.register("mul2", software=lambda x: x * 2.0)
+    db.register("add1", software=lambda x: x + 1.0)
+    db.register("sq", software=lambda x: x * x)
+    db.register("tanh", software=torch.tanh)
+    lib = Library(db)
+
+    def app(x):
+        return lib.tanh(lib.sq(lib.add1(lib.mul2(x))))
+
+    toks = [torch.full((256,), (i + 1) / 32.0, device=cuda_device)
+            for i in range(24)]
+    ir, _ = Frontend(db).trace(app, toks[0])
+    pipe = PipelineGenerator(db).generate(ir, n_threads=3)
+    want = pipe.run_sequential(toks)
+    planner = ElasticPlanner(pipe.ir, db=db)
+    assert planner.device.type == "cuda"
+    ex_a, _ = planner.executor_for(3)
+    ex_b, rebuilt = planner.executor_for(3, worker_budget=6)
+    assert rebuilt and ex_b.replicas is not None
+    ex_a.warmup(toks[0])
+    ex_b.warmup(toks[0])
+    srv = serve.RequestQueueServer(ex_a, max_batch=2, max_wait_ms=2.0)
+    srv.start()
+    try:
+        reqs = [srv.submit(t) for t in toks[:12]]
+        assert srv.swap_executor(ex_b, timeout=60.0) is ex_a
+        reqs += [srv.submit(t) for t in toks[12:]]
+        got = [r.wait(timeout=60.0) for r in reqs]
+    finally:
+        srv.stop()
+    for g, w in zip(got, want):
+        assert g.is_cuda
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+    st = srv.stats()
+    assert st["requests_served"] == 24 and st["swaps"] == 1
+    assert ex_a.stats().tokens_retired + ex_b.stats().tokens_retired == 24
+    assert ex_b.stats().out_of_order_retired == 0
+    ex_a.close()
+    ex_b.close()
+
+
+def test_planner_on_the_card_refuses_weights_traced_on_the_cpu(cuda_device):
+    """The planner's default device is the card; an IR whose captured
+    weights lie on the CPU would run its stages there, so it raises."""
+    from repro_torch.core import Frontend, Library, ModuleDatabase
+    from repro_torch.runtime import ElasticPlanner
+
+    db = ModuleDatabase("t")
+    db.register("scale", software=lambda x, w: x * w)
+    lib = Library(db)
+    w = torch.full((8,), 2.0)
+    ir, _ = Frontend(db).trace(lambda x: lib.scale(x, w), torch.ones(8))
+    with pytest.raises(ValueError, match="traced with .* on cpu"):
+        ElasticPlanner(ir, db=db)
+    ir.captured = {k: v.to(cuda_device) for k, v in ir.captured.items()}
+    assert ElasticPlanner(ir, db=db).device.type == "cuda"
