@@ -53,9 +53,10 @@ Phases:
               tile, and beside K2's and K3's bound a same-bytes copy of the
               gray plane (what HBM gives at this size) and a launch with no
               bytes to move (what this timing adds to any kernel);
-              K7's, K8's and K9's registers, spills and shared memory, the
-              route each of their cases took (bf16 on the tensor cores, f32
-              on the SIMT kernels), and cuobjdump's proof that every bf16
+              K7's, K8's and K9's registers, spills (none allowed in the
+              f32 K8/K9 entries) and shared memory, the route each of
+              their cases took (bf16 on the tensor cores, f32 on the SIMT
+              kernels), and cuobjdump's proof that every bf16
               entry of the two flash-attention sources issues TC_SASS and
               no f32 entry a tensor-core instruction; K6's registers,
               spills (none allowed) and shared memory, and TC_SASS in
@@ -288,7 +289,8 @@ def tc_resources() -> dict:
     log that ``kernels/build.py`` keeps, the dynamic shared memory a block
     takes, and the tensor-core instructions ``cuobjdump -sass`` finds in
     each.  Fails unless every bf16 entry runs ``TC_SASS`` and no f32 entry
-    runs a tensor-core instruction."""
+    runs a tensor-core instruction, and unless the f32 K8/K9 entries spill
+    nothing and take the shared memory ``fa.simt_bwd_smem_bytes`` reckons."""
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
 
@@ -314,6 +316,18 @@ def tc_resources() -> dict:
             print(f"[kernels] {label} {entry}: {r}")
             check(bool(r["sass"].get(TC_SASS)) if bf16 else not r["sass"],
                   f"{label} {entry}: tensor-core instructions {r['sass']}")
+            if "bwd" in entry and not bf16:     # the f32 K8/K9 SIMT tiles
+                dkv = "dkv" in entry
+                check(r["spill_stores"] == 0 and r["spill_loads"] == 0,
+                      f"{label} {entry} spills: {r}")
+                check(r["smem_bytes"] == fa.simt_bwd_smem_bytes(dkv, hd),
+                      f"{label} {entry}: shared memory {r['smem_bytes']} "
+                      f"differs from the Python reckoning "
+                      f"{fa.simt_bwd_smem_bytes(dkv, hd)}")
+                print(f"[kernels] {label} {entry} (f32 SIMT): registers "
+                      f"{r['registers']}, 0 spill bytes, shared memory "
+                      f"{fa.simt_bwd_smem_bytes(dkv, hd, stages=1)} bytes "
+                      f"with one ring stage, {r['smem_bytes']} with two")
         kernels = 1 if name == "flash_attention" else 2
         check(len(entries) == 2 * kernels * len(fa.HEAD_DIMS),
               f"{label}'s ptxas log names {[e for e, _ in entries]}")

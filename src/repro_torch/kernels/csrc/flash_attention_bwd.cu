@@ -38,10 +38,17 @@
 //           limit, 2e-4 (|g| + rms), leaves no room for bf16 or TF32
 //           operands.
 //
-// Bound: operations.  At the training shape (B*H 32, T = M 4096, hd 256,
-// bf16) the causal layer has 268.5 M visible pairs: dq needs 6*hd FLOP per
-// pair (the two dots and the dq update), 4.12e11, 0.417 ms at the card's
-// 989 TFLOP/s of bf16; dk and dv 8*hd (two dots, dk and dv), 0.556 ms.
+// Bound: operations in bf16, bytes in f32 at the driver's shape.  At the
+// training shape (B*H 32, T = M 4096, hd 256, bf16) the causal layer has
+// 268.5 M visible pairs: dq needs 6*hd FLOP per pair (the two dots and the
+// dq update), 4.12e11, 0.417 ms at the card's 989 TFLOP/s of bf16; dk and
+// dv 8*hd (two dots, dk and dv), 0.556 ms.  At the fault-tolerant driver's
+// [8, 64, 10, 64] f32 the causal mask has 166,400 visible pairs: 6*hd and
+// 8*hd FLOP a pair take 0.00095 and 0.00127 ms at 67 TFLOP/s of f32, less
+// than reading q, k, v, do (and writing dq, or dk and dv) once at 3.35
+// TB/s, 0.00197 and 0.00236 ms.  There the kernels are short: a launch
+// with nothing to do costs ~0.005 ms, and what a kernel adds to it is the
+// latency of one round of tile loads and of its products.
 //
 // The tensor-core kernels (bf16), warp-specialised as K7's: a producer
 // warpgroup whose one thread keeps TMA loads in flight through a 2-stage
@@ -87,19 +94,44 @@
 // k and one of v 96 KB), K9 198,696 (k and v 64 KB, two stages of q, do
 // and their columns 129 KB); one block (3 warpgroups) an SM.
 //
-// The SIMT kernels (f32):
-//   * K8: one block per (b*h, tile of query rows), heaviest tile first
-//     under a causal mask; TPR threads share a row, each holding its slices
-//     of q, do and two accumulators, sum_m p dp k and sum_m p k, in
-//     registers (float4 chunks sub, sub + TPR, ...); one pass over the k
-//     and v tiles (BK rows in shared memory) gives delta and dq = scale *
-//     (sum p dp k - delta * sum p k).  Per key: two partial dots reduced by
-//     warp shuffles, then the two axpys and delta's fma.
-//   * K9: one block per (b*h, tile of key rows); the block owns its k and v
-//     rows and their dk and dv accumulators (registers).  It loops over q,
-//     do, lse and delta tiles staged in shared memory, over the same query
-//     span as the tensor-core kernel, then over the rows that see no key
-//     (dv += do / M, no dots).
+// The SIMT kernels (f32), 128 threads a block:
+//   * a block owns BR = 16 rows (K8 query rows, K9 key rows), so the
+//     driver's [8, 64, 10, 64] makes 320 blocks for 132 SMs.  The grid is
+//     one-dimensional and tile-major, so every (b, h)'s heaviest tile comes
+//     first: under a causal mask K8's last query tile, K9's first key tile.
+//   * the block's own rows (q and do, or k and v) stay in shared memory; the
+//     other side (k and v, or q, do and their lse and delta) streams in
+//     tiles of BN rows (64 at hd <= 64, 32 at hd 128, 16 at hd 256) through
+//     a ring of cp.async copies: the next tile is issued before the current
+//     one is computed.  The ring has two stages when some block streams two
+//     tiles or more, else one (the launcher bounds the tiles a block takes;
+//     at the driver's shape every block takes one, and blocks of 47 or
+//     52 KB at 158 registers a thread leave room for three an SM: all 320
+//     run at once).  Rows past T or M land as zeros.
+//   * S = Q K^T and dP = dO V^T of a tile as 2 x SC micro-tiles a thread
+//     (rows r and r + 8; columns c, c + 4, ...: 2 x 4 at hd <= 64), with
+//     8 independent accumulators a product, operands read from shared
+//     memory as float4 (staged rows padded to 4 banks apart), no shuffles.
+//     A warp owns a quarter of the tile's columns and skips them when none
+//     is in the tile's span (a causal diagonal).  p = exp(s*scale - lse)
+//     where visible, else 0; ds = p (dp - delta) go to shared memory, and
+//     the tile's dQ (or dK and dV) product reads them back, its [16, hd]
+//     accumulators held in registers a float4 chunk at a time.  At the
+//     driver's shape the copies, masks and stores take ~4 us of a launch
+//     and the products ~4 us more; handing S and dP to two halves of the
+//     block as 4 x 4 micro-tiles (a third fewer shared-memory loads a FMA)
+//     did not make the products faster (tools/fa_bwd_probe.py, PERF.md).
+//   * K8 makes two sweeps over the keys when they take more than one tile,
+//     as the tensor-core kernel does: the first sums delta from the f32
+//     p * dp, the second recomputes S and dP and forms ds = p (dp - delta)
+//     directly.  That costs 10*hd FLOP a pair instead of the one-pass
+//     identity's 8*hd (dq = scale (sum p dp k - delta sum p k)), but ds
+//     never comes from the difference of two large sums, and one
+//     accumulator instead of two leaves room at hd 256.  When the keys
+//     fit one tile (every block at the driver's shape) one sweep does both.
+//   * K9 owns its dk and dv rows (no atomics); after the queries that see
+//     its keys it streams the rows that see no key through the same ring,
+//     do alone, with p = 1/M into dv and ds = 0.
 // Build flags keep --fmad=false (K1-K4 rely on it); the kernels ask for
 // their FMAs explicitly (fmaf).
 
@@ -107,21 +139,41 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "wgmma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int BK = 32;                 // K8: keys per shared-memory tile
-constexpr int BQ2 = 32;                // K9: queries per shared-memory tile
+// ------------------------------------------------------------ f32: SIMT
+constexpr int kThreads = 128;          // 4 warps
+constexpr int BR = 16;                 // rows a block owns: K8 q, K9 k
 
+// The f32 tiles at head_dim HD: the other side streams in tiles of BN rows;
+// rows in shared memory are LD floats apart (HD + 4: 4 banks apart), the
+// p and ds arrays [BR][PLD].  A thread's S and dP micro-tile is 2 x SC;
+// the [BR, HD] accumulators are split into CG column groups of ACH float4
+// chunks (chunk c of group g at column 4 (g + CG c)) and RG row groups of
+// AR rows (row a of group r: r + RG a; at hd 16, RG = 32 and half idle).
 template <int HD>
-struct Tile {
-  // threads per row: 4 chunks of 4 floats a thread from hd 64 up
-  static constexpr int TPR = HD >= 256 ? 16 : HD >= 128 ? 8 : 4;
-  static constexpr int ROWS = kThreads / TPR;       // rows per block
-  static constexpr int CH = HD / (4 * TPR);         // float4 chunks a thread
-  static_assert(CH >= 1 && HD % (4 * TPR) == 0, "head_dim");
+struct Simt {
+  static constexpr int BN = HD <= 64 ? 64 : (HD == 128 ? 32 : 16);
+  static constexpr int LD = HD + 4;
+  static constexpr int PLD = BN + 4;
+  static constexpr int SC = BN / 16;
+  static constexpr int CG = HD / 4 < 16 ? HD / 4 : 16;
+  static constexpr int ACH = HD / (4 * CG);
+  static constexpr int RG = kThreads / CG;
+  static constexpr int AR = RG >= BR ? 1 : BR / RG;
+  static_assert(BN % 16 == 0 && ACH * 4 * CG == HD && AR * RG >= BR,
+                "f32 tiles");
+  // dynamic shared memory a block of K8 (dkv false) or K9 takes: its own
+  // rows, the ring's stages (K9's with their lse and delta), p / ds, and
+  // K8's delta partials by warp
+  static constexpr int smem(bool dkv, int stages) {
+    return 4 * (2 * BR * LD + stages * (2 * BN * LD + (dkv ? 2 * BN : 0)) +
+                (dkv ? 2 : 1) * BR * PLD + (dkv ? 0 : 4 * BR));
+  }
 };
 
 __device__ __forceinline__ float4 load4(const float* p) {
@@ -130,6 +182,10 @@ __device__ __forceinline__ float4 load4(const float* p) {
 
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
+}
+
+__device__ __forceinline__ float lane4(float4 a, int i) {
+  return i == 0 ? a.x : i == 1 ? a.y : i == 2 ? a.z : a.w;
 }
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
@@ -146,223 +202,375 @@ __device__ __forceinline__ void axpy4(float a, float4 x, float4& y) {
   y.w = fmaf(a, x.w, y.w);
 }
 
-template <int TPR>
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = TPR / 2; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+__device__ __forceinline__ bool visible(int d, int causal, int window) {
+  return (!causal || d >= 0) && (window <= 0 || d < window);
 }
 
-// Stage rows [r0, r0 + n) of a [B, L, H, hd] tensor (row stride rs, base
-// already at (b, 0, h, 0)) into dst[rows][HD]; rows past n are zero.
+// 16 or 4 bytes global -> shared by cp.async; zeros when !ok
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)), "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)), "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Copy rows [r0, r0 + n) of a [B, L, H, hd] tensor (base at (b, 0, h, 0),
+// row stride rs) into dst[ROWS][LD]; rows n.. become zeros.
 template <int HD, int ROWS>
-__device__ __forceinline__ void stage(float* dst, const float* base, int64_t rs,
-                                      int r0, int n) {
-  for (int e = threadIdx.x; e < ROWS * HD / 4; e += kThreads) {
-    const int j = e / (HD / 4), c4 = e % (HD / 4);
-    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (j < n) x = load4(base + (int64_t)(r0 + j) * rs + 4 * c4);
-    store4(dst + j * HD + 4 * c4, x);
+__device__ __forceinline__ void copy_rows(float* dst, const float* base,
+                                          int64_t rs, int r0, int n) {
+  constexpr int C4 = HD / 4;
+  for (int e = threadIdx.x; e < ROWS * C4; e += kThreads) {
+    const int j = e / C4, c = 4 * (e % C4);
+    const bool ok = j < n;
+    cp_async16(dst + j * Simt<HD>::LD + c,
+               base + (int64_t)(r0 + (ok ? j : 0)) * rs + c, ok);
+  }
+}
+
+// K9's query tiles: those that see the block's keys, [lo, hi) in n0
+// tiles of bn, then the rows that see no key, [blind, T)
+struct QTiles {
+  int lo, hi, blind, T, n0, bn;
+  __device__ __forceinline__ int first(int i) const {
+    return i < n0 ? lo + i * bn : blind + (i - n0) * bn;
+  }
+  __device__ __forceinline__ int span(int i) const {
+    return min(bn, (i < n0 ? hi : T) - first(i));
+  }
+};
+
+// Query tile i of K9 into the stage at dst: do, and for the queries that
+// see the keys also q and their lse and delta (base pointers at (b, h))
+template <int HD>
+__device__ __forceinline__ void copy_queries(float* dst, const QTiles& g,
+                                             int i, const float* qb,
+                                             const float* ob, const float* lb,
+                                             const float* eb, int64_t rs) {
+  constexpr int BN = Simt<HD>::BN, LD = Simt<HD>::LD;
+  const int t0 = g.first(i), nt = g.span(i);
+  copy_rows<HD, BN>(dst + BN * LD, ob, rs, t0, nt);
+  if (i >= g.n0) return;                 // a row that sees no key: do alone
+  copy_rows<HD, BN>(dst, qb, rs, t0, nt);
+  const int tid = threadIdx.x, j = tid % BN;
+  if (tid < 2 * BN)
+    cp_async4(dst + 2 * BN * LD + tid,
+              (tid < BN ? lb : eb) + t0 + (j < nt ? j : 0), j < nt);
+}
+
+// s[r][i] = X[row r] . Xt[col i] and dp[r][i] = Y[row r] . Yt[col i] over
+// hd, for rows rg and rg + 8 of the block's own X, Y and columns c + 4i of
+// the streamed tile Xt, Yt: 4 SC independent f32 dot products.
+template <int HD>
+__device__ __forceinline__ void tile_dots(const float* X, const float* Y,
+                                          const float* Xt, const float* Yt,
+                                          int rg, int c,
+                                          float (&s)[2][Simt<HD>::SC],
+                                          float (&dp)[2][Simt<HD>::SC]) {
+  using G = Simt<HD>;
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int i = 0; i < G::SC; ++i) s[r][i] = dp[r][i] = 0.0f;
+#pragma unroll 4
+  for (int d = 0; d < HD; d += 4) {
+    const float4 x0 = load4(X + rg * G::LD + d);
+    const float4 x1 = load4(X + (rg + 8) * G::LD + d);
+    const float4 y0 = load4(Y + rg * G::LD + d);
+    const float4 y1 = load4(Y + (rg + 8) * G::LD + d);
+#pragma unroll
+    for (int i = 0; i < G::SC; ++i) {
+      const float4 xt = load4(Xt + (c + 4 * i) * G::LD + d);
+      const float4 yt = load4(Yt + (c + 4 * i) * G::LD + d);
+      s[0][i] = dot4(x0, xt, s[0][i]);
+      s[1][i] = dot4(x1, xt, s[1][i]);
+      dp[0][i] = dot4(y0, yt, dp[0][i]);
+      dp[1][i] = dot4(y1, yt, dp[1][i]);
+    }
+  }
+}
+
+// acc[a][c] += sum_{j < nj} P[row a][j] * Z[j][chunk c], for this thread's
+// rows ar + RG a and chunks 4 (cg + CG c); nj is a multiple of 4.
+template <int HD>
+__device__ __forceinline__ void tile_axpy(
+    const float* P, const float* Z, int nj, int ar, int cg,
+    float4 (&acc)[Simt<HD>::AR][Simt<HD>::ACH]) {
+  using G = Simt<HD>;
+  for (int j = 0; j < nj; j += 4) {
+    float4 pr[G::AR];
+#pragma unroll
+    for (int a = 0; a < G::AR; ++a)
+      pr[a] = load4(P + (ar + G::RG * a) * G::PLD + j);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int c = 0; c < G::ACH; ++c) {
+        const float4 z = load4(Z + (j + jj) * G::LD + 4 * (cg + G::CG * c));
+#pragma unroll
+        for (int a = 0; a < G::AR; ++a) axpy4(lane4(pr[a], jj), z, acc[a][c]);
+      }
   }
 }
 
 // ------------------------------------------------------------ K8, f32 SIMT
+// Both f32 kernels are bounded (kThreads, 1): with no minimum of blocks
+// ptxas picked a register count of its own and spilled a few bytes at hd 16
+// and 32 to reach it; a minimum of 4 at hd <= 64 (128 registers) spilled
+// too.
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, float* __restrict__ delta,
-                    float* __restrict__ dq, int T_len, int M, int H, int causal,
-                    int window, float scale) {
-  using S = Tile<HD>;
+                    float* __restrict__ dq, int B, int T_len, int M, int H,
+                    int causal, int window, float scale, int stages) {
+  using G = Simt<HD>;
+  constexpr int LD = G::LD, BN = G::BN, SC = G::SC;
   extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;                    // [BK][HD]
-  float* Vs = smem + BK * HD;          // [BK][HD]
+  float* Qs = smem;                          // [BR][LD] the block's q rows
+  float* Os = Qs + BR * LD;                  // [BR][LD] and do rows
+  float* ring = Os + BR * LD;                // stages x (k, v) [BN][LD]
+  float* Ps = ring + stages * 2 * BN * LD;   // [BR][PLD] ds of a tile
+  float* red = Ps + BR * G::PLD;             // [4][BR] delta by warp
 
-  const int tid = threadIdx.x;
-  const int row = tid / S::TPR, sub = tid % S::TPR;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * S::ROWS;
-  const int qi = q0 + row;
-  const bool live = qi < T_len;
-  const int64_t rs = (int64_t)H * HD;  // row stride of [B, *, H, hd]
-  const int64_t q_off = ((int64_t)b * T_len + (live ? qi : 0)) * rs +
-                        (int64_t)h * HD;
-  const float* kb = k + (int64_t)b * M * rs + (int64_t)h * HD;
-  const float* vb = v + (int64_t)b * M * rs + (int64_t)h * HD;
-
-  // acc = sum_m p dp k, kp = sum_m p k, dl = delta = sum_m p dp
-  float4 qr[S::CH], dr[S::CH], acc[S::CH], kp[S::CH];
-  float dl = 0.0f;
-#pragma unroll
-  for (int c = 0; c < S::CH; ++c) {
-    const int col = 4 * (sub + S::TPR * c);
-    const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    qr[c] = live ? load4(q + q_off + col) : z;
-    dr[c] = live ? load4(dout + q_off + col) : z;
-    acc[c] = z;
-    kp[c] = z;
-  }
-  const int64_t r_off = (int64_t)bh * T_len + qi;
-  const float lr = live ? lse[r_off] : 0.0f;
-  // a row that sees no key has p = 0 here and ds = 0: dq = 0, delta = 0
-  const bool sees = !(window > 0 && qi >= M + window - 1);
-
-  const int q_last = min(q0 + S::ROWS, T_len) - 1;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rg = lane % 8, col = 4 * SC * warp + lane / 8;  // S: rows, keys
+  const int ar = tid / G::CG, cg = tid % G::CG;             // dq's share
+  const int bhn = B * H, bh = blockIdx.x % bhn, b = bh / H, h = bh % H;
+  const int nq = (T_len + BR - 1) / BR, rank = blockIdx.x / bhn;
+  const int q0 = (causal ? nq - 1 - rank : rank) * BR;   // heaviest first
+  const int q_last = min(q0 + BR, T_len) - 1;
   const int hi = causal ? min(M, q_last + 1) : M;
   const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  for (int k0 = lo; k0 < hi; k0 += BK) {
-    const int nk = min(BK, hi - k0);
-    __syncthreads();                   // the previous tile is consumed
-    stage<HD, BK>(Ks, kb, rs, k0, nk);
-    stage<HD, BK>(Vs, vb, rs, k0, nk);
-    __syncthreads();
-    for (int j = 0; j < nk; ++j) {     // nk is the same for the whole block
-      const float* kr = Ks + j * HD;
-      const float* vr = Vs + j * HD;
-      float s = 0.0f, dp = 0.0f;
+  const int n = hi > lo ? (hi - lo + BN - 1) / BN : 0;   // key tiles
+  const int iters = n > 1 ? 2 * n : n;   // two sweeps unless one tile
+  const int64_t rs = (int64_t)H * HD, hoff = (int64_t)h * HD;
+  const float* kb = k + (int64_t)b * M * rs + hoff;
+  const float* vb = v + (int64_t)b * M * rs + hoff;
+  copy_rows<HD, BR>(Qs, q + (int64_t)b * T_len * rs + hoff, rs, q0,
+                    q_last - q0 + 1);
+  copy_rows<HD, BR>(Os, dout + (int64_t)b * T_len * rs + hoff, rs, q0,
+                    q_last - q0 + 1);
+  if (n > 0) {                           // key tile 0 into stage 0
+    copy_rows<HD, BN>(ring, kb, rs, lo, min(BN, hi - lo));
+    copy_rows<HD, BN>(ring + BN * LD, vb, rs, lo, min(BN, hi - lo));
+  }
+  float lr[2];
 #pragma unroll
-      for (int c = 0; c < S::CH; ++c) {
-        const int col = 4 * (sub + S::TPR * c);
-        s = dot4(qr[c], load4(kr + col), s);
-        dp = dot4(dr[c], load4(vr + col), dp);
-      }
-      s = row_sum<S::TPR>(s);
-      dp = row_sum<S::TPR>(dp);
-      const int d = qi - (k0 + j);
-      const bool seen = sees && (!causal || d >= 0) &&
-                        (window <= 0 || d < window);
-      const float p = seen ? expf(s * scale - lr) : 0.0f;
-      const float pdp = p * dp;
-      dl = fmaf(p, dp, dl);
-#pragma unroll
-      for (int c = 0; c < S::CH; ++c) {
-        const float4 kk = load4(kr + 4 * (sub + S::TPR * c));
-        axpy4(pdp, kk, acc[c]);
-        axpy4(p, kk, kp[c]);
-      }
-    }
+  for (int r = 0; r < 2; ++r) {
+    const int t = q0 + rg + 8 * r;
+    lr[r] = t < T_len ? lse[(int64_t)bh * T_len + t] : 0.0f;
   }
 
-  if (!live) return;
-  if (sub == 0) delta[r_off] = dl;
+  float part[2] = {0.0f, 0.0f}, dl[2] = {0.0f, 0.0f};
+  float4 acc[G::AR][G::ACH];
 #pragma unroll
-  for (int c = 0; c < S::CH; ++c) {
-    const float4 a = acc[c], b = kp[c];
-    store4(dq + q_off + 4 * (sub + S::TPR * c),
-           make_float4(scale * fmaf(-dl, b.x, a.x), scale * fmaf(-dl, b.y, a.y),
-                       scale * fmaf(-dl, b.z, a.z),
-                       scale * fmaf(-dl, b.w, a.w)));
+  for (int a = 0; a < G::AR; ++a)
+#pragma unroll
+    for (int c = 0; c < G::ACH; ++c) acc[a][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int it = 0; it < iters; ++it) {
+    const int t0 = lo + (it % n) * BN, nk = min(BN, hi - t0);
+    const float* Ks = ring + (it % stages) * 2 * BN * LD;
+    const float* Vs = Ks + BN * LD;
+    cp_async_wait_all();
+    __syncthreads();       // tile it landed; the other stage and Ps are free
+    if (it + 1 < iters) {                // key tile it + 1 into its stage
+      const int u0 = lo + (it + 1) % n * BN;
+      float* dst = ring + (it + 1) % stages * 2 * BN * LD;
+      copy_rows<HD, BN>(dst, kb, rs, u0, min(BN, hi - u0));
+      copy_rows<HD, BN>(dst + BN * LD, vb, rs, u0, min(BN, hi - u0));
+    }
+    const bool busy = 4 * SC * warp < nk;   // the warp's keys in the span
+    float p[2][SC], dp[2][SC];
+    if (busy) {
+      float s[2][SC];
+      tile_dots<HD>(Qs, Os, Ks, Vs, rg, col, s, dp);
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int i = 0; i < SC; ++i) {
+          const int t = q0 + rg + 8 * r, j = col + 4 * i;
+          const bool seen = j < nk && t < T_len &&
+                            visible(t - (t0 + j), causal, window);
+          p[r][i] = seen ? expf(s[r][i] * scale - lr[r]) : 0.0f;
+          if (it < n) part[r] = fmaf(p[r][i], dp[r][i], part[r]);
+        }
+    }
+    if (it == n - 1) {     // the first sweep is done: delta of each row
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float d = part[r];
+        d += __shfl_xor_sync(0xffffffffu, d, 8);
+        d += __shfl_xor_sync(0xffffffffu, d, 16);
+        if (lane < 8) red[warp * BR + rg + 8 * r] = d;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        dl[r] = red[rg + 8 * r] + red[BR + rg + 8 * r] +
+                red[2 * BR + rg + 8 * r] + red[3 * BR + rg + 8 * r];
+    }
+    if (it < iters - n) continue;           // the first of two sweeps
+    if (busy)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int i = 0; i < SC; ++i)
+          Ps[(rg + 8 * r) * G::PLD + col + 4 * i] =
+              p[r][i] * (dp[r][i] - dl[r]);
+    __syncthreads();
+    if (ar < BR) tile_axpy<HD>(Ps, Ks, (nk + 3) & ~3, ar, cg, acc);
+  }
+  cp_async_wait_all();
+
+  if (warp == 0 && lane < 8)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = q0 + rg + 8 * r;
+      if (t < T_len) delta[(int64_t)bh * T_len + t] = dl[r];
+    }
+#pragma unroll
+  for (int a = 0; a < G::AR; ++a) {
+    const int t = q0 + ar + G::RG * a;
+    if (ar + G::RG * a >= BR || t >= T_len) continue;
+    float* row = dq + ((int64_t)b * T_len + t) * rs + hoff;
+#pragma unroll
+    for (int c = 0; c < G::ACH; ++c) {
+      const float4 x = acc[a][c];
+      store4(row + 4 * (cg + G::CG * c),
+             make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale));
+    }
   }
 }
 
 // ------------------------------------------------------------ K9, f32 SIMT
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, int T_len, int M, int H, int causal,
-                     int window, float scale) {
-  using S = Tile<HD>;
+                     float* __restrict__ dv, int B, int T_len, int M, int H,
+                     int causal, int window, float scale, int stages) {
+  using G = Simt<HD>;
+  constexpr int LD = G::LD, BN = G::BN, SC = G::SC;
+  constexpr int STAGE = 2 * BN * LD + 2 * BN;  // q, do [BN][LD]; lse, delta
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                    // [BQ2][HD]
-  float* Ds = smem + BQ2 * HD;         // [BQ2][HD]
-  float* Ls = Ds + BQ2 * HD;           // [BQ2] lse
-  float* Es = Ls + BQ2;                // [BQ2] delta
+  float* Ks = smem;                          // [BR][LD] the block's k rows
+  float* Vs = Ks + BR * LD;                  // [BR][LD] and v rows
+  float* ring = Vs + BR * LD;                // stages x STAGE
+  float* Ps = ring + stages * STAGE;         // [BR][PLD] p^T of a tile
+  float* Ss = Ps + BR * G::PLD;              // [BR][PLD] ds^T
 
-  const int tid = threadIdx.x;
-  const int row = tid / S::TPR, sub = tid % S::TPR;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.x * S::ROWS;  // the heaviest causal tiles come first
-  const int ki = k0 + row;
-  const bool live = ki < M;
-  const int64_t rs = (int64_t)H * HD;
-  const int64_t k_off = ((int64_t)b * M + (live ? ki : 0)) * rs +
-                        (int64_t)h * HD;
-  const float* qb = q + (int64_t)b * T_len * rs + (int64_t)h * HD;
-  const float* db = dout + (int64_t)b * T_len * rs + (int64_t)h * HD;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rg = lane % 8, col = 4 * SC * warp + lane / 8;  // S^T: keys, q
+  const int ar = tid / G::CG, cg = tid % G::CG;             // dk/dv's share
+  const int bhn = B * H, bh = blockIdx.x % bhn, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.x / bhn * BR;  // the heaviest causal tiles first
+  const int k_last = min(k0 + BR, M) - 1;
+  // the queries these keys see, [lo, hi), in n0 tiles; then the rows that
+  // see no key, [blind, T)
+  const int blind = window > 0 ? min(T_len, M + window - 1) : T_len;
+  const int lo = causal ? k0 : 0;
+  const int hi = min(window > 0 ? min(T_len, k_last + window) : T_len, blind);
+  const int n0 = hi > lo ? (hi - lo + BN - 1) / BN : 0;
+  const int n = n0 + (T_len - blind + BN - 1) / BN;
+  const QTiles g{lo, hi, blind, T_len, n0, BN};
+  const int64_t rs = (int64_t)H * HD, hoff = (int64_t)h * HD;
+  const float* qb = q + (int64_t)b * T_len * rs + hoff;
+  const float* ob = dout + (int64_t)b * T_len * rs + hoff;
   const float* lb = lse + (int64_t)bh * T_len;
   const float* eb = delta + (int64_t)bh * T_len;
 
-  float4 kr[S::CH], vr[S::CH], dka[S::CH], dva[S::CH];
-#pragma unroll
-  for (int c = 0; c < S::CH; ++c) {
-    const int col = 4 * (sub + S::TPR * c);
-    const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    kr[c] = live ? load4(k + k_off + col) : z;
-    vr[c] = live ? load4(v + k_off + col) : z;
-    dka[c] = z;
-    dva[c] = z;
-  }
+  copy_rows<HD, BR>(Ks, k + (int64_t)b * M * rs + hoff, rs, k0,
+                    k_last - k0 + 1);
+  copy_rows<HD, BR>(Vs, v + (int64_t)b * M * rs + hoff, rs, k0,
+                    k_last - k0 + 1);
+  if (n > 0) copy_queries<HD>(ring, g, 0, qb, ob, lb, eb, rs);
 
-  const int k_last = min(k0 + S::ROWS, M) - 1;
-  const int blind = window > 0 ? M + window - 1 : T_len;  // first row seeing
-                                                          // no key
-  const int lo = causal ? k0 : 0;
-  const int hi = min(window > 0 ? min(T_len, k_last + window) : T_len, blind);
   const float inv_m = 1.0f / (float)M;
-  // pass 0: the queries that can see this tile; pass 1: the rows that see
-  // no key, which give every key p = 1/M and ds = 0
-  for (int pass = 0; pass < 2; ++pass) {
-    const int a = pass ? blind : lo, z = pass ? T_len : hi;
-    for (int t0 = a; t0 < z; t0 += BQ2) {
-      const int nq = min(BQ2, z - t0);
-      __syncthreads();                 // the previous tile is consumed
-      if (!pass) stage<HD, BQ2>(Qs, qb, rs, t0, nq);
-      stage<HD, BQ2>(Ds, db, rs, t0, nq);
-      if (tid < BQ2) {
-        Ls[tid] = tid < nq ? lb[t0 + tid] : 0.0f;
-        Es[tid] = tid < nq ? eb[t0 + tid] : 0.0f;
+  float4 dka[G::AR][G::ACH], dva[G::AR][G::ACH];
+#pragma unroll
+  for (int a = 0; a < G::AR; ++a)
+#pragma unroll
+    for (int c = 0; c < G::ACH; ++c)
+      dka[a][c] = dva[a][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int i = 0; i < n; ++i) {
+    const int t0 = g.first(i), nt = g.span(i);
+    const float* Qt = ring + (i % stages) * STAGE;
+    const float* Ot = Qt + BN * LD;
+    const float* Lt = Ot + BN * LD;      // lse of the tile's queries
+    const float* Et = Lt + BN;           // and delta
+    cp_async_wait_all();
+    __syncthreads();       // tile i landed; the other stage and Ps are free
+    if (i + 1 < n)
+      copy_queries<HD>(ring + (i + 1) % stages * STAGE, g, i + 1, qb, ob, lb,
+                       eb, rs);
+    const bool busy = 4 * SC * warp < nt;   // the warp's queries in the span
+    if (i < n0) {
+      if (busy) {
+        float s[2][SC], dp[2][SC];
+        tile_dots<HD>(Ks, Vs, Qt, Ot, rg, col, s, dp);
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int c = 0; c < SC; ++c) {
+            const int m = k0 + rg + 8 * r, j = col + 4 * c;
+            const bool seen = j < nt && m < M &&
+                              visible(t0 + j - m, causal, window);
+            const float p = seen ? expf(s[r][c] * scale - Lt[j]) : 0.0f;
+            Ps[(rg + 8 * r) * G::PLD + j] = p;
+            Ss[(rg + 8 * r) * G::PLD + j] = p * (dp[r][c] - Et[j]);
+          }
       }
       __syncthreads();
-      if (pass) {
-        const float p = live ? inv_m : 0.0f;
-        for (int j = 0; j < nq; ++j) {
-          const float* dr = Ds + j * HD;
-#pragma unroll
-          for (int c = 0; c < S::CH; ++c)
-            axpy4(p, load4(dr + 4 * (sub + S::TPR * c)), dva[c]);
-        }
-        continue;
+      if (ar < BR) {
+        tile_axpy<HD>(Ps, Ot, (nt + 3) & ~3, ar, cg, dva);
+        tile_axpy<HD>(Ss, Qt, (nt + 3) & ~3, ar, cg, dka);
       }
-      for (int j = 0; j < nq; ++j) {   // nq is the same for the whole block
-        const float* qr = Qs + j * HD;
-        const float* dr = Ds + j * HD;
-        float s = 0.0f, dp = 0.0f;
-#pragma unroll
-        for (int c = 0; c < S::CH; ++c) {
-          const int col = 4 * (sub + S::TPR * c);
-          s = dot4(kr[c], load4(qr + col), s);
-          dp = dot4(vr[c], load4(dr + col), dp);
-        }
-        s = row_sum<S::TPR>(s);
-        dp = row_sum<S::TPR>(dp);
-        const int d = (t0 + j) - ki;
-        const bool seen = live && (!causal || d >= 0) &&
-                          (window <= 0 || d < window);
-        const float p = seen ? expf(s * scale - Ls[j]) : 0.0f;
-        const float ds = p * (dp - Es[j]);
-#pragma unroll
-        for (int c = 0; c < S::CH; ++c) {
-          const int col = 4 * (sub + S::TPR * c);
-          axpy4(p, load4(dr + col), dva[c]);
-          axpy4(ds, load4(qr + col), dka[c]);
-        }
-      }
+      continue;
     }
-  }
-
-  if (!live) return;
+    if (busy)              // rows that see no key: p = 1/M, ds = 0
 #pragma unroll
-  for (int c = 0; c < S::CH; ++c) {
-    const int col = 4 * (sub + S::TPR * c);
-    const float4 a = dka[c];
-    store4(dk + k_off + col,
-           make_float4(a.x * scale, a.y * scale, a.z * scale, a.w * scale));
-    store4(dv + k_off + col, dva[c]);
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int c = 0; c < SC; ++c) {
+          const int j = col + 4 * c;
+          Ps[(rg + 8 * r) * G::PLD + j] =
+              j < nt && k0 + rg + 8 * r < M ? inv_m : 0.0f;
+        }
+    __syncthreads();
+    if (ar < BR) tile_axpy<HD>(Ps, Ot, (nt + 3) & ~3, ar, cg, dva);
+  }
+  cp_async_wait_all();
+
+#pragma unroll
+  for (int a = 0; a < G::AR; ++a) {
+    const int m = k0 + ar + G::RG * a;
+    if (ar + G::RG * a >= BR || m >= M) continue;
+    const int64_t off = ((int64_t)b * M + m) * rs + hoff;
+#pragma unroll
+    for (int c = 0; c < G::ACH; ++c) {
+      const int cc = 4 * (cg + G::CG * c);
+      const float4 x = dka[a][c];
+      store4(dk + off + cc, make_float4(x.x * scale, x.y * scale,
+                                        x.z * scale, x.w * scale));
+      store4(dv + off + cc, dva[a][c]);
+    }
   }
 }
 
@@ -370,10 +578,6 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 constexpr int kConsumerWGs = 2;
 constexpr int kThreadsWG = 128 * (kConsumerWGs + 1);  // + the producer's
 constexpr int kStages = 2;
-
-__device__ __forceinline__ bool visible(int d, int causal, int window) {
-  return (!causal || d >= 0) && (window <= 0 || d < window);
-}
 
 // K8's tiles: 64 query rows a consumer warpgroup, key tiles of 64 rows;
 // k in a ring of kStages, v in one of VST (one at hd 256, where q and do
@@ -766,43 +970,60 @@ cudaError_t prepare(K kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// The ring's stages for the f32 kernels: two when some block streams more
+// than one tile, else one.  Upper bounds of a block's span: K8's keys, at
+// most M, and under a causal mask at most T and BR + window - 1; K9's
+// queries that see its keys, at most T, and under a causal mask with a
+// window BR + window - 1, then the rows that see no key, T - (M + window -
+// 1).
+int simt_stages(const Args& a, bool dkv, int bn) {
+  const int64_t w = a.window, T = a.T_len, M = a.M;
+  int64_t span = dkv ? T : std::min(M, a.causal ? T : M);
+  if (a.causal && w > 0) span = std::min(span, BR + w - 1);
+  int64_t tiles = (span + bn - 1) / bn;
+  if (dkv && w > 0 && M + w - 1 < T) tiles += (T - (M + w - 1) + bn - 1) / bn;
+  return tiles > 1 ? 2 : 1;
+}
+
+// blocks of BR rows over `rows`, or -1 past the grid
+int64_t simt_blocks(const Args& a, int rows) {
+  const int64_t blocks = (int64_t)a.B * a.H * ((rows + BR - 1) / BR);
+  return blocks > 0x7fffffffLL ? -1 : blocks;
+}
+
 template <int HD>
 int launch_dq(const Args& a) {
-  using S = Tile<HD>;
-  const int64_t tiles = ((int64_t)a.T_len + S::ROWS - 1) / S::ROWS;
-  if ((int64_t)a.B * a.H > 65535 || tiles > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = 2 * sizeof(float) * BK * HD;   // 64 KB at hd 256
+  using G = Simt<HD>;
+  const int64_t blocks = simt_blocks(a, a.T_len);
+  if (blocks < 0) return (int)cudaErrorInvalidValue;
+  const int stages = simt_stages(a, false, G::BN);
   auto kernel = flash_bwd_dq_kernel<HD>;
-  cudaError_t err = prepare(kernel, smem);
+  cudaError_t err = prepare(kernel, G::smem(false, stages));
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)tiles, (unsigned)(a.B * a.H));
-  kernel<<<grid, kThreads, smem, a.stream>>>(
+  kernel<<<(unsigned)blocks, kThreads, G::smem(false, stages), a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<float*>(a.delta),
-      static_cast<float*>(a.dq), a.T_len, a.M, a.H, a.causal, a.window,
-      a.scale);
+      static_cast<float*>(a.dq), a.B, a.T_len, a.M, a.H, a.causal, a.window,
+      a.scale, stages);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
 int launch_dkv(const Args& a) {
-  using S = Tile<HD>;
-  const int64_t tiles = ((int64_t)a.M + S::ROWS - 1) / S::ROWS;
-  if ((int64_t)a.B * a.H > 65535 || tiles > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (2 * BQ2 * HD + 2 * BQ2);
+  using G = Simt<HD>;
+  const int64_t blocks = simt_blocks(a, a.M);
+  if (blocks < 0) return (int)cudaErrorInvalidValue;
+  const int stages = simt_stages(a, true, G::BN);
   auto kernel = flash_bwd_dkv_kernel<HD>;
-  cudaError_t err = prepare(kernel, smem);
+  cudaError_t err = prepare(kernel, G::smem(true, stages));
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)tiles, (unsigned)(a.B * a.H));
-  kernel<<<grid, kThreads, smem, a.stream>>>(
+  kernel<<<(unsigned)blocks, kThreads, G::smem(true, stages), a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.T_len, a.M,
-      a.H, a.causal, a.window, a.scale);
+      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.B, a.T_len,
+      a.M, a.H, a.causal, a.window, a.scale, stages);
   return (int)cudaGetLastError();
 }
 
@@ -895,12 +1116,18 @@ const char* repro_flash_attention_bwd_error_string(int code) {
 }
 
 // Dynamic shared memory a block of K8 (dkv == 0) or K9 (dkv != 0) takes on
-// the route for (hd, bf16), or -1.
+// the route for (hd, bf16), or -1; on the f32 route with two ring stages
+// (a launch whose blocks stream one tile each takes one).
 int repro_flash_attention_bwd_smem_bytes(int dkv, int hd, int bf16) {
   if (smem_of<DQ>(hd) < 0) return -1;
   if (bf16) return dkv ? smem_of<DKV>(hd) : smem_of<DQ>(hd);
-  return (int)(dkv ? sizeof(float) * (2 * BQ2 * hd + 2 * BQ2)
-                   : 2 * sizeof(float) * BK * hd);
+  switch (hd) {
+    case 16: return Simt<16>::smem(dkv, 2);
+    case 32: return Simt<32>::smem(dkv, 2);
+    case 64: return Simt<64>::smem(dkv, 2);
+    case 128: return Simt<128>::smem(dkv, 2);
+    default: return Simt<256>::smem(dkv, 2);
+  }
 }
 
 // K8.  q, do, dq [B, T, H, hd]; k, v [B, M, H, hd]; lse, delta [B*H, T]

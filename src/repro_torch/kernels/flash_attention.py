@@ -61,6 +61,25 @@ ROUTE_LAUNCHES: dict[str, dict[str, int]] = {
     k: {r: 0 for r in ROUTES.values()}
     for k in ("flash_attention", "flash_attention_bwd_dq",
               "flash_attention_bwd_dkv")}
+# the f32 backward kernels' tiles (csrc/flash_attention_bwd.cu, Simt<HD>): a
+# block owns SIMT_BWD_ROWS rows (K8 queries, K9 keys), the other side
+# streams in tiles of simt_bwd_tile(hd) rows; staged rows take hd + 4
+# floats, rows of the p / ds arrays tile + 4
+SIMT_BWD_ROWS = 16
+
+
+def simt_bwd_tile(hd: int) -> int:
+    """Rows of the tiles the f32 K8 (keys) and K9 (queries) stream."""
+    return 64 if hd <= 64 else 32 if hd == 128 else 16
+
+
+def simt_bwd_smem_bytes(dkv: bool, hd: int, stages: int = 2) -> int:
+    """Dynamic shared memory of an f32 K8 (K9 if ``dkv``) block: its own
+    rows, ``stages`` tiles (K9's with their lse and delta), the p / ds
+    arrays and K8's delta partials (4 warps)."""
+    rows, bn, ld = SIMT_BWD_ROWS, simt_bwd_tile(hd), hd + 4
+    return 4 * (2 * rows * ld + stages * (2 * bn * ld + (2 * bn if dkv else 0))
+                + (2 if dkv else 1) * rows * (bn + 4) + (0 if dkv else 4 * rows))
 
 
 class _Totals(Mapping):

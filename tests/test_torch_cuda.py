@@ -441,6 +441,56 @@ def test_flash_attention_backward_routes_by_type_on_card(cuda_device):
                 r: int(r == route) for r in ("wgmma_bf16", "simt_f32")}
 
 
+def _simt_backward_matches_plain_version(q, k, v, do, causal, window):
+    """f32 K8 then K9, one ``simt_f32`` launch each, against the plain
+    backward from K7's lse, element by element (delta too)."""
+    _, lse = fa.flash_attention_fwd(q, k, v, causal, window)
+    fa.reset_launches()
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, lse, do, causal, window)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal,
+                                        window)
+    want_dq, want_delta = fa.flash_attention_bwd_dq_ref(q, k, v, lse, do,
+                                                        causal, window)
+    want_dk, want_dv = fa.flash_attention_bwd_dkv_ref(q, k, v, do, lse,
+                                                      want_delta, causal,
+                                                      window)
+    torch.cuda.synchronize()
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert fa.ROUTE_LAUNCHES[name] == {"wgmma_bf16": 0, "simt_f32": 1}
+    for got, want in zip((dq, dk, dv, delta),
+                         (want_dq, want_dk, want_dv, want_delta)):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        _grads_close(got, want, False)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 32), (True, 0)])
+def test_simt_backward_at_the_drivers_shape_on_card(cuda_device, causal,
+                                                    window):
+    """The fault-tolerant driver's attention, [8, 64, 10, 64] f32."""
+    g = torch.Generator(cuda_device).manual_seed(64 + window)
+    q, k, v, do = (torch.randn((8, 64, 10, 64), generator=g,
+                               device=cuda_device) for _ in range(4))
+    _simt_backward_matches_plain_version(q, k, v, do, causal, window)
+
+
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+@pytest.mark.parametrize("T,M,causal,window", [
+    (1, 17, False, 0), (15, 15, True, 0), (17, 17, True, 0),
+    (15, 15, False, 0), (17, 17, False, 0),
+    (300, 200, True, 40)])                 # rows 239.. see no key
+def test_simt_backward_at_lengths_off_its_tiles_on_card(cuda_device, hd, T,
+                                                        M, causal, window):
+    """f32 K8/K9 where T or M is off the 16-row blocks and the streamed
+    tiles, with one or two ring stages and K8's one or two sweeps.  T = 1
+    sees M = 17 keys: against one key (causal, or M = 1) its softmax is
+    constant, so dq and dk are 0 and both versions return rounding noise,
+    which no limit relative to the gradient can hold."""
+    g = torch.Generator(cuda_device).manual_seed(T + M + hd)
+    q, k, v, do = (torch.randn((2, L, 2, hd), generator=g,
+                               device=cuda_device) for L in (T, M, M, T))
+    _simt_backward_matches_plain_version(q, k, v, do, causal, window)
+
+
 def test_reduced_train_step_on_card_runs_k7_k8_k9_per_layer(cuda_device):
     from repro_torch.core.tree import tree_map
     from repro_torch.launch.steps import make_train_step

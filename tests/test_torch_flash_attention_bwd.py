@@ -22,6 +22,12 @@ f32 sums, p from K7's lse in the log2 domain, delta from the f32 p * dp,
 p and ds carried into their products as two bf16 terms) is emulated here
 in plain torch, in their order of operations, and held to the plain
 backward with ``chip_smoke.grad_err``'s element-wise bf16 limit.
+
+The f32 SIMT kernels' tiles (16-row blocks, the other side streamed tile
+by tile, K8's one or two sweeps, K9's rows that see no key) are emulated
+the same way and held to ``jax.grad`` of the reference with the
+element-wise f32 limit, 2e-4 (|g| + rms), at the fault-tolerant driver's
+[8, 64, 10, 64] and over ``CASES``.
 """
 import jax
 import jax.numpy as jnp
@@ -263,3 +269,112 @@ def test_one_bf16_term_of_p_or_ds_misses_the_element_wise_limit():
     one_p = _tc_case(*case, terms=(1, 2))
     assert one_ds[0] > 1.0 and one_ds[1] > 1.0 and one_ds[2] <= 1.0, one_ds
     assert one_p[2] > 1.0 and max(one_p[:2]) <= 1.0, one_p
+
+
+# --------------------------------------------------------------------------- #
+# the f32 SIMT kernels' tiles, emulated on the CPU
+# --------------------------------------------------------------------------- #
+def _emulate_simt_bwd(q, k, v, do, lse, causal, window):
+    """``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel`` block by block
+    and tile by tile, in f32: a block owns ``fa.SIMT_BWD_ROWS`` rows, the
+    other side streams in tiles of ``fa.simt_bwd_tile(hd)`` rows from the
+    block's first visible row.  K8 sweeps its keys twice when they take
+    more than one tile (delta = rowsum(p * dp) summed tile by tile, then ds
+    = p (dp - delta) and dq += dS K), once when they fit one; K9 adds the
+    tiles of the queries that see its keys (dv += P^T dO, dk += dS^T Q),
+    then those of the rows that see no key (dv += dO / M).  Returns (dq,
+    dk, dv, delta [B*H, T], K8's most key tiles a block).  The order of the
+    sums inside a tile's products is not emulated."""
+    B, T, H, hd = q.shape
+    M = k.shape[1]
+    br, bn = fa.SIMT_BWD_ROWS, fa.simt_bwd_tile(hd)
+    qf, kf, vf, dof = (x.float().permute(0, 2, 1, 3) for x in (q, k, v, do))
+    lse = lse.reshape(B, H, T, 1)
+    scale = torch.tensor(np.float32(1.0 / np.sqrt(hd)))
+
+    def tile(r0, r1, t0, t1):
+        """(p, dp) of query rows [r0, r1) against keys [t0, t1)."""
+        s = qf[:, :, r0:r1] @ kf[:, :, t0:t1].transpose(-1, -2)
+        vis = fa.visible(T, M, causal, window)[r0:r1, t0:t1]
+        p = torch.where(vis, torch.exp(s * scale - lse[:, :, r0:r1]),
+                        torch.zeros(()))
+        return p, dof[:, :, r0:r1] @ vf[:, :, t0:t1].transpose(-1, -2)
+
+    dq, delta = torch.zeros_like(qf), torch.zeros((B, H, T))
+    most = 0
+    for q0 in range(0, T, br):
+        q1 = min(q0 + br, T)
+        hi = min(M, q1) if causal else M
+        lo = max(0, q0 - window + 1) if window > 0 else 0
+        tiles = [(t0, min(t0 + bn, hi)) for t0 in range(lo, hi, bn)]
+        most = max(most, len(tiles))
+        part = torch.zeros((B, H, q1 - q0))
+        kept = []                              # one tile: no second sweep
+        for t0, t1 in tiles:
+            p, dp = tile(q0, q1, t0, t1)
+            part = part + (p * dp).sum(-1)
+            kept.append((p, dp))
+        delta[:, :, q0:q1] = part
+        acc = torch.zeros((B, H, q1 - q0, hd))
+        for t0, t1 in tiles:
+            p, dp = kept[0] if len(tiles) == 1 else tile(q0, q1, t0, t1)
+            acc = acc + (p * (dp - part[..., None])) @ kf[:, :, t0:t1]
+        dq[:, :, q0:q1] = acc * scale
+
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    blind = min(T, M + window - 1) if window > 0 else T
+    inv_m = torch.tensor(np.float32(1.0) / np.float32(M))
+    for k0 in range(0, M, br):
+        k1 = min(k0 + br, M)
+        lo = k0 if causal else 0
+        hi = min(min(T, k1 - 1 + window) if window > 0 else T, blind)
+        dka = torch.zeros((B, H, k1 - k0, hd))
+        dva = torch.zeros((B, H, k1 - k0, hd))
+        for t0 in range(lo, hi, bn):
+            t1 = min(t0 + bn, hi)
+            p, dp = tile(t0, t1, k0, k1)
+            ds = p * (dp - delta[:, :, t0:t1, None])
+            dva = dva + p.transpose(-1, -2) @ dof[:, :, t0:t1]
+            dka = dka + ds.transpose(-1, -2) @ qf[:, :, t0:t1]
+        for t0 in range(blind, T, bn):
+            t1 = min(t0 + bn, T)
+            dva = dva + inv_m * dof[:, :, t0:t1].sum(2, keepdim=True)
+        dk[:, :, k0:k1] = dka * scale
+        dv[:, :, k0:k1] = dva
+    grads = [x.permute(0, 2, 1, 3) for x in (dq, dk, dv)]
+    return (*grads, delta.reshape(B * H, T), most)
+
+
+def _share_of_f32_limit(got, want):
+    """``chip_smoke.grad_err``'s f32 check: the largest |g - g_ref| /
+    (2e-4 (|g_ref| + rms(g_ref))), element by element."""
+    rms = np.sqrt(np.mean(np.square(want)))
+    return float(np.max(np.abs(got - want) / (2e-4 * (np.abs(want) + rms))))
+
+
+# the driver run's attention ([8, 64, 10, 64], chip_smoke.driver_attention)
+# under both of its masks, then CASES
+SIMT_CASES = [(8, 64, 10, 64, 64, True, 32), (8, 64, 10, 64, 64, True, 0),
+              *CASES]
+
+
+@pytest.mark.parametrize("case", SIMT_CASES, ids=_ids)
+def test_simt_backward_tiles_meet_the_element_wise_f32_limit(case):
+    B, T, H, hd, M, causal, window = case
+    q, k, v, do = _inputs(B, T, H, hd, M, seed=3 + sum(case[:5]))
+    want = _jax_grads(*map(jnp.asarray, (q, k, v, do)), causal, window)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    _, lse = fa.flash_attention_fwd(tq, tk, tv, causal, window)
+    *got, delta, most = _emulate_simt_bwd(tq, tk, tv, tdo, lse, causal,
+                                          window)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        share = _share_of_f32_limit(g.numpy(), w)
+        assert share <= 1.0, f"{name}: {share} of the f32 limit"
+    want_delta = fa.flash_attention_bwd_dq_ref(tq, tk, tv, lse, tdo, causal,
+                                               window)[1]
+    torch.testing.assert_close(delta, want_delta, rtol=1e-5, atol=1e-5)
+    if T == 64:        # the driver's shape: every block's keys fit one tile
+        assert most == 1
+    if case == CASES[0]:                # causal T = 256: up to 4 tiles
+        assert most == 256 // fa.simt_bwd_tile(hd)
+
