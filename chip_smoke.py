@@ -54,7 +54,7 @@ Phases:
               gray plane (what HBM gives at this size) and a launch with no
               bytes to move (what this timing adds to any kernel);
               K7's, K8's and K9's registers, spills (none allowed in the
-              f32 K8/K9 entries) and shared memory, the route each of
+              f32 entries) and shared memory, the route each of
               their cases took (bf16 on the tensor cores, f32 on the SIMT
               kernels), and cuobjdump's proof that every bf16
               entry of the two flash-attention sources issues TC_SASS and
@@ -118,6 +118,7 @@ line.  Imports nothing of JAX or the JAX package.
 """
 from __future__ import annotations
 
+import functools
 import itertools
 import json
 import math
@@ -289,8 +290,9 @@ def tc_resources() -> dict:
     log that ``kernels/build.py`` keeps, the dynamic shared memory a block
     takes, and the tensor-core instructions ``cuobjdump -sass`` finds in
     each.  Fails unless every bf16 entry runs ``TC_SASS`` and no f32 entry
-    runs a tensor-core instruction, and unless the f32 K8/K9 entries spill
-    nothing and take the shared memory ``fa.simt_bwd_smem_bytes`` reckons."""
+    runs a tensor-core instruction, and unless the f32 K7/K8/K9 entries
+    spill nothing and take the shared memory ``fa.simt_fwd_smem_bytes`` or
+    ``fa.simt_bwd_smem_bytes`` reckons."""
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
 
@@ -316,18 +318,20 @@ def tc_resources() -> dict:
             print(f"[kernels] {label} {entry}: {r}")
             check(bool(r["sass"].get(TC_SASS)) if bf16 else not r["sass"],
                   f"{label} {entry}: tensor-core instructions {r['sass']}")
-            if "bwd" in entry and not bf16:     # the f32 K8/K9 SIMT tiles
-                dkv = "dkv" in entry
+            if not bf16:                # the f32 K7/K8/K9 SIMT tiles
+                reckon = (functools.partial(fa.simt_bwd_smem_bytes,
+                                            "dkv" in entry, hd)
+                          if "bwd" in entry else
+                          functools.partial(fa.simt_fwd_smem_bytes, hd))
                 check(r["spill_stores"] == 0 and r["spill_loads"] == 0,
                       f"{label} {entry} spills: {r}")
-                check(r["smem_bytes"] == fa.simt_bwd_smem_bytes(dkv, hd),
+                check(r["smem_bytes"] == reckon(),
                       f"{label} {entry}: shared memory {r['smem_bytes']} "
-                      f"differs from the Python reckoning "
-                      f"{fa.simt_bwd_smem_bytes(dkv, hd)}")
+                      f"differs from the Python reckoning {reckon()}")
                 print(f"[kernels] {label} {entry} (f32 SIMT): registers "
                       f"{r['registers']}, 0 spill bytes, shared memory "
-                      f"{fa.simt_bwd_smem_bytes(dkv, hd, stages=1)} bytes "
-                      f"with one ring stage, {r['smem_bytes']} with two")
+                      f"{reckon(stages=1)} bytes with one ring stage, "
+                      f"{r['smem_bytes']} with two")
         kernels = 1 if name == "flash_attention" else 2
         check(len(entries) == 2 * kernels * len(fa.HEAD_DIMS),
               f"{label}'s ptxas log names {[e for e, _ in entries]}")
@@ -1350,9 +1354,11 @@ def attention_bound(q, k, causal: bool, window: int) -> tuple[float, str]:
                                  else "bytes")
 
 
-def flash_err(q, k, v, causal: bool, window: int) -> tuple[float, float]:
-    """K7 against its plain version; returns max |o - o_ref| and the largest
-    |o - o_ref| as a share of its element-wise limit.
+def flash_err(q, k, v, causal: bool, window: int,
+              fwd=None) -> tuple[float, float]:
+    """K7 (or ``fwd``, called as ``fa.flash_attention_fwd`` is) against its
+    plain version; returns max |o - o_ref| and the largest |o - o_ref| as a
+    share of its element-wise limit.
 
     o within 2e-5 (f32) or 2.5e-2 (bf16) of max |o_ref|, and element by
     element: |o - o_ref| <= 2e-5 * (|o_ref| + rms(o_ref)) in f32, and
@@ -1366,7 +1372,7 @@ def flash_err(q, k, v, causal: bool, window: int) -> tuple[float, float]:
 
     from repro_torch.kernels import flash_attention as fa
 
-    o, lse = fa.flash_attention_fwd(q, k, v, causal, window)
+    o, lse = (fwd or fa.flash_attention_fwd)(q, k, v, causal, window)
     ro, rlse = fa.flash_attention_ref(q, k, v, causal, window)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(o).all() and torch.isfinite(lse).all()),

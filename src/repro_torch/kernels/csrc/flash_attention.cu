@@ -22,7 +22,12 @@
 // Bound: operations.  At the LM's prefill (B*H 64, T = M 4096, hd 256,
 // bf16) the causal layer needs 537.0 M unmasked (t, m) pairs x 4*hd =
 // 5.50e11 FLOP, 0.556 ms at the card's 989 TFLOP/s of bf16, against 538 MB
-// of q, k, v, o and lse, 0.161 ms at 3.35 TB/s.
+// of q, k, v, o and lse, 0.161 ms at 3.35 TB/s.  At the fault-tolerant
+// driver's [8, 64, 10, 64] f32 the bound is bytes: q, k, v and o at 1.31
+// MB each, 0.00157 ms at 3.35 TB/s, against 0.00064 ms for the causal
+// mask's 166,400 visible pairs x 4*hd FLOP at 67 TFLOP/s of f32.  There a
+// launch with nothing to do costs ~0.005 ms, and what the kernel adds to
+// it is the latency of one round of tile copies and of its two products.
 //
 // Shared by both kernels:
 //   * whole k tiles outside [q_first - window + 1, q_last] are skipped at
@@ -72,8 +77,47 @@
 // At hd 256 a block takes 193 KB of shared memory (q 64 KB, two stages of
 // k and v 128 KB), so one block (3 warpgroups) runs on an SM; the o
 // accumulator of a 64 x 256 tile is 128 registers a thread.
+//
+// The SIMT kernel (f32), 128 threads a block, laid out as the f32 K8 of
+// flash_attention_bwd.cu:
+//   * a block owns BR = 16 query rows of one (b, h), so the driver's [8,
+//     64, 10, 64] makes 320 blocks for 132 SMs (64-row blocks made 80, and
+//     52 SMs sat idle).  The grid is one-dimensional and tile-major, so
+//     every (b, h)'s heaviest causal tile comes first.
+//   * the block's q rows stay in shared memory; k and v stream in tiles of
+//     BN rows (64 at hd <= 64, 32 at hd 128, 16 at hd 256) from the block's
+//     first visible key, through a ring of cp.async copies: the next tile
+//     is issued before the current one is computed, and a tile's v is a
+//     copy group of its own, landing while S runs.  The ring has two
+//     stages when some block takes two tiles or more, else one (at the
+//     driver's shape every block's keys fit one tile, so the forward makes
+//     one pass with no rescale).  Rows past T or M land as zeros.
+//   * S = Q K^T as 2 x SC micro-tiles a thread (rows r and r + 8; keys c,
+//     c + 4, ...: 2 x 4 at hd <= 64), 2 SC independent f32 dot products
+//     with operands read from shared memory as float4 (rows padded to 4
+//     banks apart), no shuffles.  A warp owns a quarter of the tile's keys
+//     and skips them when none is in the block's span (past a causal
+//     diagonal, or the last tile's end); only a tile that straddles a
+//     mask's edge takes the per-element mask.
+//   * the online softmax runs in the log2 domain (scale*log2e folded into
+//     one constant, one exp2f a score): a row's tile max is combined over
+//     its four warps through shared memory, p = 2^(s*scale*log2e - m) goes
+//     to shared memory, and the threads of the O += P V product, each
+//     holding [16, hd]'s accumulators for its rows a float4 chunk at a
+//     time, rescale them (and sum l from the p's they read) only when the
+//     row's max moved.
+//   * a masked key scores -1e30 as in the reference: once its row has seen
+//     a visible key its weight is 2^(-1e30*log2e - m) = 0, and a row that
+//     sees no key (only when T > M + window - 1) gets weight 1 for each of
+//     the M keys its block visits (key_range), the reference's uniform
+//     softmax; its lse, (-1e30*log2e + log2 M) ln 2, rounds to -1e30.
+//   * o = acc / max(l, 1e-30), lse = (m + log2 l) * ln 2.
+// Every multiply-add is an explicit fmaf; bounded (kThreads, 1), as the f32
+// K8/K9 are, so that ptxas keeps every value in registers.
 
 #include <math.h>
+
+#include <algorithm>
 
 #include "wgmma.cuh"
 
@@ -89,170 +133,6 @@ __device__ __forceinline__ void key_range(int qa, int qb, int M, int causal,
   lo = 0;
   if (window > 0 && qb < M + window - 1)   // every row sees some key
     lo = max(0, qa - window + 1);
-}
-
-// --------------------------------------------------------------------------
-// f32: the SIMT kernel
-// --------------------------------------------------------------------------
-constexpr int kThreads = 256;
-constexpr int BK = 32;                 // keys per shared-memory tile
-
-template <int HD>
-struct Tile {
-  static constexpr int TPR = HD >= 128 ? 8 : 4;    // threads per query row
-  static constexpr int BQ = kThreads / TPR;         // query rows per block
-  static constexpr int CH = HD / (4 * TPR);         // float4 chunks a thread
-  static_assert(CH >= 1 && HD % (4 * TPR) == 0, "head_dim");
-};
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-// One block per (b*h, tile of BQ query rows); TPR threads share a query
-// row, each holding its q slice and its slice of the f32 accumulator in
-// registers (columns in float4 chunks sub, sub + TPR, ...); a score is the
-// sum of the TPR partial dots, reduced by warp shuffles; k and v tiles of
-// BK rows are staged in shared memory and read as float4 broadcasts.
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int T_len, int M, int H,
-                 int causal, int window, float scale) {
-  using S = Tile<HD>;
-  extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;                    // [BK][HD]
-  float* Vs = smem + BK * HD;          // [BK][HD]
-
-  const int tid = threadIdx.x;
-  const int row = tid / S::TPR, sub = tid % S::TPR;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * S::BQ;   // heaviest first
-  const int qi = q0 + row;
-  const bool live = qi < T_len;
-  const int64_t rs = (int64_t)H * HD;  // row stride of [B, *, H, hd]
-  const int64_t q_off = ((int64_t)b * T_len + (live ? qi : 0)) * rs +
-                        (int64_t)h * HD;
-  const float* kb = k + (int64_t)b * M * rs + (int64_t)h * HD;
-  const float* vb = v + (int64_t)b * M * rs + (int64_t)h * HD;
-
-  float4 qr[S::CH], acc[S::CH];
-#pragma unroll
-  for (int c = 0; c < S::CH; ++c) {
-    qr[c] = live ? load4(q + q_off + 4 * (sub + S::TPR * c))
-                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    acc[c] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  }
-  float m = kNegInf, l = 0.0f;
-
-  int lo, hi;                          // the keys this query tile sees
-  key_range(q0, min(q0 + S::BQ, T_len) - 1, M, causal, window, lo, hi);
-
-  for (int k0 = lo / BK * BK; k0 < hi; k0 += BK) {
-    const int nk = min(BK, M - k0);
-    __syncthreads();                   // the previous tile is consumed
-    for (int e = tid; e < BK * HD / 4; e += kThreads) {
-      const int j = e / (HD / 4), c4 = e % (HD / 4);
-      float4 kk = make_float4(0.0f, 0.0f, 0.0f, 0.0f), vv = kk;
-      if (j < nk) {
-        const int64_t off = (int64_t)(k0 + j) * rs + 4 * c4;
-        kk = load4(kb + off);
-        vv = load4(vb + off);
-      }
-      store4(Ks + j * HD + 4 * c4, kk);
-      store4(Vs + j * HD + 4 * c4, vv);
-    }
-    __syncthreads();
-
-    float s[BK];
-    float tmax = kNegInf;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      const float* kr = Ks + j * HD;
-      float part = 0.0f;
-#pragma unroll
-      for (int c = 0; c < S::CH; ++c) {
-        const float4 kk = load4(kr + 4 * (sub + S::TPR * c));
-        part = fmaf(qr[c].x, kk.x, part);
-        part = fmaf(qr[c].y, kk.y, part);
-        part = fmaf(qr[c].z, kk.z, part);
-        part = fmaf(qr[c].w, kk.w, part);
-      }
-#pragma unroll
-      for (int off = S::TPR / 2; off > 0; off >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      const int d = qi - (k0 + j);
-      const bool seen = (!causal || d >= 0) && (window <= 0 || d < window);
-      s[j] = seen ? part * scale : kNegInf;
-      if (j < nk) tmax = fmaxf(tmax, s[j]);
-    }
-    const float m_new = fmaxf(m, tmax);
-    const float alpha = expf(m - m_new);
-    float psum = 0.0f;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      s[j] = j < nk ? expf(s[j] - m_new) : 0.0f;
-      psum += s[j];
-    }
-    l = l * alpha + psum;
-#pragma unroll
-    for (int c = 0; c < S::CH; ++c) {
-      acc[c].x *= alpha;
-      acc[c].y *= alpha;
-      acc[c].z *= alpha;
-      acc[c].w *= alpha;
-    }
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      const float* vr = Vs + j * HD;
-      const float p = s[j];
-#pragma unroll
-      for (int c = 0; c < S::CH; ++c) {
-        const float4 vv = load4(vr + 4 * (sub + S::TPR * c));
-        acc[c].x = fmaf(p, vv.x, acc[c].x);
-        acc[c].y = fmaf(p, vv.y, acc[c].y);
-        acc[c].z = fmaf(p, vv.z, acc[c].z);
-        acc[c].w = fmaf(p, vv.w, acc[c].w);
-      }
-    }
-    m = m_new;
-  }
-
-  if (!live) return;
-  const float den = fmaxf(l, 1e-30f);
-#pragma unroll
-  for (int c = 0; c < S::CH; ++c) {
-    const float4 a = acc[c];
-    store4(o + q_off + 4 * (sub + S::TPR * c),
-           make_float4(a.x / den, a.y / den, a.z / den, a.w / den));
-  }
-  if (sub == 0) lse[(int64_t)bh * T_len + qi] = m + logf(den);
-}
-
-template <int HD>
-int launch_simt(const void* q, const void* k, const void* v, void* o,
-                void* lse, int B, int T_len, int M, int H, int causal,
-                int window, float scale, cudaStream_t stream) {
-  using S = Tile<HD>;
-  const int64_t tiles = ((int64_t)T_len + S::BQ - 1) / S::BQ;
-  if ((int64_t)B * H > 65535 || tiles > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = 2 * sizeof(float) * BK * HD;   // 64 KB at hd 256
-  auto kernel = flash_fwd_kernel<HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)tiles, (unsigned)(B * H));
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), T_len, M, H, causal, window, scale);
-  return (int)cudaGetLastError();
 }
 
 // --------------------------------------------------------------------------
@@ -551,6 +431,346 @@ int smem_wgmma(int hd) {
   }
 }
 
+// --------------------------------------------------------------------------
+// f32: the SIMT kernel
+// --------------------------------------------------------------------------
+constexpr int kThreads = 128;          // 4 warps
+constexpr int BR = 16;                 // query rows a block owns
+
+// The f32 tiles at head_dim HD: k and v stream in tiles of BN rows; rows in
+// shared memory are LD floats apart (HD + 4: 4 banks apart), the p array
+// [BR][PLD].  A thread's S micro-tile is 2 x SC; the [BR, HD] o
+// accumulators are split into CG column groups of ACH float4 chunks (chunk c
+// of group g at column 4 (g + CG c)) and RG row groups of AR rows (row a of
+// group r: r + RG a; at hd 16, RG = 32 and half idle).
+template <int HD>
+struct Simt {
+  static constexpr int BN = HD <= 64 ? 64 : (HD == 128 ? 32 : 16);
+  static constexpr int LD = HD + 4;
+  static constexpr int PLD = BN + 4;
+  static constexpr int SC = BN / 16;
+  static constexpr int CG = HD / 4 < 16 ? HD / 4 : 16;
+  static constexpr int ACH = HD / (4 * CG);
+  static constexpr int RG = kThreads / CG;
+  static constexpr int AR = RG >= BR ? 1 : BR / RG;
+  static_assert(BN % 16 == 0 && ACH * 4 * CG == HD && AR * RG >= BR,
+                "f32 tiles");
+  // dynamic shared memory of a block: its q rows, the ring's stages of k
+  // and v, p, and the tile's row maxima by warp
+  static constexpr int smem(int stages) {
+    return 4 * (BR * LD + stages * 2 * BN * LD + BR * PLD + 4 * BR);
+  }
+};
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+__device__ __forceinline__ float lane4(float4 a, int i) {
+  return i == 0 ? a.x : i == 1 ? a.y : i == 2 ? a.z : a.w;
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+__device__ __forceinline__ void axpy4(float a, float4 x, float4& y) {
+  y.x = fmaf(a, x.x, y.x);
+  y.y = fmaf(a, x.y, y.y);
+  y.z = fmaf(a, x.z, y.z);
+  y.w = fmaf(a, x.w, y.w);
+}
+
+__device__ __forceinline__ bool visible(int d, int causal, int window) {
+  return (!causal || d >= 0) && (window <= 0 || d < window);
+}
+
+// 16 bytes global -> shared by cp.async; zeros when !ok
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)), "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's latest copy groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copy rows [r0, r0 + n) of a [B, L, H, hd] tensor (base at (b, 0, h, 0),
+// row stride rs) into dst[ROWS][LD]; rows n.. become zeros.
+template <int HD, int ROWS>
+__device__ __forceinline__ void copy_rows(float* dst, const float* base,
+                                          int64_t rs, int r0, int n) {
+  constexpr int C4 = HD / 4;
+  for (int e = threadIdx.x; e < ROWS * C4; e += kThreads) {
+    const int j = e / C4, c = 4 * (e % C4);
+    const bool ok = j < n;
+    cp_async16(dst + j * Simt<HD>::LD + c,
+               base + (int64_t)(r0 + (ok ? j : 0)) * rs + c, ok);
+  }
+}
+
+// s[r][i] = X[row rg + 8 r] . Xt[row c + 4 i] over hd: 2 SC independent f32
+// dot products of the block's q rows and the tile's k rows.
+template <int HD>
+__device__ __forceinline__ void tile_scores(const float* X, const float* Xt,
+                                            int rg, int c,
+                                            float (&s)[2][Simt<HD>::SC]) {
+  using G = Simt<HD>;
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int i = 0; i < G::SC; ++i) s[r][i] = 0.0f;
+#pragma unroll 4
+  for (int d = 0; d < HD; d += 4) {
+    const float4 x0 = load4(X + rg * G::LD + d);
+    const float4 x1 = load4(X + (rg + 8) * G::LD + d);
+#pragma unroll
+    for (int i = 0; i < G::SC; ++i) {
+      const float4 xt = load4(Xt + (c + 4 * i) * G::LD + d);
+      s[0][i] = dot4(x0, xt, s[0][i]);
+      s[1][i] = dot4(x1, xt, s[1][i]);
+    }
+  }
+}
+
+// acc[a][c] += sum_{j < nj} P[row a][j] * V[j][chunk c] and l[a] += sum_j
+// P[row a][j], for this thread's rows ar + RG a and chunks 4 (cg + CG c);
+// nj is a multiple of 4.
+template <int HD>
+__device__ __forceinline__ void tile_pv(
+    const float* P, const float* V, int nj, int ar, int cg,
+    float4 (&acc)[Simt<HD>::AR][Simt<HD>::ACH], float (&l)[Simt<HD>::AR]) {
+  using G = Simt<HD>;
+  for (int j = 0; j < nj; j += 4) {
+    float4 pr[G::AR];
+#pragma unroll
+    for (int a = 0; a < G::AR; ++a) {
+      pr[a] = load4(P + (ar + G::RG * a) * G::PLD + j);
+      l[a] += (pr[a].x + pr[a].y) + (pr[a].z + pr[a].w);
+    }
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int c = 0; c < G::ACH; ++c) {
+        const float4 z = load4(V + (j + jj) * G::LD + 4 * (cg + G::CG * c));
+#pragma unroll
+        for (int a = 0; a < G::AR; ++a) axpy4(lane4(pr[a], jj), z, acc[a][c]);
+      }
+  }
+}
+
+// the largest of a row's four warp maxima
+__device__ __forceinline__ float row_max(const float* red, int row) {
+  return fmaxf(fmaxf(red[row], red[BR + row]),
+               fmaxf(red[2 * BR + row], red[3 * BR + row]));
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int B, int T_len, int M, int H,
+                 int causal, int window, float scale_log2, int stages) {
+  using G = Simt<HD>;
+  constexpr int LD = G::LD, BN = G::BN, SC = G::SC;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                          // [BR][LD] the block's q rows
+  float* ring = Qs + BR * LD;                // stages x (k, v) [BN][LD]
+  float* Ps = ring + stages * 2 * BN * LD;   // [BR][PLD] p of a tile
+  float* red = Ps + BR * G::PLD;             // [4][BR] row maxima by warp
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rg = lane % 8, col = 4 * SC * warp + lane / 8;  // S: rows, keys
+  const int ar = tid / G::CG, cg = tid % G::CG;             // o's share
+  const int bhn = B * H, bh = blockIdx.x % bhn, b = bh / H, h = bh % H;
+  const int nq = (T_len + BR - 1) / BR, rank = blockIdx.x / bhn;
+  const int q0 = (causal ? nq - 1 - rank : rank) * BR;   // heaviest first
+  const int q_last = min(q0 + BR, T_len) - 1;
+  int lo, hi;                            // the keys this block visits
+  key_range(q0, q_last, M, causal, window, lo, hi);
+  const int n = hi > lo ? (hi - lo + BN - 1) / BN : 0;   // key tiles
+  const int64_t rs = (int64_t)H * HD, hoff = (int64_t)h * HD;
+  const float* kb = k + (int64_t)b * M * rs + hoff;
+  const float* vb = v + (int64_t)b * M * rs + hoff;
+  // copy groups: q with k of tile 0, then v of tile 0 (stage 0), so v
+  // lands while the S product runs
+  copy_rows<HD, BR>(Qs, q + (int64_t)b * T_len * rs + hoff, rs, q0,
+                    q_last - q0 + 1);
+  copy_rows<HD, BN>(ring, kb, rs, lo, min(BN, hi - lo));
+  cp_async_commit();
+  copy_rows<HD, BN>(ring + BN * LD, vb, rs, lo, min(BN, hi - lo));
+  cp_async_commit();
+
+  // running maxima (log2 domain) of the S rows rg + 8 r and of the o rows
+  // ar + RG a; l and the o accumulators of the latter
+  float ms[2] = {kNeg2, kNeg2}, mo[G::AR], l[G::AR];
+  float4 acc[G::AR][G::ACH];
+#pragma unroll
+  for (int a = 0; a < G::AR; ++a) {
+    mo[a] = kNeg2;
+    l[a] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < G::ACH; ++c) acc[a][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const bool owner = ar < BR;            // the thread holds o rows
+
+  for (int i = 0; i < n; ++i) {
+    const int t0 = lo + i * BN, nk = min(BN, hi - t0);
+    const float* Ks = ring + (i % stages) * 2 * BN * LD;
+    const float* Vs = Ks + BN * LD;
+    cp_async_wait<1>();
+    __syncthreads();       // k of tile i landed; the other stage, Ps, red
+                           // are free
+    if (i + 1 < n) {       // key tile i + 1 into its stage: k, then v
+      const int u0 = t0 + BN;
+      float* dst = ring + (i + 1) % stages * 2 * BN * LD;
+      copy_rows<HD, BN>(dst, kb, rs, u0, min(BN, hi - u0));
+      cp_async_commit();
+      copy_rows<HD, BN>(dst + BN * LD, vb, rs, u0, min(BN, hi - u0));
+      cp_async_commit();
+    }
+    // every key of the tile visible to every row of the block: no mask
+    const bool full = (!causal || t0 + nk - 1 <= q0) &&
+                      (window <= 0 || q0 + BR - 1 - t0 < window);
+    const bool busy = 4 * SC * warp < nk;   // the warp's keys in the span
+    float s[2][SC], mx[2] = {kNeg2, kNeg2};
+    if (busy) {
+      tile_scores<HD>(Qs, Ks, rg, col, s);
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int c = 0; c < SC; ++c) {
+          const int j = col + 4 * c;
+          if (j < nk && (full || visible(q0 + rg + 8 * r - (t0 + j), causal,
+                                         window)))
+            mx[r] = fmaxf(mx[r], s[r][c] * scale_log2);
+        }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 8));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 16));
+      if (lane < 8) red[warp * BR + rg + 8 * r] = mx[r];
+    }
+    __syncthreads();       // the tile's row maxima by warp
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(ms[r], row_max(red, rg + 8 * r));
+      if (busy)
+#pragma unroll
+        for (int c = 0; c < SC; ++c) {
+          const int j = col + 4 * c;
+          float p = 0.0f;                // past the span: no weight
+          if (j < nk) {
+            p = full || visible(q0 + rg + 8 * r - (t0 + j), causal, window)
+                    ? exp2f(fmaf(s[r][c], scale_log2, -m_new))
+                    : exp2f(kNeg2 - m_new);   // a masked key scores -1e30
+          }
+          Ps[(rg + 8 * r) * G::PLD + j] = p;
+        }
+      ms[r] = m_new;
+    }
+    if (owner)
+#pragma unroll
+      for (int a = 0; a < G::AR; ++a) {  // rescale o where the max moved
+        const float m_new = fmaxf(mo[a], row_max(red, ar + G::RG * a));
+        if (m_new != mo[a]) {
+          const float alpha = exp2f(mo[a] - m_new);
+          l[a] *= alpha;
+#pragma unroll
+          for (int c = 0; c < G::ACH; ++c) {
+            acc[a][c].x *= alpha;
+            acc[a][c].y *= alpha;
+            acc[a][c].z *= alpha;
+            acc[a][c].w *= alpha;
+          }
+          mo[a] = m_new;
+        }
+      }
+    if (i + 1 < n)         // v of tile i landed (tile i + 1 in flight)
+      cp_async_wait<2>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();       // p and v of the tile
+    if (owner) tile_pv<HD>(Ps, Vs, (nk + 3) & ~3, ar, cg, acc, l);
+  }
+  cp_async_wait<0>();
+
+  if (!owner) return;
+#pragma unroll
+  for (int a = 0; a < G::AR; ++a) {
+    const int t = q0 + ar + G::RG * a;
+    if (t >= T_len) continue;
+    const float den = fmaxf(l[a], 1e-30f);
+    float* row = o + ((int64_t)b * T_len + t) * rs + hoff;
+#pragma unroll
+    for (int c = 0; c < G::ACH; ++c) {
+      const float4 x = acc[a][c];
+      store4(row + 4 * (cg + G::CG * c),
+             make_float4(x.x / den, x.y / den, x.z / den, x.w / den));
+    }
+    if (cg == 0)
+      lse[(int64_t)bh * T_len + t] = (mo[a] + log2f(den)) * kLn2;
+  }
+}
+
+// The ring's stages: two when some block takes more than one key tile, else
+// one.  A block's keys number at most M, under a causal mask at most T, and
+// under a causal mask with a window at most BR + window - 1 -- unless a row
+// sees no key (T > M + window - 1), whose block visits all M.
+int simt_stages(int T_len, int M, int causal, int window, int bn) {
+  int64_t span = causal ? std::min(M, T_len) : M;
+  if (causal && window > 0 && (int64_t)T_len <= (int64_t)M + window - 1)
+    span = std::min<int64_t>(span, BR + (int64_t)window - 1);
+  return span > bn ? 2 : 1;
+}
+
+template <int HD>
+int launch_simt(const void* q, const void* k, const void* v, void* o,
+                void* lse, int B, int T_len, int M, int H, int causal,
+                int window, float scale, cudaStream_t stream) {
+  using G = Simt<HD>;
+  const int64_t blocks = (int64_t)B * H * ((T_len + BR - 1) / BR);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int stages = simt_stages(T_len, M, causal, window, G::BN);
+  auto kernel = flash_fwd_kernel<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::smem(stages));
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)blocks, kThreads, G::smem(stages), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), B, T_len, M, H, causal, window,
+      scale * kLog2e, stages);
+  return (int)cudaGetLastError();
+}
+
+int smem_simt(int hd) {
+  switch (hd) {
+    case 16: return Simt<16>::smem(2);
+    case 32: return Simt<32>::smem(2);
+    case 64: return Simt<64>::smem(2);
+    case 128: return Simt<128>::smem(2);
+    case 256: return Simt<256>::smem(2);
+    default: return -1;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -559,10 +779,11 @@ const char* repro_flash_attention_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Dynamic shared memory a block of the route for (hd, bf16) takes, or -1.
+// Dynamic shared memory a block of the route for (hd, bf16) takes, or -1;
+// on the f32 route with two ring stages (a launch whose blocks take one key
+// tile each takes one).
 int repro_flash_attention_smem_bytes(int hd, int bf16) {
-  if (bf16) return smem_wgmma(hd);
-  return smem_wgmma(hd) < 0 ? -1 : (int)(2 * sizeof(float) * BK * hd);
+  return bf16 ? smem_wgmma(hd) : smem_simt(hd);
 }
 
 // q [B, T, H, hd], k and v [B, M, H, hd], o like q, lse [B*H, T] f32; all

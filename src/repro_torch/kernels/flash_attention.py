@@ -82,6 +82,24 @@ def simt_bwd_smem_bytes(dkv: bool, hd: int, stages: int = 2) -> int:
                 + (2 if dkv else 1) * rows * (bn + 4) + (0 if dkv else 4 * rows))
 
 
+# the f32 forward kernel's tiles (csrc/flash_attention.cu, Simt<HD>): a block
+# owns SIMT_FWD_ROWS query rows, k and v stream in tiles of simt_fwd_tile(hd)
+# rows from the block's first visible key
+SIMT_FWD_ROWS = 16
+
+
+def simt_fwd_tile(hd: int) -> int:
+    """Rows of the k and v tiles the f32 K7 streams."""
+    return 64 if hd <= 64 else 32 if hd == 128 else 16
+
+
+def simt_fwd_smem_bytes(hd: int, stages: int = 2) -> int:
+    """Dynamic shared memory of an f32 K7 block: its q rows, ``stages``
+    tiles of k and v, the p array and the tile's row maxima (4 warps)."""
+    rows, bn, ld = SIMT_FWD_ROWS, simt_fwd_tile(hd), hd + 4
+    return 4 * (rows * ld + stages * 2 * bn * ld + rows * (bn + 4) + 4 * rows)
+
+
 class _Totals(Mapping):
     """Each kernel's launches over both routes, read from
     :data:`ROUTE_LAUNCHES` (the one count kept)."""
@@ -278,8 +296,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: int = 0
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """K7: (o, lse) of q [B, T, H, hd] against k/v [B, M, H, hd]; f32 or
-    bf16, head_dim in :data:`HEAD_DIMS`; one block per (b*h, query tile),
-    on the route :data:`ROUTES` names for the type."""
+    bf16, head_dim in :data:`HEAD_DIMS`; one block per (b*h, query tile:
+    128 rows in bf16, :data:`SIMT_FWD_ROWS` in f32), on the route
+    :data:`ROUTES` names for the type."""
     if not check_input(q, "flash_attention", lambda s: len(s) == 4,
                        "q of [B, T, H, hd]", dtypes=DTYPES):
         return flash_attention_ref(q, k, v, causal, window)

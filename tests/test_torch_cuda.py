@@ -491,6 +491,63 @@ def test_simt_backward_at_lengths_off_its_tiles_on_card(cuda_device, hd, T,
     _simt_backward_matches_plain_version(q, k, v, do, causal, window)
 
 
+def _simt_forward_matches_plain_version(q, k, v, causal, window):
+    """f32 K7, one ``simt_f32`` launch, against its plain version: o within
+    2e-5 of max |o| and of 2e-5 (|o| + rms(o)) element by element, lse
+    within 1e-5 of max(1, |lse|)."""
+    fa.reset_launches()
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, window)
+    want_o, want_lse = fa.flash_attention_ref(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert fa.ROUTE_LAUNCHES["flash_attention"] == {"wgmma_bf16": 0,
+                                                    "simt_f32": 1}
+    assert o.dtype == torch.float32 and lse.shape == want_lse.shape
+    diff = (o - want_o).abs()
+    rms = want_o.square().mean().sqrt()
+    assert diff.max() <= 2e-5 * want_o.abs().max()
+    assert (diff <= 2e-5 * (want_o.abs() + rms)).all()
+    assert ((lse - want_lse).abs() <= 1e-5 * want_lse.abs().clamp(min=1.0)
+            ).all()
+
+
+@pytest.mark.parametrize("causal,window", [(True, 32), (True, 0)])
+def test_simt_forward_at_the_drivers_shape_on_card(cuda_device, causal,
+                                                   window):
+    """The fault-tolerant driver's attention, [8, 64, 10, 64] f32: 320
+    blocks of one key tile each."""
+    g = torch.Generator(cuda_device).manual_seed(640 + window)
+    q, k, v = (torch.randn((8, 64, 10, 64), generator=g, device=cuda_device)
+               for _ in range(3))
+    _simt_forward_matches_plain_version(q, k, v, causal, window)
+
+
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+@pytest.mark.parametrize("T,M,causal,window", [
+    (1, 17, False, 0), (15, 15, True, 0), (17, 17, True, 0),
+    (15, 15, False, 0), (17, 17, False, 0),
+    (300, 200, True, 40), (300, 200, False, 40),    # rows 239.. see no key
+    (256, 256, True, 0), (256, 256, False, 0)])     # several key tiles
+def test_simt_forward_at_lengths_off_its_blocks_and_tiles_on_card(
+        cuda_device, hd, T, M, causal, window):
+    """f32 K7 where T or M is off the 16-row blocks and the key tiles, with
+    one or two ring stages and the online rescale; then f32 K8 and K9 from
+    its lse against their plain versions (T = 1 sees M = 17 keys: see
+    test_simt_backward_at_lengths_off_its_tiles_on_card)."""
+    g = torch.Generator(cuda_device).manual_seed(7 * T + M + hd)
+    q, k, v, do = (torch.randn((2, L, 2, hd), generator=g,
+                               device=cuda_device) for L in (T, M, M, T))
+    _simt_forward_matches_plain_version(q, k, v, causal, window)
+    _simt_backward_matches_plain_version(q, k, v, do, causal, window)
+
+
+def test_simt_forward_shared_memory_matches_the_python_reckoning(
+        cuda_device):
+    lib = fa.library()
+    for hd in fa.HEAD_DIMS:
+        assert (lib.repro_flash_attention_smem_bytes(hd, 0)
+                == fa.simt_fwd_smem_bytes(hd))
+
+
 def test_reduced_train_step_on_card_runs_k7_k8_k9_per_layer(cuda_device):
     from repro_torch.core.tree import tree_map
     from repro_torch.launch.steps import make_train_step

@@ -17,7 +17,10 @@ ragged T and M (off any tile); tolerances are that file's, 2e-5 in f32 and
 The bf16 kernel's arithmetic (tensor-core products, the online softmax in
 the log2 domain, p carried into P.V as two bf16 terms) is emulated here in
 plain torch, in its order of operations, and held to the plain version
-with ``chip_smoke.flash_err``'s element-wise bf16 limit.
+with ``chip_smoke.flash_err``'s element-wise bf16 limit.  The f32 SIMT
+kernel's blocks and key tiles (its online softmax in the log2 domain, the
+rescale, the rows that see no key) are emulated too, and held to the JAX
+reference with the f32 limits.
 """
 import math
 
@@ -209,3 +212,117 @@ def test_tensor_core_arithmetic_meets_the_element_wise_bf16_limit(
     o, lse = _emulate_tensor_core_kernel(q, k, v, causal, window)
     worst, dl = _share_of_bf16_limit(o, lse, q, k, v, causal, window)
     assert worst <= 1.0 and dl <= 1e-5, (worst, dl)
+
+
+# --------------------------------------------------------------------------- #
+# the f32 SIMT kernel's blocks and tiles, emulated on the CPU
+# --------------------------------------------------------------------------- #
+def _key_range(qa, qb, M, causal, window):
+    """``key_range`` of ``csrc/flash_attention.cu``: the keys [lo, hi) that
+    query rows [qa, qb] visit; every key when one of them sees none."""
+    hi = min(M, qb + 1) if causal else M
+    lo = max(0, qa - window + 1) if window > 0 and qb < M + window - 1 else 0
+    return lo, hi
+
+
+def _emulate_simt_fwd(q, k, v, causal, window):
+    """``flash_fwd_kernel`` block by block and tile by tile, in f32: a block
+    owns ``fa.SIMT_FWD_ROWS`` query rows, k and v stream in tiles of
+    ``fa.simt_fwd_tile(hd)`` keys from the block's first visible key
+    (``_key_range``).  Per tile, in the log2 domain: the row's max m over
+    its visible scores s * scale*log2e (one f32 constant), p =
+    exp2(fmaf(s, scale*log2e, -m_new)) for a visible key, exp2(-1e30*log2e
+    - m_new) for a masked one inside the span (weight 1 while the row has
+    seen nothing, else 0); l and o rescaled by exp2(m - m_new) where the max
+    moved, then l += sum p, o += p v.  o = acc / max(l, 1e-30), lse = (m +
+    log2 l) ln 2.  Returns (o, lse [B*H, T], stats): the blocks launched,
+    the most key tiles a block takes and the rescales of a row that had
+    seen a visible key.  The order of the sums inside a tile's products is
+    not emulated."""
+    B, T, H, hd = q.shape
+    M = k.shape[1]
+    br, bn = fa.SIMT_FWD_ROWS, fa.simt_fwd_tile(hd)
+    qf, kf, vf = (x.float().permute(0, 2, 1, 3) for x in (q, k, v))
+    sl2 = torch.tensor(np.float32(1.0 / math.sqrt(hd)) * LOG2E)
+    neg = torch.tensor(np.float32(-1e30) * LOG2E)
+    vis = fa.visible(T, M, causal, window)
+    o, lse = torch.zeros_like(qf), torch.zeros((B, H, T))
+    stats = {"blocks": B * H * -(-T // br), "most": 0, "rescaled": 0}
+    for q0 in range(0, T, br):
+        q1 = min(q0 + br, T)
+        lo, hi = _key_range(q0, q1 - 1, M, causal, window)
+        m = torch.full((B, H, q1 - q0, 1), float(neg))
+        l = torch.zeros((B, H, q1 - q0, 1))
+        acc = torch.zeros((B, H, q1 - q0, hd))
+        tiles = range(lo, hi, bn)
+        stats["most"] = max(stats["most"], len(tiles))
+        for t0 in tiles:
+            t1 = min(t0 + bn, hi)
+            seen = vis[q0:q1, t0:t1]
+            s = qf[:, :, q0:q1] @ kf[:, :, t0:t1].transpose(-1, -2)
+            m_new = torch.maximum(m, torch.where(seen, s * sl2, neg)
+                                  .amax(-1, keepdim=True))
+            p = torch.where(seen, torch.exp2(_fmaf(s, sl2, -m_new)),
+                            torch.exp2(neg - m_new))
+            moved = m_new != m
+            stats["rescaled"] += int((moved & (m > neg)).sum())
+            alpha = torch.exp2(m - m_new)
+            l = torch.where(moved, l * alpha, l) + p.sum(-1, keepdim=True)
+            acc = (torch.where(moved, acc * alpha, acc)
+                   + p @ vf[:, :, t0:t1])
+            m = m_new
+        den = l.clamp(min=1e-30)
+        o[:, :, q0:q1] = acc / den
+        lse[:, :, q0:q1] = ((m + torch.log2(den)) * LN2)[..., 0]
+    return o.permute(0, 2, 1, 3), lse.reshape(B * H, T), stats
+
+
+# the driver run's attention ([8, 64, 10, 64] as (B, T, H, M)) at every
+# head_dim, under causal masks with and without a window and no mask; T =
+# 300, M = 200 under window 40, where rows 239.. see no key; T = M = 256 at
+# hd 64, where a block takes up to four key tiles and the rescale runs
+SIMT_MASKS = [(True, 0), (True, 32), (True, 64), (False, 0)]
+SIMT_CASES = ([((8, 64, 10, 64), causal, window, hd) for hd in fa.HEAD_DIMS
+               for causal, window in SIMT_MASKS]
+              + [((1, 300, 2, 200), causal, 40, hd) for hd in fa.HEAD_DIMS
+                 for causal in (True, False)]
+              + [((1, 256, 2, 256), causal, window, 64)
+                 for causal, window in SIMT_MASKS])
+
+
+@pytest.mark.parametrize("shape,causal,window,hd", SIMT_CASES,
+                         ids=lambda x: ("x".join(map(str, x))
+                                        if isinstance(x, tuple) else str(x)))
+def test_simt_forward_tiles_meet_the_f32_limits(shape, causal, window, hd):
+    B, T, H, M = shape
+    arrs = _inputs(B, T, H, hd, M, seed=T + M + hd + window)
+    want_o, want_lse = _jax_oracle(*(jnp.asarray(a) for a in arrs), causal,
+                                   window)
+    o, lse, stats = _emulate_simt_fwd(*(torch.from_numpy(a) for a in arrs),
+                                      causal, window)
+    diff = np.abs(o.numpy() - want_o)
+    rms = np.sqrt(np.mean(np.square(want_o)))
+    assert diff.max() <= 2e-5 * np.abs(want_o).max()
+    assert (diff <= 2e-5 * (np.abs(want_o) + rms)).all(), \
+        float(np.max(diff / (2e-5 * (np.abs(want_o) + rms))))
+    assert (np.abs(lse.numpy() - want_lse)
+            <= 1e-5 * np.maximum(1.0, np.abs(want_lse))).all()
+    if T == 300:                           # its last rows see no key
+        np.testing.assert_allclose(o.numpy()[:, -1], arrs[2].mean(1),
+                                   rtol=1e-5, atol=1e-5)
+    if T == 256 and window == 0:           # several tiles: the max moves
+        assert stats["most"] == 256 // fa.simt_fwd_tile(hd)
+        assert stats["rescaled"] > 0
+
+
+def test_simt_forward_geometry_fills_the_card_at_the_drivers_shape():
+    """Every head_dim's block fits the 227 KB a block may take; the driver
+    run's [8, 64, 10, 64] makes 320 blocks of one key tile each under both
+    of its masks (so the ring has one stage and no row is rescaled)."""
+    for hd in fa.HEAD_DIMS:
+        assert fa.simt_fwd_smem_bytes(hd, 1) < fa.simt_fwd_smem_bytes(hd)
+        assert fa.simt_fwd_smem_bytes(hd) <= 232_448
+    arrs = [torch.from_numpy(a) for a in _inputs(8, 64, 10, 64, 64, seed=1)]
+    for window in (32, 0):
+        *_, stats = _emulate_simt_fwd(*arrs, True, window)
+        assert stats == {"blocks": 320, "most": 1, "rescaled": 0}

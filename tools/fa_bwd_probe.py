@@ -60,22 +60,25 @@ VARIANTS = {"no_dots": (((DOTS, DOTS.replace("d < HD", "d < 0")),), False),
                         True)}
 
 
-def build_libraries(others: list, variants: bool) -> dict:
-    """{name: (library, exact)}: the other trees' and this checkout's
-    variants, built at once with the port's flags."""
-    out = build.BUILD_DIR.parent / "fa_bwd_probe"
+def build_libraries(source: str, others: list, variants: dict,
+                    typed) -> dict:
+    """{name: (library, exact)}: ``csrc/<source>.cu`` of the other trees
+    and this checkout's ``variants`` ({name: (anchored edits, exact)}),
+    built at once with the port's flags; ``typed(lib)`` declares each
+    library's argument types."""
+    out = build.BUILD_DIR.parent / f"{source}_probe"
     out.mkdir(parents=True, exist_ok=True)
     sources = {}
     for i, other in enumerate(others):
         sources[f"other{i + 1 if i else ''}"] = (
-            other / "flash_attention_bwd.cu", other, True)
-    src = (build.CSRC / "flash_attention_bwd.cu").read_text()
-    for name, (edits, exact) in (VARIANTS.items() if variants else ()):
+            other / f"{source}.cu", other, True)
+    src = (build.CSRC / f"{source}.cu").read_text()
+    for name, (edits, exact) in variants.items():
         text = src
         for old, new in edits:
             if text.count(old) != 1:
-                raise SystemExit(f"flash_attention_bwd.cu changed: no "
-                                 f"single line {old!r}")
+                raise SystemExit(f"{source}.cu changed: no single line "
+                                 f"{old!r}")
             text = text.replace(old, new)
         (out / f"{name}.cu").write_text(text)
         sources[name] = (out / f"{name}.cu", build.CSRC, exact)
@@ -91,12 +94,16 @@ def build_libraries(others: list, variants: bool) -> dict:
             raise SystemExit(f"nvcc failed for {name}:\n{log}")
         report(name, log)
         lib = ctypes.CDLL(str(out / f"lib{name}.so"))
-        for fn, n_ptr in ((lib.repro_flash_attention_bwd_dq, 7),
-                          (lib.repro_flash_attention_bwd_dkv, 8)):
-            fn.argtypes = [_P] * n_ptr + [_I] * 8 + [_F, _P]
-            fn.restype = ctypes.c_int
+        typed(lib)
         libs[name] = (lib, sources[name][2])
     return libs
+
+
+def typed_bwd(lib) -> None:
+    for fn, n_ptr in ((lib.repro_flash_attention_bwd_dq, 7),
+                      (lib.repro_flash_attention_bwd_dkv, 8)):
+        fn.argtypes = [_P] * n_ptr + [_I] * 8 + [_F, _P]
+        fn.restype = ctypes.c_int
 
 
 def report(name: str, log: str) -> None:
@@ -147,7 +154,8 @@ def main() -> int:
     others = [Path(a).resolve() for a in args if a != "--variants"]
     libs = {"this": (fa.bwd_library(), True)}
     report("this", build.build_logs.get("flash_attention_bwd", ""))
-    libs.update(build_libraries(others, variants))
+    libs.update(build_libraries("flash_attention_bwd", others,
+                                VARIANTS if variants else {}, typed_bwd))
     floor = cs.device_ms(lambda t: t.add_(1.0), [
         (torch.zeros(1, device="cuda"),)], label="launch floor")
     g = torch.Generator("cuda").manual_seed(23)
