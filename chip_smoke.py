@@ -38,7 +38,13 @@ version there:
   AdamW; ~28 GB of weights, gradients and moments): K7 on every
   self-attention's forward and its recompute, K8 and K9 on its backward;
   then ``FaultTolerantDriver`` over ``examples/train_100m.py``'s widths
-  with a checkpoint store and one scripted step fault.
+  with a checkpoint store and one scripted step fault;
+* the moe family at moonshot-v1-16b-a3b's full widths (d 2048, 16 heads x
+  128, 64 experts, top 6, d_ff 1408, vocab 163840; bf16, the router f32):
+  ``serve_lm`` at 6 of its 48 layers (~7.5 GB of weights; 4 prompts of 4096
+  tokens through the einsum dispatch, 32 greedy tokens through the sort
+  dispatch; K7 on every prefill self-attention), and training at 2 layers
+  (batch 2 x 4096, loss chunk 512, per-layer remat, AdamW; K7-K9).
 
 Phases:
 
@@ -111,13 +117,35 @@ Phases:
               step against a plain-attention step (loss and every gradient
               leaf within 2.5e-2), and the driver at 100M widths (f32, the
               SIMT route): 80 steps, 1 restart, the loss falls
-8. the ``kernels`` JSON line, the nvidia-smi line, and the result line
+8. moe      — moonshot-v1-16b-a3b, gated only on what no near-tie in the
+              routing and no second device decides: (a) the card's f32
+              router logits within 1e-5 of a float64 product on the card,
+              its top-k off the float64 routing only within a tie gap (8x
+              the measured logits error), its kept set equal to the plain
+              capacity rule on its own choices; (b) moe_apply against
+              moe_ref under its own routing (einsum prefill and sort
+              decode, and both with no drops; bf16 2e-2, f32 2e-4 of
+              max|ref|); K7 at the serving shape element by element;
+              serve_lm: 6 K7 launches, finite logits, (c) served twice bit
+              for bit; (d) decode against LM.apply over prompt +
+              generated, gated in f32 with the rerun's routing pinned
+              (1e-4), printed in bf16 with flips by layer; (e) 4 training
+              steps (the loss falls, launches, routes), the kernel step
+              against a plain-attention step with its routing pinned (loss
+              1e-3) and each leaf's gradient error within 1.5x an SDPA
+              control's, every gradient finite, the total loss's parts,
+              K8/K9 at [2, 4096, 16, 128] element by element; (f) prefill
+              and decode ms, tokens/s, step ms, peak GB, idle share and the
+              card ms by range (route, dispatch, experts, combine, K7)
+9. the ``kernels`` JSON line, the nvidia-smi line, and the result line;
+   a ``[time] <phase> <seconds>`` line after each phase
 
 Any failed check raises: the script then exits non-zero without the result
 line.  Imports nothing of JAX or the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 import json
@@ -187,6 +215,13 @@ REPLAN = dict(seq_len=512, profile=8, in_flight=4, after=8, min_samples=4,
 # the continuous-decode phase: 12 greedy sessions of 16 steps over KV slots
 # (12 slots of 17 positions a layer), groups of 4
 DECODE = dict(sessions=12, steps=16, max_batch=4, max_seq=17)
+# the moe family: moonshot-v1-16b-a3b at full widths, served at 6 of its 48
+# layers (4 prompts of 4096 tokens, 32 new tokens), its decode held to a
+# full-prefix rerun at batch 1 x 1024 (16 tokens), trained at 2 layers
+# (batch 2 x 4096, 4 steps)
+MOE = dict(arch="moonshot-v1-16b-a3b", layers=6, batch=4, prompt_len=4096,
+           tokens=32, decode_prompt=1024, decode_tokens=16, train_layers=2,
+           train_batch=2, train_seq=4096, train_steps=4, lr=3e-3)
 
 
 class SmokeFailure(RuntimeError):
@@ -1454,11 +1489,15 @@ def sdpa_backend(qt, kt, vt, mask, is_causal: bool) -> str:
                  if int(b) == i), str(i))
 
 
-def device_profile(fn, groups: dict | None = None) -> dict:
+def device_profile(fn, groups: dict | None = None,
+                   ranges: str | None = None) -> dict:
     """One run of ``fn`` under torch.profiler: the card's busy ms (the sum of
     its kernels' self times), the window's wall ms, the idle share, the
-    kernels that took the most time, and (``groups``: label -> substring of
-    a kernel's name) the summed ms of each group."""
+    kernels that took the most time, (``groups``: label -> substring of a
+    kernel's name) the summed ms of each group, and (``ranges``: a prefix
+    of ``record_function`` names) the card ms of the kernels launched
+    inside each such range.  A range also shows on the card's timeline as
+    an annotation, which is left out of the kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1470,10 +1509,15 @@ def device_profile(fn, groups: dict | None = None) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    ev = prof.key_averages()
+
+    def ranged(e) -> bool:
+        return ranges is not None and e.key.startswith(ranges)
+
     kern = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0), reverse=True)
+                   for e in ev if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0 and not ranged(e)),
+                  reverse=True)
     busy = sum(k[0] for k in kern)
     return {"wall_ms": wall, "device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / wall if kern else None,
@@ -1481,7 +1525,9 @@ def device_profile(fn, groups: dict | None = None) -> dict:
             "top": [{"ms": ms, "count": n, "name": name[:90]}
                     for ms, n, name in kern[:8]],
             "groups": {g: sum(ms for ms, _, name in kern if sub in name)
-                       for g, sub in (groups or {}).items()}}
+                       for g, sub in (groups or {}).items()},
+            "ranges": {e.key: e.device_time_total / 1e3 for e in ev
+                       if ranged(e) and e.device_type == DeviceType.CPU}}
 
 
 def profile_lm(model, params, ids, n_decode: int) -> dict:
@@ -1632,7 +1678,7 @@ def phase_lm(small_err: float):
 
     # the decode loop's logits against LM.apply over prompt + generated
     full = torch.cat([ids, torch.as_tensor(st["ids"], device="cuda")], dim=1)
-    h = model.apply(params, full)                        # K7 at T = 4128
+    h, _ = model.apply(params, full)                     # K7 at T = 4128
     want = model.logits(params, h[:, P - 1:P + N])
     got = st["logits"]
     check(got.shape == want.shape == (B, N + 1, cfg.vocab),
@@ -2114,12 +2160,12 @@ def phase_train() -> tuple[dict, dict]:
     b = {"ids": torch.as_tensor(batch.ids, device="cuda").long(),
          "labels": torch.as_tensor(batch.labels, device="cuda").long(),
          "mask": torch.as_tensor(batch.mask, device="cuda")}
-    k_loss, k_grads = loss_and_grads(model, state["params"], b)
+    k_loss, k_grads, _ = loss_and_grads(model, state["params"], b)
     real = ops.attention
     ops.attention = (lambda q, k, v, causal=True, window=0:
                      fa.flash_attention_ref(q, k, v, causal, window)[0])
     try:
-        p_loss, p_grads = loss_and_grads(model, state["params"], b)
+        p_loss, p_grads, _ = loss_and_grads(model, state["params"], b)
     finally:
         ops.attention = real
     torch.cuda.synchronize()
@@ -2198,31 +2244,641 @@ def phase_driver() -> tuple[dict, dict]:
     return counts, out
 
 
+# --------------------------------------------------------------------------- #
+# 8. the moe family: moonshot-v1-16b-a3b served and trained
+# --------------------------------------------------------------------------- #
+@contextlib.contextmanager
+def routing_hook(fn):
+    """Run with ``moe.ROUTING_HOOK`` set to ``fn``."""
+    from repro_torch.models import moe
+
+    moe.ROUTING_HOOK = fn
+    try:
+        yield
+    finally:
+        moe.ROUTING_HOOK = None
+
+
+def recorder(rec: dict):
+    """A routing hook that keeps every choice and appends (idx, logits) to
+    ``rec[router.data_ptr()]``: each layer's router is its own view of the
+    stacked weights, so the key names the layer."""
+    def hook(router, logits, idx):
+        rec.setdefault(router.data_ptr(), []).append((idx, logits.detach()))
+        return idx
+    return hook
+
+
+def pinner(rec: dict, at: list):
+    """A routing hook that replaces each layer's choices with the first ones
+    ``rec`` holds for it, at the positions ``at[0]`` (a slice)."""
+    def hook(router, logits, idx):
+        return rec[router.data_ptr()][0][0][:, at[0]]
+    return hook
+
+
+def same_set(a, b):
+    """[..., k] indices → [...] bool: the two top-k sets are equal."""
+    import torch
+
+    return (torch.sort(a, dim=-1).values == torch.sort(b, dim=-1).values
+            ).all(-1)
+
+
+def keep_rule(idx, C: int, E: int, mode: str):
+    """The plain capacity rule under the choices ``idx`` [G, N, k]: an
+    assignment is kept when fewer than C earlier ones chose its expert;
+    sort ranks them in token order, einsum in k-slot order (GShard)."""
+    import torch
+    import torch.nn.functional as F
+
+    oh = F.one_hot(idx, E)                                  # [G, N, k, E]
+    if mode == "sort":
+        per_tok = oh.sum(2)
+        pos = torch.gather(per_tok.cumsum(1) - per_tok, 2, idx)
+    else:
+        lvl = oh.sum(1)                                     # [G, k, E]
+        ahead = (lvl.cumsum(1) - lvl)[:, None] + oh.cumsum(1) - oh
+        pos = torch.gather(ahead, 3, idx[..., None])[..., 0]
+    return pos < C
+
+
+def moe_routing_check(p, x, cfg, label: str) -> dict:
+    """moe_apply on the card at ``x``'s shape (the main path's dispatch):
+    (a) its f32 router logits against a float64 product of the same inputs
+    on the card (gated at 1e-5 of the largest), its top-k against the
+    float64 routing (gated only outside a tie gap of 8x the measured logits
+    error), its keep mask against the plain capacity rule on its own
+    choices (gated: equal); (b) its output against ``moe_ref`` under its
+    own routing (bf16: 2e-2 of max|ref|)."""
+    import torch
+
+    from repro_torch.models import moe
+
+    routing = {}
+    y, aux = moe.moe_apply(p, x, cfg.top_k, cfg.moe_capacity_factor,
+                           routing=routing)
+    torch.cuda.synchronize()
+    G, C, k = routing["G"], routing["C"], cfg.top_k
+    d = x.shape[-1]
+    E = p["router"].shape[1]
+    l64 = torch.einsum("gnd,de->gne", x.reshape(G, -1, d).double(),
+                       p["router"].double())
+    dl = (routing["logits"].double() - l64).abs().max().item()
+    lerr = dl / l64.abs().max().item()
+    check(lerr <= 1e-5, f"{label}: f32 router logits off by {lerr} of the "
+                        f"largest float64 logit (limit 1e-5)")
+    p64 = torch.softmax(l64, dim=-1)
+    top64 = torch.topk(p64, k + 1, dim=-1)
+    gap64 = top64.values[..., k - 1] - top64.values[..., k]
+    idx = routing["idx"]
+    # assignments [G, N, k] whose expert the float64 routing does not pick
+    other = ~(idx[..., :, None] == top64.indices[..., None, :k]).any(-1)
+    tie = 8.0 * dl
+    n_flip = int(other.sum())
+    outside = int((other & (gap64 > tie)[..., None]).sum())
+    check(outside == 0, f"{label}: {outside} assignments differ from the "
+                        f"float64 routing outside its tie gap of {tie}")
+    keep = routing["keep"]
+    check(torch.equal(keep, keep_rule(idx, C, E, routing["mode"])),
+          f"{label}: the kept set differs from the capacity rule on the "
+          f"card's own choices")
+    keep64 = keep_rule(top64.indices[..., :k], C, E, routing["mode"])
+    n_keep = int((keep != keep64).sum())
+    ref = moe.moe_ref(p, x.reshape(-1, d), idx.reshape(-1, k),
+                      routing["gate"].reshape(-1, k), keep.reshape(-1, k))
+    err = ((y.reshape(-1, d).float() - ref).abs().max()
+           / ref.abs().max()).item()
+    check(err <= 2e-2, f"{label}: moe_apply off moe_ref by {err} of "
+                       f"max|ref| (limit 2e-2)")
+    out = {"mode": routing["mode"], "G": G, "C": C,
+           "aux": {k_: float(v) for k_, v in aux.items()},
+           "logits_rel_err": lerr, "tie_gap": tie,
+           "topk_differs": n_flip,
+           "topk_differs_outside_tie_gap": outside,
+           "keep_differs_from_float64_routing": n_keep,
+           "kept": int(keep.sum()), "assignments": int(keep.numel()),
+           "moe_ref_rel_err": err}
+    print(f"[moe] {label} at {list(x.shape)} {x.dtype}: mode "
+          f"{out['mode']}, G {G}, C {C}; aux {out['aux']}")
+    print(f"[moe]   (a) f32 router logits within {lerr} of the largest "
+          f"float64 logit (limit 1e-5); {n_flip} of {idx.numel()} top-k "
+          f"assignments differ from the float64 routing, {outside} of them "
+          f"outside the tie gap {tie} (limit 0); kept set equals the "
+          f"capacity rule on the card's choices ({out['kept']} of "
+          f"{out['assignments']}), differs from the float64 routing's in "
+          f"{n_keep} assignments (printed, not gated)")
+    print(f"[moe]   (b) moe_apply within {err} of max|ref| of moe_ref under "
+          f"its own routing (limit 2e-2)")
+    return out
+
+
+def moe_no_drop_check(p, x, cfg) -> dict:
+    """(b) both dispatches with no drops (C = Ng: 2 groups of 512 tokens)
+    against ``moe_ref`` under each one's own routing, bf16 (2e-2) and f32
+    (2e-4)."""
+    import torch
+
+    from repro_torch.models import moe
+
+    E, k = p["router"].shape[1], cfg.top_k
+    cf = E / k * (1 + 1e-6)               # C = int(Ng * (1 + 1e-6)) = Ng
+    xs = x.reshape(-1, x.shape[-1])[:1024][None]
+    out = {}
+    for dt, limit in ((torch.bfloat16, 2e-2), (torch.float32, 2e-4)):
+        pd = {n: (t if n == "router" else t.to(dt)) for n, t in p.items()}
+        xd = xs.to(dt)
+        for mode in ("einsum", "sort"):
+            routing = {}
+            y, aux = moe.moe_apply(pd, xd, k, cf, 2, mode, routing=routing)
+            ref = moe.moe_ref(pd, xd[0], *(routing[n].reshape(-1, k)
+                                           for n in ("idx", "gate", "keep")))
+            err = ((y[0].float() - ref).abs().max() / ref.abs().max()).item()
+            name = f"{mode}_{str(dt).removeprefix('torch.')}"
+            out[name] = err
+            check(routing["C"] == 512 and float(aux["dropped_frac"]) == 0.0
+                  and err <= limit,
+                  f"no-drop {name}: C {routing['C']}, dropped "
+                  f"{float(aux['dropped_frac'])}, off moe_ref by {err} "
+                  f"(limit {limit})")
+        del pd, xd
+    print(f"[moe]   (b) no drops (C = 512, 2 groups of 512 tokens): "
+          f"moe_apply within {out} of max|ref| of moe_ref (limits 2e-2 "
+          f"bf16, 2e-4 f32)")
+    return out
+
+
+def forced_decode(model, params, full, P: int, pin: dict | None = None):
+    """Prefill ``full[:, :P]``, then feed ``full[:, P:]`` one token a step;
+    the logits at positions P-1 .. L-1 [B, L-P+1, V].  ``pin``: a recorded
+    routing of ``full`` (see :func:`pinner`) pinned into every step."""
+    import torch
+
+    B, L = full.shape
+    at = [slice(0, P)]
+    hook = pinner(pin, at) if pin is not None else None
+    cache = model.init_cache(B, L, device="cuda")
+    with routing_hook(hook):
+        hp, cache = model.prefill(params, full[:, :P], cache)
+        out = [model.logits(params, hp)[:, -1]]
+        for t in range(P, L):
+            at[0] = slice(t, t + 1)
+            lg, cache = model.decode_step(params, full[:, t:t + 1], cache, t)
+            out.append(lg[:, -1])
+    return torch.stack(out, dim=1)
+
+
+def moe_decode_vs_rerun(cfg, params, dtype: str) -> dict:
+    """(d) greedy decode (serve_lm, batch 1 x MOE decode prompt, with no
+    drops) against LM.apply over prompt + generated: the largest error of
+    the logits over the largest logit, the top-k flips by layer, the greedy
+    agreement, and the error with the rerun's routing pinned into a decode
+    of the same tokens.  Gated in f32 only, pinned (1e-4): unpinned, a flip
+    at a near-tie decides the error, and in bf16 rounding flips choices."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import LM
+
+    m = MOE
+    E, k = cfg.n_experts, cfg.top_k
+    c = dataclasses.replace(cfg, dtype=dtype,
+                            moe_capacity_factor=E / k * (1 + 1e-6))
+    model = LM(c)
+    if dtype != cfg.dtype:
+        params = tree_map(lambda t: t.to(getattr(torch, dtype)) if
+                          t.dtype != torch.float32 else t, params)
+    P, N = m["decode_prompt"], m["decode_tokens"]
+    prompt = np.random.default_rng(2).integers(0, c.vocab, (1, P))
+    rec_dec, rec_full = {}, {}
+    with routing_hook(recorder(rec_dec)):
+        st = serve_lm(c, params, prompt, tokens=N, device="cuda",
+                      keep_logits=True)
+    full = torch.cat([torch.as_tensor(prompt, device="cuda"),
+                      torch.as_tensor(st["ids"], device="cuda")], dim=1)
+    with routing_hook(recorder(rec_full)):
+        h, _ = model.apply(params, full)
+    want = model.logits(params, h[:, P - 1:])
+    got = st["logits"]
+    pinned = forced_decode(model, params, full, P, pin=rec_full)
+    torch.cuda.synchronize()
+    scale = want.abs().max()
+    err = ((got - want).abs().max() / scale).item()
+    per_pos = ((got - want).abs().amax(-1)[0] / scale).tolist()
+    perr = ((pinned - want).abs().max() / scale).item()
+    routers = [params["layers"]["moe"]["router"][i].data_ptr()
+               for i in range(c.n_layers)]
+    flips, first, gaps = [], None, []
+    for ptr in routers:
+        seen = torch.cat([i for i, _ in rec_dec[ptr]], dim=1)[0]  # [L, k]
+        ridx, rlog = rec_full[ptr][0]
+        f = ~same_set(seen, ridx[0])
+        flips.append(int(f.sum()))
+        pos = torch.nonzero(f)[:, 0]
+        if len(pos):
+            first = min(first or 10**9, int(pos[0]))
+            top = torch.topk(torch.softmax(rlog[0].double(), -1), k + 1,
+                             dim=-1).values
+            gaps.append(float((top[:, k - 1] - top[:, k])[pos[0]]))
+    clean = [e for i, e in enumerate(per_pos)
+             if first is None or P - 1 + i <= first]
+    agree = float((torch.argmax(want, -1)[0, :N].cpu().numpy()
+                   == st["ids"][0]).mean())
+    out = {"rel_err": err, "pinned_rel_err": perr,
+           "rel_err_before_first_flip": max(clean) if clean else None,
+           "flips_by_layer": flips, "first_flip_position": first,
+           "first_flip_gaps": gaps, "greedy_agreement": agree}
+    print(f"[moe] (d) {dtype}: decode vs LM.apply over prompt + generated "
+          f"(batch 1 x {P}, {N} tokens, no drops): largest error {err} of "
+          f"the largest logit; with the rerun's routing pinned {perr}; "
+          f"before the first flip {out['rel_err_before_first_flip']}; "
+          f"top-k flips by layer {flips} (first at position {first}; the "
+          f"rerun's k-th minus (k+1)-th probability there, by layer: "
+          f"{gaps}); greedy agreement {agree}"
+          + (" (gated: pinned, limit 1e-4)" if dtype == "float32" else
+             " (printed, not gated)"))
+    if dtype == "float32":
+        check(perr <= 1e-4, f"f32 decode with the rerun's routing pinned is "
+                            f"off LM.apply by {perr} (limit 1e-4)")
+    del model, params, h, want, got, pinned
+    return out
+
+
+def leaf_names(tree, prefix="") -> list:
+    """The leaves' paths, in :func:`~repro_torch.core.tree.flatten`'s
+    order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}/{k}")]
+    return [prefix]
+
+
+def moe_train(cfg_full) -> tuple[dict, dict]:
+    """(e) training at 2 layers through ``launch.train.build``'s step; the
+    kernel step against a plain-attention step and an SDPA control step,
+    both with the kernel step's routing pinned; K7/K8/K9 at this shape."""
+    import dataclasses
+    import gc
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.tree import leaves
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.launch.train import build
+    from repro_torch.models import LM
+
+    m = MOE
+    cfg = dataclasses.replace(cfg_full, n_layers=m["train_layers"])
+    B, S = m["train_batch"], m["train_seq"]
+    torch.cuda.reset_peak_memory_stats()
+    state, step, data = build(cfg, m["train_steps"], m["lr"], S, B,
+                              device="cuda")
+    n_params = sum(p.numel() for p in leaves(state["params"]))
+    torch.cuda.synchronize()
+    print(f"[moe] (e) train: {cfg.arch_id} at full widths, {cfg.n_layers} "
+          f"layers, {n_params} parameters; "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB of weights and "
+          f"AdamW moments allocated")
+    per_step = {"flash_attention": 2 * cfg.n_layers,
+                "flash_attention_bwd_dq": cfg.n_layers,
+                "flash_attention_bwd_dkv": cfg.n_layers}
+    fa.reset_launches()                   # the main path: the train steps
+    losses, dropped, wall = [], [], []
+    for i in range(m["train_steps"]):
+        batch = data.batch(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        before = dict(fa.LAUNCHES)
+        state, met = step(state, batch)
+        loss = float(met["loss"])
+        wall.append((time.perf_counter() - t0) * 1e3)
+        got = {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES}
+        check(got == per_step and math.isfinite(loss),
+              f"moe train step {i}: launches {got}, loss {loss}")
+        losses.append(loss)
+        dropped.append(float(met["dropped_frac"]))
+        print(f"[moe]   step {i}: loss {loss} dropped_frac {dropped[-1]} "
+              f"grad_norm {float(met['grad_norm'])} wall {wall[-1]:.3f} ms")
+    counts = dict(fa.LAUNCHES)
+    check(all(fa.ROUTE_LAUNCHES[n] == {"wgmma_bf16": c, "simt_f32": 0}
+              for n, c in counts.items()),
+          f"moe train routes {fa.ROUTE_LAUNCHES}")
+    check(losses[-1] < losses[0], f"moe train loss {losses[0]} -> "
+                                  f"{losses[-1]} did not fall")
+    step_ms = statistics.median(wall[1:])
+    out = {"losses": losses, "dropped_frac": dropped, "step_ms": wall,
+           "median_step_ms": step_ms, "tokens_per_s": B * S / step_ms * 1e3,
+           "n_params": n_params, "launches_per_step": per_step}
+
+    # the kernel step, then plain attention and SDPA with its routing
+    model = LM(cfg)
+    bt = data.batch(m["train_steps"])
+    b = {"ids": torch.as_tensor(bt.ids, device="cuda").long(),
+         "labels": torch.as_tensor(bt.labels, device="cuda").long(),
+         "mask": torch.as_tensor(bt.mask, device="cuda")}
+    params = state["params"]
+    rec = {}
+    with routing_hook(recorder(rec)):
+        k_loss, k_grads, k_aux = loss_and_grads(model, params, b)
+    real = ops.attention
+    variants = {
+        "plain": lambda q, k, v, causal=True, window=0:
+            fa.flash_attention_ref(q, k, v, causal, window)[0],
+        "sdpa": lambda q, k, v, causal=True, window=0:
+            F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True).transpose(1, 2)}
+    ref = {}
+    try:
+        for name, fn in variants.items():
+            ops.attention = fn
+            with routing_hook(pinner(rec, [slice(None)])):
+                ref[name] = loss_and_grads(model, params, b)[:2]
+    finally:
+        ops.attention = real
+    torch.cuda.synchronize()
+    check(cfg.window == 0, "the SDPA control assumes causal, no window")
+    p_loss, p_grads = ref["plain"]
+    l_err = abs(float(k_loss) - float(p_loss)) / abs(float(p_loss))
+    check(l_err <= 1e-3, f"moe kernel step vs plain step, routing pinned: "
+                         f"loss rel err {l_err} (limit 1e-3)")
+    names = leaf_names(params)
+    ratios = {}
+    for n, kg, pg, sg in zip(names, k_grads, p_grads, ref["sdpa"][1]):
+        check(bool(torch.isfinite(kg).all()), f"{n}: non-finite gradient")
+        norm = pg.float().norm()
+        rk = ((kg.float() - pg.float()).norm() / norm).item()
+        rs = ((sg.float() - pg.float()).norm() / norm).item()
+        ratios[n] = (rk, rs, rk / rs if rs else (0.0 if rk == 0 else math.inf))
+        print(f"[moe]   {n}: ||dg||/||g_ref|| kernels {rk}, SDPA {rs}, "
+              f"ratio {ratios[n][2]} (limit 1.5)")
+    worst = max(r for _, _, r in ratios.values())
+    check(worst <= 1.5, f"moe train: a leaf's kernel gradient error is "
+                        f"{worst} x SDPA's (limit 1.5)")
+    router_g = k_grads[names.index("/layers/moe/router")]
+    check(float(router_g.abs().max()) > 0, "the router's gradient is 0")
+    lb, z = float(k_aux["load_balance_loss"]), float(k_aux["router_z_loss"])
+    resid = float(k_aux["total"]) - (float(k_loss) + 1e-2 * lb + 1e-3 * z)
+    print(f"[moe]   kernel step vs plain-attention step, the kernel step's "
+          f"routing pinned: loss {float(k_loss)} vs {float(p_loss)} (rel "
+          f"err {l_err}, limit 1e-3); the kernels' gradient error at most "
+          f"{worst} x SDPA's (limit 1.5); every gradient finite, router max "
+          f"|g| {float(router_g.abs().max())}")
+    print(f"[moe]   total {float(k_aux['total'])} = ce {float(k_loss)} + "
+          f"1e-2 x {lb} + 1e-3 x {z} (residue {resid}); dropped_frac "
+          f"{float(k_aux['dropped_frac'])}")
+    out.update({"kernel_vs_plain_loss_rel_err": l_err,
+                "grad_err_vs_sdpa": ratios, "worst_grad_ratio": worst,
+                "total_residue": resid})
+    del k_grads, ref, p_grads, rec
+    gc.collect()
+
+    # K7, K8 and K9 at this shape, on layer 0's q/k/v
+    taken = {}
+
+    def take(q, k, v, causal=True, window=0):
+        taken.setdefault("qkv", (q, k, v))
+        return real(q, k, v, causal, window)
+
+    ops.attention = take
+    try:
+        with torch.no_grad():
+            model.apply(params, b["ids"], remat=False)
+    finally:
+        ops.attention = real
+    q, k, v = taken["qkv"]
+    do = torch.randn(q.shape, generator=torch.Generator("cuda").manual_seed(
+        5), device="cuda").to(q.dtype)
+    e = flash_bwd_err(q, k, v, do, True, 0)
+    out["bwd_err"] = e
+    for n, (d, w) in e.items():
+        print(f"[moe]   {n} at {list(q.shape)} bf16 causal: max abs err {d}, "
+              f"{w} of the element-wise limit"
+              + (" (above half of it: see PERF.md)" if w > 0.5 else ""))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[moe]   train: median step {step_ms:.3f} ms, "
+          f"{out['tokens_per_s']:.1f} tokens/s, peak {out['peak_gb']:.3f} "
+          f"GB, launches a step {per_step} (all wgmma_bf16), losses "
+          f"{losses}, dropped_frac (summed over layers) {dropped}")
+    del state, params, model, q, k, v, do, taken
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def phase_moe(fa_err: float) -> tuple[dict, dict]:
+    """The moe family on the card: moonshot-v1-16b-a3b served (6 layers,
+    4 x 4096 prompt, 32 greedy tokens) and trained (2 layers)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import lm_config, serve_lm
+    from repro_torch.models import LM
+    from repro_torch.models import layers as ml
+    from repro_torch.models import transformer as mt
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    m = MOE
+    cfg = lm_config(m["arch"], reduced=False, layers=m["layers"])
+    check(cfg.dtype == "bfloat16" and cfg.n_experts == 64 and cfg.top_k == 6
+          and cfg.d_model == 2048 and cfg.d_ff == 1408 and cfg.window == 0,
+          f"unexpected config {cfg}")
+    model = LM(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    check(params["layers"]["moe"]["router"].dtype == torch.float32,
+          "the router is not f32")
+    B, P, N = m["batch"], m["prompt_len"], m["tokens"]
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab, (B, P))
+    ids = torch.as_tensor(prompt, device="cuda")
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (params["embed"]["table"],
+                           *params["layers"]["moe"].values(),
+                           *params["layers"]["attn"].values()))
+    print(f"[moe] {cfg.arch_id} at full widths: d {cfg.d_model}, "
+          f"{cfg.n_heads} x {cfg.hd} heads, {cfg.n_kv_heads} kv heads, "
+          f"{cfg.n_experts} experts, top {cfg.top_k}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}, {cfg.dtype} (router f32); {cfg.n_layers} layers, "
+          f"{nbytes / 1e9:.3f} GB of weights")
+
+    # the forward over the prompt, keeping layer 0's moe and K7 inputs
+    taken, real_moe, real_attn = {}, mt.moe_apply, ml.ops.attention
+
+    def take_moe(p, x, *a, **kw):
+        taken.setdefault("moe", x)
+        return real_moe(p, x, *a, **kw)
+
+    def take_attn(q, k, v, causal=True, window=0):
+        taken.setdefault("attn", (q, k, v))
+        return real_attn(q, k, v, causal, window)
+
+    mt.moe_apply, ml.ops.attention = take_moe, take_attn
+    try:
+        _, aux = model.apply(params, ids, remat=False)
+    finally:
+        mt.moe_apply, ml.ops.attention = real_moe, real_attn
+    print(f"[moe] LM.apply over the prompt: aux summed over "
+          f"{cfg.n_layers} layers { {k: float(v) for k, v in aux.items()} }")
+    out = {"aux_apply": {k: float(v) for k, v in aux.items()}}
+
+    # K7 at the serving shape
+    q, k, v = taken["attn"]
+    fa.reset_launches()
+    d, w = flash_err(q, k, v, True, 0)
+    route = kernel_routes("flash_attention", 1)
+    out["k7"] = {"max_abs_err": max(d, fa_err),
+                 "err_of_elementwise_limit": w, "route": route}
+    print(f"[moe] K7 layer 0 at {list(q.shape)} bf16 causal (route "
+          f"{route}): max abs err {d}, {w} of the element-wise limit")
+    del q, k, v
+
+    # (a), (b): the router and both dispatches on layer 0's moe input
+    p0 = {n: t[0] for n, t in params["layers"]["moe"].items()}
+    x = taken.pop("moe")
+    out["prefill_routing"] = moe_routing_check(p0, x, cfg, "moe prefill")
+    out["decode_routing"] = moe_routing_check(p0, x[:, -1:].contiguous(),
+                                              cfg, "moe decode")
+    out["no_drops"] = moe_no_drop_check(p0, x, cfg)
+    del x, p0, taken
+    torch.cuda.empty_cache()
+
+    # the main path: serve_lm, after a short warm-up run
+    serve_lm(cfg, params, prompt, tokens=2, device="cuda")
+    fa.reset_launches()
+    st = serve_lm(cfg, params, prompt, tokens=N, device="cuda",
+                  keep_logits=True)
+    torch.cuda.synchronize()
+    counts = dict(fa.LAUNCHES)
+    check(st["k7_launches_prefill"] == cfg.n_layers
+          and st["k7_launches_decode"] == 0
+          and fa.ROUTE_LAUNCHES["flash_attention"]["wgmma_bf16"]
+          == cfg.n_layers and st["finite"] and st["ids"].shape == (B, N),
+          f"moe serve_lm: K7 launches {counts}, routes "
+          f"{fa.ROUTE_LAUNCHES['flash_attention']}, finite {st['finite']}")
+    # (c) the same prefill and decode served again, bit for bit
+    again = serve_lm(cfg, params, prompt, tokens=N, device="cuda",
+                     keep_logits=True)
+    same = (torch.equal(again["logits"], st["logits"])
+            and np.array_equal(again["ids"], st["ids"]))
+    check(same, "moe serve_lm served twice gives other logits")
+    print(f"[moe] serve_lm: {B} x {P} prompt, {N} tokens; K7 launches "
+          f"{counts} (all in the prefill, wgmma_bf16); every logit finite; "
+          f"(c) served twice bit for bit: {same}")
+    for k_ in ("prefill_ms", "prefill_tok_s", "prefill_device_ms",
+               "decode_ms_per_token", "decode_tok_s"):
+        out[k_] = st[k_]
+    print("[moe] " + "  ".join(f"{k_}={out[k_]}" for k_ in (
+        "prefill_ms", "prefill_tok_s", "prefill_device_ms",
+        "decode_ms_per_token", "decode_tok_s")))
+    del again, st
+
+    # (f) where the card's time goes
+    cache = {"c": model.init_cache(B, P + 8, device="cuda")}
+
+    def prefill():
+        cache["h"], cache["c"] = model.prefill(params, ids, cache["c"])
+
+    def decode():
+        tok = ids[:, -1:]
+        for t in range(8):
+            lg, cache["c"] = model.decode_step(params, tok, cache["c"], P + t)
+            tok = torch.argmax(lg[:, -1], -1)[:, None]
+
+    out["profile"] = {k_: device_profile(f, groups={"K7": "flash_fwd"},
+                                         ranges="moe:")
+                      for k_, f in (("prefill", prefill),
+                                    ("decode_8_steps", decode))}
+    for k_, v_ in out["profile"].items():
+        print(f"[moe] (f) profile {k_}: wall {v_['wall_ms']:.3f} ms, card "
+              f"busy {v_['device_busy_ms']:.3f} ms, idle share "
+              f"{v_['device_idle_share']}, card ms by range "
+              f"{ {**v_['ranges'], **v_['groups']} }")
+        for t in v_["top"]:
+            print(f"[moe]   {t['ms']:10.3f} ms x{t['count']:<5d} {t['name']}")
+    del cache
+    out["serve_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    # (d) decode against the full-prefix rerun, bf16 and f32
+    out["decode_vs_rerun"] = {dt: moe_decode_vs_rerun(cfg, params, dt)
+                              for dt in ("bfloat16", "float32")}
+    del model, params, ids
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) training
+    tcounts, out["train"] = moe_train(cfg)
+    for k_, v_ in tcounts.items():
+        counts[k_] = counts.get(k_, 0) + v_
+    print(f"[moe] serve peak {out['serve_peak_gb']:.3f} GB, train peak "
+          f"{out['train']['peak_gb']:.3f} GB; K7/K8/K9 launches on the moe "
+          f"main paths {counts}")
+    return counts, out
+
+
 def main() -> int:
     sys.path.insert(0, os.path.join(HERE, "src"))
+    t_start = time.perf_counter()
+    clock = [t_start]
+
+    def lap(phase: str) -> None:
+        now = time.perf_counter()
+        print(f"[time] {phase} {now - clock[0]:.3f}")
+        clock[0] = now
+
     name, smi = phase_device()
     import torch
 
+    lap("device")
     build_s = phase_build()
+    lap("build")
     rows, yardsticks = phase_kernels()
+    lap("kernels")
     rows.update(phase_rmsnorm_kernels())
+    lap("rmsnorm_kernels")
     fa_err, tc_res = phase_flash_kernels()
+    lap("flash_kernels")
     launches, times = phase_main_path()
+    lap("main")
     counts, hcounts, served = phase_serve(rows["rmsnorm_matmul"]["ms"])
+    lap("serve")
     params = zoo_params()
     rcounts, replanned = phase_replan(params)
+    lap("replan")
     ccounts, decoded = phase_continuous(params)
     del params
+    lap("continuous")
     rows["flash_attention"], fcounts, lm = phase_lm(fa_err)
+    lap("lm")
     bwd_small, f32_route = phase_flash_bwd_kernels(
         yardsticks["launch_floor_ms"])
+    lap("flash_bwd_kernels")
     bwd_rows, k7_train = phase_bwd_timing(bwd_small)
     rows.update(bwd_rows)
+    lap("bwd_timing")
     tcounts, trained = phase_train()
+    lap("train")
     dcounts, driven = phase_driver()
+    lap("driver")
+    mcounts, moe_out = phase_moe(rows["flash_attention"]["max_abs_err"])
+    rows["flash_attention"]["max_abs_err"] = moe_out["k7"]["max_abs_err"]
+    for n, (d, _) in moe_out["train"]["bwd_err"].items():
+        rows[n]["max_abs_err"] = max(rows[n]["max_abs_err"], d)
+    lap("moe")
+    print(f"[time] total {time.perf_counter() - t_start:.3f}")
     for k, v in (*counts.items(), *hcounts.items(), *rcounts.items(),
                  *ccounts.items(), *fcounts.items(), *tcounts.items(),
-                 *dcounts.items()):
+                 *dcounts.items(), *mcounts.items()):
         launches[k] = launches.get(k, 0) + v
     replaces = {"cvt_color": "src/repro/kernels/harris.py:44",
                 "corner_harris": "src/repro/kernels/harris.py:101",
@@ -2254,7 +2910,7 @@ def main() -> int:
                       "serve_transformer": served, "replan": replanned,
                       "continuous_decode": decoded, "serve_lm": lm,
                       "f32_route_driver_shape": f32_route,
-                      "train": trained, "driver": driven,
+                      "train": trained, "driver": driven, "moe": moe_out,
                       "tc_resources": tc_res, "k7_train_shape": k7_train,
                       "k6_resources": rows["rmsnorm_matmul"]["resources"],
                       "local_layer": {n: {k: v for k, v in rows[n].items()

@@ -5,8 +5,8 @@ Three serving modes, on the card unless the caller asks for the CPU with
 ``--device cpu``:
 
 * ``lm`` (default) — batched prefill into a KV cache, then greedy decode, on
-  the dense LM stack (:func:`serve_lm`); every prefill self-attention runs
-  the flash-attention kernel (K7)::
+  the LM stack, dense or moe (:func:`serve_lm`); every prefill
+  self-attention runs the flash-attention kernel (K7)::
 
       python -m repro_torch.launch.serve --mode lm --arch gemma3-12b \\
           --no-reduced --layers 6 --batch 4 --prompt-len 4096 --tokens 32

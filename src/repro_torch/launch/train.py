@@ -1,7 +1,7 @@
 """Training launcher — the port of the JAX package's ``launch/train.py``.
 
-Runs a training loop for the dense LM with the whole substrate stack:
-the synthetic data stream, AdamW, per-layer remat, checkpointing,
+Runs a training loop for the LM (dense or moe) with the whole substrate
+stack: the synthetic data stream, AdamW, per-layer remat, checkpointing,
 fault-tolerant restart and straggler monitoring.  It runs on the card
 unless given ``--device cpu`` (and refuses to run without a card
 otherwise); every self-attention runs K7 forward and K8/K9 backward there.

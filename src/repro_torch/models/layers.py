@@ -1,7 +1,7 @@
 """Transformer building blocks — functional, param-dict style.
 
-The port of the JAX package's ``models/layers.py`` for the dense family.
-Conventions, as there:
+The port of the JAX package's ``models/layers.py`` for the dense and moe
+families.  Conventions, as there:
 
 * params are nested dicts of tensors; layer stacks have leading dim L;
 * compute dtype = config dtype (bf16 on the card); softmax and norms
@@ -17,9 +17,10 @@ back onto its kv head).  Decode (new tokens at
 ``cache_pos > 0``) stays plain PyTorch, as the JAX package computes it
 outside any Pallas kernel: K7's masks are aligned at position 0.
 
-The JAX module's sharding anchors (``_con_*``, ``set_attention_mesh``) wait
-for the sharding slice; without a mesh they are the identity, so they are
-left out.  Random init draws from a ``torch.Generator`` on the device the
+The JAX module's sharding anchors (``_con_*``, ``set_attention_mesh``;
+``_con_experts`` and ``_con_groups`` anchor the MoE dispatch) wait for the
+sharding slice; without a mesh they are the identity, so they are left
+out.  Random init draws from a ``torch.Generator`` on the device the
 parameters live on.
 """
 from __future__ import annotations
@@ -148,8 +149,8 @@ def attention(p: Params, x: torch.Tensor, pos=None, *, theta, window: int = 0,
     del pos                                     # positions come from T
     if kv_x is not None:
         raise NotImplementedError(
-            "cross-attention (the vlm family) waits for the vlm path of "
-            "ROADMAP item 9")
+            "cross-attention (the vlm family) waits for the vlm item of "
+            "ROADMAP.md queue 1")
     window = int(window)
     B, T, _ = x.shape
     q = torch.einsum("btd,dnh->btnh", x, p["wq"])

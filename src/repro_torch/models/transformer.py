@@ -1,10 +1,12 @@
 """Decoder-only LM — the port of the JAX package's ``models/transformer.py``
-for the dense family.
+for the dense and moe families.
 
 Families ported: ``dense`` (GQA attention + SwiGLU: deepseek-67b, gemma3-12b,
-gemma3-27b, mistral-large-123b) and ``audio`` (musicgen-large: the same
-dense backbone over precomputed frame embeddings, ``embeds_in``).  The moe,
-hybrid, ssm (rwkv) and vlm families raise ``NotImplementedError``.
+gemma3-27b, mistral-large-123b), ``audio`` (musicgen-large: the same
+dense backbone over precomputed frame embeddings, ``embeds_in``) and ``moe``
+(GQA attention + a top-k expert FFN, :mod:`.moe`: moonshot-v1-16b-a3b,
+qwen3-moe-235b-a22b).  The hybrid, ssm (rwkv) and vlm families raise
+``NotImplementedError``.
 
 The JAX ``lax.scan`` over the stacked ``[L, ...]`` parameters is a Python
 loop over the same stacked tensors; per-layer heterogeneity (gemma3's
@@ -31,6 +33,7 @@ from ..core.tree import flatten, tree_map, unflatten
 from .config import ArchConfig
 from .layers import (attention, attention_init, embed, embed_init, lm_logits,
                      logits_f32, mlp, mlp_init, rmsnorm, rmsnorm_init)
+from .moe import AUX_KEYS, moe_apply, moe_init
 
 Params = Any
 
@@ -46,8 +49,6 @@ def unported_family(cfg: ArchConfig) -> str | None:
         return "the rwkv (ssm) family"
     if cfg.hybrid or cfg.ssm_state:
         return "the hybrid (ssm) family"
-    if cfg.n_experts:
-        return "the moe family"
     if cfg.cross_attn_every:
         return "the vlm family (cross-attention)"
     return None
@@ -59,27 +60,40 @@ def unported_family(cfg: ArchConfig) -> str | None:
 def _block_init(cfg: ArchConfig, generator: torch.Generator) -> Params:
     dtype = torch_dtype(cfg.dtype)
     dev = generator.device
-    return {"ln1": rmsnorm_init(cfg.d_model, dtype, dev),
-            "ln2": rmsnorm_init(cfg.d_model, dtype, dev),
-            "attn": attention_init(generator, cfg.d_model, cfg.n_heads,
-                                   cfg.n_kv_heads, cfg.hd, dtype),
-            "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff, dtype)}
+    p = {"ln1": rmsnorm_init(cfg.d_model, dtype, dev),
+         "ln2": rmsnorm_init(cfg.d_model, dtype, dev),
+         "attn": attention_init(generator, cfg.d_model, cfg.n_heads,
+                                cfg.n_kv_heads, cfg.hd, dtype)}
+    if cfg.n_experts:
+        p["moe"] = moe_init(generator, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                            dtype)
+    else:
+        p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, dtype)
+    return p
+
+
+def _zero_aux(device=None) -> dict:
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in AUX_KEYS}
 
 
 def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
                  window: int, theta: float, cache: Params | None = None,
                  cache_pos: int | None = None
-                 ) -> tuple[torch.Tensor, Params | None]:
-    """One dense block (``LM`` refuses the other families). Returns
-    (x, new_cache)."""
-    del cfg
+                 ) -> tuple[torch.Tensor, Params | None, dict | None]:
+    """One dense or moe block (``LM`` refuses the other families). Returns
+    (x, new_cache, aux); aux is None for a dense block (the JAX block's
+    zeros)."""
     h = rmsnorm(p["ln1"], x)
     a, new_cache = attention(p["attn"], h, None, theta=theta, window=window,
                              cache=cache, cache_pos=cache_pos)
     x = x + a
     h2 = rmsnorm(p["ln2"], x)
-    x = x + mlp(p["mlp"], h2)
-    return x, new_cache
+    if "moe" in p:
+        y, aux = moe_apply(p["moe"], h2, cfg.top_k, cfg.moe_capacity_factor)
+    else:
+        y, aux = mlp(p["mlp"], h2), None
+    return x + y, new_cache, aux
 
 
 def _unstack(tree: Params) -> list[Params]:
@@ -117,7 +131,8 @@ class LM:
         reason = unported_family(cfg)
         if reason:
             raise NotImplementedError(
-                f"{cfg.arch_id}: {reason} is not ported yet (ROADMAP item 9)")
+                f"{cfg.arch_id}: {reason} is not ported yet (ROADMAP.md "
+                f"queue 1)")
         self.cfg = cfg
 
     # -- params -------------------------------------------------------------- #
@@ -146,10 +161,11 @@ class LM:
     # -- full-sequence forward ------------------------------------------------ #
     def apply(self, params: Params, ids: torch.Tensor | None = None, *,
               embeds: torch.Tensor | None = None, remat: bool = True,
-              scan_chunks: int = 0) -> torch.Tensor:
-        """→ hidden [B, S, d]. Use :meth:`loss` / :meth:`logits` after.  (The
-        JAX ``apply`` also returns the MoE aux losses; the dense family has
-        none.)
+              scan_chunks: int = 0) -> tuple[torch.Tensor, dict]:
+        """→ (hidden [B, S, d], aux). Use :meth:`loss` / :meth:`logits`
+        after.  aux: the MoE aux losses (``load_balance_loss``,
+        ``router_z_loss``, ``dropped_frac``) summed over the layers, f32
+        0-d tensors; zero for the dense family.
 
         ``remat``: recompute each layer's activations in the backward pass.
         ``scan_chunks=c``: also checkpoint each chunk of c layers (the JAX
@@ -159,22 +175,28 @@ class LM:
         layers = _unstack(params["layers"])
         meta = self._layer_meta()
 
-        def layer(i: int, h: torch.Tensor) -> torch.Tensor:
+        def layer(i: int, h: torch.Tensor
+                  ) -> tuple[torch.Tensor, dict | None]:
             w, th = meta[i]
-            return _block_apply(cfg, layers[i], h, window=w, theta=th)[0]
+            h, _, aux = _block_apply(cfg, layers[i], h, window=w, theta=th)
+            return h, aux
 
-        def run(lo: int, hi: int, h: torch.Tensor) -> torch.Tensor:
+        def run(lo: int, hi: int, h: torch.Tensor, aux: dict
+                ) -> tuple[torch.Tensor, dict]:
             for i in range(lo, hi):
-                h = _remat(layer, i, h) if remat else layer(i, h)
-            return h
+                h, a = _remat(layer, i, h) if remat else layer(i, h)
+                if a is not None:
+                    aux = {k: aux[k] + a[k] for k in aux}
+            return h, aux
 
+        aux = _zero_aux(x.device)
         c = scan_chunks
         if remat and c and cfg.n_layers % c == 0:
             for lo in range(0, cfg.n_layers, c):
-                x = _remat(run, lo, lo + c, x)
+                x, aux = _remat(run, lo, lo + c, x, aux)
         else:
-            x = run(0, cfg.n_layers, x)
-        return rmsnorm(params["final_norm"], x)
+            x, aux = run(0, cfg.n_layers, x, aux)
+        return rmsnorm(params["final_norm"], x), aux
 
     def loss(self, params: Params, hidden: torch.Tensor,
              targets: torch.Tensor, mask: torch.Tensor | None = None,
@@ -236,21 +258,25 @@ class LM:
         x = self._embed_in(params, ids, embeds)
         for lp, lc, (w, th) in zip(_unstack(params["layers"]),
                                    _unstack(cache), self._layer_meta()):
-            x, _ = _block_apply(self.cfg, lp, x, window=w, theta=th,
-                                cache=lc, cache_pos=int(pos))
+            x, _, _ = _block_apply(self.cfg, lp, x, window=w, theta=th,
+                                   cache=lc, cache_pos=int(pos))
         x = rmsnorm(params["final_norm"], x)
         return x, cache
 
 
 def params_from_numpy(tree: Any, dtype: str, device=None) -> Any:
     """The JAX package's ``LM.init`` parameters, as numpy arrays (or any
-    array exposing ``__array__``), turned into the port's tree: every array
-    leaf becomes a tensor of the config's ``dtype`` (``"bfloat16"``) on
-    ``device``.  JAX's bf16 arrives as
-    ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses, so each leaf
-    goes through float32, which holds a bf16 value exactly."""
+    array exposing ``__array__``), turned into the port's tree on
+    ``device``: each leaf keeps the type of the JAX leaf it comes from
+    (bfloat16, float16 or float32; the MoE router is f32 in a bf16 model),
+    and a leaf of another type (float64 from numpy) takes the config's
+    ``dtype``.  JAX's bf16 arrives as ``ml_dtypes.bfloat16``, which
+    ``torch.from_numpy`` refuses, so each leaf goes through float32, which
+    holds a bf16 value exactly."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, dtype, dev) for k, v in tree.items()}
-    return torch.from_numpy(np.asarray(tree).astype(np.float32)).to(
-        device=dev, dtype=torch_dtype(dtype))
+    a = np.asarray(tree)
+    kept = a.dtype.name in ("bfloat16", "float16", "float32")
+    return torch.from_numpy(a.astype(np.float32)).to(
+        device=dev, dtype=torch_dtype(a.dtype.name if kept else dtype))

@@ -6,6 +6,7 @@ machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
 import math
 
 import numpy as np
@@ -18,7 +19,9 @@ from repro_torch.kernels import harris as hk
 from repro_torch.kernels import ops
 from repro_torch.kernels import rmsnorm as rk
 from repro_torch.launch import serve
+from repro_torch.models import LM
 from repro_torch.models import harris as mh
+from repro_torch.models import moe
 
 torch.set_num_threads(1)
 
@@ -359,6 +362,50 @@ def test_lm_on_card_runs_every_prefill_attention_through_the_kernel(
     assert st["k7_launches_prefill"] == 6 and st["k7_launches_decode"] == 0
     assert st["finite"] and st["ids"].shape == (2, 5)
     assert st["prefill_device_ms"] > 0
+
+
+@pytest.mark.parametrize("capacity_factor", [1.0, 32.0],
+                         ids=["drops", "no_drops"])
+@pytest.mark.parametrize("dtype,limit", [(torch.bfloat16, 2e-2),
+                                         (torch.float32, 2e-4)])
+@pytest.mark.parametrize("mode,T", [("einsum", 512), ("sort", 512),
+                                    ("sort", 1)])
+def test_moe_dispatch_matches_moe_ref_under_its_own_routing_on_card(
+        cuda_device, mode, T, dtype, limit, capacity_factor):
+    """Both dispatches on the card against the plain f32 MoE under the
+    routing the card chose (no comparison of discrete choices across
+    devices): y within 2e-2 (bf16) or 2e-4 (f32) of max|ref|."""
+    g = torch.Generator(cuda_device).manual_seed(T)
+    E, k, d = 16, 4, 256
+    p = moe.moe_init(g, d, 128, E, dtype)
+    x = torch.randn((4, T, d), generator=g, device=cuda_device).to(dtype)
+    routing = {}
+    y, aux = moe.moe_apply(p, x, k, capacity_factor, 4 if T > 1 else 1,
+                           mode, routing=routing)
+    ref = moe.moe_ref(p, x.reshape(-1, d), *(
+        routing[n].reshape(-1, k) for n in ("idx", "gate", "keep")))
+    assert y.dtype == dtype and routing["logits"].dtype == torch.float32
+    err = ((y.reshape(-1, d).float() - ref).abs().max() / ref.abs().max())
+    assert float(err) <= limit, float(err)
+    assert (float(aux["dropped_frac"]) == 0.0) == (capacity_factor > 16)
+
+
+def test_moe_lm_serves_twice_bit_for_bit_on_card(cuda_device):
+    """Reduced moonshot-v1-16b-a3b in bf16: the 4 x 2048 prefill takes the
+    einsum dispatch (16 groups), decode the sort one; K7 runs every prefill
+    self-attention, and a second serve gives the same logits bit for bit."""
+    cfg = dataclasses.replace(serve.lm_config("moonshot-v1-16b-a3b"),
+                              dtype="bfloat16")
+    params = LM(cfg).init(torch.Generator(cuda_device).manual_seed(0))
+    assert params["layers"]["moe"]["router"].dtype == torch.float32
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab, (4, 2048))
+    runs = [serve.serve_lm(cfg, params, prompt, tokens=6, device=cuda_device,
+                           keep_logits=True) for _ in range(2)]
+    for st in runs:
+        assert st["k7_launches_prefill"] == cfg.n_layers
+        assert st["k7_launches_decode"] == 0 and st["finite"]
+    assert torch.equal(runs[0]["logits"], runs[1]["logits"])
+    np.testing.assert_array_equal(runs[0]["ids"], runs[1]["ids"])
 
 
 def _grads_close(got, want, bf16: bool) -> None:

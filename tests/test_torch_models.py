@@ -6,15 +6,25 @@
 * layer parity in f32 (rmsnorm, rope, expand_kv, the mask, attention
   without a cache, prefill into a cache and decode, the MLP, the lm head),
   weights and inputs drawn with numpy and handed to both;
-* LM parity on reduced dense configs: JAX ``LM.init(PRNGKey(0))`` weights
-  carried across with ``params_from_numpy``; ``apply``, ``prefill`` +
-  ``logits`` and 4 ``decode_step``s to 1e-4 (``tests/test_models.py``), and
-  one bf16 model to 2.5e-2 of the largest logit;
+* LM parity on reduced dense and moe configs: JAX ``LM.init(PRNGKey(0))``
+  weights carried across with ``params_from_numpy``; ``apply`` (its hidden
+  state and its aux, summed over the layers), ``prefill`` + ``logits`` and
+  4 ``decode_step``s to 1e-4 (``tests/test_models.py``), and one bf16
+  model of each family to 2.5e-2 of the largest logit;
 * unported families raise ``NotImplementedError``.
 
 The JAX attention here is plain jnp (``layers.py``), and the port's runs its
 flash-attention wrapper, which on the CPU is the kernel's plain version.
+
+A moe model's top-k choices are discrete: where two experts' probabilities
+tie within the two packages' rounding, each may pick its own, and in bf16
+such near-ties occur.  So the JAX moe runs are eager and record every
+routing decision, and the port runs with those choices pinned
+(``moe.ROUTING_HOOK``), after checking that wherever its own choices
+differ the JAX probabilities tie within 8x the largest difference of the
+two packages' probabilities.
 """
+import contextlib
 import dataclasses
 
 import jax
@@ -30,6 +40,7 @@ from repro_torch import configs
 from repro_torch.configs.deepseek_67b import zoo_widths
 from repro_torch.models import LM, SHAPES, ArchConfig, supports_shape
 from repro_torch.models import layers as TL
+from repro_torch.models import moe as TM
 from repro_torch.models.transformer import params_from_numpy
 
 torch.set_num_threads(1)
@@ -209,6 +220,9 @@ LM_CASES = {
     "gemma3-12b": lambda c: c.reduced(n_layers=6),
     "musicgen-large": lambda c: c.reduced(),
     "gemma3-12b-bf16": lambda c: c.reduced(n_layers=6, dtype="bfloat16"),
+    "moonshot-v1-16b-a3b": lambda c: c.reduced(),
+    "qwen3-moe-235b-a22b": lambda c: c.reduced(),
+    "moonshot-v1-16b-a3b-bf16": lambda c: c.reduced(dtype="bfloat16"),
 }
 
 
@@ -216,6 +230,57 @@ def _case_config(case):
     arch = case.removesuffix("-bf16")
     return (LM_CASES[case](jconfigs.get_config(arch)),
             LM_CASES[case](configs.get_config(arch)))
+
+
+@contextlib.contextmanager
+def _jax_choices(rec: list | None):
+    """Run the JAX model eagerly, appending each routing decision's
+    (probabilities, top-k indices) to ``rec``; nothing for ``rec=None``."""
+    if rec is None:
+        yield
+        return
+    real = jax.lax.top_k
+
+    def top_k(x, k):
+        out = real(x, k)
+        rec.append((np.asarray(x, np.float32), np.asarray(out[1])))
+        return out
+
+    jax.lax.top_k = top_k
+    try:
+        with jax.disable_jit():
+            yield
+    finally:
+        jax.lax.top_k = real
+
+
+@contextlib.contextmanager
+def _pinned(rec: list | None):
+    """Pin the port's routing decisions, call by call, to the JAX run's
+    ``rec``; fail where the port's own choice differs from JAX's and the
+    JAX probabilities do not tie within 8x the two packages' largest
+    probability difference."""
+    if rec is None:
+        yield
+        return
+    queue = list(rec)
+
+    def hook(router, logits, idx):
+        probs, jidx = queue.pop(0)
+        k = jidx.shape[-1]
+        drift = np.abs(torch.softmax(logits, -1).numpy() - probs).max()
+        top = -np.sort(-probs, axis=-1)
+        gap = top[..., k - 1] - top[..., k]
+        flip = (np.sort(idx.numpy(), -1) != np.sort(jidx, -1)).any(-1)
+        assert (gap[flip] <= 8 * drift).all(), (gap[flip], drift)
+        return torch.from_numpy(jidx.astype(np.int64))
+
+    TM.ROUTING_HOOK = hook
+    try:
+        yield
+    finally:
+        TM.ROUTING_HOOK = None
+    assert not queue
 
 
 @pytest.fixture(scope="module")
@@ -241,22 +306,29 @@ def lm_runs():
                 return None, {"embeds": jnp.asarray(embeds[:, sl])}
             return jnp.asarray(ids[:, sl]), {}
 
+        choices = ({k: [] for k in ("apply", "prefill", "decode")}
+                   if jc.n_experts else dict.fromkeys(("apply", "prefill",
+                                                       "decode")))
         x, kw = inp(slice(0, S))
-        h, _ = m.apply(params, x, remat=False, **kw)
+        with _jax_choices(choices["apply"]):
+            h, aux = m.apply(params, x, remat=False, **kw)
         jcache = m.init_cache(B, S + N_DECODE)
-        hp, jcache = m.prefill(params, x, jcache, **kw)
+        with _jax_choices(choices["prefill"]):
+            hp, jcache = m.prefill(params, x, jcache, **kw)
         step = jax.jit(lambda p, c, x, kw, pos: m.decode_step(
             p, x, c, pos, **kw))
         dec = []
-        for t in range(S, S + N_DECODE):
-            x, kw = inp(slice(t, t + 1))
-            lg, jcache = step(params, jcache, x, kw, t)
-            dec.append(np.asarray(lg, np.float32))
+        with _jax_choices(choices["decode"]):
+            for t in range(S, S + N_DECODE):
+                x, kw = inp(slice(t, t + 1))
+                lg, jcache = step(params, jcache, x, kw, t)
+                dec.append(np.asarray(lg, np.float32))
         cache[case] = {
-            "tc": tc, "ids": ids, "embeds": embeds,
+            "tc": tc, "ids": ids, "embeds": embeds, "choices": choices,
             "params": jax.tree.map(np.asarray, params),
             "logits_apply": np.asarray(m.logits(params, h), np.float32),
             "h_apply": np.asarray(h, np.float32),
+            "aux_apply": {k: float(v) for k, v in aux.items()},
             "logits_prefill": np.asarray(m.logits(params, hp), np.float32),
             "decode": dec}
         return cache[case]
@@ -289,8 +361,16 @@ def test_lm_apply_matches_jax(lm_runs, case):
     p = params_from_numpy(r["params"], r["tc"].dtype, device="cpu")
     assert p["layers"]["attn"]["wq"].dtype == getattr(torch, r["tc"].dtype)
     x, kw = _port_inputs(r, slice(0, S))
-    h = m.apply(p, x, **kw)
+    with _pinned(r["choices"]["apply"]):
+        h, aux = m.apply(p, x, **kw)
     assert h.shape == (B, S, r["tc"].d_model)
+    assert set(aux) == set(r["aux_apply"])
+    for k, want in r["aux_apply"].items():
+        assert aux[k].dtype == torch.float32 and aux[k].shape == ()
+        np.testing.assert_allclose(float(aux[k]), want, rtol=_tol(case),
+                                   atol=1e-6)
+    if not r["tc"].n_experts:
+        assert all(float(v) == 0.0 for v in aux.values())
     _close(h, r["h_apply"], case)
     _close(m.logits(p, h), r["logits_apply"], case)
 
@@ -302,17 +382,18 @@ def test_lm_prefill_and_decode_match_jax(lm_runs, case):
     p = params_from_numpy(r["params"], r["tc"].dtype, device="cpu")
     cache = m.init_cache(B, S + N_DECODE, device="cpu")
     x, kw = _port_inputs(r, slice(0, S))
-    hp, cache = m.prefill(p, x, cache, **kw)
+    with _pinned(r["choices"]["prefill"]):
+        hp, cache = m.prefill(p, x, cache, **kw)
     _close(m.logits(p, hp), r["logits_prefill"], case)
-    for i, t in enumerate(range(S, S + N_DECODE)):
-        x, kw = _port_inputs(r, slice(t, t + 1))
-        lg, cache = m.decode_step(p, x, cache, t, **kw)
-        assert lg.shape == (B, 1, r["tc"].vocab)
-        _close(lg, r["decode"][i], case)
+    with _pinned(r["choices"]["decode"]):
+        for i, t in enumerate(range(S, S + N_DECODE)):
+            x, kw = _port_inputs(r, slice(t, t + 1))
+            lg, cache = m.decode_step(p, x, cache, t, **kw)
+            assert lg.shape == (B, 1, r["tc"].vocab)
+            _close(lg, r["decode"][i], case)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "moonshot-v1-16b-a3b",
-                                  "hymba-1.5b", "rwkv6-1.6b",
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-1.6b",
                                   "llama-3.2-vision-11b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -6,6 +6,12 @@
   ``jax.value_and_grad`` of the JAX ``loss_fn``, from the same weights
   (``params_from_numpy``), with remat on and off and ``scan_chunks`` 0 and
   2; each leaf's error over its largest |ref|, to 2e-4;
+* a moe model's step (reduced moonshot-v1-16b-a3b and qwen3-moe-235b-a22b,
+  with and without capacity drops): the total loss ``ce + 1e-2 lb + 1e-3
+  z``, its parts and every gradient leaf against ``jax.value_and_grad`` of
+  the JAX step's ``loss_fn``, and ``make_train_step``'s metrics
+  (``dropped_frac`` included) over 2 steps; each run also checks that no
+  routing decision is a near-tie;
 * ``adamw_update``, ``clip_by_global_norm`` and ``cosine_schedule``
   against the JAX functions; ``make_train_step`` for 3 steps in both
   packages on the same batches (losses to 1e-4 relative);
@@ -45,8 +51,9 @@ from repro_torch.core.tree import flatten, leaves, tree_map, unflatten
 from repro_torch.data import PrefetchIterator, SyntheticLMData
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch import train as ttrain
-from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.steps import loss_and_grads, make_train_step
 from repro_torch.models import LM
+from repro_torch.models import moe as TM
 from repro_torch.models.transformer import params_from_numpy
 from repro_torch.optim import (AdamWState, adamw_init, adamw_update,
                                clip_by_global_norm, cosine_schedule,
@@ -137,8 +144,8 @@ def test_train_step_gradients_match_jax(remat, scan_chunks):
         p.requires_grad_(True)
     model = LM(tc)
     fa.reset_launches()
-    h = model.apply(tp, torch.from_numpy(ids).long(), remat=remat,
-                    scan_chunks=scan_chunks)
+    h, _ = model.apply(tp, torch.from_numpy(ids).long(), remat=remat,
+                       scan_chunks=scan_chunks)
     loss = model.loss(tp, h, torch.from_numpy(labels), torch.from_numpy(mask),
                       chunk=12)
     grads = unflatten(treedef, torch.autograd.grad(loss, flat))
@@ -150,6 +157,120 @@ def test_train_step_gradients_match_jax(remat, scan_chunks):
                 for g, w in zip(got_l, want_l))
     assert worst <= 2e-4, worst
     assert all(v == 0 for v in fa.LAUNCHES.values())      # CPU: plain
+
+
+def _moe_cfgs(arch, capacity_factor):
+    kw = {"moe_capacity_factor": capacity_factor}
+    return (jconfigs.get_config(arch).reduced(**kw),
+            configs.get_config(arch).reduced(**kw))
+
+
+# no routing decision may be a near-tie: a gap of 1e-5 between a token's
+# k-th and (k+1)-th probability is ~100x the f32 difference of the two
+# packages' probabilities
+TIE_GAP = 1e-5
+
+
+def _tie_free(gaps: list):
+    """A routing hook that keeps every choice and collects the gap between
+    each token's k-th and (k+1)-th probability."""
+    def hook(router, logits, idx):
+        top = torch.sort(torch.softmax(logits.detach(), -1), -1,
+                         descending=True).values
+        k = idx.shape[-1]
+        gaps.append(float((top[..., k - 1] - top[..., k]).min()))
+        return idx
+    return hook
+
+
+MOE_CASES = [("moonshot-v1-16b-a3b", 1.25), ("moonshot-v1-16b-a3b", 0.5),
+             ("qwen3-moe-235b-a22b", 0.5)]
+
+
+@pytest.mark.parametrize("arch,capacity_factor", MOE_CASES)
+def test_moe_train_step_total_loss_and_gradients_match_jax(
+        arch, capacity_factor):
+    jc, tc = _moe_cfgs(arch, capacity_factor)
+    jp = _jax_params(jc)
+    ids, labels, mask = _tokens(jc.vocab, 5)
+    jm = JLM(jc)
+
+    def loss_fn(p):                 # the JAX make_train_step's loss_fn
+        h, aux = jm.apply(p, jnp.asarray(ids), remat=True)
+        ce = jm.loss(p, h, jnp.asarray(labels), jnp.asarray(mask), chunk=12)
+        total = (ce + 1e-2 * aux["load_balance_loss"]
+                 + 1e-3 * aux["router_z_loss"])
+        return total, (ce, aux)
+
+    (want_total, (want_ce, want_aux)), want_g = jax.value_and_grad(
+        loss_fn, has_aux=True)(jp)
+    tp = params_from_numpy(jp, tc.dtype, device="cpu")
+    batch = {"ids": torch.from_numpy(ids).long(),
+             "labels": torch.from_numpy(labels).long(),
+             "mask": torch.from_numpy(mask)}
+    gaps = []
+    TM.ROUTING_HOOK = _tie_free(gaps)
+    try:
+        ce, grads, aux = loss_and_grads(LM(tc), tp, batch, loss_chunk=12)
+    finally:
+        TM.ROUTING_HOOK = None
+    assert len(gaps) == 2 * tc.n_layers and min(gaps) > TIE_GAP, gaps
+    np.testing.assert_allclose(float(aux["total"]), float(want_total),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(ce), float(want_ce), rtol=1e-5)
+    np.testing.assert_allclose(
+        float(aux["total"]), float(ce) + 1e-2 * float(
+            aux["load_balance_loss"]) + 1e-3 * float(aux["router_z_loss"]),
+        rtol=1e-6)
+    for k in want_aux:
+        np.testing.assert_allclose(float(aux[k]), float(want_aux[k]),
+                                   rtol=1e-5, atol=1e-6)
+    assert (capacity_factor < 1) == (float(aux["dropped_frac"]) > 0)
+    want_l = jax.tree.leaves(want_g)
+    assert len(grads) == len(want_l) == 11
+    worst = max(_leaf_err(g.numpy(), w) for g, w in zip(grads, want_l))
+    assert worst <= 2e-4, worst
+    assert float(np.abs(np.asarray(
+        want_g["layers"]["moe"]["router"])).max()) > 0
+
+
+@pytest.mark.parametrize("arch,capacity_factor", MOE_CASES[1:])
+def test_moe_make_train_step_reports_dropped_frac_as_jax(arch,
+                                                         capacity_factor):
+    jc, tc = _moe_cfgs(arch, capacity_factor)
+    data = JData(vocab=jc.vocab, seq_len=S, global_batch=B, seed=0)
+    kw = dict(lr=3e-3, warmup=2, total_steps=10, loss_chunk=16)
+    _, jstep = j_make_train_step(jc, mesh=None, seq_parallel=False, **kw)
+    jstep = jax.jit(jstep)
+    jp = _jax_params(jc, seed=1)
+    tp = params_from_numpy(jp, tc.dtype, device="cpu")
+    jstate = {"params": jp, "opt": j_adamw_init(jp)}
+    tstate = {"params": tp, "opt": adamw_init(tp)}
+    _, tstep = make_train_step(tc, **kw)
+    gaps = []
+    for step in range(2):
+        b = data.batch(step)
+        jstate, jmet = jstep(jstate, {"ids": jnp.asarray(b.ids),
+                                      "labels": jnp.asarray(b.labels),
+                                      "mask": jnp.asarray(b.mask)})
+        TM.ROUTING_HOOK = _tie_free(gaps)
+        try:
+            tstate, tmet = tstep(tstate, {
+                "ids": torch.from_numpy(b.ids).long(),
+                "labels": torch.from_numpy(b.labels),
+                "mask": torch.from_numpy(b.mask)})
+        finally:
+            TM.ROUTING_HOOK = None
+        assert set(tmet) == set(jmet)
+        for k in ("loss", "grad_norm", "dropped_frac"):
+            np.testing.assert_allclose(float(tmet[k]), float(jmet[k]),
+                                       rtol=1e-4, atol=1e-6)
+        assert float(tmet["dropped_frac"]) > 0
+    # the weights themselves are not compared: AdamW's first step moves a
+    # weight by ~lr * sign(g), so an element whose gradient is ~0 (one the
+    # router barely reaches) lands on either side; the second step's loss
+    # and gradient norm above are what the first step's weights give
+    assert min(gaps) > TIE_GAP, gaps
 
 
 def test_remat_recomputes_each_layer_in_the_backward(monkeypatch):
@@ -176,7 +297,7 @@ def test_remat_recomputes_each_layer_in_the_backward(monkeypatch):
         flat, _ = flatten(tp)
         for p in flat:
             p.requires_grad_(True)
-        h = model.apply(tp, ids, remat=remat, scan_chunks=chunks)
+        h, _ = model.apply(tp, ids, remat=remat, scan_chunks=chunks)
         torch.autograd.grad(h.float().square().sum(), flat)
         assert len(calls) == expect, (remat, chunks, len(calls))
 
