@@ -44,7 +44,15 @@ version there:
   ``serve_lm`` at 6 of its 48 layers (~7.5 GB of weights; 4 prompts of 4096
   tokens through the einsum dispatch, 32 greedy tokens through the sort
   dispatch; K7 on every prefill self-attention), and training at 2 layers
-  (batch 2 x 4096, loss chunk 512, per-layer remat, AdamW; K7-K9).
+  (batch 2 x 4096, loss chunk 512, per-layer remat, AdamW; K7-K9);
+* the ssm and hybrid families at full widths and all their layers:
+  rwkv6-1.6b (d 2048, 32 RWKV-6 heads of 64, d_ff 7168, vocab 65536; 24
+  layers, 2.89 GB) and hymba-1.5b (d 1600, 25 heads x 64 over 5 kv heads,
+  window 1024 on every layer, a selective-SSM branch of state 16; 32
+  layers, 2.85 GB), bf16 with the recurrences in f32: ``serve_lm`` with 4
+  prompts of 4096 tokens (the chunked scans) and 32 greedy tokens (K7 on
+  every hymba prefill self-attention), and training at 2 layers (batch 2 x
+  4096, remat nesting the scans' chunk checkpoints; K7-K9 for hymba).
 
 Phases:
 
@@ -137,7 +145,29 @@ Phases:
               K8/K9 at [2, 4096, 16, 128] element by element; (f) prefill
               and decode ms, tokens/s, step ms, peak GB, idle share and the
               card ms by range (route, dispatch, experts, combine, K7)
-9. the ``kernels`` JSON line, the nvidia-smi line, and the result line;
+9. ssm      — rwkv6-1.6b and hymba-1.5b, gated only on what no second
+              device decides (neither family makes a discrete choice):
+              (a) f32 at full width, ssm_apply over [2, 64, 1600] and
+              time_mix over [2, 64, 2048] against 64 single-token calls
+              carrying their state (2e-4, every zero- or one-initialised
+              leaf drawn first); (b) time_mix at [1, 512, 2048] with the
+              scan's chunked remat on and off (outputs and every gradient,
+              1e-5 relative); (c) serve_lm at all the layers: K7 launches
+              (hymba 32 in the prefill, rwkv none), finite logits, served
+              twice bit for bit; (d) decode against LM.apply over prompt +
+              generated at batch 1 x 1024, f32 1e-4 and bf16 2.5e-2 of the
+              largest logit; (e) 4 training steps at 2 layers (the loss
+              falls, launches and routes, every gradient finite), hymba's
+              kernel step against a plain-attention step (loss 1e-3) and
+              each leaf's gradient error within 1.5x an SDPA control's,
+              rwkv's step against the step without the per-layer remat
+              (loss 1e-5); (f) K7 at [4, 4096, 25, 64] and K8/K9 at [2,
+              4096, 25, 64], window 1024, element by element, timed beside
+              the bound, the plain version and SDPA; (g) prefill and decode
+              ms, tokens/s, step ms, peak GB, idle share and the card ms by
+              range (ssm:conv, ssm:scan, rwkv:time_mix, rwkv:scan,
+              rwkv:channel_mix, K7, the rest)
+10. the ``kernels`` JSON line, the nvidia-smi line, and the result line;
    a ``[time] <phase> <seconds>`` line after each phase
 
 Any failed check raises: the script then exits non-zero without the result
@@ -222,6 +252,26 @@ DECODE = dict(sessions=12, steps=16, max_batch=4, max_seq=17)
 MOE = dict(arch="moonshot-v1-16b-a3b", layers=6, batch=4, prompt_len=4096,
            tokens=32, decode_prompt=1024, decode_tokens=16, train_layers=2,
            train_batch=2, train_seq=4096, train_steps=4, lr=3e-3)
+
+
+# the ssm and hybrid families at full widths: rwkv6-1.6b and hymba-1.5b
+# served at all their layers, 4 prompts of 4096 tokens (a multiple of 256:
+# the chunked scans) and 32 new tokens, the prefill profiled at 1 layer and
+# the decode for 2 steps (the profiler's parse of more events costs tens of
+# seconds); the decode held to a full-prefix rerun at batch 1 x 1024 (16
+# tokens); trained at 2 layers (batch 2 x 4096, 4 steps); the state checks
+# at [2, 64, d], the remat check at [1, 512, 2048]
+SSM = dict(archs=("rwkv6-1.6b", "hymba-1.5b"), batch=4, prompt_len=4096,
+           tokens=32, decode_prompt=1024, decode_tokens=16, state_batch=2,
+           state_len=64, remat_len=512, profile_layers=1, profile_steps=2,
+           train_layers=2, train_batch=2, train_seq=4096, train_steps=4,
+           lr=3e-3)
+# the leaves ssm_init and rwkv_init set to zeros or ones, drawn from the
+# seed instead: name -> (low, high) of a uniform draw
+STATE_LEAF_DRAWS = {"dt_bias": (-2.0, 0.0), "A_log": (-1.0, 1.0),
+                    "D": (0.5, 1.5), "mu": (0.0, 1.0), "mu_c": (0.0, 1.0),
+                    "w_bias": (-3.0, 0.0), "u": (-0.5, 0.5),
+                    "ln_scale": (0.5, 1.5)}
 
 
 class SmokeFailure(RuntimeError):
@@ -2826,6 +2876,648 @@ def phase_moe(fa_err: float) -> tuple[dict, dict]:
     return counts, out
 
 
+# --------------------------------------------------------------------------- #
+# 9. the ssm and hybrid families: rwkv6-1.6b and hymba-1.5b
+# --------------------------------------------------------------------------- #
+def draw_state_leaves(block: dict, g) -> dict:
+    """``block`` (an ``ssm_init`` or ``rwkv_init`` tree, stacked or not)
+    with each leaf of :data:`STATE_LEAF_DRAWS` replaced by a uniform draw
+    from ``g`` of its shape and type: at their initial zeros and ones the
+    token shift, the bonus and the learned decay take no part."""
+    import torch
+
+    out = dict(block)
+    for k, (lo, hi) in STATE_LEAF_DRAWS.items():
+        if k in out:
+            v = out[k]
+            out[k] = (torch.rand(v.shape, generator=g, device=v.device)
+                      * (hi - lo) + lo).to(v.dtype)
+    return out
+
+
+def share_of(got, want, tol: float) -> float:
+    """The largest |got - want| over its limit tol * (1 + |want|) (the
+    reference's ``rtol = atol = tol``)."""
+    return float(((got.float() - want.float()).abs()
+                  / (tol * (1.0 + want.float().abs()))).max())
+
+
+def ssm_state_checks() -> dict:
+    """(a) state carried against recomputed, f32 on the card at full width:
+    ``ssm_apply`` over [2, 64, 1600] in one call against 64 single-token
+    calls carrying {h, conv}, ``time_mix`` over [2, 64, 2048] against 64
+    calls carrying S and the shift; within 2e-4 (``tests/test_moe_ssm.py``).
+    (b) ``time_mix`` at [1, 512, 2048] (two 256-step chunks), the scan's
+    remat on and off: outputs and every gradient within 1e-5 relative."""
+    import torch
+
+    from repro_torch.launch.serve import lm_config
+    from repro_torch.models import rwkv as mr
+    from repro_torch.models import ssm as ms
+
+    s = SSM
+    g = torch.Generator("cuda").manual_seed(21)
+    B, T = s["state_batch"], s["state_len"]
+    hy = lm_config("hymba-1.5b", reduced=False)
+    d, N, K = hy.d_model, hy.ssm_state, hy.conv_kernel
+    p = draw_state_leaves(ms.ssm_init(g, d, N, K, torch.float32), g)
+    x = torch.randn((B, T, d), generator=g, device="cuda")
+    y_full, st_full = ms.ssm_apply(p, x)
+    st = ms.ssm_init_state(B, d, N, K, torch.float32, "cuda")
+    ys = []
+    for t in range(T):
+        y_t, st = ms.ssm_apply(p, x[:, t:t + 1], state=st)
+        ys.append(y_t)
+    out = {"ssm_apply": {
+        "y": share_of(torch.cat(ys, 1), y_full, 2e-4),
+        "h": share_of(st["h"], st_full["h"], 2e-4),
+        "conv": share_of(st["conv"], st_full["conv"], 2e-4)}}
+
+    rw = lm_config("rwkv6-1.6b", reduced=False)
+    d = rw.d_model
+    p = draw_state_leaves(mr.rwkv_init(g, d, rw.d_ff, torch.float32), g)
+    x = torch.randn((B, T, d), generator=g, device="cuda")
+    S0 = torch.zeros((B, d // mr.HEAD_DIM, mr.HEAD_DIM, mr.HEAD_DIM),
+                     device="cuda")
+    y_full, S_full = mr.time_mix(p, x, S0, None)
+    S, last, ys = S0, torch.zeros((B, d), device="cuda"), []
+    for t in range(T):
+        y_t, S = mr.time_mix(p, x[:, t:t + 1], S, last)
+        last = x[:, t]
+        ys.append(y_t)
+    out["time_mix"] = {"y": share_of(torch.cat(ys, 1), y_full, 2e-4),
+                       "S": share_of(S, S_full, 2e-4)}
+    torch.cuda.synchronize()
+    for name, v in out.items():
+        width = rw.d_model if name == "time_mix" else hy.d_model
+        print(f"[ssm] (a) {name}, f32 [{B}, {T}, {width}]: one call vs {T} "
+              f"single-token calls carrying the state, share of the 2e-4 "
+              f"limit by output {v}")
+        check(max(v.values()) <= 1.0, f"{name}: carried state off the "
+                                      f"one-call run ({v})")
+
+    # (b) the scan's chunked remat against the same blocks without it
+    x = torch.randn((1, s["remat_len"], d), generator=g, device="cuda")
+    S0 = torch.zeros((1, d // mr.HEAD_DIM, mr.HEAD_DIM, mr.HEAD_DIM),
+                     device="cuda")
+    names = sorted(set(p) - {"ck", "cv", "cr", "mu_c"})   # time-mix leaves
+    runs = []
+    for remat in (True, False):
+        leaves = [x.clone().requires_grad_()] + [
+            p[n].clone().requires_grad_() for n in names]
+        with torch.enable_grad():
+            y, S = mr.time_mix(dict(zip(names, leaves[1:])), leaves[0], S0,
+                               None, remat=remat)
+            grads = torch.autograd.grad((y ** 2).sum() + S.sum(), leaves)
+        runs.append((y.detach(), S.detach(), grads))
+        del y, S, leaves
+    (y1, S1, g1), (y2, S2, g2) = runs
+    rel = {"y": float((y1 - y2).norm() / y2.norm()),
+           "S": float((S1 - S2).norm() / S2.norm()),
+           **{f"d/{n}": float((a - b).norm() / b.norm())
+              for n, a, b in zip(["x"] + names, g1, g2)}}
+    worst = max(rel.values())
+    print(f"[ssm] (b) time_mix at [1, {s['remat_len']}, {d}] f32, chunk 256"
+          f": remat on vs off, largest relative difference {worst} over "
+          f"the output, S and {len(g1)} gradients (limit 1e-5)")
+    check(worst <= 1e-5 and all(float(b.abs().max()) > 0 for b in g2),
+          f"time_mix's chunked remat changes its result: {rel}")
+    out["remat"] = {"worst_rel": worst, "by_output": rel}
+    del runs, g1, g2, p, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def cut_params(params: dict, n: int) -> dict:
+    """The first ``n`` layers of a stacked LM tree (views)."""
+    from repro_torch.core.tree import tree_map
+
+    return {**params, "layers": tree_map(lambda t: t[:n], params["layers"])}
+
+
+def sdpa_window(T: int, window: int):
+    """F.scaled_dot_product_attention over [B, H, T, hd] with the causal
+    (and ``window``) boolean mask, and the mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import layers as ml
+
+    pos = torch.arange(T, device="cuda")
+    mask = ml.attn_mask(pos, pos, window)
+    return (lambda q, k, v: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask)), mask
+
+
+def k7_at(q, k, v, window: int, label: str) -> dict:
+    """K7 element by element and timed on these inputs, beside the bound,
+    the plain version and SDPA with the boolean mask."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    fa.reset_launches()
+    d, w = flash_err(q, k, v, True, window)
+    route = kernel_routes("flash_attention", 1)
+    B, T, H, hd = q.shape
+    lib, mask = sdpa_window(T, window)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    kw = dict(reps=5, cycles=int(4e7))
+    bound, by = attention_bound(q, k, True, window)
+    pairs = B * H * visible_pairs(T, T, True, window)
+    r = {"ms": device_ms(lambda q, k, v: fa.flash_attention_fwd(
+             q, k, v, True, window), [(q, k, v)], label=f"K7 {label}", **kw),
+         "plain_ms": device_ms(lambda q, k, v: fa.flash_attention_ref(
+             q, k, v, True, window), [(q, k, v)], label=f"K7 {label} plain",
+             **kw),
+         "bound_ms": bound, "bound_by": by,
+         "library_ms": device_ms(lib, [(qt, kt, vt)],
+                                 label=f"K7 {label} library", **kw),
+         "library": f"F.scaled_dot_product_attention "
+                    f"({sdpa_backend(qt, kt, vt, mask, False)}, boolean "
+                    f"window mask)",
+         "max_abs_err": d, "err_of_elementwise_limit": w, "route": route,
+         "shape": list(q.shape)}
+    fa.reset_launches()
+    r["tflops"] = 4.0 * hd * pairs / r["ms"] / 1e9
+    print(f"[ssm] (f) K7 {label} at {list(q.shape)} bf16 window {window} "
+          f"(route {route}): max abs err {d}, {w} of the element-wise "
+          f"limit; kernel_ms={r['ms']:.5f} ({r['tflops']:.2f} TFLOP/s) "
+          f"plain_ms={r['plain_ms']:.5f} bound_ms={bound:.5f} ({by}) "
+          f"library_ms={r['library_ms']:.5f} [{r['library']}]")
+    return r
+
+
+def k8_k9_at(q, k, v, do, window: int, label: str) -> dict:
+    """K8 and K9 through the autograd Function against autograd through
+    the plain version (element by element), then each timed from K7's lse
+    beside its bound, the plain backward and SDPA's backward."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    fa.reset_launches()
+    e = flash_bwd_err(q, k, v, do, True, window)
+    fa.reset_launches()
+    lse = fa.flash_attention_fwd(q, k, v, True, window)[1]
+    delta = fa.flash_attention_bwd_dq(q, k, v, lse, do, True, window)[1]
+    fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True, window)
+    routes = [kernel_routes(n, 1) for n in ("flash_attention",
+                                             "flash_attention_bwd_dq",
+                                             "flash_attention_bwd_dkv")]
+    check(routes == ["wgmma_bf16"] * 3, f"K7-K9 at {label} took {routes}")
+    B, T, H, hd = q.shape
+    lib, mask = sdpa_window(T, window)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    with torch.enable_grad():
+        o = lib(qt, kt, vt)
+    backend = sdpa_backend(qt, kt, vt, mask, False)
+    kw = dict(reps=5, cycles=int(4e7))
+    lib_ms = device_ms(lambda: torch.autograd.grad(
+        o, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), [()],
+        label=f"SDPA backward {label}", **kw)
+    rows = {}
+    for name, fn, plain, flops, nrows in (
+            ("flash_attention_bwd_dq",
+             lambda: fa.flash_attention_bwd_dq(q, k, v, lse, do, True,
+                                               window),
+             lambda: fa.flash_attention_bwd_dq_ref(q, k, v, lse, do, True,
+                                                   window), 6, (3, 2)),
+            ("flash_attention_bwd_dkv",
+             lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                True, window),
+             lambda: fa.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                                    True, window), 8,
+             (2, 4))):
+        bound, by, pairs = bwd_bound(q, k, True, window, flops, *nrows)
+        r = rows[name] = {
+            "ms": device_ms(fn, [()], label=f"{name} {label}", **kw),
+            "plain_ms": device_ms(plain, [()], label=f"{name} {label} "
+                                  f"plain", **kw),
+            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+            "library": f"backward of F.scaled_dot_product_attention "
+                       f"({backend}, boolean window mask; dq, dk and dv "
+                       f"together)",
+            "max_abs_err": e[name][0], "err_of_elementwise_limit": e[name][1],
+            "route": "wgmma_bf16", "shape": list(q.shape)}
+        r["tflops"] = flops * hd * pairs / r["ms"] / 1e9
+        print(f"[ssm] (f) {name} {label} at {list(q.shape)} bf16 window "
+              f"{window}: max abs err {r['max_abs_err']}, "
+              f"{r['err_of_elementwise_limit']} of the element-wise limit; "
+              f"kernel_ms={r['ms']:.5f} ({r['tflops']:.2f} TFLOP/s) "
+              f"plain_ms={r['plain_ms']:.5f} bound_ms={bound:.5f} ({by}) "
+              f"library_ms={lib_ms:.5f} [{r['library']}]")
+    fa.reset_launches()
+    del o, qt, kt, vt, lse, delta
+    return rows
+
+
+def recurrent_decode_vs_rerun(cfg, params, dtype: str) -> dict:
+    """(d) greedy decode (serve_lm, batch 1 x SSM decode prompt) against
+    LM.apply over prompt + generated at all the layers: the largest error
+    of the logits over the largest logit; f32 limit 1e-4, bf16 2.5e-2."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import LM
+
+    s = SSM
+    c = dataclasses.replace(cfg, dtype=dtype)
+    model = LM(c)
+    if dtype != cfg.dtype:
+        params = tree_map(lambda t: t.to(getattr(torch, dtype)), params)
+    P, N = s["decode_prompt"], s["decode_tokens"]
+    prompt = np.random.default_rng(2).integers(0, c.vocab, (1, P))
+    st = serve_lm(c, params, prompt, tokens=N, device="cuda",
+                  keep_logits=True)
+    full = torch.cat([torch.as_tensor(prompt, device="cuda"),
+                      torch.as_tensor(st["ids"], device="cuda")], dim=1)
+    with torch.no_grad():
+        h, _ = model.apply(params, full)
+        want = model.logits(params, h[:, P - 1:])
+    got = st["logits"]
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()
+                                           and torch.isfinite(want).all()),
+          f"{c.arch_id} {dtype} decode logits {tuple(got.shape)} vs "
+          f"{tuple(want.shape)}")
+    scale = want.abs().max()
+    err = ((got - want).abs().max() / scale).item()
+    per_pos = ((got - want).abs().amax(-1)[0] / scale).tolist()
+    agree = float((torch.argmax(want, -1)[0, :N].cpu().numpy()
+                   == st["ids"][0]).mean())
+    limit = 1e-4 if dtype == "float32" else 2.5e-2
+    print(f"[ssm] (d) {c.arch_id} {dtype}: decode vs LM.apply over prompt "
+          f"+ generated (batch 1 x {P}, {N} tokens, {c.n_layers} layers): "
+          f"largest error {err} of the largest logit ({err / limit} of the "
+          f"{limit} limit); by position {[round(e, 8) for e in per_pos]}; "
+          f"greedy agreement {agree}")
+    check(err <= limit, f"{c.arch_id} {dtype} decode is off LM.apply by "
+                        f"{err} of the largest logit (limit {limit})")
+    del model, params, h, want, got, st
+    return {"rel_err": err, "share": err / limit, "by_position": per_pos,
+            "greedy_agreement": agree}
+
+
+def recurrent_train(cfg_full) -> tuple[dict, dict]:
+    """(e) training at 2 layers through ``launch.train.build``'s step, the
+    state leaves drawn first; hymba: the kernel step against a
+    plain-attention step and an SDPA control, then K8/K9 at this shape;
+    rwkv: the step against the same step without the per-layer remat."""
+    import dataclasses
+    import gc
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.tree import leaves
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.launch.train import build
+    from repro_torch.models import LM
+    from repro_torch.models import layers as ml
+
+    s = SSM
+    cfg = dataclasses.replace(cfg_full, n_layers=s["train_layers"])
+    B, S = s["train_batch"], s["train_seq"]
+    torch.cuda.reset_peak_memory_stats()
+    state, step, data = build(cfg, s["train_steps"], s["lr"], S, B,
+                              device="cuda")
+    blk = "rwkv" if cfg.rwkv else "ssm"
+    drawn = draw_state_leaves(state["params"]["layers"][blk],
+                              torch.Generator("cuda").manual_seed(3))
+    for k, v in state["params"]["layers"][blk].items():
+        v.copy_(drawn[k])
+    n_params = sum(p.numel() for p in leaves(state["params"]))
+    tag = f"[ssm] (e) {cfg.arch_id}"
+    print(f"{tag} train: full widths, {cfg.n_layers} layers, {n_params} "
+          f"parameters; {torch.cuda.memory_allocated() / 1e9:.3f} GB of "
+          f"weights and AdamW moments allocated")
+    L = cfg.n_layers
+    per_step = ({"flash_attention": 0, "flash_attention_bwd_dq": 0,
+                 "flash_attention_bwd_dkv": 0} if cfg.rwkv else
+                {"flash_attention": 2 * L, "flash_attention_bwd_dq": L,
+                 "flash_attention_bwd_dkv": L})
+    fa.reset_launches()                   # the main path: the train steps
+    losses, wall = [], []
+    for i in range(s["train_steps"]):
+        batch = data.batch(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        before = dict(fa.LAUNCHES)
+        state, met = step(state, batch)
+        loss = float(met["loss"])
+        wall.append((time.perf_counter() - t0) * 1e3)
+        got = {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES}
+        check(got == per_step and math.isfinite(loss),
+              f"{cfg.arch_id} train step {i}: launches {got}, loss {loss}")
+        losses.append(loss)
+        print(f"{tag}   step {i}: loss {loss} grad_norm "
+              f"{float(met['grad_norm'])} wall {wall[-1]:.3f} ms")
+    counts = dict(fa.LAUNCHES)
+    check(all(fa.ROUTE_LAUNCHES[n] == {"wgmma_bf16": c, "simt_f32": 0}
+              for n, c in counts.items()),
+          f"{cfg.arch_id} train routes {fa.ROUTE_LAUNCHES}")
+    check(losses[-1] < losses[0], f"{cfg.arch_id} train loss {losses[0]} "
+                                  f"-> {losses[-1]} did not fall")
+    step_ms = statistics.median(wall[1:])
+    out = {"losses": losses, "step_ms": wall, "median_step_ms": step_ms,
+           "tokens_per_s": B * S / step_ms * 1e3, "n_params": n_params,
+           "launches_per_step": per_step}
+
+    model = LM(cfg)
+    bt = data.batch(s["train_steps"])
+    b = {"ids": torch.as_tensor(bt.ids, device="cuda").long(),
+         "labels": torch.as_tensor(bt.labels, device="cuda").long(),
+         "mask": torch.as_tensor(bt.mask, device="cuda")}
+    params = state["params"]
+    names = leaf_names(params)
+    k_loss, k_grads, _ = loss_and_grads(model, params, b)
+    for n, kg in zip(names, k_grads):
+        check(bool(torch.isfinite(kg).all()) and float(kg.abs().max()) > 0,
+              f"{cfg.arch_id} {n}: gradient not finite or all zero")
+    if cfg.rwkv:
+        r_loss, r_grads, _ = loss_and_grads(model, params, b, remat=False)
+        torch.cuda.synchronize()
+        l_err = abs(float(k_loss) - float(r_loss)) / abs(float(r_loss))
+        g_rel = max(float((a.float() - b_.float()).norm() / b_.float().norm())
+                    for a, b_ in zip(k_grads, r_grads))
+        print(f"{tag}   the step with per-layer remat vs without: loss "
+              f"{float(k_loss)} vs {float(r_loss)} (rel err {l_err}, limit "
+              f"1e-5); largest gradient leaf difference {g_rel} (printed); "
+              f"every gradient finite and nonzero")
+        check(l_err <= 1e-5, f"rwkv remat step vs plain: loss rel err "
+                             f"{l_err} (limit 1e-5)")
+        out.update({"remat_loss_rel_err": l_err, "remat_grad_rel": g_rel})
+        del r_grads
+    else:
+        w = int(cfg.layer_windows[0])
+        check(all(int(x) == w for x in cfg.layer_windows) and w > 0,
+              f"unexpected windows {cfg.layer_windows}")
+        lib, _ = sdpa_window(S, w)
+        real = ops.attention
+        variants = {
+            "plain": lambda q, k, v, causal=True, window=0:
+                fa.flash_attention_ref(q, k, v, causal, window)[0],
+            "sdpa": lambda q, k, v, causal=True, window=0: lib(
+                q.transpose(1, 2), k.transpose(1, 2),
+                v.transpose(1, 2)).transpose(1, 2)}
+        ref = {}
+        try:
+            for name, fn in variants.items():
+                ops.attention = fn
+                ref[name] = loss_and_grads(model, params, b)[:2]
+        finally:
+            ops.attention = real
+        torch.cuda.synchronize()
+        p_loss, p_grads = ref["plain"]
+        l_err = abs(float(k_loss) - float(p_loss)) / abs(float(p_loss))
+        ratios = {}
+        for n, kg, pg, sg in zip(names, k_grads, p_grads, ref["sdpa"][1]):
+            norm = pg.float().norm()
+            rk = ((kg.float() - pg.float()).norm() / norm).item()
+            rs = ((sg.float() - pg.float()).norm() / norm).item()
+            ratios[n] = (rk, rs, rk / rs if rs else
+                         (0.0 if rk == 0 else math.inf))
+            print(f"{tag}   {n}: ||dg||/||g_ref|| kernels {rk}, SDPA {rs}, "
+                  f"ratio {ratios[n][2]} (limit 1.5)")
+        worst = max(r for _, _, r in ratios.values())
+        print(f"{tag}   kernel step vs plain-attention step: loss "
+              f"{float(k_loss)} vs {float(p_loss)} (rel err {l_err}, limit "
+              f"1e-3); the kernels' gradient error at most {worst} x SDPA's "
+              f"(limit 1.5); every gradient finite and nonzero")
+        check(l_err <= 1e-3, f"hymba kernel step vs plain step: loss rel "
+                             f"err {l_err} (limit 1e-3)")
+        check(worst <= 1.5, f"hymba train: a leaf's kernel gradient error "
+                            f"is {worst} x SDPA's (limit 1.5)")
+        out.update({"kernel_vs_plain_loss_rel_err": l_err,
+                    "grad_err_vs_sdpa": ratios, "worst_grad_ratio": worst})
+        del ref, p_grads
+        gc.collect()
+
+        # K8 and K9 (and K7) at this shape, on layer 0's q/k/v
+        taken = {}
+
+        def take(q, k, v, causal=True, window=0):
+            taken.setdefault("qkv", (q, k, v))
+            return real(q, k, v, causal, window)
+
+        ops.attention = take
+        try:
+            with torch.no_grad():
+                LM(dataclasses.replace(cfg, n_layers=1)).apply(
+                    cut_params(params, 1), b["ids"], remat=False)
+        finally:
+            ops.attention = real
+        q, k, v = taken.pop("qkv")
+        do = torch.randn(q.shape, generator=torch.Generator(
+            "cuda").manual_seed(5), device="cuda").to(q.dtype)
+        out["bwd"] = k8_k9_at(q, k, v, do, w, "train")
+        del q, k, v, do
+    del k_grads
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{tag}   train: median step {step_ms:.3f} ms, "
+          f"{out['tokens_per_s']:.1f} tokens/s, peak {out['peak_gb']:.3f} "
+          f"GB, launches a step {per_step}, losses {losses}")
+    del state, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def ssm_model(arch: str) -> tuple[dict, dict]:
+    """One model at full widths and all its layers: (f) K7 at the serving
+    shape (hymba), (c) serve_lm twice, (g) the profile, (d) decode vs the
+    rerun in bf16 and f32, (e) training at 2 layers."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.tree import leaves
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import lm_config, serve_lm
+    from repro_torch.models import LM
+    from repro_torch.models import layers as ml
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    s = SSM
+    cfg = lm_config(arch, reduced=False)
+    check(cfg.dtype == "bfloat16" and (cfg.rwkv or (
+        cfg.hybrid and cfg.hd == 64 and cfg.window == 1024)),
+        f"unexpected config {cfg}")
+    model = LM(cfg)
+    g = torch.Generator("cuda").manual_seed(0)
+    params = model.init(g)
+    blk = "rwkv" if cfg.rwkv else "ssm"
+    params["layers"][blk] = draw_state_leaves(params["layers"][blk], g)
+    B, P, N = s["batch"], s["prompt_len"], s["tokens"]
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab, (B, P))
+    ids = torch.as_tensor(prompt, device="cuda")
+    nbytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    tag = f"[ssm] {cfg.arch_id}"
+    secs, t0 = {}, [time.perf_counter()]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        secs[part] = now - t0[0]
+        t0[0] = now
+
+    print(f"{tag} at full widths: d {cfg.d_model}, "
+          + ("RWKV-6 heads of 64" if cfg.rwkv else
+             f"{cfg.n_heads} x {cfg.hd} heads, {cfg.n_kv_heads} kv heads, "
+             f"window {cfg.window}, ssm_state {cfg.ssm_state}")
+          + f", d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}; "
+          f"{cfg.n_layers} layers, {nbytes / 1e9:.3f} GB of weights")
+    out = {"n_layers": cfg.n_layers, "weights_gb": nbytes / 1e9}
+
+    if not cfg.rwkv:        # (f) K7 at the serving shape, layer 0's q/k/v
+        taken, real = {}, ml.ops.attention
+
+        def take(q, k, v, causal=True, window=0):
+            taken.setdefault("qkv", (q, k, v, window))
+            return real(q, k, v, causal, window)
+
+        ml.ops.attention = take
+        try:
+            with torch.no_grad():
+                LM(dataclasses.replace(cfg, n_layers=1)).apply(
+                    cut_params(params, 1), ids, remat=False)
+        finally:
+            ml.ops.attention = real
+        q, k, v, w = taken.pop("qkv")
+        out["k7"] = k7_at(q, k, v, w, "serve")
+        del q, k, v
+    lap("k7")
+
+    # (c) the main path: serve_lm, after a short warm-up run
+    serve_lm(cfg, params, prompt[:, :256], tokens=2, device="cuda")
+    fa.reset_launches()
+    st = serve_lm(cfg, params, prompt, tokens=N, device="cuda",
+                  keep_logits=True)
+    torch.cuda.synchronize()
+    counts = dict(fa.LAUNCHES)
+    want_k7 = 0 if cfg.rwkv else cfg.n_layers
+    check(st["k7_launches_prefill"] == want_k7
+          and st["k7_launches_decode"] == 0
+          and fa.ROUTE_LAUNCHES["flash_attention"]["wgmma_bf16"] == want_k7
+          and st["finite"] and st["ids"].shape == (B, N),
+          f"{arch} serve_lm: K7 launches {counts}, routes "
+          f"{fa.ROUTE_LAUNCHES['flash_attention']}, finite {st['finite']}")
+    again = serve_lm(cfg, params, prompt, tokens=N, device="cuda",
+                     keep_logits=True)
+    same = (torch.equal(again["logits"], st["logits"])
+            and np.array_equal(again["ids"], st["ids"]))
+    check(same, f"{arch} serve_lm served twice gives other logits")
+    print(f"{tag} (c) serve_lm: {B} x {P} prompt, {N} tokens; K7 launches "
+          f"{counts} (all in the prefill, wgmma_bf16); every logit finite; "
+          f"served twice bit for bit: {same}")
+    keys = ("prefill_ms", "prefill_tok_s", "prefill_device_ms",
+            "decode_ms_per_token", "decode_tok_s")
+    for k_ in keys:
+        out[k_] = [st[k_], again[k_]]
+    print(f"{tag} (g) " + "  ".join(f"{k_}={out[k_]}" for k_ in keys))
+    del again, st
+    lap("serve")
+
+    # (g) where the card's time goes: a prefill at a depth cut, a few
+    # decode steps at all the layers
+    Lp, n_dec = min(s["profile_layers"], cfg.n_layers), s["profile_steps"]
+    cut = cut_params(params, Lp)
+    cmodel = LM(dataclasses.replace(cfg, n_layers=Lp))
+    # decode from a zero cache at position P: the served decode's kernels
+    # and shapes (the work does not depend on the state's values), without
+    # a third prefill at all the layers
+    cache = {"p": cmodel.init_cache(B, P, device="cuda"),
+             "d": model.init_cache(B, P + n_dec, device="cuda")}
+
+    def prefill():
+        with torch.no_grad():
+            cmodel.prefill(cut, ids, cache["p"])
+
+    def decode():
+        tok = ids[:, -1:]
+        with torch.no_grad():
+            for t in range(n_dec):
+                lg, cache["d"] = model.decode_step(params, tok, cache["d"],
+                                                   P + t)
+                tok = torch.argmax(lg[:, -1], -1)[:, None]
+
+    prefix = "rwkv:" if cfg.rwkv else "ssm:"
+    out["profile"] = {}
+    for k_, f in ((f"prefill_{Lp}_layers", prefill),
+                  (f"decode_{n_dec}_steps", decode)):
+        t1 = time.perf_counter()
+        out["profile"][k_] = device_profile(f, groups={"K7": "flash_fwd"},
+                                            ranges=prefix)
+        out["profile"][k_]["profiler_s"] = time.perf_counter() - t1
+    for k_, v_ in out["profile"].items():
+        v_["rest_ms"] = (v_["device_busy_ms"] - sum(v_["ranges"].values())
+                         - v_["groups"]["K7"])
+        print(f"{tag} (g) profile {k_} ({v_['profiler_s']:.3f} s under the "
+              f"profiler, its parse included): wall {v_['wall_ms']:.3f} ms, "
+              f"card "
+              f"busy {v_['device_busy_ms']:.3f} ms, idle share "
+              f"{v_['device_idle_share']}, card ms by range "
+              f"{ {**v_['ranges'], **v_['groups'], 'rest': v_['rest_ms']} }")
+        for t in v_["top"]:
+            print(f"{tag}   {t['ms']:10.3f} ms x{t['count']:<6d} {t['name']}")
+    del cache, cut, cmodel
+    out["serve_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    lap("profile")
+
+    # (d) decode against the full-prefix rerun, bf16 and f32
+    out["decode_vs_rerun"] = {dt: recurrent_decode_vs_rerun(cfg, params, dt)
+                              for dt in ("bfloat16", "float32")}
+    del model, params, ids
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("decode_vs_rerun")
+
+    # (e) training
+    tcounts, out["train"] = recurrent_train(cfg)
+    lap("train")
+    out["seconds"] = secs
+    tr, prof = out["train"], out["profile"]
+    print(f"{tag} (g) prefill {out['prefill_ms']} ms ({out['prefill_tok_s']} "
+          f"tokens/s), decode {out['decode_ms_per_token']} ms a token, "
+          f"train step {tr['median_step_ms']:.3f} ms ({tr['tokens_per_s']:.1f}"
+          f" tokens/s); peak {out['serve_peak_gb']:.3f} GB serving, "
+          f"{tr['peak_gb']:.3f} GB training; idle share "
+          f"{ {k_: v_['device_idle_share'] for k_, v_ in prof.items()} }")
+    for k_, v_ in tcounts.items():
+        counts[k_] = counts.get(k_, 0) + v_
+    print(f"{tag} serve peak {out['serve_peak_gb']:.3f} GB, train peak "
+          f"{out['train']['peak_gb']:.3f} GB; K7/K8/K9 launches on its main "
+          f"paths {counts}; seconds by part "
+          f"{ {k_: round(v_, 3) for k_, v_ in secs.items()} }")
+    return counts, out
+
+
+def phase_ssm() -> tuple[dict, dict]:
+    """The ssm and hybrid families on the card: the state and remat checks,
+    then rwkv6-1.6b and hymba-1.5b, each served at all its layers and
+    trained at 2."""
+    t0 = time.perf_counter()
+    out = {"state": ssm_state_checks()}
+    print(f"[ssm] (a), (b): {time.perf_counter() - t0:.3f} s")
+    counts = {}
+    for arch in SSM["archs"]:
+        c, out[arch] = ssm_model(arch)
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    return counts, out
+
+
 def main() -> int:
     sys.path.insert(0, os.path.join(HERE, "src"))
     t_start = time.perf_counter()
@@ -2875,10 +3567,18 @@ def main() -> int:
     for n, (d, _) in moe_out["train"]["bwd_err"].items():
         rows[n]["max_abs_err"] = max(rows[n]["max_abs_err"], d)
     lap("moe")
+    scounts, ssm_out = phase_ssm()
+    hy = ssm_out["hymba-1.5b"]
+    rows["flash_attention"]["max_abs_err"] = max(
+        rows["flash_attention"]["max_abs_err"], hy["k7"]["max_abs_err"])
+    for n, r in hy["train"]["bwd"].items():
+        rows[n]["max_abs_err"] = max(rows[n]["max_abs_err"],
+                                     r["max_abs_err"])
+    lap("ssm")
     print(f"[time] total {time.perf_counter() - t_start:.3f}")
     for k, v in (*counts.items(), *hcounts.items(), *rcounts.items(),
                  *ccounts.items(), *fcounts.items(), *tcounts.items(),
-                 *dcounts.items(), *mcounts.items()):
+                 *dcounts.items(), *mcounts.items(), *scounts.items()):
         launches[k] = launches.get(k, 0) + v
     replaces = {"cvt_color": "src/repro/kernels/harris.py:44",
                 "corner_harris": "src/repro/kernels/harris.py:101",
@@ -2911,6 +3611,7 @@ def main() -> int:
                       "continuous_decode": decoded, "serve_lm": lm,
                       "f32_route_driver_shape": f32_route,
                       "train": trained, "driver": driven, "moe": moe_out,
+                      "ssm": ssm_out,
                       "tc_resources": tc_res, "k7_train_shape": k7_train,
                       "k6_resources": rows["rmsnorm_matmul"]["resources"],
                       "local_layer": {n: {k: v for k, v in rows[n].items()

@@ -5,11 +5,14 @@ Three serving modes, on the card unless the caller asks for the CPU with
 ``--device cpu``:
 
 * ``lm`` (default) — batched prefill into a KV cache, then greedy decode, on
-  the LM stack, dense or moe (:func:`serve_lm`); every prefill
-  self-attention runs the flash-attention kernel (K7)::
+  the LM stack, dense, moe, hybrid or ssm (:func:`serve_lm`); every
+  prefill self-attention runs the flash-attention kernel (K7), and the
+  hybrid and rwkv blocks carry their recurrent state in the cache::
 
       python -m repro_torch.launch.serve --mode lm --arch gemma3-12b \\
           --no-reduced --layers 6 --batch 4 --prompt-len 4096 --tokens 32
+      python -m repro_torch.launch.serve --mode lm --arch rwkv6-1.6b \\
+          --no-reduced --batch 4 --prompt-len 4096 --tokens 32
 
 * ``trace`` and ``pipeline`` — a request-queue serving loop over a token
   pipeline (the ROADMAP's "serve heavy traffic" front-end)::
@@ -1284,6 +1287,7 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+@torch.no_grad()
 def serve_lm(cfg, params: Any = None, prompt: Any = None, *, batch: int = 4,
              prompt_len: int = 32, tokens: int = 32, device=None,
              keep_logits: bool = False) -> dict:

@@ -1,7 +1,8 @@
 """Transformer building blocks — functional, param-dict style.
 
-The port of the JAX package's ``models/layers.py`` for the dense and moe
-families.  Conventions, as there:
+The port of the JAX package's ``models/layers.py`` for the dense, moe,
+hybrid and ssm families (the rwkv block uses only :func:`rmsnorm` and
+:func:`_dense_init` from here).  Conventions, as there:
 
 * params are nested dicts of tensors; layer stacks have leading dim L;
 * compute dtype = config dtype (bf16 on the card); softmax and norms
@@ -12,7 +13,7 @@ families.  Conventions, as there:
 Every self-attention over a whole prompt (the forward pass, and prefill
 into an empty cache) goes through :func:`repro_torch.kernels.ops.attention`,
 the flash-attention kernel (K7) on the card, whose backward is K8 and K9
-under autograd (``expand_kv``'s gather then sums each group's gradient
+under autograd (``expand_kv``'s broadcast then sums each group's gradient
 back onto its kv head).  Decode (new tokens at
 ``cache_pos > 0``) stays plain PyTorch, as the JAX package computes it
 outside any Pallas kernel: K7's masks are aligned at position 0.
@@ -98,12 +99,19 @@ def attention_init(generator: torch.Generator, d: int, n_heads: int,
 def expand_kv(kv: torch.Tensor, n_heads: int) -> torch.Tensor:
     """[B, M, KV, hd] → [B, M, H, hd]; q-head h uses kv-head h // (H/KV).
 
-    The gather form of the JAX function (a head-index take), which leaves a
-    new contiguous tensor, the layout K7 reads.
+    The reshape-broadcast form of the JAX function (its lowering for a
+    sharded cache; the other, a head-index take, gives the same values),
+    contiguous, the layout K7 reads (``kv`` itself when G is 1 and it is
+    contiguous already, else a new tensor).  Its gradient sums each
+    group's G heads onto their kv head in one reduction (f32 sums, rounded
+    once), the same on every run; a take's gradient adds them in with
+    float atomics on the card, in any order, each add rounded to the
+    gradient's type.
     """
-    G = n_heads // kv.shape[2]
-    idx = torch.arange(n_heads, device=kv.device) // G
-    return torch.index_select(kv, 2, idx)
+    B, M, KV, hd = kv.shape
+    G = n_heads // KV
+    return kv[:, :, :, None].expand(B, M, KV, G, hd).contiguous().view(
+        B, M, n_heads, hd)
 
 
 def gqa_scores(q: torch.Tensor, k_exp: torch.Tensor) -> torch.Tensor:
@@ -217,7 +225,11 @@ def embed_init(generator: torch.Generator, vocab_padded: int, d: int,
 
 
 def embed(p: Params, ids: torch.Tensor) -> torch.Tensor:
-    return p["table"][ids]
+    """The table's rows at ``ids`` (the JAX ``jnp.take``).  ``F.embedding``
+    sums a row's gradient without atomics, the same on every run; a
+    subscript's gradient (``index_put_`` with accumulate) adds with float
+    atomics on the card."""
+    return F.embedding(ids, p["table"])
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,24 +1,30 @@
 """Decoder-only LM — the port of the JAX package's ``models/transformer.py``
-for the dense and moe families.
+for the dense, moe, hybrid and ssm families.
 
 Families ported: ``dense`` (GQA attention + SwiGLU: deepseek-67b, gemma3-12b,
 gemma3-27b, mistral-large-123b), ``audio`` (musicgen-large: the same
-dense backbone over precomputed frame embeddings, ``embeds_in``) and ``moe``
+dense backbone over precomputed frame embeddings, ``embeds_in``), ``moe``
 (GQA attention + a top-k expert FFN, :mod:`.moe`: moonshot-v1-16b-a3b,
-qwen3-moe-235b-a22b).  The hybrid, ssm (rwkv) and vlm families raise
+qwen3-moe-235b-a22b), ``hybrid`` (GQA attention and a selective-SSM branch
+in parallel, averaged, :mod:`.ssm`: hymba-1.5b) and ``ssm`` (RWKV-6
+blocks, attention-free, :mod:`.rwkv`: rwkv6-1.6b).  The vlm family raises
 ``NotImplementedError``.
 
 The JAX ``lax.scan`` over the stacked ``[L, ...]`` parameters is a Python
 loop over the same stacked tensors; per-layer heterogeneity (gemma3's
 sliding window and rope theta) rides along as per-layer data, so the
 parameter tree has the JAX tree's layout and :func:`params_from_numpy`
-carries JAX weights across unchanged.  The KV cache is updated in place.
+carries JAX weights across unchanged.  The cache is updated in place: the
+k/v rows by the attention, and a layer's recurrent state (the hybrid
+block's ``ssm`` ``h``/``conv``, the rwkv block's ``S``/``tm_last``/
+``cm_last``) copied into its ``[L, ...]`` stack after the layer runs.
 
 Training: ``apply(remat=True)`` checkpoints every layer with
 ``torch.utils.checkpoint`` (the JAX ``jax.checkpoint`` body), and with
-``scan_chunks=c`` every chunk of c layers as well; :meth:`LM.loss` is the
-chunked cross-entropy, one checkpointed chunk of ``[B, chunk, V]`` f32
-logits alive at a time.
+``scan_chunks=c`` every chunk of c layers as well; the recurrences'
+time-chunk checkpoints (:mod:`.scan_utils`) nest inside them.
+:meth:`LM.loss` is the chunked cross-entropy, one checkpointed chunk of
+``[B, chunk, V]`` f32 logits alive at a time.
 """
 from __future__ import annotations
 
@@ -34,6 +40,8 @@ from .config import ArchConfig
 from .layers import (attention, attention_init, embed, embed_init, lm_logits,
                      logits_f32, mlp, mlp_init, rmsnorm, rmsnorm_init)
 from .moe import AUX_KEYS, moe_apply, moe_init
+from .rwkv import rwkv_block, rwkv_init, rwkv_init_state
+from .ssm import ssm_apply, ssm_init, ssm_init_state
 
 Params = Any
 
@@ -45,10 +53,6 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def unported_family(cfg: ArchConfig) -> str | None:
     """Why the port cannot run ``cfg`` yet (None when it can)."""
-    if cfg.rwkv:
-        return "the rwkv (ssm) family"
-    if cfg.hybrid or cfg.ssm_state:
-        return "the hybrid (ssm) family"
     if cfg.cross_attn_every:
         return "the vlm family (cross-attention)"
     return None
@@ -61,9 +65,15 @@ def _block_init(cfg: ArchConfig, generator: torch.Generator) -> Params:
     dtype = torch_dtype(cfg.dtype)
     dev = generator.device
     p = {"ln1": rmsnorm_init(cfg.d_model, dtype, dev),
-         "ln2": rmsnorm_init(cfg.d_model, dtype, dev),
-         "attn": attention_init(generator, cfg.d_model, cfg.n_heads,
-                                cfg.n_kv_heads, cfg.hd, dtype)}
+         "ln2": rmsnorm_init(cfg.d_model, dtype, dev)}
+    if cfg.rwkv:
+        p["rwkv"] = rwkv_init(generator, cfg.d_model, cfg.d_ff, dtype)
+        return p
+    p["attn"] = attention_init(generator, cfg.d_model, cfg.n_heads,
+                               cfg.n_kv_heads, cfg.hd, dtype)
+    if cfg.hybrid:
+        p["ssm"] = ssm_init(generator, cfg.d_model, cfg.ssm_state,
+                            cfg.conv_kernel, dtype)
     if cfg.n_experts:
         p["moe"] = moe_init(generator, cfg.d_model, cfg.d_ff, cfg.n_experts,
                             dtype)
@@ -81,12 +91,25 @@ def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
                  window: int, theta: float, cache: Params | None = None,
                  cache_pos: int | None = None
                  ) -> tuple[torch.Tensor, Params | None, dict | None]:
-    """One dense or moe block (``LM`` refuses the other families). Returns
-    (x, new_cache, aux); aux is None for a dense block (the JAX block's
-    zeros)."""
+    """One block (``LM`` refuses the vlm family). Returns (x, new_cache,
+    aux); aux is None but for a moe block (the JAX block's zeros).
+    new_cache: the rwkv state, or the attention's k/v (the cache's own
+    tensors, written in place) and the hybrid block's new ``ssm`` state;
+    None without a cache."""
+    if cfg.rwkv:
+        x, new_state = rwkv_block(p["rwkv"], x, p["ln1"], p["ln2"],
+                                  state=cache)
+        return x, new_state, None
     h = rmsnorm(p["ln1"], x)
+    kv = None if cache is None else {"k": cache["k"], "v": cache["v"]}
     a, new_cache = attention(p["attn"], h, None, theta=theta, window=window,
-                             cache=cache, cache_pos=cache_pos)
+                             cache=kv, cache_pos=cache_pos)
+    if cfg.hybrid:
+        s, s_new = ssm_apply(p["ssm"], h,
+                             state=None if cache is None else cache["ssm"])
+        a = (a + s) * 0.5
+        if new_cache is not None:
+            new_cache["ssm"] = s_new
     x = x + a
     h2 = rmsnorm(p["ln2"], x)
     if "moe" in p:
@@ -103,6 +126,16 @@ def _unstack(tree: Params) -> list[Params]:
     cols = [a.unbind(0) for a in flat]
     return [unflatten(treedef, [c[i] for c in cols])
             for i in range(len(cols[0]))]
+
+
+def _write_back(dst: Params, src: Params) -> None:
+    """Copy ``src``'s leaves into ``dst``'s tensors (views of the stacked
+    cache), skipping those that already are ``dst``'s."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _write_back(dst[k], v)
+        elif v is not dst[k]:
+            dst[k].copy_(v)
 
 
 def _remat(fn, *args):
@@ -165,7 +198,7 @@ class LM:
         """→ (hidden [B, S, d], aux). Use :meth:`loss` / :meth:`logits`
         after.  aux: the MoE aux losses (``load_balance_loss``,
         ``router_z_loss``, ``dropped_frac``) summed over the layers, f32
-        0-d tensors; zero for the dense family.
+        0-d tensors; zero for the other families.
 
         ``remat``: recompute each layer's activations in the backward pass.
         ``scan_chunks=c``: also checkpoint each chunk of c layers (the JAX
@@ -228,14 +261,25 @@ class LM:
 
     # -- KV cache / serving ----------------------------------------------------- #
     def init_cache(self, batch: int, cache_len: int, device=None) -> Params:
-        """Zero k/v caches ``[L, B, cache_len, KV, hd]`` on ``device`` (the
-        card unless ``device="cpu"``)."""
+        """A zero cache on ``device`` (the card unless ``device="cpu"``),
+        each leaf stacked ``[L, ...]``: k/v ``[B, cache_len, KV, hd]``, plus
+        the hybrid block's ``ssm`` state; for rwkv the block state alone
+        (``cache_len`` unused)."""
         cfg = self.cfg
         dev = resolve_device(device)
-        shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.hd)
         dtype = torch_dtype(cfg.dtype)
-        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        if cfg.rwkv:
+            per = rwkv_init_state(batch, cfg.d_model, dtype, dev)
+        else:
+            shape = (batch, cache_len, cfg.n_kv_heads, cfg.hd)
+            per = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                   "v": torch.zeros(shape, dtype=dtype, device=dev)}
+            if cfg.hybrid:
+                per["ssm"] = ssm_init_state(batch, cfg.d_model,
+                                            cfg.ssm_state, cfg.conv_kernel,
+                                            dtype, dev)
+        return tree_map(lambda a: a.expand((cfg.n_layers, *a.shape))
+                        .contiguous(), per)
 
     def prefill(self, params: Params, ids: torch.Tensor | None,
                 cache: Params, *, embeds: torch.Tensor | None = None
@@ -258,8 +302,9 @@ class LM:
         x = self._embed_in(params, ids, embeds)
         for lp, lc, (w, th) in zip(_unstack(params["layers"]),
                                    _unstack(cache), self._layer_meta()):
-            x, _, _ = _block_apply(self.cfg, lp, x, window=w, theta=th,
-                                   cache=lc, cache_pos=int(pos))
+            x, new, _ = _block_apply(self.cfg, lp, x, window=w, theta=th,
+                                     cache=lc, cache_pos=int(pos))
+            _write_back(lc, new)
         x = rmsnorm(params["final_norm"], x)
         return x, cache
 

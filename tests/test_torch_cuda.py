@@ -22,6 +22,8 @@ from repro_torch.launch import serve
 from repro_torch.models import LM
 from repro_torch.models import harris as mh
 from repro_torch.models import moe
+from repro_torch.models import rwkv as mrwkv
+from repro_torch.models import ssm as mssm
 
 torch.set_num_threads(1)
 
@@ -403,6 +405,133 @@ def test_moe_lm_serves_twice_bit_for_bit_on_card(cuda_device):
                            keep_logits=True) for _ in range(2)]
     for st in runs:
         assert st["k7_launches_prefill"] == cfg.n_layers
+        assert st["k7_launches_decode"] == 0 and st["finite"]
+    assert torch.equal(runs[0]["logits"], runs[1]["logits"])
+    np.testing.assert_array_equal(runs[0]["ids"], runs[1]["ids"])
+
+
+# the leaves ssm_init and rwkv_init set to zeros or ones, drawn instead:
+# name -> (low, high) of a uniform draw
+STATE_LEAF_DRAWS = {"dt_bias": (-2.0, 0.0), "A_log": (-1.0, 1.0),
+                    "D": (0.5, 1.5), "mu": (0.0, 1.0), "mu_c": (0.0, 1.0),
+                    "w_bias": (-3.0, 0.0), "u": (-0.5, 0.5),
+                    "ln_scale": (0.5, 1.5)}
+
+
+def _draw_state_leaves(block: dict, g: torch.Generator) -> dict:
+    out = dict(block)
+    for k, (lo, hi) in STATE_LEAF_DRAWS.items():
+        if k in out:
+            v = out[k]
+            out[k] = (torch.rand(v.shape, generator=g, device=v.device)
+                      * (hi - lo) + lo).to(v.dtype)
+    return out
+
+
+def test_ssm_and_time_mix_carry_their_state_on_card(cuda_device):
+    """f32 on the card: ssm_apply over [2, 32, 64] in one call equals 32
+    single-token calls carrying {h, conv}, and time_mix over [2, 32, 128]
+    equals 32 calls carrying S and the shift (2e-4), every zero- or
+    one-initialised leaf drawn first."""
+    g = torch.Generator(cuda_device).manual_seed(1)
+    d, N, K, T = 64, 16, 4, 32
+    p = _draw_state_leaves(mssm.ssm_init(g, d, N, K, torch.float32), g)
+    x = torch.randn((2, T, d), generator=g, device=cuda_device)
+    y_full, st_full = mssm.ssm_apply(p, x)
+    st = mssm.ssm_init_state(2, d, N, K, torch.float32, cuda_device)
+    ys = []
+    for t in range(T):
+        y_t, st = mssm.ssm_apply(p, x[:, t:t + 1], state=st)
+        ys.append(y_t)
+    torch.testing.assert_close(torch.cat(ys, 1), y_full, rtol=2e-4,
+                               atol=2e-4)
+    torch.testing.assert_close(st["h"], st_full["h"], rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(st["conv"], st_full["conv"], rtol=2e-4,
+                               atol=2e-4)
+
+    d = 128
+    p = _draw_state_leaves(mrwkv.rwkv_init(g, d, 256, torch.float32), g)
+    x = torch.randn((2, T, d), generator=g, device=cuda_device) * 0.5
+    S0 = torch.zeros((2, d // 64, 64, 64), device=cuda_device)
+    y_full, S_full = mrwkv.time_mix(p, x, S0, None)
+    S, last, ys = S0, torch.zeros((2, d), device=cuda_device), []
+    for t in range(T):
+        y_t, S = mrwkv.time_mix(p, x[:, t:t + 1], S, last)
+        last = x[:, t]
+        ys.append(y_t)
+    torch.testing.assert_close(torch.cat(ys, 1), y_full, rtol=2e-4,
+                               atol=2e-4)
+    torch.testing.assert_close(S, S_full, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-1.6b"])
+def test_scan_checkpoints_nest_in_the_layer_remat_on_card(cuda_device,
+                                                          arch):
+    """A reduced f32 model's loss and gradients at S 512 (two 256-step
+    chunks a recurrence, each checkpointed inside the per-layer
+    checkpoint) equal the step without the per-layer remat, and time_mix's
+    equal those with the scan's remat off (1e-5 relative), on the card's
+    torch."""
+    from repro_torch.launch.steps import loss_and_grads
+
+    cfg = serve.lm_config(arch)
+    g = torch.Generator(cuda_device).manual_seed(2)
+    params = LM(cfg).init(g)
+    blk = "rwkv" if cfg.rwkv else "ssm"
+    params["layers"][blk] = _draw_state_leaves(params["layers"][blk], g)
+    rng = np.random.default_rng(4)
+    batch = {"ids": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 512))
+                                     ).to(cuda_device),
+             "labels": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 512))
+                                        ).to(cuda_device),
+             "mask": torch.ones((2, 512), device=cuda_device)}
+    fa.reset_launches()
+    ce, grads, _ = loss_and_grads(LM(cfg), params, batch)
+    ce2, grads2, _ = loss_and_grads(LM(cfg), params, batch, remat=False)
+    assert fa.LAUNCHES["flash_attention"] == (0 if cfg.rwkv else
+                                              3 * cfg.n_layers)
+    assert abs(float(ce) - float(ce2)) <= 1e-5 * abs(float(ce2))
+    for a, b in zip(grads, grads2):
+        assert bool(torch.isfinite(a).all()) and float(b.abs().max()) > 0
+        assert float((a - b).norm() / b.norm()) <= 1e-5
+
+    p = _draw_state_leaves(mrwkv.rwkv_init(g, 128, 256, torch.float32), g)
+    x = torch.randn((1, 512, 128), generator=g, device=cuda_device)
+    S0 = torch.zeros((1, 2, 64, 64), device=cuda_device)
+    names = sorted(set(p) - {"ck", "cv", "cr", "mu_c"})
+    out = []
+    for remat in (True, False):
+        leaves = [x.clone().requires_grad_()] + [
+            p[k].clone().requires_grad_() for k in names]
+        with torch.enable_grad():
+            y, S = mrwkv.time_mix(dict(zip(names, leaves[1:])), leaves[0],
+                                  S0, None, remat=remat)
+            out.append((y.detach(), S.detach(), torch.autograd.grad(
+                (y ** 2).sum() + S.sum(), leaves)))
+    (y1, S1, g1), (y2, S2, g2) = out
+    torch.testing.assert_close(y1, y2, rtol=1e-5, atol=0)
+    torch.testing.assert_close(S1, S2, rtol=1e-5, atol=0)
+    for a, b in zip(g1, g2):
+        assert float((a - b).norm() / b.norm()) <= 1e-5
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-1.6b"])
+def test_recurrent_lm_serves_twice_bit_for_bit_on_card(cuda_device, arch):
+    """Reduced hymba-1.5b (K7 on every prefill self-attention, none in the
+    decode loop) and rwkv6-1.6b (no K7) in bf16, a 2 x 512 prompt (two
+    256-step chunks) and 6 tokens: finite logits, and a second serve gives
+    the same logits bit for bit."""
+    cfg = dataclasses.replace(serve.lm_config(arch), dtype="bfloat16")
+    g = torch.Generator(cuda_device).manual_seed(0)
+    params = LM(cfg).init(g)
+    blk = "rwkv" if cfg.rwkv else "ssm"
+    params["layers"][blk] = _draw_state_leaves(params["layers"][blk], g)
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab, (2, 512))
+    runs = [serve.serve_lm(cfg, params, prompt, tokens=6, device=cuda_device,
+                           keep_logits=True) for _ in range(2)]
+    for st in runs:
+        assert st["k7_launches_prefill"] == (0 if cfg.rwkv else
+                                             cfg.n_layers)
         assert st["k7_launches_decode"] == 0 and st["finite"]
     assert torch.equal(runs[0]["logits"], runs[1]["logits"])
     np.testing.assert_array_equal(runs[0]["ids"], runs[1]["ids"])

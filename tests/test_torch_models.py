@@ -6,12 +6,16 @@
 * layer parity in f32 (rmsnorm, rope, expand_kv, the mask, attention
   without a cache, prefill into a cache and decode, the MLP, the lm head),
   weights and inputs drawn with numpy and handed to both;
-* LM parity on reduced dense and moe configs: JAX ``LM.init(PRNGKey(0))``
-  weights carried across with ``params_from_numpy``; ``apply`` (its hidden
-  state and its aux, summed over the layers), ``prefill`` + ``logits`` and
-  4 ``decode_step``s to 1e-4 (``tests/test_models.py``), and one bf16
-  model of each family to 2.5e-2 of the largest logit;
-* unported families raise ``NotImplementedError``.
+* LM parity on reduced dense, moe, hybrid (hymba-1.5b) and ssm
+  (rwkv6-1.6b) configs: JAX ``LM.init(PRNGKey(0))`` weights carried across
+  with ``params_from_numpy``; ``apply`` (its hidden state and its aux,
+  summed over the layers), ``prefill`` + ``logits`` and 4 ``decode_step``s
+  to 1e-4 (``tests/test_models.py``), and one bf16 model of each family to
+  2.5e-2 of the largest logit.  The SSM and RWKV leaves that the
+  reference initialises to zeros or ones are drawn at random first (in the
+  numpy tree both packages get), or the token shift, the bonus and the
+  learned decay would take no part;
+* the unported family (vlm) raises ``NotImplementedError``.
 
 The JAX attention here is plain jnp (``layers.py``), and the port's runs its
 flash-attention wrapper, which on the CPU is the kernel's plain version.
@@ -142,6 +146,11 @@ def test_expand_kv_and_mask_match():
     np.testing.assert_array_equal(TL.expand_kv(_t(kv), H).numpy(),
                                   _np(JL.expand_kv(jnp.asarray(kv), H)))
     assert TL.expand_kv(_t(kv), H).is_contiguous()
+    # one head a group, from a slice of a longer cache: still contiguous
+    part = _t(kv)[:, :S - 3]
+    assert not part.is_contiguous()
+    assert TL.expand_kv(part, KV).is_contiguous()
+    assert torch.equal(TL.expand_kv(part, KV), part)
     qp, kp = np.arange(5, 9), np.arange(12)
     for window in (0, 3, -1):
         for causal in (True, False):
@@ -223,7 +232,33 @@ LM_CASES = {
     "moonshot-v1-16b-a3b": lambda c: c.reduced(),
     "qwen3-moe-235b-a22b": lambda c: c.reduced(),
     "moonshot-v1-16b-a3b-bf16": lambda c: c.reduced(dtype="bfloat16"),
+    "hymba-1.5b": lambda c: c.reduced(),
+    "rwkv6-1.6b": lambda c: c.reduced(),
+    "hymba-1.5b-bf16": lambda c: c.reduced(dtype="bfloat16"),
+    "rwkv6-1.6b-bf16": lambda c: c.reduced(dtype="bfloat16"),
 }
+
+# the leaves the reference initialises to zeros or ones (``ssm_init``,
+# ``rwkv_init``), drawn instead: name -> (low, high) of a uniform draw
+STATE_LEAF_DRAWS = {"dt_bias": (-2.0, 0.0), "A_log": (-1.0, 1.0),
+                    "D": (0.5, 1.5), "mu": (0.0, 1.0), "mu_c": (0.0, 1.0),
+                    "w_bias": (-3.0, 0.0), "u": (-0.5, 0.5),
+                    "ln_scale": (0.5, 1.5)}
+
+
+def draw_state_leaves(tree, rng):
+    """``tree`` (numpy) with every ``STATE_LEAF_DRAWS`` leaf under an
+    ``ssm`` or ``rwkv`` node replaced by a uniform draw of its shape and
+    type."""
+    def walk(t, inside):
+        if isinstance(t, dict):
+            return {k: walk(v, inside or k in ("ssm", "rwkv")) if
+                    isinstance(v, dict) or not (inside and k in
+                                                STATE_LEAF_DRAWS)
+                    else rng.uniform(*STATE_LEAF_DRAWS[k], v.shape)
+                    .astype(v.dtype) for k, v in t.items()}
+        return t
+    return walk(tree, False)
 
 
 def _case_config(case):
@@ -294,7 +329,9 @@ def lm_runs():
             return cache[case]
         jc, tc = _case_config(case)
         m = JLM(jc)
-        params = m.init(jax.random.PRNGKey(0))
+        params = jax.tree.map(jnp.asarray, draw_state_leaves(
+            jax.tree.map(np.asarray, m.init(jax.random.PRNGKey(0))),
+            np.random.default_rng(12)))
         rng = np.random.default_rng(11)
         ids = rng.integers(0, jc.vocab, (B, S + N_DECODE))
         embeds = (rng.standard_normal((B, S + N_DECODE, jc.d_model),
@@ -359,7 +396,8 @@ def test_lm_apply_matches_jax(lm_runs, case):
     r = lm_runs(case)
     m = LM(r["tc"])
     p = params_from_numpy(r["params"], r["tc"].dtype, device="cpu")
-    assert p["layers"]["attn"]["wq"].dtype == getattr(torch, r["tc"].dtype)
+    mixer = p["layers"]["rwkv" if r["tc"].rwkv else "attn"]
+    assert mixer["wo"].dtype == getattr(torch, r["tc"].dtype)
     x, kw = _port_inputs(r, slice(0, S))
     with _pinned(r["choices"]["apply"]):
         h, aux = m.apply(p, x, **kw)
@@ -393,25 +431,44 @@ def test_lm_prefill_and_decode_match_jax(lm_runs, case):
             _close(lg, r["decode"][i], case)
 
 
-@pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-1.6b",
-                                  "llama-3.2-vision-11b"])
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LM(configs.get_config(arch).reduced())
 
 
-def test_init_draws_the_config_dtype_on_the_generator_device():
-    c = configs.get_config("gemma3-12b").reduced(dtype="bfloat16")
+@pytest.mark.parametrize("arch", ["gemma3-12b", "hymba-1.5b", "rwkv6-1.6b"])
+def test_init_draws_the_config_dtype_on_the_generator_device(arch):
+    c = configs.get_config(arch).reduced(dtype="bfloat16")
     p = LM(c).init(torch.Generator().manual_seed(0))
-    assert p["layers"]["attn"]["wq"].shape == (c.n_layers, c.d_model,
-                                               c.n_heads, c.hd)
-    assert p["layers"]["mlp"]["wi"].shape == (c.n_layers, c.d_model, 2,
-                                              c.d_ff)
+    if not c.rwkv:
+        assert p["layers"]["attn"]["wq"].shape == (c.n_layers, c.d_model,
+                                                   c.n_heads, c.hd)
+        assert p["layers"]["mlp"]["wi"].shape == (c.n_layers, c.d_model, 2,
+                                                  c.d_ff)
     assert p["embed"]["table"].shape == (c.vocab_padded, c.d_model)
     assert all(t.dtype == torch.bfloat16 for t in
                (p["embed"]["table"], p["final_norm"]["scale"],
                 p["layers"]["ln1"]["scale"]))
-    jtree = jax.eval_shape(JLM(jconfigs.get_config("gemma3-12b").reduced(
+    jtree = jax.eval_shape(JLM(jconfigs.get_config(arch).reduced(
         dtype="bfloat16")).init, jax.random.PRNGKey(0))
     assert jax.tree.map(lambda a: tuple(a.shape), jtree) == \
         jax.tree.map(lambda t: tuple(t.shape), p)
+    # each leaf's type, the f32 leaves of the ssm and rwkv blocks included
+    assert jax.tree.map(lambda a: str(a.dtype), jtree) == \
+        jax.tree.map(lambda t: str(t.dtype).removeprefix("torch."), p)
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-1.6b"])
+def test_params_from_numpy_keeps_the_f32_leaves_of_a_bf16_model(arch):
+    jc = jconfigs.get_config(arch).reduced(dtype="bfloat16")
+    jp = jax.tree.map(np.asarray, JLM(jc).init(jax.random.PRNGKey(0)))
+    p = params_from_numpy(jp, jc.dtype, device="cpu")
+    got = jax.tree.map(lambda t: str(t.dtype).removeprefix("torch."), p)
+    assert got == jax.tree.map(lambda a: str(a.dtype), jp)
+    block = p["layers"]["rwkv" if jc.rwkv else "ssm"]
+    f32 = (("mu", "w_bias", "u", "ln_scale", "mu_c") if jc.rwkv else
+           ("dt_bias", "A_log", "D"))
+    assert {k for k, v in block.items() if v.dtype == torch.float32} == \
+        set(f32)
+    assert p["layers"]["ln1"]["scale"].dtype == torch.bfloat16

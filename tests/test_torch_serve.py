@@ -101,10 +101,14 @@ def test_lm_config_runs_full_widths_when_asked():
         **{**serve.lm_config().__dict__, "n_layers": 6})
 
 
-def test_serve_lm_greedy_ids_match_a_jax_loop():
+@pytest.mark.parametrize("arch,layers", [("gemma3-12b", 6),
+                                         ("hymba-1.5b", None),
+                                         ("rwkv6-1.6b", None)])
+def test_serve_lm_greedy_ids_match_a_jax_loop(arch, layers):
     """The port's prefill + greedy decode picks the JAX package's tokens
-    for the same prompt and weights (reduced gemma3-12b at 6 layers, f32,
-    one global layer)."""
+    for the same prompt and weights (f32, reduced: gemma3-12b at 6 layers
+    with one global layer, hymba-1.5b's attention + SSM blocks, rwkv6-1.6b's
+    RWKV blocks)."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -113,7 +117,8 @@ def test_serve_lm_greedy_ids_match_a_jax_loop():
     from repro.models import LM as JLM
     from repro_torch.models.transformer import params_from_numpy
 
-    cfg = jget_config("gemma3-12b").reduced(n_layers=6)
+    cfg = jget_config(arch).reduced(**({"n_layers": layers} if layers
+                                       else {}))
     m = JLM(cfg)
     params = m.init(jax.random.PRNGKey(0))
     prompt = np.random.default_rng(5).integers(0, cfg.vocab, (2, 10))
@@ -128,7 +133,7 @@ def test_serve_lm_greedy_ids_match_a_jax_loop():
         logits, cache = step(params, cache, tok, 10 + t)
         tok = jnp.argmax(logits[:, -1], axis=-1)[:, None]
 
-    tcfg = serve.lm_config("gemma3-12b", layers=6)
+    tcfg = serve.lm_config(arch, layers=layers)
     st = serve.serve_lm(tcfg, params_from_numpy(
         jax.tree.map(np.asarray, params), tcfg.dtype, device="cpu"),
         prompt, tokens=n_tok, device="cpu", keep_logits=True)

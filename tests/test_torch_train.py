@@ -12,6 +12,12 @@
   the JAX step's ``loss_fn``, and ``make_train_step``'s metrics
   (``dropped_frac`` included) over 2 steps; each run also checks that no
   routing decision is a near-tie;
+* a hybrid (reduced hymba-1.5b) and an ssm (reduced rwkv6-1.6b) model's
+  step: the loss and every gradient leaf against ``jax.value_and_grad`` of
+  the JAX step's ``loss_fn`` (at S 32, and at S 512, where the
+  recurrences' chunk checkpoints nest in the per-layer remat), each leaf
+  reached, and ``make_train_step``'s metrics over 2 steps; the SSM and
+  RWKV leaves the reference initialises to zeros or ones are drawn first;
 * ``adamw_update``, ``clip_by_global_norm`` and ``cosine_schedule``
   against the JAX functions; ``make_train_step`` for 3 steps in both
   packages on the same batches (losses to 1e-4 relative);
@@ -271,6 +277,86 @@ def test_moe_make_train_step_reports_dropped_frac_as_jax(arch,
     # router barely reaches) lands on either side; the second step's loss
     # and gradient norm above are what the first step's weights give
     assert min(gaps) > TIE_GAP, gaps
+
+
+# the leaves ``ssm_init`` and ``rwkv_init`` set to zeros or ones, drawn
+# instead: name -> (low, high) of a uniform draw
+STATE_LEAF_DRAWS = {"dt_bias": (-2.0, 0.0), "A_log": (-1.0, 1.0),
+                    "D": (0.5, 1.5), "mu": (0.0, 1.0), "mu_c": (0.0, 1.0),
+                    "w_bias": (-3.0, 0.0), "u": (-0.5, 0.5),
+                    "ln_scale": (0.5, 1.5)}
+
+
+def _recurrent_params(jc, seed):
+    """JAX ``LM.init`` weights with the ssm / rwkv state leaves drawn."""
+    p = _jax_params(jc, seed)
+    rng = np.random.default_rng(seed + 100)
+    blk = "rwkv" if jc.rwkv else "ssm"
+    p["layers"][blk] = {
+        k: (jnp.asarray(rng.uniform(*STATE_LEAF_DRAWS[k], v.shape),
+                        v.dtype) if k in STATE_LEAF_DRAWS else v)
+        for k, v in p["layers"][blk].items()}
+    return p
+
+
+@pytest.mark.parametrize("seq", [32, 512])
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-1.6b"])
+def test_recurrent_train_step_loss_and_gradients_match_jax(arch, seq):
+    jc, tc = (jconfigs.get_config(arch).reduced(),
+              configs.get_config(arch).reduced())
+    jp = _recurrent_params(jc, 0)
+    rng = np.random.default_rng(7)
+    ids, labels = (rng.integers(0, jc.vocab, (B, seq)).astype(np.int32)
+                   for _ in range(2))
+    mask = (rng.random((B, seq)) < 0.8).astype(np.float32)
+    jm = JLM(jc)
+
+    def loss_fn(p):                 # the JAX make_train_step's loss_fn
+        h, _ = jm.apply(p, jnp.asarray(ids), remat=True)
+        return jm.loss(p, h, jnp.asarray(labels), jnp.asarray(mask),
+                       chunk=12)
+
+    want_loss, want_g = jax.jit(jax.value_and_grad(loss_fn))(jp)
+    tp = params_from_numpy(jp, tc.dtype, device="cpu")
+    ce, grads, aux = loss_and_grads(
+        LM(tc), tp, {"ids": torch.from_numpy(ids).long(),
+                     "labels": torch.from_numpy(labels).long(),
+                     "mask": torch.from_numpy(mask)}, loss_chunk=12)
+    np.testing.assert_allclose(float(ce), float(want_loss), rtol=1e-5)
+    assert float(aux["total"]) == float(ce)           # no aux term
+    want_l = jax.tree.leaves(want_g)
+    assert len(grads) == len(want_l) == (19 if jc.rwkv else 18)
+    worst = max(_leaf_err(g.numpy(), w) for g, w in zip(grads, want_l))
+    assert worst <= 2e-4, worst
+    # every leaf is reached: the JAX tree has no unused leaf
+    assert all(float(g.abs().max()) > 0 for g in grads)
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-1.6b"])
+def test_recurrent_make_train_step_matches_jax(arch):
+    jc, tc = (jconfigs.get_config(arch).reduced(),
+              configs.get_config(arch).reduced())
+    data = JData(vocab=jc.vocab, seq_len=S, global_batch=B, seed=0)
+    kw = dict(lr=3e-3, warmup=2, total_steps=10, loss_chunk=16)
+    _, jstep = j_make_train_step(jc, mesh=None, seq_parallel=False, **kw)
+    jstep = jax.jit(jstep)
+    jp = _recurrent_params(jc, 1)
+    tp = params_from_numpy(jp, tc.dtype, device="cpu")
+    jstate = {"params": jp, "opt": j_adamw_init(jp)}
+    tstate = {"params": tp, "opt": adamw_init(tp)}
+    _, tstep = make_train_step(tc, **kw)
+    for step in range(2):
+        b = data.batch(step)
+        jstate, jmet = jstep(jstate, {"ids": jnp.asarray(b.ids),
+                                      "labels": jnp.asarray(b.labels),
+                                      "mask": jnp.asarray(b.mask)})
+        tstate, tmet = tstep(tstate, {"ids": torch.from_numpy(b.ids).long(),
+                                      "labels": torch.from_numpy(b.labels),
+                                      "mask": torch.from_numpy(b.mask)})
+        assert set(tmet) == set(jmet)
+        for k in ("loss", "grad_norm", "lr"):
+            np.testing.assert_allclose(float(tmet[k]), float(jmet[k]),
+                                       rtol=1e-4)
 
 
 def test_remat_recomputes_each_layer_in_the_backward(monkeypatch):
