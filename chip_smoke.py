@@ -52,7 +52,15 @@ version there:
   layers, 2.85 GB), bf16 with the recurrences in f32: ``serve_lm`` with 4
   prompts of 4096 tokens (the chunked scans) and 32 greedy tokens (K7 on
   every hymba prefill self-attention), and training at 2 layers (batch 2 x
-  4096, remat nesting the scans' chunk checkpoints; K7-K9 for hymba).
+  4096, remat nesting the scans' chunk checkpoints; K7-K9 for hymba);
+* the vlm family at llama-3.2-vision-11b's full widths and all its layers
+  (d 4096, 32 heads x 128 over 8 kv heads, d_ff 14336, vocab 128256; 40
+  layers = 8 groups of 4 self + 1 cross-attention layer against 1601 image
+  rows; bf16, 18.5 GB of weights): ``serve_lm`` with 4 prompts of 4096
+  tokens and 32 greedy tokens (K7 on every prefill attention, causal=False
+  on the 8 cross layers, whose image K/V the decode steps reuse from the
+  cache), and training at one group (5 layers, batch 2 x 4096, one
+  checkpoint a group; K7-K9 on the self and the cross layers).
 
 Phases:
 
@@ -167,7 +175,27 @@ Phases:
               ms, tokens/s, step ms, peak GB, idle share and the card ms by
               range (ssm:conv, ssm:scan, rwkv:time_mix, rwkv:scan,
               rwkv:channel_mix, K7, the rest)
-10. the ``kernels`` JSON line, the nvidia-smi line, and the result line;
+10. vlm     — llama-3.2-vision-11b, image embeddings and weights drawn
+              from the seed: (a) layers.attention(kv_x=) at [2, 256, 4096]
+              against 1601 image rows (the K7 call inside it element by
+              element, the layer's output 2.5e-2 of max |ref| against the
+              plain layer), K7 self and cross at the serving shape and
+              K8/K9 cross at [2, 4096, 32, 128], element by element, timed
+              beside the bound, the plain version and SDPA; (b) serve_lm at
+              40 layers: 40 K7 launches in the prefill (32 causal, 8 with
+              causal=False against 1601 keys), none in decode, finite
+              logits, served twice bit for bit; (c) decode against LM.apply
+              over prompt + the served ids at batch 1 x 1024, bf16 at 40
+              layers (2.5e-2) and f32 at 2 groups (1e-4); (d) 4 training
+              steps at one group (the loss falls, 10/5/5 launches a step,
+              routes, every gradient finite and nonzero, the cross layer's
+              wq/wk/wv/wo among them), the kernel step against a
+              plain-attention step (loss 1e-3) and each leaf's gradient
+              error within 1.5x an SDPA control's; (e) prefill and decode
+              ms, tokens/s, step ms, peak GB, idle share and the card ms by
+              range (vlm:self, vlm:cross, vlm:cross_kv, vlm:mlp) of a
+              one-group prefill and 2 decode steps
+11. the ``kernels`` JSON line, the nvidia-smi line, and the result line;
    a ``[time] <phase> <seconds>`` line after each phase
 
 Any failed check raises: the script then exits non-zero without the result
@@ -272,6 +300,16 @@ STATE_LEAF_DRAWS = {"dt_bias": (-2.0, 0.0), "A_log": (-1.0, 1.0),
                     "D": (0.5, 1.5), "mu": (0.0, 1.0), "mu_c": (0.0, 1.0),
                     "w_bias": (-3.0, 0.0), "u": (-0.5, 0.5),
                     "ln_scale": (0.5, 1.5)}
+# the vlm family: llama-3.2-vision-11b at full widths, served whole (40
+# layers, 4 prompts of 4096 tokens against 1601 image rows, 32 new tokens),
+# the cross layer held at [2, 256, 4096]; decode held to a full-prefix
+# rerun at batch 1 x 1024 (16 tokens), bf16 at all the layers and f32 at 2
+# groups; the prefill profiled at 1 group, the decode for 2 steps; trained
+# at one group (5 layers, batch 2 x 4096, 4 steps)
+VLM = dict(arch="llama-3.2-vision-11b", batch=4, prompt_len=4096, tokens=32,
+           attn_batch=2, attn_len=256, decode_prompt=1024, decode_tokens=16,
+           f32_groups=2, profile_groups=1, profile_steps=2, train_groups=1,
+           train_batch=2, train_seq=4096, train_steps=4, lr=3e-3)
 
 
 class SmokeFailure(RuntimeError):
@@ -3009,46 +3047,68 @@ def sdpa_window(T: int, window: int):
         q, k, v, attn_mask=mask)), mask
 
 
-def k7_at(q, k, v, window: int, label: str) -> dict:
+def sdpa_for(T: int, M: int, causal: bool, window: int):
+    """(F.scaled_dot_product_attention over [B, H, T, hd] with K7's mask,
+    the mask or None, and its name): no mask for unmasked cross-attention,
+    ``is_causal`` for a causal mask without a window, else
+    :func:`sdpa_window`'s boolean one (T == M)."""
+    import torch.nn.functional as F
+
+    if window <= 0:
+        check(T == M or not causal, f"a causal SDPA control at T {T} != "
+                                    f"M {M}")
+        return (lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal), None,
+            "is_causal" if causal else "no mask")
+    check(T == M, f"a masked SDPA control at T {T} != M {M}")
+    return (*sdpa_window(T, window), "boolean window mask")
+
+
+def k7_at(q, k, v, window: int, label: str, causal: bool = True,
+          tag: str = "[ssm] (f)") -> dict:
     """K7 element by element and timed on these inputs, beside the bound,
-    the plain version and SDPA with the boolean mask."""
+    the plain version and SDPA with the same mask (``sdpa_for``)."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
 
     fa.reset_launches()
-    d, w = flash_err(q, k, v, True, window)
+    d, w = flash_err(q, k, v, causal, window)
     route = kernel_routes("flash_attention", 1)
     B, T, H, hd = q.shape
-    lib, mask = sdpa_window(T, window)
+    M = k.shape[1]
+    lib, mask, mask_name = sdpa_for(T, M, causal, window)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    backend = sdpa_backend(qt, kt, vt, mask, causal and mask is None)
     kw = dict(reps=5, cycles=int(4e7))
-    bound, by = attention_bound(q, k, True, window)
-    pairs = B * H * visible_pairs(T, T, True, window)
+    bound, by = attention_bound(q, k, causal, window)
+    pairs = B * H * visible_pairs(T, M, causal, window)
     r = {"ms": device_ms(lambda q, k, v: fa.flash_attention_fwd(
-             q, k, v, True, window), [(q, k, v)], label=f"K7 {label}", **kw),
-         "plain_ms": device_ms(lambda q, k, v: fa.flash_attention_ref(
-             q, k, v, True, window), [(q, k, v)], label=f"K7 {label} plain",
+             q, k, v, causal, window), [(q, k, v)], label=f"K7 {label}",
              **kw),
+         "plain_ms": device_ms(lambda q, k, v: fa.flash_attention_ref(
+             q, k, v, causal, window), [(q, k, v)],
+             label=f"K7 {label} plain", **kw),
          "bound_ms": bound, "bound_by": by,
          "library_ms": device_ms(lib, [(qt, kt, vt)],
                                  label=f"K7 {label} library", **kw),
-         "library": f"F.scaled_dot_product_attention "
-                    f"({sdpa_backend(qt, kt, vt, mask, False)}, boolean "
-                    f"window mask)",
+         "library": f"F.scaled_dot_product_attention ({backend}, "
+                    f"{mask_name})",
          "max_abs_err": d, "err_of_elementwise_limit": w, "route": route,
-         "shape": list(q.shape)}
+         "shape": list(q.shape), "keys": M, "causal": causal}
     fa.reset_launches()
     r["tflops"] = 4.0 * hd * pairs / r["ms"] / 1e9
-    print(f"[ssm] (f) K7 {label} at {list(q.shape)} bf16 window {window} "
-          f"(route {route}): max abs err {d}, {w} of the element-wise "
-          f"limit; kernel_ms={r['ms']:.5f} ({r['tflops']:.2f} TFLOP/s) "
-          f"plain_ms={r['plain_ms']:.5f} bound_ms={bound:.5f} ({by}) "
-          f"library_ms={r['library_ms']:.5f} [{r['library']}]")
+    print(f"{tag} K7 {label} at {list(q.shape)} x {M} keys bf16 causal "
+          f"{causal} window {window} (route {route}): max abs err {d}, {w} "
+          f"of the element-wise limit; kernel_ms={r['ms']:.5f} "
+          f"({r['tflops']:.2f} TFLOP/s) plain_ms={r['plain_ms']:.5f} "
+          f"bound_ms={bound:.5f} ({by}) library_ms={r['library_ms']:.5f} "
+          f"[{r['library']}]")
     return r
 
 
-def k8_k9_at(q, k, v, do, window: int, label: str) -> dict:
+def k8_k9_at(q, k, v, do, window: int, label: str, causal: bool = True,
+             tag: str = "[ssm] (f)") -> dict:
     """K8 and K9 through the autograd Function against autograd through
     the plain version (element by element), then each timed from K7's lse
     beside its bound, the plain backward and SDPA's backward."""
@@ -3057,22 +3117,23 @@ def k8_k9_at(q, k, v, do, window: int, label: str) -> dict:
     from repro_torch.kernels import flash_attention as fa
 
     fa.reset_launches()
-    e = flash_bwd_err(q, k, v, do, True, window)
+    e = flash_bwd_err(q, k, v, do, causal, window)
     fa.reset_launches()
-    lse = fa.flash_attention_fwd(q, k, v, True, window)[1]
-    delta = fa.flash_attention_bwd_dq(q, k, v, lse, do, True, window)[1]
-    fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True, window)
+    lse = fa.flash_attention_fwd(q, k, v, causal, window)[1]
+    delta = fa.flash_attention_bwd_dq(q, k, v, lse, do, causal, window)[1]
+    fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, window)
     routes = [kernel_routes(n, 1) for n in ("flash_attention",
                                              "flash_attention_bwd_dq",
                                              "flash_attention_bwd_dkv")]
     check(routes == ["wgmma_bf16"] * 3, f"K7-K9 at {label} took {routes}")
     B, T, H, hd = q.shape
-    lib, mask = sdpa_window(T, window)
+    M = k.shape[1]
+    lib, mask, mask_name = sdpa_for(T, M, causal, window)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
     with torch.enable_grad():
         o = lib(qt, kt, vt)
-    backend = sdpa_backend(qt, kt, vt, mask, False)
+    backend = sdpa_backend(qt, kt, vt, mask, causal and mask is None)
     kw = dict(reps=5, cycles=int(4e7))
     lib_ms = device_ms(lambda: torch.autograd.grad(
         o, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), [()],
@@ -3080,34 +3141,35 @@ def k8_k9_at(q, k, v, do, window: int, label: str) -> dict:
     rows = {}
     for name, fn, plain, flops, nrows in (
             ("flash_attention_bwd_dq",
-             lambda: fa.flash_attention_bwd_dq(q, k, v, lse, do, True,
+             lambda: fa.flash_attention_bwd_dq(q, k, v, lse, do, causal,
                                                window),
-             lambda: fa.flash_attention_bwd_dq_ref(q, k, v, lse, do, True,
+             lambda: fa.flash_attention_bwd_dq_ref(q, k, v, lse, do, causal,
                                                    window), 6, (3, 2)),
             ("flash_attention_bwd_dkv",
              lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
-                                                True, window),
+                                                causal, window),
              lambda: fa.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
-                                                    True, window), 8,
+                                                    causal, window), 8,
              (2, 4))):
-        bound, by, pairs = bwd_bound(q, k, True, window, flops, *nrows)
+        bound, by, pairs = bwd_bound(q, k, causal, window, flops, *nrows)
         r = rows[name] = {
             "ms": device_ms(fn, [()], label=f"{name} {label}", **kw),
             "plain_ms": device_ms(plain, [()], label=f"{name} {label} "
                                   f"plain", **kw),
             "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
             "library": f"backward of F.scaled_dot_product_attention "
-                       f"({backend}, boolean window mask; dq, dk and dv "
-                       f"together)",
+                       f"({backend}, {mask_name}; dq, dk and dv together)",
             "max_abs_err": e[name][0], "err_of_elementwise_limit": e[name][1],
-            "route": "wgmma_bf16", "shape": list(q.shape)}
+            "route": "wgmma_bf16", "shape": list(q.shape), "keys": M,
+            "causal": causal}
         r["tflops"] = flops * hd * pairs / r["ms"] / 1e9
-        print(f"[ssm] (f) {name} {label} at {list(q.shape)} bf16 window "
-              f"{window}: max abs err {r['max_abs_err']}, "
-              f"{r['err_of_elementwise_limit']} of the element-wise limit; "
-              f"kernel_ms={r['ms']:.5f} ({r['tflops']:.2f} TFLOP/s) "
-              f"plain_ms={r['plain_ms']:.5f} bound_ms={bound:.5f} ({by}) "
-              f"library_ms={lib_ms:.5f} [{r['library']}]")
+        print(f"{tag} {name} {label} at {list(q.shape)} x {M} keys bf16 "
+              f"causal {causal} window {window}: max abs err "
+              f"{r['max_abs_err']}, {r['err_of_elementwise_limit']} of the "
+              f"element-wise limit; kernel_ms={r['ms']:.5f} "
+              f"({r['tflops']:.2f} TFLOP/s) plain_ms={r['plain_ms']:.5f} "
+              f"bound_ms={bound:.5f} ({by}) library_ms={lib_ms:.5f} "
+              f"[{r['library']}]")
     fa.reset_launches()
     del o, qt, kt, vt, lse, delta
     return rows
@@ -3518,6 +3580,472 @@ def phase_ssm() -> tuple[dict, dict]:
     return counts, out
 
 
+# --------------------------------------------------------------------------- #
+# 10. the vlm family: llama-3.2-vision-11b
+# --------------------------------------------------------------------------- #
+def cut_groups(params: dict, n: int) -> dict:
+    """The first ``n`` groups of a vlm LM tree (views)."""
+    from repro_torch.core.tree import tree_map
+
+    return {**params, "layers": tree_map(lambda t: t[:n], params["layers"]),
+            "cross": tree_map(lambda t: t[:n], params["cross"])}
+
+
+@contextlib.contextmanager
+def attention_spy(calls: list | None = None, keep: dict | None = None):
+    """``ops.attention`` as it is, each call's (causal, keys) appended to
+    ``calls`` and the first call's (q, k, v) of each kind (``"self"``,
+    ``"cross"``) kept in ``keep``."""
+    from repro_torch.kernels import ops
+
+    real = ops.attention
+
+    def spy(q, k, v, causal=True, window=0):
+        if calls is not None:
+            calls.append((bool(causal), k.shape[1]))
+        if keep is not None:
+            keep.setdefault("self" if causal else "cross", (q, k, v))
+        return real(q, k, v, causal, window)
+
+    ops.attention = spy
+    try:
+        yield
+    finally:
+        ops.attention = real
+
+
+def vlm_cross_layer(params, img) -> dict:
+    """(a) ``layers.attention(kv_x=)`` at [2, 256, d] against the image
+    rows, on cross layer 0's weights: the K7 call inside it element by
+    element against the plain version, and the layer's output against the
+    same layer with ``flash_attention_ref`` in K7's place (bf16 2.5e-2 of
+    max |ref|; its element-wise share printed: the wo product after the
+    attention sums 4096 of o's roundings)."""
+    import torch
+
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as ml
+
+    v = VLM
+    p = tree_map(lambda t: t[0], params["cross"]["attn"])
+    g = torch.Generator("cuda").manual_seed(31)
+    x = torch.randn((v["attn_batch"], v["attn_len"], p["wq"].shape[0]),
+                    generator=g, device="cuda").to(p["wq"].dtype)
+    kv_x = img[:v["attn_batch"]]
+    keep = {}
+    fa.reset_launches()
+    with torch.no_grad(), attention_spy(keep=keep):
+        y, _ = ml.attention(p, x, None, theta=0.0, kv_x=kv_x)
+    check(fa.LAUNCHES["flash_attention"] == 1 and set(keep) == {"cross"},
+          f"the cross layer launched {dict(fa.LAUNCHES)} ({set(keep)})")
+    fa.reset_launches()
+    q, k, vv = keep["cross"]
+    d, w = flash_err(q, k, vv, False, 0)
+    real = ops.attention
+    ops.attention = lambda q, k, v, causal=True, window=0: \
+        fa.flash_attention_ref(q, k, v, causal, window)[0]
+    try:
+        with torch.no_grad():
+            y_ref, _ = ml.attention(p, x, None, theta=0.0, kv_x=kv_x)
+    finally:
+        ops.attention = real
+    torch.cuda.synchronize()
+    yr = y_ref.float()
+    diff = (y.float() - yr).abs()
+    rel = (diff.max() / yr.abs().max()).item()
+    rms = yr.square().mean().sqrt()
+    y_share = (diff / (2.0**-7 * yr.abs() + 2.0**-8 * rms)).max().item()
+    print(f"[vlm] (a) layers.attention(kv_x=) at {list(x.shape)} against "
+          f"{kv_x.shape[1]} image rows: K7 inside it (q {list(q.shape)}, "
+          f"k/v {list(k.shape)}, causal False) max abs err {d}, {w} of the "
+          f"element-wise limit; the layer's output off the plain layer by "
+          f"{rel} of max |ref| (limit 2.5e-2; {y_share} of the element-wise "
+          f"limit, printed)")
+    check(rel <= 2.5e-2, f"cross layer off its plain version by {rel}")
+    return {"k7_max_abs_err": d, "k7_err_of_elementwise_limit": w,
+            "layer_rel_err": rel, "layer_elementwise_share": y_share}
+
+
+def vlm_decode_vs_rerun(cfg, params, img, dtype: str, groups: int) -> dict:
+    """(c) greedy decode (serve_lm, batch 1 x the decode prompt) against
+    LM.apply over prompt + the served ids at ``groups`` groups: the largest
+    error of the logits over the largest logit; f32 1e-4, bf16 2.5e-2."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import LM
+
+    v = VLM
+    c = dataclasses.replace(cfg, dtype=dtype,
+                            n_layers=groups * cfg.cross_attn_every)
+    if groups * cfg.cross_attn_every != cfg.n_layers:
+        params = cut_groups(params, groups)
+    if dtype != cfg.dtype:
+        params = tree_map(lambda t: t.to(getattr(torch, dtype)), params)
+    model = LM(c)
+    P, N = v["decode_prompt"], v["decode_tokens"]
+    prompt = np.random.default_rng(2).integers(0, c.vocab, (1, P))
+    im = img[:1].to(getattr(torch, dtype))
+    st = serve_lm(c, params, prompt, tokens=N, device="cuda",
+                  keep_logits=True, img_embeds=im)
+    full = torch.cat([torch.as_tensor(prompt, device="cuda"),
+                      torch.as_tensor(st["ids"], device="cuda")], dim=1)
+    with torch.no_grad():
+        h, _ = model.apply(params, full, img_embeds=im, remat=False)
+        want = model.logits(params, h[:, P - 1:])
+    got = st["logits"]
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()
+                                           and torch.isfinite(want).all()),
+          f"vlm {dtype} decode logits {tuple(got.shape)} vs "
+          f"{tuple(want.shape)}")
+    scale = want.abs().max()
+    err = ((got - want).abs().max() / scale).item()
+    per_pos = ((got - want).abs().amax(-1)[0] / scale).tolist()
+    limit = 1e-4 if dtype == "float32" else 2.5e-2
+    print(f"[vlm] (c) {dtype} at {c.n_layers} layers ({groups} groups): "
+          f"decode vs LM.apply over prompt + the served ids (batch 1 x {P}, "
+          f"{N} tokens, {c.n_img_tokens} image rows): largest error {err} "
+          f"of the largest logit ({err / limit} of the {limit} limit); by "
+          f"position {[round(e, 8) for e in per_pos]}")
+    check(err <= limit, f"vlm {dtype} decode is off LM.apply by {err} of "
+                        f"the largest logit (limit {limit})")
+    del model, params, h, want, got, st
+    return {"n_layers": c.n_layers, "rel_err": err, "share": err / limit,
+            "by_position": per_pos}
+
+
+def vlm_train(cfg_full) -> tuple[dict, dict]:
+    """(d) training at one group (4 self + 1 cross layers) through
+    ``make_train_step``, group remat, AdamW, image embeddings drawn from the
+    seed (the trainer CLI's zeros give the cross layers' q, k, v and o no
+    gradient); the kernel step against a plain-attention step and an SDPA
+    control step."""
+    import dataclasses
+    import gc
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.tree import leaves
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import LM
+    from repro_torch.optim import adamw_init
+
+    v = VLM
+    cfg = dataclasses.replace(
+        cfg_full, n_layers=v["train_groups"] * cfg_full.cross_attn_every)
+    B, S, n = v["train_batch"], v["train_seq"], v["train_steps"]
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator("cuda").manual_seed(0)
+    model, step = make_train_step(cfg, lr=v["lr"], warmup=5, total_steps=n,
+                                  loss_chunk=512)
+    params = model.init(g)
+    state = {"params": params, "opt": adamw_init(params)}
+    img = torch.randn((B, cfg.n_img_tokens, cfg.d_model), generator=g,
+                      device="cuda").bfloat16()
+    data = SyntheticLMData(vocab=cfg.vocab, seq_len=S, global_batch=B,
+                           seed=0)
+
+    def batch_of(i):
+        bt = data.batch(i)
+        return {"ids": torch.as_tensor(bt.ids, device="cuda").long(),
+                "labels": torch.as_tensor(bt.labels, device="cuda").long(),
+                "mask": torch.as_tensor(bt.mask, device="cuda"),
+                "img_embeds": img}
+
+    n_params = sum(p.numel() for p in leaves(params))
+    print(f"[vlm] (d) train: {cfg.n_layers} layers (one group), {n_params} "
+          f"parameters, {B} x {S} tokens, {cfg.n_img_tokens} image rows; "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB of weights and "
+          f"AdamW moments allocated")
+    L = cfg.n_layers          # K7 forward + the group's recompute
+    per_step = {"flash_attention": 2 * L, "flash_attention_bwd_dq": L,
+                "flash_attention_bwd_dkv": L}
+    fa.reset_launches()                   # the main path: the train steps
+    losses, wall = [], []
+    for i in range(n):
+        b = batch_of(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        before = dict(fa.LAUNCHES)
+        state, met = step(state, b)
+        loss = float(met["loss"])
+        wall.append((time.perf_counter() - t0) * 1e3)
+        got = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+        check(got == per_step and math.isfinite(loss),
+              f"vlm train step {i}: launches {got}, loss {loss}")
+        losses.append(loss)
+        print(f"[vlm]   step {i}: loss {loss} grad_norm "
+              f"{float(met['grad_norm'])} wall {wall[-1]:.3f} ms")
+    counts = dict(fa.LAUNCHES)
+    check(all(fa.ROUTE_LAUNCHES[k] == {"wgmma_bf16": c, "simt_f32": 0}
+              for k, c in counts.items()),
+          f"vlm train routes {fa.ROUTE_LAUNCHES}")
+    check(losses[-1] < losses[0], f"vlm train loss {losses[0]} -> "
+                                  f"{losses[-1]} did not fall")
+    step_ms = statistics.median(wall[1:])
+    out = {"losses": losses, "step_ms": wall, "median_step_ms": step_ms,
+           "tokens_per_s": B * S / step_ms * 1e3, "n_params": n_params,
+           "launches_per_step": per_step}
+
+    b = batch_of(n)
+    params = state["params"]
+    names = leaf_names(params)
+    k_loss, k_grads, _ = loss_and_grads(model, params, b)
+    for nm, kg in zip(names, k_grads):
+        check(bool(torch.isfinite(kg).all()) and float(kg.abs().max()) > 0,
+              f"vlm {nm}: gradient not finite or all zero")
+    cross_g = {nm: float(kg.abs().max()) for nm, kg in zip(names, k_grads)
+               if nm.startswith("/cross/attn/")}
+    real = ops.attention
+    variants = {
+        "plain": lambda q, k, v, causal=True, window=0:
+            fa.flash_attention_ref(q, k, v, causal, window)[0],
+        "sdpa": lambda q, k, v, causal=True, window=0:
+            F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=causal).transpose(1, 2)}
+    check(cfg.window == 0, "the SDPA control assumes no window")
+    ref = {}
+    try:
+        for name, fn in variants.items():
+            ops.attention = fn
+            ref[name] = loss_and_grads(model, params, b)[:2]
+    finally:
+        ops.attention = real
+    torch.cuda.synchronize()
+    p_loss, p_grads = ref["plain"]
+    l_err = abs(float(k_loss) - float(p_loss)) / abs(float(p_loss))
+    ratios = {}
+    for nm, kg, pg, sg in zip(names, k_grads, p_grads, ref["sdpa"][1]):
+        norm = pg.float().norm()
+        rk = ((kg.float() - pg.float()).norm() / norm).item()
+        rs = ((sg.float() - pg.float()).norm() / norm).item()
+        ratios[nm] = (rk, rs, rk / rs if rs else
+                      (0.0 if rk == 0 else math.inf))
+        print(f"[vlm]   {nm}: ||dg||/||g_ref|| kernels {rk}, SDPA {rs}, "
+              f"ratio {ratios[nm][2]} (limit 1.5)")
+    worst = max(r for _, _, r in ratios.values())
+    print(f"[vlm]   kernel step vs plain-attention step: loss "
+          f"{float(k_loss)} vs {float(p_loss)} (rel err {l_err}, limit "
+          f"1e-3); the kernels' gradient error at most {worst} x SDPA's "
+          f"(limit 1.5); every gradient finite and nonzero; the cross "
+          f"layer's max |g| {cross_g}")
+    check(l_err <= 1e-3, f"vlm kernel step vs plain step: loss rel err "
+                         f"{l_err} (limit 1e-3)")
+    check(worst <= 1.5, f"vlm train: a leaf's kernel gradient error is "
+                        f"{worst} x SDPA's (limit 1.5)")
+    out.update({"kernel_vs_plain_loss_rel_err": l_err,
+                "grad_err_vs_sdpa": ratios, "worst_grad_ratio": worst,
+                "cross_grad_max": cross_g})
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[vlm]   train: median step {step_ms:.3f} ms, "
+          f"{out['tokens_per_s']:.1f} tokens/s, peak {out['peak_gb']:.3f} "
+          f"GB, launches a step {per_step} (all wgmma_bf16), losses "
+          f"{losses}")
+    del state, params, model, k_grads, ref, p_grads, b, img
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def phase_vlm() -> tuple[dict, dict]:
+    """llama-3.2-vision-11b on the card at full widths, bf16: (a) the cross
+    layer and K7/K8/K9 at the cross shape against their plain versions;
+    (b) served whole, twice, bit for bit; (c) decode against the rerun;
+    (d) training at one group; (e) the profile."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.tree import leaves
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import lm_config, serve_lm
+    from repro_torch.models import LM
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    v = VLM
+    cfg = lm_config(v["arch"], reduced=False)
+    check(cfg.dtype == "bfloat16" and cfg.n_layers == 40
+          and cfg.cross_attn_every == 5 and cfg.n_img_tokens == 1601
+          and cfg.hd == 128, f"unexpected config {cfg}")
+    n_groups = cfg.n_layers // cfg.cross_attn_every
+    model = LM(cfg)
+    g = torch.Generator("cuda").manual_seed(0)
+    params = model.init(g)
+    B, P, N = v["batch"], v["prompt_len"], v["tokens"]
+    img = torch.randn((B, cfg.n_img_tokens, cfg.d_model), generator=g,
+                      device="cuda").bfloat16()
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab, (B, P))
+    ids = torch.as_tensor(prompt, device="cuda")
+    nbytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    secs, t0 = {}, [time.perf_counter()]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        secs[part] = now - t0[0]
+        t0[0] = now
+
+    print(f"[vlm] {cfg.arch_id} at full widths: d {cfg.d_model}, "
+          f"{cfg.n_heads} x {cfg.hd} heads over {cfg.n_kv_heads} kv heads, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}; {cfg.n_layers} "
+          f"layers = {n_groups} groups of ({cfg.cross_attn_every - 1} self + "
+          f"1 cross), {cfg.n_img_tokens} image rows; "
+          f"{sum(t.numel() for t in leaves(params))} parameters, "
+          f"{nbytes / 1e9:.3f} GB of weights")
+    out = {"n_layers": cfg.n_layers, "weights_gb": nbytes / 1e9}
+
+    # (a) the cross layer, then K7 / K8 / K9 at the served shapes, on the
+    # first group's q/k/v of the real prompt and image rows
+    out["cross_layer"] = vlm_cross_layer(params, img)
+    keep = {}
+    with torch.no_grad(), attention_spy(keep=keep):
+        LM(dataclasses.replace(cfg, n_layers=cfg.cross_attn_every)).apply(
+            cut_groups(params, 1), ids, img_embeds=img, remat=False)
+    q, k, vv = keep["self"]
+    out["k7_self"] = k7_at(q, k, vv, 0, "self serve", tag="[vlm] (a)")
+    q, k, vv = keep.pop("cross")
+    out["k7"] = k7_at(q, k, vv, 0, "cross serve", causal=False,
+                      tag="[vlm] (a)")
+    tb = v["train_batch"]
+    q, k, vv = (t[:tb].contiguous() for t in (q, k, vv))
+    do = torch.randn(q.shape, generator=torch.Generator("cuda").manual_seed(
+        5), device="cuda").to(q.dtype)
+    out["bwd"] = k8_k9_at(q, k, vv, do, 0, "cross train", causal=False,
+                          tag="[vlm] (a)")
+    del q, k, vv, do, keep
+    lap("kernels")
+
+    # (b) the main path: serve_lm at all 40 layers, after a short warm-up
+    serve_lm(cfg, params, prompt[:, :256], tokens=2, device="cuda",
+             img_embeds=img)
+    fa.reset_launches()
+    calls = []
+    with attention_spy(calls):
+        st = serve_lm(cfg, params, prompt, tokens=N, device="cuda",
+                      keep_logits=True, img_embeds=img)
+    torch.cuda.synchronize()
+    counts = dict(fa.LAUNCHES)
+    n_cross = sum(1 for c, m in calls if not c and m == cfg.n_img_tokens)
+    n_self = sum(1 for c, m in calls if c and m == P)
+    check(st["k7_launches_prefill"] == cfg.n_layers
+          and st["k7_launches_decode"] == 0
+          and fa.ROUTE_LAUNCHES["flash_attention"]["wgmma_bf16"]
+          == cfg.n_layers and n_cross == n_groups
+          and n_self == cfg.n_layers - n_groups and len(calls) == cfg.n_layers
+          and st["finite"] and st["ids"].shape == (B, N),
+          f"vlm serve_lm: K7 launches {counts}, routes "
+          f"{fa.ROUTE_LAUNCHES['flash_attention']}, calls {calls}, finite "
+          f"{st['finite']}")
+    again = serve_lm(cfg, params, prompt, tokens=N, device="cuda",
+                     keep_logits=True, img_embeds=img)
+    same = (torch.equal(again["logits"], st["logits"])
+            and np.array_equal(again["ids"], st["ids"]))
+    check(same, "vlm serve_lm served twice gives other logits")
+    print(f"[vlm] (b) serve_lm: {B} x {P} prompt, {cfg.n_img_tokens} image "
+          f"rows, {N} tokens, {cfg.n_layers} layers; K7 launches {counts} "
+          f"(all in the prefill, wgmma_bf16: {n_self} causal self, {n_cross} "
+          f"cross with causal=False against {cfg.n_img_tokens} keys); every "
+          f"logit finite; served twice bit for bit: {same}")
+    keys = ("prefill_ms", "prefill_tok_s", "prefill_device_ms",
+            "decode_ms_per_token", "decode_tok_s")
+    for k_ in keys:
+        out[k_] = [st[k_], again[k_]]
+    print("[vlm] (b) " + "  ".join(f"{k_}={out[k_]}" for k_ in keys))
+    out["k7_calls"] = {"self": n_self, "cross": n_cross}
+    del again, st
+    out["serve_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    lap("serve")
+
+    # (e) where the card's time goes: a one-group prefill, 2 decode steps
+    # at all the layers
+    Gp, n_dec = v["profile_groups"], v["profile_steps"]
+    cut = cut_groups(params, Gp)
+    cmodel = LM(dataclasses.replace(cfg, n_layers=Gp * cfg.cross_attn_every))
+    cache = {"p": cmodel.init_cache(B, P, device="cuda")}
+    # decode from a cache whose image K/V the served prefill's would be: a
+    # zero self cache at position P (the work does not depend on it)
+    cache["d"] = model.init_cache(B, P + n_dec, device="cuda")
+    with torch.no_grad():
+        model.prefill(params, ids[:, :1], cache["d"], img_embeds=img)
+
+    def prefill():
+        with torch.no_grad():
+            cmodel.prefill(cut, ids, cache["p"], img_embeds=img)
+
+    def decode():
+        tok = ids[:, -1:]
+        with torch.no_grad():
+            for t in range(n_dec):
+                lg, cache["d"] = model.decode_step(params, tok, cache["d"],
+                                                   P + t)
+                tok = torch.argmax(lg[:, -1], -1)[:, None]
+
+    out["profile"] = {}
+    for k_, f in ((f"prefill_{Gp}_group", prefill),
+                  (f"decode_{n_dec}_steps", decode)):
+        t1 = time.perf_counter()
+        out["profile"][k_] = device_profile(f, groups={"K7": "flash_fwd"},
+                                            ranges="vlm:")
+        out["profile"][k_]["profiler_s"] = time.perf_counter() - t1
+    for k_, v_ in out["profile"].items():
+        v_["rest_ms"] = v_["device_busy_ms"] - sum(v_["ranges"].values())
+        print(f"[vlm] (e) profile {k_} ({v_['profiler_s']:.3f} s under the "
+              f"profiler, its parse included): wall {v_['wall_ms']:.3f} ms, "
+              f"card busy {v_['device_busy_ms']:.3f} ms, idle share "
+              f"{v_['device_idle_share']}, card ms by range "
+              f"{ {**v_['ranges'], 'rest': v_['rest_ms']} } (K7 inside "
+              f"vlm:self and vlm:cross: {v_['groups']['K7']})")
+        for t in v_["top"]:
+            print(f"[vlm]   {t['ms']:10.3f} ms x{t['count']:<6d} {t['name']}")
+    del cache, cut, cmodel
+    lap("profile")
+
+    # (c) decode against the full-prefix rerun: bf16 at all the layers,
+    # f32 at a cut depth (40 f32 layers are 37 GB beside the bf16 weights)
+    out["decode_vs_rerun"] = {
+        "bfloat16": vlm_decode_vs_rerun(cfg, params, img, "bfloat16",
+                                        n_groups),
+        "float32": vlm_decode_vs_rerun(cfg, params, img, "float32",
+                                       v["f32_groups"])}
+    del model, params, ids, img
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("decode_vs_rerun")
+
+    # (d) training
+    tcounts, out["train"] = vlm_train(cfg)
+    lap("train")
+    out["seconds"] = secs
+    for k_, v_ in tcounts.items():
+        counts[k_] = counts.get(k_, 0) + v_
+    tr, prof = out["train"], out["profile"]
+    print(f"[vlm] prefill {out['prefill_ms']} ms ({out['prefill_tok_s']} "
+          f"tokens/s), decode {out['decode_ms_per_token']} ms a token, "
+          f"train step {tr['median_step_ms']:.3f} ms "
+          f"({tr['tokens_per_s']:.1f} tokens/s); peak "
+          f"{out['serve_peak_gb']:.3f} GB serving, {tr['peak_gb']:.3f} GB "
+          f"training; idle share "
+          f"{ {k_: v_['device_idle_share'] for k_, v_ in prof.items()} }; "
+          f"K7/K8/K9 launches on its main paths {counts}; seconds by part "
+          f"{ {k_: round(v_, 3) for k_, v_ in secs.items()} }")
+    return counts, out
+
+
 def main() -> int:
     sys.path.insert(0, os.path.join(HERE, "src"))
     t_start = time.perf_counter()
@@ -3575,10 +4103,19 @@ def main() -> int:
         rows[n]["max_abs_err"] = max(rows[n]["max_abs_err"],
                                      r["max_abs_err"])
     lap("ssm")
+    vcounts, vlm_out = phase_vlm()
+    rows["flash_attention"]["max_abs_err"] = max(
+        rows["flash_attention"]["max_abs_err"], vlm_out["k7"]["max_abs_err"],
+        vlm_out["k7_self"]["max_abs_err"])
+    for n, r in vlm_out["bwd"].items():
+        rows[n]["max_abs_err"] = max(rows[n]["max_abs_err"],
+                                     r["max_abs_err"])
+    lap("vlm")
     print(f"[time] total {time.perf_counter() - t_start:.3f}")
     for k, v in (*counts.items(), *hcounts.items(), *rcounts.items(),
                  *ccounts.items(), *fcounts.items(), *tcounts.items(),
-                 *dcounts.items(), *mcounts.items(), *scounts.items()):
+                 *dcounts.items(), *mcounts.items(), *scounts.items(),
+                 *vcounts.items()):
         launches[k] = launches.get(k, 0) + v
     replaces = {"cvt_color": "src/repro/kernels/harris.py:44",
                 "corner_harris": "src/repro/kernels/harris.py:101",
@@ -3611,7 +4148,7 @@ def main() -> int:
                       "continuous_decode": decoded, "serve_lm": lm,
                       "f32_route_driver_shape": f32_route,
                       "train": trained, "driver": driven, "moe": moe_out,
-                      "ssm": ssm_out,
+                      "ssm": ssm_out, "vlm": vlm_out,
                       "tc_resources": tc_res, "k7_train_shape": k7_train,
                       "k6_resources": rows["rmsnorm_matmul"]["resources"],
                       "local_layer": {n: {k: v for k, v in rows[n].items()

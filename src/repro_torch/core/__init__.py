@@ -31,7 +31,7 @@ from .placement import (AUTO_BUDGET, DeviceInventory, DeviceSpec,
                         InventoryDiff, Placement, default_worker_budget, is_hw,
                         is_sw, placement_kind, resolve_device,
                         resolve_worker_budget)
-from .tracer import Frontend, Library, deploy
+from .tracer import Frontend, Library, current_mode, deploy
 
 __all__ = [
     "DEVICE_CLASSES", "H100", "PROFILE_MARGIN", "SMEM_BYTES", "CostModel",
@@ -55,5 +55,5 @@ __all__ = [
     "Placement",
     "default_worker_budget", "is_hw", "is_sw", "placement_kind",
     "resolve_device", "resolve_worker_budget",
-    "Frontend", "Library", "deploy",
+    "Frontend", "Library", "current_mode", "deploy",
 ]

@@ -150,6 +150,19 @@ class NodeCost:
         return ("compute", "memory", "collective")[
             int(np.argmax([t_c, t_m, t_x]))]
 
+    def __add__(self, other: "NodeCost") -> "NodeCost":
+        """The two costs summed term by term.  Where either is measured the
+        sum is measured too, and the one without a profile adds its
+        roofline time (on the default device), not 0: a stage holding one
+        profiled and one estimated node would otherwise underreport."""
+        m = None
+        if self.measured_ms is not None or other.measured_ms is not None:
+            m = self.time_ms() + other.time_ms()
+        return NodeCost(self.flops + other.flops,
+                        self.bytes_rw + other.bytes_rw,
+                        self.coll_bytes + other.coll_bytes, m,
+                        self.f32_flops + other.f32_flops)
+
 
 # --------------------------------------------------------------------------- #
 # Fusion model — shared-memory-resident intermediates
@@ -186,6 +199,17 @@ class FusionEstimate:
     @property
     def wins(self) -> bool:
         return self.fits_smem and self.fused_ms < self.unfused_ms
+
+    def describe(self) -> str:
+        """One line: fused and unfused ms, HBM bytes saved, the tile set
+        against the shared memory a block can have (in KB), and whether it
+        fits (the JAX record's VMEM line, for shared memory)."""
+        return (f"FusionEstimate(fused={self.fused_ms:.4f} ms, "
+                f"unfused={self.unfused_ms:.4f} ms, "
+                f"hbm_saved={self.hbm_bytes_saved / 1e6:.2f} MB, "
+                f"smem={self.smem_required / 1e3:.2f}/"
+                f"{self.smem_bytes / 1e3:.0f} KB, "
+                f"{'fits' if self.fits_smem else 'SPILLS'})")
 
 
 def fused_cost(parts: "list[NodeCost]", intermediate_bytes: float, *,
@@ -384,6 +408,12 @@ class CostModel:
         self.measured[fn_key] = float(ms) if prev is None \
             else (1.0 - a) * prev + a * float(ms)
         return self.measured[fn_key]
+
+    def cost(self, fn_key: str, *args, **kwargs) -> NodeCost:
+        """``fn_key``'s provider called on ``args`` (KeyError without one)."""
+        if fn_key not in self.providers:
+            raise KeyError(f"no cost provider for {fn_key!r}")
+        return self.providers[fn_key](*args, **kwargs)
 
     def annotate(self, ir) -> None:
         """Fill Node.flops / bytes from providers when a node has no profile;

@@ -95,6 +95,15 @@ class ModuleDatabase:
         self.entries[name] = e
         return e
 
+    def library(self, name: str, **kwargs: Any) -> Callable:
+        """Decorator: register the decorated function as ``name``'s
+        software implementation (``kwargs`` as :meth:`register` takes
+        them)."""
+        def deco(fn: Callable) -> Callable:
+            self.register(name, software=fn, **kwargs)
+            return fn
+        return deco
+
     def add_accelerated(self, name: str, fn: Callable,
                         applicable: Callable[..., bool] | None = None) -> None:
         if name not in self.entries:
@@ -160,6 +169,9 @@ class ModuleDatabase:
     # -- lookup (paper: "searches ... by functions name") --------------------- #
     def lookup(self, name: str) -> ModuleEntry | None:
         return self.entries.get(name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self.entries
 
     def resolve(self, name: str, *shape_args: Any,
                 prefer_hw: bool = True) -> tuple[Callable, str]:

@@ -79,6 +79,11 @@ class Value:
             n *= int(s)
         return n * ITEMSIZE[self.dtype]
 
+    @property
+    def bit_depth(self) -> int:
+        """The paper's AXI port-width input: bits per element."""
+        return ITEMSIZE[self.dtype] * 8
+
 
 # --------------------------------------------------------------------------- #
 # Nodes (function calls)
@@ -182,6 +187,22 @@ class CourierIR:
 
     def total_time_ms(self) -> float:
         return float(sum(n.time_ms or 0.0 for n in self.nodes))
+
+    def is_linear_chain(self) -> bool:
+        """True if every node's outputs feed only the next node (or the
+        graph's outputs): the paper's fusion rule, "no branch nor loop",
+        on which the fusion pass and the stage partitioner operate."""
+        index = {n.name: i for i, n in enumerate(self.nodes)}
+        return all(index[c] == i + 1
+                   for i, n in enumerate(self.nodes) for o in n.outputs
+                   for c in self.values[o].consumers)
+
+    def consumers_of(self, node: Node) -> list[Node]:
+        """The nodes that read ``node``'s outputs, output by output, in
+        the order each value records them (a node reading two of them is
+        listed twice)."""
+        return [self.node(c) for o in node.outputs
+                for c in self.values[o].consumers]
 
     def validate(self) -> None:
         """Topological sanity: every input is produced before use."""

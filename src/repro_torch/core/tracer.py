@@ -35,7 +35,8 @@ from .costmodel import synchronize
 from .database import ModuleDatabase, ModuleEntry, default_db
 from .ir import CourierIR, Node, dtype_name, flatten
 
-__all__ = ["Library", "Frontend", "deploy", "TraceBindingError"]
+__all__ = ["Library", "Frontend", "deploy", "current_mode",
+           "TraceBindingError"]
 
 
 # --------------------------------------------------------------------------- #
@@ -51,6 +52,13 @@ _state = _DispatchState()
 
 def _current() -> "Any | None":
     return _state.stack[-1] if _state.stack else None
+
+
+def current_mode() -> str:
+    """The innermost active context's mode on this thread: ``"trace"``
+    inside :meth:`Frontend.trace`, ``"deploy"`` inside :class:`deploy`,
+    else ``"direct"`` (for hooks that edit the IR, paper Steps 6-7)."""
+    return getattr(_current(), "mode", "direct")
 
 
 class Library:

@@ -387,6 +387,19 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// Make current, on this thread, the context of the device that holds ptr.
+// cuTensorMapEncodeTiled needs a current context, and a thread that has
+// made no runtime call on its device yet has none (PyTorch's autograd
+// worker thread, whose device guard skips setting device 0): the encode
+// then fails with CUDA_ERROR_INVALID_CONTEXT.
+inline bool bind_context(const void* ptr) {
+  cudaPointerAttributes at;
+  if (cudaPointerGetAttributes(&at, ptr) != cudaSuccess ||
+      at.type != cudaMemoryTypeDevice)
+    return false;
+  return cudaSetDevice(at.device) == cudaSuccess;
+}
+
 // the [B, L, H, HD] bf16 tensor at ptr as a 4-D map (hd, H, L, B) whose box
 // is Sw<HD>::SW head_dim elements of one head over 64 rows; TMA fills rows
 // beyond L with zeros
@@ -394,7 +407,7 @@ template <int HD>
 bool tensor_map(CUtensorMap* map, const void* ptr, int B, int L, int H) {
   using S = Sw<HD>;
   EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
+  if (encode == nullptr || !bind_context(ptr)) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)H, (cuuint64_t)L,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)HD * 2, (cuuint64_t)H * HD * 2,

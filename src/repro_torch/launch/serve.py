@@ -5,14 +5,17 @@ Three serving modes, on the card unless the caller asks for the CPU with
 ``--device cpu``:
 
 * ``lm`` (default) — batched prefill into a KV cache, then greedy decode, on
-  the LM stack, dense, moe, hybrid or ssm (:func:`serve_lm`); every
-  prefill self-attention runs the flash-attention kernel (K7), and the
-  hybrid and rwkv blocks carry their recurrent state in the cache::
+  the LM stack, any family (:func:`serve_lm`); every prefill self- and
+  cross-attention runs the flash-attention kernel (K7), the hybrid and
+  rwkv blocks carry their recurrent state in the cache, and the vlm
+  family's cache holds the image K/V its decode steps reuse::
 
       python -m repro_torch.launch.serve --mode lm --arch gemma3-12b \\
           --no-reduced --layers 6 --batch 4 --prompt-len 4096 --tokens 32
       python -m repro_torch.launch.serve --mode lm --arch rwkv6-1.6b \\
           --no-reduced --batch 4 --prompt-len 4096 --tokens 32
+      python -m repro_torch.launch.serve --mode lm \\
+          --arch llama-3.2-vision-11b --no-reduced --prompt-len 4096
 
 * ``trace`` and ``pipeline`` — a request-queue serving loop over a token
   pipeline (the ROADMAP's "serve heavy traffic" front-end)::
@@ -1290,7 +1293,7 @@ def _sync(dev: torch.device) -> None:
 @torch.no_grad()
 def serve_lm(cfg, params: Any = None, prompt: Any = None, *, batch: int = 4,
              prompt_len: int = 32, tokens: int = 32, device=None,
-             keep_logits: bool = False) -> dict:
+             keep_logits: bool = False, img_embeds: Any = None) -> dict:
     """Batched prefill + KV-cache greedy decode on the LM stack.
 
     The JAX package's ``--mode lm`` loop: prefill the prompt into a cache of
@@ -1298,7 +1301,11 @@ def serve_lm(cfg, params: Any = None, prompt: Any = None, *, batch: int = 4,
     logits, then ``tokens`` decode steps, each feeding back its argmax.
     ``params`` default to ``LM.init`` from a ``torch.Generator`` seeded with
     0 on the device; ``prompt`` (ids ``[B, P]``, any array) defaults to
-    numpy ``default_rng(1)`` draws of ``[batch, prompt_len]``.
+    numpy ``default_rng(1)`` draws of ``[batch, prompt_len]``.  A vlm
+    model's prefill also takes ``img_embeds`` (``[B, n_img_tokens, d]``,
+    any array), which default to numpy ``default_rng(2)`` normal draws; they
+    reach the model in the config's dtype (the JAX loop's f32 draws into a
+    bf16 model break its layer scan).
 
     Returns the stats: prefill ms and tokens/s, the card's own prefill ms
     (CUDA events; None on the CPU), decode ms/token and tokens/s, the
@@ -1311,6 +1318,7 @@ def serve_lm(cfg, params: Any = None, prompt: Any = None, *, batch: int = 4,
     from ..core import resolve_device
     from ..kernels.flash_attention import LAUNCHES
     from ..models import LM
+    from ..models.transformer import torch_dtype
 
     dev = resolve_device(device)
     model = LM(cfg)
@@ -1326,6 +1334,16 @@ def serve_lm(cfg, params: Any = None, prompt: Any = None, *, batch: int = 4,
     def step_in(t):          # (ids, embeds) of a step, as the JAX loop feeds
         return (None, table[t]) if cfg.embeds_in else (t, None)
 
+    img = {}
+    if cfg.cross_attn_every:
+        if img_embeds is None:
+            img_embeds = np.random.default_rng(2).standard_normal(
+                (B, cfg.n_img_tokens, cfg.d_model), dtype=np.float32)
+        if not isinstance(img_embeds, torch.Tensor):
+            img_embeds = torch.from_numpy(np.asarray(img_embeds, np.float32))
+        img["img_embeds"] = img_embeds.to(device=dev,
+                                          dtype=torch_dtype(cfg.dtype))
+
     cache = model.init_cache(B, P + tokens, device=dev)
     _sync(dev)
     k7 = LAUNCHES["flash_attention"]
@@ -1336,7 +1354,7 @@ def serve_lm(cfg, params: Any = None, prompt: Any = None, *, batch: int = 4,
     if ev:
         ev[0].record()
     x, e = step_in(ids)
-    hp, cache = model.prefill(params, x, cache, embeds=e)
+    hp, cache = model.prefill(params, x, cache, embeds=e, **img)
     logits = model.logits(params, hp)
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
     if ev:

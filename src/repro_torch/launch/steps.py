@@ -4,8 +4,8 @@
 One step: the LM's forward (per-layer remat, optional ``scan_chunks``) and
 chunked cross-entropy, plus ``1e-2 * load_balance_loss + 1e-3 *
 router_z_loss`` for a moe config, their gradient by autograd (every
-self-attention's backward on K8 and K9 on the card), then AdamW with
-clipping and the cosine schedule, in place.  The JAX module's
+self- and cross-attention's backward on K8 and K9 on the card), then AdamW
+with clipping and the cosine schedule, in place.  The JAX module's
 ``batch_structs``, sharding helpers and serve steps wait for the sharding
 slice.
 """
@@ -37,6 +37,8 @@ def loss_and_grads(model: LM, params: Params, batch: dict, *,
     cfg = model.cfg
     flat, _ = flatten(params)
     kw = {"embeds": batch["embeds"]} if cfg.embeds_in else {}
+    if cfg.cross_attn_every:
+        kw["img_embeds"] = batch["img_embeds"]
     try:
         with torch.enable_grad():
             for p in flat:
@@ -67,11 +69,12 @@ def make_train_step(cfg: ArchConfig, *, scan_chunks: int = 0,
     ``state`` is ``{"params", "opt"}`` (:func:`~repro_torch.optim.adamw_init`),
     ``batch`` a dict of tensors on the parameters' device: ``labels`` and
     ``mask`` [B, S], and ``ids`` [B, S] (or ``embeds`` [B, S, d] for a
-    model that takes embeddings).  ``train_step`` updates the state's tensors
-    in place and returns (state, metrics): ``loss`` (the cross-entropy),
-    ``grad_norm`` and ``lr``, and for a moe config ``dropped_frac`` (summed
-    over the layers, as the JAX step reports it), as 0-d tensors on the
-    device.
+    model that takes embeddings), plus ``img_embeds`` [B, n_img_tokens, d]
+    in the config's dtype for a vlm model.  ``train_step`` updates the
+    state's tensors in place and returns (state, metrics): ``loss`` (the
+    cross-entropy), ``grad_norm`` and ``lr``, and for a moe config
+    ``dropped_frac`` (summed over the layers, as the JAX step reports it),
+    as 0-d tensors on the device.
     """
     model = LM(cfg)
     sched = cosine_schedule(lr, warmup, total_steps)

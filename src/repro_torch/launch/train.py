@@ -1,11 +1,14 @@
 """Training launcher — the port of the JAX package's ``launch/train.py``.
 
-Runs a training loop for the LM (dense, moe, hybrid or ssm) with the whole
+Runs a training loop for the LM (any family) with the whole
 substrate stack: the synthetic data stream, AdamW, per-layer remat (with
 the recurrences' time-chunk checkpoints nested inside), checkpointing,
 fault-tolerant restart and straggler monitoring.  It runs on the card
 unless given ``--device cpu`` (and refuses to run without a card
-otherwise); every self-attention runs K7 forward and K8/K9 backward there.
+otherwise); every attention runs K7 forward and K8/K9 backward there.
+A vlm model is fed zero image embeddings in the config's dtype, as the
+JAX launcher feeds them (its stub frontend): its cross layers' q, k, v and
+o projections then take no gradient.
 
     python -m repro_torch.launch.train --device cpu --reduced --steps 30
     python -m repro_torch.launch.train --no-reduced --layers 6 --steps 20 \\
@@ -31,6 +34,7 @@ from ..checkpoint import CheckpointStore
 from ..core.placement import resolve_device
 from ..data import SyntheticLMData
 from ..models import LM
+from ..models.transformer import torch_dtype
 from ..optim import adamw_init
 from ..runtime import FaultTolerantDriver, StragglerMonitor
 from .steps import make_train_step
@@ -56,6 +60,10 @@ def build(cfg, steps: int, lr: float, seq_len: int, global_batch: int, *,
         if cfg.embeds_in:
             # stub modality frontend: embed tokens via the tied table
             b["embeds"] = state["params"]["embed"]["table"][b.pop("ids")]
+        if cfg.cross_attn_every:
+            b["img_embeds"] = torch.zeros(
+                (len(batch.ids), cfg.n_img_tokens, cfg.d_model),
+                dtype=torch_dtype(cfg.dtype), device=dev)
         return step_fn(state, b)
 
     params = model.init(torch.Generator(dev).manual_seed(0))

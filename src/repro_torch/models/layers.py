@@ -1,8 +1,8 @@
 """Transformer building blocks — functional, param-dict style.
 
-The port of the JAX package's ``models/layers.py`` for the dense, moe,
-hybrid and ssm families (the rwkv block uses only :func:`rmsnorm` and
-:func:`_dense_init` from here).  Conventions, as there:
+The port of the JAX package's ``models/layers.py`` for every family (the
+rwkv block uses only :func:`rmsnorm` and :func:`_dense_init` from here).
+Conventions, as there:
 
 * params are nested dicts of tensors; layer stacks have leading dim L;
 * compute dtype = config dtype (bf16 on the card); softmax and norms
@@ -11,12 +11,14 @@ hybrid and ssm families (the rwkv block uses only :func:`rmsnorm` and
   per-layer int), so gemma3's local/global stack is one loop.
 
 Every self-attention over a whole prompt (the forward pass, and prefill
-into an empty cache) goes through :func:`repro_torch.kernels.ops.attention`,
-the flash-attention kernel (K7) on the card, whose backward is K8 and K9
-under autograd (``expand_kv``'s broadcast then sums each group's gradient
-back onto its kv head).  Decode (new tokens at
-``cache_pos > 0``) stays plain PyTorch, as the JAX package computes it
-outside any Pallas kernel: K7's masks are aligned at position 0.
+into an empty cache) and every cross-attention (``kv_x``: the vlm family's
+image rows, unmasked, T != M) goes through
+:func:`repro_torch.kernels.ops.attention`, the flash-attention kernel (K7)
+on the card, whose backward is K8 and K9 under autograd (``expand_kv``'s
+broadcast then sums each group's gradient back onto its kv head).  Decode
+(new tokens at ``cache_pos > 0``) stays plain PyTorch, as the JAX package
+computes it outside any Pallas kernel: K7's masks are aligned at position
+0.
 
 The JAX module's sharding anchors (``_con_*``, ``set_attention_mesh``;
 ``_con_experts`` and ``_con_groups`` anchor the MoE dispatch) wait for the
@@ -144,26 +146,25 @@ def attention(p: Params, x: torch.Tensor, pos=None, *, theta, window: int = 0,
               kv_x: torch.Tensor | None = None, cache: Params | None = None,
               cache_pos: int | None = None
               ) -> tuple[torch.Tensor, Params | None]:
-    """Self-attention, causal (+ window).
+    """Self-attention, causal (+ window), or cross-attention.
 
     * forward (cache=None): the whole sequence through K7;
     * prefill (cache given, ``cache_pos == 0``): k/v written into the cache
       (in place), then K7 over the first T cache rows — the rows beyond T
       are causally masked in the JAX function, so the result is the same;
-    * decode (``cache_pos > 0``): plain masked softmax over the cache.
-
-    Cross-attention (``kv_x``, the vlm family) is not ported yet.
+    * decode (``cache_pos > 0``): plain masked softmax over the cache;
+    * cross-attention (``kv_x`` [B, M, d] and no cache): q from ``x``, k
+      and v from ``kv_x``, no rope and no mask, through K7 with
+      ``causal=False`` (the JAX function's plain softmax below T = 2048
+      and its chunked one from there are the same function).
     """
     del pos                                     # positions come from T
-    if kv_x is not None:
-        raise NotImplementedError(
-            "cross-attention (the vlm family) waits for the vlm item of "
-            "ROADMAP.md queue 1")
     window = int(window)
     B, T, _ = x.shape
     q = torch.einsum("btd,dnh->btnh", x, p["wq"])
-    k = torch.einsum("btd,dnh->btnh", x, p["wk"])
-    v = torch.einsum("btd,dnh->btnh", x, p["wv"])
+    src = x if kv_x is None else kv_x
+    k = torch.einsum("bmd,dnh->bmnh", src, p["wk"])
+    v = torch.einsum("bmd,dnh->bmnh", src, p["wv"])
     H, hd = q.shape[2], q.shape[3]
 
     new_cache = None
@@ -188,6 +189,9 @@ def attention(p: Params, x: torch.Tensor, pos=None, *, theta, window: int = 0,
                                  torch.full((), NEG_INF, device=x.device))
             probs = torch.softmax(scores, dim=-1).to(x.dtype)
             out = gqa_combine(probs, expand_kv(cv, H))
+    elif kv_x is not None:                      # cross-attention: K7
+        out = ops.attention(q, expand_kv(k, H), expand_kv(v, H), False,
+                            0).reshape(B, T, H * hd)
     else:                                       # forward: K7
         q_pos = torch.arange(T, device=x.device)
         q = apply_rope(q, q_pos[None, :], theta)

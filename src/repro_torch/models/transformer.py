@@ -1,44 +1,57 @@
 """Decoder-only LM — the port of the JAX package's ``models/transformer.py``
-for the dense, moe, hybrid and ssm families.
+for every family.
 
-Families ported: ``dense`` (GQA attention + SwiGLU: deepseek-67b, gemma3-12b,
+Families: ``dense`` (GQA attention + SwiGLU: deepseek-67b, gemma3-12b,
 gemma3-27b, mistral-large-123b), ``audio`` (musicgen-large: the same
 dense backbone over precomputed frame embeddings, ``embeds_in``), ``moe``
 (GQA attention + a top-k expert FFN, :mod:`.moe`: moonshot-v1-16b-a3b,
 qwen3-moe-235b-a22b), ``hybrid`` (GQA attention and a selective-SSM branch
-in parallel, averaged, :mod:`.ssm`: hymba-1.5b) and ``ssm`` (RWKV-6
-blocks, attention-free, :mod:`.rwkv`: rwkv6-1.6b).  The vlm family raises
-``NotImplementedError``.
+in parallel, averaged, :mod:`.ssm`: hymba-1.5b), ``ssm`` (RWKV-6 blocks,
+attention-free, :mod:`.rwkv`: rwkv6-1.6b) and ``vlm`` (llama-3.2-vision-11b:
+groups of ``cross_attn_every - 1`` self-attention layers and one
+cross-attention layer over precomputed image embeddings, ``img_embeds``
+[B, n_img_tokens, d] in the config's dtype).
 
 The JAX ``lax.scan`` over the stacked ``[L, ...]`` parameters is a Python
 loop over the same stacked tensors; per-layer heterogeneity (gemma3's
 sliding window and rope theta) rides along as per-layer data, so the
 parameter tree has the JAX tree's layout and :func:`params_from_numpy`
-carries JAX weights across unchanged.  The cache is updated in place: the
-k/v rows by the attention, and a layer's recurrent state (the hybrid
-block's ``ssm`` ``h``/``conv``, the rwkv block's ``S``/``tm_last``/
-``cm_last``) copied into its ``[L, ...]`` stack after the layer runs.
+carries JAX weights across unchanged (for vlm: ``layers`` ``[G, per, ...]``
+and ``cross`` ``[G, ...]``).  The cache is updated in place: the k/v rows
+by the attention, a layer's recurrent state (the hybrid block's ``ssm``
+``h``/``conv``, the rwkv block's ``S``/``tm_last``/``cm_last``) copied into
+its ``[L, ...]`` stack after the layer runs, and the vlm cache's image K/V
+(``cross`` ``ck``/``cv``) written once by the prefill and read by decode.
 
 Training: ``apply(remat=True)`` checkpoints every layer with
 ``torch.utils.checkpoint`` (the JAX ``jax.checkpoint`` body), and with
 ``scan_chunks=c`` every chunk of c layers as well; the recurrences'
-time-chunk checkpoints (:mod:`.scan_utils`) nest inside them.
-:meth:`LM.loss` is the chunked cross-entropy, one checkpointed chunk of
-``[B, chunk, V]`` f32 logits alive at a time.
+time-chunk checkpoints (:mod:`.scan_utils`) nest inside them.  A vlm model
+checkpoints each group instead, as the JAX ``_apply_vlm`` does, and
+ignores ``scan_chunks``.  :meth:`LM.loss` is the chunked cross-entropy, one
+checkpointed chunk of ``[B, chunk, V]`` f32 logits alive at a time.
+
+The vlm blocks mark their card time for the profiler: ``vlm:self``,
+``vlm:cross`` (the attentions), ``vlm:mlp`` and ``vlm:cross_kv`` (the
+prefill's image K/V).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..core.placement import resolve_device
 from ..core.tree import flatten, tree_map, unflatten
+from ..kernels import ops
 from .config import ArchConfig
-from .layers import (attention, attention_init, embed, embed_init, lm_logits,
-                     logits_f32, mlp, mlp_init, rmsnorm, rmsnorm_init)
+from .layers import (attention, attention_init, embed, embed_init, expand_kv,
+                     gqa_combine, gqa_scores, lm_logits, logits_f32, mlp,
+                     mlp_init, rmsnorm, rmsnorm_init)
 from .moe import AUX_KEYS, moe_apply, moe_init
 from .rwkv import rwkv_block, rwkv_init, rwkv_init_state
 from .ssm import ssm_apply, ssm_init, ssm_init_state
@@ -51,17 +64,13 @@ def torch_dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def unported_family(cfg: ArchConfig) -> str | None:
-    """Why the port cannot run ``cfg`` yet (None when it can)."""
-    if cfg.cross_attn_every:
-        return "the vlm family (cross-attention)"
-    return None
-
-
 # =========================================================================== #
 # Per-layer block
 # =========================================================================== #
-def _block_init(cfg: ArchConfig, generator: torch.Generator) -> Params:
+def _block_init(cfg: ArchConfig, generator: torch.Generator,
+                cross: bool = False) -> Params:
+    """One block's weights; a cross-attention block (``cross``) has an MLP,
+    never experts."""
     dtype = torch_dtype(cfg.dtype)
     dev = generator.device
     p = {"ln1": rmsnorm_init(cfg.d_model, dtype, dev),
@@ -74,7 +83,7 @@ def _block_init(cfg: ArchConfig, generator: torch.Generator) -> Params:
     if cfg.hybrid:
         p["ssm"] = ssm_init(generator, cfg.d_model, cfg.ssm_state,
                             cfg.conv_kernel, dtype)
-    if cfg.n_experts:
+    if cfg.n_experts and not cross:
         p["moe"] = moe_init(generator, cfg.d_model, cfg.d_ff, cfg.n_experts,
                             dtype)
     else:
@@ -87,23 +96,44 @@ def _zero_aux(device=None) -> dict:
             for k in AUX_KEYS}
 
 
+def _range(cfg: ArchConfig, name: str):
+    """A profiler range around a vlm block's part (nothing elsewhere)."""
+    return (record_function(name) if cfg.cross_attn_every
+            else contextlib.nullcontext())
+
+
 def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
                  window: int, theta: float, cache: Params | None = None,
-                 cache_pos: int | None = None
+                 cache_pos: int | None = None,
+                 img_kv: torch.Tensor | Params | None = None,
+                 is_cross: bool = False
                  ) -> tuple[torch.Tensor, Params | None, dict | None]:
-    """One block (``LM`` refuses the vlm family). Returns (x, new_cache,
-    aux); aux is None but for a moe block (the JAX block's zeros).
+    """One block. Returns (x, new_cache, aux); aux is None but for a moe
+    block (the JAX block's zeros).
     new_cache: the rwkv state, or the attention's k/v (the cache's own
     tensors, written in place) and the hybrid block's new ``ssm`` state;
-    None without a cache."""
+    None without a cache, and always None for a cross block (``is_cross``),
+    which attends to ``img_kv``: raw image embeddings [B, M, d], or a dict
+    of the cached ``ck``/``cv`` (:func:`_cross_from_cache`)."""
     if cfg.rwkv:
         x, new_state = rwkv_block(p["rwkv"], x, p["ln1"], p["ln2"],
                                   state=cache)
         return x, new_state, None
     h = rmsnorm(p["ln1"], x)
-    kv = None if cache is None else {"k": cache["k"], "v": cache["v"]}
-    a, new_cache = attention(p["attn"], h, None, theta=theta, window=window,
-                             cache=kv, cache_pos=cache_pos)
+    if is_cross:
+        with _range(cfg, "vlm:cross"):
+            if isinstance(img_kv, dict):
+                a = _cross_from_cache(p, h, img_kv, prefill=cache_pos == 0)
+            else:
+                a, _ = attention(p["attn"], h, None, theta=theta,
+                                 kv_x=img_kv)
+        new_cache = None
+    else:
+        kv = None if cache is None else {"k": cache["k"], "v": cache["v"]}
+        with _range(cfg, "vlm:self"):
+            a, new_cache = attention(p["attn"], h, None, theta=theta,
+                                     window=window, cache=kv,
+                                     cache_pos=cache_pos)
     if cfg.hybrid:
         s, s_new = ssm_apply(p["ssm"], h,
                              state=None if cache is None else cache["ssm"])
@@ -115,15 +145,34 @@ def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
     if "moe" in p:
         y, aux = moe_apply(p["moe"], h2, cfg.top_k, cfg.moe_capacity_factor)
     else:
-        y, aux = mlp(p["mlp"], h2), None
+        with _range(cfg, "vlm:mlp"):
+            y, aux = mlp(p["mlp"], h2), None
     return x + y, new_cache, aux
 
 
-def _unstack(tree: Params) -> list[Params]:
-    """The layers of a stacked ``[L, ...]`` tree (views, no copies): one
+def _cross_from_cache(p: Params, h: torch.Tensor, img_kv: Params, *,
+                      prefill: bool) -> torch.Tensor:
+    """Cross-attention of ``h`` [B, T, d] against the cached image K/V
+    (``ck``/``cv`` [B, M, KV, hd]), unmasked: through K7 with
+    ``causal=False`` in a prefill, a plain softmax in decode (T = 1, where
+    K7's 128-row query tile has one row to fill), as the JAX function."""
+    q = torch.einsum("btd,dnh->btnh", h, p["attn"]["wq"])
+    B, T, H, hd = q.shape
+    k, v = expand_kv(img_kv["ck"], H), expand_kv(img_kv["cv"], H)
+    if prefill:
+        out = ops.attention(q, k, v, False, 0).reshape(B, T, H * hd)
+    else:
+        probs = torch.softmax(gqa_scores(q, k), dim=-1).to(h.dtype)
+        out = gqa_combine(probs, v)
+    return torch.einsum("btf,fd->btd", out, p["attn"]["wo"])
+
+
+def _unstack(tree: Params, dims: int = 1) -> list[Params]:
+    """The layers of a stacked ``[L, ...]`` tree (or, ``dims=2``, of a
+    ``[G, per, ...]`` one, in the order g * per + j; views, no copies): one
     ``unbind`` per leaf, so autograd stacks the layers' gradients once."""
     flat, treedef = flatten(tree)
-    cols = [a.unbind(0) for a in flat]
+    cols = [a.flatten(0, dims - 1).unbind(0) for a in flat]
     return [unflatten(treedef, [c[i] for c in cols])
             for i in range(len(cols[0]))]
 
@@ -161,11 +210,6 @@ def _chunk_nll(h: torch.Tensor, table: torch.Tensor, t: torch.Tensor,
 # =========================================================================== #
 class LM:
     def __init__(self, cfg: ArchConfig):
-        reason = unported_family(cfg)
-        if reason:
-            raise NotImplementedError(
-                f"{cfg.arch_id}: {reason} is not ported yet (ROADMAP.md "
-                f"queue 1)")
         self.cfg = cfg
 
     # -- params -------------------------------------------------------------- #
@@ -178,14 +222,51 @@ class LM:
                                 dtype),
             "final_norm": rmsnorm_init(cfg.d_model, dtype, generator.device),
         }
+        if cfg.cross_attn_every:
+            n_groups, per = self._vlm_groups()
+            layers = [_block_init(cfg, generator)
+                      for _ in range(n_groups * per)]
+            params["layers"] = tree_map(
+                lambda *a: torch.stack(a).unflatten(0, (n_groups, per)),
+                *layers)
+            cross = [_block_init(cfg, generator, cross=True)
+                     for _ in range(n_groups)]
+            params["cross"] = tree_map(lambda *a: torch.stack(a), *cross)
+            return params
         layers = [_block_init(cfg, generator) for _ in range(cfg.n_layers)]
         params["layers"] = tree_map(lambda *a: torch.stack(a), *layers)
         return params
 
-    def _layer_meta(self) -> list[tuple[int, float]]:
+    def _vlm_groups(self) -> tuple[int, int]:
+        """(groups, self layers a group) of a vlm config."""
         cfg = self.cfg
-        return [(int(w), float(t))
-                for w, t in zip(cfg.layer_windows, cfg.layer_thetas)]
+        per = cfg.cross_attn_every
+        if cfg.n_layers % per:
+            raise ValueError(f"n_layers {cfg.n_layers} not divisible by "
+                             f"cross_attn_every {per}")
+        return cfg.n_layers // per, per - 1
+
+    def _layer_meta(self) -> list[tuple[int, float]]:
+        """(window, rope theta) of each layer; of each self layer, in the
+        order g * per + j, for a vlm config."""
+        cfg = self.cfg
+        keep = ~cfg.is_cross_layer
+        return [(int(w), float(t)) for w, t in
+                zip(cfg.layer_windows[keep], cfg.layer_thetas[keep])]
+
+    def _img_in(self, img_embeds) -> torch.Tensor:
+        """The vlm model's image embeddings, which must come in the
+        config's dtype: a bf16 model's blocks take bf16 K/V, as the JAX
+        trainer feeds them (an f32 draw breaks the JAX layer scan)."""
+        want = torch_dtype(self.cfg.dtype)
+        if img_embeds is None:
+            raise ValueError(f"{self.cfg.arch_id}: the vlm family needs "
+                             f"img_embeds [B, {self.cfg.n_img_tokens}, "
+                             f"{self.cfg.d_model}]")
+        if img_embeds.dtype != want:
+            raise TypeError(f"{self.cfg.arch_id}: img_embeds are "
+                            f"{img_embeds.dtype}, the model is {want}")
+        return img_embeds
 
     def _embed_in(self, params: Params, ids, embeds) -> torch.Tensor:
         x = embeds if self.cfg.embeds_in else embed(params["embed"], ids)
@@ -193,18 +274,24 @@ class LM:
 
     # -- full-sequence forward ------------------------------------------------ #
     def apply(self, params: Params, ids: torch.Tensor | None = None, *,
-              embeds: torch.Tensor | None = None, remat: bool = True,
+              embeds: torch.Tensor | None = None,
+              img_embeds: torch.Tensor | None = None, remat: bool = True,
               scan_chunks: int = 0) -> tuple[torch.Tensor, dict]:
         """→ (hidden [B, S, d], aux). Use :meth:`loss` / :meth:`logits`
         after.  aux: the MoE aux losses (``load_balance_loss``,
         ``router_z_loss``, ``dropped_frac``) summed over the layers, f32
         0-d tensors; zero for the other families.
 
-        ``remat``: recompute each layer's activations in the backward pass.
+        ``remat``: recompute each layer's activations in the backward pass
+        (each group's, for a vlm model, which needs ``img_embeds``).
         ``scan_chunks=c``: also checkpoint each chunk of c layers (the JAX
-        nested-remat scan), ignored unless c divides ``n_layers``."""
+        nested-remat scan), ignored unless c divides ``n_layers``, and by a
+        vlm model."""
         cfg = self.cfg
         x = self._embed_in(params, ids, embeds)
+        if cfg.cross_attn_every:
+            return self._apply_vlm(params, x, self._img_in(img_embeds),
+                                   remat)
         layers = _unstack(params["layers"])
         meta = self._layer_meta()
 
@@ -229,6 +316,35 @@ class LM:
                 x, aux = _remat(run, lo, lo + c, x, aux)
         else:
             x, aux = run(0, cfg.n_layers, x, aux)
+        return rmsnorm(params["final_norm"], x), aux
+
+    def _apply_vlm(self, params: Params, x: torch.Tensor,
+                   img_embeds: torch.Tensor, remat: bool
+                   ) -> tuple[torch.Tensor, dict]:
+        """The vlm forward: each group's self layers, then its cross layer
+        over ``img_embeds``, one checkpoint a group (the JAX
+        ``jax.checkpoint(group)``)."""
+        cfg = self.cfg
+        n_groups, per = self._vlm_groups()
+        layers = _unstack(params["layers"], 2)
+        cross = _unstack(params["cross"])
+        meta = self._layer_meta()
+
+        def group(g: int, h: torch.Tensor, aux: dict
+                  ) -> tuple[torch.Tensor, dict]:
+            for i in range(g * per, (g + 1) * per):
+                w, th = meta[i]
+                h, _, a = _block_apply(cfg, layers[i], h, window=w, theta=th)
+                if a is not None:
+                    aux = {k: aux[k] + a[k] for k in aux}
+            h, _, _ = _block_apply(cfg, cross[g], h, window=0,
+                                   theta=cfg.rope_theta, img_kv=img_embeds,
+                                   is_cross=True)
+            return h, aux
+
+        aux = _zero_aux(x.device)
+        for g in range(n_groups):
+            x, aux = _remat(group, g, x, aux) if remat else group(g, x, aux)
         return rmsnorm(params["final_norm"], x), aux
 
     def loss(self, params: Params, hidden: torch.Tensor,
@@ -264,7 +380,8 @@ class LM:
         """A zero cache on ``device`` (the card unless ``device="cpu"``),
         each leaf stacked ``[L, ...]``: k/v ``[B, cache_len, KV, hd]``, plus
         the hybrid block's ``ssm`` state; for rwkv the block state alone
-        (``cache_len`` unused)."""
+        (``cache_len`` unused).  For vlm ``{"self": k/v [G, per, B,
+        cache_len, KV, hd], "cross": ck/cv [G, B, n_img_tokens, KV, hd]}``."""
         cfg = self.cfg
         dev = resolve_device(device)
         dtype = torch_dtype(cfg.dtype)
@@ -278,14 +395,26 @@ class LM:
                 per["ssm"] = ssm_init_state(batch, cfg.d_model,
                                             cfg.ssm_state, cfg.conv_kernel,
                                             dtype, dev)
+        if cfg.cross_attn_every:
+            n_groups, n_self = self._vlm_groups()
+            shape = (n_groups, batch, cfg.n_img_tokens, cfg.n_kv_heads,
+                     cfg.hd)
+            return {"self": tree_map(lambda a: a.expand(
+                        (n_groups, n_self, *a.shape)).contiguous(), per),
+                    "cross": {n: torch.zeros(shape, dtype=dtype, device=dev)
+                              for n in ("ck", "cv")}}
         return tree_map(lambda a: a.expand((cfg.n_layers, *a.shape))
                         .contiguous(), per)
 
     def prefill(self, params: Params, ids: torch.Tensor | None,
-                cache: Params, *, embeds: torch.Tensor | None = None
+                cache: Params, *, embeds: torch.Tensor | None = None,
+                img_embeds: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, Params]:
-        """Fill the cache with the prompt; returns (last-token hidden, cache)."""
-        h, cache = self._forward_cached(params, ids, cache, 0, embeds=embeds)
+        """Fill the cache with the prompt; returns (last-token hidden, cache).
+        A vlm model also writes the image K/V of ``img_embeds`` into the
+        cache's ``cross`` leaves, which its decode steps read."""
+        h, cache = self._forward_cached(params, ids, cache, 0, embeds=embeds,
+                                        img_embeds=img_embeds)
         return h[:, -1:], cache
 
     def decode_step(self, params: Params, ids_step: torch.Tensor | None,
@@ -298,13 +427,52 @@ class LM:
         return self.logits(params, h), cache
 
     def _forward_cached(self, params: Params, ids, cache: Params, pos: int, *,
-                        embeds=None) -> tuple[torch.Tensor, Params]:
+                        embeds=None, img_embeds=None
+                        ) -> tuple[torch.Tensor, Params]:
         x = self._embed_in(params, ids, embeds)
+        if self.cfg.cross_attn_every:
+            return self._forward_cached_vlm(params, x, cache, int(pos),
+                                            img_embeds)
         for lp, lc, (w, th) in zip(_unstack(params["layers"]),
                                    _unstack(cache), self._layer_meta()):
             x, new, _ = _block_apply(self.cfg, lp, x, window=w, theta=th,
                                      cache=lc, cache_pos=int(pos))
             _write_back(lc, new)
+        x = rmsnorm(params["final_norm"], x)
+        return x, cache
+
+    def _forward_cached_vlm(self, params: Params, x: torch.Tensor,
+                            cache: Params, pos: int, img_embeds
+                            ) -> tuple[torch.Tensor, Params]:
+        """The vlm prefill (``pos == 0``: the image K/V of ``img_embeds``
+        written into ``cache["cross"]`` first) or decode step (the cached
+        image K/V reused)."""
+        cfg = self.cfg
+        n_groups, per = self._vlm_groups()
+        cross = _unstack(params["cross"])
+        ck, cv = cache["cross"]["ck"], cache["cross"]["cv"]
+        if pos == 0:
+            img = self._img_in(img_embeds)
+            with _range(cfg, "vlm:cross_kv"):
+                for g, cp in enumerate(cross):
+                    ck[g] = torch.einsum("bmd,dnh->bmnh", img,
+                                         cp["attn"]["wk"])
+                    cv[g] = torch.einsum("bmd,dnh->bmnh", img,
+                                         cp["attn"]["wv"])
+        layers = _unstack(params["layers"], 2)
+        caches = _unstack(cache["self"], 2)
+        meta = self._layer_meta()
+        for g in range(n_groups):
+            for i in range(g * per, (g + 1) * per):
+                w, th = meta[i]
+                x, new, _ = _block_apply(cfg, layers[i], x, window=w,
+                                         theta=th, cache=caches[i],
+                                         cache_pos=pos)
+                _write_back(caches[i], new)
+            x, _, _ = _block_apply(cfg, cross[g], x, window=0,
+                                   theta=cfg.rope_theta,
+                                   img_kv={"ck": ck[g], "cv": cv[g]},
+                                   cache_pos=pos, is_cross=True)
         x = rmsnorm(params["final_norm"], x)
         return x, cache
 

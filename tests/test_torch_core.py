@@ -5,7 +5,11 @@ through ``to_json`` (timings excluded: the port's roofline uses H100 priors,
 the reference TPU v5e constants); JSON written by the JAX package loads
 through the port's ``from_json``; verifier corruptions give the same rule
 ids; and planning at the paper's full 1080x1920 frame fuses
-cvtColor+cornerHarris in both packages.
+cvtColor+cornerHarris in both packages.  The small functions of the IR,
+the database, the tracer and the cost model (``Value.bit_depth``,
+``is_linear_chain``, ``consumers_of``, ``ModuleDatabase.library`` and
+``in``, ``current_mode``, ``NodeCost`` sums, ``CostModel.cost``,
+``FusionEstimate.describe``) answer as their JAX counterparts do.
 """
 import json
 
@@ -435,3 +439,146 @@ def test_in_place_op_takes_the_alias_path():
     assert ir.node("add_0").inputs[0] == scale_node.outputs[0]
     ir.validate()
     assert torch.equal(pipe(X.clone()), X * 6 + X)
+
+
+# --------------------------------------------------------------------------- #
+# the small core functions the port took last (ir, database, tracer,
+# costmodel), each against its JAX counterpart
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("dtype", ["uint8", "int16", "float32", "float64"])
+def test_value_bit_depth_matches_jax(dtype):
+    got = CourierIR().add_value("v", (2, 3), dtype).bit_depth
+    assert got == jcore.CourierIR().add_value("v", (2, 3), dtype).bit_depth
+    assert CourierIR().add_value("b", (1,), torch.bfloat16).bit_depth == 16
+
+
+def _branchy(core, branch: bool):
+    """a -> f -> b -> g -> c, and (``branch``) h reading b as well."""
+    ir = core.CourierIR("branchy")
+    for v in "abcd":
+        ir.add_value(v, (4,), "float32")
+    ir.graph_inputs.append("a")
+    ir.add_node(core.Node("f", "f", inputs=["a"], outputs=["b"]))
+    ir.add_node(core.Node("g", "g", inputs=["b"], outputs=["c"]))
+    ir.add_node(core.Node("h", "h", inputs=["b" if branch else "c"],
+                          outputs=["d"]))
+    return ir
+
+
+@pytest.mark.parametrize("branch", [False, True])
+def test_linear_chain_and_consumers_of_match_jax(branch):
+    j, t = _branchy(jcore, branch), _branchy(tcore, branch)
+    assert t.is_linear_chain() == j.is_linear_chain() == (not branch)
+    for jn, tn in zip(j.nodes, t.nodes):
+        assert [n.name for n in t.consumers_of(tn)] == \
+            [n.name for n in j.consumers_of(jn)]
+    jir, _ = _generate(jcore, jmh, jnp.asarray(_frame(8, 8)), fuse=False,
+                       policy="paper")
+    tir, _ = _generate(tcore, mh, torch.from_numpy(_frame(8, 8)),
+                       fuse=False, policy="paper")
+    assert tir.is_linear_chain() == jir.is_linear_chain() is True
+
+
+def test_module_database_library_and_contains_match_jax():
+    for core in (jcore, tcore):
+        db = core.ModuleDatabase("t")
+
+        @db.library("double", tags=("sw",))
+        def double(x):
+            return x * 2
+
+        assert double(3) == 6                        # the function returned
+        assert "double" in db and "halve" not in db
+        assert db.lookup("double").software is double
+        assert db.lookup("double").tags == ("sw",)
+
+
+def test_current_mode_matches_jax():
+    from types import SimpleNamespace
+
+    seen = {}
+    for name, core, arr in (("jax", jcore, jnp.ones(3)),
+                            ("port", tcore, torch.ones(3))):
+        db = core.ModuleDatabase("modes")
+        modes = []
+
+        @db.library("probe")
+        def probe(x):
+            modes.append(core.current_mode()
+                         if name == "port" else _jax_mode())
+            return x + 1
+
+        lib = core.Library(db)
+        lib.probe(arr)
+        core.Frontend(db).trace(lambda x: lib.probe(x), arr, profile=False)
+        with core.deploy(SimpleNamespace(resolve=lambda e: e.software)):
+            lib.probe(arr)
+        seen[name] = modes
+    assert seen["port"] == seen["jax"] == ["direct", "trace", "deploy"]
+    assert tcore.current_mode() == "direct"
+
+
+def _jax_mode():
+    from repro.core.tracer import current_mode
+
+    return current_mode()
+
+
+@pytest.mark.parametrize("measured", [(None, None), (1.5, None),
+                                      (None, 2.5), (1.5, 2.5)])
+def test_node_cost_sum_charges_the_estimate_as_jax(measured):
+    """A sum with one measured part is measured; the part without a
+    profile adds its roofline time (each package's own device), not 0."""
+    ma, mb = measured
+    terms = [dict(flops=2e12, bytes_rw=3e9, coll_bytes=1e6),
+             dict(flops=5e11, bytes_rw=8e9, coll_bytes=0.0)]
+    js = jcore.NodeCost(**terms[0], measured_ms=ma) + \
+        jcore.NodeCost(**terms[1], measured_ms=mb)
+    a = NodeCost(**terms[0], measured_ms=ma, f32_flops=1e12)
+    b = NodeCost(**terms[1], measured_ms=mb)
+    ts = a + b
+    assert (ts.flops, ts.bytes_rw, ts.coll_bytes) == \
+        (js.flops, js.bytes_rw, js.coll_bytes)
+    assert ts.f32_flops == 1e12
+    assert (ts.measured_ms is None) == (js.measured_ms is None) == \
+        (ma is None and mb is None)
+    if ts.measured_ms is not None:
+        assert ts.measured_ms == pytest.approx(a.time_ms() + b.time_ms())
+    if (ma is None) != (mb is None):                    # the estimate counts
+        assert ts.measured_ms > (ma or 0.0) + (mb or 0.0)
+    if ma is not None and mb is not None:
+        assert ts.measured_ms == js.measured_ms == ma + mb
+
+
+def test_cost_model_cost_matches_jax():
+    for core in (jcore, tcore):
+        cm = core.CostModel()
+        cm.register("mm", lambda m, n, k: core.matmul_cost(m, n, k))
+        got = cm.cost("mm", 64, 32, 16)
+        want = core.matmul_cost(64, 32, 16)
+        assert (got.flops, got.bytes_rw) == (want.flops, want.bytes_rw)
+        with pytest.raises(KeyError, match="no cost provider for 'nope'"):
+            cm.cost("nope")
+
+
+@pytest.mark.parametrize("spills", [False, True])
+def test_fusion_estimate_describe_matches_jax(spills):
+    """The same line as the JAX record's, shared memory (KB) in place of
+    VMEM (MB), and the spill check the port's ``fits_smem``."""
+    parts = [dict(flops=1e9, bytes_rw=4e8, measured_ms=0.5),
+             dict(flops=3e9, bytes_rw=2e8, measured_ms=0.25)]
+    need = 2 * SMEM_BYTES if spills else SMEM_BYTES // 2
+    fe = fused_cost([NodeCost(**p) for p in parts], 1e8, smem_required=need)
+    je = jcore.fused_cost([jcore.NodeCost(**p) for p in parts], 1e8,
+                          vmem_required=need, vmem_bytes=SMEM_BYTES)
+    got, want = fe.describe(), je.describe()
+    head = want.split(", vmem=")[0]
+    if spills:                  # inf on both sides
+        assert got.startswith(head)
+    else:                       # the fused roofline is each device's own
+        assert got.split(", hbm_saved=")[1].split(", smem=")[0] == \
+            want.split(", hbm_saved=")[1].split(", vmem=")[0]
+        assert f"unfused={fe.unfused_ms:.4f} ms" in want
+    assert fe.fits_smem == je.fits_vmem == (not spills)
+    assert got.endswith("SPILLS)" if spills else "fits)")
+    assert f"smem={need / 1e3:.2f}/{SMEM_BYTES / 1e3:.0f} KB" in got

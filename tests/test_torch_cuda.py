@@ -8,6 +8,7 @@ machine that has only PyTorch:
 """
 import dataclasses
 import math
+import threading
 
 import numpy as np
 import pytest
@@ -535,6 +536,128 @@ def test_recurrent_lm_serves_twice_bit_for_bit_on_card(cuda_device, arch):
         assert st["k7_launches_decode"] == 0 and st["finite"]
     assert torch.equal(runs[0]["logits"], runs[1]["logits"])
     np.testing.assert_array_equal(runs[0]["ids"], runs[1]["ids"])
+
+
+def _vlm(cuda_device, dtype: str = "bfloat16"):
+    """Reduced llama-3.2-vision-11b (2 groups of 1 self + 1 cross layer, 16
+    image tokens) on the card: (cfg, params, image embeddings)."""
+    cfg = dataclasses.replace(serve.lm_config("llama-3.2-vision-11b"),
+                              dtype=dtype)
+    g = torch.Generator(cuda_device).manual_seed(0)
+    params = LM(cfg).init(g)
+    img = torch.randn((2, cfg.n_img_tokens, cfg.d_model), generator=g,
+                      device=cuda_device).to(getattr(torch, dtype))
+    return cfg, params, img
+
+
+@pytest.mark.parametrize("M", [1601, 65])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_attention_kernels_against_image_rows_on_card(cuda_device, M,
+                                                            dtype):
+    """K7, K8 and K9 with causal=False at [1, 256, 4, 128] against M image
+    rows (1601 = 25 * 64 + 1: a last key tile of one row), element by
+    element against the plain version and autograd through it."""
+    g = torch.Generator(cuda_device).manual_seed(M)
+    q, k, v, do = (torch.randn((1, L, 4, 128), generator=g,
+                               device=cuda_device).to(dtype)
+                   for L in (256, M, M, 256))
+    fa.reset_launches()
+    o, lse = fa.flash_attention_fwd(q, k, v, False, 0)
+    want_o, want_lse = fa.flash_attention_ref(q, k, v, False, 0)
+    torch.cuda.synchronize()
+    want = want_o.float()
+    rms = want.square().mean().sqrt()
+    limit = (2.0**-7 * want.abs() + 2.0**-8 * rms if dtype == torch.bfloat16
+             else 2e-5 * (want.abs() + rms))
+    assert ((o.float() - want).abs() <= limit).all()
+    assert ((lse - want_lse).abs() <= 1e-5 * want_lse.abs().clamp(min=1.0)
+            ).all()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(fa.flash_attention(*leaves, False, 0), leaves,
+                              do)
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(fa.flash_attention_ref(*ref, False, 0)[0],
+                               ref, do)
+    for a, b in zip(got, want):
+        _grads_close(a, b, dtype == torch.bfloat16)
+    assert dict(fa.LAUNCHES) == {"flash_attention": 2,
+                                 "flash_attention_bwd_dq": 1,
+                                 "flash_attention_bwd_dkv": 1}
+
+
+def test_tensor_core_kernels_launch_from_a_fresh_thread_on_card(cuda_device):
+    """bf16 K7, K8 and K9 launched from a thread that has made no CUDA call
+    yet, as PyTorch's autograd worker thread can be when it reaches K8
+    first: the wrappers bind the tensors' context before encoding their
+    TMA maps (without it the encode fails with an invalid context), and the
+    results equal the main thread's bit for bit."""
+    g = torch.Generator(cuda_device).manual_seed(11)
+    q, k, v, do = (torch.randn((1, L, 4, 128), generator=g,
+                               device=cuda_device).bfloat16()
+                   for L in (256, 65, 65, 256))
+
+    def run():
+        o, lse = fa.flash_attention_fwd(q, k, v, False, 0)
+        dq, delta = fa.flash_attention_bwd_dq(q, k, v, lse, do, False, 0)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, False,
+                                            0)
+        torch.cuda.synchronize()
+        return o, dq, dk, dv
+
+    out = {}
+
+    def fresh():
+        try:
+            out["got"] = run()
+        except Exception as e:        # reported by the assert below
+            out["error"] = e
+
+    t = threading.Thread(target=fresh)
+    t.start()
+    t.join(120)
+    assert not t.is_alive() and "error" not in out, out.get("error")
+    for a, b in zip(out["got"], run()):
+        assert torch.equal(a, b)
+
+
+def test_vlm_lm_serves_twice_bit_for_bit_on_card(cuda_device):
+    """Reduced llama-3.2-vision-11b in bf16, a 2 x 512 prompt and 6 tokens:
+    K7 on each of the 4 layers' prefill attentions (2 self, 2 cross), none
+    in the decode loop; finite logits, the same bit for bit twice."""
+    cfg, params, img = _vlm(cuda_device)
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab, (2, 512))
+    runs = [serve.serve_lm(cfg, params, prompt, tokens=6, device=cuda_device,
+                           keep_logits=True, img_embeds=img)
+            for _ in range(2)]
+    for st in runs:
+        assert st["k7_launches_prefill"] == cfg.n_layers == 4
+        assert st["k7_launches_decode"] == 0 and st["finite"]
+    assert torch.equal(runs[0]["logits"], runs[1]["logits"])
+    np.testing.assert_array_equal(runs[0]["ids"], runs[1]["ids"])
+
+
+def test_vlm_cross_cache_is_written_in_place_on_card(cuda_device):
+    """The prefill writes each group's image K/V into the cache's own
+    ``ck``/``cv`` tensors; the decode steps read them and leave them as
+    they are."""
+    cfg, params, img = _vlm(cuda_device)
+    m = LM(cfg)
+    cache = m.init_cache(2, 40, device=cuda_device)
+    ck, cv = cache["cross"]["ck"], cache["cross"]["cv"]
+    ids = torch.randint(0, cfg.vocab, (2, 32), device=cuda_device)
+    with torch.no_grad():
+        _, cache = m.prefill(params, ids, cache, img_embeds=img)
+        assert cache["cross"]["ck"] is ck and cache["cross"]["cv"] is cv
+        for g in range(ck.shape[0]):
+            for got, w in ((ck, "wk"), (cv, "wv")):
+                want = torch.einsum("bmd,dnh->bmnh", img,
+                                    params["cross"]["attn"][w][g])
+                assert torch.equal(got[g], want)
+        kept = (ck.clone(), cv.clone())
+        for t in range(32, 35):
+            lg, cache = m.decode_step(params, ids[:, -1:], cache, t)
+            assert torch.isfinite(lg).all()
+    assert torch.equal(ck, kept[0]) and torch.equal(cv, kept[1])
 
 
 def _grads_close(got, want, bf16: bool) -> None:

@@ -6,16 +6,16 @@
 * layer parity in f32 (rmsnorm, rope, expand_kv, the mask, attention
   without a cache, prefill into a cache and decode, the MLP, the lm head),
   weights and inputs drawn with numpy and handed to both;
-* LM parity on reduced dense, moe, hybrid (hymba-1.5b) and ssm
-  (rwkv6-1.6b) configs: JAX ``LM.init(PRNGKey(0))`` weights carried across
+* LM parity on reduced dense, moe, hybrid (hymba-1.5b), ssm (rwkv6-1.6b)
+  and vlm (llama-3.2-vision-11b, with image embeddings drawn in the
+  config's dtype) configs: JAX ``LM.init(PRNGKey(0))`` weights carried across
   with ``params_from_numpy``; ``apply`` (its hidden state and its aux,
   summed over the layers), ``prefill`` + ``logits`` and 4 ``decode_step``s
   to 1e-4 (``tests/test_models.py``), and one bf16 model of each family to
   2.5e-2 of the largest logit.  The SSM and RWKV leaves that the
   reference initialises to zeros or ones are drawn at random first (in the
   numpy tree both packages get), or the token shift, the bonus and the
-  learned decay would take no part;
-* the unported family (vlm) raises ``NotImplementedError``.
+  learned decay would take no part.
 
 The JAX attention here is plain jnp (``layers.py``), and the port's runs its
 flash-attention wrapper, which on the CPU is the kernel's plain version.
@@ -191,13 +191,6 @@ def test_attention_forward_prefill_and_decode_match(attn_weights, window):
                                atol=1e-5)
 
 
-def test_cross_attention_is_not_ported(attn_weights):
-    _, _, tw = attn_weights
-    x = torch.zeros((1, 2, D))
-    with pytest.raises(NotImplementedError, match="vlm"):
-        TL.attention(tw, x, None, theta=1e4, kv_x=x)
-
-
 def test_mlp_and_lm_logits_match():
     rng = np.random.default_rng(4)
     wi = (rng.standard_normal((D, 2, FF)) * D ** -0.5).astype(np.float32)
@@ -236,6 +229,8 @@ LM_CASES = {
     "rwkv6-1.6b": lambda c: c.reduced(),
     "hymba-1.5b-bf16": lambda c: c.reduced(dtype="bfloat16"),
     "rwkv6-1.6b-bf16": lambda c: c.reduced(dtype="bfloat16"),
+    "llama-3.2-vision-11b": lambda c: c.reduced(),
+    "llama-3.2-vision-11b-bf16": lambda c: c.reduced(dtype="bfloat16"),
 }
 
 # the leaves the reference initialises to zeros or ones (``ssm_init``,
@@ -337,6 +332,12 @@ def lm_runs():
         embeds = (rng.standard_normal((B, S + N_DECODE, jc.d_model),
                                       dtype=np.float32)
                   if jc.embeds_in else None)
+        # image embeddings in the config's dtype (f32 ones into a bf16
+        # model break the JAX layer scan: tests/test_torch_vlm.py)
+        img = (np.asarray(jnp.asarray(rng.standard_normal(
+            (B, jc.n_img_tokens, jc.d_model)), jnp.dtype(jc.dtype)))
+            if jc.cross_attn_every else None)
+        img_kw = {"img_embeds": jnp.asarray(img)} if img is not None else {}
 
         def inp(sl):
             if jc.embeds_in:
@@ -348,10 +349,10 @@ def lm_runs():
                                                        "decode")))
         x, kw = inp(slice(0, S))
         with _jax_choices(choices["apply"]):
-            h, aux = m.apply(params, x, remat=False, **kw)
+            h, aux = m.apply(params, x, remat=False, **kw, **img_kw)
         jcache = m.init_cache(B, S + N_DECODE)
         with _jax_choices(choices["prefill"]):
-            hp, jcache = m.prefill(params, x, jcache, **kw)
+            hp, jcache = m.prefill(params, x, jcache, **kw, **img_kw)
         step = jax.jit(lambda p, c, x, kw, pos: m.decode_step(
             p, x, c, pos, **kw))
         dec = []
@@ -361,7 +362,8 @@ def lm_runs():
                 lg, jcache = step(params, jcache, x, kw, t)
                 dec.append(np.asarray(lg, np.float32))
         cache[case] = {
-            "tc": tc, "ids": ids, "embeds": embeds, "choices": choices,
+            "tc": tc, "ids": ids, "embeds": embeds, "img": img,
+            "choices": choices,
             "params": jax.tree.map(np.asarray, params),
             "logits_apply": np.asarray(m.logits(params, h), np.float32),
             "h_apply": np.asarray(h, np.float32),
@@ -376,6 +378,13 @@ def _port_inputs(r, sl):
     if r["tc"].embeds_in:
         return None, {"embeds": _t(r["embeds"][:, sl])}
     return torch.from_numpy(r["ids"][:, sl]), {}
+
+
+def _port_img(r):
+    """The vlm case's image embeddings, in the config's dtype."""
+    if r["img"] is None:
+        return {}
+    return {"img_embeds": _t(r["img"]).to(getattr(torch, r["tc"].dtype))}
 
 
 def _tol(case):
@@ -400,7 +409,7 @@ def test_lm_apply_matches_jax(lm_runs, case):
     assert mixer["wo"].dtype == getattr(torch, r["tc"].dtype)
     x, kw = _port_inputs(r, slice(0, S))
     with _pinned(r["choices"]["apply"]):
-        h, aux = m.apply(p, x, **kw)
+        h, aux = m.apply(p, x, **kw, **_port_img(r))
     assert h.shape == (B, S, r["tc"].d_model)
     assert set(aux) == set(r["aux_apply"])
     for k, want in r["aux_apply"].items():
@@ -421,7 +430,7 @@ def test_lm_prefill_and_decode_match_jax(lm_runs, case):
     cache = m.init_cache(B, S + N_DECODE, device="cpu")
     x, kw = _port_inputs(r, slice(0, S))
     with _pinned(r["choices"]["prefill"]):
-        hp, cache = m.prefill(p, x, cache, **kw)
+        hp, cache = m.prefill(p, x, cache, **kw, **_port_img(r))
     _close(m.logits(p, hp), r["logits_prefill"], case)
     with _pinned(r["choices"]["decode"]):
         for i, t in enumerate(range(S, S + N_DECODE)):
@@ -429,12 +438,6 @@ def test_lm_prefill_and_decode_match_jax(lm_runs, case):
             lg, cache = m.decode_step(p, x, cache, t, **kw)
             assert lg.shape == (B, 1, r["tc"].vocab)
             _close(lg, r["decode"][i], case)
-
-
-@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LM(configs.get_config(arch).reduced())
 
 
 @pytest.mark.parametrize("arch", ["gemma3-12b", "hymba-1.5b", "rwkv6-1.6b"])

@@ -89,6 +89,31 @@ def test_lm_mode_is_the_default_and_runs_on_the_card_unless_asked():
         serve.serve_lm(serve.lm_config())
 
 
+def test_cli_serves_the_vlm_and_checks_its_depth(capsys):
+    serve.main(["--mode", "lm", "--arch", "llama-3.2-vision-11b", "--device",
+                "cpu", "--prompt-len", "12", "--tokens", "3"])
+    out = capsys.readouterr().out
+    assert ("arch=llama-3.2-vision-11b layers=4 dtype=float32 batch=4 "
+            "prompt=12") in out and "generated (4, 3)" in out
+    with pytest.raises(ValueError, match="cross_attn_every 2"):
+        serve.main(["--mode", "lm", "--arch", "llama-3.2-vision-11b",
+                    "--device", "cpu", "--layers", "3", "--tokens", "1"])
+    full = serve.lm_config("llama-3.2-vision-11b", reduced=False)
+    assert (full.n_layers, full.cross_attn_every, full.n_img_tokens,
+            full.d_model, full.n_heads, full.n_kv_heads, full.hd,
+            full.dtype) == (40, 5, 1601, 4096, 32, 8, 128, "bfloat16")
+    import jax
+    import numpy as np
+
+    from repro.configs import get_config as jget_config
+    from repro.models import LM as JLM
+
+    tree = jax.eval_shape(JLM(jget_config("llama-3.2-vision-11b")).init,
+                          jax.random.PRNGKey(0))
+    n = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(tree))
+    assert round(n / 1e9, 2) == 9.25                 # 18.5 GB in bf16
+
+
 def test_lm_config_runs_full_widths_when_asked():
     full = serve.lm_config("gemma3-12b", reduced=False, layers=6)
     assert (full.d_model, full.n_heads, full.n_kv_heads, full.hd, full.d_ff,
@@ -103,12 +128,14 @@ def test_lm_config_runs_full_widths_when_asked():
 
 @pytest.mark.parametrize("arch,layers", [("gemma3-12b", 6),
                                          ("hymba-1.5b", None),
-                                         ("rwkv6-1.6b", None)])
+                                         ("rwkv6-1.6b", None),
+                                         ("llama-3.2-vision-11b", None)])
 def test_serve_lm_greedy_ids_match_a_jax_loop(arch, layers):
     """The port's prefill + greedy decode picks the JAX package's tokens
     for the same prompt and weights (f32, reduced: gemma3-12b at 6 layers
     with one global layer, hymba-1.5b's attention + SSM blocks, rwkv6-1.6b's
-    RWKV blocks)."""
+    RWKV blocks, llama-3.2-vision-11b's groups of self and cross layers
+    over the same image embeddings)."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -122,9 +149,14 @@ def test_serve_lm_greedy_ids_match_a_jax_loop(arch, layers):
     m = JLM(cfg)
     params = m.init(jax.random.PRNGKey(0))
     prompt = np.random.default_rng(5).integers(0, cfg.vocab, (2, 10))
+    img = (np.random.default_rng(6).standard_normal(
+        (2, cfg.n_img_tokens, cfg.d_model)).astype(np.float32)
+        if cfg.cross_attn_every else None)
     n_tok = 6
     cache = m.init_cache(2, 10 + n_tok)
-    hp, cache = m.prefill(params, jnp.asarray(prompt), cache)
+    hp, cache = m.prefill(params, jnp.asarray(prompt), cache,
+                          **({"img_embeds": jnp.asarray(img)}
+                             if img is not None else {}))
     tok = jnp.argmax(m.logits(params, hp)[:, -1], axis=-1)[:, None]
     step = jax.jit(lambda p, c, ids, pos: m.decode_step(p, ids, c, pos))
     want = []
@@ -136,7 +168,8 @@ def test_serve_lm_greedy_ids_match_a_jax_loop(arch, layers):
     tcfg = serve.lm_config(arch, layers=layers)
     st = serve.serve_lm(tcfg, params_from_numpy(
         jax.tree.map(np.asarray, params), tcfg.dtype, device="cpu"),
-        prompt, tokens=n_tok, device="cpu", keep_logits=True)
+        prompt, tokens=n_tok, device="cpu", keep_logits=True,
+        img_embeds=img)
     np.testing.assert_array_equal(st["ids"], np.concatenate(want, axis=1))
     assert st["finite"] and st["logits"].shape == (2, n_tok + 1, cfg.vocab)
     assert st["k7_launches_prefill"] == st["k7_launches_decode"] == 0

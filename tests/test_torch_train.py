@@ -796,6 +796,15 @@ def test_cli_trains_on_the_cpu_and_the_loss_decreases(tmp_path, capsys):
     assert CheckpointStore(str(tmp_path / "gemma3-12b")).steps() == [20, 30]
 
 
+def test_cli_trains_the_vlm_on_the_cpu(tmp_path, capsys):
+    res = ttrain.main(["--arch", "llama-3.2-vision-11b", "--device", "cpu",
+                       "--reduced", "--steps", "12", "--ckpt-dir",
+                       str(tmp_path), "--ckpt-every", "100"])
+    assert res.steps_done == 12 and res.restarts == 0
+    assert np.mean(res.losses[-5:]) < np.mean(res.losses[:5])
+    assert "arch=llama-3.2-vision-11b" in capsys.readouterr().out
+
+
 def test_cli_without_a_card_refuses_to_run(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
