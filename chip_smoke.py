@@ -60,7 +60,14 @@ version there:
   tokens and 32 greedy tokens (K7 on every prefill attention, causal=False
   on the 8 cross layers, whose image K/V the decode steps reuse from the
   cache), and training at one group (5 layers, batch 2 x 4096, one
-  checkpoint a group; K7-K9 on the self and the cross layers).
+  checkpoint a group; K7-K9 on the self and the cross layers);
+* the SPMD token pipeline (``core/spmd_pipeline.py``) at gemma3-12b's
+  full widths: all 48 layers through ``spmd_pipeline_fn`` on 4 ranks of
+  ``run_on_local_mesh`` sharing the card (gloo, hand-offs through pinned
+  host memory), cut by ``partition_optimal`` over the cost model's
+  per-layer costs, then on 3 after ``ElasticPlanner.boundaries(3)``, 8
+  microbatches of [1, 4096, 3840] (K7 on every attention); and layers 0-7
+  trained in 4 stages, 4 microbatches of 1 x 4096 (K7-K9).
 
 Phases:
 
@@ -195,7 +202,19 @@ Phases:
               ms, tokens/s, step ms, peak GB, idle share and the card ms by
               range (vlm:self, vlm:cross, vlm:cross_kv, vlm:mlp) of a
               one-group prefill and 2 decode steps
-11. the ``kernels`` JSON line, the nvidia-smi line, and the result line;
+11. spmd    — the served stack's cost-model plans (4 stages, the 3-stage
+              re-plan, the 8-layer training cut) beside the equal split;
+              the parent's sequential run of the same blocks; the 4- and
+              3-stage runs (the transport, per rank its layers, stage ms,
+              hand-off ms, idle share and peak GB; the run's ms; the
+              schedule's bubble share) held to it within 2e-2 of
+              max|ref|, bit for bit printed, 48 x 8 K7 launches each;
+              the 4-stage training step held to the sequential one: the
+              outputs, and every layer leaf's gradient within 2e-2 of
+              max|ref grad|; 32/32/32 K7/K8/K9 launches; the phase's
+              seconds (budget 90)
+12. the ``kernels`` JSON line (the ranks' launches added), the nvidia-smi
+   line, and the result line;
    a ``[time] <phase> <seconds>`` line after each phase
 
 Any failed check raises: the script then exits non-zero without the result
@@ -310,6 +329,15 @@ VLM = dict(arch="llama-3.2-vision-11b", batch=4, prompt_len=4096, tokens=32,
            attn_batch=2, attn_len=256, decode_prompt=1024, decode_tokens=16,
            f32_groups=2, profile_groups=1, profile_steps=2, train_groups=1,
            train_batch=2, train_seq=4096, train_steps=4, lr=3e-3)
+
+# the SPMD token pipeline: gemma3-12b's 48 full-width layers served in 4
+# and then 3 cost-balanced stages (ranks sharing the card) over 8
+# microbatches of [1, 4096, 3840]; layers 0-7 trained in 4 stages over 4
+# microbatches of 1 x 4096, loss mean(out²); each layer drawn from the seed
+# plus its index, so any rank draws its own layers alone
+SPMD = dict(arch="gemma3-12b", stages=4, replan=3, microbatches=8,
+            seq_len=4096, train_layers=8, train_stages=4,
+            train_microbatches=4, seed=2027, timeout=600)
 
 
 class SmokeFailure(RuntimeError):
@@ -4046,6 +4074,294 @@ def phase_vlm() -> tuple[dict, dict]:
     return counts, out
 
 
+# --------------------------------------------------------------------------- #
+# 11. spmd
+# --------------------------------------------------------------------------- #
+def spmd_inputs(cfg, seed: int, device):
+    """The phase's microbatches: [M, 1, T, d] bf16 drawn from the seed."""
+    import torch
+
+    n = SPMD["microbatches"]
+    g = torch.Generator(device).manual_seed(seed + 10_000)
+    return torch.randn((n, 1, SPMD["seq_len"], cfg.d_model), generator=g,
+                       device=device).bfloat16()
+
+
+def spmd_rank(mesh, bounds: list, n_layers: int, n_micro: int,
+              train: bool) -> dict:
+    """One rank of the phase: draw this stage's layers, run the pipeline
+    (forward, or forward and mean(out²)'s backward), return its numbers,
+    the last stage's outputs and, training, its layers' gradients."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import spmd_pipeline_fn
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.transformer import pipeline_block, pipeline_stage
+
+    cfg = get_config(SPMD["arch"])
+    S, s = len(bounds), mesh.axis_index("stage")
+    ends = list(bounds[1:]) + [n_layers]
+    lengths = torch.tensor([e - b for b, e in zip(bounds, ends)],
+                           dtype=torch.int32)
+    t0 = time.perf_counter()
+    stack = pipeline_stage(cfg, bounds[s], ends[s], int(lengths.max()),
+                           SPMD["seed"], mesh.device)
+    xs = spmd_inputs(cfg, SPMD["seed"], mesh.device)[:n_micro]
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    stats = {}
+    fn = spmd_pipeline_fn(pipeline_block(cfg), S, stats=stats)
+    t1 = time.perf_counter()
+    if train:
+        weights = tree_map(lambda a: a.requires_grad_(True), stack["block"])
+        out = fn(stack, lengths, xs)
+        (out.float() ** 2).mean().backward()
+    else:
+        with torch.no_grad():
+            out = fn(stack, lengths, xs)
+    torch.cuda.synchronize()
+    res = {"stage": s, "layers": [bounds[s], ends[s]],
+           "ms": 1e3 * (time.perf_counter() - t1), "draw_s": draw_s,
+           "stats": stats, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": dict(fa.LAUNCHES),
+           "routes": {k: dict(v) for k, v in fa.ROUTE_LAUNCHES.items()},
+           "out": out.detach() if s == S - 1 else None}
+    if train:
+        res["grads"] = [tree_map(lambda a, j=j: a.grad[0, j], weights)
+                        for j in range(ends[s] - bounds[s])]
+    return res
+
+
+def spmd_reference(cfg, n_layers: int, xs, train: bool):
+    """The parent's sequential run of the same blocks on each microbatch:
+    the outputs, and training each layer's gradient of mean(out²) over
+    all the microbatches.  Serving draws one layer at a time."""
+    import torch
+
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models.transformer import pipeline_block, pipeline_layer
+
+    block, seed = pipeline_block(cfg), SPMD["seed"]
+    if not train:
+        hs = list(xs)
+        with torch.no_grad():
+            for i in range(n_layers):
+                lp = pipeline_layer(cfg, i, seed, "cuda")
+                hs = [block(lp, h) for h in hs]
+                del lp
+        return torch.stack(hs), None
+    layers = [pipeline_layer(cfg, i, seed, "cuda") for i in range(n_layers)]
+    weights = [tree_map(lambda a: a.requires_grad_(True), lp["block"])
+               for lp in layers]
+    outs = []
+    for x in xs:
+        h = x
+        for lp in layers:
+            h = block(lp, h)
+        # mean over all the microbatches = the mean of theirs (equal sizes)
+        ((h.float() ** 2).mean() / len(xs)).backward()
+        outs.append(h.detach())
+    grads = [tree_map(lambda a: a.grad, w) for w in weights]
+    return torch.stack(outs), grads
+
+
+def spmd_plans(cfg) -> dict:
+    """The served stack's cost-model IR (per-layer costs at S 4096) and its
+    cuts: ``partition_optimal`` at 4 stages, ``ElasticPlanner`` at 3, and
+    the training cut of layers 0-7 at 4."""
+    from repro_torch.core import linear_ir, partition_optimal
+    from repro_torch.core.costmodel import lm_layer_cost
+    from repro_torch.runtime import ElasticPlanner
+
+    def bounds(plan):
+        out, i = [], 0
+        for st in plan.stages:
+            out.append(i)
+            i += len(st.node_names)
+        return out
+
+    ms = [lm_layer_cost(cfg, 1, SPMD["seq_len"], i).time_ms()
+          for i in range(cfg.n_layers)]
+    ir = linear_ir("gemma_layers", [f"L{i}" for i in range(cfg.n_layers)], ms)
+    n = SPMD["train_layers"]
+    ir8 = linear_ir("gemma_layers_train", [f"L{i}" for i in range(n)],
+                    ms[:n])
+    plans = {"costs_ms": ms,
+             "served": bounds(partition_optimal(ir, max_stages=SPMD["stages"])),
+             "replan": ElasticPlanner(ir, device="cuda").boundaries(
+                 SPMD["replan"]),
+             "train": bounds(partition_optimal(
+                 ir8, max_stages=SPMD["train_stages"]))}
+    for k, n_st in (("served", SPMD["stages"]), ("replan", SPMD["replan"]),
+                    ("train", SPMD["train_stages"])):
+        check(len(plans[k]) == n_st, f"spmd: the {k} plan has "
+                                     f"{len(plans[k])} stages, not {n_st}")
+    return plans
+
+
+def spmd_stage_costs(costs: list, bounds: list) -> list:
+    ends = list(bounds[1:]) + [len(costs)]
+    return [round(sum(costs[b:e]), 3) for b, e in zip(bounds, ends)]
+
+
+def spmd_report(label: str, res: list, n_stages: int, n_micro: int) -> dict:
+    """Print and return a run's per-rank numbers."""
+    ranks = [{"stage": r["stage"], "layers": r["layers"], "ms": r["ms"],
+              "compute_ms": r["stats"]["compute_ms"],
+              "handoff_ms": r["stats"]["handoff_ms"],
+              "idle_share": 1.0 - r["stats"]["busy_share"],
+              "peak_gb": r["peak_gb"], "draw_s": r["draw_s"],
+              "launches": r["launches"]} for r in res]
+    bubble = (n_stages - 1) / (n_micro + n_stages - 1)
+    for r in ranks:
+        print(f"[spmd] {label} stage {r['stage']} layers "
+              f"{r['layers'][0]}..{r['layers'][1] - 1}: stage ms "
+              f"{r['compute_ms']:.3f} of {r['ms']:.3f}, hand-off ms "
+              f"{r['handoff_ms']:.3f}, idle share {r['idle_share']:.3f}, "
+              f"peak {r['peak_gb']:.3f} GB, drawn in {r['draw_s']:.3f} s, "
+              f"launches {r['launches']}")
+    out = {"ranks": ranks, "ms": max(r["ms"] for r in ranks),
+           "schedule_bubble_share": bubble}
+    print(f"[spmd] {label}: {out['ms']:.3f} ms across {n_stages} ranks; the "
+          f"schedule's bubble share (S-1)/(M+S-1) = {bubble:.3f}")
+    return out
+
+
+def phase_spmd() -> tuple[dict, dict]:
+    """gemma3-12b's 48 full-width layers through ``spmd_pipeline_fn`` on 4
+    ranks sharing the card, then 3 after the elastic re-plan, each held to
+    the sequential run; layers 0-7 trained in 4 stages, each layer leaf's
+    gradient held to the sequential run's."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import leaves
+    from repro_torch.launch.mesh import run_on_local_mesh
+
+    cfg = get_config(SPMD["arch"])
+    check(cfg.n_layers == 48 and cfg.d_model == 3840 and cfg.n_heads == 16
+          and cfg.hd == 256 and cfg.n_kv_heads == 8 and cfg.d_ff == 15360
+          and cfg.window == 1024 and cfg.dtype == "bfloat16",
+          f"unexpected config {cfg}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    plans = spmd_plans(cfg)
+    costs, M = plans["costs_ms"], SPMD["microbatches"]
+    glob = [i for i in range(cfg.n_layers) if cfg.layer_windows[i] == 0]
+    print(f"[spmd] {cfg.arch_id}: {cfg.n_layers} layers, global {glob}; "
+          f"cost model ms a layer at S {SPMD['seq_len']}: local "
+          f"{costs[0]:.4f}, global {costs[glob[0]]:.4f}")
+    for k in ("served", "replan", "train"):
+        print(f"[spmd] plan {k}: boundaries {plans[k]}, cost-model ms a "
+              f"stage {spmd_stage_costs(costs, plans[k])}")
+    n3 = cfg.n_layers // SPMD["replan"]
+    eq3 = [i * n3 for i in range(SPMD["replan"])]
+    print(f"[spmd] the equal 3-way split {eq3} costs "
+          f"{spmd_stage_costs(costs, eq3)} (global layers a stage "
+          f"{[sum(b <= g < b + n3 for g in glob) for b in eq3]})")
+    out = {"plans": plans, "seconds": {}}
+    counts: dict = {}
+    secs, t0 = out["seconds"], [time.perf_counter()]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        secs[part] = now - t0[0]
+        t0[0] = now
+
+    def add(res: list) -> None:
+        for r in res:
+            check(all(v["simt_f32"] == 0 for v in r["routes"].values()),
+                  f"spmd: a rank left the wgmma route {r['routes']}")
+            for k, v in r["launches"].items():
+                counts[k] = counts.get(k, 0) + v
+
+    # served: the sequential reference, then 4 and 3 stages
+    xs = spmd_inputs(cfg, SPMD["seed"], "cuda")
+    ref, _ = spmd_reference(cfg, cfg.n_layers, xs, False)
+    scale = ref.float().abs().max().item()
+    lap("reference")
+    for key, n_st in (("served", SPMD["stages"]), ("replan", SPMD["replan"])):
+        res = run_on_local_mesh((n_st,), ("stage",), spmd_rank, plans[key],
+                                cfg.n_layers, M, False, device="cuda",
+                                timeout=SPMD["timeout"])
+        got = res[-1]["out"].to("cuda")
+        err = (got.float() - ref.float()).abs().max().item()
+        k7 = sum(r["launches"]["flash_attention"] for r in res)
+        add(res)
+        rep = spmd_report(key, res, n_st, M)
+        rep.update(max_abs_err=err, limit=2e-2 * scale, share=err / (
+            2e-2 * scale), bitwise=bool(torch.equal(got, ref)), k7=k7)
+        print(f"[spmd] {key}: {n_st} stages {plans[key]} vs the sequential "
+              f"run: max |err| {err:.6g} against 2e-2 * max|ref| = "
+              f"{2e-2 * scale:.6g} (share {rep['share']:.4f}); bit for bit: "
+              f"{rep['bitwise']}; K7 launches {k7} (want "
+              f"{cfg.n_layers * M})")
+        check(err <= 2e-2 * scale and bool(torch.isfinite(got).all()),
+              f"spmd {key}: outputs off the sequential run by {err}")
+        check(k7 == cfg.n_layers * M, f"spmd {key}: {k7} K7 launches")
+        out[key] = rep
+        del res, got
+        lap(key)
+    del ref, xs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # trained: layers 0-7 in 4 stages, M = 4 microbatches of 1 x 4096
+    n, Mt = SPMD["train_layers"], SPMD["train_microbatches"]
+    xs = spmd_inputs(cfg, SPMD["seed"], "cuda")[:Mt]
+    ref, grads = spmd_reference(cfg, n, xs, True)
+    grads = [[g.detach() for g in leaves(lg)] for lg in grads]
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("train_reference")
+    res = run_on_local_mesh((SPMD["train_stages"],), ("stage",), spmd_rank,
+                            plans["train"], n, Mt, True, device="cuda",
+                            timeout=SPMD["timeout"])
+    add(res)
+    rep = spmd_report("train", res, SPMD["train_stages"], Mt)
+    got = res[-1]["out"].to("cuda")
+    out_err = (got.float() - ref.float()).abs().max().item()
+    worst = (0.0, None)
+    for r in res:
+        for j, lg in enumerate(r["grads"]):
+            layer = r["layers"][0] + j
+            for leaf, (g, w) in enumerate(zip(leaves(lg), grads[layer])):
+                share = ((g.to("cuda").float() - w.float()).abs().max()
+                         / (2e-2 * w.float().abs().max())).item()
+                check(share <= 1.0 and bool(torch.isfinite(g).all()),
+                      f"spmd train: layer {layer} leaf {leaf} gradient "
+                      f"at {share:.3f} of 2e-2 * max|ref|")
+                worst = max(worst, (share, f"layer {layer} leaf {leaf}"))
+    k = {kk: sum(r["launches"][kk] for r in res) for kk in res[0]["launches"]}
+    rep.update(out_max_abs_err=out_err, worst_grad_share=worst[0],
+               worst_grad_leaf=worst[1], launches=k)
+    print(f"[spmd] train: {SPMD['train_stages']} stages {plans['train']}, "
+          f"{Mt} microbatches: outputs off the sequential run by "
+          f"{out_err:.6g}; each layer leaf's gradient within "
+          f"{worst[0]:.4f} of 2e-2 * max|ref grad| (worst {worst[1]}); "
+          f"step {rep['ms']:.3f} ms; launches {k}")
+    check(k == {"flash_attention": n * Mt, "flash_attention_bwd_dq": n * Mt,
+                "flash_attention_bwd_dkv": n * Mt},
+          f"spmd train: launches {k}")
+    out["train"] = rep
+    del res, got, ref, grads, xs
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("train")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[spmd] phase {out['phase_s']:.3f} s (budget 90); seconds by part "
+          f"{ {k_: round(v_, 3) for k_, v_ in secs.items()} }; K7/K8/K9 "
+          f"launches on the ranks {counts}")
+    return counts, out
+
+
 def main() -> int:
     sys.path.insert(0, os.path.join(HERE, "src"))
     t_start = time.perf_counter()
@@ -4111,11 +4427,13 @@ def main() -> int:
         rows[n]["max_abs_err"] = max(rows[n]["max_abs_err"],
                                      r["max_abs_err"])
     lap("vlm")
+    pcounts, spmd_out = phase_spmd()
+    lap("spmd")
     print(f"[time] total {time.perf_counter() - t_start:.3f}")
     for k, v in (*counts.items(), *hcounts.items(), *rcounts.items(),
                  *ccounts.items(), *fcounts.items(), *tcounts.items(),
                  *dcounts.items(), *mcounts.items(), *scounts.items(),
-                 *vcounts.items()):
+                 *vcounts.items(), *pcounts.items()):
         launches[k] = launches.get(k, 0) + v
     replaces = {"cvt_color": "src/repro/kernels/harris.py:44",
                 "corner_harris": "src/repro/kernels/harris.py:101",
@@ -4148,7 +4466,7 @@ def main() -> int:
                       "continuous_decode": decoded, "serve_lm": lm,
                       "f32_route_driver_shape": f32_route,
                       "train": trained, "driver": driven, "moe": moe_out,
-                      "ssm": ssm_out, "vlm": vlm_out,
+                      "ssm": ssm_out, "vlm": vlm_out, "spmd": spmd_out,
                       "tc_resources": tc_res, "k7_train_shape": k7_train,
                       "k6_resources": rows["rmsnorm_matmul"]["resources"],
                       "local_layer": {n: {k: v for k, v in rows[n].items()

@@ -6,6 +6,8 @@ Flow (paper Fig. 1):
   PipelineGenerator     Step 8     — DB lookup, fusion, balanced partition,
                                      mixed sw/hw token pipeline
   courier_offload       Step 9     — deployable wrapper w/ Off-load Switcher
+  pipeline_microbatches             — the token pipeline across ranks
+                                     (microbatches through layer stages)
 """
 from .costmodel import (DEVICE_CLASSES, H100, PROFILE_MARGIN, SMEM_BYTES,
                         CostModel, DeviceClass, FusionEstimate, NodeCost,
@@ -27,6 +29,8 @@ from .partition import (PipelinePlan, StagePlan, assign_replicas,
 from .pipeline import (BuiltPipeline, PipelineGenerator, StageFn,
                        assign_placements, loop_batched, make_stage_fns)
 from .profiler import StageProfiler
+from .spmd_pipeline import (pipeline_microbatches, spmd_pipeline_fn,
+                            stack_stage_params, stage_apply)
 from .placement import (AUTO_BUDGET, DeviceInventory, DeviceSpec,
                         InventoryDiff, Placement, default_worker_budget, is_hw,
                         is_sw, placement_kind, resolve_device,
@@ -51,6 +55,8 @@ __all__ = [
     "kernel_tile", "widen_for_deployment",
     "BuiltPipeline", "PipelineGenerator", "StageFn", "assign_placements",
     "loop_batched", "make_stage_fns", "StageProfiler",
+    "pipeline_microbatches", "spmd_pipeline_fn", "stack_stage_params",
+    "stage_apply",
     "AUTO_BUDGET", "DeviceInventory", "DeviceSpec", "InventoryDiff",
     "Placement",
     "default_worker_budget", "is_hw", "is_sw", "placement_kind",

@@ -289,6 +289,50 @@ def attention_cost(batch: int, q_len: int, kv_len: int, heads: int,
                     f32_flops=flops if bytes_per_el == 4 else 0.0)
 
 
+def lm_layer_cost(cfg, batch: int, seq_len: int, layer: int) -> NodeCost:
+    """One layer of an LM config (a :class:`~repro_torch.models.config.
+    ArchConfig`) over [batch, seq_len] tokens: its products
+    (:func:`matmul_cost`), its attention (:func:`attention_cost` within
+    the layer's window; a vlm cross layer against the image rows), the
+    recurrences' elementwise work, its norms; the config's element size.
+    A moe layer computes its top-k experts and reads every expert's
+    weights."""
+    eb = 4 if cfg.dtype == "float32" else 2
+    n, d = batch * seq_len, cfg.d_model
+    hd, H, KV, ff = cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    mm = lambda m_, n_, k_: matmul_cost(m_, n_, k_, eb)
+    c = elementwise_cost(2 * n * d, flops_per_el=4, bytes_per_el=eb)
+    if cfg.rwkv:
+        for _ in range(6):                  # r, k, v, g, the output, cr
+            c = c + mm(n, d, d)
+        c = c + mm(n, ff, d) + mm(n, d, ff)
+        return c + elementwise_cost(n * d * 64, flops_per_el=4,
+                                    bytes_per_el=4)       # the wkv scan
+    c = c + mm(n, H * hd, d) + mm(n, d, H * hd)           # q, o
+    if cfg.cross_attn_every and bool(cfg.is_cross_layer[layer]):
+        m = batch * cfg.n_img_tokens
+        c = c + mm(m, KV * hd, d) + mm(m, KV * hd, d)
+        c = c + attention_cost(batch, seq_len, cfg.n_img_tokens, H, hd, KV,
+                               bytes_per_el=eb)
+    else:
+        c = c + mm(n, KV * hd, d) + mm(n, KV * hd, d)
+        c = c + attention_cost(batch, seq_len, seq_len, H, hd, KV,
+                               window=int(cfg.layer_windows[layer]) or None,
+                               bytes_per_el=eb)
+    if cfg.hybrid:                           # the selective-SSM branch
+        c = c + mm(n, 2 * d, d) + mm(n, d, d) + mm(n, 2 * cfg.ssm_state, d)
+        c = c + mm(n, d, d) + elementwise_cost(
+            n * d * cfg.ssm_state, flops_per_el=6, bytes_per_el=4)
+    if cfg.n_experts and not (cfg.cross_attn_every
+                              and bool(cfg.is_cross_layer[layer])):
+        k = cfg.top_k
+        c = c + matmul_cost(n, cfg.n_experts, d, 4)        # the f32 router
+        return c + NodeCost(
+            flops=2.0 * n * k * 3 * d * ff,
+            bytes_rw=eb * (3 * cfg.n_experts * d * ff + 2 * n * k * d))
+    return c + mm(n, 2 * ff, d) + mm(n, d, ff)
+
+
 # --------------------------------------------------------------------------- #
 # Stage replication (TBB parallel filters — widen instead of re-balance)
 # --------------------------------------------------------------------------- #

@@ -224,12 +224,12 @@ class DeviceSpec:
 class DeviceInventory:
     """The placeable devices the planner maps stage replicas onto.
 
-    Built from ``torch.cuda`` (:meth:`detect`) or synthetically
+    Built from ``torch.cuda`` (:meth:`detect`), from a mesh, or synthetically
     (:meth:`host`, for planner unit tests that need an N-device inventory
     without N cards).  :meth:`refresh` re-probes the device set and diffs it
     by identity, :meth:`drop` and :meth:`reweighted` derive the survivors'
-    inventory the elastic planner re-plans onto.  The JAX package's
-    ``from_mesh`` waits for the sharding slice.
+    inventory the elastic planner re-plans onto; :meth:`from_mesh` lists
+    a mesh's positions.
     """
 
     def __init__(self, specs: Sequence[DeviceSpec]):
@@ -262,6 +262,25 @@ class DeviceInventory:
             n = min(n, limit)
         return cls([DeviceSpec(ordinal=i, platform="gpu", device_id=i)
                     for i in range(n)])
+
+    @classmethod
+    def from_mesh(cls, mesh: Any) -> "DeviceInventory":
+        """Inventory over a mesh's positions: a realised ``DeviceMesh`` (or
+        a layout, whose rank is its flat index), coords the mesh
+        coordinates in ``np.ndindex`` order, the ordinal the flat index,
+        the ``device_id`` the rank."""
+        import numpy as np
+
+        if hasattr(mesh, "mesh_dim_names"):           # a DeviceMesh
+            ranks = mesh.mesh.cpu().numpy()
+            platform = "gpu" if mesh.device_type == "cuda" else "cpu"
+        else:
+            ranks = np.arange(mesh.size).reshape(tuple(mesh.shape.values()))
+            platform = "cpu"
+        return cls([DeviceSpec(ordinal=i, platform=platform,
+                               device_id=int(ranks[idx]),
+                               coord=tuple(int(c) for c in idx))
+                    for i, idx in enumerate(np.ndindex(ranks.shape))])
 
     @classmethod
     def host(cls, n: int, platform: str = "cpu") -> "DeviceInventory":

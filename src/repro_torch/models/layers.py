@@ -20,11 +20,15 @@ broadcast then sums each group's gradient back onto its kv head).  Decode
 computes it outside any Pallas kernel: K7's masks are aligned at position
 0.
 
-The JAX module's sharding anchors (``_con_*``, ``set_attention_mesh``;
-``_con_experts`` and ``_con_groups`` anchor the MoE dispatch) wait for the
-sharding slice; without a mesh they are the identity, so they are left
-out.  Random init draws from a ``torch.Generator`` on the device the
-parameters live on.
+The sharding anchors (``_con_heads``, ``_con_ff``, and ``_con_groups``
+and ``_con_experts`` for the MoE dispatch) sit where the JAX module puts
+its ``with_sharding_constraint``s, under a layout registered with
+:func:`set_attention_mesh` (which :func:`repro_torch.models.moe.moe_groups`
+reads too).  A plain tensor is held whole by one process and passes
+unchanged; a DTensor is redistributed to the divisibility-guarded spec.
+Random init draws from a ``torch.Generator`` on the device the parameters
+live on; given :data:`NO_DRAW` it draws nothing and returns the same tree
+of shapes and types on the meta device.
 """
 from __future__ import annotations
 
@@ -43,8 +47,20 @@ NEG_INF = -1e30
 # --------------------------------------------------------------------------- #
 # init helpers
 # --------------------------------------------------------------------------- #
+class _NoDraw:
+    """Stands in for a ``torch.Generator`` where nothing may be drawn (a
+    meta device takes no generator): the inits return meta tensors."""
+
+    device = torch.device("meta")
+
+
+NO_DRAW = _NoDraw()
+
+
 def _dense_init(generator: torch.Generator, shape: tuple, dtype: torch.dtype,
                 scale: float | None = None) -> torch.Tensor:
+    if generator.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = scale if scale is not None else fan_in ** -0.5
     return (torch.randn(shape, generator=generator, dtype=torch.float32,
@@ -142,6 +158,102 @@ def attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int,
     return m
 
 
+# --------------------------------------------------------------------------- #
+# Sharding anchors (the JAX module's with_sharding_constraint sites)
+# --------------------------------------------------------------------------- #
+_ATTN_MESH = None
+
+
+def set_attention_mesh(mesh) -> None:
+    """Register the mesh layout (anything with ``axis_names`` and
+    ``shape[axis]``) that the anchors and ``moe_groups`` read; None clears
+    it.  Set by the step builders of :mod:`repro_torch.launch.steps`."""
+    global _ATTN_MESH
+    _ATTN_MESH = mesh
+
+
+def attention_mesh():
+    """The registered layout, or None."""
+    return _ATTN_MESH
+
+
+def _batch_ax(mesh, n: int):
+    """The batch axes (pod, data) for a leading dim of ``n``, if they
+    divide it (one name alone when there is one axis)."""
+    baxes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    nb = math.prod(mesh.shape[a] for a in baxes)
+    b_ax = baxes if baxes and n % nb == 0 else None
+    return b_ax[0] if isinstance(b_ax, tuple) and len(b_ax) == 1 else b_ax
+
+
+def heads_spec(mesh, shape: tuple) -> tuple:
+    """[B, T, H, hd] → batch × head sharding; head_dim over ``model`` when
+    the heads do not divide it."""
+    B, T, H, hd = shape
+    model = "model" in mesh.axis_names
+    h_ax = "model" if model and H % mesh.shape["model"] == 0 else None
+    d_ax = ("model" if h_ax is None and model
+            and hd % mesh.shape["model"] == 0 else None)
+    return (_batch_ax(mesh, B), None, h_ax, d_ax)
+
+
+def groups_spec(mesh, shape: tuple) -> tuple | None:
+    """[G, Ng, d] routing groups → G over the batch axes (None: leave)."""
+    baxes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    if not baxes or shape[0] % math.prod(mesh.shape[a] for a in baxes):
+        return None
+    return (baxes if len(baxes) > 1 else baxes[0], None, None)
+
+
+def experts_spec(mesh, shape: tuple) -> tuple | None:
+    """[G, E, C, ...] expert buffers → E over ``model`` (None: leave)."""
+    if "model" not in mesh.axis_names or shape[1] % mesh.shape["model"]:
+        return None
+    return (_batch_ax(mesh, shape[0]), "model") + (None,) * (len(shape) - 2)
+
+
+def ff_spec(mesh, shape: tuple) -> tuple | None:
+    """[B, T, ..., ff] → ff over ``model`` (None: leave)."""
+    if "model" not in mesh.axis_names or shape[-1] % mesh.shape["model"]:
+        return None
+    return (_batch_ax(mesh, shape[0]),) + (None,) * (len(shape) - 2) + (
+        "model",)
+
+
+def _anchor(x: torch.Tensor, spec_of) -> torch.Tensor:
+    if _ATTN_MESH is None:
+        return x
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x                      # one process holds it whole
+    spec = spec_of(_ATTN_MESH, tuple(x.shape))
+    if spec is None:
+        return x
+    from ..launch.sharding import with_spec
+    return with_spec(x, spec)
+
+
+def _con_heads(x: torch.Tensor) -> torch.Tensor:
+    """[B, T, H, hd] anchored to :func:`heads_spec`."""
+    return _anchor(x, heads_spec)
+
+
+def _con_groups(x: torch.Tensor) -> torch.Tensor:
+    """[G, Ng, d] anchored to :func:`groups_spec` (the MoE dispatch)."""
+    return _anchor(x, groups_spec)
+
+
+def _con_experts(x: torch.Tensor) -> torch.Tensor:
+    """[G, E, C, ...] anchored to :func:`experts_spec` (EP compute)."""
+    return _anchor(x, experts_spec)
+
+
+def _con_ff(x: torch.Tensor) -> torch.Tensor:
+    """[B, T, ..., ff] anchored to :func:`ff_spec` (the MLP hidden)."""
+    return _anchor(x, ff_spec)
+
+
 def attention(p: Params, x: torch.Tensor, pos=None, *, theta, window: int = 0,
               kv_x: torch.Tensor | None = None, cache: Params | None = None,
               cache_pos: int | None = None
@@ -178,25 +290,28 @@ def attention(p: Params, x: torch.Tensor, pos=None, *, theta, window: int = 0,
         cv[:, start:start + T] = v.to(cv.dtype)
         new_cache = {"k": ck, "v": cv}
         if start == 0:                          # prefill: K7
-            out = ops.attention(q, expand_kv(ck[:, :T], H),
-                                expand_kv(cv[:, :T], H), True,
+            out = ops.attention(_con_heads(q),
+                                _con_heads(expand_kv(ck[:, :T], H)),
+                                _con_heads(expand_kv(cv[:, :T], H)), True,
                                 window).reshape(B, T, H * hd)
         else:                                   # decode
             k_pos = torch.arange(ck.shape[1], device=x.device)
             mask = attn_mask(q_pos, k_pos, window)
-            scores = gqa_scores(q, expand_kv(ck, H))
+            scores = gqa_scores(_con_heads(q), _con_heads(expand_kv(ck, H)))
             scores = torch.where(mask[None, None], scores,
                                  torch.full((), NEG_INF, device=x.device))
             probs = torch.softmax(scores, dim=-1).to(x.dtype)
-            out = gqa_combine(probs, expand_kv(cv, H))
+            out = gqa_combine(probs, _con_heads(expand_kv(cv, H)))
     elif kv_x is not None:                      # cross-attention: K7
-        out = ops.attention(q, expand_kv(k, H), expand_kv(v, H), False,
+        out = ops.attention(_con_heads(q), _con_heads(expand_kv(k, H)),
+                            _con_heads(expand_kv(v, H)), False,
                             0).reshape(B, T, H * hd)
     else:                                       # forward: K7
         q_pos = torch.arange(T, device=x.device)
         q = apply_rope(q, q_pos[None, :], theta)
         k = apply_rope(k, q_pos[None, :], theta)
-        out = ops.attention(q, expand_kv(k, H), expand_kv(v, H), True,
+        out = ops.attention(_con_heads(q), _con_heads(expand_kv(k, H)),
+                            _con_heads(expand_kv(v, H)), True,
                             window).reshape(B, T, H * hd)
 
     y = torch.einsum("btf,fd->btd", out, p["wo"])
@@ -213,9 +328,9 @@ def mlp_init(generator: torch.Generator, d: int, ff: int,
 
 
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
-    gu = torch.einsum("btd,dcf->btcf", x, p["wi"])
+    gu = _con_ff(torch.einsum("btd,dcf->btcf", x, p["wi"]))
     g, u = gu[:, :, 0], gu[:, :, 1]
-    h = F.silu(g) * u
+    h = _con_ff(F.silu(g) * u)
     return torch.einsum("btf,fd->btd", h, p["wo"])
 
 

@@ -17,9 +17,12 @@ them over k in a fixed order.  The JAX code scatter-adds in slot order
 sums differ from run to run in the last bit.  The arithmetic is the same.
 
 The router is f32 (``moe_init``); ``wi``/``wo`` take the config dtype.  The
-JAX module's sharding anchors (``_con_experts``, ``_con_groups``) are the
-identity without a mesh and the port has no mesh yet, so they are left out,
-and :func:`moe_groups` is 1.
+sharding anchors (``_con_groups`` on the routing groups, ``_con_experts`` on
+the expert buffers) sit where the JAX module puts them, and
+:func:`moe_groups` reads the layout registered with
+:func:`~repro_torch.models.layers.set_attention_mesh`, as the JAX function
+reads its mesh: one routing group a batch shard, whose capacity decides
+which tokens drop.
 
 :func:`moe_ref` is a plain version that tests and ``chip_smoke.py`` hold
 the dispatches to: each kept assignment's expert FFN in f32, under a given
@@ -33,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from .layers import _dense_init
+from .layers import _con_experts, _con_groups, _dense_init, attention_mesh
 
 Params = Any
 
@@ -87,9 +90,9 @@ def _aux(logits, probs, idx, dropped) -> dict:
 
 def _expert_ffn(p: Params, eb: torch.Tensor) -> torch.Tensor:
     """SwiGLU of every expert over its buffer: [G, E, C, d] → [G, E, C, d]."""
-    gu = torch.einsum("gecd,edkf->geckf", eb, p["wi"])
+    gu = _con_experts(torch.einsum("gecd,edkf->geckf", eb, p["wi"]))
     h = F.silu(gu[:, :, :, 0]) * gu[:, :, :, 1]
-    return torch.einsum("gecf,efd->gecd", h, p["wo"])
+    return _con_experts(torch.einsum("gecf,efd->gecd", h, p["wo"]))
 
 
 def _record(routing, logits, gate, idx, keep, C) -> None:
@@ -143,6 +146,7 @@ def _grouped_dispatch(p: Params, xg: torch.Tensor, top_k: int, C: int,
         y = contrib[:, :, 0]
         for j in range(1, top_k):
             y = y + contrib[:, :, j]
+        y = _con_groups(y)
 
     keep = keep.reshape(G, N, top_k)
     _record(routing, logits, gate, idx, keep, C)
@@ -183,7 +187,7 @@ def _einsum_dispatch(p: Params, xg: torch.Tensor, top_k: int, C: int,
             counts = counts + torch.sum(oh_e, dim=1)
             kept = kept + torch.mean(keep_j.to(torch.float32))
             keeps.append(keep_j)
-        eb = torch.einsum("gnec,gnd->gecd", disp, xg)
+        eb = _con_experts(torch.einsum("gnec,gnd->gecd", disp, xg))
 
     with record_function("moe:experts"):
         out = _expert_ffn(p, eb)
@@ -196,10 +200,19 @@ def _einsum_dispatch(p: Params, xg: torch.Tensor, top_k: int, C: int,
 
 
 def moe_groups(n_tokens: int, n_experts: int) -> int:
-    """Routing-group count of the sort path: one group per batch shard in
-    the JAX package; without a mesh (the port has none yet) one group."""
-    del n_tokens, n_experts
-    return 1
+    """Routing-group count of the sort path: one group per batch shard
+    (pod x data of the registered layout), or 1 without a layout, or when
+    the tokens do not divide or leave a shard fewer than 4 per expert."""
+    mesh = attention_mesh()
+    if mesh is None:
+        return 1
+    shards = 1
+    for a in ("pod", "data"):
+        if a in mesh.axis_names:
+            shards *= mesh.shape[a]
+    if n_tokens % shards or (n_tokens // shards) < 4 * n_experts:
+        return 1
+    return shards
 
 
 def moe_apply(p: Params, x: torch.Tensor, top_k: int,
@@ -228,7 +241,8 @@ def moe_apply(p: Params, x: torch.Tensor, top_k: int,
     C = max(1, int(Ng * top_k / E * capacity_factor))
     if routing is not None:
         routing.update(mode=mode, G=G)
-    y, aux = dispatch(p, x.reshape(G, Ng, d), top_k, C, routing)
+    y, aux = dispatch(p, _con_groups(x.reshape(G, Ng, d)), top_k, C,
+                      routing)
     return y.reshape(B, T, d), aux
 
 

@@ -49,9 +49,10 @@ from ..core.placement import resolve_device
 from ..core.tree import flatten, tree_map, unflatten
 from ..kernels import ops
 from .config import ArchConfig
-from .layers import (attention, attention_init, embed, embed_init, expand_kv,
-                     gqa_combine, gqa_scores, lm_logits, logits_f32, mlp,
-                     mlp_init, rmsnorm, rmsnorm_init)
+from .layers import (_con_heads, attention, attention_init, embed,
+                     embed_init, expand_kv, gqa_combine, gqa_scores,
+                     lm_logits, logits_f32, mlp, mlp_init, rmsnorm,
+                     rmsnorm_init)
 from .moe import AUX_KEYS, moe_apply, moe_init
 from .rwkv import rwkv_block, rwkv_init, rwkv_init_state
 from .ssm import ssm_apply, ssm_init, ssm_init_state
@@ -156,9 +157,10 @@ def _cross_from_cache(p: Params, h: torch.Tensor, img_kv: Params, *,
     (``ck``/``cv`` [B, M, KV, hd]), unmasked: through K7 with
     ``causal=False`` in a prefill, a plain softmax in decode (T = 1, where
     K7's 128-row query tile has one row to fill), as the JAX function."""
-    q = torch.einsum("btd,dnh->btnh", h, p["attn"]["wq"])
+    q = _con_heads(torch.einsum("btd,dnh->btnh", h, p["attn"]["wq"]))
     B, T, H, hd = q.shape
-    k, v = expand_kv(img_kv["ck"], H), expand_kv(img_kv["cv"], H)
+    k = _con_heads(expand_kv(img_kv["ck"], H))
+    v = _con_heads(expand_kv(img_kv["cv"], H))
     if prefill:
         out = ops.attention(q, k, v, False, 0).reshape(B, T, H * hd)
     else:
@@ -214,7 +216,9 @@ class LM:
 
     # -- params -------------------------------------------------------------- #
     def init(self, generator: torch.Generator) -> Params:
-        """Random weights on the generator's device, in the config's dtype."""
+        """Random weights on the generator's device, in the config's dtype;
+        meta tensors of the same tree, drawing nothing, given
+        :data:`~repro_torch.models.layers.NO_DRAW`."""
         cfg = self.cfg
         dtype = torch_dtype(cfg.dtype)
         params: dict = {
@@ -276,6 +280,7 @@ class LM:
     def apply(self, params: Params, ids: torch.Tensor | None = None, *,
               embeds: torch.Tensor | None = None,
               img_embeds: torch.Tensor | None = None, remat: bool = True,
+              act_constraint=None, param_constraint=None,
               scan_chunks: int = 0) -> tuple[torch.Tensor, dict]:
         """→ (hidden [B, S, d], aux). Use :meth:`loss` / :meth:`logits`
         after.  aux: the MoE aux losses (``load_balance_loss``,
@@ -286,20 +291,27 @@ class LM:
         (each group's, for a vlm model, which needs ``img_embeds``).
         ``scan_chunks=c``: also checkpoint each chunk of c layers (the JAX
         nested-remat scan), ignored unless c divides ``n_layers``, and by a
-        vlm model."""
+        vlm model.  ``act_constraint``: a function applied to the embedded
+        input and each layer's output (the sequence-parallel layout of
+        :func:`repro_torch.launch.steps.make_train_step`);
+        ``param_constraint``: one applied to each layer's weights before
+        the layer runs."""
         cfg = self.cfg
-        x = self._embed_in(params, ids, embeds)
+        con = act_constraint or (lambda h: h)
+        pcon = param_constraint or (lambda p: p)
+        x = con(self._embed_in(params, ids, embeds))
         if cfg.cross_attn_every:
             return self._apply_vlm(params, x, self._img_in(img_embeds),
-                                   remat)
+                                   remat, con, pcon)
         layers = _unstack(params["layers"])
         meta = self._layer_meta()
 
         def layer(i: int, h: torch.Tensor
                   ) -> tuple[torch.Tensor, dict | None]:
             w, th = meta[i]
-            h, _, aux = _block_apply(cfg, layers[i], h, window=w, theta=th)
-            return h, aux
+            h, _, aux = _block_apply(cfg, pcon(layers[i]), h, window=w,
+                                     theta=th)
+            return con(h), aux
 
         def run(lo: int, hi: int, h: torch.Tensor, aux: dict
                 ) -> tuple[torch.Tensor, dict]:
@@ -319,7 +331,8 @@ class LM:
         return rmsnorm(params["final_norm"], x), aux
 
     def _apply_vlm(self, params: Params, x: torch.Tensor,
-                   img_embeds: torch.Tensor, remat: bool
+                   img_embeds: torch.Tensor, remat: bool,
+                   con=lambda h: h, pcon=lambda p: p
                    ) -> tuple[torch.Tensor, dict]:
         """The vlm forward: each group's self layers, then its cross layer
         over ``img_embeds``, one checkpoint a group (the JAX
@@ -334,13 +347,15 @@ class LM:
                   ) -> tuple[torch.Tensor, dict]:
             for i in range(g * per, (g + 1) * per):
                 w, th = meta[i]
-                h, _, a = _block_apply(cfg, layers[i], h, window=w, theta=th)
+                h, _, a = _block_apply(cfg, pcon(layers[i]), h, window=w,
+                                       theta=th)
+                h = con(h)
                 if a is not None:
                     aux = {k: aux[k] + a[k] for k in aux}
-            h, _, _ = _block_apply(cfg, cross[g], h, window=0,
+            h, _, _ = _block_apply(cfg, pcon(cross[g]), h, window=0,
                                    theta=cfg.rope_theta, img_kv=img_embeds,
                                    is_cross=True)
-            return h, aux
+            return con(h), aux
 
         aux = _zero_aux(x.device)
         for g in range(n_groups):
@@ -419,24 +434,29 @@ class LM:
 
     def decode_step(self, params: Params, ids_step: torch.Tensor | None,
                     cache: Params, pos: int, *,
-                    embeds: torch.Tensor | None = None
-                    ) -> tuple[torch.Tensor, Params]:
-        """One token for every sequence. pos: current cache length."""
+                    embeds: torch.Tensor | None = None,
+                    param_constraint=None) -> tuple[torch.Tensor, Params]:
+        """One token for every sequence. pos: current cache length (an int
+        or a 0-d tensor).  ``param_constraint``: applied to each layer's
+        weights before the layer runs (not to a vlm model's, as in the JAX
+        package)."""
         h, cache = self._forward_cached(params, ids_step, cache, pos,
-                                        embeds=embeds)
+                                        embeds=embeds,
+                                        param_constraint=param_constraint)
         return self.logits(params, h), cache
 
     def _forward_cached(self, params: Params, ids, cache: Params, pos: int, *,
-                        embeds=None, img_embeds=None
+                        embeds=None, img_embeds=None, param_constraint=None
                         ) -> tuple[torch.Tensor, Params]:
+        pcon = param_constraint or (lambda p: p)
         x = self._embed_in(params, ids, embeds)
         if self.cfg.cross_attn_every:
             return self._forward_cached_vlm(params, x, cache, int(pos),
                                             img_embeds)
         for lp, lc, (w, th) in zip(_unstack(params["layers"]),
                                    _unstack(cache), self._layer_meta()):
-            x, new, _ = _block_apply(self.cfg, lp, x, window=w, theta=th,
-                                     cache=lc, cache_pos=int(pos))
+            x, new, _ = _block_apply(self.cfg, pcon(lp), x, window=w,
+                                     theta=th, cache=lc, cache_pos=int(pos))
             _write_back(lc, new)
         x = rmsnorm(params["final_norm"], x)
         return x, cache
@@ -475,6 +495,48 @@ class LM:
                                    cache_pos=pos, is_cross=True)
         x = rmsnorm(params["final_norm"], x)
         return x, cache
+
+
+# =========================================================================== #
+# The layer stack as pipeline stages (core/spmd_pipeline.py)
+# =========================================================================== #
+def pipeline_layer(cfg: ArchConfig, i: int, seed: int, device=None) -> Params:
+    """Layer ``i`` as a pipeline stage reads it: ``block``, its weights
+    drawn by :func:`_block_init` from a generator of its own on ``device``
+    (seeded ``seed + i``, so any rank draws the same layer alone), and its
+    ``window`` and rope ``theta`` as 0-d leaves on the host (read without
+    a device sync).  Self-attention layers of the families without cross
+    layers."""
+    dev = resolve_device(device)
+    g = torch.Generator(dev).manual_seed(int(seed) + int(i))
+    return {"block": _block_init(cfg, g),
+            "window": torch.tensor(int(cfg.layer_windows[i])),
+            "theta": torch.tensor(float(cfg.layer_thetas[i]),
+                                  dtype=torch.float64)}
+
+
+def pipeline_stage(cfg: ArchConfig, lo: int, hi: int, lmax: int, seed: int,
+                   device=None) -> Params:
+    """Layers ``lo..hi-1`` stacked [1, lmax, ...] (a rank's stage of
+    :func:`~repro_torch.core.spmd_pipeline.spmd_pipeline_fn`), the padding
+    zeros; drawn one layer at a time, so no more than the stack and one
+    layer are alive."""
+    first = pipeline_layer(cfg, lo, seed, device)
+    stack = tree_map(lambda a: a.new_zeros((1, lmax, *a.shape)), first)
+    for j, i in enumerate(range(lo, hi)):
+        layer = first if j == 0 else pipeline_layer(cfg, i, seed, device)
+        tree_map(lambda dst, src: dst[0, j].copy_(src), stack, layer)
+    return stack
+
+
+def pipeline_block(cfg: ArchConfig):
+    """``block_fn(lp, h)`` of one :func:`pipeline_layer` (the JAX
+    ``block_fn`` signature): the block's output; a moe block's aux losses
+    are dropped."""
+    def block(lp: Params, h: torch.Tensor) -> torch.Tensor:
+        return _block_apply(cfg, lp["block"], h, window=int(lp["window"]),
+                            theta=float(lp["theta"]))[0]
+    return block
 
 
 def params_from_numpy(tree: Any, dtype: str, device=None) -> Any:

@@ -1045,3 +1045,50 @@ def test_planner_on_the_card_refuses_weights_traced_on_the_cpu(cuda_device):
         ElasticPlanner(ir, db=db)
     ir.captured = {k: v.to(cuda_device) for k, v in ir.captured.items()}
     assert ElasticPlanner(ir, db=db).device.type == "cuda"
+
+
+def test_two_rank_pipeline_of_full_width_gemma_layers_sharing_the_card(
+        cuda_device):
+    """Layers 4 (local) and 5 (global) of gemma3-12b at full widths, one a
+    rank, the two ranks sharing the card (gloo, hand-offs through pinned
+    host memory): outputs and each layer's gradient of mean(out²) against
+    the sequential run here, 2e-2 of the largest |reference|; K7-K9 on the
+    ranks' wgmma route."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import leaves, tree_map
+    from repro_torch.launch.mesh import run_on_local_mesh
+    from repro_torch.models.transformer import pipeline_block, pipeline_layer
+
+    from torch_spmd_ranks import gemma_pipeline_rank
+
+    first, seed, xs_seed, M, T = 4, 7, 11, 2, 1024
+    res = run_on_local_mesh((2,), ("stage",), gemma_pipeline_rank, first,
+                            seed, xs_seed, M, T, device="cuda", timeout=600)
+    cfg = get_config("gemma3-12b")
+    block = pipeline_block(cfg)
+    layers = [pipeline_layer(cfg, first + s, seed, cuda_device)
+              for s in range(2)]
+    weights = [tree_map(lambda a: a.requires_grad_(True), lp["block"])
+               for lp in layers]
+    g = torch.Generator(cuda_device).manual_seed(xs_seed)
+    xs = torch.randn((M, 1, T, cfg.d_model), generator=g,
+                     device=cuda_device).bfloat16()
+    outs = []
+    for m in range(M):
+        h = xs[m]
+        for lp in layers:
+            h = block(lp, h)
+        outs.append(h)
+    ref = torch.stack(outs)
+    (ref.float() ** 2).mean().backward()
+    out = res[-1]["out"].to(cuda_device)
+    assert (out.float() - ref.float()).abs().max() <= (
+        2e-2 * ref.float().abs().max())
+    for r, w in zip(res, weights):
+        for got, want in zip(leaves(r["grad"]), leaves(w)):
+            got, want = got.to(cuda_device).float(), want.grad.float()
+            assert (got - want).abs().max() <= 2e-2 * want.abs().max()
+        assert r["launches"] == {"flash_attention": M,
+                                 "flash_attention_bwd_dq": M,
+                                 "flash_attention_bwd_dkv": M}
+        assert all(v["simt_f32"] == 0 for v in r["routes"].values())
