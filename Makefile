@@ -3,7 +3,8 @@
 PY      ?= python
 PYPATH  := src:.
 
-.PHONY: test test-fast bench bench-smoke lint ci clean-autotune
+.PHONY: test test-fast bench bench-smoke lint ci clean-autotune lint-torch \
+        clean-autotune-torch
 
 test:            ## full tier-1 suite (incl. slow markers)
 	PYTHONPATH=$(PYPATH) $(PY) -m pytest -x -q
@@ -24,4 +25,11 @@ ci: test-fast bench-smoke lint  ## single CI entry point: fast tests, smoke benc
 
 clean-autotune:  ## drop the persistent block-size autotune cache
 	PYTHONPATH=$(PYPATH) $(PY) -c "from repro.kernels.autotune import \
+	default_cache; default_cache.clear(); print('cleared', default_cache.path)"
+
+lint-torch:      ## the same lint over the PyTorch port (repro_torch.analysis.lint)
+	PYTHONPATH=$(PYPATH) $(PY) -m repro_torch.analysis lint src/repro_torch
+
+clean-autotune-torch:  ## drop the port's tile autotune cache
+	PYTHONPATH=$(PYPATH) $(PY) -c "from repro_torch.kernels.autotune import \
 	default_cache; default_cache.clear(); print('cleared', default_cache.path)"

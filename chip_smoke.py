@@ -67,7 +67,15 @@ version there:
   host memory), cut by ``partition_optimal`` over the cost model's
   per-layer costs, then on 3 after ``ElasticPlanner.boundaries(3)``, 8
   microbatches of [1, 4096, 3840] (K7 on every attention); and layers 0-7
-  trained in 4 stages, 4 microbatches of 1 x 4096 (K7-K9).
+  trained in 4 stages, 4 microbatches of 1 x 4096 (K7-K9);
+* tensor-parallel serving (``launch/steps.py`` on DTensor weights) at
+  gemma3-12b's full widths, 12 of its 48 layers (two global): the weights
+  drawn whole from one seed on each rank of a (data 1, model 2) mesh of
+  ``run_on_local_mesh`` sharing the card and cut by ``distribute_params``
+  (each rank keeps half of the heads, the ff columns and the vocab rows),
+  the cache by ``cache_shardings``; ``make_prefill_step`` over 2 prompts of 2048
+  tokens, ``LM.prefill`` into the sharded cache, 16 teacher-forced
+  ``make_decode_step`` steps (K7 on each rank's 8 local heads).
 
 Phases:
 
@@ -213,7 +221,21 @@ Phases:
               outputs, and every layer leaf's gradient within 2e-2 of
               max|ref grad|; 32/32/32 K7/K8/K9 launches; the phase's
               seconds (budget 90)
-12. the ``kernels`` JSON line (the ranks' launches added), the nvidia-smi
+12. tp      — the whole-model run in this process first (the prefill
+              step's logits, LM.prefill, 16 greedy decode steps, the
+              cache), then 2 ranks sharing the card: per rank the local
+              shapes of wq, wk, mlp/wi, the embed table and the cache, peak
+              GB, K7 launches (> 0 on every rank, all on the wgmma route)
+              and the prefill, prefill-into-cache and decode ms; K7 on the
+              q/k/v a local (window 1024) and a global layer gave it on
+              each rank ([2, 2048, 8, 256] bf16), element by element
+              against its plain version, rank 0's timed beside the bound,
+              the plain version and SDPA; the
+              prefill logits, the decode logits (both runs fed the whole
+              run's greedy tokens, so no near-tie decides) and the
+              gathered K/V cache each within 2e-2 of max|ref|, printed as
+              a share of that limit; the phase's seconds (budget 60)
+13. the ``kernels`` JSON line (the ranks' launches added), the nvidia-smi
    line, and the result line;
    a ``[time] <phase> <seconds>`` line after each phase
 
@@ -338,6 +360,11 @@ VLM = dict(arch="llama-3.2-vision-11b", batch=4, prompt_len=4096, tokens=32,
 SPMD = dict(arch="gemma3-12b", stages=4, replan=3, microbatches=8,
             seq_len=4096, train_layers=8, train_stages=4,
             train_microbatches=4, seed=2027, timeout=600)
+# tensor-parallel serving: gemma3-12b at full widths, 12 of 48 layers (two
+# global at global_every 6), a (data 1, model 2) mesh sharing the card,
+# 2 prompts of 2048 tokens (over the 1024 window), 16 decode steps
+TP = dict(arch="gemma3-12b", layers=12, mesh=(1, 2), batch=2,
+          prompt_len=2048, decode=16, seed=2028, timeout=600)
 
 
 class SmokeFailure(RuntimeError):
@@ -3620,10 +3647,11 @@ def cut_groups(params: dict, n: int) -> dict:
 
 
 @contextlib.contextmanager
-def attention_spy(calls: list | None = None, keep: dict | None = None):
+def attention_spy(calls: list | None = None, keep: dict | None = None,
+                  kind=lambda causal, window: "self" if causal else "cross"):
     """``ops.attention`` as it is, each call's (causal, keys) appended to
-    ``calls`` and the first call's (q, k, v) of each kind (``"self"``,
-    ``"cross"``) kept in ``keep``."""
+    ``calls`` and the first call's (q, k, v, window) of each ``kind`` (by
+    default ``"self"``, ``"cross"``) kept in ``keep``."""
     from repro_torch.kernels import ops
 
     real = ops.attention
@@ -3632,7 +3660,7 @@ def attention_spy(calls: list | None = None, keep: dict | None = None):
         if calls is not None:
             calls.append((bool(causal), k.shape[1]))
         if keep is not None:
-            keep.setdefault("self" if causal else "cross", (q, k, v))
+            keep.setdefault(kind(causal, window), (q, k, v, window))
         return real(q, k, v, causal, window)
 
     ops.attention = spy
@@ -3669,7 +3697,7 @@ def vlm_cross_layer(params, img) -> dict:
     check(fa.LAUNCHES["flash_attention"] == 1 and set(keep) == {"cross"},
           f"the cross layer launched {dict(fa.LAUNCHES)} ({set(keep)})")
     fa.reset_launches()
-    q, k, vv = keep["cross"]
+    q, k, vv, _ = keep["cross"]
     d, w = flash_err(q, k, vv, False, 0)
     real = ops.attention
     ops.attention = lambda q, k, v, causal=True, window=0: \
@@ -3944,9 +3972,9 @@ def phase_vlm() -> tuple[dict, dict]:
     with torch.no_grad(), attention_spy(keep=keep):
         LM(dataclasses.replace(cfg, n_layers=cfg.cross_attn_every)).apply(
             cut_groups(params, 1), ids, img_embeds=img, remat=False)
-    q, k, vv = keep["self"]
+    q, k, vv, _ = keep["self"]
     out["k7_self"] = k7_at(q, k, vv, 0, "self serve", tag="[vlm] (a)")
-    q, k, vv = keep.pop("cross")
+    q, k, vv, _ = keep.pop("cross")
     out["k7"] = k7_at(q, k, vv, 0, "cross serve", causal=False,
                       tag="[vlm] (a)")
     tb = v["train_batch"]
@@ -4362,6 +4390,321 @@ def phase_spmd() -> tuple[dict, dict]:
     return counts, out
 
 
+def tp_config():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(TP["arch"]), n_layers=TP["layers"])
+    check(cfg.d_model == 3840 and cfg.n_heads == 16 and cfg.n_kv_heads == 8
+          and cfg.hd == 256 and cfg.d_ff == 15360 and cfg.vocab == 262144
+          and cfg.dtype == "bfloat16" and cfg.window == 1024
+          and [int(w) for w in cfg.layer_windows].count(0) == 2,
+          f"unexpected tp config {cfg}")
+    return cfg
+
+
+def tp_inputs(cfg, device):
+    """The prompts [B, T] drawn from the phase's seed."""
+    import torch
+
+    g = torch.Generator(device).manual_seed(TP["seed"] + 1)
+    return torch.randint(0, cfg.vocab, (TP["batch"], TP["prompt_len"]),
+                         generator=g, device=device)
+
+
+def tp_serve(model, params, cache, ids, prefill, decode, tokens=None):
+    """The phase's serving run (the same code whole or on a rank): the
+    prefill step's logits, ``LM.prefill`` into ``cache``, then one decode
+    step a token of ``tokens`` [B, n] (teacher-forced), or of the greedy
+    tokens when None; → (prefill logits, decode logits, tokens fed, ms of
+    each part)."""
+    import torch
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    logits, pre_ms = timed(lambda: prefill(params, {"ids": ids}))
+    _, fill_ms = timed(lambda: model.prefill(params, ids, cache))
+    T, fed, outs, dec_ms = ids.shape[1], [], [], []
+    tok = logits[:, -1].argmax(-1)
+    for j in range(TP["decode"]):
+        if tokens is not None:
+            tok = tokens[:, j].to(ids.device)
+        fed.append(tok)
+        (lg, _), ms = timed(lambda: decode(
+            params, cache, {"ids": tok[:, None], "pos": T + j}))
+        outs.append(lg.cpu())
+        dec_ms.append(ms)
+        tok = lg[:, -1].argmax(-1)
+    return (logits.cpu(), outs, torch.stack(fed, 1).cpu(),
+            {"prefill_step_ms": pre_ms, "prefill_cache_ms": fill_ms,
+             "decode_ms": dec_ms})
+
+
+def timed_collectives(stats: dict):
+    """Patch the two collectives the tensor-parallel layers call so each
+    first waits for the card's queued work (``sync_ms``) and then is timed
+    alone (``collective_ms``), counted by name; the patch is undone on
+    exit."""
+    import torch
+
+    from repro_torch.models import layers as ml
+
+    saved = {n: getattr(ml, n) for n in ("all_reduce_sum", "all_gather_cat")}
+
+    def wrap(name, fn):
+        def call(t, *args):
+            t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fn(t, *args)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            stats["sync_ms"] += 1e3 * (t1 - t0)
+            stats["collective_ms"] += 1e3 * (t2 - t1)
+            stats["calls"][name] = stats["calls"].get(name, 0) + 1
+            stats["bytes"] += t.numel() * t.element_size()
+            return out
+        return call
+
+    @contextlib.contextmanager
+    def patched():
+        for n, fn in saved.items():
+            setattr(ml, n, wrap(n, fn))
+        try:
+            yield stats
+        finally:
+            for n, fn in saved.items():
+                setattr(ml, n, fn)
+
+    return patched()
+
+
+def tp_rank(mesh, ids, tokens) -> dict:
+    """One rank of the tp phase: draw the whole weights from the phase's
+    seed and keep its shards, serve, return its numbers, logits, cache
+    shards and the q/k/v its first local and first global layer gave K7."""
+    import torch
+
+    from repro_torch.core.spmd_pipeline import local_bounds
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import sharding as TS
+    from repro_torch.launch import steps as TST
+    from repro_torch.models import LM, layers
+
+    cfg = tp_config()
+    t0 = time.perf_counter()
+    mesh.device_mesh                      # the DeviceMesh and its groups
+    mesh_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    whole = LM(cfg).init(torch.Generator(mesh.device).manual_seed(TP["seed"]))
+    params = TS.distribute_params(mesh, whole)
+    del whole
+    torch.cuda.empty_cache()
+    cache = TST.init_cache_sharded(cfg, mesh, TP["batch"],
+                                   TP["prompt_len"] + TP["decode"])
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    keep = {}
+    try:
+        model, prefill = TST.make_prefill_step(cfg, mesh)
+        _, decode = TST.make_decode_step(cfg, mesh)
+        with attention_spy(keep=keep, kind=lambda causal, window:
+                           "tp local" if window else "tp global"):
+            logits, dec, _, ms = tp_serve(model, params, cache,
+                                          ids.to(mesh.device), prefill,
+                                          decode, tokens)
+        launches = dict(fa.LAUNCHES)
+        routes = {k: dict(v) for k, v in fa.ROUTE_LAUNCHES.items()}
+        # the same run again, its collectives timed alone (the card's
+        # queued work waited for first), for the time's breakdown
+        coll = {"sync_ms": 0.0, "collective_ms": 0.0, "calls": {},
+                "bytes": 0}
+        cache2 = TST.init_cache_sharded(cfg, mesh, TP["batch"],
+                                        TP["prompt_len"] + TP["decode"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with timed_collectives(coll):
+            tp_serve(model, params, cache2, ids.to(mesh.device), prefill,
+                     decode, tokens)
+        coll["run_ms"] = 1e3 * (time.perf_counter() - t1)
+        del cache2
+    finally:
+        layers.set_attention_mesh(None)
+    shapes = {n: tuple(params["layers"][a][b].to_local().shape)
+              for n, (a, b) in {"wq": ("attn", "wq"), "wk": ("attn", "wk"),
+                                "attn/wo": ("attn", "wo"),
+                                "mlp/wi": ("mlp", "wi"),
+                                "mlp/wo": ("mlp", "wo")}.items()}
+    shapes["embed"] = tuple(params["embed"]["table"].to_local().shape)
+    shapes["cache_k"] = tuple(cache["k"].to_local().shape)
+    return {"rank": mesh.rank, "transport": mesh.transport,
+            "shapes": shapes, "logits": logits, "decode": dec, "ms": ms,
+            "draw_s": draw_s, "mesh_s": mesh_s, "collectives": coll,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches, "routes": routes,
+            "k7_inputs": {n: (*(t.cpu() for t in qkv), w)
+                          for n, (*qkv, w) in keep.items()},
+            "cache": {n: (cache[n].to_local().cpu(),
+                          local_bounds(cache[n])) for n in ("k", "v")}}
+
+
+def phase_tp() -> tuple[dict, dict]:
+    """gemma3-12b served tensor-parallel on 2 ranks sharing the card, held
+    to the whole-model run on the same weights in this process."""
+    import gc
+
+    import torch
+
+    from repro_torch.core.tree import leaves
+    from repro_torch.launch import steps as TST
+    from repro_torch.launch.mesh import run_on_local_mesh
+    from repro_torch.models import LM
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = tp_config()
+    B, T, n = TP["batch"], TP["prompt_len"], TP["decode"]
+    glob = [i for i in range(cfg.n_layers) if cfg.layer_windows[i] == 0]
+    print(f"[tp] {cfg.arch_id}: {cfg.n_layers} of 48 layers (global "
+          f"{glob}), d {cfg.d_model}, {cfg.n_heads} heads x {cfg.hd} over "
+          f"{cfg.n_kv_heads} kv heads, ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"{cfg.dtype}; batch {B} x {T} tokens, {n} decode steps; mesh "
+          f"(data, model) = {TP['mesh']}")
+
+    # the whole-model run, alone on the card
+    model = LM(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(TP["seed"]))
+    nbytes = sum(a.numel() * a.element_size() for a in leaves(params))
+    ids = tp_inputs(cfg, "cuda")
+    cache = model.init_cache(B, T + n)
+    _, prefill = TST.make_prefill_step(cfg)
+    _, decode = TST.make_decode_step(cfg)
+    ref, ref_dec, tokens, ref_ms = tp_serve(model, params, cache, ids,
+                                            prefill, decode)
+    ref_cache = {k: cache[k].cpu() for k in ("k", "v")}
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t_phase
+    print(f"[tp] whole-model run: {nbytes / 1e9:.3f} GB of weights; prefill "
+          f"step {ref_ms['prefill_step_ms']:.3f} ms, prefill into the cache "
+          f"{ref_ms['prefill_cache_ms']:.3f} ms, decode "
+          f"{statistics.median(ref_ms['decode_ms']):.3f} ms a step "
+          f"(median of {n}); {t_ref:.3f} s")
+
+    t1 = time.perf_counter()
+    res = run_on_local_mesh(TP["mesh"], ("data", "model"), tp_rank,
+                            ids.cpu(), tokens, device="cuda",
+                            timeout=TP["timeout"])
+    ranks_s = time.perf_counter() - t1
+    half = {"wq": (cfg.d_model, cfg.n_heads // 2, cfg.hd),
+            "wk": (cfg.d_model, cfg.n_kv_heads // 2, cfg.hd),
+            "attn/wo": (cfg.n_heads * cfg.hd // 2, cfg.d_model),
+            "mlp/wi": (cfg.d_model, 2, cfg.d_ff // 2),
+            "mlp/wo": (cfg.d_ff // 2, cfg.d_model),
+            "embed": (cfg.vocab_padded // 2, cfg.d_model),
+            "cache_k": (B, T + n, cfg.n_kv_heads // 2, cfg.hd)}
+    counts: dict = {}
+    for r in res:
+        k7 = r["launches"]["flash_attention"]
+        print(f"[tp] rank {r['rank']} over {r['transport']}: local shapes "
+              f"{r['shapes']}; peak {r['peak_gb']:.3f} GB; DeviceMesh in "
+              f"{r['mesh_s']:.3f} s, drawn in {r['draw_s']:.3f} s; K7 "
+              f"launches {k7} (routes "
+              f"{r['routes']['flash_attention']}); prefill step "
+              f"{r['ms']['prefill_step_ms']:.3f} ms, prefill into the cache "
+              f"{r['ms']['prefill_cache_ms']:.3f} ms, decode "
+              f"{statistics.median(r['ms']['decode_ms']):.3f} ms a step")
+        c = r["collectives"]
+        print(f"[tp] rank {r['rank']} rerun with each collective timed "
+              f"alone: {c['run_ms']:.3f} ms in all, {c['collective_ms']:.3f}"
+              f" ms in {c['calls']} collectives ({c['bytes'] / 1e6:.3f} MB "
+              f"sent), {c['sync_ms']:.3f} ms waiting for the card's queued "
+              f"work before them")
+        check(c["calls"].get("all_reduce_sum", 0) > 0,
+              f"tp rank {r['rank']}: the rerun timed no collective "
+              f"({c['calls']})")
+        check(all(tuple(r["shapes"][k][-len(v):]) == v
+                  for k, v in half.items()),
+              f"tp rank {r['rank']}: local shapes {r['shapes']}, want "
+              f"{half} (a layer's)")
+        check(k7 > 0 and r["routes"]["flash_attention"]["simt_f32"] == 0,
+              f"tp rank {r['rank']}: K7 launches {r['routes']}")
+        for k, v in r["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+
+    # K7 on the q/k/v that each rank's first local and first global layer
+    # gave it: element by element against the plain version on every
+    # rank's, rank 0's timed beside the bound, plain version and SDPA
+    k7: dict = {}
+    for r in res:
+        check(set(r["k7_inputs"]) == {"tp local", "tp global"},
+              f"tp rank {r['rank']}: K7 saw {set(r['k7_inputs'])}")
+        for name, (q, k, v, w) in sorted(r["k7_inputs"].items()):
+            q, k, v = (t.to("cuda") for t in (q, k, v))
+            want = (B, T, cfg.n_heads // 2, cfg.hd)
+            check(tuple(q.shape) == want and k.shape == v.shape == q.shape
+                  and q.dtype == torch.bfloat16,
+                  f"tp rank {r['rank']} K7 {name}: q {tuple(q.shape)} "
+                  f"{q.dtype}, k {tuple(k.shape)}; want {want} bf16")
+            if r["rank"] == 0:
+                k7[name] = k7_at(q, k, v, w, name, tag="[tp]")
+            else:
+                d, worst = flash_err(q, k, v, True, w)
+                print(f"[tp] rank {r['rank']} K7 {name} at {list(q.shape)} "
+                      f"bf16 window {w}: max abs err {d}, {worst} of the "
+                      f"element-wise limit")
+                k7[f"{name} rank {r['rank']}"] = {
+                    "max_abs_err": d, "err_of_elementwise_limit": worst}
+        del q, k, v
+
+    def share(got, want) -> float:
+        want = want.float()
+        return ((got.float() - want).abs().max()
+                / (2e-2 * want.abs().max())).item()
+
+    reads = {"prefill_logits": max(share(r["logits"], ref) for r in res),
+             "decode_logits": max(share(g, w) for r in res
+                                  for g, w in zip(r["decode"], ref_dec))}
+    for name in ("k", "v"):
+        full = torch.zeros(ref_cache[name].shape, dtype=ref_cache[name].dtype)
+        for r in res:
+            local, bounds = r["cache"][name]
+            full[tuple(bounds)] = local
+        reads[f"cache_{name}"] = share(full, ref_cache[name])
+        scale = 2e-2 * ref_cache[name].float().abs().max()
+        by_layer = [round(((full[i].float() - ref_cache[name][i].float())
+                           .abs().max() / scale).item(), 4)
+                    for i in range(cfg.n_layers)]
+        print(f"[tp] cache_{name} by layer, share of the whole cache's "
+              f"limit: {by_layer}")
+    for k, v in reads.items():
+        print(f"[tp] {k}: max |err| at {v:.4f} of 2e-2 * max|ref|")
+        check(v <= 1.0, f"tp {k}: {v:.4f} of the limit")
+    out = {"reads_share_of_limit": reads, "whole_ms": ref_ms, "k7": k7,
+           "ranks": [{k: r[k] for k in ("rank", "transport", "shapes",
+                                        "ms", "draw_s", "mesh_s", "peak_gb",
+                                        "launches", "collectives")}
+                     for r in res],
+           "ranks_s": ranks_s, "weights_gb": nbytes / 1e9,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"[tp] phase {out['phase_s']:.3f} s (budget 60): whole run "
+          f"{t_ref:.3f} s, ranks {ranks_s:.3f} s; K7 launches on the ranks "
+          f"{counts}")
+    del res
+    gc.collect()
+    return counts, out
+
+
 def main() -> int:
     sys.path.insert(0, os.path.join(HERE, "src"))
     t_start = time.perf_counter()
@@ -4429,11 +4772,16 @@ def main() -> int:
     lap("vlm")
     pcounts, spmd_out = phase_spmd()
     lap("spmd")
+    tpcounts, tp_out = phase_tp()
+    rows["flash_attention"]["max_abs_err"] = max(
+        rows["flash_attention"]["max_abs_err"],
+        *(r["max_abs_err"] for r in tp_out["k7"].values()))
+    lap("tp")
     print(f"[time] total {time.perf_counter() - t_start:.3f}")
     for k, v in (*counts.items(), *hcounts.items(), *rcounts.items(),
                  *ccounts.items(), *fcounts.items(), *tcounts.items(),
                  *dcounts.items(), *mcounts.items(), *scounts.items(),
-                 *vcounts.items(), *pcounts.items()):
+                 *vcounts.items(), *pcounts.items(), *tpcounts.items()):
         launches[k] = launches.get(k, 0) + v
     replaces = {"cvt_color": "src/repro/kernels/harris.py:44",
                 "corner_harris": "src/repro/kernels/harris.py:101",
@@ -4467,6 +4815,7 @@ def main() -> int:
                       "f32_route_driver_shape": f32_route,
                       "train": trained, "driver": driven, "moe": moe_out,
                       "ssm": ssm_out, "vlm": vlm_out, "spmd": spmd_out,
+                      "tp": tp_out,
                       "tc_resources": tc_res, "k7_train_shape": k7_train,
                       "k6_resources": rows["rmsnorm_matmul"]["resources"],
                       "local_layer": {n: {k: v for k, v in rows[n].items()

@@ -47,7 +47,7 @@ __all__ = [
 
 
 @dataclass
-class StagePlan:
+class StagePlan:  # lint: allow-mutable(mutated in place by assign_replicas / assign_stage_devices / clear_stage_devices)
     node_names: list[str]
     est_time_ms: float
     kind: str = "parallel"            # "serial_in_order" | "parallel" (TBB)
@@ -67,7 +67,7 @@ class StagePlan:
 
 
 @dataclass
-class PipelinePlan:
+class PipelinePlan:  # lint: allow-mutable(stages re-widened/re-pinned in place across replans)
     stages: list[StagePlan]
     policy: str = "paper"
 

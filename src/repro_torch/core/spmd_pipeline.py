@@ -34,9 +34,15 @@ send.  JAX has one controller and torch one a rank: every rank of
 :func:`pipeline_microbatches` returns the outputs, and the gradient of a
 loss computed alike on every rank is taken from the last stage's own copy
 only, so it is JAX's and not S times it.
+
+The collectives (:func:`all_reduce_sum`, :func:`all_gather_cat`) and the
+DTensor helpers (:func:`local_bounds`, :func:`unbind_layers`,
+:func:`group_transport`) also serve the tensor-parallel layers of
+:mod:`repro_torch.models.layers`.
 """
 from __future__ import annotations
 
+import sys
 import time
 from typing import Any, Callable, Sequence
 
@@ -46,7 +52,9 @@ import torch.distributed as dist
 from .tree import flatten, leaves, tree_map, unflatten
 
 __all__ = ["stack_stage_params", "stage_apply", "spmd_pipeline_fn",
-           "pipeline_microbatches"]
+           "pipeline_microbatches", "all_reduce_sum", "all_gather_cat",
+           "is_dtensor", "shard_bounds", "local_bounds", "unbind_layers",
+           "group_transport"]
 
 
 # --------------------------------------------------------------------------- #
@@ -227,14 +235,96 @@ class _FromLast(torch.autograd.Function):
         return (g if ctx.mine else torch.zeros_like(g)), None
 
 
-def _all_reduce_sum(t: torch.Tensor, group, transport: str) -> torch.Tensor:
+def all_reduce_sum(t: torch.Tensor, group, transport: str) -> torch.Tensor:
+    """The sum of ``t`` over ``group``'s ranks, a new tensor like ``t``:
+    NCCL sums on the card in ``t``'s type; gloo (which takes no CUDA
+    tensor and lacks bf16 sums) sums in f32 on the host, staged in pinned
+    host memory when the ranks share a card.  On an H100 shared by 2
+    ranks, gathering the f32 partials instead and adding them on the card
+    took 1.5-1.8x the host add's time."""
     if transport == "nccl":
         t = t.contiguous().clone()
         dist.all_reduce(t, group=group)
         return t
-    f = t.to(device="cpu", dtype=torch.float32).contiguous()
+    f = torch.empty(t.shape, dtype=torch.float32,
+                    pin_memory=transport == "gloo+pinned")
+    f.copy_(t)
     dist.all_reduce(f, group=group)
     return f.to(device=t.device, dtype=t.dtype)
+
+
+def all_gather_cat(t: torch.Tensor, dim: int, group,
+                   transport: str) -> torch.Tensor:
+    """Every rank's ``t`` of ``group``, concatenated along ``dim`` in
+    group-rank order: this rank's ``t`` itself, the others' received
+    (exact: gloo moves raw bytes, through pinned host memory when the
+    ranks share a card)."""
+    ws = [_wire_empty(t, transport)
+          for _ in range(dist.get_world_size(group))]
+    dist.all_gather(ws, _to_wire(t, transport), group=group)
+    me = dist.get_rank(group)
+    return torch.cat([t if i == me else _from_wire(w, t, transport)
+                      for i, w in enumerate(ws)], dim=dim)
+
+
+# --------------------------------------------------------------------------- #
+# DTensor shards (the tensor-parallel layers of repro_torch.models.layers)
+# --------------------------------------------------------------------------- #
+def is_dtensor(x) -> bool:
+    """``x`` is a DTensor (none can exist before DTensor's module is
+    imported, so a process that never shards does not import it)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def shard_bounds(device_mesh, placements, shape) -> tuple:
+    """The slice of each dim of a ``shape`` tensor that this rank's shard
+    covers under ``placements`` on ``device_mesh`` (a dim sharded over
+    several mesh dims is split by the outermost first, as DTensor splits
+    it; the whole dim where it is not sharded)."""
+    coord = device_mesh.get_coordinate()
+    out = [slice(0, n) for n in shape]
+    for m, pl in enumerate(placements):
+        if pl.is_shard():
+            d = pl.dim
+            step = (out[d].stop - out[d].start) // device_mesh.size(m)
+            lo = out[d].start + coord[m] * step
+            out[d] = slice(lo, lo + step)
+    return tuple(out)
+
+
+def local_bounds(x) -> tuple:
+    """:func:`shard_bounds` of DTensor ``x``'s local tensor; the whole of
+    each dim for a plain tensor (one process holds it whole)."""
+    if not is_dtensor(x):
+        return tuple(slice(0, n) for n in x.shape)
+    return shard_bounds(x.device_mesh, x.placements, x.shape)
+
+
+def unbind_layers(x) -> list:
+    """A stacked ``[L, ...]`` DTensor (its layer dim not sharded) as L
+    DTensors, views of its local tensor: no communication, and an in-place
+    write to a layer lands in the stack."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if any(pl.is_shard(0) for pl in x.placements):
+        raise ValueError(f"the layer dim of {x.placements} is sharded")
+    pls = tuple(Shard(pl.dim - 1) if pl.is_shard() else pl
+                for pl in x.placements)
+    shape, stride = x.shape[1:], x.stride()[1:]
+    return [DTensor.from_local(t, x.device_mesh, pls, run_check=False,
+                               shape=shape, stride=stride)
+            for t in x.to_local().unbind(0)]
+
+
+def group_transport(group, device) -> str:
+    """The transport that a process group and a tensor's device imply (as
+    :func:`repro_torch.launch.mesh.choose_transport` picks it): ``nccl``
+    for an NCCL group, ``gloo+pinned`` for a gloo group moving CUDA
+    tensors (ranks sharing a card), ``gloo`` on the CPU."""
+    if dist.get_backend(group) == "nccl":
+        return "nccl"
+    return "gloo+pinned" if torch.device(device).type == "cuda" else "gloo"
 
 
 class _SumGrads(torch.autograd.Function):
@@ -252,7 +342,7 @@ class _SumGrads(torch.autograd.Function):
         out = []
         for g in gs:
             for group in ctx.groups:
-                g = _all_reduce_sum(g, group, ctx.transport)
+                g = all_reduce_sum(g, group, ctx.transport)
             out.append(g)
         return (None, None, *out)
 
@@ -262,16 +352,14 @@ class _GatherBatch(torch.autograd.Function):
     rank's own slice of the gradient."""
 
     @staticmethod
-    def forward(ctx, local, group, line, rank_pos, transport):
+    def forward(ctx, local, group, rank_pos, transport):
         ctx.pos, ctx.n = rank_pos, local.shape[1]
-        ws = [_wire_empty(local, transport) for _ in line]
-        dist.all_gather(ws, _to_wire(local, transport), group=group)
-        return torch.cat([_from_wire(w, local, transport) for w in ws], dim=1)
+        return all_gather_cat(local, 1, group, transport)
 
     @staticmethod
     def backward(ctx, g):
         lo = ctx.pos * ctx.n
-        return g[:, lo:lo + ctx.n].contiguous(), None, None, None, None
+        return g[:, lo:lo + ctx.n].contiguous(), None, None, None
 
 
 # --------------------------------------------------------------------------- #
@@ -399,5 +487,5 @@ def pipeline_microbatches(mesh, block_fn: Callable, layer_params: Any,
         mine, lengths, xs)
     out = _FromLast.apply(out, _Link(mesh, axis_name, None))
     if batch_axis:
-        out = _GatherBatch.apply(out, group, line, pos, mesh.transport)
+        out = _GatherBatch.apply(out, group, pos, mesh.transport)
     return out

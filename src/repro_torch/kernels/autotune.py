@@ -67,13 +67,13 @@ class AutotuneCache:
         return os.path.join(self.path, "autotune.json")
 
     def _load(self) -> dict[str, Any]:
-        # every caller already holds self._lock
+        # every caller (get/put/clear/info) already holds self._lock
         if self._mem is None:
             try:
                 with open(self.file) as f:
-                    self._mem = json.load(f)
+                    self._mem = json.load(f)  # owner: lock holder
             except (OSError, ValueError):
-                self._mem = {}
+                self._mem = {}  # owner: lock holder
         return self._mem
 
     def get(self, key: str) -> Any | None:
@@ -97,6 +97,22 @@ class AutotuneCache:
                 os.replace(tmp, self.file)       # atomic on POSIX
             except OSError:
                 pass                             # the cache is best-effort
+
+    def clear(self) -> None:
+        """Forget every entry, in memory and on disk."""
+        with self._lock:
+            self._mem = {}
+            try:
+                os.remove(self.file)
+            except OSError:
+                pass                             # no file: nothing to remove
+
+    def info(self) -> dict[str, Any]:
+        """The cache file, its entry count, and the hits and misses of
+        :meth:`get` so far."""
+        with self._lock:
+            return {"path": self.file, "entries": len(self._load()),
+                    "hits": self.hits, "misses": self.misses}
 
 
 default_cache = AutotuneCache()

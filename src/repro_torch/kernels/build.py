@@ -115,11 +115,17 @@ def check_input(x, name: str, shape_ok, what: str, dtypes=None) -> bool:
     ``dtypes`` are the types the kernel takes (float32 alone by default)."""
     import torch
 
+    from ..core.spmd_pipeline import is_dtensor
+
     dtypes = tuple(dtypes or (torch.float32,))
 
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"{name}: expected a torch.Tensor, got "
                         f"{type(x).__name__}")
+    if is_dtensor(x):
+        raise TypeError(f"{name}: got a DTensor; pass this rank's local "
+                        f"tensor (to_local()), the kernel runs on one "
+                        f"device's memory")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {x.device}")
     if x.device.type == "cpu":

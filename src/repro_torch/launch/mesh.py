@@ -245,8 +245,8 @@ def _rank_main(rank: int, layout: MeshLayout, transport: str, device: str,
         finally:
             _CURRENT = None
             dist.destroy_process_group()
-    except BaseException:                    # reported to the parent, which
-        err = traceback.format_exc()         # fails the call
+    except BaseException as e:               # reported to the parent, which
+        err = "".join(traceback.format_exception(e))     # fails the call
     results.put((rank, err))
 
 

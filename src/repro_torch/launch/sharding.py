@@ -17,7 +17,10 @@ the first outermost).  ``mesh`` is anything with ``axis_names`` and
 :class:`~repro_torch.launch.mesh.RankMesh`.  Paths are the port's
 nested-dict keys joined by "/" (the JAX ``_path_str`` of the same leaf).
 :func:`placements` turns a spec into DTensor placements on a realised
-``DeviceMesh``.
+``DeviceMesh``; :func:`distribute_params` turns a params tree held whole
+into DTensors by :func:`param_shardings_serving`, each rank keeping its
+own shard (the tensor-parallel serving of
+:mod:`repro_torch.models.layers`).
 """
 from __future__ import annotations
 
@@ -32,7 +35,8 @@ __all__ = ["P", "NamedSharding", "guard_spec", "param_spec",
            "param_shardings", "drop_data", "param_shardings_serving",
            "opt_shardings", "batch_spec", "act_spec", "cache_spec",
            "cache_shardings", "placements", "local_shape", "with_spec",
-           "map_with_path", "path_str"]
+           "map_with_path", "path_str", "to_dtensor",
+           "distribute_params"]
 
 
 class P(tuple):
@@ -295,3 +299,38 @@ def with_spec(x, spec):
     if not isinstance(x, DTensor):
         return x
     return x.redistribute(x.device_mesh, placements(x.device_mesh, spec))
+
+
+def to_dtensor(mesh, local, spec, shape: tuple[int, ...]):
+    """A DTensor of global ``shape`` (contiguous) under ``spec`` on
+    ``mesh.device_mesh`` from this rank's shard ``local``; no
+    communication (every rank passes its own shard)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    dm = mesh.device_mesh
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(local, dm, placements(dm, spec),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=stride)
+
+
+def distribute_params(mesh, params: Any) -> Any:
+    """A params tree held whole on every rank (as the JAX→port converter
+    gives it, or drawn from one seed) as DTensors by
+    :func:`param_shardings_serving`: each rank keeps a contiguous copy of
+    its shard (:func:`local_shape` of each leaf) and nothing else of the
+    leaf; no communication."""
+    import torch
+
+    from ..core.spmd_pipeline import shard_bounds
+    from ..core.tree import tree_map
+
+    dm = mesh.device_mesh
+
+    def cut(a, sh):
+        at = shard_bounds(dm, placements(dm, sh.spec), a.shape)
+        local = a[at].clone(memory_format=torch.contiguous_format)
+        return to_dtensor(mesh, local, sh.spec, tuple(a.shape))
+
+    return tree_map(cut, params, param_shardings_serving(mesh, params))

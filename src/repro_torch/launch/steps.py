@@ -17,8 +17,17 @@ layer's weights to their storage spec without the "data" axis
 (:func:`_layer_param_constraint`); the train step also anchors the layer
 carry to the sequence-parallel spec.  On plain tensors (one process
 holding the model whole) every anchor is the identity, and the layout
-still sets the MoE routing groups.  Running the LM tensor-parallel across
-ranks is not done here.
+still sets the MoE routing groups.
+
+Tensor-parallel serving across ranks (the dense family, a ``(1, model)``
+mesh of :func:`~repro_torch.launch.mesh.run_on_local_mesh`): the serve
+steps take weights as DTensors by ``param_shardings_serving``
+(:func:`~repro_torch.launch.sharding.distribute_params` of a tree held
+whole) and a cache by ``cache_shardings`` (:func:`init_cache_sharded`),
+and every rank runs its shard (:mod:`repro_torch.models.layers`); the
+logits come back whole on every rank, and decode writes each rank's part
+of the new K/V into its shard of the cache in place.  Training under a
+model axis is not done here.
 
 The abstract trees (:func:`abstract_params`, :func:`abstract_cache`) are
 meta tensors, drawing and allocating nothing; :func:`batch_structs`,
@@ -34,16 +43,18 @@ from typing import Any
 
 import torch
 
-from ..core.tree import flatten, tree_map, unflatten
+from ..core.spmd_pipeline import is_dtensor
+from ..core.tree import flatten, leaves, tree_map, unflatten
 from ..models import LM
 from ..models.config import ArchConfig, ShapeConfig
 from ..models.layers import NO_DRAW, set_attention_mesh
 from ..models.transformer import torch_dtype
 from ..optim import adamw_init, adamw_update, cosine_schedule
 from .sharding import (NamedSharding, P, act_spec, batch_spec,
-                       cache_shardings, drop_data, guard_spec, map_with_path,
-                       opt_shardings, param_shardings,
-                       param_shardings_serving, param_spec, with_spec)
+                       cache_shardings, drop_data, guard_spec, local_shape,
+                       map_with_path, opt_shardings, param_shardings,
+                       param_shardings_serving, param_spec, to_dtensor,
+                       with_spec)
 
 Params = Any
 
@@ -237,15 +248,49 @@ def train_state_structs(cfg: ArchConfig, mesh):
 # --------------------------------------------------------------------------- #
 # serve steps
 # --------------------------------------------------------------------------- #
+def init_cache_sharded(cfg: ArchConfig, mesh, batch: int,
+                       cache_len: int) -> Params:
+    """``LM(cfg).init_cache``'s zero cache as DTensors by
+    ``cache_shardings``: each rank allocates its shard alone, on its
+    device."""
+    whole = abstract_cache(cfg, batch, cache_len)
+    return tree_map(
+        lambda w, sh: to_dtensor(mesh, torch.zeros(
+            local_shape(mesh, sh.spec, w.shape), dtype=w.dtype,
+            device=mesh.device), sh.spec, w.shape),
+        whole, cache_shardings(mesh, cfg, whole))
+
+
+def _check_sharded(cfg: ArchConfig, params: Params) -> None:
+    """Refuse DTensor weights where tensor-parallel serving is not done:
+    another family than the dense one, or a mesh axis other than
+    ``model`` of more than one rank."""
+    w = leaves(params)[0]
+    if not is_dtensor(w):
+        return
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.arch_id}: tensor-parallel serving runs the dense family; "
+            f"the {cfg.family} family under a model axis is not done here")
+    dm = w.device_mesh
+    other = {n: dm.size(i) for i, n in enumerate(dm.mesh_dim_names)
+             if n != "model" and dm.size(i) > 1}
+    if other:
+        raise NotImplementedError(f"tensor-parallel serving takes a "
+                                  f"(1, model) mesh, not one with {other}")
+
+
 def make_prefill_step(cfg: ArchConfig, mesh=None):
     """→ (model, ``prefill_step(params, batch)``): the full forward without
-    a cache and the last token's logits [B, 1, vocab] f32."""
+    a cache and the last token's logits [B, 1, vocab] f32 (whole on every
+    rank when ``params`` are DTensors, the module docstring)."""
     model = LM(cfg)
     if mesh is not None:
         set_attention_mesh(mesh)
 
     @torch.no_grad()
     def prefill_step(params: Params, batch: dict) -> torch.Tensor:
+        _check_sharded(cfg, params)
         kw = {}
         if cfg.embeds_in:
             kw["embeds"] = batch["embeds"]
@@ -268,6 +313,7 @@ def make_decode_step(cfg: ArchConfig, mesh=None):
 
     @torch.no_grad()
     def serve_step(params: Params, cache: Params, batch: dict):
+        _check_sharded(cfg, params)
         kw = {"embeds": batch["embeds"]} if cfg.embeds_in else {}
         return model.decode_step(params, batch.get("ids"), cache,
                                  int(batch["pos"]), param_constraint=pcon,

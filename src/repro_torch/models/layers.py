@@ -29,6 +29,27 @@ unchanged; a DTensor is redistributed to the divisibility-guarded spec.
 Random init draws from a ``torch.Generator`` on the device the parameters
 live on; given :data:`NO_DRAW` it draws nothing and returns the same tree
 of shapes and types on the meta device.
+
+Tensor-parallel serving across ranks: weights that are DTensors, laid out
+by :func:`repro_torch.launch.sharding.param_shardings_serving` (and a
+cache by ``cache_shardings``), make :func:`attention`, :func:`mlp`,
+:func:`embed` and :func:`lm_logits` run on each rank's shard (Megatron's
+split, which the JAX anchors make GSPMD choose): q, k and v of the rank's
+heads from its columns of ``wq``/``wk``/``wv``, K7 on those local heads,
+their product with the rank's rows of ``attn/wo``; the MLP hidden on the
+rank's ff columns and its rows of ``mlp/wo``; the embedding from the
+rank's vocab rows; the logits of its vocab rows, gathered.  Each row
+split's partial product is kept in f32 and summed over the model axis once
+(:func:`repro_torch.core.spmd_pipeline.all_reduce_sum`, through pinned
+host memory when the ranks share a card), so the activations between
+layers stay whole on every rank and plain tensors.  A dim the guard left
+whole (``n_kv_heads`` not dividing the axis: k and v computed whole, the
+cache's head_dim sharded and gathered to decode) is cut to what the
+rank's heads read.  One body serves both cases: a plain weight is a whole
+shard, and the one-process path computes what it always did.  The
+anchors therefore see local, plain activations here; their DTensor branch
+is what the MoE's expert-parallel dispatch (``_con_groups``,
+``_con_experts``) is to run under.
 """
 from __future__ import annotations
 
@@ -38,6 +59,8 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from ..core.spmd_pipeline import (all_gather_cat, all_reduce_sum,
+                                   group_transport, is_dtensor, local_bounds)
 from ..kernels import ops
 
 Params = Any
@@ -78,7 +101,7 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * (1.0 + p["scale"].to(torch.float32))).to(x.dtype)
+    return (y * (1.0 + _local(p["scale"]).to(torch.float32))).to(x.dtype)
 
 
 # --------------------------------------------------------------------------- #
@@ -262,60 +285,82 @@ def attention(p: Params, x: torch.Tensor, pos=None, *, theta, window: int = 0,
 
     * forward (cache=None): the whole sequence through K7;
     * prefill (cache given, ``cache_pos == 0``): k/v written into the cache
-      (in place), then K7 over the first T cache rows — the rows beyond T
-      are causally masked in the JAX function, so the result is the same;
+      (in place), then K7 over them — the cache rows beyond T are causally
+      masked in the JAX function, so the result is the same;
     * decode (``cache_pos > 0``): plain masked softmax over the cache;
     * cross-attention (``kv_x`` [B, M, d] and no cache): q from ``x``, k
       and v from ``kv_x``, no rope and no mask, through K7 with
       ``causal=False`` (the JAX function's plain softmax below T = 2048
       and its chunked one from there are the same function).
+
+    The weights and the cache are read through this rank's shard (the
+    module docstring): q, k and v of its heads, K7 on them, and its rows of
+    ``wo``; a plain tensor is a whole shard.
     """
     del pos                                     # positions come from T
     window = int(window)
+    wq, wk, wv, wo = p["wq"], p["wk"], p["wv"], p["wo"]
+    if kv_x is not None and is_dtensor(wq):
+        raise NotImplementedError("cross-attention under a model axis (the "
+                                  "vlm family) is not done here")
+    H, hd, KV = wq.shape[1], wq.shape[2], wk.shape[1]
+    heads, kv_heads = local_bounds(wq)[1], local_bounds(wk)[1]
+    rows = local_bounds(wo)[0]
+    if not (heads.start * hd <= rows.start and rows.stop <= heads.stop * hd):
+        raise ValueError(f"attn/wo rows {rows} are not among the rows of "
+                         f"this rank's heads {heads}")
     B, T, _ = x.shape
-    q = torch.einsum("btd,dnh->btnh", x, p["wq"])
+    q = torch.einsum("btd,dnh->btnh", x, _local(wq))
     src = x if kv_x is None else kv_x
-    k = torch.einsum("bmd,dnh->bmnh", src, p["wk"])
-    v = torch.einsum("bmd,dnh->bmnh", src, p["wv"])
-    H, hd = q.shape[2], q.shape[3]
+    k = torch.einsum("bmd,dnh->bmnh", src, _local(wk))
+    v = torch.einsum("bmd,dnh->bmnh", src, _local(wv))
+    start = 0 if cache is None else int(cache_pos)
+    q_pos = start + torch.arange(T, device=x.device)
+    if kv_x is None:
+        q = apply_rope(q, q_pos[None, :], theta)
+        k = apply_rope(k, q_pos[None, :], theta)
 
-    new_cache = None
+    kv_lo, new_cache = kv_heads.start, None
     if cache is not None:
-        start = int(cache_pos)
-        q_pos = start + torch.arange(T, device=x.device)
-        q = apply_rope(q, q_pos[None, :], theta)
-        k = apply_rope(k, q_pos[None, :], theta)
         ck, cv = cache["k"], cache["v"]
-        ck[:, start:start + T] = k.to(ck.dtype)
-        cv[:, start:start + T] = v.to(cv.dtype)
+        cb = local_bounds(ck)                   # [B, M, KV, hd]
+        if cb[2].start < kv_heads.start or cb[2].stop > kv_heads.stop:
+            raise ValueError(f"cache kv heads {cb[2]} are not among this "
+                             f"rank's {kv_heads}")
+        ckl, cvl = _local(ck), _local(cv)
+        lo, hi = cb[2].start - kv_lo, cb[2].stop - kv_lo
+        ckl[:, start:start + T] = _cut(_cut(k, 2, lo, hi), 3, cb[3].start,
+                                       cb[3].stop).to(ckl.dtype)
+        cvl[:, start:start + T] = _cut(_cut(v, 2, lo, hi), 3, cb[3].start,
+                                       cb[3].stop).to(cvl.dtype)
         new_cache = {"k": ck, "v": cv}
-        if start == 0:                          # prefill: K7
-            out = ops.attention(_con_heads(q),
-                                _con_heads(expand_kv(ck[:, :T], H)),
-                                _con_heads(expand_kv(cv[:, :T], H)), True,
-                                window).reshape(B, T, H * hd)
-        else:                                   # decode
-            k_pos = torch.arange(ck.shape[1], device=x.device)
-            mask = attn_mask(q_pos, k_pos, window)
-            scores = gqa_scores(_con_heads(q), _con_heads(expand_kv(ck, H)))
-            scores = torch.where(mask[None, None], scores,
-                                 torch.full((), NEG_INF, device=x.device))
-            probs = torch.softmax(scores, dim=-1).to(x.dtype)
-            out = gqa_combine(probs, _con_heads(expand_kv(cv, H)))
-    elif kv_x is not None:                      # cross-attention: K7
-        out = ops.attention(_con_heads(q), _con_heads(expand_kv(k, H)),
-                            _con_heads(expand_kv(v, H)), False,
-                            0).reshape(B, T, H * hd)
-    else:                                       # forward: K7
-        q_pos = torch.arange(T, device=x.device)
-        q = apply_rope(q, q_pos[None, :], theta)
-        k = apply_rope(k, q_pos[None, :], theta)
-        out = ops.attention(_con_heads(q), _con_heads(expand_kv(k, H)),
-                            _con_heads(expand_kv(v, H)), True,
-                            window).reshape(B, T, H * hd)
-
-    y = torch.einsum("btf,fd->btd", out, p["wo"])
-    return y, new_cache
+        if start == 0:                          # prefill: what was written
+            k, v = k.to(ckl.dtype), v.to(cvl.dtype)
+        else:                                   # decode: the whole cache
+            k, v, kv_lo = ckl, cvl, cb[2].start
+            if cb[3].stop - cb[3].start != hd:      # head_dim sharded
+                line = _model_line(ck)
+                k = all_gather_cat(k.contiguous(), 3, *line)
+                v = all_gather_cat(v.contiguous(), 3, *line)
+    q = _con_heads(q)
+    ke = _con_heads(_kv_for_heads(k, kv_lo, heads, H // KV))
+    ve = _con_heads(_kv_for_heads(v, kv_lo, heads, H // KV))
+    Hl = heads.stop - heads.start
+    if start == 0:                              # forward / prefill / cross
+        out = ops.attention(q, ke, ve, kv_x is None,
+                            window if kv_x is None else 0
+                            ).reshape(B, T, Hl * hd)
+    else:                                       # decode
+        k_pos = torch.arange(k.shape[1], device=x.device)
+        mask = attn_mask(q_pos, k_pos, window)
+        scores = gqa_scores(q, ke)
+        scores = torch.where(mask[None, None], scores,
+                             torch.full((), NEG_INF, device=x.device))
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        out = gqa_combine(probs, ve)
+    out = _cut(out, 2, rows.start - heads.start * hd,
+               rows.stop - heads.start * hd)
+    return _row_parallel(out, wo), new_cache
 
 
 # --------------------------------------------------------------------------- #
@@ -328,10 +373,15 @@ def mlp_init(generator: torch.Generator, d: int, ff: int,
 
 
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
-    gu = _con_ff(torch.einsum("btd,dcf->btcf", x, p["wi"]))
+    """SwiGLU on this rank's ff columns of ``wi`` and rows of ``wo`` (the
+    whole of each for plain tensors)."""
+    wi, wo = p["wi"], p["wo"]
+    cols, rows = local_bounds(wi)[2], local_bounds(wo)[0]
+    gu = _con_ff(torch.einsum("btd,dcf->btcf", x, _local(wi)))
     g, u = gu[:, :, 0], gu[:, :, 1]
     h = _con_ff(F.silu(g) * u)
-    return torch.einsum("btf,fd->btd", h, p["wo"])
+    return _row_parallel(_cut(h, 2, rows.start - cols.start,
+                              rows.stop - cols.start), wo)
 
 
 # --------------------------------------------------------------------------- #
@@ -347,8 +397,19 @@ def embed(p: Params, ids: torch.Tensor) -> torch.Tensor:
     """The table's rows at ``ids`` (the JAX ``jnp.take``).  ``F.embedding``
     sums a row's gradient without atomics, the same on every run; a
     subscript's gradient (``index_put_`` with accumulate) adds with float
-    atomics on the card."""
-    return F.embedding(ids, p["table"])
+    atomics on the card.  Over a vocab-sharded table each rank gives the
+    rows of the ids it holds and zeros for the rest, summed over the model
+    axis (exact)."""
+    table = p["table"]
+    vb, local = local_bounds(table)[0], _local(table)
+    if vb.stop - vb.start == table.shape[0]:
+        return F.embedding(ids, local)
+    at = ids - vb.start
+    mine = (at >= 0) & (at < local.shape[0])
+    rows = F.embedding(torch.where(mine, at, torch.zeros_like(at)), local)
+    rows = torch.where(mine[..., None], rows,
+                       torch.zeros((), dtype=rows.dtype, device=rows.device))
+    return all_reduce_sum(rows, *_model_line(table))
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -406,7 +467,65 @@ def logits_f32(h: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 def lm_logits(p: Params, h: torch.Tensor, vocab: int) -> torch.Tensor:
     """[B, T, d] → [B, T, vocab] f32 (products of the input type, summed in
     f32, as the JAX einsum's ``preferred_element_type``), without an f32
-    copy of the table."""
+    copy of the table.  Over a vocab-sharded table each rank's rows'
+    logits, gathered over the model axis."""
     B, T, d = h.shape
-    return _mm_f32(h.reshape(B * T, d),
-                   p["table"][:vocab].t()).reshape(B, T, vocab)
+    table = p["table"]
+    vb = local_bounds(table)[0]
+    if vb.stop - vb.start == table.shape[0]:
+        return _mm_f32(h.reshape(B * T, d),
+                       _local(table)[:vocab].t()).reshape(B, T, vocab)
+    part = _mm_f32(h.reshape(B * T, d), _local(table).t())
+    part = all_gather_cat(part, 1, *_model_line(table))
+    return part[:, :vocab].reshape(B, T, vocab)
+
+
+# --------------------------------------------------------------------------- #
+# This rank's shard of a weight (tensor-parallel serving)
+# --------------------------------------------------------------------------- #
+def _local(x):
+    """A DTensor's local tensor (no communication); a plain tensor as it
+    is."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def _cut(x: torch.Tensor, dim: int, lo: int, hi: int) -> torch.Tensor:
+    """``x``'s indices ``lo..hi-1`` along ``dim``; ``x`` itself when that
+    is all of it."""
+    if lo == 0 and hi == x.shape[dim]:
+        return x
+    return x.narrow(dim, lo, hi - lo)
+
+
+def _model_line(w) -> tuple:
+    """(process group, transport) of DTensor ``w``'s ``model`` mesh axis."""
+    group = w.device_mesh.get_group("model")
+    return group, group_transport(group, w.to_local().device)
+
+
+def _row_parallel(h: torch.Tensor, w) -> torch.Tensor:
+    """[B, T, f] h @ w [F, d], h holding w's local rows: the one-process
+    product when they are all of w's rows, else a partial product in f32
+    summed over the model axis and rounded once to h's type."""
+    rows = local_bounds(w)[0]
+    if rows.stop - rows.start == w.shape[0]:
+        return torch.einsum("btf,fd->btd", h, _local(w))
+    B, T, f = h.shape
+    part = _mm_f32(h.reshape(B * T, f), _local(w))
+    return all_reduce_sum(part, *_model_line(w)).to(h.dtype).reshape(
+        B, T, -1)
+
+
+def _kv_for_heads(kv: torch.Tensor, kv_lo: int, heads: slice,
+                  G: int) -> torch.Tensor:
+    """The [B, M, h, hd] k or v that q heads ``heads`` read (G q heads a
+    kv head), from ``kv`` [B, M, n, hd] holding kv heads
+    ``kv_lo..kv_lo+n-1``: :func:`expand_kv` of their kv heads when the
+    heads are whole groups (with the kv heads sharded: all the rank holds,
+    no communication), else a take of each head's kv head."""
+    h = heads.stop - heads.start
+    if heads.start % G == 0 and h % G == 0:
+        lo = heads.start // G - kv_lo
+        return expand_kv(_cut(kv, 2, lo, lo + h // G), h)
+    idx = torch.arange(heads.start, heads.stop, device=kv.device) // G
+    return kv.index_select(2, idx - kv_lo)

@@ -46,6 +46,7 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..core.placement import resolve_device
+from ..core.spmd_pipeline import is_dtensor, unbind_layers
 from ..core.tree import flatten, tree_map, unflatten
 from ..kernels import ops
 from .config import ArchConfig
@@ -172,9 +173,12 @@ def _cross_from_cache(p: Params, h: torch.Tensor, img_kv: Params, *,
 def _unstack(tree: Params, dims: int = 1) -> list[Params]:
     """The layers of a stacked ``[L, ...]`` tree (or, ``dims=2``, of a
     ``[G, per, ...]`` one, in the order g * per + j; views, no copies): one
-    ``unbind`` per leaf, so autograd stacks the layers' gradients once."""
+    ``unbind`` per leaf, so autograd stacks the layers' gradients once.  A
+    DTensor leaf (tensor-parallel serving) gives DTensors, views of its
+    local tensor."""
     flat, treedef = flatten(tree)
-    cols = [a.flatten(0, dims - 1).unbind(0) for a in flat]
+    cols = [unbind_layers(a) if dims == 1 and is_dtensor(a)
+            else a.flatten(0, dims - 1).unbind(0) for a in flat]
     return [unflatten(treedef, [c[i] for c in cols])
             for i in range(len(cols[0]))]
 

@@ -1092,3 +1092,67 @@ def test_two_rank_pipeline_of_full_width_gemma_layers_sharing_the_card(
                                  "flash_attention_bwd_dq": M,
                                  "flash_attention_bwd_dkv": M}
         assert all(v["simt_f32"] == 0 for v in r["routes"].values())
+
+
+def test_two_rank_tensor_parallel_serving_sharing_the_card(cuda_device):
+    """A reduced bf16 gemma3 (4 layers, a local window under the prompt's
+    length, hd 64) served tensor-parallel on a (1, 2) mesh of ranks sharing
+    the card (gloo, collectives through pinned host memory): each rank
+    holds half of the heads, ff and vocab; the prefill step's logits, three
+    teacher-forced decode steps' logits and the gathered cache against the
+    whole-model run here within 2e-2 of max |reference| (bf16: the f32
+    partial sums round once, in another order); K7 on the wgmma route on
+    every rank."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps as TST
+    from repro_torch.launch.mesh import run_on_local_mesh
+
+    from torch_spmd_ranks import tp_serve_rank
+
+    cfg = dc.replace(get_config("gemma3-12b").reduced(), dtype="bfloat16",
+                     head_dim=64, d_model=256, d_ff=512)
+    build.load("flash_attention")            # built once, before the spawn
+    model = LM(cfg)
+    params = model.init(torch.Generator(cuda_device).manual_seed(0))
+    g = torch.Generator(cuda_device).manual_seed(1)
+    ids = torch.randint(0, cfg.vocab, (2, 40), generator=g,
+                        device=cuda_device)
+    steps = torch.randint(0, cfg.vocab, (2, 3), generator=g,
+                          device=cuda_device)
+    _, pre = TST.make_prefill_step(cfg)
+    ref = pre(params, {"ids": ids})
+    cache = model.init_cache(2, 43)
+    model.prefill(params, ids, cache)
+    _, dec = TST.make_decode_step(cfg)
+    ref_dec = [dec(params, cache, {"ids": steps[:, j:j + 1],
+                                   "pos": 40 + j})[0] for j in range(3)]
+    res = run_on_local_mesh((1, 2), ("data", "model"), tp_serve_rank, cfg,
+                            tree_map(lambda a: a.cpu(), params), ids.cpu(),
+                            steps.cpu(), device="cuda", timeout=600)
+
+    def close(got, want):
+        want = want.float()
+        assert (got.to(cuda_device).float() - want).abs().max() <= (
+            2e-2 * want.abs().max())
+
+    for r in res:
+        assert r["all_dtensors"]
+        assert r["shapes"]["layers/attn/wq"][0][2] == cfg.n_heads // 2
+        assert r["shapes"]["layers/mlp/wi"][0][3] == cfg.d_ff // 2
+        assert r["shapes"]["embed/table"][0][0] == cfg.vocab_padded // 2
+        close(r["logits"], ref)
+        for got, want in zip(r["decode"], ref_dec):
+            close(got, want)
+        assert r["k7_routes"]["wgmma_bf16"] == 2 * cfg.n_layers
+        assert r["k7_routes"]["simt_f32"] == 0
+    for name in ("k", "v"):
+        full = torch.zeros(res[0]["cache"][name][2], dtype=torch.bfloat16)
+        for r in res:
+            local, bounds, _ = r["cache"][name]
+            assert local.shape[3] == cfg.n_kv_heads // 2
+            full[bounds] = local
+        close(full, cache[name])

@@ -378,3 +378,17 @@ def test_simt_backward_tiles_meet_the_element_wise_f32_limit(case):
     if case == CASES[0]:                # causal T = 256: up to 4 tiles
         assert most == 256 // fa.simt_bwd_tile(hd)
 
+
+
+def test_simt_backward_blocks_fit_the_shared_memory_a_block_may_take():
+    """Every head_dim's f32 K8 and K9 block fits the 227 KB a block may
+    take with its two-stage ring, and one stage takes less: the mirror of
+    the kernels' shared memory that chip_smoke.py holds to ptxas."""
+    for hd in fa.HEAD_DIMS:
+        for dkv in (False, True):
+            one = fa.simt_bwd_smem_bytes(dkv, hd, 1)
+            two = fa.simt_bwd_smem_bytes(dkv, hd)
+            assert one < two <= 232_448
+        # K9's tiles carry their lse and delta, and it keeps ds beside p
+        assert fa.simt_bwd_smem_bytes(True, hd) > fa.simt_bwd_smem_bytes(
+            False, hd)

@@ -657,6 +657,34 @@ def test_a_jax_checkpoint_restores_into_the_ports_tree(tmp_path):
     assert mine["leaves"] == theirs["leaves"]
 
 
+def test_the_ports_checkpoint_restores_into_the_jax_tree(tmp_path):
+    """The other way: the JAX store's restore reads what the port's store
+    wrote (bf16 params, the AdamW moments and step), each leaf equal."""
+    jc, tc = _cfgs(n_layers=2, dtype="bfloat16")
+    jp = _jax_params(jc)
+    tp = params_from_numpy(jp, tc.dtype, device="cpu")
+    opt = adamw_init(tp)
+    opt = opt._replace(step=torch.tensor(7, dtype=torch.int32),
+                       m=tree_map(lambda a: torch.full_like(a, 0.25), opt.m),
+                       v=tree_map(lambda a: torch.full_like(a, 0.5), opt.v))
+    CheckpointStore(str(tmp_path)).save(7, {"params": tp, "opt": opt},
+                                        {"next_step": 7})
+    like = {"params": jax.tree.map(jnp.zeros_like, jp),
+            "opt": j_adamw_init(jp)}
+    got, extra = JStore(str(tmp_path)).restore(None, like=like)
+    assert extra == {"next_step": 7} and int(got["opt"].step) == 7
+    for g, w in zip(jax.tree.leaves(got["params"]), leaves(tp)):
+        assert str(g.dtype) == "bfloat16"
+        np.testing.assert_array_equal(np.asarray(g, np.float32),
+                                      w.float().numpy())
+    for g, w in zip(jax.tree.leaves(got["opt"].m), leaves(opt.m)):
+        np.testing.assert_array_equal(np.asarray(g, np.float32),
+                                      w.float().numpy())
+    for g, w in zip(jax.tree.leaves(got["opt"].v), leaves(opt.v)):
+        np.testing.assert_array_equal(np.asarray(g, np.float32),
+                                      w.float().numpy())
+
+
 # --------------------------------------------------------------------------- #
 # the fault-tolerant driver
 # --------------------------------------------------------------------------- #

@@ -93,3 +93,107 @@ def gemma_pipeline_rank(mesh, first, seed, xs_seed, n_micro, seq_len):
             "grad": tree_map(lambda a: a.grad[0, 0], weights),
             "launches": dict(fa.LAUNCHES),
             "routes": {k: dict(v) for k, v in fa.ROUTE_LAUNCHES.items()}}
+
+
+def tp_serve_rank(mesh, cfg, params, ids, steps):
+    """Tensor-parallel serving of ``cfg`` on the mesh's model axis from a
+    params tree held whole: each leaf's local and global shape and its
+    spec, the prefill step's logits, the cache filled by ``LM.prefill``,
+    the decode step's logits for each of ``steps`` [B, n] tokens
+    (teacher-forced), this rank's cache shards with their bounds, and its
+    K7 launches by route."""
+    from repro_torch.core.spmd_pipeline import is_dtensor, local_bounds
+    from repro_torch.core.tree import leaves, tree_map
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import sharding as TS
+    from repro_torch.launch import steps as TST
+    from repro_torch.models import layers
+
+    fa.reset_launches()
+    try:
+        sharded = TS.distribute_params(mesh, tree_map(
+            lambda a: a.to(mesh.device), params))
+        specs = TS.param_shardings_serving(mesh, params)
+        shapes = {}
+        TS.map_with_path(lambda p, a: shapes.__setitem__(
+            TS.path_str(p), (tuple(a.to_local().shape), tuple(a.shape))),
+            sharded)
+        spec_of = {}
+        TS.map_with_path(lambda p, sh: spec_of.__setitem__(
+            TS.path_str(p), tuple(sh.spec)), specs)
+        ids = ids.to(mesh.device)
+        model, pre = TST.make_prefill_step(cfg, mesh)
+        logits = pre(sharded, {"ids": ids})
+        S, n = ids.shape[1], steps.shape[1]
+        cache = TST.init_cache_sharded(cfg, mesh, ids.shape[0], S + n)
+        model.prefill(sharded, ids, cache)
+        _, dec = TST.make_decode_step(cfg, mesh)
+        dec_logits = []
+        for j in range(n):
+            lg, cache = dec(sharded, cache,
+                            {"ids": steps[:, j:j + 1].to(mesh.device),
+                             "pos": S + j})
+            dec_logits.append(lg.cpu())
+        shards = {}
+        TS.map_with_path(lambda p, a: shards.__setitem__(
+            TS.path_str(p), (a.to_local().cpu(), local_bounds(a),
+                             tuple(a.shape))), cache)
+        return {"shapes": shapes, "specs": spec_of,
+                "logits": logits.cpu(), "decode": dec_logits,
+                "cache": shards,
+                "all_dtensors": all(is_dtensor(a)
+                                    for a in leaves(sharded)),
+                "k7_routes": dict(fa.ROUTE_LAUNCHES["flash_attention"])}
+    finally:
+        layers.set_attention_mesh(None)
+
+
+def tp_init_rank(mesh, cfg, moe_cfg, seed):
+    """``distribute_params`` of a whole draw: each leaf's local tensor is
+    the whole leaf at its ``local_bounds``, contiguous, and nothing else;
+    ``init_cache_sharded``'s local shapes; the refusals: the serve step's
+    of a data axis over one rank and of the moe family, and K7's of a
+    DTensor (its plain version must not take one)."""
+    from repro_torch.core.spmd_pipeline import local_bounds
+    from repro_torch.core.tree import leaves
+    from repro_torch.launch import sharding as TS
+    from repro_torch.launch import steps as TST
+    from repro_torch.models import LM, layers
+
+    def gen():
+        return torch.Generator(mesh.device).manual_seed(seed)
+
+    whole = LM(cfg).init(gen())
+    drawn = TS.distribute_params(mesh, whole)
+    same = all(torch.equal(d.to_local(), w[local_bounds(d)])
+               and d.to_local().is_contiguous() and d.shape == w.shape
+               for d, w in zip(leaves(drawn), leaves(whole)))
+    cache = TST.init_cache_sharded(cfg, mesh, 4, 16)
+    shapes = {}
+    TS.map_with_path(lambda p, a: shapes.__setitem__(
+        TS.path_str(p), tuple(a.to_local().shape)), cache)
+    ids = torch.zeros((4, 8), dtype=torch.long)
+    from repro_torch.kernels import ops
+
+    q = TS.to_dtensor(mesh, torch.zeros((2, 4, 2, 16)),
+                      TS.P(None, None, "model", None), (2, 4, 4, 16))
+    refused = {}
+    try:
+        ops.attention(q, q, q, True, 0)
+        refused["dtensor_kernel"] = ""
+    except TypeError as e:
+        refused["dtensor_kernel"] = str(e)
+    try:
+        for key, c, p in (("data_refused", cfg, drawn),
+                          ("moe_refused", moe_cfg, TS.distribute_params(
+                              mesh, LM(moe_cfg).init(gen())))):
+            try:
+                TST.make_prefill_step(c, mesh)[1](p, {"ids": ids})
+                refused[key] = ""
+            except NotImplementedError as e:
+                refused[key] = str(e)
+    finally:
+        layers.set_attention_mesh(None)
+    return {"shards_of_whole_draw": same, "cache_shapes": shapes,
+            "cache_zero": all(not a.to_local().any() for a in leaves(cache)),
+            **refused}
