@@ -35,10 +35,16 @@ send.  JAX has one controller and torch one a rank: every rank of
 loss computed alike on every rank is taken from the last stage's own copy
 only, so it is JAX's and not S times it.
 
-The collectives (:func:`all_reduce_sum`, :func:`all_gather_cat`) and the
-DTensor helpers (:func:`local_bounds`, :func:`unbind_layers`,
+The collectives, Megatron's conjugate pairs under autograd
+(:func:`all_reduce_sum` and :func:`copy_to_ranks`, :func:`all_gather_cat`
+and :func:`own_part`, and for the sequence-parallel carry
+:func:`gather_seq` and :func:`reduce_scatter`, all on
+:func:`reduce_over_ranks` and :func:`gather_over_ranks`), and the DTensor
+helpers (:func:`local_bounds`, :func:`unbind_layers`, :func:`with_spec`,
 :func:`group_transport`) also serve the tensor-parallel layers of
-:mod:`repro_torch.models.layers`.
+:mod:`repro_torch.models.layers`.  The rank mesh of a process of
+:func:`~repro_torch.launch.mesh.run_on_local_mesh` is registered here
+(:func:`current_mesh`), so nothing below the launcher imports it.
 """
 from __future__ import annotations
 
@@ -52,9 +58,31 @@ import torch.distributed as dist
 from .tree import flatten, leaves, tree_map, unflatten
 
 __all__ = ["stack_stage_params", "stage_apply", "spmd_pipeline_fn",
-           "pipeline_microbatches", "all_reduce_sum", "all_gather_cat",
-           "is_dtensor", "shard_bounds", "local_bounds", "unbind_layers",
-           "group_transport"]
+           "pipeline_microbatches", "current_mesh", "set_current_mesh",
+           "reduce_over_ranks", "gather_over_ranks", "all_reduce_sum",
+           "copy_to_ranks", "all_gather_cat", "own_part", "gather_seq",
+           "reduce_scatter", "is_dtensor", "local_tensor", "like_dtensor",
+           "sharded_dims", "placements", "with_spec", "shard_bounds",
+           "local_bounds", "unbind_layers", "group_transport"]
+
+
+# --------------------------------------------------------------------------- #
+# This process's rank mesh
+# --------------------------------------------------------------------------- #
+_CURRENT_MESH = None
+
+
+def current_mesh():
+    """The :class:`~repro_torch.launch.mesh.RankMesh` of this process
+    inside :func:`~repro_torch.launch.mesh.run_on_local_mesh` (which
+    registers it with :func:`set_current_mesh`), else None."""
+    return _CURRENT_MESH
+
+
+def set_current_mesh(mesh) -> None:
+    """Register this process's rank mesh (None clears it)."""
+    global _CURRENT_MESH
+    _CURRENT_MESH = mesh
 
 
 # --------------------------------------------------------------------------- #
@@ -235,36 +263,158 @@ class _FromLast(torch.autograd.Function):
         return (g if ctx.mine else torch.zeros_like(g)), None
 
 
-def all_reduce_sum(t: torch.Tensor, group, transport: str) -> torch.Tensor:
-    """The sum of ``t`` over ``group``'s ranks, a new tensor like ``t``:
-    NCCL sums on the card in ``t``'s type; gloo (which takes no CUDA
-    tensor and lacks bf16 sums) sums in f32 on the host, staged in pinned
-    host memory when the ranks share a card.  On an H100 shared by 2
-    ranks, gathering the f32 partials instead and adding them on the card
-    took 1.5-1.8x the host add's time."""
+def reduce_over_ranks(t: torch.Tensor, group, transport: str, *,
+                      op: str = "sum", backward: bool = False
+                      ) -> torch.Tensor:
+    """The sum (``op="sum"``) or the max (``op="max"``) of ``t`` over
+    ``group``'s ranks, a new tensor like ``t``, outside autograd: NCCL
+    reduces on the card in ``t``'s type; gloo (which takes no CUDA tensor
+    and lacks bf16 sums) in f32 on the host, staged in pinned host memory
+    when the ranks share a card.  On an H100 shared by 2 ranks, gathering
+    the f32 partials instead and adding them on the card took 1.5-1.8x the
+    host add's time.  ``backward`` tells an instrumented copy of this
+    function that a backward pass called it; it changes nothing here."""
+    del backward
+    rop = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
     if transport == "nccl":
         t = t.contiguous().clone()
-        dist.all_reduce(t, group=group)
+        dist.all_reduce(t, op=rop, group=group)
         return t
     f = torch.empty(t.shape, dtype=torch.float32,
                     pin_memory=transport == "gloo+pinned")
     f.copy_(t)
-    dist.all_reduce(f, group=group)
+    dist.all_reduce(f, op=rop, group=group)
     return f.to(device=t.device, dtype=t.dtype)
 
 
-def all_gather_cat(t: torch.Tensor, dim: int, group,
-                   transport: str) -> torch.Tensor:
+def gather_over_ranks(t: torch.Tensor, dim: int, group, transport: str, *,
+                      backward: bool = False) -> torch.Tensor:
     """Every rank's ``t`` of ``group``, concatenated along ``dim`` in
-    group-rank order: this rank's ``t`` itself, the others' received
-    (exact: gloo moves raw bytes, through pinned host memory when the
-    ranks share a card)."""
+    group-rank order, outside autograd: this rank's ``t`` itself, the
+    others' received (exact: gloo moves raw bytes, through pinned host
+    memory when the ranks share a card).  ``backward`` as in
+    :func:`reduce_over_ranks`."""
+    del backward
     ws = [_wire_empty(t, transport)
           for _ in range(dist.get_world_size(group))]
     dist.all_gather(ws, _to_wire(t, transport), group=group)
     me = dist.get_rank(group)
     return torch.cat([t if i == me else _from_wire(w, t, transport)
                       for i, w in enumerate(ws)], dim=dim)
+
+
+def _own(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's part of ``t`` along ``dim`` (parts in group-rank
+    order, as :func:`gather_over_ranks` concatenates them)."""
+    n = t.shape[dim] // dist.get_world_size(group)
+    return t.narrow(dim, dist.get_rank(group) * n, n).contiguous()
+
+
+# The collectives under autograd, in Megatron's conjugate pairs: each
+# function's backward is its partner's forward.  Every backward collective
+# comes in the reverse of the forward order on every rank, since the ranks
+# build the same graph.
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, transport):
+        return reduce_over_ranks(t, group, transport)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyToRanks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, transport):
+        ctx.group, ctx.transport = group, transport
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (reduce_over_ranks(g, ctx.group, ctx.transport,
+                                  backward=True), None, None)
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group, transport, sum_grad):
+        ctx.dim, ctx.group, ctx.transport = dim, group, transport
+        ctx.sum_grad = sum_grad
+        return gather_over_ranks(t, dim, group, transport)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.sum_grad:
+            g = reduce_over_ranks(g, ctx.group, ctx.transport, backward=True)
+        return _own(g, ctx.dim, ctx.group), None, None, None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group, transport, sum_first):
+        ctx.dim, ctx.group, ctx.transport = dim, group, transport
+        if sum_first:
+            t = reduce_over_ranks(t, group, transport)
+        return _own(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (gather_over_ranks(g.contiguous(), ctx.dim, ctx.group,
+                                  ctx.transport, backward=True),
+                None, None, None, None)
+
+
+def all_reduce_sum(t: torch.Tensor, group, transport: str) -> torch.Tensor:
+    """The sum of ``t`` over ``group``'s ranks (:func:`reduce_over_ranks`);
+    the gradient passes as it is (the sum of a row split's partial
+    products: every rank's part of the sum takes the whole gradient)."""
+    return _AllReduceSum.apply(t, group, transport)
+
+
+def copy_to_ranks(t: torch.Tensor, group, transport: str) -> torch.Tensor:
+    """``t`` itself, whose gradient is summed over ``group``'s ranks: the
+    input every rank holds whole as it enters a column split (each rank's
+    columns give a part of its gradient).  The transpose of
+    :func:`all_reduce_sum`."""
+    return _CopyToRanks.apply(t, group, transport)
+
+
+def all_gather_cat(t: torch.Tensor, dim: int, group,
+                   transport: str) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim``
+    (:func:`gather_over_ranks`); the gradient of the whole is this rank's
+    slice of it (every rank holds the whole gradient)."""
+    return _Gather.apply(t, dim, group, transport, False)
+
+
+def own_part(t: torch.Tensor, dim: int, group, transport: str
+             ) -> torch.Tensor:
+    """This rank's part of ``t``, which every rank holds whole, along
+    ``dim``; the gradients of the parts are gathered.  The transpose of
+    :func:`all_gather_cat`."""
+    return _Split.apply(t, dim, group, transport, False)
+
+
+def gather_seq(t: torch.Tensor, dim: int, group, transport: str
+               ) -> torch.Tensor:
+    """The sequence-parallel carry's parts gathered along ``dim`` as it
+    enters a column split; each rank's gradient of the whole is a part
+    (its columns'), so the gradient is summed over the ranks and this
+    rank's slice kept."""
+    return _Gather.apply(t, dim, group, transport, True)
+
+
+def reduce_scatter(t: torch.Tensor, dim: int, group, transport: str
+                   ) -> torch.Tensor:
+    """This rank's part along ``dim`` of the sum of ``t`` over the ranks (a
+    row split's partial products, kept as the sequence-parallel carry);
+    the gradients of the parts are gathered.  The transpose of
+    :func:`gather_seq`.  gloo has no reduce-scatter: the sum is
+    :func:`reduce_over_ranks`' (the f32 host add, measured the faster on
+    one card), then the slice, so the split carry holds the same bits as
+    the whole one; each rank receives m times the bytes it keeps."""
+    return _Split.apply(t, dim, group, transport, True)
 
 
 # --------------------------------------------------------------------------- #
@@ -275,6 +425,68 @@ def is_dtensor(x) -> bool:
     imported, so a process that never shards does not import it)."""
     mod = sys.modules.get("torch.distributed.tensor")
     return mod is not None and isinstance(x, mod.DTensor)
+
+
+def local_tensor(x):
+    """A DTensor's local tensor (no communication); a plain tensor as it
+    is."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def like_dtensor(local: torch.Tensor, x):
+    """``local`` as a DTensor laid out as DTensor ``x`` (its mesh,
+    placements, global shape and stride): this rank's part of a tensor
+    shaped like ``x``; no communication.  ``local`` itself when ``x`` is
+    a plain tensor."""
+    if not is_dtensor(x):
+        return local
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local, x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def sharded_dims(x) -> tuple:
+    """The mesh dims of more than one rank over which DTensor ``x`` is
+    sharded (none for a plain tensor): the ranks along them hold
+    different parts of it."""
+    if not is_dtensor(x):
+        return ()
+    return tuple(m for m, pl in enumerate(x.placements)
+                 if pl.is_shard() and x.device_mesh.size(m) > 1)
+
+
+def placements(device_mesh, spec) -> tuple:
+    """DTensor placements of ``spec`` on ``device_mesh`` (whose dim names
+    are the spec's axes): ``Shard(d)`` on every mesh dim named in tensor
+    dim d's entry, ``Replicate()`` on the rest.  A dim over two axes
+    (``("pod", "data")``) is ``Shard(d)`` on both, split in mesh-dim order,
+    as the spec's tuple orders them."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = device_mesh.mesh_dim_names
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        for a in (entry if isinstance(entry, tuple) else (entry,)):
+            if a is not None:
+                out[names.index(a)] = Shard(d)
+    return tuple(out)
+
+
+def with_spec(x, spec):
+    """``x`` redistributed to ``spec`` when it is a DTensor laid out
+    otherwise; a DTensor already in that layout (its placements may differ
+    only on mesh dims of one rank) and a plain tensor (held whole by one
+    process) unchanged."""
+    if not is_dtensor(x):
+        return x
+    dm = x.device_mesh
+    want = placements(dm, spec)
+    if all(a == b for m, (a, b) in enumerate(zip(x.placements, want))
+           if dm.size(m) > 1):
+        return x
+    return x.redistribute(dm, want)
 
 
 def shard_bounds(device_mesh, placements, shape) -> tuple:
@@ -330,7 +542,8 @@ def group_transport(group, device) -> str:
 class _SumGrads(torch.autograd.Function):
     """Identity over a rank's copy of replicated leaves; their gradients
     summed over ``groups`` (each rank's stage reads its own slice, so the
-    sum is the whole gradient — JAX's transpose of a replicated input)."""
+    sum is the whole gradient — JAX's transpose of a replicated input).
+    One node for all the leaves, so every rank sums them in one order."""
 
     @staticmethod
     def forward(ctx, groups, transport, *xs):
@@ -342,24 +555,9 @@ class _SumGrads(torch.autograd.Function):
         out = []
         for g in gs:
             for group in ctx.groups:
-                g = all_reduce_sum(g, group, ctx.transport)
+                g = reduce_over_ranks(g, group, ctx.transport, backward=True)
             out.append(g)
         return (None, None, *out)
-
-
-class _GatherBatch(torch.autograd.Function):
-    """All-gather of the batch shards along dim 1; the backward takes this
-    rank's own slice of the gradient."""
-
-    @staticmethod
-    def forward(ctx, local, group, rank_pos, transport):
-        ctx.pos, ctx.n = rank_pos, local.shape[1]
-        return all_gather_cat(local, 1, group, transport)
-
-    @staticmethod
-    def backward(ctx, g):
-        lo = ctx.pos * ctx.n
-        return g[:, lo:lo + ctx.n].contiguous(), None, None, None
 
 
 # --------------------------------------------------------------------------- #
@@ -388,8 +586,6 @@ def spmd_pipeline_fn(block_fn: Callable[[Any, torch.Tensor], torch.Tensor],
     """
 
     def fn(stage_params, lengths, xs):
-        from ..launch.mesh import current_mesh
-
         mesh = current_mesh()
         if mesh is None:
             if n_stages != 1:
@@ -487,5 +683,5 @@ def pipeline_microbatches(mesh, block_fn: Callable, layer_params: Any,
         mine, lengths, xs)
     out = _FromLast.apply(out, _Link(mesh, axis_name, None))
     if batch_axis:
-        out = _GatherBatch.apply(out, group, pos, mesh.transport)
+        out = all_gather_cat(out, 1, group, mesh.transport)
     return out

@@ -12,9 +12,12 @@ a process group of its size is up.
 it spawns one process per mesh position, starts their process group from a
 ``FileStore`` in a directory of its own (never a fixed port: several test
 workers spawn meshes at once), runs ``fn(mesh, *args)`` in every rank with
-that rank's :class:`RankMesh`, and returns the ranks' results in rank
-order.  The group has a timeout and the join a deadline, so a hang fails
-the call.  Ranks print nothing; results come back through files.
+that rank's :class:`RankMesh` (registered in
+:mod:`repro_torch.core.spmd_pipeline`, whose :func:`current_mesh` this
+module re-exports, so nothing below the launcher imports it), and returns
+the ranks' results in rank order.  The group has a timeout and the join a
+deadline, so a hang fails the call.  Ranks print nothing; results come
+back through files.
 
 The transport follows the topology and never changes on an error:
 
@@ -40,6 +43,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 
 from ..core.placement import resolve_device
+from ..core.spmd_pipeline import current_mesh, set_current_mesh
 
 __all__ = ["MeshLayout", "RankMesh", "make_production_mesh",
            "make_pipeline_mesh", "batch_axes", "run_on_local_mesh",
@@ -186,15 +190,6 @@ class RankMesh:
         return self._device_mesh
 
 
-_CURRENT: RankMesh | None = None
-
-
-def current_mesh() -> RankMesh | None:
-    """The :class:`RankMesh` of this process inside
-    :func:`run_on_local_mesh`, else None."""
-    return _CURRENT
-
-
 def _axis_groups(layout: MeshLayout) -> dict:
     """Every axis line's process group, made in the same order on every
     rank (``new_group`` is a collective); this rank's line kept."""
@@ -218,7 +213,6 @@ def _rank_main(rank: int, layout: MeshLayout, transport: str, device: str,
     """One rank: join the group, run the ``fn(mesh, *args)`` pickled in
     ``out_dir``, write its result there and report on ``results`` (None,
     or the traceback)."""
-    global _CURRENT
     import torch
     import torch.distributed as dist
 
@@ -236,14 +230,15 @@ def _rank_main(rank: int, layout: MeshLayout, transport: str, device: str,
             rank=rank, world_size=world,
             timeout=datetime.timedelta(seconds=timeout_s), **kw)
         try:
-            _CURRENT = RankMesh(layout, rank, dev, transport,
-                                _axis_groups(layout))
+            mesh = RankMesh(layout, rank, dev, transport,
+                            _axis_groups(layout))
+            set_current_mesh(mesh)
             with open(os.path.join(out_dir, "call.pkl"), "rb") as f:
                 fn, args, kwargs = pickle.load(f)
-            result = fn(_CURRENT, *args, **kwargs)
+            result = fn(mesh, *args, **kwargs)
             torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
         finally:
-            _CURRENT = None
+            set_current_mesh(None)
             dist.destroy_process_group()
     except BaseException as e:               # reported to the parent, which
         err = "".join(traceback.format_exception(e))     # fails the call

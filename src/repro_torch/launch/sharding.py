@@ -16,11 +16,14 @@ the first outermost).  ``mesh`` is anything with ``axis_names`` and
 ``shape[axis]``: a :class:`~repro_torch.launch.mesh.MeshLayout`, a
 :class:`~repro_torch.launch.mesh.RankMesh`.  Paths are the port's
 nested-dict keys joined by "/" (the JAX ``_path_str`` of the same leaf).
-:func:`placements` turns a spec into DTensor placements on a realised
-``DeviceMesh``; :func:`distribute_params` turns a params tree held whole
-into DTensors by :func:`param_shardings_serving`, each rank keeping its
-own shard (the tensor-parallel serving of
-:mod:`repro_torch.models.layers`).
+:func:`placements` (from :mod:`repro_torch.core.spmd_pipeline`, beside
+:func:`with_spec`, so the model's anchors reach them without importing the
+launcher) turns a spec into DTensor placements on a realised
+``DeviceMesh``; :func:`distribute_params` turns a tree held whole into
+DTensors by its shardings — params by :func:`param_shardings_serving`
+(serving) or :func:`param_shardings` (training), moments by
+:func:`opt_shardings` — each rank keeping its own shard (the
+tensor-parallel layers of :mod:`repro_torch.models.layers`).
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import re
 from dataclasses import dataclass
 from typing import Any
 
+from ..core.spmd_pipeline import placements, with_spec
 from .mesh import batch_axes
 
 __all__ = ["P", "NamedSharding", "guard_spec", "param_spec",
@@ -264,23 +268,6 @@ def cache_shardings(mesh, cfg, cache: Any) -> Any:
 # --------------------------------------------------------------------------- #
 # specs realised
 # --------------------------------------------------------------------------- #
-def placements(device_mesh, spec) -> tuple:
-    """DTensor placements of ``spec`` on ``device_mesh`` (whose dim names
-    are the spec's axes): ``Shard(d)`` on every mesh dim named in tensor
-    dim d's entry, ``Replicate()`` on the rest.  A dim over two axes
-    (``("pod", "data")``) is ``Shard(d)`` on both, split in mesh-dim order,
-    as the spec's tuple orders them."""
-    from torch.distributed.tensor import Replicate, Shard
-
-    names = device_mesh.mesh_dim_names
-    out = [Replicate()] * len(names)
-    for d, entry in enumerate(spec):
-        for a in (entry if isinstance(entry, tuple) else (entry,)):
-            if a is not None:
-                out[names.index(a)] = Shard(d)
-    return tuple(out)
-
-
 def local_shape(mesh, spec, shape: tuple[int, ...]) -> tuple[int, ...]:
     """A shard's shape under ``spec`` (the dims divide: guarded specs)."""
     out = list(shape)
@@ -289,16 +276,6 @@ def local_shape(mesh, spec, shape: tuple[int, ...]) -> tuple[int, ...]:
             if a is not None:
                 out[d] //= mesh.shape[a]
     return tuple(out)
-
-
-def with_spec(x, spec):
-    """``x`` redistributed to ``spec`` when it is a DTensor; a plain tensor
-    (held whole by one process) unchanged."""
-    from torch.distributed.tensor import DTensor
-
-    if not isinstance(x, DTensor):
-        return x
-    return x.redistribute(x.device_mesh, placements(x.device_mesh, spec))
 
 
 def to_dtensor(mesh, local, spec, shape: tuple[int, ...]):
@@ -315,22 +292,28 @@ def to_dtensor(mesh, local, spec, shape: tuple[int, ...]):
                               stride=stride)
 
 
-def distribute_params(mesh, params: Any) -> Any:
-    """A params tree held whole on every rank (as the JAX→port converter
-    gives it, or drawn from one seed) as DTensors by
-    :func:`param_shardings_serving`: each rank keeps a contiguous copy of
-    its shard (:func:`local_shape` of each leaf) and nothing else of the
-    leaf; no communication."""
+def distribute_params(mesh, params: Any, shardings: Any = None) -> Any:
+    """A tree held whole on every rank (params as the JAX→port converter
+    gives them, or drawn from one seed; or an optimizer state) as DTensors
+    by ``shardings`` (a tree of :class:`NamedSharding` of the same
+    structure; by default :func:`param_shardings_serving`): each rank
+    keeps a contiguous copy of its shard (:func:`local_shape` of each
+    leaf) and nothing else of the leaf; no communication.  A 0-d leaf (the
+    optimizer's ``step``) stays the plain tensor every rank holds."""
     import torch
 
     from ..core.spmd_pipeline import shard_bounds
     from ..core.tree import tree_map
 
     dm = mesh.device_mesh
+    if shardings is None:
+        shardings = param_shardings_serving(mesh, params)
 
     def cut(a, sh):
+        if a.dim() == 0:
+            return a
         at = shard_bounds(dm, placements(dm, sh.spec), a.shape)
         local = a[at].clone(memory_format=torch.contiguous_format)
         return to_dtensor(mesh, local, sh.spec, tuple(a.shape))
 
-    return tree_map(cut, params, param_shardings_serving(mesh, params))
+    return tree_map(cut, params, shardings)

@@ -26,8 +26,15 @@ steps take weights as DTensors by ``param_shardings_serving``
 whole) and a cache by ``cache_shardings`` (:func:`init_cache_sharded`),
 and every rank runs its shard (:mod:`repro_torch.models.layers`); the
 logits come back whole on every rank, and decode writes each rank's part
-of the new K/V into its shard of the cache in place.  Training under a
-model axis is not done here.
+of the new K/V into its shard of the cache in place.  Tensor-parallel
+training (the same families and mesh): the train step takes a state of
+:func:`init_train_state_sharded` (params by ``param_shardings``, moments
+by ``opt_shardings``), every rank computes its shard's forward, recompute
+and backward (K7, K8 and K9 on its local heads), and the gradients come
+back as DTensors laid out as the params; with ``seq_parallel`` the layer
+carry is each rank's part of the tokens.  Another family, a data axis
+over more than one rank and ``scan_chunks`` are refused
+(:func:`_check_sharded`).
 
 The abstract trees (:func:`abstract_params`, :func:`abstract_cache`) are
 meta tensors, drawing and allocating nothing; :func:`batch_structs`,
@@ -43,15 +50,15 @@ from typing import Any
 
 import torch
 
-from ..core.spmd_pipeline import is_dtensor
+from ..core.spmd_pipeline import is_dtensor, like_dtensor, local_tensor
 from ..core.tree import flatten, leaves, tree_map, unflatten
 from ..models import LM
 from ..models.config import ArchConfig, ShapeConfig
-from ..models.layers import NO_DRAW, set_attention_mesh
+from ..models.layers import NO_DRAW, SeqParallel, set_attention_mesh
 from ..models.transformer import torch_dtype
 from ..optim import adamw_init, adamw_update, cosine_schedule
-from .sharding import (NamedSharding, P, act_spec, batch_spec,
-                       cache_shardings, drop_data, guard_spec, local_shape,
+from .sharding import (NamedSharding, P, batch_spec, cache_shardings,
+                       distribute_params, drop_data, guard_spec, local_shape,
                        map_with_path, opt_shardings, param_shardings,
                        param_shardings_serving, param_spec, to_dtensor,
                        with_spec)
@@ -72,9 +79,11 @@ def _layer_param_constraint(mesh):
     return con
 
 
-def _act_constraint(mesh):
-    """The layer carry anchored to :func:`act_spec` (sequence parallel)."""
-    return lambda h: with_spec(h, guard_spec(mesh, act_spec(mesh), h.shape))
+def _act_constraint(mesh) -> SeqParallel:
+    """The layer carry anchored to ``act_spec`` (sequence parallel): a
+    plain carry passes unchanged; under DTensor weights ``LM.apply`` keeps
+    each rank's part of the tokens between layers."""
+    return SeqParallel(mesh)
 
 
 # --------------------------------------------------------------------------- #
@@ -154,7 +163,8 @@ def loss_and_grads(model: LM, params: Params, batch: dict, *,
                    ) -> tuple[torch.Tensor, list[torch.Tensor], dict]:
     """The JAX ``loss_fn`` under ``value_and_grad``: (the cross-entropy,
     the gradient of the total loss for each leaf of ``params`` in
-    :func:`~repro_torch.core.tree.flatten`'s order, aux).  The total is the
+    :func:`~repro_torch.core.tree.flatten`'s order — DTensors laid out as
+    their params where those are DTensors — aux).  The total is the
     cross-entropy, plus ``1e-2 * load_balance_loss + 1e-3 *
     router_z_loss`` for a moe config; aux holds ``LM.apply``'s aux summed
     over the layers and the ``total``, detached.  ``params`` are left
@@ -183,8 +193,8 @@ def loss_and_grads(model: LM, params: Params, batch: dict, *,
         for p in flat:
             p.requires_grad_(False)
     aux = {k: v.detach() for k, v in {**aux, "total": total}.items()}
-    return ce.detach(), [torch.zeros_like(p) if g is None else g
-                         for p, g in zip(flat, grads)], aux
+    return ce.detach(), [like_dtensor(torch.zeros_like(local_tensor(p)), p)
+                         if g is None else g for p, g in zip(flat, grads)], aux
 
 
 def make_train_step(cfg: ArchConfig, mesh=None, *, scan_chunks: int = 0,
@@ -194,7 +204,9 @@ def make_train_step(cfg: ArchConfig, mesh=None, *, scan_chunks: int = 0,
     """→ (model, ``train_step(state, batch)``).
 
     ``mesh``: a layout to register and anchor to (the module docstring);
-    ``seq_parallel`` anchors the layer carry to :func:`act_spec` too.
+    ``seq_parallel`` anchors the layer carry to ``act_spec`` too
+    (:class:`~repro_torch.models.layers.SeqParallel`: under DTensor weights
+    each rank keeps its part of the tokens between layers).
 
     ``state`` is ``{"params", "opt"}`` (:func:`~repro_torch.optim.adamw_init`),
     ``batch`` a dict of tensors on the parameters' device: ``labels`` and
@@ -217,6 +229,7 @@ def make_train_step(cfg: ArchConfig, mesh=None, *, scan_chunks: int = 0,
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         params = state["params"]
+        _check_sharded(cfg, params, scan_chunks=scan_chunks)
         ce, grads, aux = loss_and_grads(model, params, batch, remat=remat,
                                         scan_chunks=scan_chunks,
                                         loss_chunk=loss_chunk,
@@ -245,6 +258,18 @@ def train_state_structs(cfg: ArchConfig, mesh):
     return state, {"params": ps, "opt": os_}
 
 
+def init_train_state_sharded(cfg: ArchConfig, mesh, params: Params) -> dict:
+    """``{"params", "opt"}`` for tensor-parallel training on a ``(1,
+    model)`` mesh from a params tree held whole on every rank (drawn from
+    one seed, or converted): each rank keeps its shard of each leaf by
+    :func:`param_shardings` (:func:`distribute_params`) and allocates its
+    moments at their local shapes (:func:`adamw_init`, laid out as the
+    parameters: :func:`opt_shardings`)."""
+    sharded = distribute_params(mesh, params, param_shardings(mesh, params))
+    _check_sharded(cfg, sharded)
+    return {"params": sharded, "opt": adamw_init(sharded)}
+
+
 # --------------------------------------------------------------------------- #
 # serve steps
 # --------------------------------------------------------------------------- #
@@ -261,23 +286,34 @@ def init_cache_sharded(cfg: ArchConfig, mesh, batch: int,
         whole, cache_shardings(mesh, cfg, whole))
 
 
-def _check_sharded(cfg: ArchConfig, params: Params) -> None:
-    """Refuse DTensor weights where tensor-parallel serving is not done:
-    another family than the dense one, or a mesh axis other than
-    ``model`` of more than one rank."""
+# the families whose blocks run on a rank's shard: the dense one, and the
+# audio family (the dense backbone over given embeddings)
+TP_FAMILIES = ("dense", "audio")
+
+
+def _check_sharded(cfg: ArchConfig, params: Params, *,
+                   scan_chunks: int = 0) -> None:
+    """Refuse DTensor weights where tensor parallelism is not done: a
+    family other than the dense one and its audio variant, a mesh axis
+    other than ``model`` of more than one rank, and (the train step,
+    which passes ``scan_chunks``) chunked remat."""
     w = leaves(params)[0]
     if not is_dtensor(w):
         return
-    if cfg.family != "dense":
+    if cfg.family not in TP_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.arch_id}: tensor-parallel serving runs the dense family; "
-            f"the {cfg.family} family under a model axis is not done here")
+            f"{cfg.arch_id}: tensor parallelism runs the dense family (and "
+            f"audio, its backbone); the {cfg.family} family under a model "
+            f"axis is not done here")
     dm = w.device_mesh
     other = {n: dm.size(i) for i, n in enumerate(dm.mesh_dim_names)
              if n != "model" and dm.size(i) > 1}
     if other:
-        raise NotImplementedError(f"tensor-parallel serving takes a "
+        raise NotImplementedError(f"tensor parallelism takes a "
                                   f"(1, model) mesh, not one with {other}")
+    if scan_chunks:
+        raise NotImplementedError(f"scan_chunks={scan_chunks} under a model "
+                                  f"axis is not done here")
 
 
 def make_prefill_step(cfg: ArchConfig, mesh=None):

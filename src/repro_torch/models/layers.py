@@ -30,26 +30,39 @@ Random init draws from a ``torch.Generator`` on the device the parameters
 live on; given :data:`NO_DRAW` it draws nothing and returns the same tree
 of shapes and types on the meta device.
 
-Tensor-parallel serving across ranks: weights that are DTensors, laid out
-by :func:`repro_torch.launch.sharding.param_shardings_serving` (and a
-cache by ``cache_shardings``), make :func:`attention`, :func:`mlp`,
-:func:`embed` and :func:`lm_logits` run on each rank's shard (Megatron's
-split, which the JAX anchors make GSPMD choose): q, k and v of the rank's
-heads from its columns of ``wq``/``wk``/``wv``, K7 on those local heads,
-their product with the rank's rows of ``attn/wo``; the MLP hidden on the
-rank's ff columns and its rows of ``mlp/wo``; the embedding from the
-rank's vocab rows; the logits of its vocab rows, gathered.  Each row
-split's partial product is kept in f32 and summed over the model axis once
+Tensor parallelism across ranks: weights that are DTensors, laid out by
+:func:`repro_torch.launch.sharding.param_shardings_serving` or
+``param_shardings`` (and a cache by ``cache_shardings``), make
+:func:`attention`, :func:`mlp`, :func:`embed` and :func:`lm_logits` run on
+each rank's shard (Megatron's split, which the JAX anchors make GSPMD
+choose): q, k and v of the rank's heads from its columns of
+``wq``/``wk``/``wv``, K7 on those local heads, their product with the
+rank's rows of ``attn/wo``; the MLP hidden on the rank's ff columns and
+its rows of ``mlp/wo``; the embedding from the rank's vocab rows; the
+logits of its vocab rows, gathered.  Each row split's partial product is
+kept in f32 and summed over the model axis once
 (:func:`repro_torch.core.spmd_pipeline.all_reduce_sum`, through pinned
 host memory when the ranks share a card), so the activations between
 layers stay whole on every rank and plain tensors.  A dim the guard left
 whole (``n_kv_heads`` not dividing the axis: k and v computed whole, the
 cache's head_dim sharded and gathered to decode) is cut to what the
-rank's heads read.  One body serves both cases: a plain weight is a whole
-shard, and the one-process path computes what it always did.  The
-anchors therefore see local, plain activations here; their DTensor branch
-is what the MoE's expert-parallel dispatch (``_con_groups``,
-``_con_experts``) is to run under.
+rank's heads read.  One body serves every case: a plain weight is a whole
+shard, and the one-process path computes what it always did.
+
+Training under autograd takes the collectives' conjugates: the input of a
+column split passes through
+:func:`~repro_torch.core.spmd_pipeline.copy_to_ranks` (its gradient, a
+part on each rank, summed); with the sequence-parallel carry
+(:class:`SeqParallel`) the norms and residual adds run on each rank's part
+of the tokens, a column split's input is gathered along S
+(:func:`~repro_torch.core.spmd_pipeline.gather_seq`) and a row split's sum
+comes back as the rank's part
+(:func:`~repro_torch.core.spmd_pipeline.reduce_scatter`).  A leaf every
+rank holds whole has its gradient summed exactly when the ranks split its
+use (:func:`_local`, the one place of that rule).  The anchors therefore
+see local, plain activations here; their DTensor branch is what the MoE's
+expert-parallel dispatch (``_con_groups``, ``_con_experts``) is to run
+under.
 """
 from __future__ import annotations
 
@@ -60,7 +73,9 @@ import torch
 import torch.nn.functional as F
 
 from ..core.spmd_pipeline import (all_gather_cat, all_reduce_sum,
-                                   group_transport, is_dtensor, local_bounds)
+                                   copy_to_ranks, gather_seq,
+                                   group_transport, is_dtensor, local_bounds,
+                                   own_part, reduce_scatter, with_spec)
 from ..kernels import ops
 
 Params = Any
@@ -97,11 +112,15 @@ def rmsnorm_init(d: int, dtype: torch.dtype, device=None) -> Params:
     return {"scale": torch.zeros((d,), dtype=dtype, device=device)}
 
 
-def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6, *,
+            split: bool = False) -> torch.Tensor:
+    """``split``: ``x`` is this rank's part of the tokens (the
+    sequence-parallel carry), so the scale's use is split (:func:`_local`)."""
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * (1.0 + _local(p["scale"]).to(torch.float32))).to(x.dtype)
+    return (y * (1.0 + _local(p["scale"], split).to(torch.float32))
+            ).to(x.dtype)
 
 
 # --------------------------------------------------------------------------- #
@@ -253,7 +272,6 @@ def _anchor(x: torch.Tensor, spec_of) -> torch.Tensor:
     spec = spec_of(_ATTN_MESH, tuple(x.shape))
     if spec is None:
         return x
-    from ..launch.sharding import with_spec
     return with_spec(x, spec)
 
 
@@ -277,9 +295,53 @@ def _con_ff(x: torch.Tensor) -> torch.Tensor:
     return _anchor(x, ff_spec)
 
 
+def seq_spec(mesh, shape: tuple) -> tuple:
+    """[B, S, ...] → the sequence-parallel carry: batch over the batch
+    axes, S over ``model`` when it divides (JAX's ``act_spec``, guarded)."""
+    model = "model" in mesh.axis_names
+    s_ax = "model" if model and shape[1] % mesh.shape["model"] == 0 else None
+    return (_batch_ax(mesh, shape[0]), s_ax) + (None,) * (len(shape) - 2)
+
+
+class SeqParallel:
+    """JAX's sequence-parallel ``act_constraint`` (the layer carry anchored
+    to ``act_spec``) for :meth:`~repro_torch.models.transformer.LM.apply`.
+    Called on the carry it anchors a DTensor to :func:`seq_spec` and passes
+    a plain tensor (one process holding it whole) unchanged.  Under weights
+    that are DTensors over a model axis of m > 1 ranks dividing S
+    (:meth:`line`), ``LM.apply`` keeps each rank's [B, S/m, d] part of the
+    carry between layers: the norms and the residual adds run on the part,
+    the parts are gathered along S as they enter a column split
+    (:func:`~repro_torch.core.spmd_pipeline.gather_seq`) and each row
+    split's sum comes back as the rank's part
+    (:func:`~repro_torch.core.spmd_pipeline.reduce_scatter`)."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def __call__(self, h: torch.Tensor) -> torch.Tensor:
+        return with_spec(h, seq_spec(self.mesh, tuple(h.shape)))
+
+    @staticmethod
+    def line(weight, seq_len: int) -> tuple | None:
+        """(process group, transport) of the model axis when the carry of
+        ``seq_len`` tokens is split: ``weight`` a DTensor over a model axis
+        of m > 1 ranks and m dividing ``seq_len`` (the guard leaves S whole
+        otherwise); else None."""
+        if not is_dtensor(weight):
+            return None
+        names = weight.device_mesh.mesh_dim_names
+        if "model" not in names:
+            return None
+        m = weight.device_mesh.size(names.index("model"))
+        if m == 1 or seq_len % m:
+            return None
+        return _model_line(weight)
+
+
 def attention(p: Params, x: torch.Tensor, pos=None, *, theta, window: int = 0,
               kv_x: torch.Tensor | None = None, cache: Params | None = None,
-              cache_pos: int | None = None
+              cache_pos: int | None = None, seq: bool = False
               ) -> tuple[torch.Tensor, Params | None]:
     """Self-attention, causal (+ window), or cross-attention.
 
@@ -295,7 +357,8 @@ def attention(p: Params, x: torch.Tensor, pos=None, *, theta, window: int = 0,
 
     The weights and the cache are read through this rank's shard (the
     module docstring): q, k and v of its heads, K7 on them, and its rows of
-    ``wo``; a plain tensor is a whole shard.
+    ``wo``; a plain tensor is a whole shard.  ``seq``: ``x`` is this rank's
+    part of the tokens (:class:`SeqParallel`), and so is the output.
     """
     del pos                                     # positions come from T
     window = int(window)
@@ -303,17 +366,23 @@ def attention(p: Params, x: torch.Tensor, pos=None, *, theta, window: int = 0,
     if kv_x is not None and is_dtensor(wq):
         raise NotImplementedError("cross-attention under a model axis (the "
                                   "vlm family) is not done here")
+    if seq and cache is not None:
+        raise ValueError("a sequence-parallel carry takes no cache")
     H, hd, KV = wq.shape[1], wq.shape[2], wk.shape[1]
     heads, kv_heads = local_bounds(wq)[1], local_bounds(wk)[1]
     rows = local_bounds(wo)[0]
     if not (heads.start * hd <= rows.start and rows.stop <= heads.stop * hd):
         raise ValueError(f"attn/wo rows {rows} are not among the rows of "
                          f"this rank's heads {heads}")
+    split = heads.stop - heads.start < H        # this rank's heads only
+    x = _enter(x, wq, split, seq)
     B, T, _ = x.shape
     q = torch.einsum("btd,dnh->btnh", x, _local(wq))
     src = x if kv_x is None else kv_x
-    k = torch.einsum("bmd,dnh->bmnh", src, _local(wk))
-    v = torch.einsum("bmd,dnh->bmnh", src, _local(wv))
+    # the guard: kv heads whole on every rank, each reading its heads' own
+    kv_read = split and kv_heads.stop - kv_heads.start == KV
+    k = torch.einsum("bmd,dnh->bmnh", src, _local(wk, kv_read))
+    v = torch.einsum("bmd,dnh->bmnh", src, _local(wv, kv_read))
     start = 0 if cache is None else int(cache_pos)
     q_pos = start + torch.arange(T, device=x.device)
     if kv_x is None:
@@ -360,7 +429,7 @@ def attention(p: Params, x: torch.Tensor, pos=None, *, theta, window: int = 0,
         out = gqa_combine(probs, ve)
     out = _cut(out, 2, rows.start - heads.start * hd,
                rows.stop - heads.start * hd)
-    return _row_parallel(out, wo), new_cache
+    return _row_parallel(out, wo, seq), new_cache
 
 
 # --------------------------------------------------------------------------- #
@@ -372,16 +441,17 @@ def mlp_init(generator: torch.Generator, d: int, ff: int,
             "wo": _dense_init(generator, (ff, d), dtype)}
 
 
-def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+def mlp(p: Params, x: torch.Tensor, *, seq: bool = False) -> torch.Tensor:
     """SwiGLU on this rank's ff columns of ``wi`` and rows of ``wo`` (the
-    whole of each for plain tensors)."""
+    whole of each for plain tensors); ``seq`` as in :func:`attention`."""
     wi, wo = p["wi"], p["wo"]
     cols, rows = local_bounds(wi)[2], local_bounds(wo)[0]
+    x = _enter(x, wi, cols.stop - cols.start < wi.shape[2], seq)
     gu = _con_ff(torch.einsum("btd,dcf->btcf", x, _local(wi)))
     g, u = gu[:, :, 0], gu[:, :, 1]
     h = _con_ff(F.silu(g) * u)
     return _row_parallel(_cut(h, 2, rows.start - cols.start,
-                              rows.stop - cols.start), wo)
+                              rows.stop - cols.start), wo, seq)
 
 
 # --------------------------------------------------------------------------- #
@@ -419,6 +489,28 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
         return torch.mm(a, b, out_dtype=torch.float32)
     return torch.mm(a.to(torch.float32), b.to(torch.float32))
+
+
+class _MmF32(torch.autograd.Function):
+    """:func:`_mm_f32` under autograd.  The backward takes the f32
+    gradient rounded to the operands' type, exact where it is used (a row
+    split's sum is rounded to the activation type, so its gradient holds
+    values of that type): bf16 products summed in f32 on the card, out in
+    the operands' types, as the whole layer's product's backward."""
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        a, b = ctx.saved_tensors
+        if g.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+            g = g.to(a.dtype)
+            return torch.mm(g, b.t()), torch.mm(a.t(), g)
+        return (torch.mm(g, b.t().to(torch.float32)).to(a.dtype),
+                torch.mm(a.t().to(torch.float32), g).to(b.dtype))
 
 
 def bf16_terms(x: torch.Tensor) -> torch.Tensor:
@@ -481,12 +573,29 @@ def lm_logits(p: Params, h: torch.Tensor, vocab: int) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------- #
-# This rank's shard of a weight (tensor-parallel serving)
+# This rank's shard of a weight (tensor parallelism)
 # --------------------------------------------------------------------------- #
-def _local(x):
-    """A DTensor's local tensor (no communication); a plain tensor as it
-    is."""
-    return x.to_local() if is_dtensor(x) else x
+def _local(x, split: bool = False):
+    """This rank's part of weight ``x``: a DTensor's local tensor (no
+    communication), a plain tensor as it is.
+
+    The one rule for the gradient of a leaf that every rank holds whole (a
+    DTensor replicated over the model axis): it is summed over the model
+    axis exactly when the ranks split the leaf's use (``split``: each rank
+    reads it for its own part — its tokens under sequence parallelism, its
+    heads' kv heads under the guard), so each rank's gradient is a part of
+    the whole.  Where every rank's use is the whole one, each rank's
+    gradient is already the whole, and a sum would make it m times too
+    large.  A sharded leaf's gradient is this rank's own part either way.
+    """
+    if not is_dtensor(x):
+        return x
+    local = x.to_local()
+    names = x.device_mesh.mesh_dim_names
+    if (split and local.requires_grad and "model" in names
+            and not x.placements[names.index("model")].is_shard()):
+        return copy_to_ranks(local, *_model_line(x))
+    return local
 
 
 def _cut(x: torch.Tensor, dim: int, lo: int, hi: int) -> torch.Tensor:
@@ -503,17 +612,40 @@ def _model_line(w) -> tuple:
     return group, group_transport(group, w.to_local().device)
 
 
-def _row_parallel(h: torch.Tensor, w) -> torch.Tensor:
+def _enter(x: torch.Tensor, w, split: bool, seq: bool) -> torch.Tensor:
+    """``x`` as it enters a product with DTensor ``w``'s local columns
+    (``split``: some of w's columns, not all).  ``x`` is whole on every
+    rank and passes as it is, its gradient summed over the model axis when
+    split (each rank's columns give a part of it,
+    :func:`~repro_torch.core.spmd_pipeline.copy_to_ranks`); or, ``seq``,
+    ``x`` is this rank's part of the tokens, gathered along S (the
+    gradient then summed likewise and this rank's part kept,
+    :func:`~repro_torch.core.spmd_pipeline.gather_seq`).  A plain ``w``:
+    ``x`` as it is."""
+    if not is_dtensor(w):
+        return x
+    line = _model_line(w)
+    if seq:
+        return (gather_seq if split else all_gather_cat)(x, 1, *line)
+    return copy_to_ranks(x, *line) if split else x
+
+
+def _row_parallel(h: torch.Tensor, w, seq: bool = False) -> torch.Tensor:
     """[B, T, f] h @ w [F, d], h holding w's local rows: the one-process
     product when they are all of w's rows, else a partial product in f32
-    summed over the model axis and rounded once to h's type."""
+    summed over the model axis and rounded once to h's type.  ``seq``: the
+    result is this rank's part of the tokens (the sum's part, or the
+    whole product's)."""
     rows = local_bounds(w)[0]
     if rows.stop - rows.start == w.shape[0]:
-        return torch.einsum("btf,fd->btd", h, _local(w))
+        y = torch.einsum("btf,fd->btd", h, _local(w))
+        return own_part(y, 1, *_model_line(w)) if seq else y
     B, T, f = h.shape
-    part = _mm_f32(h.reshape(B * T, f), _local(w))
-    return all_reduce_sum(part, *_model_line(w)).to(h.dtype).reshape(
-        B, T, -1)
+    part = _MmF32.apply(h.reshape(B * T, f), _local(w))
+    line = _model_line(w)
+    if seq:
+        return reduce_scatter(part.reshape(B, T, -1), 1, *line).to(h.dtype)
+    return all_reduce_sum(part, *line).to(h.dtype).reshape(B, T, -1)
 
 
 def _kv_for_heads(kv: torch.Tensor, kv_lo: int, heads: slice,

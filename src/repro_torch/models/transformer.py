@@ -29,7 +29,12 @@ Training: ``apply(remat=True)`` checkpoints every layer with
 time-chunk checkpoints (:mod:`.scan_utils`) nest inside them.  A vlm model
 checkpoints each group instead, as the JAX ``_apply_vlm`` does, and
 ignores ``scan_chunks``.  :meth:`LM.loss` is the chunked cross-entropy, one
-checkpointed chunk of ``[B, chunk, V]`` f32 logits alive at a time.
+checkpointed chunk of ``[B, chunk, V]`` f32 logits alive at a time; over a
+vocab-sharded table (tensor parallelism) each rank's chunk holds the
+logits of its rows only (:func:`_chunk_nll_sharded`).  Under DTensor
+weights and a :class:`~repro_torch.models.layers.SeqParallel`
+``act_constraint``, :meth:`LM.apply` keeps each rank's part of the tokens
+between layers and gathers the final norm's output.
 
 The vlm blocks mark their card time for the profiler: ``vlm:self``,
 ``vlm:cross`` (the attentions), ``vlm:mlp`` and ``vlm:cross_kv`` (the
@@ -46,14 +51,17 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..core.placement import resolve_device
-from ..core.spmd_pipeline import is_dtensor, unbind_layers
+from ..core.spmd_pipeline import (all_gather_cat, all_reduce_sum,
+                                   copy_to_ranks, is_dtensor, local_bounds,
+                                   own_part, reduce_over_ranks,
+                                   unbind_layers)
 from ..core.tree import flatten, tree_map, unflatten
 from ..kernels import ops
 from .config import ArchConfig
-from .layers import (_con_heads, attention, attention_init, embed,
-                     embed_init, expand_kv, gqa_combine, gqa_scores,
-                     lm_logits, logits_f32, mlp, mlp_init, rmsnorm,
-                     rmsnorm_init)
+from .layers import (SeqParallel, _con_heads, _model_line, attention,
+                     attention_init, embed, embed_init, expand_kv,
+                     gqa_combine, gqa_scores, lm_logits, logits_f32, mlp,
+                     mlp_init, rmsnorm, rmsnorm_init)
 from .moe import AUX_KEYS, moe_apply, moe_init
 from .rwkv import rwkv_block, rwkv_init, rwkv_init_state
 from .ssm import ssm_apply, ssm_init, ssm_init_state
@@ -108,10 +116,12 @@ def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
                  window: int, theta: float, cache: Params | None = None,
                  cache_pos: int | None = None,
                  img_kv: torch.Tensor | Params | None = None,
-                 is_cross: bool = False
+                 is_cross: bool = False, seq: bool = False
                  ) -> tuple[torch.Tensor, Params | None, dict | None]:
     """One block. Returns (x, new_cache, aux); aux is None but for a moe
-    block (the JAX block's zeros).
+    block (the JAX block's zeros).  ``seq``: ``x`` is this rank's part of
+    the tokens (:class:`~repro_torch.models.layers.SeqParallel`; a dense
+    block), and so is the result.
     new_cache: the rwkv state, or the attention's k/v (the cache's own
     tensors, written in place) and the hybrid block's new ``ssm`` state;
     None without a cache, and always None for a cross block (``is_cross``),
@@ -121,7 +131,7 @@ def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
         x, new_state = rwkv_block(p["rwkv"], x, p["ln1"], p["ln2"],
                                   state=cache)
         return x, new_state, None
-    h = rmsnorm(p["ln1"], x)
+    h = rmsnorm(p["ln1"], x, split=seq)
     if is_cross:
         with _range(cfg, "vlm:cross"):
             if isinstance(img_kv, dict):
@@ -135,7 +145,7 @@ def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
         with _range(cfg, "vlm:self"):
             a, new_cache = attention(p["attn"], h, None, theta=theta,
                                      window=window, cache=kv,
-                                     cache_pos=cache_pos)
+                                     cache_pos=cache_pos, seq=seq)
     if cfg.hybrid:
         s, s_new = ssm_apply(p["ssm"], h,
                              state=None if cache is None else cache["ssm"])
@@ -143,12 +153,12 @@ def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
         if new_cache is not None:
             new_cache["ssm"] = s_new
     x = x + a
-    h2 = rmsnorm(p["ln2"], x)
+    h2 = rmsnorm(p["ln2"], x, split=seq)
     if "moe" in p:
         y, aux = moe_apply(p["moe"], h2, cfg.top_k, cfg.moe_capacity_factor)
     else:
         with _range(cfg, "vlm:mlp"):
-            y, aux = mlp(p["mlp"], h2), None
+            y, aux = mlp(p["mlp"], h2, seq=seq), None
     return x + y, new_cache, aux
 
 
@@ -209,6 +219,34 @@ def _chunk_nll(h: torch.Tensor, table: torch.Tensor, t: torch.Tensor,
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, 1, t.reshape(B * c, 1).long())[:, 0]
     return ((lse - gold) * m.reshape(B * c)).sum()
+
+
+def _chunk_nll_sharded(h: torch.Tensor, rows: torch.Tensor, lo: int,
+                       t: torch.Tensor, m: torch.Tensor, vocab: int, group,
+                       transport: str) -> torch.Tensor:
+    """:func:`_chunk_nll` over this rank's vocab rows ``rows`` (global rows
+    ``lo..``) of the table, Megatron's vocab-parallel cross-entropy: the
+    rank's logits only, the padded rows beyond ``vocab`` masked; the max
+    taken over the model axis, then the sums of exps and the gold logits
+    summed over it in f32 (small all-reduces of [2, N]), so no [N, vocab]
+    logits are gathered.  Every rank returns the whole chunk's sum."""
+    B, c, d = h.shape
+    N, V = B * c, rows.shape[0]
+    logits = logits_f32(h.reshape(N, d), rows)
+    cols = lo + torch.arange(V, device=logits.device)
+    logits = logits.masked_fill(cols >= vocab, float("-inf"))
+    with torch.no_grad():
+        mx = reduce_over_ranks(logits.max(-1).values, group, transport,
+                               op="max")
+    sumexp = torch.exp(logits - mx[:, None]).sum(-1)
+    at = t.reshape(N).long() - lo
+    mine = (at >= 0) & (at < V)
+    gold = torch.gather(logits, 1, torch.where(mine, at, 0)[:, None])[:, 0]
+    gold = torch.where(mine, gold, torch.zeros((), device=gold.device))
+    sumexp, gold = all_reduce_sum(torch.stack([sumexp, gold]), group,
+                                  transport)
+    lse = mx + torch.log(sumexp)
+    return ((lse - gold) * m.reshape(N)).sum()
 
 
 # =========================================================================== #
@@ -297,13 +335,20 @@ class LM:
         nested-remat scan), ignored unless c divides ``n_layers``, and by a
         vlm model.  ``act_constraint``: a function applied to the embedded
         input and each layer's output (the sequence-parallel layout of
-        :func:`repro_torch.launch.steps.make_train_step`);
+        :func:`repro_torch.launch.steps.make_train_step`); a
+        :class:`~repro_torch.models.layers.SeqParallel` one under DTensor
+        weights over a model axis dividing S keeps each rank's [B, S/m, d]
+        part of the carry between layers (the dense blocks, the norms on
+        the part, the final norm's output gathered);
         ``param_constraint``: one applied to each layer's weights before
         the layer runs."""
         cfg = self.cfg
         con = act_constraint or (lambda h: h)
         pcon = param_constraint or (lambda p: p)
-        x = con(self._embed_in(params, ids, embeds))
+        x = self._embed_in(params, ids, embeds)
+        line = (SeqParallel.line(params["final_norm"]["scale"], x.shape[1])
+                if isinstance(act_constraint, SeqParallel) else None)
+        x = own_part(x, 1, *line) if line else con(x)
         if cfg.cross_attn_every:
             return self._apply_vlm(params, x, self._img_in(img_embeds),
                                    remat, con, pcon)
@@ -314,7 +359,7 @@ class LM:
                   ) -> tuple[torch.Tensor, dict | None]:
             w, th = meta[i]
             h, _, aux = _block_apply(cfg, pcon(layers[i]), h, window=w,
-                                     theta=th)
+                                     theta=th, seq=line is not None)
             return con(h), aux
 
         def run(lo: int, hi: int, h: torch.Tensor, aux: dict
@@ -332,7 +377,8 @@ class LM:
                 x, aux = _remat(run, lo, lo + c, x, aux)
         else:
             x, aux = run(0, cfg.n_layers, x, aux)
-        return rmsnorm(params["final_norm"], x), aux
+        x = rmsnorm(params["final_norm"], x, split=line is not None)
+        return (all_gather_cat(x, 1, *line) if line else x), aux
 
     def _apply_vlm(self, params: Params, x: torch.Tensor,
                    img_embeds: torch.Tensor, remat: bool,
@@ -375,10 +421,19 @@ class LM:
         dropped), logits of the embedding table (bf16 products summed in
         f32, f32 out; :func:`~repro_torch.models.layers.logits_f32`) sliced
         to the vocab; each chunk checkpointed, so one chunk's logits are
-        alive at a time."""
+        alive at a time.  Over a vocab-sharded table (a DTensor) each rank
+        takes the logits of its rows (:func:`_chunk_nll_sharded`), and
+        ``hidden``'s gradient, a part on each rank, is summed over the
+        model axis."""
         B, S, _ = hidden.shape
         chunk = min(chunk, S)
         table = params["embed"]["table"]
+        vocab, vb = self.cfg.vocab, local_bounds(table)[0]
+        sharded = vb.stop - vb.start != table.shape[0]
+        if sharded:                        # this rank's vocab rows
+            line = _model_line(table)
+            hidden = copy_to_ranks(hidden, *line)
+            rows = table.to_local()
         tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
         cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
         for lo in range(0, S // chunk * chunk, chunk):
@@ -386,8 +441,12 @@ class LM:
             t = targets[:, sl]
             m = (mask[:, sl].to(torch.float32) if mask is not None else
                  torch.ones(t.shape, dtype=torch.float32, device=t.device))
-            tot = tot + _remat(_chunk_nll, hidden[:, sl], table, t, m,
-                               self.cfg.vocab)
+            if sharded:
+                tot = tot + _remat(_chunk_nll_sharded, hidden[:, sl], rows,
+                                   vb.start, t, m, vocab, *line)
+            else:
+                tot = tot + _remat(_chunk_nll, hidden[:, sl], table, t, m,
+                                   vocab)
             cnt = cnt + m.sum()
         return tot / torch.clamp(cnt, min=1.0)
 

@@ -9,6 +9,13 @@ update: :func:`adamw_update` writes the new parameters and moments into the
 given tensors under ``torch.no_grad()`` (and clips the gradients in place),
 so a step holds one copy of the state.  The state's ``step`` is a 0-d int32
 tensor on the parameters' device, and nothing here waits for the card.
+
+Parameters that are DTensors (tensor-parallel training across ranks) get
+moments that are DTensors laid out as their parameter (``opt_shardings``),
+each rank allocating only its shard; the update runs on each rank's local
+tensors, in place, with the same arithmetic, and :func:`global_norm` sums
+the squares of the sharded leaves' shards over the ranks once, so the norm
+and the clip scale are the same number on every rank.
 """
 from __future__ import annotations
 
@@ -17,6 +24,9 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from ..core.spmd_pipeline import (group_transport, is_dtensor, like_dtensor,
+                                   local_tensor, reduce_over_ranks,
+                                   sharded_dims)
 from ..core.tree import leaves, tree_map
 
 Params = Any
@@ -29,18 +39,42 @@ class AdamWState(NamedTuple):
 
 
 def adamw_init(params: Params) -> AdamWState:
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
-    device = leaves(params)[0].device
+    """f32 zero moments shaped as the parameters (a DTensor parameter's
+    laid out as it, only the local shard allocated) and ``step`` 0."""
+    def zeros(p):
+        local = local_tensor(p)
+        return like_dtensor(torch.zeros(local.shape, dtype=torch.float32,
+                                        device=local.device), p)
+
+    device = local_tensor(leaves(params)[0]).device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
                       m=tree_map(zeros, params), v=tree_map(zeros, params))
 
 
 def global_norm(tree: Params) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in f32."""
-    sq = [torch.linalg.vector_norm(x, dtype=torch.float32).square()
-          for x in leaves(tree)]
-    return torch.sqrt(torch.stack(sq).sum())
+    """sqrt of the sum of every leaf's squares, in f32.  Over DTensors:
+    the squares of each sharded leaf's local shard summed over the ranks
+    that split it (one small all-reduce), each leaf every rank holds whole
+    counted once."""
+    xs = leaves(tree)
+    if not any(is_dtensor(x) for x in xs):
+        sq = [torch.linalg.vector_norm(x, dtype=torch.float32).square()
+              for x in xs]
+        return torch.sqrt(torch.stack(sq).sum())
+    by_dims: dict = {}
+    for x in xs:
+        sq = torch.linalg.vector_norm(local_tensor(x),
+                                      dtype=torch.float32).square()
+        by_dims.setdefault(sharded_dims(x), []).append((x, sq))
+    total = []
+    for dims, part in by_dims.items():
+        s = torch.stack([sq for _, sq in part]).sum()
+        x = part[0][0]
+        for m in dims:                        # the ranks holding the parts
+            group = x.device_mesh.get_group(m)
+            s = reduce_over_ranks(s, group, group_transport(group, s.device))
+        total.append(s)
+    return torch.sqrt(torch.stack(total).sum())
 
 
 @torch.no_grad()
@@ -51,7 +85,7 @@ def clip_by_global_norm(grads: Params, max_norm: float
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     for g in leaves(grads):
-        g.mul_(scale)                 # f32 product, cast to g's type
+        local_tensor(g).mul_(scale)   # f32 product, cast to g's type
     return grads, norm
 
 
@@ -86,8 +120,8 @@ def adamw_update(grads: Params, state: AdamWState, params: Params, *,
             else torch.as_tensor(lr, dtype=torch.float32, device=step.device))
     c1 = 1.0 - torch.pow(torch.full((), b1, device=step.device), stepf)
     c2 = 1.0 - torch.pow(torch.full((), b2, device=step.device), stepf)
-    for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state.m),
-                          leaves(state.v)):
+    for p, g, m, v in zip(*(map(local_tensor, leaves(t)) for t in
+                            (params, grads, state.m, state.v))):
         g32 = g.to(torch.float32)
         m.mul_(b1).add_((1 - b1) * g32)
         v.mul_(b2).add_((1 - b2) * g32 * g32)
