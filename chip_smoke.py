@@ -83,7 +83,16 @@ version there:
   (``init_train_state_sharded``); two ``make_train_step`` steps with
   ``seq_parallel`` over 2 x 2048 tokens, then one without it from the same
   start (K7 on each rank's 8 local heads in the forward and the
-  recompute, K8 and K9 on them in the backward).
+  recompute, K8 and K9 on them in the backward);
+* expert parallelism (the moe family on DTensor weights) at
+  moonshot-v1-16b-a3b's full widths: each rank of a (data 1, model 2) mesh
+  sharing the card draws the whole weights and keeps its 32 of the 64
+  experts, 8 of the 16 heads and half of the vocab rows; served at 6 of
+  its 48 layers (2 prompts of 2048 tokens through the sort dispatch, 16
+  teacher-forced decode steps) and trained at 2 layers (2 x 4096 tokens
+  through the einsum dispatch, ``seq_parallel`` on and off), with the
+  whole-model run's routing pinned (K7 on each rank's local heads, K8 and
+  K9 in the backward).
 
 Phases:
 
@@ -260,7 +269,36 @@ Phases:
               element against their plain versions, rank 0's timed beside
               the bound, the plain backward and SDPA's; the peak GB with
               seq_parallel and without; the phase's seconds (budget 90)
-14. the ``kernels`` JSON line (the ranks' launches added), the nvidia-smi
+14. ep      — moonshot-v1-16b-a3b expert-parallel on 2 ranks sharing the
+              card, each whole-model run in this process first, its
+              routing recorded and pinned into the ranks; serving (6
+              layers): per rank its experts, the local shapes of moe/wi,
+              moe/wo, the router (whole), wq, the embed table and the cache,
+              K7 launches (> 0, wgmma route), every moe call's dropped_frac
+              equal to the whole run's, the collectives' count, MB and
+              share of a rerun; the prefill and decode logits, the gathered
+              cache and layer 0's moe output against moe_ref under the
+              pinned routing (the whole run's too) each within 2e-2 of
+              max|ref|; K7 at each
+              rank's [2, 2048, 8, 128] element by element, rank 0's timed
+              beside the bound and SDPA; training (2 layers): steps 1 and 3
+              (seq_parallel, then without from the same start) pinned, loss
+              1e-3 and grad_norm 1e-2 relative of the whole run's,
+              dropped_frac equal, each layer's router, ln2, wq and experts
+              0 and 32's wi/wo and the embed table within 2e-2 of
+              max|g_ref| of the same ranks' step with the experts whole on
+              every rank (ep_whole_experts_grads: the row split's own f32
+              sums, which at this random init move some of these
+              gradients 1-3.5x the limit off the plain whole run's,
+              printed beside them), the grad_norm equal on
+              both ranks, 4/2/2 K7/K8/K9 a step on the wgmma route, the
+              moments at their opt_shardings local shapes (moe/wi [2, 32,
+              2048, 2, 1408]), the loss falling, the collectives' count, MB
+              and share of each step; K8/K9 at each rank's [2, 4096, 8,
+              128] element by element, rank 0's timed; in every run, and in
+              an unpinned prefill, the two ranks' own top-k choices equal
+              bit for bit; the phase's seconds (budget 90)
+15. the ``kernels`` JSON line (the ranks' launches added), the nvidia-smi
    line, and the result line;
    a ``[time] <phase> <seconds>`` line after each phase
 
@@ -398,6 +436,19 @@ TP = dict(arch="gemma3-12b", layers=12, mesh=(1, 2), batch=2,
 TP_TRAIN = dict(arch="gemma3-12b", layers=6, mesh=(1, 2), batch=2,
                 seq_len=2048, loss_chunk=512, lr=3e-4, seed=2029,
                 checked=(0, 5), timeout=600)
+
+# expert parallelism: moonshot-v1-16b-a3b at full widths on a (data 1,
+# model 2) mesh sharing the card, each rank holding 32 of the 64 experts,
+# 8 of the 16 heads and half of the vocab rows: served at 6 of 48 layers
+# (2 prompts of 2048 tokens, the sort dispatch; 16 decode steps), trained
+# at 2 layers (batch 2 x 4096 tokens: the einsum dispatch, 16 groups of
+# 512; loss chunk 512, per-layer remat, AdamW); every check against the
+# whole-model run pins its routing; the gradients of experts 0 and 32
+# (one from each rank's range) are checked leaf by leaf
+EP = dict(arch="moonshot-v1-16b-a3b", layers=6, mesh=(1, 2), batch=2,
+          prompt_len=2048, decode=16, train_layers=2, train_batch=2,
+          train_seq=4096, loss_chunk=512, lr=3e-4, seed=2030,
+          experts=(0, 32), timeout=600)
 
 
 class SmokeFailure(RuntimeError):
@@ -4446,12 +4497,15 @@ def tp_inputs(cfg, device):
                          generator=g, device=device)
 
 
-def tp_serve(model, params, cache, ids, prefill, decode, tokens=None):
+def tp_serve(model, params, cache, ids, prefill, decode, tokens=None,
+             steps: int | None = None, phase=lambda name: None):
     """The phase's serving run (the same code whole or on a rank): the
     prefill step's logits, ``LM.prefill`` into ``cache``, then one decode
     step a token of ``tokens`` [B, n] (teacher-forced), or of the greedy
-    tokens when None; → (prefill logits, decode logits, tokens fed, ms of
-    each part)."""
+    tokens when None, ``steps`` of them (``TP["decode"]`` by default);
+    ``phase(name)`` is called before each part ("prefill", "fill",
+    "dec<j>"); → (prefill logits, decode logits, tokens fed, ms of each
+    part)."""
     import torch
 
     def timed(fn):
@@ -4461,11 +4515,14 @@ def tp_serve(model, params, cache, ids, prefill, decode, tokens=None):
         torch.cuda.synchronize()
         return out, 1e3 * (time.perf_counter() - t0)
 
+    phase("prefill")
     logits, pre_ms = timed(lambda: prefill(params, {"ids": ids}))
+    phase("fill")
     _, fill_ms = timed(lambda: model.prefill(params, ids, cache))
     T, fed, outs, dec_ms = ids.shape[1], [], [], []
     tok = logits[:, -1].argmax(-1)
-    for j in range(TP["decode"]):
+    for j in range(TP["decode"] if steps is None else steps):
+        phase(f"dec{j}")
         if tokens is not None:
             tok = tokens[:, j].to(ids.device)
         fed.append(tok)
@@ -5109,6 +5166,853 @@ def phase_tp_train() -> tuple[dict, dict]:
     return counts, out
 
 
+# --------------------------------------------------------------------------- #
+# 14. expert parallelism: moonshot-v1-16b-a3b served and trained on 2 ranks
+# --------------------------------------------------------------------------- #
+def ep_config(layers: int):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(EP["arch"]), n_layers=layers)
+    check(cfg.d_model == 2048 and cfg.n_heads == 16 and cfg.n_kv_heads == 16
+          and cfg.hd == 128 and cfg.d_ff == 1408 and cfg.n_experts == 64
+          and cfg.top_k == 6 and cfg.vocab == 163840 and cfg.window == 0
+          and cfg.dtype == "bfloat16", f"unexpected ep config {cfg}")
+    return cfg
+
+
+class RoutingLog:
+    """A ``moe.ROUTING_HOOK`` that keeps every call's own top-k choices by
+    (phase, layer) in ``own`` (the caller sets ``phase``; a layer's router
+    is a view of the stacked [L, d, E] one, so its storage offset names the
+    layer) and replaces them with ``pins[phase][layer]`` for the phases
+    ``pins`` holds; ``dropped[phase]`` gathers each moe call's
+    ``dropped_frac`` (:func:`moe_spy`)."""
+
+    def __init__(self, pins: dict | None = None):
+        self.pins, self.phase = pins or {}, None
+        self.own, self.dropped = {}, {}
+
+    def set(self, phase: str) -> None:
+        self.phase = phase
+
+    def __call__(self, router, logits, idx):
+        layer = router.storage_offset() // router.numel()
+        self.own.setdefault((self.phase, layer), []).append(
+            idx.detach().cpu())
+        pin = self.pins.get(self.phase)
+        return idx if pin is None else pin[layer].to(idx.device)
+
+    def first(self) -> dict:
+        """phase -> each layer's first choices (the forward's, before any
+        recompute)."""
+        out: dict = {}
+        for (phase, layer), calls in sorted(self.own.items()):
+            out.setdefault(phase, []).append(calls[0])
+        return out
+
+
+@contextlib.contextmanager
+def moe_spy(log: RoutingLog, keep: dict):
+    """``transformer.moe_apply`` as it is, each call's ``dropped_frac``
+    appended to ``log.dropped[log.phase]`` and the first call's input,
+    output and routing in the "prefill" phase kept in ``keep``."""
+    from repro_torch.models import transformer as mt
+
+    real = mt.moe_apply
+
+    def spy(p, x, *a, **kw):
+        r = {}
+        y, aux = real(p, x, *a, routing=r, **kw)
+        log.dropped.setdefault(log.phase, []).append(
+            aux["dropped_frac"].detach())
+        if log.phase == "prefill" and not keep:
+            keep.update(x=x, y=y, **{k: r[k] for k in ("idx", "gate",
+                                                       "keep")})
+        return y, aux
+
+    mt.moe_apply = spy
+    try:
+        yield
+    finally:
+        mt.moe_apply = real
+
+
+def ep_inputs(cfg, device):
+    """The served prompts [B, T] drawn from the phase's seed."""
+    import torch
+
+    g = torch.Generator(device).manual_seed(EP["seed"] + 1)
+    return torch.randint(0, cfg.vocab, (EP["batch"], EP["prompt_len"]),
+                         generator=g, device=device)
+
+
+def ep_serve_rank(mesh, cfg, ref_path: str) -> dict:
+    """One rank of the ep phase's serving: draw the whole weights from the
+    phase's seed and keep its shards, serve teacher-forced with the whole
+    run's tokens and routing pinned, rerun with the collectives timed
+    alone, then an unpinned prefill; its logits, cache shards, layer 0's
+    moe input, output and routing, each call's dropped_frac, its own
+    choices and the q/k/v its first layer gave K7."""
+    import torch
+
+    from repro_torch.core.spmd_pipeline import local_bounds
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import sharding as TS
+    from repro_torch.launch import steps as TST
+    from repro_torch.models import LM, layers
+
+    B, T, n = EP["batch"], EP["prompt_len"], EP["decode"]
+    ref = torch.load(ref_path)
+    t0 = time.perf_counter()
+    mesh.device_mesh                      # the DeviceMesh and its groups
+    whole = LM(cfg).init(torch.Generator(mesh.device).manual_seed(EP["seed"]))
+    params = TS.distribute_params(mesh, whole)
+    del whole
+    torch.cuda.empty_cache()
+    cache = TST.init_cache_sharded(cfg, mesh, B, T + n)
+    ids = ref["ids"].to(mesh.device)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    log, keep, kq = RoutingLog(ref["pins"]), {}, {}
+    try:
+        model, prefill = TST.make_prefill_step(cfg, mesh)
+        _, decode = TST.make_decode_step(cfg, mesh)
+        with routing_hook(log), moe_spy(log, keep), attention_spy(
+                keep=kq, kind=lambda causal, window: "ep"):
+            logits, dec, _, ms = tp_serve(model, params, cache, ids, prefill,
+                                          decode, ref["tokens"], steps=n,
+                                          phase=log.set)
+        launches = dict(fa.LAUNCHES)
+        routes = {k: dict(v) for k, v in fa.ROUTE_LAUNCHES.items()}
+        # the same run again, its collectives timed alone
+        coll = {"sync_ms": 0.0, "collective_ms": 0.0, "calls": {},
+                "bytes": 0}
+        cache2 = TST.init_cache_sharded(cfg, mesh, B, T + n)
+        again = RoutingLog(ref["pins"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with routing_hook(again), timed_collectives(coll):
+            tp_serve(model, params, cache2, ids, prefill, decode,
+                     ref["tokens"], steps=n, phase=again.set)
+        coll["run_ms"] = 1e3 * (time.perf_counter() - t1)
+        del cache2
+        # the ranks' own choices, nothing pinned
+        own = RoutingLog()
+        own.set("own")
+        with routing_hook(own):
+            prefill(params, {"ids": ids})
+        torch.cuda.synchronize()
+    finally:
+        layers.set_attention_mesh(None)
+    moe, lp = params["layers"]["moe"], params["layers"]
+    shapes = {"moe/wi": tuple(moe["wi"].to_local().shape),
+              "moe/wo": tuple(moe["wo"].to_local().shape),
+              "moe/router": tuple(moe["router"].to_local().shape),
+              "attn/wq": tuple(lp["attn"]["wq"].to_local().shape),
+              "embed": tuple(params["embed"]["table"].to_local().shape),
+              "cache_k": tuple(cache["k"].to_local().shape)}
+    return {"rank": mesh.rank, "transport": mesh.transport, "shapes": shapes,
+            "experts": local_bounds(moe["wi"])[1],
+            "logits": logits, "decode": dec, "ms": ms, "draw_s": draw_s,
+            "collectives": coll,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches, "routes": routes,
+            "dropped": {k: [float(v) for v in vs]
+                        for k, vs in log.dropped.items()},
+            "own": {**log.own, **own.own},
+            "moe0": {k: v.cpu() for k, v in keep.items()},
+            "k7_inputs": {nm: (*(t.cpu() for t in qkv), w)
+                          for nm, (*qkv, w) in kq.items()},
+            "cache": {nm: (cache[nm].to_local().cpu(),
+                           local_bounds(cache[nm])) for nm in ("k", "v")}}
+
+
+def ep_serve_reference(cfg, path: str) -> dict:
+    """The whole-model serving run on plain tensors in this process, its
+    routing recorded: the prompts, the greedy tokens it fed and each
+    phase's choices by layer saved to ``path`` for the ranks; → its
+    logits, cache, dropped_frac by phase, layer 0's moe weights, ms."""
+    import torch
+
+    from repro_torch.core.tree import leaves
+    from repro_torch.launch import steps as TST
+    from repro_torch.models import LM
+
+    B, T, n = EP["batch"], EP["prompt_len"], EP["decode"]
+    model = LM(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(EP["seed"]))
+    nbytes = sum(a.numel() * a.element_size() for a in leaves(params))
+    ids = ep_inputs(cfg, "cuda")
+    cache = model.init_cache(B, T + n, device="cuda")
+    _, prefill = TST.make_prefill_step(cfg)
+    _, decode = TST.make_decode_step(cfg)
+    log, keep = RoutingLog(), {}
+    with routing_hook(log), moe_spy(log, keep):
+        logits, dec, tokens, ms = tp_serve(model, params, cache, ids,
+                                           prefill, decode, steps=n,
+                                           phase=log.set)
+    pins = {k: torch.stack(v) for k, v in log.first().items()}
+    torch.save({"ids": ids.cpu(), "tokens": tokens, "pins": pins}, path)
+    out = {"logits": logits, "decode": dec, "ms": ms,
+           "cache": {k: cache[k].cpu() for k in ("k", "v")},
+           "dropped": {k: [float(v) for v in vs]
+                       for k, vs in log.dropped.items()},
+           "own": log.first(), "weights_gb": nbytes / 1e9,
+           "moe0_io": keep,
+           "moe0": {k: v[0].clone() for k, v in
+                    params["layers"]["moe"].items()}}
+    del params, cache
+    return out
+
+
+def ep_train_config():
+    return ep_config(EP["train_layers"])
+
+
+def ep_train_batch(cfg, device) -> dict:
+    """The phase's training batch [B, S] drawn from its seed."""
+    import torch
+
+    g = torch.Generator(device).manual_seed(EP["seed"] + 2)
+    shape = (EP["train_batch"], EP["train_seq"])
+    return {"ids": torch.randint(0, cfg.vocab, shape, generator=g,
+                                 device=device),
+            "labels": torch.randint(0, cfg.vocab, shape, generator=g,
+                                    device=device),
+            "mask": torch.ones(shape, device=device)}
+
+
+def ep_train_checked(tree, n_layers: int) -> dict:
+    """name → (leaf, its bounds in the whole one) of the leaves the ep
+    phase holds to the whole run: each layer's router, ``ln2`` scale and
+    ``wq`` (the rank's heads), ``wi``/``wo`` of the experts in
+    ``EP["experts"]`` the rank holds, and the embed table (its vocab
+    rows); a DTensor's local tensor, a plain tensor whole."""
+    from repro_torch.core.spmd_pipeline import local_bounds, local_tensor
+
+    lp, out = tree["layers"], {}
+    for i in range(n_layers):
+        for name, a in (("moe/router", lp["moe"]["router"]),
+                        ("ln2/scale", lp["ln2"]["scale"]),
+                        ("attn/wq", lp["attn"]["wq"])):
+            out[f"layers/{name}@{i}"] = (local_tensor(a)[i],
+                                         local_bounds(a)[1:])
+        for name in ("wi", "wo"):
+            a = lp["moe"][name]
+            ex = local_bounds(a)[1]
+            for e in EP["experts"]:
+                if ex.start <= e < ex.stop:
+                    w = local_tensor(a)[i, e - ex.start]
+                    out[f"layers/moe/{name}@{i}/expert{e}"] = (
+                        w, tuple(slice(0, m) for m in w.shape))
+    table = tree["embed"]["table"]
+    out["embed/table"] = (local_tensor(table), local_bounds(table))
+    return out
+
+
+def ep_train_reference(path: str) -> dict:
+    """The whole-model training run on plain tensors: step 1's loss,
+    grad_norm (before clipping), checked gradients and each layer's
+    routing, the gradients and the routing saved to ``path`` for the
+    ranks."""
+    import torch
+
+    from repro_torch.core.tree import flatten, leaves, unflatten
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import LM
+    from repro_torch.optim import global_norm
+
+    cfg = ep_train_config()
+    model = LM(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(EP["seed"] + 3))
+    nbytes = sum(a.numel() * a.element_size() for a in leaves(params))
+    batch = ep_train_batch(cfg, "cuda")
+    log = RoutingLog()
+    log.set("train")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with routing_hook(log), moe_spy(log, {}):
+        ce, grads, aux = loss_and_grads(model, params, batch,
+                                        loss_chunk=EP["loss_chunk"])
+    gnorm = float(global_norm(grads))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    plain = {k: g.cpu() for k, (g, _) in ep_train_checked(
+        unflatten(flatten(params)[1], grads), cfg.n_layers).items()}
+    pins = {k: torch.stack(v) for k, v in log.first().items()}
+    torch.save({"plain": plain, "pins": pins}, path)
+    out = {"loss": float(ce), "grad_norm": gnorm,
+           "dropped_frac": float(aux["dropped_frac"]),
+           "max_plain": {k: float(g.float().abs().max())
+                         for k, g in plain.items()},
+           "weights_gb": nbytes / 1e9, "step_ms": ms}
+    del params, grads, plain
+    return out
+
+
+def ep_whole_experts_grads(mesh, cfg, whole, batch, seq_parallel: bool
+                           ) -> tuple[float, dict]:
+    """The reference the ranks' expert-parallel gradients are held to: the
+    same step-1 loss and gradients on the same ranks with ``moe/wi`` and
+    ``moe/wo`` whole on every rank (the guard's path: every expert
+    computed, nothing summed) and everything else split as the train
+    step splits it (attention's heads, whose row split's f32 sum is the
+    ranks' own, ff and vocab) → (the cross-entropy, the checked gradients
+    by :func:`ep_train_checked`).  The forward is the expert-parallel
+    one's, bit for bit (the exact combine), so this reference isolates
+    expert parallelism from the row split's rounding, which this init's
+    large experts carry into a few percent of some gradients."""
+    import torch
+
+    from repro_torch.core.tree import flatten, unflatten
+    from repro_torch.launch import sharding as TS
+    from repro_torch.launch import steps as TST
+    from repro_torch.models import LM
+
+    sh = TS.param_shardings(mesh, whole)
+    for n in ("wi", "wo"):
+        sh["layers"]["moe"][n] = TS.NamedSharding(
+            mesh, TS.P(*(None,) * whole["layers"]["moe"][n].dim()))
+    params = TS.distribute_params(mesh, whole, sh)
+    TST.make_train_step(cfg, mesh, seq_parallel=seq_parallel)  # the layout
+    con = TST._layer_param_constraint(mesh)
+
+    def keep_experts(lp):
+        """The step's layer constraint, but for wi and wo, left whole."""
+        moe = lp["moe"]
+        out = con({**lp, "moe": {k: v for k, v in moe.items()
+                                 if k not in ("wi", "wo")}})
+        out["moe"] = {**out["moe"], "wi": moe["wi"], "wo": moe["wo"]}
+        return out
+
+    ce, grads, _ = TST.loss_and_grads(
+        LM(cfg), params, batch, loss_chunk=EP["loss_chunk"],
+        act_constraint=TST._act_constraint(mesh) if seq_parallel else None,
+        param_constraint=keep_experts)
+    checked = {k: g.detach().clone() for k, (g, _) in ep_train_checked(
+        unflatten(flatten(params)[1], grads), cfg.n_layers).items()}
+    del params, grads
+    return float(ce), checked
+
+
+def ep_train_rank(mesh, cfg, ref_path: str) -> dict:
+    """One rank of the ep phase's training: draw the whole weights and
+    keep its shards (``init_train_state_sharded``); two
+    ``make_train_step`` steps with seq_parallel, then one without from the
+    same start, the collectives timed alone; steps 1 and 3 with the whole
+    run's routing pinned, their gradients taken before AdamW against the
+    same ranks' step with the experts whole
+    (:func:`ep_whole_experts_grads`, first) and against the whole run's
+    at this rank's bounds, step 2 routed by the rank itself; the moments'
+    local shapes; its own choices; layer 0's q, k, v and dO."""
+    import torch
+
+    from repro_torch.core.spmd_pipeline import is_dtensor, local_tensor
+    from repro_torch.core.tree import leaves
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import sharding as TS
+    from repro_torch.launch import steps as TST
+    from repro_torch.models import LM, layers
+    from repro_torch.optim import adamw_init
+
+    t0 = time.perf_counter()
+    mesh.device_mesh
+    whole = LM(cfg).init(torch.Generator(mesh.device).manual_seed(
+        EP["seed"] + 3))
+    state = TST.init_train_state_sharded(cfg, mesh, whole)
+    start = [local_tensor(a).clone() for a in leaves(state["params"])]
+    batch = ep_train_batch(cfg, mesh.device)
+    ref = torch.load(ref_path, mmap=True, map_location="cpu")
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+
+    pinned = ref["pins"]["train"]
+    log = RoutingLog({"step1": pinned, "step3": pinned,
+                      "whole_experts_seq": pinned,
+                      "whole_experts_noseq": pinned})
+    # the experts-whole reference of steps 1 (seq_parallel) and 3 (not)
+    t1 = time.perf_counter()
+    whole_ref = {}
+    try:
+        with routing_hook(log):
+            for sp in (True, False):
+                log.set(f"whole_experts_{'seq' if sp else 'noseq'}")
+                whole_ref[sp] = ep_whole_experts_grads(mesh, cfg, whole,
+                                                       batch, sp)
+    finally:
+        layers.set_attention_mesh(None)
+    del whole
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    whole_ref_s = time.perf_counter() - t1
+
+    steps, errs, inputs = [], [], {}
+    real_update = TST.adamw_update
+
+    def spy(grads, st, params, **kw):
+        """The step's gradients against the whole run's, before AdamW."""
+        t1 = time.perf_counter()
+        sp, compare = steps_plan[len(steps)]
+        if compare:
+            e = {}
+            for k, (g, at) in ep_train_checked(grads,
+                                               cfg.n_layers).items():
+                want = whole_ref[sp][1][k]
+                e[k] = float((g.float() - want.float()).abs().max())
+                want = ref["plain"][k][at].to(g.device)
+                e[f"{k} plain"] = float((g.float() - want.float()).abs()
+                                        .max())
+            errs.append(e)
+            torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t1
+        return real_update(grads, st, params, **kw)
+
+    def keep_attention(q, k, v, causal=True, window=0):
+        o = real_attention(q, k, v, causal, window)
+        if "ep_train" not in inputs and torch.is_grad_enabled():
+            inputs["ep_train"] = [t.detach().clone() for t in (q, k, v)] + [
+                None, int(window)]
+            o.register_hook(lambda g: inputs["ep_train"].__setitem__(
+                3, g.detach().clone()))
+        return o
+
+    # (seq_parallel, compare the gradients) of each step
+    steps_plan = [(True, True), (True, False), (False, True)]
+    real_attention = layers.ops.attention
+    TST.adamw_update = spy
+    try:
+        with routing_hook(log), moe_spy(log, {}):
+            for i, (sp, _) in enumerate(steps_plan):
+                log.set(f"step{i + 1}")
+                if i == 2:                # the same start, no moments yet
+                    for a, s0 in zip(leaves(state["params"]), start):
+                        local_tensor(a).copy_(s0)
+                    state = {"params": state["params"],
+                             "opt": adamw_init(state["params"])}
+                _, step = TST.make_train_step(
+                    cfg, mesh, seq_parallel=sp, lr=EP["lr"], warmup=1,
+                    total_steps=10, loss_chunk=EP["loss_chunk"])
+                layers.ops.attention = (keep_attention if i == 0
+                                        else real_attention)
+                coll = {"sync_ms": 0.0, "collective_ms": 0.0, "calls": {},
+                        "bytes": 0}
+                spent = [0.0]
+                fa.reset_launches()
+                torch.cuda.reset_peak_memory_stats()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                with timed_collectives(coll):
+                    state, met = step(state, batch)
+                    loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+                ms = 1e3 * (time.perf_counter() - t1 - spent[0])
+                steps.append({
+                    "seq_parallel": sp, "loss": loss, "grad_norm": gnorm,
+                    "dropped_frac": float(met["dropped_frac"]), "ms": ms,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "launches": dict(fa.LAUNCHES),
+                    "routes": {k: dict(v) for k, v in
+                               fa.ROUTE_LAUNCHES.items()},
+                    "collectives": coll})
+                if i == 0:
+                    moments = {}
+                    TS.map_with_path(lambda p, a: moments.__setitem__(
+                        TS.path_str(p), (tuple(local_tensor(a).shape),
+                                         tuple(a.shape))), state["opt"].m)
+    finally:
+        TST.adamw_update = real_update
+        layers.ops.attention = real_attention
+        layers.set_attention_mesh(None)
+    return {"rank": mesh.rank, "transport": mesh.transport,
+            "draw_s": draw_s, "steps": steps, "grad_err": errs,
+            "whole_experts": {sp: {"loss": ce, "max": {
+                k: float(g.float().abs().max()) for k, g in gr.items()}}
+                for sp, (ce, gr) in whole_ref.items()},
+            "whole_experts_s": whole_ref_s,
+            "moments": moments, "own": log.own,
+            "moments_plain_step": not is_dtensor(state["opt"].step),
+            "inputs": {nm: tuple(t.cpu() if torch.is_tensor(t) else t
+                                 for t in v) for nm, v in inputs.items()}}
+
+
+def ep_same_choices(res: list, label: str) -> dict:
+    """Every rank's own choices against rank 0's, bit for bit: (phase,
+    layer) keys, calls and indices; gated."""
+    import torch
+
+    own = res[0]["own"]
+    bad = [key for r in res[1:] for key in set(own) | set(r["own"])
+           if len(own.get(key, [])) != len(r["own"].get(key, []))
+           or not all(torch.equal(a, b) for a, b in zip(own[key],
+                                                         r["own"][key]))]
+    n = sum(len(v) for v in own.values())
+    check(not bad, f"ep {label}: the ranks' own choices differ at {bad}")
+    print(f"[ep] {label}: the {len(res)} ranks' own top-k choices equal bit "
+          f"for bit in all {n} routing calls ({len(own)} phase x layer "
+          f"keys)")
+    return {"calls": n, "keys": len(own)}
+
+
+def phase_ep_serve() -> tuple[dict, dict]:
+    """moonshot-v1-16b-a3b served expert-parallel (6 layers) on 2 ranks
+    sharing the card, held to the whole-model run on the same weights in
+    this process with its routing pinned."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.mesh import run_on_local_mesh
+    from repro_torch.models import moe
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = ep_config(EP["layers"])
+    B, T, n = EP["batch"], EP["prompt_len"], EP["decode"]
+    m = EP["mesh"][1]
+    print(f"[ep] {cfg.arch_id}: {cfg.n_layers} of 48 layers, d "
+          f"{cfg.d_model}, {cfg.n_heads} heads x {cfg.hd} ({cfg.n_kv_heads} "
+          f"kv heads), {cfg.n_experts} experts top {cfg.top_k}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype} (router f32); batch "
+          f"{B} x {T} tokens, {n} decode steps; mesh (data, model) = "
+          f"{EP['mesh']}: {cfg.n_experts // m} experts and "
+          f"{cfg.n_heads // m} heads a rank")
+    out: dict = {}
+    counts: dict = {}
+    with tempfile.TemporaryDirectory(prefix="ep_") as tmp:
+        # serving: the whole-model run, alone on the card, then the ranks
+        path = os.path.join(tmp, "serve.pt")
+        ref = ep_serve_reference(cfg, path)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_ref = time.perf_counter() - t_phase
+        print(f"[ep] whole-model serving run: {ref['weights_gb']:.3f} GB of "
+              f"weights; prefill step {ref['ms']['prefill_step_ms']:.3f} ms, "
+              f"prefill into the cache {ref['ms']['prefill_cache_ms']:.3f} "
+              f"ms, decode {statistics.median(ref['ms']['decode_ms']):.3f} ms "
+              f"a step (median of {n}); {t_ref:.3f} s")
+        t1 = time.perf_counter()
+        res = run_on_local_mesh(EP["mesh"], ("data", "model"), ep_serve_rank,
+                                cfg, path, device="cuda",
+                                timeout=EP["timeout"])
+        serve_s = time.perf_counter() - t1
+    half = {"moe/wi": (cfg.n_layers, cfg.n_experts // m, cfg.d_model, 2,
+                       cfg.d_ff),
+            "moe/wo": (cfg.n_layers, cfg.n_experts // m, cfg.d_ff,
+                       cfg.d_model),
+            "moe/router": (cfg.n_layers, cfg.d_model, cfg.n_experts),
+            "attn/wq": (cfg.n_layers, cfg.d_model, cfg.n_heads // m, cfg.hd),
+            "embed": (cfg.vocab_padded // m, cfg.d_model),
+            "cache_k": (cfg.n_layers, B, T + n, cfg.n_kv_heads // m, cfg.hd)}
+    for r in res:
+        k7 = r["launches"]["flash_attention"]
+        c = r["collectives"]
+        print(f"[ep] rank {r['rank']} over {r['transport']}: experts "
+              f"{r['experts'].start}..{r['experts'].stop - 1}, local shapes "
+              f"{r['shapes']}; peak {r['peak_gb']:.3f} GB; drawn and cut in "
+              f"{r['draw_s']:.3f} s; K7 launches {k7} (routes "
+              f"{r['routes']['flash_attention']}); prefill step "
+              f"{r['ms']['prefill_step_ms']:.3f} ms, prefill into the cache "
+              f"{r['ms']['prefill_cache_ms']:.3f} ms, decode "
+              f"{statistics.median(r['ms']['decode_ms']):.3f} ms a step")
+        print(f"[ep] rank {r['rank']} serving rerun with each collective "
+              f"timed alone: {c['run_ms']:.3f} ms in all, "
+              f"{c['collective_ms']:.3f} ms "
+              f"({c['collective_ms'] / c['run_ms']:.3f} of it) in "
+              f"{c['calls']} collectives ({c['bytes'] / 1e6:.3f} MB sent), "
+              f"{c['sync_ms']:.3f} ms waiting for the card's queued "
+              f"work before them")
+        check(r["shapes"] == half, f"ep rank {r['rank']}: local shapes "
+                                   f"{r['shapes']}, want {half}")
+        check(k7 > 0 and r["routes"]["flash_attention"]["simt_f32"] == 0,
+              f"ep rank {r['rank']}: K7 launches {r['routes']}")
+        check(r["dropped"] == ref["dropped"],
+              f"ep rank {r['rank']}: dropped_frac by phase {r['dropped']} "
+              f"against the whole run's {ref['dropped']}")
+        for k, v in r["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    print(f"[ep] dropped_frac of every moe call equals the whole run's on "
+          f"both ranks (prefill layers {ref['dropped']['prefill']})")
+    out["same_choices_serve"] = ep_same_choices(res, "serving (pinned runs "
+                                                "and the unpinned prefill)")
+    flips = sum(int((~same_set(calls[0], ref["own"][ph][layer])).sum())
+                for (ph, layer), calls in res[0]["own"].items()
+                if ph in ref["own"])
+    print(f"[ep] tokens whose own top-k on rank 0 differ from the whole "
+          f"run's (pinned to the whole run's; printed, not gated): {flips}")
+
+    def share(got, want) -> float:
+        want = want.float()
+        return ((got.float() - want).abs().max()
+                / (2e-2 * want.abs().max())).item()
+
+    reads = {"prefill_logits": max(share(r["logits"], ref["logits"])
+                                   for r in res),
+             "decode_logits": max(share(g, w) for r in res
+                                  for g, w in zip(r["decode"],
+                                                  ref["decode"]))}
+    by_step = [round(max(share(r["decode"][j], ref["decode"][j])
+                         for r in res), 4) for j in range(n)]
+    print(f"[ep] decode logits by step, share of the limit: {by_step}")
+    for name in ("k", "v"):
+        full = torch.zeros(ref["cache"][name].shape,
+                           dtype=ref["cache"][name].dtype)
+        for r in res:
+            local, bounds = r["cache"][name]
+            full[tuple(bounds)] = local
+        reads[f"cache_{name}"] = share(full, ref["cache"][name])
+        scale = 2e-2 * ref["cache"][name].float().abs().max()
+        by_layer = [round(((full[i].float() - ref["cache"][name][i].float())
+                           .abs().max() / scale).item(), 4)
+                    for i in range(cfg.n_layers)]
+        print(f"[ep] cache_{name} by layer, share of the whole cache's "
+              f"limit: {by_layer}")
+    # layer 0's moe output on each rank (and in the whole run) against
+    # moe_ref under the pinned routing, from the whole weights of layer 0
+    p0 = ref["moe0"]
+    for name, x0 in ([(f"moe0_rank{r['rank']}", r["moe0"]) for r in res]
+                     + [("moe0_whole", ref["moe0_io"])]):
+        d = x0["x"].shape[-1]
+        k = x0["idx"].shape[-1]
+        want = moe.moe_ref(p0, x0["x"].to("cuda").reshape(-1, d),
+                           *(x0[nm].to("cuda").reshape(-1, k)
+                             for nm in ("idx", "gate", "keep")))
+        reads[name] = share(x0["y"].to("cuda").reshape(-1, d), want)
+    for k_, v in reads.items():
+        print(f"[ep] {k_}: max |err| at {v:.4f} of 2e-2 * max|ref|")
+    for k_, v in reads.items():
+        check(v <= 1.0, f"ep {k_}: {v:.4f} of the limit")
+    out["serve"] = {"reads_share_of_limit": reads, "whole_ms": ref["ms"],
+                    "dropped": ref["dropped"], "own_flips": flips,
+                    "ranks": [{k_: r[k_] for k_ in (
+                        "rank", "transport", "shapes", "ms", "draw_s",
+                        "peak_gb", "launches", "collectives")} for r in res],
+                    "ranks_s": serve_s, "weights_gb": ref["weights_gb"]}
+    # K7 on the q/k/v each rank's first layer gave it
+    k7: dict = {}
+    for r in res:
+        q, k_, v, w = (t.to("cuda") if torch.is_tensor(t) else t
+                       for t in r["k7_inputs"]["ep"])
+        want = (B, T, cfg.n_heads // m, cfg.hd)
+        check(tuple(q.shape) == want and k_.shape == v.shape == q.shape
+              and q.dtype == torch.bfloat16,
+              f"ep rank {r['rank']} K7: q {tuple(q.shape)} {q.dtype}; want "
+              f"{want} bf16")
+        if r["rank"] == 0:
+            k7["ep"] = k7_at(q, k_, v, w, "ep", tag="[ep]")
+        else:
+            d_, worst = flash_err(q, k_, v, True, w)
+            print(f"[ep] rank {r['rank']} K7 at {list(q.shape)} bf16: max "
+                  f"abs err {d_}, {worst} of the element-wise limit")
+            k7[f"ep rank {r['rank']}"] = {"max_abs_err": d_,
+                                          "err_of_elementwise_limit": worst}
+        del q, k_, v
+    out["k7"] = k7
+    out["serve"]["serve_s"] = time.perf_counter() - t_phase
+    print(f"[ep] serving {out['serve']['serve_s']:.3f} s: whole run "
+          f"{t_ref:.3f} s, ranks {serve_s:.3f} s")
+    del res, ref, p0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def phase_ep_train() -> tuple[dict, dict]:
+    """moonshot-v1-16b-a3b trained expert-parallel (2 layers) on 2 ranks
+    sharing the card, held to the whole-model step in this process with
+    its routing pinned."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch import sharding as TS
+    from repro_torch.launch import steps as TST
+    from repro_torch.launch.mesh import MeshLayout, run_on_local_mesh
+    from repro_torch.optim import adamw_init
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    m = EP["mesh"][1]
+    counts: dict = {}
+    tcfg = ep_train_config()
+    S = EP["train_seq"]
+    t_train = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ep_train_") as tmp:
+        path = os.path.join(tmp, "train.pt")
+        tref = ep_train_reference(path)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[ep] whole-model training run ({tcfg.n_layers} layers, "
+              f"{EP['train_batch']} x {S} tokens, loss chunk "
+              f"{EP['loss_chunk']}): {tref['weights_gb']:.3f} GB of weights; "
+              f"loss {tref['loss']} grad_norm {tref['grad_norm']} "
+              f"dropped_frac {tref['dropped_frac']}; loss and gradients "
+              f"{tref['step_ms']:.3f} ms")
+        t1 = time.perf_counter()
+        res = run_on_local_mesh(EP["mesh"], ("data", "model"), ep_train_rank,
+                                tcfg, path, device="cuda",
+                                timeout=EP["timeout"])
+        train_s = time.perf_counter() - t1
+    layout = MeshLayout(EP["mesh"], ("data", "model"))
+    abstract = TST.abstract_params(tcfg)
+    specs = {}
+    TS.map_with_path(lambda p, sh: specs.__setitem__(TS.path_str(p),
+                                                     sh.spec),
+                     TS.opt_shardings(layout, adamw_init(abstract),
+                                      abstract).m)
+    L = tcfg.n_layers
+    per_step = {"flash_attention": 2 * L, "flash_attention_bwd_dq": L,
+                "flash_attention_bwd_dkv": L}
+    for r in res:
+        for i, st in enumerate(r["steps"]):
+            c = st["collectives"]
+            print(f"[ep] rank {r['rank']} train step {i + 1} seq_parallel "
+                  f"{st['seq_parallel']}: loss {st['loss']} grad_norm "
+                  f"{st['grad_norm']} dropped_frac {st['dropped_frac']}; "
+                  f"{st['ms']:.3f} ms, peak {st['peak_gb']:.3f} GB; launches "
+                  f"{st['launches']} (routes {st['routes']}); "
+                  f"{c['collective_ms']:.3f} ms "
+                  f"({c['collective_ms'] / st['ms']:.3f} of the step) in "
+                  f"{c['calls']} collectives ({c['bytes'] / 1e6:.3f} MB), "
+                  f"by pass {c['by_pass']}, "
+                  f"{c['sync_ms']:.3f} ms waiting for the card's queued work "
+                  f"before them")
+            check(st["launches"] == per_step,
+                  f"ep rank {r['rank']} step {i + 1}: launches "
+                  f"{st['launches']}, expected {per_step}")
+            check(all(st["routes"][k] == {"wgmma_bf16": v, "simt_f32": 0}
+                      for k, v in per_step.items()),
+                  f"ep rank {r['rank']} step {i + 1}: routes {st['routes']}")
+            check(c["by_pass"].get("backward", {}).get("calls", 0) > 0,
+                  f"ep rank {r['rank']} step {i + 1}: no collective in the "
+                  f"backward pass ({c['calls']})")
+            for k, v in st["launches"].items():
+                counts[k] = counts.get(k, 0) + v
+        bad = {k: v for k, v in r["moments"].items()
+               if v[0] != TS.local_shape(layout, specs[k], v[1])}
+        check(not bad and r["moments_plain_step"],
+              f"ep rank {r['rank']}: moments' local shapes off their "
+              f"opt_shardings specs: {bad}")
+        mw = r["moments"]["layers/moe/wi"][0]
+        check(mw == (L, tcfg.n_experts // m, tcfg.d_model, 2, tcfg.d_ff),
+              f"ep rank {r['rank']}: moe/wi moments {mw}")
+        print(f"[ep] rank {r['rank']}: drawn and cut in {r['draw_s']:.3f} s; "
+              f"every moment's local shape is its opt_shardings spec's "
+              f"(moe/wi {mw}, moe/wo {r['moments']['layers/moe/wo'][0]}, "
+              f"router {r['moments']['layers/moe/router'][0]})")
+    same = ep_same_choices(
+        res, "training (steps 1 and 3 pinned, step 2 routed by the ranks)")
+    treads = {}
+    for i in range(3):
+        norms = {r["steps"][i]["grad_norm"] for r in res}
+        check(len(norms) == 1, f"ep step {i + 1}: grad_norm differs between "
+                               f"the ranks: {norms}")
+    for r in res:
+        print(f"[ep] rank {r['rank']} reference with the experts whole on "
+              f"every rank (attention, ff and vocab split as in the steps): "
+              f"{r['whole_experts_s']:.3f} s; its loss with / without "
+              f"seq_parallel {r['whole_experts'][True]['loss']} / "
+              f"{r['whole_experts'][False]['loss']}, the expert-parallel "
+              f"steps' {r['steps'][0]['loss']} / {r['steps'][2]['loss']}")
+    shares: dict = {}
+    for i, sp in ((0, True), (2, False)):      # from the same start, pinned
+        st = res[0]["steps"][i]
+        treads[f"step{i + 1}_loss_rel"] = (abs(st["loss"] - tref["loss"])
+                                           / abs(tref["loss"]))
+        treads[f"step{i + 1}_grad_norm_rel"] = (
+            abs(st["grad_norm"] - tref["grad_norm"]) / tref["grad_norm"])
+        treads[f"step{i + 1}_loss_equal_whole_experts"] = all(
+            r["steps"][i]["loss"] == r["whole_experts"][sp]["loss"]
+            for r in res)
+        check(treads[f"step{i + 1}_loss_rel"] <= 1e-3
+              and treads[f"step{i + 1}_grad_norm_rel"] <= 1e-2
+              and st["dropped_frac"] == tref["dropped_frac"],
+              f"ep step {i + 1}: loss {st['loss']} grad_norm "
+              f"{st['grad_norm']} dropped_frac {st['dropped_frac']} against "
+              f"the whole run's {tref['loss']} {tref['grad_norm']} "
+              f"{tref['dropped_frac']}")
+        worst_at, plain_at = {}, {}
+        errs = [r["grad_err"][0 if i == 0 else 1] for r in res]
+        for k in tref["max_plain"]:
+            got = [e[k] for e in errs if k in e]
+            check(len(got) >= 1, f"ep: no rank checked {k}")
+            ref_max = max(r["whole_experts"][sp]["max"][k] for r in res
+                          if k in r["whole_experts"][sp]["max"])
+            worst_at[k] = max(got) / (2e-2 * ref_max)
+            plain_at[k] = (max(e[f"{k} plain"] for e in errs if k in e)
+                           / (2e-2 * tref["max_plain"][k]))
+        label = "seq_parallel" if sp else "no seq_parallel"
+        for k, v in sorted(worst_at.items()):
+            print(f"[ep] {label} gradient {k}: max |g - g_ref| at {v:.4f} of "
+                  f"2e-2 * max|g_ref| (g_ref the same ranks' step with the "
+                  f"experts whole); against the plain whole run "
+                  f"{plain_at[k]:.4f} of 2e-2 * max|g_plain| "
+                  f"({tref['max_plain'][k]:.6g}; printed, not gated)")
+        treads[f"step{i + 1}_grad_share_of_limit"] = max(worst_at.values())
+        treads[f"step{i + 1}_grad_share_plain"] = max(plain_at.values())
+        shares[label] = worst_at
+    for label, worst_at in shares.items():
+        check(max(worst_at.values()) <= 1.0,
+              f"ep {label}: a gradient is off by {max(worst_at.values())} of "
+              f"its limit ({worst_at})")
+    falls = [r["steps"][1]["loss"] < r["steps"][0]["loss"] for r in res]
+    print(f"[ep] loss step 1 -> 2 (seq_parallel, the same batch): "
+          f"{res[0]['steps'][0]['loss']} -> {res[0]['steps'][1]['loss']}")
+    check(all(falls), "ep: the loss did not fall from step 1 to 2")
+    # K8 and K9 at each rank's own q, k, v and dO of layer 0
+    bwd: dict = {}
+    for r in res:
+        check(set(r["inputs"]) == {"ep_train"}
+              and r["inputs"]["ep_train"][3] is not None,
+              f"ep rank {r['rank']}: attention inputs {set(r['inputs'])}")
+        q, k_, v, do, w = (t.to("cuda") if torch.is_tensor(t) else t
+                           for t in r["inputs"]["ep_train"])
+        want = (EP["train_batch"], S, tcfg.n_heads // m, tcfg.hd)
+        check(tuple(q.shape) == want and k_.shape == v.shape == q.shape
+              == do.shape and q.dtype == torch.bfloat16,
+              f"ep rank {r['rank']}: q {tuple(q.shape)} {q.dtype}, dO "
+              f"{tuple(do.shape)}; want {want} bf16")
+        if r["rank"] == 0:
+            bwd["ep_train"] = k8_k9_at(q, k_, v, do, w, "ep_train",
+                                       tag="[ep]")
+        else:
+            e = flash_bwd_err(q, k_, v, do, True, w)
+            print(f"[ep] rank {r['rank']} K8/K9 at {list(q.shape)} bf16: {e}")
+            bwd[f"ep_train rank {r['rank']}"] = e
+        del q, k_, v, do
+    out = {"reference": {k: v for k, v in tref.items()
+                         if k != "max_plain"},
+           "reads": treads, "k8_k9": bwd, "same_choices": same,
+           "ranks": [{"rank": r["rank"], "draw_s": r["draw_s"],
+                      "steps": r["steps"]} for r in res],
+           "ranks_s": train_s, "train_s": time.perf_counter() - t_train}
+    print(f"[ep] training {out['train_s']:.3f} s: ranks {train_s:.3f} s")
+    del res
+    gc.collect()
+    return counts, out
+
+
+def phase_ep() -> tuple[dict, dict]:
+    """moonshot-v1-16b-a3b served and trained expert-parallel on 2 ranks
+    sharing the card (:func:`phase_ep_serve`, :func:`phase_ep_train`)."""
+    t_phase = time.perf_counter()
+    counts, out = phase_ep_serve()
+    tcounts, out["train"] = phase_ep_train()
+    for k, v in tcounts.items():
+        counts[k] = counts.get(k, 0) + v
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[ep] phase {out['phase_s']:.3f} s (budget 90): serving "
+          f"{out['serve']['serve_s']:.3f} s, training "
+          f"{out['train']['train_s']:.3f} s; K7/K8/K9 launches on the ranks "
+          f"{counts}")
+    return counts, out
+
+
 def main() -> int:
     sys.path.insert(0, os.path.join(HERE, "src"))
     t_start = time.perf_counter()
@@ -5187,12 +6091,21 @@ def main() -> int:
             d = r[n]["max_abs_err"] if "rank" not in label else r[n][0]
             rows[n]["max_abs_err"] = max(rows[n]["max_abs_err"], d)
     lap("tp_train")
+    ecounts, ep_out = phase_ep()
+    rows["flash_attention"]["max_abs_err"] = max(
+        rows["flash_attention"]["max_abs_err"],
+        *(r["max_abs_err"] for r in ep_out["k7"].values()))
+    for label, r in ep_out["train"]["k8_k9"].items():
+        for n in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            d = r[n]["max_abs_err"] if "rank" not in label else r[n][0]
+            rows[n]["max_abs_err"] = max(rows[n]["max_abs_err"], d)
+    lap("ep")
     print(f"[time] total {time.perf_counter() - t_start:.3f}")
     for k, v in (*counts.items(), *hcounts.items(), *rcounts.items(),
                  *ccounts.items(), *fcounts.items(), *tcounts.items(),
                  *dcounts.items(), *mcounts.items(), *scounts.items(),
                  *vcounts.items(), *pcounts.items(), *tpcounts.items(),
-                 *ttcounts.items()):
+                 *ttcounts.items(), *ecounts.items()):
         launches[k] = launches.get(k, 0) + v
     replaces = {"cvt_color": "src/repro/kernels/harris.py:44",
                 "corner_harris": "src/repro/kernels/harris.py:101",
@@ -5227,6 +6140,7 @@ def main() -> int:
                       "train": trained, "driver": driven, "moe": moe_out,
                       "ssm": ssm_out, "vlm": vlm_out, "spmd": spmd_out,
                       "tp": tp_out, "tp_train": tp_train_out,
+                      "ep": ep_out,
                       "tc_resources": tc_res, "k7_train_shape": k7_train,
                       "k6_resources": rows["rmsnorm_matmul"]["resources"],
                       "local_layer": {n: {k: v for k, v in rows[n].items()

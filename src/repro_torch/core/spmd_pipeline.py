@@ -269,19 +269,20 @@ def reduce_over_ranks(t: torch.Tensor, group, transport: str, *,
     """The sum (``op="sum"``) or the max (``op="max"``) of ``t`` over
     ``group``'s ranks, a new tensor like ``t``, outside autograd: NCCL
     reduces on the card in ``t``'s type; gloo (which takes no CUDA tensor
-    and lacks bf16 sums) in f32 on the host, staged in pinned host memory
-    when the ranks share a card.  On an H100 shared by 2 ranks, gathering
-    the f32 partials instead and adding them on the card took 1.5-1.8x the
-    host add's time.  ``backward`` tells an instrumented copy of this
-    function that a backward pass called it; it changes nothing here."""
+    and lacks bf16 sums) in f32 on the host (f64 for an f64 ``t``), staged
+    in pinned host memory when the ranks share a card.  On an H100 shared
+    by 2 ranks, gathering the f32 partials instead and adding them on the
+    card took 1.5-1.8x the host add's time.  ``backward`` tells an
+    instrumented copy of this function that a backward pass called it; it
+    changes nothing here."""
     del backward
     rop = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
     if transport == "nccl":
         t = t.contiguous().clone()
         dist.all_reduce(t, op=rop, group=group)
         return t
-    f = torch.empty(t.shape, dtype=torch.float32,
-                    pin_memory=transport == "gloo+pinned")
+    f = torch.empty(t.shape, dtype=torch.float64 if t.dtype == torch.float64
+                    else torch.float32, pin_memory=transport == "gloo+pinned")
     f.copy_(t)
     dist.all_reduce(f, op=rop, group=group)
     return f.to(device=t.device, dtype=t.dtype)

@@ -19,7 +19,9 @@ carry to the sequence-parallel spec.  On plain tensors (one process
 holding the model whole) every anchor is the identity, and the layout
 still sets the MoE routing groups.
 
-Tensor-parallel serving across ranks (the dense family, a ``(1, model)``
+Tensor-parallel serving across ranks (the dense family and its audio
+variant, and the moe family with its experts split over the same axis:
+expert parallelism, :mod:`repro_torch.models.moe`; a ``(1, model)``
 mesh of :func:`~repro_torch.launch.mesh.run_on_local_mesh`): the serve
 steps take weights as DTensors by ``param_shardings_serving``
 (:func:`~repro_torch.launch.sharding.distribute_params` of a tree held
@@ -32,9 +34,13 @@ training (the same families and mesh): the train step takes a state of
 by ``opt_shardings``), every rank computes its shard's forward, recompute
 and backward (K7, K8 and K9 on its local heads), and the gradients come
 back as DTensors laid out as the params; with ``seq_parallel`` the layer
-carry is each rank's part of the tokens.  Another family, a data axis
-over more than one rank and ``scan_chunks`` are refused
-(:func:`_check_sharded`).
+carry is each rank's part of the tokens (a moe block gathers them to route
+every token).  A moe model's experts and their moments are the rank's E/m
+(``[E/m, d, 2, ff]`` and ``[E/m, ff, d]`` a layer), the router and its
+moments whole on every rank; ``global_norm`` sums the experts' squares
+over the ranks once and counts the router's once.  The ssm, hybrid and vlm
+families, a data axis over more than one rank and ``scan_chunks`` are
+refused (:func:`_check_sharded`).
 
 The abstract trees (:func:`abstract_params`, :func:`abstract_cache`) are
 meta tensors, drawing and allocating nothing; :func:`batch_structs`,
@@ -286,25 +292,26 @@ def init_cache_sharded(cfg: ArchConfig, mesh, batch: int,
         whole, cache_shardings(mesh, cfg, whole))
 
 
-# the families whose blocks run on a rank's shard: the dense one, and the
-# audio family (the dense backbone over given embeddings)
-TP_FAMILIES = ("dense", "audio")
+# the families whose blocks run on a rank's shard: the dense one, the
+# audio family (the dense backbone over given embeddings), and the moe
+# family (its attention on the rank's heads, its experts on the rank's E/m)
+TP_FAMILIES = ("dense", "audio", "moe")
 
 
 def _check_sharded(cfg: ArchConfig, params: Params, *,
                    scan_chunks: int = 0) -> None:
     """Refuse DTensor weights where tensor parallelism is not done: a
-    family other than the dense one and its audio variant, a mesh axis
-    other than ``model`` of more than one rank, and (the train step,
-    which passes ``scan_chunks``) chunked remat."""
+    family other than the dense one, its audio variant and the moe one, a
+    mesh axis other than ``model`` of more than one rank, and (the train
+    step, which passes ``scan_chunks``) chunked remat."""
     w = leaves(params)[0]
     if not is_dtensor(w):
         return
     if cfg.family not in TP_FAMILIES:
         raise NotImplementedError(
             f"{cfg.arch_id}: tensor parallelism runs the dense family (and "
-            f"audio, its backbone); the {cfg.family} family under a model "
-            f"axis is not done here")
+            f"audio, its backbone) and expert parallelism the moe family; "
+            f"the {cfg.family} family under a model axis is not done here")
     dm = w.device_mesh
     other = {n: dm.size(i) for i, n in enumerate(dm.mesh_dim_names)
              if n != "model" and dm.size(i) > 1}

@@ -20,9 +20,8 @@ broadcast then sums each group's gradient back onto its kv head).  Decode
 computes it outside any Pallas kernel: K7's masks are aligned at position
 0.
 
-The sharding anchors (``_con_heads``, ``_con_ff``, and ``_con_groups``
-and ``_con_experts`` for the MoE dispatch) sit where the JAX module puts
-its ``with_sharding_constraint``s, under a layout registered with
+The sharding anchors (``_con_heads``, ``_con_ff``) sit where the JAX
+module puts its ``with_sharding_constraint``s, under a layout registered with
 :func:`set_attention_mesh` (which :func:`repro_torch.models.moe.moe_groups`
 reads too).  A plain tensor is held whole by one process and passes
 unchanged; a DTensor is redistributed to the divisibility-guarded spec.
@@ -59,10 +58,11 @@ of the tokens, a column split's input is gathered along S
 comes back as the rank's part
 (:func:`~repro_torch.core.spmd_pipeline.reduce_scatter`).  A leaf every
 rank holds whole has its gradient summed exactly when the ranks split its
-use (:func:`_local`, the one place of that rule).  The anchors therefore
-see local, plain activations here; their DTensor branch is what the MoE's
-expert-parallel dispatch (``_con_groups``, ``_con_experts``) is to run
-under.
+use (:func:`_local`, the one place of that rule).  The moe family's
+experts are split over the same axis (expert parallelism,
+:mod:`repro_torch.models.moe`): each rank runs its E/m experts on its
+local weights and the combine is a row split's sum.  The anchors
+therefore see local, plain activations here, and pass them unchanged.
 """
 from __future__ import annotations
 
@@ -239,21 +239,6 @@ def heads_spec(mesh, shape: tuple) -> tuple:
     return (_batch_ax(mesh, B), None, h_ax, d_ax)
 
 
-def groups_spec(mesh, shape: tuple) -> tuple | None:
-    """[G, Ng, d] routing groups → G over the batch axes (None: leave)."""
-    baxes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
-    if not baxes or shape[0] % math.prod(mesh.shape[a] for a in baxes):
-        return None
-    return (baxes if len(baxes) > 1 else baxes[0], None, None)
-
-
-def experts_spec(mesh, shape: tuple) -> tuple | None:
-    """[G, E, C, ...] expert buffers → E over ``model`` (None: leave)."""
-    if "model" not in mesh.axis_names or shape[1] % mesh.shape["model"]:
-        return None
-    return (_batch_ax(mesh, shape[0]), "model") + (None,) * (len(shape) - 2)
-
-
 def ff_spec(mesh, shape: tuple) -> tuple | None:
     """[B, T, ..., ff] → ff over ``model`` (None: leave)."""
     if "model" not in mesh.axis_names or shape[-1] % mesh.shape["model"]:
@@ -278,16 +263,6 @@ def _anchor(x: torch.Tensor, spec_of) -> torch.Tensor:
 def _con_heads(x: torch.Tensor) -> torch.Tensor:
     """[B, T, H, hd] anchored to :func:`heads_spec`."""
     return _anchor(x, heads_spec)
-
-
-def _con_groups(x: torch.Tensor) -> torch.Tensor:
-    """[G, Ng, d] anchored to :func:`groups_spec` (the MoE dispatch)."""
-    return _anchor(x, groups_spec)
-
-
-def _con_experts(x: torch.Tensor) -> torch.Tensor:
-    """[G, E, C, ...] anchored to :func:`experts_spec` (EP compute)."""
-    return _anchor(x, experts_spec)
 
 
 def _con_ff(x: torch.Tensor) -> torch.Tensor:
@@ -587,6 +562,13 @@ def _local(x, split: bool = False):
     the whole.  Where every rank's use is the whole one, each rank's
     gradient is already the whole, and a sum would make it m times too
     large.  A sharded leaf's gradient is this rank's own part either way.
+
+    The moe block meets the rule without a split read: its router (and the
+    norm before it) is used whole by the routing, whose aux losses give
+    every rank the whole gradient, and split by the experts, whose part
+    of the gradient is summed where it arises, on the gates and on the
+    dispatched tokens (:mod:`repro_torch.models.moe`); so the router is
+    read with ``split`` False and its gradient, whole, is not summed.
     """
     if not is_dtensor(x):
         return x

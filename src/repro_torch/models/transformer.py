@@ -121,7 +121,8 @@ def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
     """One block. Returns (x, new_cache, aux); aux is None but for a moe
     block (the JAX block's zeros).  ``seq``: ``x`` is this rank's part of
     the tokens (:class:`~repro_torch.models.layers.SeqParallel`; a dense
-    block), and so is the result.
+    or moe block: the moe block gathers the tokens along S to route them
+    all, :func:`~repro_torch.models.moe.moe_apply`), and so is the result.
     new_cache: the rwkv state, or the attention's k/v (the cache's own
     tensors, written in place) and the hybrid block's new ``ssm`` state;
     None without a cache, and always None for a cross block (``is_cross``),
@@ -155,7 +156,8 @@ def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
     x = x + a
     h2 = rmsnorm(p["ln2"], x, split=seq)
     if "moe" in p:
-        y, aux = moe_apply(p["moe"], h2, cfg.top_k, cfg.moe_capacity_factor)
+        y, aux = moe_apply(p["moe"], h2, cfg.top_k, cfg.moe_capacity_factor,
+                           seq=seq)
     else:
         with _range(cfg, "vlm:mlp"):
             y, aux = mlp(p["mlp"], h2, seq=seq), None

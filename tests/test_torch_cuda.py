@@ -1156,3 +1156,85 @@ def test_two_rank_tensor_parallel_serving_sharing_the_card(cuda_device):
             assert local.shape[3] == cfg.n_kv_heads // 2
             full[bounds] = local
         close(full, cache[name])
+
+
+def test_two_rank_expert_parallel_serving_sharing_the_card(cuda_device):
+    """A reduced bf16 moonshot (4 layers, hd 64, 8 experts, top 2) served
+    expert-parallel on a (1, 2) mesh of ranks sharing the card (gloo,
+    collectives through pinned host memory): each rank holds 4 of the 8
+    experts, half of the heads and vocab; the whole-model run's routing,
+    recorded here, pinned into the ranks; the prefill step's logits, three
+    teacher-forced decode steps' logits and the gathered cache within 2e-2
+    of max |reference|; the two ranks' own choices equal bit for bit; K7
+    on the wgmma route on every rank."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps as TST
+    from repro_torch.launch.mesh import run_on_local_mesh
+
+    from torch_spmd_ranks import PinRouting, tp_serve_rank
+
+    cfg = dc.replace(get_config("moonshot-v1-16b-a3b").reduced(),
+                     dtype="bfloat16", head_dim=64, d_model=256, d_ff=256,
+                     n_experts=8)
+    build.load("flash_attention")            # built once, before the spawn
+    model = LM(cfg)
+    params = model.init(torch.Generator(cuda_device).manual_seed(0))
+    g = torch.Generator(cuda_device).manual_seed(1)
+    ids = torch.randint(0, cfg.vocab, (2, 40), generator=g,
+                        device=cuda_device)
+    steps = torch.randint(0, cfg.vocab, (2, 3), generator=g,
+                          device=cuda_device)
+    log = PinRouting()
+    moe.ROUTING_HOOK = log
+    try:
+        _, pre = TST.make_prefill_step(cfg)
+        log.phase = "p0"
+        ref = pre(params, {"ids": ids})
+        cache = model.init_cache(2, 43)
+        log.phase = "fill"
+        model.prefill(params, ids, cache)
+        _, dec = TST.make_decode_step(cfg)
+        ref_dec = []
+        for j in range(3):
+            log.phase = f"dec{j}"
+            ref_dec.append(dec(params, cache, {"ids": steps[:, j:j + 1],
+                                               "pos": 40 + j})[0])
+    finally:
+        moe.ROUTING_HOOK = None
+    pins: dict = {}
+    for (phase, _), calls in sorted(log.own.items()):
+        pins.setdefault(phase, []).append(calls[0])
+    res = run_on_local_mesh((1, 2), ("data", "model"), tp_serve_rank, cfg,
+                            tree_map(lambda a: a.cpu(), params), ids.cpu(),
+                            steps.cpu(), device="cuda", timeout=600,
+                            pins=pins)
+
+    def close(got, want):
+        want = want.float()
+        assert (got.to(cuda_device).float() - want).abs().max() <= (
+            2e-2 * want.abs().max())
+
+    for r in res:
+        assert r["all_dtensors"]
+        assert r["shapes"]["layers/moe/wi"][0][1] == cfg.n_experts // 2
+        assert r["shapes"]["layers/moe/router"][0][2] == cfg.n_experts
+        assert r["shapes"]["layers/attn/wq"][0][2] == cfg.n_heads // 2
+        close(r["logits"], ref)
+        for got, want in zip(r["decode"], ref_dec):
+            close(got, want)
+        assert r["k7_routes"]["wgmma_bf16"] == 2 * cfg.n_layers
+        assert r["k7_routes"]["simt_f32"] == 0
+        assert set(r["own"]) == set(res[0]["own"]) == set(log.own)
+        for key, calls in r["own"].items():
+            assert all(torch.equal(a, b)
+                       for a, b in zip(calls, res[0]["own"][key])), key
+    for name in ("k", "v"):
+        full = torch.zeros(res[0]["cache"][name][2], dtype=torch.bfloat16)
+        for r in res:
+            local, bounds, _ = r["cache"][name]
+            full[bounds] = local
+        close(full, cache[name])

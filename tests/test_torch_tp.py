@@ -18,8 +18,10 @@ prompt, 4 heads over 2 kv heads):
   other orders);
 * each leaf's local shape is ``local_shape`` of its spec;
 * ``distribute_params`` keeps of each leaf the whole draw at the rank's
-  ``local_bounds``, and ``init_cache_sharded`` allocates only the shards; a moe config, a data axis of 2 and a DTensor
-  handed to K7 (whose plain version must not take it) are refused;
+  ``local_bounds``, and ``init_cache_sharded`` allocates only the shards,
+  for a dense and a moe config (``tests/test_torch_ep.py`` serves the moe
+  family); a data axis of 2 and a DTensor handed to K7 (whose plain
+  version must not take it) are refused;
 * plain tensors (one process) take today's path, bit for bit, with a
   layout registered or not.
 
@@ -133,26 +135,52 @@ def test_tensor_parallel_steps_match_jax_unsharded(reference, model):
 
 def test_sharded_init_and_cache_and_what_is_refused():
     """On a (data 2, model 2) mesh: each rank's shards are the whole draw
-    at its bounds, the sharded cache holds zeros of the local
-    shapes; a data axis of 2 and the moe family are refused."""
+    at its bounds, the sharded cache holds zeros of the local shapes, for
+    a dense and a moe config (the experts half a rank, the router whole);
+    a data axis of 2 is refused for both."""
     cfg = get_config("gemma3-12b").reduced()
     moe = get_config("moonshot-v1-16b-a3b").reduced()
     res = TMESH.run_on_local_mesh((2, 2), ("data", "model"), tp_init_rank,
                                   cfg, moe, 5, device="cpu", timeout=240)
     layout = TMESH.MeshLayout((2, 2), ("data", "model"))
-    cache_specs = {}
-    whole = TST.abstract_cache(cfg, 4, 16)
-    TS.map_with_path(lambda p, sh: cache_specs.__setitem__(
-        TS.path_str(p), (tuple(sh.spec), tuple(whole[p[-1]].shape))),
-        TS.cache_shardings(layout, cfg, whole))
+
+    def cache_specs(c):
+        out = {}
+        whole = TST.abstract_cache(c, 4, 16)
+        TS.map_with_path(lambda p, sh: out.__setitem__(
+            TS.path_str(p), (tuple(sh.spec), tuple(whole[p[-1]].shape))),
+            TS.cache_shardings(layout, c, whole))
+        return out
+
+    specs = {c.arch_id: cache_specs(c) for c in (cfg, moe)}
+    moe_whole = TST.abstract_params(moe)
+    moe_specs = {}
+    TS.map_with_path(lambda p, sh: moe_specs.__setitem__(
+        TS.path_str(p), tuple(sh.spec)),
+        TS.param_shardings_serving(layout, moe_whole))
+    moe_shapes = {}
+    TS.map_with_path(lambda p, a: moe_shapes.__setitem__(
+        TS.path_str(p), tuple(a.shape)), moe_whole)
     for r in res:
         assert r["shards_of_whole_draw"]
-        for path, local in r["cache_shapes"].items():
-            spec, shape = cache_specs[path]
-            assert local == TS.local_shape(layout, spec, shape)
+        for c, key in ((cfg, "cache_shapes"), (moe, "moe_cache_shapes")):
+            assert set(r[key]) == set(specs[c.arch_id])
+            for path, local in r[key].items():
+                spec, shape = specs[c.arch_id][path]
+                assert local == TS.local_shape(layout, spec, shape)
+        assert set(r["moe_shapes"]) == set(moe_specs)
+        for path, local in r["moe_shapes"].items():
+            assert local == TS.local_shape(layout, moe_specs[path],
+                                           moe_shapes[path]), path
+        L, E = moe.n_layers, moe.n_experts
+        assert r["moe_shapes"]["layers/moe/wi"] == (
+            L, E // 2, moe.d_model, 2, moe.d_ff)
+        assert r["moe_shapes"]["layers/moe/wo"] == (
+            L, E // 2, moe.d_ff, moe.d_model)
+        assert r["moe_shapes"]["layers/moe/router"] == (L, moe.d_model, E)
         assert r["cache_zero"]
         assert "(1, model) mesh" in r["data_refused"]
-        assert "dense family" in r["moe_refused"]
+        assert "(1, model) mesh" in r["moe_data_refused"]
         assert "got a DTensor" in r["dtensor_kernel"]
 
 

@@ -31,8 +31,9 @@ beyond the vocab are masked), B 2 x S 16, loss chunk 8 (two chunks):
   rank's copy held to the JAX gradient — a part, or m times it, fails;
 * musicgen-large (the audio family: the dense backbone over given
   embeddings) served and trained on a (1, 2) mesh;
-* the refusals: the moe, ssm (rwkv), hybrid and vlm families under a
-  model axis, a data axis of 2, ``scan_chunks``;
+* the refusals: the ssm (rwkv), hybrid and vlm families under a model
+  axis, a data axis of 2 (the moe family's too, whose params and moments
+  take their local shapes), ``scan_chunks``;
 * plain tensors (one process) take today's path, bit for bit, with a
   layout registered or not;
 * ``models/``, ``core/`` and ``kernels/`` import nothing from ``launch/``.
@@ -349,25 +350,43 @@ def test_audio_family_serves_and_trains_under_the_model_axis(reference):
 
 
 def test_train_step_refuses_what_is_not_ported(reference):
-    """The moe, ssm (rwkv), hybrid and vlm families under a model axis, a
-    data axis over two ranks, and ``scan_chunks`` raise
-    ``NotImplementedError``; nothing runs whole instead."""
+    """The ssm (rwkv), hybrid and vlm families under a model axis, a data
+    axis over two ranks, and ``scan_chunks`` raise ``NotImplementedError``;
+    nothing runs whole instead.  The moe family is taken (expert
+    parallelism, ``tests/test_torch_ep.py``): on the (data 2, model 2)
+    mesh its params and moments are at their ``param_shardings`` local
+    shapes (the experts split over model, d over data, the router whole)
+    and the step refuses the data axis, as the dense family's."""
+    moe = get_config("moonshot-v1-16b-a3b").reduced()
     families = [get_config(a).reduced() for a in (
-        "moonshot-v1-16b-a3b", "rwkv6-1.6b", "hymba-1.5b",
-        "llama-3.2-vision-11b")]
-    assert [c.family for c in families] == ["moe", "ssm", "hybrid", "vlm"]
+        "rwkv6-1.6b", "hymba-1.5b", "llama-3.2-vision-11b")]
+    assert [c.family for c in families] == ["ssm", "hybrid", "vlm"]
     ids = {"ids": torch.zeros((4, 8), dtype=torch.long),
            "labels": torch.zeros((4, 8), dtype=torch.int32),
            "mask": torch.ones((4, 8))}
     res = TMESH.run_on_local_mesh((2, 2), ("data", "model"),
-                                  tp_refusal_rank, families,
+                                  tp_refusal_rank, [moe, *families],
                                   reference["cfg"], 7, ids, device="cpu",
                                   timeout=240)
+    layout = TMESH.MeshLayout((2, 2), ("data", "model"))
+    whole = TST.abstract_params(moe)
+    specs = _paths(TS.param_shardings(layout, whole))
+    want = {f"{n}/{p}": TS.local_shape(layout, specs[p].spec,
+                                       tuple(a.shape))
+            for p, a in _paths(whole).items() for n in ("params", "m", "v")}
+    L, E, d, ff = moe.n_layers, moe.n_experts, moe.d_model, moe.d_ff
     for r in res:
         for c in families:
             assert "dense family" in r[c.arch_id], (c.arch_id, r[c.arch_id])
             assert c.family in r[c.arch_id]
         assert "(1, model) mesh" in r[reference["cfg"].arch_id]
+        assert "(1, model) mesh" in r[moe.arch_id], r[moe.arch_id]
+        assert r["shapes"][moe.arch_id] == want
+        for n in ("params", "m", "v"):
+            got = r["shapes"][moe.arch_id]
+            assert got[f"{n}/layers/moe/wi"] == (L, E // 2, d // 2, 2, ff)
+            assert got[f"{n}/layers/moe/wo"] == (L, E // 2, ff // 2, d)
+            assert got[f"{n}/layers/moe/router"] == (L, d, E)
     for r in _ranks(reference, 2):
         assert "scan_chunks=2" in r["scan_refused"]
 
