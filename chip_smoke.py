@@ -92,7 +92,14 @@ version there:
   teacher-forced decode steps) and trained at 2 layers (2 x 4096 tokens
   through the einsum dispatch, ``seq_parallel`` on and off), with the
   whole-model run's routing pinned (K7 on each rank's local heads, K8 and
-  K9 in the backward).
+  K9 in the backward);
+* the hybrid and ssm families tensor-parallel (their recurrences on each
+  rank's channels or heads, the state in the cache's layout) at
+  hymba-1.5b's and rwkv6-1.6b's full widths on a (data 1, model 2) mesh
+  sharing the card: served at 8 of 32 and 6 of 24 layers (2 prompts of
+  2048 tokens, 16 teacher-forced decode steps; K7 on all 25 of hymba's
+  heads on each rank, since 25 does not divide 2) and trained at 2 layers
+  (2 x 2048 tokens, ``seq_parallel`` on and off; K7-K9 for hymba).
 
 Phases:
 
@@ -298,7 +305,36 @@ Phases:
               128] element by element, rank 0's timed; in every run, and in
               an unpinned prefill, the two ranks' own top-k choices equal
               bit for bit; the phase's seconds (budget 90)
-15. the ``kernels`` JSON line (the ranks' launches added), the nvidia-smi
+15. tp_recurrent — hymba-1.5b and rwkv6-1.6b tensor-parallel on 2 ranks
+              sharing the card, the state leaves drawn, each whole-model
+              run in this process first; serving: per rank the local
+              shapes (hymba's ssm/in_proj, attn/wq whole, attn/wo's half
+              of the rows, ssm h/conv and the k/v cache's half of
+              head_dim; rwkv's wr, wo, ck, S split on its last dim,
+              tm_last), K7 launches (16 on each hymba rank, wgmma route),
+              prefill and decode ms, peak GB, the collectives' count, MB
+              and ms in a rerun; the prefill and decode logits and every
+              cache leaf reassembled (hymba's k/v, h, conv; rwkv's S,
+              tm_last, cm_last; each layer printed) within 2e-2 of
+              max|ref|, or no further than 1.5x the whole bf16 run from
+              an f32 run of the same weights fed the same tokens (the
+              control; rwkv's deepest token-shift states read ~1.05 of
+              the first limit), the decode within 2.5e-2 of LM.apply over
+              the prompt and the fed tokens on the ranks; training (2 layers):
+              steps 1 and 3 (seq_parallel, then without from the same
+              start) loss 1e-3 and grad_norm 1e-2 relative of the whole
+              run's, every gradient leaf within 2e-2 of max|g_ref| or
+              within 1.5x the whole bf16 step's own distance from the
+              f32 step (the control; rwkv's u and embed table read
+              1.21-1.47 of the first limit), the grad_norm equal and
+              every leaf held whole bit-equal on both
+              ranks after steps 2 and 3, 4/2/2 K7/K8/K9 a hymba step on
+              the wgmma route (none for rwkv), the loss falling; K7 at
+              each hymba rank's [2, 2048, 25, 64] (window 1024) and K8/K9
+              at its [2, 2048, 25, 64], element by element, rank 0's timed
+              beside the bound, the plain version and SDPA; the phase's
+              seconds (budget 150)
+16. the ``kernels`` JSON line (the ranks' launches added), the nvidia-smi
    line, and the result line;
    a ``[time] <phase> <seconds>`` line after each phase
 
@@ -436,6 +472,26 @@ TP = dict(arch="gemma3-12b", layers=12, mesh=(1, 2), batch=2,
 TP_TRAIN = dict(arch="gemma3-12b", layers=6, mesh=(1, 2), batch=2,
                 seq_len=2048, loss_chunk=512, lr=3e-4, seed=2029,
                 checked=(0, 5), timeout=600)
+
+# the hybrid and ssm families tensor-parallel: hymba-1.5b served at 8 of
+# 32 layers and rwkv6-1.6b at 6 of 24, full widths, on a (data 1, model 2)
+# mesh sharing the card (2 prompts of 2048 tokens, over hymba's 1024
+# window; 16 teacher-forced decode steps), each trained at 2 layers (batch
+# 2 x 2048, cut from 2 x 4096 to keep the script within its time; loss
+# chunk 512, per-layer remat, AdamW); the state leaves drawn from the seed
+# as in the ssm phase.  ``controlled``: the reads whose bf16 drift alone
+# passes 2e-2 of max|ref| on the card (rwkv's token-shift states at the
+# deepest layers, its embedding gradient); a layer of one of these also
+# passes within ``control_limit`` times the whole bf16 run's own distance
+# to the same run in f32 (PERF.md, cell 15)
+TP_RECURRENT = dict(archs=("hymba-1.5b", "rwkv6-1.6b"),
+                    layers={"hymba-1.5b": 8, "rwkv6-1.6b": 6}, mesh=(1, 2),
+                    batch=2, prompt_len=2048, decode=16, train_layers=2,
+                    train_batch=2, train_seq=2048, loss_chunk=512, lr=3e-4,
+                    seed=2031, timeout=600,
+                    controlled={"rwkv6-1.6b": (
+                        "cache_tm_last", "cache_cm_last", "embed/table")},
+                    control_limit=2.0)
 
 # expert parallelism: moonshot-v1-16b-a3b at full widths on a (data 1,
 # model 2) mesh sharing the card, each rank holding 32 of the 64 experts,
@@ -6013,6 +6069,713 @@ def phase_ep() -> tuple[dict, dict]:
     return counts, out
 
 
+# --------------------------------------------------------------------------- #
+# 15. the hybrid and ssm families under a model axis: hymba-1.5b and
+# rwkv6-1.6b served and trained on 2 ranks
+# --------------------------------------------------------------------------- #
+def tpr_config(arch: str, layers: int):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    if cfg.rwkv:
+        check(cfg.d_model == 2048 and cfg.d_ff == 7168 and cfg.vocab == 65536
+              and cfg.dtype == "bfloat16", f"unexpected rwkv config {cfg}")
+    else:
+        check(cfg.d_model == 1600 and cfg.n_heads == 25
+              and cfg.n_kv_heads == 5 and cfg.hd == 64 and cfg.d_ff == 5504
+              and cfg.window == 1024 and cfg.ssm_state == 16
+              and cfg.dtype == "bfloat16", f"unexpected hymba config {cfg}")
+    return cfg
+
+
+def tpr_draw(cfg, device: str = "cuda") -> dict:
+    """The whole weights from the phase's seed, with the leaves
+    ``ssm_init`` / ``rwkv_init`` set to zeros or ones drawn
+    (:func:`draw_state_leaves`); any rank draws the same alone."""
+    import torch
+
+    from repro_torch.models import LM
+
+    g = torch.Generator(device).manual_seed(TP_RECURRENT["seed"])
+    params = LM(cfg).init(g)
+    blk = "rwkv" if cfg.rwkv else "ssm"
+    params["layers"][blk] = draw_state_leaves(params["layers"][blk], g)
+    return params
+
+
+def tpr_inputs(cfg, device: str = "cuda") -> tuple:
+    """The served prompts [B, T] and the training batch, from the seed."""
+    import torch
+
+    s = TP_RECURRENT
+    g = torch.Generator(device).manual_seed(s["seed"] + 1)
+    ids = torch.randint(0, cfg.vocab, (s["batch"], s["prompt_len"]),
+                        generator=g, device=device)
+    shape = (s["train_batch"], s["train_seq"])
+    batch = {"ids": torch.randint(0, cfg.vocab, shape, generator=g,
+                                  device=device),
+             "labels": torch.randint(0, cfg.vocab, shape, generator=g,
+                                     device=device),
+             "mask": torch.ones(shape, device=device)}
+    return ids, batch
+
+
+def tpr_leaves(tree) -> dict:
+    """path → (this rank's local tensor, its bounds) of every leaf (a plain
+    leaf whole)."""
+    from repro_torch.core.spmd_pipeline import local_bounds, local_tensor
+    from repro_torch.launch import sharding as TS
+
+    out = {}
+    TS.map_with_path(lambda p, a: out.__setitem__(
+        TS.path_str(p), (local_tensor(a), local_bounds(a))), tree)
+    return out
+
+
+def tpr_by_layer(path: str, diff) -> list:
+    """max |diff| of each layer of a leaf stacked over the layers (its
+    path under ``layers/``), else of the whole leaf, as a list."""
+    d = diff.abs()
+    if path.startswith("layers/"):
+        return d.flatten(1).amax(1).tolist()
+    return [float(d.max())]
+
+
+def tpr_reference(arch: str, path: str) -> dict:
+    """The whole-model runs of one arch on plain tensors in this process:
+    serving (the prefill step's logits, ``LM.prefill``, greedy decode, the
+    cache after it, all on the host) and step 1's loss, grad_norm and
+    gradients at the training depth, the gradients saved to ``path`` for
+    the ranks (each reads its shards' bounds); and the controls: the same
+    weights served in f32, fed the same tokens, and the same training
+    step in f32, its gradients saved beside the bf16 ones."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.core.tree import flatten, leaves, tree_map, unflatten
+    from repro_torch.launch import steps as TST
+    from repro_torch.models import LM
+    from repro_torch.optim import global_norm
+
+    s = TP_RECURRENT
+    cfg = tpr_config(arch, s["layers"][arch])
+    model = LM(cfg)
+    params = tpr_draw(cfg)
+    ids, _ = tpr_inputs(cfg)
+    cache = model.init_cache(s["batch"], s["prompt_len"] + s["decode"],
+                             device="cuda")
+    _, prefill = TST.make_prefill_step(cfg)
+    _, decode = TST.make_decode_step(cfg)
+    logits, dec, tokens, ms = tp_serve(model, params, cache, ids, prefill,
+                                       decode, steps=s["decode"])
+    out = {"logits": logits, "decode": dec, "tokens": tokens, "ms": ms,
+           "cache": {k: v.cpu() for k, (v, _) in tpr_leaves(cache).items()},
+           "weights_gb": sum(a.numel() * a.element_size()
+                             for a in leaves(params)) / 1e9}
+    # the control: the same weights served in f32, fed the same tokens
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_map(lambda a: a.float(), params)
+    del params, cache
+    m32 = LM(c32)
+    cache = m32.init_cache(s["batch"], s["prompt_len"] + s["decode"],
+                           device="cuda")
+    lg32, dec32, _, _ = tp_serve(m32, p32, cache, ids,
+                                 TST.make_prefill_step(c32)[1],
+                                 TST.make_decode_step(c32)[1], tokens,
+                                 steps=s["decode"])
+    out["f32"] = {"logits": lg32, "decode": dec32, "cache": {
+        k: v.cpu() for k, (v, _) in tpr_leaves(cache).items()}}
+    del p32, cache
+    gc.collect()
+
+    cfg = tpr_config(arch, s["train_layers"])
+    model = LM(cfg)
+    params = tpr_draw(cfg)
+    _, batch = tpr_inputs(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ce, grads, _ = TST.loss_and_grads(model, params, batch,
+                                      loss_chunk=s["loss_chunk"])
+    gnorm = float(global_norm(grads))
+    torch.cuda.synchronize()
+    out["step_ms"] = 1e3 * (time.perf_counter() - t0)
+    tree = unflatten(flatten(params)[1], grads)
+    checked = {k: g.cpu() for k, (g, _) in tpr_leaves(tree).items()}
+    torch.save(checked, path)
+    out.update(loss=float(ce), grad_norm=gnorm,
+               max_ref={k: float(g.float().abs().max())
+                        for k, g in checked.items()})
+    del grads, tree
+    # the control: the same step in f32; its gradients saved beside
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_map(lambda a: a.float(), params)
+    del params
+    gc.collect()
+    ce32, grads, _ = TST.loss_and_grads(LM(c32), p32, batch,
+                                        loss_chunk=s["loss_chunk"])
+    tree = unflatten(flatten(p32)[1], grads)
+    f32 = {k: g.cpu() for k, (g, _) in tpr_leaves(tree).items()}
+    torch.save(f32, path + ".f32")
+    out.update(f32_loss=float(ce32), own_f32={
+        k: tpr_by_layer(k, checked[k].float() - g) for k, g in f32.items()})
+    del p32, grads, tree, checked, f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tpr_serve_rank(mesh, arch: str, tokens) -> dict:
+    """One rank's serving of ``arch``: draw the whole weights and keep its
+    shards, serve teacher-forced with the whole run's ``tokens``, rerun
+    with the collectives timed alone, then ``LM.apply`` over the prompt
+    and the fed tokens (the decode's rerun); its logits, cache shards and
+    local shapes, and the q/k/v its first layer gave K7."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import sharding as TS
+    from repro_torch.launch import steps as TST
+
+    s = TP_RECURRENT
+    cfg = tpr_config(arch, s["layers"][arch])
+    params = TS.distribute_params(mesh, tpr_draw(cfg, mesh.device))
+    torch.cuda.empty_cache()
+    ids, _ = tpr_inputs(cfg, mesh.device)
+    new_cache = functools.partial(TST.init_cache_sharded, cfg, mesh,
+                                  s["batch"], s["prompt_len"] + s["decode"])
+    cache = new_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    keep = {}
+    model, prefill = TST.make_prefill_step(cfg, mesh)
+    _, decode = TST.make_decode_step(cfg, mesh)
+    with attention_spy(keep=keep, kind=lambda causal, window: "serve"):
+        logits, dec, _, ms = tp_serve(model, params, cache, ids, prefill,
+                                      decode, tokens, steps=s["decode"])
+    launches = dict(fa.LAUNCHES)
+    routes = {k: dict(v) for k, v in fa.ROUTE_LAUNCHES.items()}
+    coll = {"sync_ms": 0.0, "collective_ms": 0.0, "calls": {}, "bytes": 0}
+    cache2 = new_cache()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with timed_collectives(coll):
+        tp_serve(model, params, cache2, ids, prefill, decode, tokens,
+                 steps=s["decode"])
+    coll["run_ms"] = 1e3 * (time.perf_counter() - t1)
+    del cache2
+    full = torch.cat([ids, tokens.to(ids.device)], dim=1)
+    with torch.no_grad():                 # the decode's rerun
+        h, _ = model.apply(params, full, remat=False)
+        rerun = model.logits(params, h[:, s["prompt_len"]:])
+    got = torch.cat(dec, dim=1).to(rerun.device)
+    rerun_err = ((got.float() - rerun.float()).abs().max()
+                 / rerun.float().abs().max()).item()
+    names = (("ssm/in_proj", "attn/wq", "attn/wo") if not cfg.rwkv
+             else ("rwkv/wr", "rwkv/wo", "rwkv/ck"))
+    pl = tpr_leaves(params)
+    shapes = {n: tuple(pl[f"layers/{n}"][0].shape) for n in names}
+    shapes["embed"] = tuple(pl["embed/table"][0].shape)
+    cache_shards = {k: (v.cpu(), b) for k, (v, b) in
+                    tpr_leaves(cache).items()}
+    return {"shapes": shapes,
+            "cache_shapes": {k: tuple(v.shape)
+                             for k, (v, _) in cache_shards.items()},
+            "logits": logits, "decode": dec, "ms": ms, "collectives": coll,
+            "rerun_err": rerun_err, "cache": cache_shards,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches, "routes": routes,
+            "k7_inputs": {n: (*(t.cpu() for t in qkv), w)
+                          for n, (*qkv, w) in keep.items()}}
+
+
+def tpr_train_rank(mesh, arch: str, ref_path: str) -> dict:
+    """One rank's training of ``arch`` at 2 layers: draw the whole weights
+    and keep its shards (``init_train_state_sharded``), two
+    ``make_train_step`` steps with seq_parallel, then one without it from
+    the same start, each under :func:`timed_collectives`; the gradients
+    of steps 1 and 3 held, before AdamW clips them, to the whole run's at
+    this rank's bounds (``max |g - g_ref|`` a layer, and the same against
+    the whole f32 step's, the control); a digest of every leaf
+    the ranks hold whole after steps 2 and 3; the q, k, v and dO of layer
+    0's attention in step 1 (K7's inputs, K8's and K9's output
+    gradient)."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.core.spmd_pipeline import local_tensor, sharded_dims
+    from repro_torch.core.tree import leaves
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import sharding as TS
+    from repro_torch.launch import steps as TST
+    from repro_torch.models import layers
+    from repro_torch.optim import adamw_init
+
+    s = TP_RECURRENT
+    cfg = tpr_config(arch, s["train_layers"])
+    state = TST.init_train_state_sharded(cfg, mesh,
+                                         tpr_draw(cfg, mesh.device))
+    start = [local_tensor(a).clone() for a in leaves(state["params"])]
+    torch.cuda.empty_cache()
+    _, batch = tpr_inputs(cfg, mesh.device)
+    ref = torch.load(ref_path, mmap=True, map_location="cpu")
+    ref32 = torch.load(ref_path + ".f32", mmap=True, map_location="cpu")
+    steps, errs, inputs, digests = [], [], {}, []
+    real_update = TST.adamw_update
+
+    def spy(grads, st, params, **kw):
+        t1 = time.perf_counter()
+        if plan[len(steps)][1]:
+            e = {}
+            for k, (g, at) in tpr_leaves(grads).items():
+                e[k] = tuple(tpr_by_layer(k, g.float() - r[k][at].to(
+                    g.device).float()) for r in (ref, ref32))
+            errs.append(e)
+            torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t1
+        return real_update(grads, st, params, **kw)
+
+    def keep_attention(q, k, v, causal=True, window=0):
+        o = real_attention(q, k, v, causal, window)
+        if "train" not in inputs and torch.is_grad_enabled():
+            inputs["train"] = [t.detach().clone() for t in (q, k, v)] + [
+                None, int(window)]
+            o.register_hook(lambda g: inputs["train"].__setitem__(
+                3, g.detach().clone()))
+        return o
+
+    def whole_digest() -> dict:
+        """path → sha256 of each leaf the ranks hold whole."""
+        out = {}
+
+        def take(path, a):
+            if not sharded_dims(a):
+                t = local_tensor(a).detach().contiguous().cpu()
+                out[TS.path_str(path)] = hashlib.sha256(
+                    t.view(torch.uint8).numpy().tobytes()).hexdigest()
+
+        TS.map_with_path(take, state["params"])
+        return out
+    # (seq_parallel, compare the gradients) of each step
+    plan = [(True, True), (True, False), (False, True)]
+    real_attention = layers.ops.attention
+    TST.adamw_update = spy
+    try:
+        for i, (sp, _) in enumerate(plan):
+            if i == 2:                    # the same start, no moments yet
+                for a, s0 in zip(leaves(state["params"]), start):
+                    local_tensor(a).copy_(s0)
+                state = {"params": state["params"],
+                         "opt": adamw_init(state["params"])}
+            _, step = TST.make_train_step(
+                cfg, mesh, seq_parallel=sp, lr=s["lr"], warmup=1,
+                total_steps=10, loss_chunk=s["loss_chunk"])
+            layers.ops.attention = (keep_attention if i == 0
+                                    else real_attention)
+            coll = {"sync_ms": 0.0, "collective_ms": 0.0, "calls": {},
+                    "bytes": 0}
+            spent = [0.0]
+            fa.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with timed_collectives(coll):
+                state, met = step(state, batch)
+                loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+            ms = 1e3 * (time.perf_counter() - t1 - spent[0])
+            steps.append({
+                "seq_parallel": sp, "loss": loss, "grad_norm": gnorm,
+                "ms": ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "launches": dict(fa.LAUNCHES),
+                "routes": {k: dict(v) for k, v in
+                           fa.ROUTE_LAUNCHES.items()},
+                "collectives": coll})
+            if i:
+                digests.append(whole_digest())
+    finally:
+        TST.adamw_update = real_update
+        layers.ops.attention = real_attention
+    return {"steps": steps, "grad_err": errs, "whole_digests": digests,
+            "inputs": {n: tuple(t.cpu() if torch.is_tensor(t) else t
+                                for t in v) for n, v in inputs.items()}}
+
+
+def tpr_rank(mesh, jobs: dict) -> dict:
+    """One rank of the tp_recurrent phase: for each arch of ``jobs`` (arch
+    → (the whole run's decode tokens, the path of its saved gradients)),
+    serving (:func:`tpr_serve_rank`) then training
+    (:func:`tpr_train_rank`)."""
+    import gc
+
+    import torch
+
+    from repro_torch.models import layers
+
+    t0 = time.perf_counter()
+    mesh.device_mesh                      # the DeviceMesh and its groups
+    out = {"rank": mesh.rank, "transport": mesh.transport,
+           "mesh_s": time.perf_counter() - t0}
+    try:
+        for arch, (tokens, ref_path) in jobs.items():
+            t0 = time.perf_counter()
+            out[arch] = {"serve": tpr_serve_rank(mesh, arch, tokens)}
+            gc.collect()
+            torch.cuda.empty_cache()
+            out[arch]["serve_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out[arch]["train"] = tpr_train_rank(mesh, arch, ref_path)
+            gc.collect()
+            torch.cuda.empty_cache()
+            out[arch]["train_s"] = time.perf_counter() - t0
+    finally:
+        layers.set_attention_mesh(None)
+    return out
+
+
+def tpr_share(got, want) -> float:
+    """max |got - want| as a share of 2e-2 * max |want|."""
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / (2e-2 * want.abs().max())).item()
+
+
+def tpr_check_serve(arch: str, ref: dict, res: list) -> tuple[dict, dict]:
+    """The serving gates of one arch over the ranks' results: local shapes,
+    K7 launches (hymba), the prefill and decode logits and every cache
+    leaf reassembled within 2e-2 of max |ref| of the whole run, each
+    layer of a ``controlled`` leaf also passing within ``control_limit``
+    times the whole bf16 run's own distance to the f32 run on the same
+    weights and tokens (each layer's two reads printed); the decode
+    within 2.5e-2 of its rerun; every read printed before the gates
+    fail; → (K7 launches, reads)."""
+    import torch
+
+    s = TP_RECURRENT
+    cfg = tpr_config(arch, s["layers"][arch])
+    m = s["mesh"][1]
+    B, M = s["batch"], s["prompt_len"] + s["decode"]
+    d, L = cfg.d_model, cfg.n_layers
+    if cfg.rwkv:
+        want = {"rwkv/wr": (L, d, d // m), "rwkv/wo": (L, d // m, d),
+                "rwkv/ck": (L, d, cfg.d_ff // m),
+                "S": (L, B, d // 64, 64, 64 // m),
+                "tm_last": (L, B, d // m), "cm_last": (L, B, d // m)}
+    else:
+        want = {"ssm/in_proj": (L, d, 2, d // m),
+                "attn/wq": (L, d, cfg.n_heads, cfg.hd),
+                "attn/wo": (L, cfg.n_heads * cfg.hd // m, d),
+                "ssm/h": (L, B, d // m, cfg.ssm_state),
+                "ssm/conv": (L, B, cfg.conv_kernel - 1, d // m),
+                "k": (L, B, M, cfg.n_kv_heads, cfg.hd // m)}
+    want["embed"] = (cfg.vocab_padded // m, d)
+    counts: dict = {}
+    tag = f"[tp_recurrent] {arch}"
+    for r in res:
+        sv = r[arch]["serve"]
+        got = {**sv["shapes"], **sv["cache_shapes"]}
+        check(all(got[k] == v for k, v in want.items()),
+              f"{tag} rank {r['rank']}: local shapes "
+              f"{ {k: got[k] for k in want} }, want {want}")
+        k7 = sv["launches"]["flash_attention"]
+        check(k7 == (0 if cfg.rwkv else 2 * L)
+              and sv["routes"]["flash_attention"]["simt_f32"] == 0,
+              f"{tag} rank {r['rank']}: K7 launches {sv['routes']}")
+        c = sv["collectives"]
+        print(f"{tag} rank {r['rank']}: local shapes "
+              f"{ {k: got[k] for k in want} }; peak {sv['peak_gb']:.3f} GB; "
+              f"K7 launches {k7} ({sv['routes']['flash_attention']}); "
+              f"prefill step {sv['ms']['prefill_step_ms']:.3f} ms, prefill "
+              f"into the cache {sv['ms']['prefill_cache_ms']:.3f} ms, decode "
+              f"{statistics.median(sv['ms']['decode_ms']):.3f} ms a step "
+              f"(median of {s['decode']}); rerun with each collective timed "
+              f"alone: {c['run_ms']:.3f} ms, {c['collective_ms']:.3f} ms in "
+              f"{c['calls']} collectives ({c['bytes'] / 1e6:.3f} MB), "
+              f"{c['sync_ms']:.3f} ms waiting for the card's queued work")
+        check(c["calls"].get("reduce_over_ranks forward", 0) > 0,
+              f"{tag} rank {r['rank']}: the rerun timed no collective")
+        for k, v in sv["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    f32 = ref["f32"]
+    got = {"prefill_logits": [r[arch]["serve"]["logits"] for r in res],
+           "decode_logits": [torch.cat(r[arch]["serve"]["decode"], 1)
+                             for r in res]}
+    want = {"prefill_logits": (ref["logits"], f32["logits"]),
+            "decode_logits": (torch.cat(ref["decode"], 1),
+                              torch.cat(f32["decode"], 1))}
+    for name, whole in ref["cache"].items():
+        full = torch.zeros(whole.shape, dtype=whole.dtype)
+        for r in res:
+            local, bounds = r[arch]["serve"]["cache"][name]
+            full[tuple(bounds)] = local
+        got[f"cache_{name}"] = [full]
+        want[f"cache_{name}"] = (whole, f32["cache"][name])
+    ctl, lim = s["controlled"].get(arch, ()), s["control_limit"]
+    reads, controls, fails = {}, {}, []
+    for k, outs in got.items():
+        whole, w32 = (t.float() for t in want[k])
+        reads[k] = max(tpr_share(g, whole) for g in outs)
+        line = f"{tag} {k}: max |err| at {reads[k]:.4f} of 2e-2 * max|ref|"
+        ok = reads[k] <= 1.0
+        if k.startswith("cache_"):
+            # each layer's share of the limit, its f32 control (its
+            # distance to the f32 run over the whole bf16 run's own) and
+            # that own distance as a share of the limit
+            full, scale = outs[0].float(), 2e-2 * whole.abs().max()
+            by = []
+            for i in range(L):
+                own = (whole[i] - w32[i]).abs().max()
+                by.append((((full[i] - whole[i]).abs().max() / scale).item(),
+                           ((full[i] - w32[i]).abs().max()
+                            / own.clamp_min(1e-30)).item(),
+                           (own / scale).item()))
+            line += "; by layer (share, f32 control, own share) " + str(
+                [tuple(round(x, 4) for x in b) for b in by])
+            if k in ctl:
+                controls[k] = [c for _, c, _ in by]
+                ok = all(a <= 1.0 or c <= lim for a, c, _ in by)
+        print(line)
+        if not ok:
+            fails.append(f"{k} at {reads[k]:.4f} of the limit"
+                         + (f", f32 control {controls[k]}" if k in ctl
+                            else ""))
+    reads = {"share_of_limit": reads, "f32_control": controls}
+    rerun = max(r[arch]["serve"]["rerun_err"] for r in res)
+    reads["decode_vs_rerun_share"] = rerun / 2.5e-2
+    print(f"{tag} decode vs LM.apply over prompt + fed tokens on the ranks: "
+          f"largest error {rerun} of the largest logit "
+          f"({rerun / 2.5e-2:.4f} of the 2.5e-2 limit)")
+    if rerun > 2.5e-2:
+        fails.append(f"decode off its rerun by {rerun}")
+    check(not fails, f"{tag} serving: {'; '.join(fails)}")
+    return counts, reads
+
+
+def tpr_check_train(arch: str, ref: dict, res: list) -> tuple[dict, dict]:
+    """The training gates of one arch over the ranks' results: K7/K8/K9
+    launches a step (hymba), step 1's loss and grad_norm, every gradient
+    within 2e-2 of max |g_ref| with and without seq_parallel, each layer
+    of a ``controlled`` leaf also passing within ``control_limit`` times
+    the whole bf16 step's own distance to the f32 step (as for serving),
+    grad_norm equal on the ranks, the whole leaves equal on both ranks
+    after steps 2 and 3, the loss falling; every read printed before the
+    gates fail; → (launches, reads)."""
+    s = TP_RECURRENT
+    cfg = tpr_config(arch, s["train_layers"])
+    L = cfg.n_layers
+    n = 0 if cfg.rwkv else L
+    per_step = {"flash_attention": 2 * n, "flash_attention_bwd_dq": n,
+                "flash_attention_bwd_dkv": n}
+    tag = f"[tp_recurrent] {arch}"
+    counts: dict = {}
+    for r in res:
+        for i, st in enumerate(r[arch]["train"]["steps"]):
+            c = st["collectives"]
+            print(f"{tag} rank {r['rank']} step {i + 1} seq_parallel "
+                  f"{st['seq_parallel']}: loss {st['loss']} grad_norm "
+                  f"{st['grad_norm']}; {st['ms']:.3f} ms, peak "
+                  f"{st['peak_gb']:.3f} GB; launches {st['launches']}; "
+                  f"{c['collective_ms']:.3f} ms in {c['calls']} collectives "
+                  f"({c['bytes'] / 1e6:.3f} MB), by pass {c['by_pass']}, "
+                  f"{c['sync_ms']:.3f} ms waiting for the card's queued work")
+            check(st["launches"] == per_step
+                  and all(st["routes"][k] == {"wgmma_bf16": n, "simt_f32": 0}
+                          for k, n in per_step.items()),
+                  f"{tag} rank {r['rank']} step {i + 1}: launches "
+                  f"{st['routes']}, expected {per_step}")
+            check(c["by_pass"].get("backward", {}).get("calls", 0) > 0,
+                  f"{tag} rank {r['rank']} step {i + 1}: no collective in "
+                  f"the backward pass")
+            for k, v in st["launches"].items():
+                counts[k] = counts.get(k, 0) + v
+    ctl = [k for k in s["controlled"].get(arch, ()) if k in ref["max_ref"]]
+    lim = s["control_limit"]
+    reads, fails = {}, []
+    for i in (0, 2):                        # from the same start
+        st = res[0][arch]["train"]["steps"][i]
+        label = "seq_parallel" if i == 0 else "no seq_parallel"
+        reads[f"step{i + 1}_loss_rel"] = (abs(st["loss"] - ref["loss"])
+                                          / abs(ref["loss"]))
+        reads[f"step{i + 1}_grad_norm_rel"] = (
+            abs(st["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"])
+        if not (reads[f"step{i + 1}_loss_rel"] <= 1e-3
+                and reads[f"step{i + 1}_grad_norm_rel"] <= 1e-2):
+            fails.append(f"{label}: loss {st['loss']} grad_norm "
+                         f"{st['grad_norm']} against the whole run's "
+                         f"{ref['loss']} {ref['grad_norm']}")
+        # each layer's error, the largest over the ranks, as a share of
+        # 2e-2 * max|g_ref|, and its f32 control: the distance to the f32
+        # step over the whole bf16 step's own
+        errs = [r[arch]["train"]["grad_err"][i // 2] for r in res]
+        by = {}
+        for k in ref["max_ref"]:
+            scale = 2e-2 * max(ref["max_ref"][k], 1e-30)
+            by[k] = [(max(e[k][0][j] for e in errs) / scale,
+                      max(e[k][1][j] for e in errs) / max(own, 1e-30),
+                      own / scale)
+                     for j, own in enumerate(ref["own_f32"][k])]
+        share = {k: max(b[0] for b in v) for k, v in by.items()}
+        top = {k: round(share[k], 4)
+               for k in sorted(share, key=lambda k: -share[k])}
+        shown = {k: [tuple(round(x, 4) for x in b) for b in by[k]]
+                 for k in ctl}
+        print(f"{tag} {label}: loss {reads[f'step{i + 1}_loss_rel']:.3g} and "
+              f"grad_norm {reads[f'step{i + 1}_grad_norm_rel']:.3g} relative "
+              f"off the whole run; gradients (largest first), share of 2e-2 "
+              f"* max|g_ref|: {top}; by layer (share, f32 control, own "
+              f"share): {shown}")
+        reads[f"step{i + 1}_grad_share_of_limit"] = share
+        reads[f"step{i + 1}_grad_f32_control"] = {
+            k: [c for _, c, _ in by[k]] for k in ctl}
+        bad = {k: by[k] for k in share
+               if not all(a <= 1.0 or (k in ctl and c <= lim)
+                          for a, c, _ in by[k])}
+        if bad:
+            fails.append(f"{label}: gradients off their limit: {bad}")
+    for i in range(3):
+        norms = {r[arch]["train"]["steps"][i]["grad_norm"] for r in res}
+        if len(norms) != 1:
+            fails.append(f"step {i + 1}: grad_norm differs between the "
+                         f"ranks: {norms}")
+    for j in range(2):                      # after steps 2 and 3
+        digests = [r[arch]["train"]["whole_digests"][j] for r in res]
+        same = all(dg == digests[0] for dg in digests)
+        print(f"{tag} after step {j + 2}: the {len(digests[0])} leaves held "
+              f"whole are equal on both ranks: {same}")
+        if not (same and digests[0]):
+            fails.append(f"after step {j + 2}: the ranks' whole leaves "
+                         f"differ")
+    steps = res[0][arch]["train"]["steps"]
+    print(f"{tag} loss step 1 -> 2 (seq_parallel, the same batch): "
+          f"{steps[0]['loss']} -> {steps[1]['loss']}")
+    if not all(r[arch]["train"]["steps"][1]["loss"]
+               < r[arch]["train"]["steps"][0]["loss"] for r in res):
+        fails.append("the loss did not fall from step 1 to 2")
+    check(not fails, f"{tag} training: {'; '.join(fails)}")
+    return counts, reads
+
+
+def phase_tp_recurrent() -> tuple[dict, dict]:
+    """hymba-1.5b and rwkv6-1.6b served and trained tensor-parallel on 2
+    ranks sharing the card, held to the whole-model runs on the same
+    weights in this process; K7 (serving), K8 and K9 (training) at the
+    hymba ranks' own inputs against their plain versions, rank 0's timed."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.mesh import run_on_local_mesh
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    s = TP_RECURRENT
+    for arch in s["archs"]:
+        c = tpr_config(arch, s["layers"][arch])
+        print(f"[tp_recurrent] {arch}: {c.n_layers} layers served, "
+              f"{s['train_layers']} trained; d {c.d_model}, "
+              + ("RWKV-6 heads of 64" if c.rwkv else
+                 f"{c.n_heads} heads x {c.hd} over {c.n_kv_heads} kv heads, "
+                 f"window {c.window}, ssm_state {c.ssm_state}")
+              + f", ff {c.d_ff}, vocab {c.vocab}, {c.dtype}; serving "
+              f"{s['batch']} x {s['prompt_len']} and {s['decode']} "
+              f"teacher-forced decode steps, training {s['train_batch']} x "
+              f"{s['train_seq']}; mesh (data, model) = {s['mesh']}")
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="tp_recurrent_") as tmp:
+        refs, jobs = {}, {}
+        for arch in s["archs"]:
+            path = os.path.join(tmp, f"{arch}.pt")
+            refs[arch] = tpr_reference(arch, path)
+            jobs[arch] = (refs[arch]["tokens"], path)
+            r = refs[arch]
+            print(f"[tp_recurrent] {arch} whole-model run: "
+                  f"{r['weights_gb']:.3f} GB of weights served; prefill step "
+                  f"{r['ms']['prefill_step_ms']:.3f} ms, decode "
+                  f"{statistics.median(r['ms']['decode_ms']):.3f} ms a step; "
+                  f"training loss {r['loss']} (f32 {r['f32_loss']}) "
+                  f"grad_norm {r['grad_norm']}, loss and gradients "
+                  f"{r['step_ms']:.3f} ms")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_ref = time.perf_counter() - t_phase
+        t1 = time.perf_counter()
+        res = run_on_local_mesh(s["mesh"], ("data", "model"), tpr_rank, jobs,
+                                device="cuda", timeout=s["timeout"])
+        ranks_s = time.perf_counter() - t1
+    counts: dict = {}
+    for arch in s["archs"]:
+        c1, serve_reads = tpr_check_serve(arch, refs[arch], res)
+        c2, train_reads = tpr_check_train(arch, refs[arch], res)
+        for k, v in (*c1.items(), *c2.items()):
+            counts[k] = counts.get(k, 0) + v
+        out[arch] = {"serve_reads": serve_reads, "train_reads": train_reads,
+                     "whole_ms": refs[arch]["ms"],
+                     "whole_step_ms": refs[arch]["step_ms"],
+                     "ranks": [{"rank": r["rank"],
+                                "serve_s": r[arch]["serve_s"],
+                                "train_s": r[arch]["train_s"],
+                                **{k: r[arch]["serve"][k] for k in (
+                                    "ms", "peak_gb", "collectives",
+                                    "launches")},
+                                "steps": r[arch]["train"]["steps"]}
+                               for r in res]}
+
+    # K7 at each hymba rank's layer-0 q/k/v of the prefill step, K8 and K9
+    # at its layer-0 q/k/v/dO of training step 1: element by element
+    # against the plain versions, rank 0's timed beside the bound, the
+    # plain version and SDPA
+    hy = "hymba-1.5b"
+    kern: dict = {"k7": {}, "k8_k9": {}}
+    for r in res:
+        q, k, v, w = (t.cuda() if torch.is_tensor(t) else t
+                      for t in r[hy]["serve"]["k7_inputs"]["serve"])
+        want = (s["batch"], s["prompt_len"], 25, 64)
+        check(tuple(q.shape) == want and k.shape == v.shape == q.shape
+              and q.dtype == torch.bfloat16 and w == 1024,
+              f"tp_recurrent rank {r['rank']} K7: q {tuple(q.shape)} "
+              f"{q.dtype} window {w}; want {want} bf16, window 1024")
+        if r["rank"] == 0:
+            kern["k7"]["serve"] = k7_at(q, k, v, w, "tp_recurrent serve",
+                                        tag="[tp_recurrent]")
+        else:
+            dd, worst = flash_err(q, k, v, True, w)
+            print(f"[tp_recurrent] rank {r['rank']} K7 at {list(q.shape)} "
+                  f"bf16 window {w}: max abs err {dd}, {worst} of the "
+                  f"element-wise limit")
+            kern["k7"][f"serve rank {r['rank']}"] = {
+                "max_abs_err": dd, "err_of_elementwise_limit": worst}
+        q, k, v, do, w = (t.cuda() if torch.is_tensor(t) else t
+                          for t in r[hy]["train"]["inputs"]["train"])
+        want = (s["train_batch"], s["train_seq"], 25, 64)
+        check(tuple(q.shape) == want and do.shape == q.shape,
+              f"tp_recurrent rank {r['rank']} K8/K9: q {tuple(q.shape)}, "
+              f"dO {tuple(do.shape)}; want {want}")
+        if r["rank"] == 0:
+            kern["k8_k9"]["train"] = k8_k9_at(q, k, v, do, w,
+                                              "tp_recurrent train",
+                                              tag="[tp_recurrent]")
+        else:
+            e = flash_bwd_err(q, k, v, do, True, w)
+            print(f"[tp_recurrent] rank {r['rank']} K8/K9 at "
+                  f"{list(q.shape)} bf16 window {w}: {e}")
+            kern["k8_k9"][f"train rank {r['rank']}"] = e
+        del q, k, v, do
+    out.update(kern, ranks_s=ranks_s, reference_s=t_ref,
+               mesh_s=[r["mesh_s"] for r in res],
+               phase_s=time.perf_counter() - t_phase)
+    print(f"[tp_recurrent] phase {out['phase_s']:.3f} s (budget 150): whole "
+          f"runs {t_ref:.3f} s, ranks {ranks_s:.3f} s; K7/K8/K9 launches on "
+          f"the ranks {counts}")
+    del res
+    gc.collect()
+    return counts, out
+
+
 def main() -> int:
     sys.path.insert(0, os.path.join(HERE, "src"))
     t_start = time.perf_counter()
@@ -6100,12 +6863,21 @@ def main() -> int:
             d = r[n]["max_abs_err"] if "rank" not in label else r[n][0]
             rows[n]["max_abs_err"] = max(rows[n]["max_abs_err"], d)
     lap("ep")
+    trcounts, tpr_out = phase_tp_recurrent()
+    rows["flash_attention"]["max_abs_err"] = max(
+        rows["flash_attention"]["max_abs_err"],
+        *(r["max_abs_err"] for r in tpr_out["k7"].values()))
+    for label, r in tpr_out["k8_k9"].items():
+        for n in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            d = r[n]["max_abs_err"] if "rank" not in label else r[n][0]
+            rows[n]["max_abs_err"] = max(rows[n]["max_abs_err"], d)
+    lap("tp_recurrent")
     print(f"[time] total {time.perf_counter() - t_start:.3f}")
     for k, v in (*counts.items(), *hcounts.items(), *rcounts.items(),
                  *ccounts.items(), *fcounts.items(), *tcounts.items(),
                  *dcounts.items(), *mcounts.items(), *scounts.items(),
                  *vcounts.items(), *pcounts.items(), *tpcounts.items(),
-                 *ttcounts.items(), *ecounts.items()):
+                 *ttcounts.items(), *ecounts.items(), *trcounts.items()):
         launches[k] = launches.get(k, 0) + v
     replaces = {"cvt_color": "src/repro/kernels/harris.py:44",
                 "corner_harris": "src/repro/kernels/harris.py:101",
@@ -6140,7 +6912,7 @@ def main() -> int:
                       "train": trained, "driver": driven, "moe": moe_out,
                       "ssm": ssm_out, "vlm": vlm_out, "spmd": spmd_out,
                       "tp": tp_out, "tp_train": tp_train_out,
-                      "ep": ep_out,
+                      "ep": ep_out, "tp_recurrent": tpr_out,
                       "tc_resources": tc_res, "k7_train_shape": k7_train,
                       "k6_resources": rows["rmsnorm_matmul"]["resources"],
                       "local_layer": {n: {k: v for k, v in rows[n].items()

@@ -20,16 +20,19 @@ holding the model whole) every anchor is the identity, and the layout
 still sets the MoE routing groups.
 
 Tensor-parallel serving across ranks (the dense family and its audio
-variant, and the moe family with its experts split over the same axis:
-expert parallelism, :mod:`repro_torch.models.moe`; a ``(1, model)``
-mesh of :func:`~repro_torch.launch.mesh.run_on_local_mesh`): the serve
-steps take weights as DTensors by ``param_shardings_serving``
+variant, the moe family with its experts split over the same axis:
+expert parallelism, :mod:`repro_torch.models.moe`, and the hybrid and ssm
+families, whose recurrences run on the rank's channels or heads,
+:mod:`repro_torch.models.ssm` and :mod:`repro_torch.models.rwkv`; a
+``(1, model)`` mesh of :func:`~repro_torch.launch.mesh.run_on_local_mesh`):
+the serve steps take weights as DTensors by ``param_shardings_serving``
 (:func:`~repro_torch.launch.sharding.distribute_params` of a tree held
 whole) and a cache by ``cache_shardings`` (:func:`init_cache_sharded`),
 and every rank runs its shard (:mod:`repro_torch.models.layers`); the
 logits come back whole on every rank, and decode writes each rank's part
-of the new K/V into its shard of the cache in place.  Tensor-parallel
-training (the same families and mesh): the train step takes a state of
+of the new K/V and recurrent state into its shard of the cache in place.
+Tensor-parallel training (the same families and mesh): the train step
+takes a state of
 :func:`init_train_state_sharded` (params by ``param_shardings``, moments
 by ``opt_shardings``), every rank computes its shard's forward, recompute
 and backward (K7, K8 and K9 on its local heads), and the gradients come
@@ -38,9 +41,9 @@ carry is each rank's part of the tokens (a moe block gathers them to route
 every token).  A moe model's experts and their moments are the rank's E/m
 (``[E/m, d, 2, ff]`` and ``[E/m, ff, d]`` a layer), the router and its
 moments whole on every rank; ``global_norm`` sums the experts' squares
-over the ranks once and counts the router's once.  The ssm, hybrid and vlm
-families, a data axis over more than one rank and ``scan_chunks`` are
-refused (:func:`_check_sharded`).
+over the ranks once and counts the router's once.  The vlm family, a
+data axis over more than one rank and ``scan_chunks`` are refused
+(:func:`_check_sharded`).
 
 The abstract trees (:func:`abstract_params`, :func:`abstract_cache`) are
 meta tensors, drawing and allocating nothing; :func:`batch_structs`,
@@ -293,25 +296,27 @@ def init_cache_sharded(cfg: ArchConfig, mesh, batch: int,
 
 
 # the families whose blocks run on a rank's shard: the dense one, the
-# audio family (the dense backbone over given embeddings), and the moe
-# family (its attention on the rank's heads, its experts on the rank's E/m)
-TP_FAMILIES = ("dense", "audio", "moe")
+# audio family (the dense backbone over given embeddings), the moe family
+# (its attention on the rank's heads, its experts on the rank's E/m), the
+# hybrid family (its selective-SSM branch on the rank's inner channels)
+# and the ssm family (rwkv: its recurrence on the rank's heads)
+TP_FAMILIES = ("dense", "audio", "moe", "hybrid", "ssm")
 
 
 def _check_sharded(cfg: ArchConfig, params: Params, *,
                    scan_chunks: int = 0) -> None:
     """Refuse DTensor weights where tensor parallelism is not done: a
-    family other than the dense one, its audio variant and the moe one, a
-    mesh axis other than ``model`` of more than one rank, and (the train
-    step, which passes ``scan_chunks``) chunked remat."""
+    family outside :data:`TP_FAMILIES` (the vlm family), a mesh axis other
+    than ``model`` of more than one rank, and (the train step, which
+    passes ``scan_chunks``) chunked remat."""
     w = leaves(params)[0]
     if not is_dtensor(w):
         return
     if cfg.family not in TP_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.arch_id}: tensor parallelism runs the dense family (and "
-            f"audio, its backbone) and expert parallelism the moe family; "
-            f"the {cfg.family} family under a model axis is not done here")
+            f"{cfg.arch_id}: tensor parallelism runs the "
+            f"{', '.join(TP_FAMILIES)} families; the {cfg.family} family "
+            f"under a model axis is not done here")
     dm = w.device_mesh
     other = {n: dm.size(i) for i, n in enumerate(dm.mesh_dim_names)
              if n != "model" and dm.size(i) > 1}

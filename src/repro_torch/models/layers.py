@@ -61,8 +61,11 @@ rank holds whole has its gradient summed exactly when the ranks split its
 use (:func:`_local`, the one place of that rule).  The moe family's
 experts are split over the same axis (expert parallelism,
 :mod:`repro_torch.models.moe`): each rank runs its E/m experts on its
-local weights and the combine is a row split's sum.  The anchors
-therefore see local, plain activations here, and pass them unchanged.
+local weights and the combine is a row split's sum; the hybrid and ssm
+families' recurrences run on each rank's channels or heads by the same
+helpers (:mod:`repro_torch.models.ssm`, :mod:`repro_torch.models.rwkv`).
+The anchors therefore see local, plain activations here, and pass them
+unchanged.
 """
 from __future__ import annotations
 
@@ -349,10 +352,14 @@ def attention(p: Params, x: torch.Tensor, pos=None, *, theta, window: int = 0,
     if not (heads.start * hd <= rows.start and rows.stop <= heads.stop * hd):
         raise ValueError(f"attn/wo rows {rows} are not among the rows of "
                          f"this rank's heads {heads}")
-    split = heads.stop - heads.start < H        # this rank's heads only
+    # the ranks split the use of x, wq, wk and wv when each takes its own
+    # heads, and also when the heads are whole on every rank but each
+    # multiplies only its rows of wo (a part of their gradients each)
+    split = (heads.stop - heads.start < H
+             or rows.stop - rows.start < wo.shape[0])
     x = _enter(x, wq, split, seq)
     B, T, _ = x.shape
-    q = torch.einsum("btd,dnh->btnh", x, _local(wq))
+    q = torch.einsum("btd,dnh->btnh", x, _local(wq, split))
     src = x if kv_x is None else kv_x
     # the guard: kv heads whole on every rank, each reading its heads' own
     kv_read = split and kv_heads.stop - kv_heads.start == KV

@@ -53,7 +53,7 @@ from torch.utils.checkpoint import checkpoint
 from ..core.placement import resolve_device
 from ..core.spmd_pipeline import (all_gather_cat, all_reduce_sum,
                                    copy_to_ranks, is_dtensor, local_bounds,
-                                   own_part, reduce_over_ranks,
+                                   local_tensor, own_part, reduce_over_ranks,
                                    unbind_layers)
 from ..core.tree import flatten, tree_map, unflatten
 from ..kernels import ops
@@ -130,7 +130,7 @@ def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
     of the cached ``ck``/``cv`` (:func:`_cross_from_cache`)."""
     if cfg.rwkv:
         x, new_state = rwkv_block(p["rwkv"], x, p["ln1"], p["ln2"],
-                                  state=cache)
+                                  state=cache, seq=seq)
         return x, new_state, None
     h = rmsnorm(p["ln1"], x, split=seq)
     if is_cross:
@@ -149,7 +149,8 @@ def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
                                      cache_pos=cache_pos, seq=seq)
     if cfg.hybrid:
         s, s_new = ssm_apply(p["ssm"], h,
-                             state=None if cache is None else cache["ssm"])
+                             state=None if cache is None else cache["ssm"],
+                             seq=seq)
         a = (a + s) * 0.5
         if new_cache is not None:
             new_cache["ssm"] = s_new
@@ -197,12 +198,14 @@ def _unstack(tree: Params, dims: int = 1) -> list[Params]:
 
 def _write_back(dst: Params, src: Params) -> None:
     """Copy ``src``'s leaves into ``dst``'s tensors (views of the stacked
-    cache), skipping those that already are ``dst``'s."""
+    cache), skipping those that already are ``dst``'s; a DTensor of a
+    sharded cache takes its rank's part (``src``'s leaf is that part) into
+    its local tensor."""
     for k, v in src.items():
         if isinstance(v, dict):
             _write_back(dst[k], v)
         elif v is not dst[k]:
-            dst[k].copy_(v)
+            local_tensor(dst[k]).copy_(v)
 
 
 def _remat(fn, *args):

@@ -235,65 +235,95 @@ def _shards(tree) -> dict:
     return out
 
 
+def _grads_of(mesh, cfg, params, batch, sp, loss_chunk):
+    """The loss and this rank's gradient shards of ``loss_and_grads`` on
+    ``batch`` from a params tree held whole (the constraints
+    ``make_train_step`` uses; ``sp``: seq_parallel), and whether every
+    gradient is a DTensor laid out as its param."""
+    from repro_torch.core.spmd_pipeline import is_dtensor
+    from repro_torch.core.tree import flatten, leaves, unflatten
+    from repro_torch.launch import steps as TST
+    from repro_torch.models import LM, layers
+
+    state = TST.init_train_state_sharded(cfg, mesh, params)
+    con = layers.SeqParallel(mesh) if sp else None
+    layers.set_attention_mesh(mesh)
+    ce, grads, _ = TST.loss_and_grads(
+        LM(cfg), state["params"], batch, act_constraint=con,
+        param_constraint=TST._layer_param_constraint(mesh),
+        loss_chunk=loss_chunk)
+    flat = leaves(state["params"])
+    laid_out = all(is_dtensor(g) and g.placements == q.placements
+                   and g.shape == q.shape for g, q in zip(grads, flat))
+    tree = unflatten(flatten(state["params"])[1], grads)
+    return float(ce), _shards(tree), laid_out
+
+
+def _train_steps(mesh, cfg, params, batches, kw, sp, opt=None) -> dict:
+    """One ``make_train_step`` step a batch of ``batches`` from a params
+    tree held whole (``sp``: seq_parallel), and from ``opt``, a whole
+    optimizer state laid out by ``opt_shardings`` (fresh moments when
+    None): the metrics, the params' and moments' shards, and the moments'
+    placements equal to the params'."""
+    from repro_torch.core.spmd_pipeline import is_dtensor
+    from repro_torch.core.tree import leaves
+    from repro_torch.launch import sharding as TS
+    from repro_torch.launch import steps as TST
+
+    _, step = TST.make_train_step(cfg, mesh, seq_parallel=sp, **kw)
+    state = TST.init_train_state_sharded(cfg, mesh, params)
+    if opt is not None:
+        state["opt"] = TS.distribute_params(
+            mesh, opt, TS.opt_shardings(mesh, opt, params))
+    mets = []
+    for b in batches:
+        state, met = step(state, b)
+        mets.append({k: float(v) for k, v in met.items()})
+    opt = state["opt"]
+    return {"metrics": mets, "params": _shards(state["params"]),
+            "m": _shards(opt.m), "v": _shards(opt.v),
+            "step": int(opt.step), "step_plain": not is_dtensor(opt.step),
+            "moments_laid_out": all(
+                m.placements == p.placements == v.placements
+                for m, v, p in zip(leaves(opt.m), leaves(opt.v),
+                                   leaves(state["params"])))}
+
+
 def tp_train_rank(mesh, cfg, params, batch, batches, kw, audio=None,
-                  odd=None):
+                  odd=None, whole_heads=None):
     """Tensor-parallel training of ``cfg`` on the mesh's model axis from a
     params tree held whole, with ``seq_parallel`` on and off: the loss and
-    this rank's gradient shards of ``loss_and_grads`` on ``batch`` (the
-    constraints ``make_train_step`` uses), whether every gradient is a
-    DTensor laid out as its param, then one ``make_train_step`` step a
-    batch of ``batches`` from the same start (metrics, the params' and
-    moments' shards, the moments' placements equal to the params').  Also
-    a whole optimizer state through ``distribute_params`` by
-    ``opt_shardings``, the replicated-leaf rule on a 3-element leaf (each rank's use weighted
+    this rank's gradient shards of ``loss_and_grads`` on ``batch``
+    (:func:`_grads_of`), then one ``make_train_step`` step a batch of
+    ``batches`` from the same start (:func:`_train_steps`).  Also a whole
+    optimizer state through ``distribute_params`` by ``opt_shardings``,
+    the replicated-leaf rule on a 3-element leaf (each rank's use weighted
     by its rank + 1), the train step's refusal of ``scan_chunks``, and,
     given ``audio`` (cfg, params, embeds, step embeds, batch), tensor-
     parallel serving and training of that config; given ``odd``, a batch
     whose length the model axis does not divide, its loss and gradient
-    shards with ``seq_parallel`` (the guard leaves the carry whole)."""
+    shards with ``seq_parallel`` (the guard leaves the carry whole); given
+    ``whole_heads`` (cfg, params, batch), that config's loss and gradient
+    shards with ``seq_parallel`` on and off, as for ``cfg``."""
+    import functools
+
     from repro_torch.core.spmd_pipeline import (is_dtensor, local_bounds,
                                                 local_tensor)
-    from repro_torch.core.tree import flatten, leaves, tree_map, unflatten
+    from repro_torch.core.tree import leaves, tree_map
     from repro_torch.launch import sharding as TS
     from repro_torch.launch import steps as TST
-    from repro_torch.models import LM, layers
+    from repro_torch.models import layers
     from repro_torch.optim import AdamWState
 
-    def grads_of(c, p, b, sp, loss_chunk):
-        state = TST.init_train_state_sharded(c, mesh, p)
-        con = layers.SeqParallel(mesh) if sp else None
-        layers.set_attention_mesh(mesh)
-        ce, grads, _ = TST.loss_and_grads(
-            LM(c), state["params"], b, act_constraint=con,
-            param_constraint=TST._layer_param_constraint(mesh),
-            loss_chunk=loss_chunk)
-        flat = leaves(state["params"])
-        laid_out = all(is_dtensor(g) and g.placements == q.placements
-                       and g.shape == q.shape for g, q in zip(grads, flat))
-        tree = unflatten(flatten(state["params"])[1], grads)
-        return float(ce), _shards(tree), laid_out
-
+    grads_of = functools.partial(_grads_of, mesh)
     out: dict = {"loss": {}, "grads": {}, "laid_out": {}, "steps": {}}
     try:
         for sp in (True, False):
             (out["loss"][sp], out["grads"][sp],
              out["laid_out"][sp]) = grads_of(cfg, params, batch, sp,
                                              kw["loss_chunk"])
-            _, step = TST.make_train_step(cfg, mesh, seq_parallel=sp, **kw)
-            state = TST.init_train_state_sharded(cfg, mesh, params)
-            mets = []
-            for b in batches:
-                state, met = step(state, b)
-                mets.append({k: float(v) for k, v in met.items()})
-            opt = state["opt"]
-            out["steps"][sp] = {
-                "metrics": mets, "params": _shards(state["params"]),
-                "m": _shards(opt.m), "v": _shards(opt.v),
-                "step": int(opt.step), "step_plain": not is_dtensor(opt.step),
-                "moments_laid_out": all(
-                    m.placements == p.placements == v.placements
-                    for m, v, p in zip(leaves(opt.m), leaves(opt.v),
-                                       leaves(state["params"])))}
+            out["steps"][sp] = _train_steps(mesh, cfg, params, batches, kw,
+                                            sp)
         # a whole optimizer state laid out by opt_shardings: each rank's
         # moments are the whole ones at its bounds, the step a plain tensor
         whole = AdamWState(step=torch.tensor(3, dtype=torch.int32),
@@ -325,6 +355,48 @@ def tp_train_rank(mesh, cfg, params, batch, batches, kw, audio=None,
             out["audio"] = _tp_audio(mesh, *audio, grads_of=grads_of)
         if odd is not None:
             out["odd"] = grads_of(cfg, params, odd, True, kw["loss_chunk"])
+        if whole_heads is not None:
+            wh = out["whole_heads"] = {"loss": {}, "grads": {},
+                                       "laid_out": {}}
+            for sp in (True, False):
+                (wh["loss"][sp], wh["grads"][sp],
+                 wh["laid_out"][sp]) = grads_of(*whole_heads, sp,
+                                                kw["loss_chunk"])
+    finally:
+        layers.set_attention_mesh(None)
+    return out
+
+
+def tp_recurrent_rank(mesh, jobs, kw):
+    """The hybrid and ssm families under the mesh's model axis, for each
+    job of ``jobs`` (name → (cfg, params held whole, prompt ids [B, S],
+    teacher-forced decode tokens [B, n], a train batch, the two train
+    steps' batches, and the (params, optimizer state) to start the second
+    step from)): :func:`tp_serve_rank`'s serving run (the prefill step's
+    logits, each decode step's, this rank's cache shards), and with
+    ``seq_parallel`` on and off the loss and gradient shards
+    (:func:`_grads_of`), the two train steps (:func:`_train_steps`), each
+    from its own start, and the two steps carried on from the first
+    (``"carried"``)."""
+    from repro_torch.models import layers
+
+    out = {}
+    try:
+        for name, job in jobs.items():
+            cfg, params, ids, steps, batch, batches, (mid, opt) = job
+            r = out[name] = {"serve": tp_serve_rank(mesh, cfg, params, ids,
+                                                    steps),
+                             "loss": {}, "grads": {}, "laid_out": {},
+                             "steps": {}, "carried": {}}
+            for sp in (True, False):
+                (r["loss"][sp], r["grads"][sp],
+                 r["laid_out"][sp]) = _grads_of(mesh, cfg, params, batch, sp,
+                                                kw["loss_chunk"])
+                r["steps"][sp] = [
+                    _train_steps(mesh, cfg, params, batches[:1], kw, sp),
+                    _train_steps(mesh, cfg, mid, batches[1:], kw, sp, opt)]
+                r["carried"][sp] = _train_steps(mesh, cfg, params, batches,
+                                                kw, sp)
     finally:
         layers.set_attention_mesh(None)
     return out
