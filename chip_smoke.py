@@ -45,11 +45,11 @@ version there:
   tokens through the einsum dispatch, 32 greedy tokens through the sort
   dispatch; K7 on every prefill self-attention), and training at 2 layers
   (batch 2 x 4096, loss chunk 512, per-layer remat, AdamW; K7-K9);
-* the ssm and hybrid families at full widths and all their layers:
-  rwkv6-1.6b (d 2048, 32 RWKV-6 heads of 64, d_ff 7168, vocab 65536; 24
-  layers, 2.89 GB) and hymba-1.5b (d 1600, 25 heads x 64 over 5 kv heads,
-  window 1024 on every layer, a selective-SSM branch of state 16; 32
-  layers, 2.85 GB), bf16 with the recurrences in f32: ``serve_lm`` with 4
+* the ssm and hybrid families at full widths, served at 8 of their
+  layers: rwkv6-1.6b (d 2048, 32 RWKV-6 heads of 64, d_ff 7168, vocab
+  65536; 8 of 24 layers) and hymba-1.5b (d 1600, 25 heads x 64 over 5 kv
+  heads, window 1024 on every layer, a selective-SSM branch of state 16; 8
+  of 32 layers), bf16 with the recurrences in f32: ``serve_lm`` with 4
   prompts of 4096 tokens (the chunked scans) and 32 greedy tokens (K7 on
   every hymba prefill self-attention), and training at 2 layers (batch 2 x
   4096, remat nesting the scans' chunk checkpoints; K7-K9 for hymba);
@@ -69,7 +69,7 @@ version there:
   microbatches of [1, 4096, 3840] (K7 on every attention); and layers 0-7
   trained in 4 stages, 4 microbatches of 1 x 4096 (K7-K9);
 * tensor-parallel serving (``launch/steps.py`` on DTensor weights) at
-  gemma3-12b's full widths, 12 of its 48 layers (two global): the weights
+  gemma3-12b's full widths, 6 of its 48 layers (layer 5 global): the weights
   drawn whole from one seed on each rank of a (data 1, model 2) mesh of
   ``run_on_local_mesh`` sharing the card and cut by ``distribute_params``
   (each rank keeps half of the heads, the ff columns and the vocab rows),
@@ -87,7 +87,7 @@ version there:
 * expert parallelism (the moe family on DTensor weights) at
   moonshot-v1-16b-a3b's full widths: each rank of a (data 1, model 2) mesh
   sharing the card draws the whole weights and keeps its 32 of the 64
-  experts, 8 of the 16 heads and half of the vocab rows; served at 6 of
+  experts, 8 of the 16 heads and half of the vocab rows; served at 4 of
   its 48 layers (2 prompts of 2048 tokens through the sort dispatch, 16
   teacher-forced decode steps) and trained at 2 layers (2 x 4096 tokens
   through the einsum dispatch, ``seq_parallel`` on and off), with the
@@ -99,7 +99,17 @@ version there:
   sharing the card: served at 8 of 32 and 6 of 24 layers (2 prompts of
   2048 tokens, 16 teacher-forced decode steps; K7 on all 25 of hymba's
   heads on each rank, since 25 does not divide 2) and trained at 2 layers
-  (2 x 2048 tokens, ``seq_parallel`` on and off; K7-K9 for hymba).
+  (2 x 2048 tokens, ``seq_parallel`` on and off; K7-K9 for hymba);
+* the vlm family tensor-parallel at llama-3.2-vision-11b's full widths on
+  a (data 1, model 2) mesh sharing the card: each rank holds 16 of the 32
+  heads, 4 of the 8 kv heads, half of d_ff and of the vocab rows, and its
+  self and image K/V caches keep every kv head at half of head_dim (the
+  JAX layout, re-laid at each write, gathered to read); served at 2 of 8
+  groups (2 prompts of 2048 tokens against 1601 image rows, 16
+  teacher-forced decode steps; K7 on each rank's heads, causal on the 8
+  self layers and causal=False on the 2 cross layers) and trained at one
+  group (2 x 2048 tokens, ``seq_parallel`` on and off; K7-K9 on the self
+  and the cross layers).
 
 Phases:
 
@@ -199,8 +209,8 @@ Phases:
               carrying their state (2e-4, every zero- or one-initialised
               leaf drawn first); (b) time_mix at [1, 512, 2048] with the
               scan's chunked remat on and off (outputs and every gradient,
-              1e-5 relative); (c) serve_lm at all the layers: K7 launches
-              (hymba 32 in the prefill, rwkv none), finite logits, served
+              1e-5 relative); (c) serve_lm at 8 layers: K7 launches
+              (hymba 8 in the prefill, rwkv none), finite logits, served
               twice bit for bit; (d) decode against LM.apply over prompt +
               generated at batch 1 x 1024, f32 1e-4 and bf16 2.5e-2 of the
               largest logit; (e) 4 training steps at 2 layers (the loss
@@ -278,7 +288,7 @@ Phases:
               seq_parallel and without; the phase's seconds (budget 90)
 14. ep      — moonshot-v1-16b-a3b expert-parallel on 2 ranks sharing the
               card, each whole-model run in this process first, its
-              routing recorded and pinned into the ranks; serving (6
+              routing recorded and pinned into the ranks; serving (4
               layers): per rank its experts, the local shapes of moe/wi,
               moe/wo, the router (whole), wq, the embed table and the cache,
               K7 launches (> 0, wgmma route), every moe call's dropped_frac
@@ -297,7 +307,10 @@ Phases:
               every rank (ep_whole_experts_grads: the row split's own f32
               sums, which at this random init move some of these
               gradients 1-3.5x the limit off the plain whole run's,
-              printed beside them), the grad_norm equal on
+              printed beside them with the f32 control: the plain bf16
+              run's own distance to the same step in f32 with its
+              routing pinned, and the ranks' distance to that f32 step
+              over it), the grad_norm equal on
               both ranks, 4/2/2 K7/K8/K9 a step on the wgmma route, the
               moments at their opt_shardings local shapes (moe/wi [2, 32,
               2048, 2, 1408]), the loss falling, the collectives' count, MB
@@ -334,7 +347,32 @@ Phases:
               at its [2, 2048, 25, 64], element by element, rank 0's timed
               beside the bound, the plain version and SDPA; the phase's
               seconds (budget 150)
-16. the ``kernels`` JSON line (the ranks' launches added), the nvidia-smi
+16. tp_vlm  — llama-3.2-vision-11b tensor-parallel on 2 ranks sharing the
+              card (the helpers of tp_recurrent), the image embeddings
+              drawn from the seed, the whole-model run in this process
+              first; serving (2 groups): per rank the local shapes
+              (wq and wk of the self layers, mlp/wi, the cross layers'
+              wk and wo, the self k/v and image ck/cv caches with every
+              kv head at half of head_dim, the embed table), 20 K7
+              launches (10 a prefill: 8 causal, 2 causal=False against
+              1601 keys; wgmma route), prefill and decode ms, peak GB,
+              the collectives' count, MB and ms in a rerun; the prefill
+              and decode logits and the self k/v and image ck/cv
+              reassembled (each group printed, with the whole bf16 run's
+              own distance to an f32 run) within 2e-2 of max|ref|, the
+              decode within 2.5e-2 of LM.apply over the prompt and the
+              fed tokens on the ranks; training (one group): steps 1
+              and 3 (seq_parallel, then without from the same start)
+              loss 1e-3 and grad_norm 1e-2 relative of the whole run's,
+              every gradient leaf within 2e-2 of max|g_ref|, the
+              grad_norm equal and every leaf held whole bit-equal on both
+              ranks after steps 2 and 3, 10/5/5 K7/K8/K9 a step on the
+              wgmma route, the loss falling; K7 (self and cross) and
+              K8/K9 (self and cross) at each rank's own inputs ([2, 2048,
+              16, 128], 2048 or 1601 keys) element by element, rank 0's
+              timed beside the bound, the plain version and SDPA; the
+              phase's seconds (budget 90)
+17. the ``kernels`` JSON line (the ranks' launches added), the nvidia-smi
    line, and the result line;
    a ``[time] <phase> <seconds>`` line after each phase
 
@@ -423,17 +461,19 @@ MOE = dict(arch="moonshot-v1-16b-a3b", layers=6, batch=4, prompt_len=4096,
 
 
 # the ssm and hybrid families at full widths: rwkv6-1.6b and hymba-1.5b
-# served at all their layers, 4 prompts of 4096 tokens (a multiple of 256:
-# the chunked scans) and 32 new tokens, the prefill profiled at 1 layer and
-# the decode for 2 steps (the profiler's parse of more events costs tens of
-# seconds); the decode held to a full-prefix rerun at batch 1 x 1024 (16
-# tokens); trained at 2 layers (batch 2 x 4096, 4 steps); the state checks
-# at [2, 64, d], the remat check at [1, 512, 2048]
-SSM = dict(archs=("rwkv6-1.6b", "hymba-1.5b"), batch=4, prompt_len=4096,
-           tokens=32, decode_prompt=1024, decode_tokens=16, state_batch=2,
-           state_len=64, remat_len=512, profile_layers=1, profile_steps=2,
-           train_layers=2, train_batch=2, train_seq=4096, train_steps=4,
-           lr=3e-3)
+# served at 8 of their 24 and 32 layers (cut to keep the script within its
+# time: the eager scans are host-bound), 4 prompts of 4096 tokens (a
+# multiple of 256: the chunked scans) and 32 new tokens, the prefill
+# profiled at 1 layer and the decode for 2 steps (the profiler's parse of
+# more events costs tens of seconds); the decode held to a full-prefix
+# rerun at batch 1 x 1024 (16 tokens); trained at 2 layers (batch 2 x 4096,
+# 4 steps); the state checks at [2, 64, d], the remat check at [1, 512,
+# 2048]
+SSM = dict(archs=("rwkv6-1.6b", "hymba-1.5b"), layers=8, batch=4,
+           prompt_len=4096, tokens=32, decode_prompt=1024, decode_tokens=16,
+           state_batch=2, state_len=64, remat_len=512, profile_layers=1,
+           profile_steps=2, train_layers=2, train_batch=2, train_seq=4096,
+           train_steps=4, lr=3e-3)
 # the leaves ssm_init and rwkv_init set to zeros or ones, drawn from the
 # seed instead: name -> (low, high) of a uniform draw
 STATE_LEAF_DRAWS = {"dt_bias": (-2.0, 0.0), "A_log": (-1.0, 1.0),
@@ -459,10 +499,11 @@ VLM = dict(arch="llama-3.2-vision-11b", batch=4, prompt_len=4096, tokens=32,
 SPMD = dict(arch="gemma3-12b", stages=4, replan=3, microbatches=8,
             seq_len=4096, train_layers=8, train_stages=4,
             train_microbatches=4, seed=2027, timeout=600)
-# tensor-parallel serving: gemma3-12b at full widths, 12 of 48 layers (two
-# global at global_every 6), a (data 1, model 2) mesh sharing the card,
-# 2 prompts of 2048 tokens (over the 1024 window), 16 decode steps
-TP = dict(arch="gemma3-12b", layers=12, mesh=(1, 2), batch=2,
+# tensor-parallel serving: gemma3-12b at full widths, 6 of 48 layers (5
+# local, layer 5 global at global_every 6; cut from 12 to keep the script
+# within its time), a (data 1, model 2) mesh sharing the card, 2 prompts of
+# 2048 tokens (over the 1024 window), 16 decode steps
+TP = dict(arch="gemma3-12b", layers=6, mesh=(1, 2), batch=2,
           prompt_len=2048, decode=16, seed=2028, timeout=600)
 # tensor-parallel training: gemma3-12b at full widths, 6 of 48 layers (5
 # local, layer 5 global), a (data 1, model 2) mesh sharing the card, batch
@@ -484,7 +525,7 @@ TP_TRAIN = dict(arch="gemma3-12b", layers=6, mesh=(1, 2), batch=2,
 # deepest layers, its embedding gradient); a layer of one of these also
 # passes within ``control_limit`` times the whole bf16 run's own distance
 # to the same run in f32 (PERF.md, cell 15)
-TP_RECURRENT = dict(archs=("hymba-1.5b", "rwkv6-1.6b"),
+TP_RECURRENT = dict(tag="tp_recurrent", archs=("hymba-1.5b", "rwkv6-1.6b"),
                     layers={"hymba-1.5b": 8, "rwkv6-1.6b": 6}, mesh=(1, 2),
                     batch=2, prompt_len=2048, decode=16, train_layers=2,
                     train_batch=2, train_seq=2048, loss_chunk=512, lr=3e-4,
@@ -493,15 +534,31 @@ TP_RECURRENT = dict(archs=("hymba-1.5b", "rwkv6-1.6b"),
                         "cache_tm_last", "cache_cm_last", "embed/table")},
                     control_limit=2.0)
 
+# the vlm family tensor-parallel: llama-3.2-vision-11b at full widths on a
+# (data 1, model 2) mesh sharing the card, each rank holding 16 of the 32
+# heads, 4 of the 8 kv heads, half of d_ff and of the vocab rows, its self
+# and image K/V caches every kv head at half of head_dim (the JAX layout):
+# served at 2 of its 8 groups (8 self + 2 cross layers; 2 prompts of 2048
+# tokens against 1601 image rows drawn from the seed in bf16, 16
+# teacher-forced decode steps), trained at one group (5 layers, 2 x 2048
+# tokens, seq_parallel on and off; loss chunk 512, group remat, AdamW);
+# ``controlled`` and ``control_limit`` as in TP_RECURRENT
+TP_VLM = dict(tag="tp_vlm", archs=("llama-3.2-vision-11b",),
+              layers={"llama-3.2-vision-11b": 10}, mesh=(1, 2), batch=2,
+              prompt_len=2048, decode=16, train_layers=5, train_batch=2,
+              train_seq=2048, loss_chunk=512, lr=3e-4, seed=2032,
+              timeout=600, controlled={}, control_limit=2.0)
+
 # expert parallelism: moonshot-v1-16b-a3b at full widths on a (data 1,
 # model 2) mesh sharing the card, each rank holding 32 of the 64 experts,
-# 8 of the 16 heads and half of the vocab rows: served at 6 of 48 layers
-# (2 prompts of 2048 tokens, the sort dispatch; 16 decode steps), trained
+# 8 of the 16 heads and half of the vocab rows: served at 4 of 48 layers
+# (cut from 6 to keep the script within its time; 2 prompts of 2048
+# tokens, the sort dispatch; 16 decode steps), trained
 # at 2 layers (batch 2 x 4096 tokens: the einsum dispatch, 16 groups of
 # 512; loss chunk 512, per-layer remat, AdamW); every check against the
 # whole-model run pins its routing; the gradients of experts 0 and 32
 # (one from each rank's range) are checked leaf by leaf
-EP = dict(arch="moonshot-v1-16b-a3b", layers=6, mesh=(1, 2), batch=2,
+EP = dict(arch="moonshot-v1-16b-a3b", layers=4, mesh=(1, 2), batch=2,
           prompt_len=2048, decode=16, train_layers=2, train_batch=2,
           train_seq=4096, loss_chunk=512, lr=3e-4, seed=2030,
           experts=(0, 32), timeout=600)
@@ -3372,7 +3429,7 @@ def k8_k9_at(q, k, v, do, window: int, label: str, causal: bool = True,
 
 def recurrent_decode_vs_rerun(cfg, params, dtype: str) -> dict:
     """(d) greedy decode (serve_lm, batch 1 x SSM decode prompt) against
-    LM.apply over prompt + generated at all the layers: the largest error
+    LM.apply over prompt + generated at the served layers: the largest error
     of the logits over the largest logit; f32 limit 1e-4, bf16 2.5e-2."""
     import dataclasses
 
@@ -3589,7 +3646,7 @@ def recurrent_train(cfg_full) -> tuple[dict, dict]:
 
 
 def ssm_model(arch: str) -> tuple[dict, dict]:
-    """One model at full widths and all its layers: (f) K7 at the serving
+    """One model at full widths and the served depth: (f) K7 at the serving
     shape (hymba), (c) serve_lm twice, (g) the profile, (d) decode vs the
     rerun in bf16 and f32, (e) training at 2 layers."""
     import dataclasses
@@ -3608,7 +3665,7 @@ def ssm_model(arch: str) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     s = SSM
-    cfg = lm_config(arch, reduced=False)
+    cfg = lm_config(arch, reduced=False, layers=s["layers"])
     check(cfg.dtype == "bfloat16" and (cfg.rwkv or (
         cfg.hybrid and cfg.hd == 64 and cfg.window == 1024)),
         f"unexpected config {cfg}")
@@ -3687,13 +3744,13 @@ def ssm_model(arch: str) -> tuple[dict, dict]:
     lap("serve")
 
     # (g) where the card's time goes: a prefill at a depth cut, a few
-    # decode steps at all the layers
+    # decode steps at the served layers
     Lp, n_dec = min(s["profile_layers"], cfg.n_layers), s["profile_steps"]
     cut = cut_params(params, Lp)
     cmodel = LM(dataclasses.replace(cfg, n_layers=Lp))
     # decode from a zero cache at position P: the served decode's kernels
     # and shapes (the work does not depend on the state's values), without
-    # a third prefill at all the layers
+    # a third prefill at the served layers
     cache = {"p": cmodel.init_cache(B, P, device="cuda"),
              "d": model.init_cache(B, P + n_dec, device="cuda")}
 
@@ -3762,8 +3819,8 @@ def ssm_model(arch: str) -> tuple[dict, dict]:
 
 def phase_ssm() -> tuple[dict, dict]:
     """The ssm and hybrid families on the card: the state and remat checks,
-    then rwkv6-1.6b and hymba-1.5b, each served at all its layers and
-    trained at 2."""
+    then rwkv6-1.6b and hymba-1.5b, each served at 8 layers and trained at
+    2."""
     t0 = time.perf_counter()
     out = {"state": ssm_state_checks()}
     print(f"[ssm] (a), (b): {time.perf_counter() - t0:.3f} s")
@@ -4539,7 +4596,7 @@ def tp_config():
     check(cfg.d_model == 3840 and cfg.n_heads == 16 and cfg.n_kv_heads == 8
           and cfg.hd == 256 and cfg.d_ff == 15360 and cfg.vocab == 262144
           and cfg.dtype == "bfloat16" and cfg.window == 1024
-          and [int(w) for w in cfg.layer_windows].count(0) == 2,
+          and [int(w) for w in cfg.layer_windows].count(0) == 1,
           f"unexpected tp config {cfg}")
     return cfg
 
@@ -4554,15 +4611,18 @@ def tp_inputs(cfg, device):
 
 
 def tp_serve(model, params, cache, ids, prefill, decode, tokens=None,
-             steps: int | None = None, phase=lambda name: None):
+             steps: int | None = None, phase=lambda name: None, img=None):
     """The phase's serving run (the same code whole or on a rank): the
     prefill step's logits, ``LM.prefill`` into ``cache``, then one decode
     step a token of ``tokens`` [B, n] (teacher-forced), or of the greedy
     tokens when None, ``steps`` of them (``TP["decode"]`` by default);
     ``phase(name)`` is called before each part ("prefill", "fill",
-    "dec<j>"); → (prefill logits, decode logits, tokens fed, ms of each
+    "dec<j>"); ``img``: a vlm model's image embeddings, given to the
+    prefills; → (prefill logits, decode logits, tokens fed, ms of each
     part)."""
     import torch
+
+    kw = {} if img is None else {"img_embeds": img}
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -4572,9 +4632,9 @@ def tp_serve(model, params, cache, ids, prefill, decode, tokens=None,
         return out, 1e3 * (time.perf_counter() - t0)
 
     phase("prefill")
-    logits, pre_ms = timed(lambda: prefill(params, {"ids": ids}))
+    logits, pre_ms = timed(lambda: prefill(params, {"ids": ids, **kw}))
     phase("fill")
-    _, fill_ms = timed(lambda: model.prefill(params, ids, cache))
+    _, fill_ms = timed(lambda: model.prefill(params, ids, cache, **kw))
     T, fed, outs, dec_ms = ids.shape[1], [], [], []
     tok = logits[:, -1].argmax(-1)
     for j in range(TP["decode"] if steps is None else steps):
@@ -5474,10 +5534,15 @@ def ep_train_reference(path: str) -> dict:
     """The whole-model training run on plain tensors: step 1's loss,
     grad_norm (before clipping), checked gradients and each layer's
     routing, the gradients and the routing saved to ``path`` for the
-    ranks."""
+    ranks; and the control: the same step in f32 with the same routing
+    pinned, its checked gradients saved beside (``"f32"``) and each one's
+    distance to the bf16 step's (``own_f32``, the bf16 step's own
+    rounding)."""
+    import dataclasses
+
     import torch
 
-    from repro_torch.core.tree import flatten, leaves, unflatten
+    from repro_torch.core.tree import flatten, leaves, tree_map, unflatten
     from repro_torch.launch.steps import loss_and_grads
     from repro_torch.models import LM
     from repro_torch.optim import global_norm
@@ -5500,13 +5565,28 @@ def ep_train_reference(path: str) -> dict:
     plain = {k: g.cpu() for k, (g, _) in ep_train_checked(
         unflatten(flatten(params)[1], grads), cfg.n_layers).items()}
     pins = {k: torch.stack(v) for k, v in log.first().items()}
-    torch.save({"plain": plain, "pins": pins}, path)
+    del grads
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_map(lambda a: a.float(), params)
+    del params
+    log32 = RoutingLog({"train32": pins["train"]})
+    log32.set("train32")
+    with routing_hook(log32):
+        _, g32, _ = loss_and_grads(LM(c32), p32, batch,
+                                   loss_chunk=EP["loss_chunk"])
+    f32 = {k: g.cpu() for k, (g, _) in ep_train_checked(
+        unflatten(flatten(p32)[1], g32), cfg.n_layers).items()}
+    del p32, g32
+    torch.save({"plain": plain, "pins": pins, "f32": f32}, path)
     out = {"loss": float(ce), "grad_norm": gnorm,
            "dropped_frac": float(aux["dropped_frac"]),
            "max_plain": {k: float(g.float().abs().max())
                          for k, g in plain.items()},
+           "own_f32": {k: float((g.float() - f32[k]).abs().max())
+                       for k, g in plain.items()},
            "weights_gb": nbytes / 1e9, "step_ms": ms}
-    del params, grads, plain
+    del plain, f32
+    torch.cuda.empty_cache()
     return out
 
 
@@ -5622,6 +5702,8 @@ def ep_train_rank(mesh, cfg, ref_path: str) -> dict:
                 want = ref["plain"][k][at].to(g.device)
                 e[f"{k} plain"] = float((g.float() - want.float()).abs()
                                         .max())
+                want = ref["f32"][k][at].to(g.device)
+                e[f"{k} f32"] = float((g.float() - want).abs().max())
             errs.append(e)
             torch.cuda.synchronize()
         spent[0] += time.perf_counter() - t1
@@ -5713,7 +5795,7 @@ def ep_same_choices(res: list, label: str) -> dict:
 
 
 def phase_ep_serve() -> tuple[dict, dict]:
-    """moonshot-v1-16b-a3b served expert-parallel (6 layers) on 2 ranks
+    """moonshot-v1-16b-a3b served expert-parallel (4 layers) on 2 ranks
     sharing the card, held to the whole-model run on the same weights in
     this process with its routing pinned."""
     import gc
@@ -5992,7 +6074,7 @@ def phase_ep_train() -> tuple[dict, dict]:
               f"{st['grad_norm']} dropped_frac {st['dropped_frac']} against "
               f"the whole run's {tref['loss']} {tref['grad_norm']} "
               f"{tref['dropped_frac']}")
-        worst_at, plain_at = {}, {}
+        worst_at, plain_at, own_at, ctl_at = {}, {}, {}, {}
         errs = [r["grad_err"][0 if i == 0 else 1] for r in res]
         for k in tref["max_plain"]:
             got = [e[k] for e in errs if k in e]
@@ -6000,17 +6082,30 @@ def phase_ep_train() -> tuple[dict, dict]:
             ref_max = max(r["whole_experts"][sp]["max"][k] for r in res
                           if k in r["whole_experts"][sp]["max"])
             worst_at[k] = max(got) / (2e-2 * ref_max)
-            plain_at[k] = (max(e[f"{k} plain"] for e in errs if k in e)
-                           / (2e-2 * tref["max_plain"][k]))
+            scale = 2e-2 * tref["max_plain"][k]
+            plain_at[k] = max(e[f"{k} plain"] for e in errs if k in e) / scale
+            # the control: the plain bf16 run's own distance to the f32
+            # run (a share of the limit), and the ranks' distance to the
+            # f32 run over that own distance
+            own = tref["own_f32"][k]
+            own_at[k] = own / scale
+            ctl_at[k] = (max(e[f"{k} f32"] for e in errs if k in e)
+                         / max(own, 1e-30))
         label = "seq_parallel" if sp else "no seq_parallel"
         for k, v in sorted(worst_at.items()):
             print(f"[ep] {label} gradient {k}: max |g - g_ref| at {v:.4f} of "
                   f"2e-2 * max|g_ref| (g_ref the same ranks' step with the "
                   f"experts whole); against the plain whole run "
                   f"{plain_at[k]:.4f} of 2e-2 * max|g_plain| "
-                  f"({tref['max_plain'][k]:.6g}; printed, not gated)")
+                  f"({tref['max_plain'][k]:.6g}; printed, not gated); the "
+                  f"plain bf16 run's own distance to the f32 run "
+                  f"{own_at[k]:.4f} of that limit, the ranks' distance to "
+                  f"the f32 run {ctl_at[k]:.4f} x the plain run's own "
+                  f"(the f32 control, printed)")
         treads[f"step{i + 1}_grad_share_of_limit"] = max(worst_at.values())
         treads[f"step{i + 1}_grad_share_plain"] = max(plain_at.values())
+        treads[f"step{i + 1}_grad_own_share_f32"] = own_at
+        treads[f"step{i + 1}_grad_f32_control"] = ctl_at
         shares[label] = worst_at
     for label, worst_at in shares.items():
         check(max(worst_at.values()) <= 1.0,
@@ -6073,6 +6168,12 @@ def phase_ep() -> tuple[dict, dict]:
 # 15. the hybrid and ssm families under a model axis: hymba-1.5b and
 # rwkv6-1.6b served and trained on 2 ranks
 # --------------------------------------------------------------------------- #
+def tpr_settings(arch: str) -> dict:
+    """The phase settings that serve and train ``arch`` on the ranks:
+    TP_VLM's for the vlm family, TP_RECURRENT's for the others."""
+    return TP_VLM if arch in TP_VLM["archs"] else TP_RECURRENT
+
+
 def tpr_config(arch: str, layers: int):
     import dataclasses
 
@@ -6082,6 +6183,12 @@ def tpr_config(arch: str, layers: int):
     if cfg.rwkv:
         check(cfg.d_model == 2048 and cfg.d_ff == 7168 and cfg.vocab == 65536
               and cfg.dtype == "bfloat16", f"unexpected rwkv config {cfg}")
+    elif cfg.cross_attn_every:
+        check(cfg.d_model == 4096 and cfg.n_heads == 32
+              and cfg.n_kv_heads == 8 and cfg.hd == 128 and cfg.d_ff == 14336
+              and cfg.vocab == 128256 and cfg.cross_attn_every == 5
+              and cfg.n_img_tokens == 1601 and cfg.dtype == "bfloat16",
+              f"unexpected vlm config {cfg}")
     else:
         check(cfg.d_model == 1600 and cfg.n_heads == 25
               and cfg.n_kv_heads == 5 and cfg.hd == 64 and cfg.d_ff == 5504
@@ -6098,18 +6205,22 @@ def tpr_draw(cfg, device: str = "cuda") -> dict:
 
     from repro_torch.models import LM
 
-    g = torch.Generator(device).manual_seed(TP_RECURRENT["seed"])
+    g = torch.Generator(device).manual_seed(tpr_settings(cfg.arch_id)["seed"])
     params = LM(cfg).init(g)
-    blk = "rwkv" if cfg.rwkv else "ssm"
-    params["layers"][blk] = draw_state_leaves(params["layers"][blk], g)
+    if cfg.rwkv or cfg.hybrid:
+        blk = "rwkv" if cfg.rwkv else "ssm"
+        params["layers"][blk] = draw_state_leaves(params["layers"][blk], g)
     return params
 
 
 def tpr_inputs(cfg, device: str = "cuda") -> tuple:
-    """The served prompts [B, T] and the training batch, from the seed."""
+    """The served prompts [B, T], the image embeddings they are served
+    against (a vlm config's, [B, M, d] in its dtype; else None) and the
+    training batch (a vlm config's with image embeddings of its own), from
+    the seed."""
     import torch
 
-    s = TP_RECURRENT
+    s = tpr_settings(cfg.arch_id)
     g = torch.Generator(device).manual_seed(s["seed"] + 1)
     ids = torch.randint(0, cfg.vocab, (s["batch"], s["prompt_len"]),
                         generator=g, device=device)
@@ -6119,7 +6230,13 @@ def tpr_inputs(cfg, device: str = "cuda") -> tuple:
              "labels": torch.randint(0, cfg.vocab, shape, generator=g,
                                      device=device),
              "mask": torch.ones(shape, device=device)}
-    return ids, batch
+    img = None
+    if cfg.cross_attn_every:
+        img, batch["img_embeds"] = (torch.randn(
+            (n, cfg.n_img_tokens, cfg.d_model), generator=g,
+            device=device).to(torch.bfloat16)
+            for n in (s["batch"], s["train_batch"]))
+    return ids, img, batch
 
 
 def tpr_leaves(tree) -> dict:
@@ -6136,9 +6253,10 @@ def tpr_leaves(tree) -> dict:
 
 def tpr_by_layer(path: str, diff) -> list:
     """max |diff| of each layer of a leaf stacked over the layers (its
-    path under ``layers/``), else of the whole leaf, as a list."""
+    path under ``layers/``, or a vlm model's ``cross/``: a group each),
+    else of the whole leaf, as a list."""
     d = diff.abs()
-    if path.startswith("layers/"):
+    if path.startswith(("layers/", "cross/")):
         return d.flatten(1).amax(1).tolist()
     return [float(d.max())]
 
@@ -6149,8 +6267,9 @@ def tpr_reference(arch: str, path: str) -> dict:
     cache after it, all on the host) and step 1's loss, grad_norm and
     gradients at the training depth, the gradients saved to ``path`` for
     the ranks (each reads its shards' bounds); and the controls: the same
-    weights served in f32, fed the same tokens, and the same training
-    step in f32, its gradients saved beside the bf16 ones."""
+    weights served in f32, fed the same tokens, and, for an arch with
+    ``controlled`` reads, the same training step in f32, its gradients
+    saved beside the bf16 ones (``own_f32`` None without it)."""
     import dataclasses
     import gc
 
@@ -6161,17 +6280,17 @@ def tpr_reference(arch: str, path: str) -> dict:
     from repro_torch.models import LM
     from repro_torch.optim import global_norm
 
-    s = TP_RECURRENT
+    s = tpr_settings(arch)
     cfg = tpr_config(arch, s["layers"][arch])
     model = LM(cfg)
     params = tpr_draw(cfg)
-    ids, _ = tpr_inputs(cfg)
+    ids, img, _ = tpr_inputs(cfg)
     cache = model.init_cache(s["batch"], s["prompt_len"] + s["decode"],
                              device="cuda")
     _, prefill = TST.make_prefill_step(cfg)
     _, decode = TST.make_decode_step(cfg)
     logits, dec, tokens, ms = tp_serve(model, params, cache, ids, prefill,
-                                       decode, steps=s["decode"])
+                                       decode, steps=s["decode"], img=img)
     out = {"logits": logits, "decode": dec, "tokens": tokens, "ms": ms,
            "cache": {k: v.cpu() for k, (v, _) in tpr_leaves(cache).items()},
            "weights_gb": sum(a.numel() * a.element_size()
@@ -6186,7 +6305,8 @@ def tpr_reference(arch: str, path: str) -> dict:
     lg32, dec32, _, _ = tp_serve(m32, p32, cache, ids,
                                  TST.make_prefill_step(c32)[1],
                                  TST.make_decode_step(c32)[1], tokens,
-                                 steps=s["decode"])
+                                 steps=s["decode"],
+                                 img=None if img is None else img.float())
     out["f32"] = {"logits": lg32, "decode": dec32, "cache": {
         k: v.cpu() for k, (v, _) in tpr_leaves(cache).items()}}
     del p32, cache
@@ -6195,7 +6315,7 @@ def tpr_reference(arch: str, path: str) -> dict:
     cfg = tpr_config(arch, s["train_layers"])
     model = LM(cfg)
     params = tpr_draw(cfg)
-    _, batch = tpr_inputs(cfg)
+    _, _, batch = tpr_inputs(cfg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ce, grads, _ = TST.loss_and_grads(model, params, batch,
@@ -6210,12 +6330,20 @@ def tpr_reference(arch: str, path: str) -> dict:
                max_ref={k: float(g.float().abs().max())
                         for k, g in checked.items()})
     del grads, tree
+    out.update(f32_loss=None, own_f32=None)
+    if not s["controlled"].get(arch):
+        del params, checked
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
     # the control: the same step in f32; its gradients saved beside
     c32 = dataclasses.replace(cfg, dtype="float32")
     p32 = tree_map(lambda a: a.float(), params)
     del params
     gc.collect()
-    ce32, grads, _ = TST.loss_and_grads(LM(c32), p32, batch,
+    b32 = {k: v.float() if k == "img_embeds" else v
+           for k, v in batch.items()}
+    ce32, grads, _ = TST.loss_and_grads(LM(c32), p32, b32,
                                         loss_chunk=s["loss_chunk"])
     tree = unflatten(flatten(p32)[1], grads)
     f32 = {k: g.cpu() for k, (g, _) in tpr_leaves(tree).items()}
@@ -6240,11 +6368,11 @@ def tpr_serve_rank(mesh, arch: str, tokens) -> dict:
     from repro_torch.launch import sharding as TS
     from repro_torch.launch import steps as TST
 
-    s = TP_RECURRENT
+    s = tpr_settings(arch)
     cfg = tpr_config(arch, s["layers"][arch])
     params = TS.distribute_params(mesh, tpr_draw(cfg, mesh.device))
     torch.cuda.empty_cache()
-    ids, _ = tpr_inputs(cfg, mesh.device)
+    ids, img, _ = tpr_inputs(cfg, mesh.device)
     new_cache = functools.partial(TST.init_cache_sharded, cfg, mesh,
                                   s["batch"], s["prompt_len"] + s["decode"])
     cache = new_cache()
@@ -6253,9 +6381,10 @@ def tpr_serve_rank(mesh, arch: str, tokens) -> dict:
     keep = {}
     model, prefill = TST.make_prefill_step(cfg, mesh)
     _, decode = TST.make_decode_step(cfg, mesh)
-    with attention_spy(keep=keep, kind=lambda causal, window: "serve"):
+    with attention_spy(keep=keep):
         logits, dec, _, ms = tp_serve(model, params, cache, ids, prefill,
-                                      decode, tokens, steps=s["decode"])
+                                      decode, tokens, steps=s["decode"],
+                                      img=img)
     launches = dict(fa.LAUNCHES)
     routes = {k: dict(v) for k, v in fa.ROUTE_LAUNCHES.items()}
     coll = {"sync_ms": 0.0, "collective_ms": 0.0, "calls": {}, "bytes": 0}
@@ -6264,20 +6393,25 @@ def tpr_serve_rank(mesh, arch: str, tokens) -> dict:
     t1 = time.perf_counter()
     with timed_collectives(coll):
         tp_serve(model, params, cache2, ids, prefill, decode, tokens,
-                 steps=s["decode"])
+                 steps=s["decode"], img=img)
     coll["run_ms"] = 1e3 * (time.perf_counter() - t1)
     del cache2
     full = torch.cat([ids, tokens.to(ids.device)], dim=1)
     with torch.no_grad():                 # the decode's rerun
-        h, _ = model.apply(params, full, remat=False)
+        h, _ = model.apply(params, full, remat=False, img_embeds=img)
         rerun = model.logits(params, h[:, s["prompt_len"]:])
     got = torch.cat(dec, dim=1).to(rerun.device)
     rerun_err = ((got.float() - rerun.float()).abs().max()
                  / rerun.float().abs().max()).item()
-    names = (("ssm/in_proj", "attn/wq", "attn/wo") if not cfg.rwkv
-             else ("rwkv/wr", "rwkv/wo", "rwkv/ck"))
+    names = (("rwkv/wr", "rwkv/wo", "rwkv/ck") if cfg.rwkv
+             else ("attn/wq", "attn/wk", "mlp/wi") if cfg.cross_attn_every
+             else ("ssm/in_proj", "attn/wq", "attn/wo"))
     pl = tpr_leaves(params)
-    shapes = {n: tuple(pl[f"layers/{n}"][0].shape) for n in names}
+    shapes = {f"layers/{n}": tuple(pl[f"layers/{n}"][0].shape)
+              for n in names}
+    if cfg.cross_attn_every:
+        for n in ("cross/attn/wk", "cross/attn/wo"):
+            shapes[n] = tuple(pl[n][0].shape)
     shapes["embed"] = tuple(pl["embed/table"][0].shape)
     cache_shards = {k: (v.cpu(), b) for k, (v, b) in
                     tpr_leaves(cache).items()}
@@ -6293,16 +6427,17 @@ def tpr_serve_rank(mesh, arch: str, tokens) -> dict:
 
 
 def tpr_train_rank(mesh, arch: str, ref_path: str) -> dict:
-    """One rank's training of ``arch`` at 2 layers: draw the whole weights
+    """One rank's training of ``arch`` at its training depth: draw the
+    whole weights
     and keep its shards (``init_train_state_sharded``), two
     ``make_train_step`` steps with seq_parallel, then one without it from
     the same start, each under :func:`timed_collectives`; the gradients
     of steps 1 and 3 held, before AdamW clips them, to the whole run's at
     this rank's bounds (``max |g - g_ref|`` a layer, and the same against
     the whole f32 step's, the control); a digest of every leaf
-    the ranks hold whole after steps 2 and 3; the q, k, v and dO of layer
-    0's attention in step 1 (K7's inputs, K8's and K9's output
-    gradient)."""
+    the ranks hold whole after steps 2 and 3; the q, k, v and dO of the
+    first self-attention in step 1 (K7's inputs, K8's and K9's output
+    gradient), and of the first cross-attention (a vlm model's)."""
     import hashlib
 
     import torch
@@ -6315,15 +6450,16 @@ def tpr_train_rank(mesh, arch: str, ref_path: str) -> dict:
     from repro_torch.models import layers
     from repro_torch.optim import adamw_init
 
-    s = TP_RECURRENT
+    s = tpr_settings(arch)
     cfg = tpr_config(arch, s["train_layers"])
     state = TST.init_train_state_sharded(cfg, mesh,
                                          tpr_draw(cfg, mesh.device))
     start = [local_tensor(a).clone() for a in leaves(state["params"])]
     torch.cuda.empty_cache()
-    _, batch = tpr_inputs(cfg, mesh.device)
+    _, _, batch = tpr_inputs(cfg, mesh.device)
     ref = torch.load(ref_path, mmap=True, map_location="cpu")
-    ref32 = torch.load(ref_path + ".f32", mmap=True, map_location="cpu")
+    ref32 = (torch.load(ref_path + ".f32", mmap=True, map_location="cpu")
+             if os.path.exists(ref_path + ".f32") else None)
     steps, errs, inputs, digests = [], [], {}, []
     real_update = TST.adamw_update
 
@@ -6333,7 +6469,8 @@ def tpr_train_rank(mesh, arch: str, ref_path: str) -> dict:
             e = {}
             for k, (g, at) in tpr_leaves(grads).items():
                 e[k] = tuple(tpr_by_layer(k, g.float() - r[k][at].to(
-                    g.device).float()) for r in (ref, ref32))
+                    g.device).float()) if r is not None else None
+                             for r in (ref, ref32))
             errs.append(e)
             torch.cuda.synchronize()
         spent[0] += time.perf_counter() - t1
@@ -6341,10 +6478,11 @@ def tpr_train_rank(mesh, arch: str, ref_path: str) -> dict:
 
     def keep_attention(q, k, v, causal=True, window=0):
         o = real_attention(q, k, v, causal, window)
-        if "train" not in inputs and torch.is_grad_enabled():
-            inputs["train"] = [t.detach().clone() for t in (q, k, v)] + [
+        name = "train" if causal else "train cross"
+        if name not in inputs and torch.is_grad_enabled():
+            inputs[name] = [t.detach().clone() for t in (q, k, v)] + [
                 None, int(window)]
-            o.register_hook(lambda g: inputs["train"].__setitem__(
+            o.register_hook(lambda g: inputs[name].__setitem__(
                 3, g.detach().clone()))
         return o
 
@@ -6454,26 +6592,41 @@ def tpr_check_serve(arch: str, ref: dict, res: list) -> tuple[dict, dict]:
     fail; → (K7 launches, reads)."""
     import torch
 
-    s = TP_RECURRENT
+    s = tpr_settings(arch)
     cfg = tpr_config(arch, s["layers"][arch])
     m = s["mesh"][1]
     B, M = s["batch"], s["prompt_len"] + s["decode"]
     d, L = cfg.d_model, cfg.n_layers
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     if cfg.rwkv:
-        want = {"rwkv/wr": (L, d, d // m), "rwkv/wo": (L, d // m, d),
-                "rwkv/ck": (L, d, cfg.d_ff // m),
+        want = {"layers/rwkv/wr": (L, d, d // m),
+                "layers/rwkv/wo": (L, d // m, d),
+                "layers/rwkv/ck": (L, d, cfg.d_ff // m),
                 "S": (L, B, d // 64, 64, 64 // m),
                 "tm_last": (L, B, d // m), "cm_last": (L, B, d // m)}
+    elif cfg.cross_attn_every:
+        # the heads, kv heads and ff columns split; the caches keep every
+        # kv head at the rank's half of head_dim (the JAX layout)
+        G, per = L // cfg.cross_attn_every, cfg.cross_attn_every - 1
+        want = {"layers/attn/wq": (G, per, d, H // m, hd),
+                "layers/attn/wk": (G, per, d, KV // m, hd),
+                "layers/mlp/wi": (G, per, d, 2, cfg.d_ff // m),
+                "cross/attn/wk": (G, d, KV // m, hd),
+                "cross/attn/wo": (G, H * hd // m, d),
+                "self/k": (G, per, B, M, KV, hd // m),
+                "self/v": (G, per, B, M, KV, hd // m),
+                "cross/ck": (G, B, cfg.n_img_tokens, KV, hd // m),
+                "cross/cv": (G, B, cfg.n_img_tokens, KV, hd // m)}
     else:
-        want = {"ssm/in_proj": (L, d, 2, d // m),
-                "attn/wq": (L, d, cfg.n_heads, cfg.hd),
-                "attn/wo": (L, cfg.n_heads * cfg.hd // m, d),
+        want = {"layers/ssm/in_proj": (L, d, 2, d // m),
+                "layers/attn/wq": (L, d, H, hd),
+                "layers/attn/wo": (L, H * hd // m, d),
                 "ssm/h": (L, B, d // m, cfg.ssm_state),
                 "ssm/conv": (L, B, cfg.conv_kernel - 1, d // m),
-                "k": (L, B, M, cfg.n_kv_heads, cfg.hd // m)}
+                "k": (L, B, M, KV, hd // m)}
     want["embed"] = (cfg.vocab_padded // m, d)
     counts: dict = {}
-    tag = f"[tp_recurrent] {arch}"
+    tag = f"[{s['tag']}] {arch}"
     for r in res:
         sv = r[arch]["serve"]
         got = {**sv["shapes"], **sv["cache_shapes"]}
@@ -6526,7 +6679,7 @@ def tpr_check_serve(arch: str, ref: dict, res: list) -> tuple[dict, dict]:
             # that own distance as a share of the limit
             full, scale = outs[0].float(), 2e-2 * whole.abs().max()
             by = []
-            for i in range(L):
+            for i in range(whole.shape[0]):     # a layer, or a vlm group
                 own = (whole[i] - w32[i]).abs().max()
                 by.append((((full[i] - whole[i]).abs().max() / scale).item(),
                            ((full[i] - w32[i]).abs().max()
@@ -6563,13 +6716,13 @@ def tpr_check_train(arch: str, ref: dict, res: list) -> tuple[dict, dict]:
     grad_norm equal on the ranks, the whole leaves equal on both ranks
     after steps 2 and 3, the loss falling; every read printed before the
     gates fail; → (launches, reads)."""
-    s = TP_RECURRENT
+    s = tpr_settings(arch)
     cfg = tpr_config(arch, s["train_layers"])
     L = cfg.n_layers
     n = 0 if cfg.rwkv else L
     per_step = {"flash_attention": 2 * n, "flash_attention_bwd_dq": n,
                 "flash_attention_bwd_dkv": n}
-    tag = f"[tp_recurrent] {arch}"
+    tag = f"[{s['tag']}] {arch}"
     counts: dict = {}
     for r in res:
         for i, st in enumerate(r[arch]["train"]["steps"]):
@@ -6609,14 +6762,17 @@ def tpr_check_train(arch: str, ref: dict, res: list) -> tuple[dict, dict]:
         # each layer's error, the largest over the ranks, as a share of
         # 2e-2 * max|g_ref|, and its f32 control: the distance to the f32
         # step over the whole bf16 step's own
+        # (None without the control)
         errs = [r[arch]["train"]["grad_err"][i // 2] for r in res]
-        by = {}
+        by, own_f32 = {}, ref["own_f32"]
         for k in ref["max_ref"]:
             scale = 2e-2 * max(ref["max_ref"][k], 1e-30)
             by[k] = [(max(e[k][0][j] for e in errs) / scale,
-                      max(e[k][1][j] for e in errs) / max(own, 1e-30),
-                      own / scale)
-                     for j, own in enumerate(ref["own_f32"][k])]
+                      None if own_f32 is None else
+                      max(e[k][1][j] for e in errs)
+                      / max(own_f32[k][j], 1e-30),
+                      None if own_f32 is None else own_f32[k][j] / scale)
+                     for j in range(len(errs[0][k][0]))]
         share = {k: max(b[0] for b in v) for k, v in by.items()}
         top = {k: round(share[k], 4)
                for k in sorted(share, key=lambda k: -share[k])}
@@ -6658,11 +6814,13 @@ def tpr_check_train(arch: str, ref: dict, res: list) -> tuple[dict, dict]:
     return counts, reads
 
 
-def phase_tp_recurrent() -> tuple[dict, dict]:
-    """hymba-1.5b and rwkv6-1.6b served and trained tensor-parallel on 2
-    ranks sharing the card, held to the whole-model runs on the same
-    weights in this process; K7 (serving), K8 and K9 (training) at the
-    hymba ranks' own inputs against their plain versions, rank 0's timed."""
+def tpr_cells(s: dict) -> tuple[dict, dict, list]:
+    """The archs of settings ``s`` (TP_RECURRENT or TP_VLM) served and
+    trained on 2 ranks sharing the card, each held to its whole-model runs
+    on the same weights in this process (:func:`tpr_reference`), every
+    gate checked (:func:`tpr_check_serve`, :func:`tpr_check_train`);
+    → (launches on the ranks, the reads and numbers, the ranks'
+    results)."""
     import gc
     import tempfile
 
@@ -6673,31 +6831,36 @@ def phase_tp_recurrent() -> tuple[dict, dict]:
     gc.collect()
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
-    s = TP_RECURRENT
+    tag = f"[{s['tag']}]"
     for arch in s["archs"]:
         c = tpr_config(arch, s["layers"][arch])
-        print(f"[tp_recurrent] {arch}: {c.n_layers} layers served, "
+        print(f"{tag} {arch}: {c.n_layers} layers served, "
               f"{s['train_layers']} trained; d {c.d_model}, "
               + ("RWKV-6 heads of 64" if c.rwkv else
                  f"{c.n_heads} heads x {c.hd} over {c.n_kv_heads} kv heads, "
-                 f"window {c.window}, ssm_state {c.ssm_state}")
+                 + (f"groups of {c.cross_attn_every - 1} self + 1 cross "
+                    f"layer against {c.n_img_tokens} image rows"
+                    if c.cross_attn_every else
+                    f"window {c.window}, ssm_state {c.ssm_state}"))
               + f", ff {c.d_ff}, vocab {c.vocab}, {c.dtype}; serving "
               f"{s['batch']} x {s['prompt_len']} and {s['decode']} "
               f"teacher-forced decode steps, training {s['train_batch']} x "
               f"{s['train_seq']}; mesh (data, model) = {s['mesh']}")
     out: dict = {}
-    with tempfile.TemporaryDirectory(prefix="tp_recurrent_") as tmp:
+    with tempfile.TemporaryDirectory(prefix=f"{s['tag']}_") as tmp:
         refs, jobs = {}, {}
         for arch in s["archs"]:
             path = os.path.join(tmp, f"{arch}.pt")
             refs[arch] = tpr_reference(arch, path)
             jobs[arch] = (refs[arch]["tokens"], path)
             r = refs[arch]
-            print(f"[tp_recurrent] {arch} whole-model run: "
+            print(f"{tag} {arch} whole-model run: "
                   f"{r['weights_gb']:.3f} GB of weights served; prefill step "
                   f"{r['ms']['prefill_step_ms']:.3f} ms, decode "
                   f"{statistics.median(r['ms']['decode_ms']):.3f} ms a step; "
-                  f"training loss {r['loss']} (f32 {r['f32_loss']}) "
+                  f"training loss {r['loss']}"
+                  + (f" (f32 {r['f32_loss']})" if r["f32_loss"] else "")
+                  + " "
                   f"grad_norm {r['grad_norm']}, loss and gradients "
                   f"{r['step_ms']:.3f} ms")
         gc.collect()
@@ -6724,53 +6887,114 @@ def phase_tp_recurrent() -> tuple[dict, dict]:
                                     "launches")},
                                 "steps": r[arch]["train"]["steps"]}
                                for r in res]}
+    out.update(ranks_s=ranks_s, reference_s=t_ref,
+               mesh_s=[r["mesh_s"] for r in res], t_phase=t_phase)
+    return counts, out, res
 
-    # K7 at each hymba rank's layer-0 q/k/v of the prefill step, K8 and K9
-    # at its layer-0 q/k/v/dO of training step 1: element by element
-    # against the plain versions, rank 0's timed beside the bound, the
-    # plain version and SDPA
-    hy = "hymba-1.5b"
+
+def tpr_kernels(s: dict, res: list, arch: str, serve: dict,
+                train: dict) -> dict:
+    """K7 at each rank's q/k/v of the prefill step (``serve``: the kept
+    call's name → its label, q's expected shape, the keys and the window),
+    K8 and K9 at each rank's q/k/v/dO of training step 1 (``train``
+    likewise): element by element against the plain versions, rank 0's
+    timed beside the bound, the plain version and SDPA."""
+    import torch
+
+    tag = f"[{s['tag']}]"
     kern: dict = {"k7": {}, "k8_k9": {}}
-    for r in res:
-        q, k, v, w = (t.cuda() if torch.is_tensor(t) else t
-                      for t in r[hy]["serve"]["k7_inputs"]["serve"])
-        want = (s["batch"], s["prompt_len"], 25, 64)
-        check(tuple(q.shape) == want and k.shape == v.shape == q.shape
-              and q.dtype == torch.bfloat16 and w == 1024,
-              f"tp_recurrent rank {r['rank']} K7: q {tuple(q.shape)} "
-              f"{q.dtype} window {w}; want {want} bf16, window 1024")
-        if r["rank"] == 0:
-            kern["k7"]["serve"] = k7_at(q, k, v, w, "tp_recurrent serve",
-                                        tag="[tp_recurrent]")
-        else:
-            dd, worst = flash_err(q, k, v, True, w)
-            print(f"[tp_recurrent] rank {r['rank']} K7 at {list(q.shape)} "
-                  f"bf16 window {w}: max abs err {dd}, {worst} of the "
-                  f"element-wise limit")
-            kern["k7"][f"serve rank {r['rank']}"] = {
-                "max_abs_err": dd, "err_of_elementwise_limit": worst}
-        q, k, v, do, w = (t.cuda() if torch.is_tensor(t) else t
-                          for t in r[hy]["train"]["inputs"]["train"])
-        want = (s["train_batch"], s["train_seq"], 25, 64)
-        check(tuple(q.shape) == want and do.shape == q.shape,
-              f"tp_recurrent rank {r['rank']} K8/K9: q {tuple(q.shape)}, "
-              f"dO {tuple(do.shape)}; want {want}")
-        if r["rank"] == 0:
-            kern["k8_k9"]["train"] = k8_k9_at(q, k, v, do, w,
-                                              "tp_recurrent train",
-                                              tag="[tp_recurrent]")
-        else:
-            e = flash_bwd_err(q, k, v, do, True, w)
-            print(f"[tp_recurrent] rank {r['rank']} K8/K9 at "
-                  f"{list(q.shape)} bf16 window {w}: {e}")
-            kern["k8_k9"][f"train rank {r['rank']}"] = e
-        del q, k, v, do
-    out.update(kern, ranks_s=ranks_s, reference_s=t_ref,
-               mesh_s=[r["mesh_s"] for r in res],
-               phase_s=time.perf_counter() - t_phase)
+    for part, kept, table in (("serve", "k7_inputs", serve),
+                              ("train", "inputs", train)):
+        for name, (label, want, keys, window) in table.items():
+            for r in res:
+                q, k, v, *do, w = (t.cuda() if torch.is_tensor(t) else t
+                                   for t in r[arch][part][kept][name])
+                causal = "cross" not in name
+                check(tuple(q.shape) == want and k.shape == v.shape
+                      and tuple(k.shape) == (*want[:1], keys, *want[2:])
+                      and all(t.shape == q.shape for t in do)
+                      and q.dtype == torch.bfloat16 and w == window,
+                      f"{tag} rank {r['rank']} {name}: q {tuple(q.shape)} "
+                      f"{q.dtype}, k {tuple(k.shape)}, window {w}; want "
+                      f"{want} bf16 over {keys} keys, window {window}")
+                if part == "serve":
+                    if r["rank"] == 0:
+                        kern["k7"][label] = k7_at(q, k, v, w, label,
+                                                  causal=causal, tag=tag)
+                        continue
+                    dd, worst = flash_err(q, k, v, causal, w)
+                    print(f"{tag} rank {r['rank']} K7 {label} at "
+                          f"{list(q.shape)} x {k.shape[1]} keys bf16 causal "
+                          f"{causal} window {w}: max abs err {dd}, {worst} "
+                          f"of the element-wise limit")
+                    kern["k7"][f"{label} rank {r['rank']}"] = {
+                        "max_abs_err": dd, "err_of_elementwise_limit": worst}
+                elif r["rank"] == 0:
+                    kern["k8_k9"][label] = k8_k9_at(q, k, v, do[0], w, label,
+                                                    causal=causal, tag=tag)
+                else:
+                    e = flash_bwd_err(q, k, v, do[0], causal, w)
+                    print(f"{tag} rank {r['rank']} K8/K9 {label} at "
+                          f"{list(q.shape)} x {k.shape[1]} keys bf16 causal "
+                          f"{causal} window {w}: {e}")
+                    kern["k8_k9"][f"{label} rank {r['rank']}"] = e
+                del q, k, v, do
+    return kern
+
+
+def phase_tp_recurrent() -> tuple[dict, dict]:
+    """hymba-1.5b and rwkv6-1.6b served and trained tensor-parallel on 2
+    ranks sharing the card, held to the whole-model runs on the same
+    weights in this process; K7 (serving), K8 and K9 (training) at the
+    hymba ranks' own inputs against their plain versions, rank 0's timed."""
+    import gc
+
+    s = TP_RECURRENT
+    counts, out, res = tpr_cells(s)
+    B, T, Bt, Tt = (s["batch"], s["prompt_len"], s["train_batch"],
+                    s["train_seq"])
+    out.update(tpr_kernels(
+        s, res, "hymba-1.5b",
+        {"self": ("tp_recurrent serve", (B, T, 25, 64), T, 1024)},
+        {"train": ("tp_recurrent train", (Bt, Tt, 25, 64), Tt, 1024)}))
+    out["phase_s"] = time.perf_counter() - out.pop("t_phase")
     print(f"[tp_recurrent] phase {out['phase_s']:.3f} s (budget 150): whole "
-          f"runs {t_ref:.3f} s, ranks {ranks_s:.3f} s; K7/K8/K9 launches on "
-          f"the ranks {counts}")
+          f"runs {out['reference_s']:.3f} s, ranks {out['ranks_s']:.3f} s; "
+          f"K7/K8/K9 launches on the ranks {counts}")
+    del res
+    gc.collect()
+    return counts, out
+
+
+def phase_tp_vlm() -> tuple[dict, dict]:
+    """llama-3.2-vision-11b served and trained tensor-parallel on 2 ranks
+    sharing the card, held to the whole-model runs on the same weights in
+    this process; K7 (self and cross, serving), K8 and K9 (self and cross,
+    training) at each rank's own inputs against their plain versions, rank
+    0's timed."""
+    import gc
+
+    s = TP_VLM
+    arch = s["archs"][0]
+    counts, out, res = tpr_cells(s)
+    B, T, Bt, Tt = (s["batch"], s["prompt_len"], s["train_batch"],
+                    s["train_seq"])
+    for r in res:                        # both attentions on every rank
+        for part, k in (("serve", "k7_inputs"), ("train", "inputs")):
+            got = r[arch][part][k]
+            check(len(got) == 2, f"[tp_vlm] rank {r['rank']}: the K7 calls "
+                                 f"kept were {sorted(got)}")
+    h, M = 32 // s["mesh"][1], 1601     # each rank's heads; image rows
+    out.update(tpr_kernels(
+        s, res, arch,
+        {"self": ("tp_vlm self serve", (B, T, h, 128), T, 0),
+         "cross": ("tp_vlm cross serve", (B, T, h, 128), M, 0)},
+        {"train": ("tp_vlm self train", (Bt, Tt, h, 128), Tt, 0),
+         "train cross": ("tp_vlm cross train", (Bt, Tt, h, 128), M, 0)}))
+    out["phase_s"] = time.perf_counter() - out.pop("t_phase")
+    print(f"[tp_vlm] phase {out['phase_s']:.3f} s (budget 90): whole runs "
+          f"{out['reference_s']:.3f} s, ranks {out['ranks_s']:.3f} s; "
+          f"K7/K8/K9 launches on the ranks {counts}")
     del res
     gc.collect()
     return counts, out
@@ -6872,12 +7096,22 @@ def main() -> int:
             d = r[n]["max_abs_err"] if "rank" not in label else r[n][0]
             rows[n]["max_abs_err"] = max(rows[n]["max_abs_err"], d)
     lap("tp_recurrent")
+    tvcounts, tpv_out = phase_tp_vlm()
+    rows["flash_attention"]["max_abs_err"] = max(
+        rows["flash_attention"]["max_abs_err"],
+        *(r["max_abs_err"] for r in tpv_out["k7"].values()))
+    for label, r in tpv_out["k8_k9"].items():
+        for n in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            d = r[n]["max_abs_err"] if "rank" not in label else r[n][0]
+            rows[n]["max_abs_err"] = max(rows[n]["max_abs_err"], d)
+    lap("tp_vlm")
     print(f"[time] total {time.perf_counter() - t_start:.3f}")
     for k, v in (*counts.items(), *hcounts.items(), *rcounts.items(),
                  *ccounts.items(), *fcounts.items(), *tcounts.items(),
                  *dcounts.items(), *mcounts.items(), *scounts.items(),
                  *vcounts.items(), *pcounts.items(), *tpcounts.items(),
-                 *ttcounts.items(), *ecounts.items(), *trcounts.items()):
+                 *ttcounts.items(), *ecounts.items(), *trcounts.items(),
+                 *tvcounts.items()):
         launches[k] = launches.get(k, 0) + v
     replaces = {"cvt_color": "src/repro/kernels/harris.py:44",
                 "corner_harris": "src/repro/kernels/harris.py:101",
@@ -6913,6 +7147,7 @@ def main() -> int:
                       "ssm": ssm_out, "vlm": vlm_out, "spmd": spmd_out,
                       "tp": tp_out, "tp_train": tp_train_out,
                       "ep": ep_out, "tp_recurrent": tpr_out,
+                      "tp_vlm": tpv_out,
                       "tc_resources": tc_res, "k7_train_shape": k7_train,
                       "k6_resources": rows["rmsnorm_matmul"]["resources"],
                       "local_layer": {n: {k: v for k, v in rows[n].items()

@@ -514,20 +514,28 @@ def local_bounds(x) -> tuple:
     return shard_bounds(x.device_mesh, x.placements, x.shape)
 
 
-def unbind_layers(x) -> list:
-    """A stacked ``[L, ...]`` DTensor (its layer dim not sharded) as L
-    DTensors, views of its local tensor: no communication, and an in-place
-    write to a layer lands in the stack."""
-    from torch.distributed.tensor import DTensor, Shard
+def unbind_layers(x, dims: int = 1) -> list:
+    """A stacked ``[L, ...]`` DTensor (or, ``dims=2``, a ``[G, per, ...]``
+    one, in the order g * per + j) as its layers' DTensors, views of its
+    local tensor: no communication, and an in-place write to a layer lands
+    in the stack.  A stack dim may be sharded only over mesh dims of one
+    rank (the vlm self cache's ``data`` on ``per``), where the layers are
+    replicated."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
 
-    if any(pl.is_shard(0) for pl in x.placements):
-        raise ValueError(f"the layer dim of {x.placements} is sharded")
-    pls = tuple(Shard(pl.dim - 1) if pl.is_shard() else pl
-                for pl in x.placements)
-    shape, stride = x.shape[1:], x.stride()[1:]
-    return [DTensor.from_local(t, x.device_mesh, pls, run_check=False,
+    dm, pls = x.device_mesh, []
+    for m, pl in enumerate(x.placements):
+        if pl.is_shard() and pl.dim < dims:
+            if dm.size(m) > 1:
+                raise ValueError(f"the layer dims of {x.placements} are "
+                                 f"sharded")
+            pls.append(Replicate())
+        else:
+            pls.append(Shard(pl.dim - dims) if pl.is_shard() else pl)
+    shape, stride = x.shape[dims:], x.stride()[dims:]
+    return [DTensor.from_local(t, dm, tuple(pls), run_check=False,
                                shape=shape, stride=stride)
-            for t in x.to_local().unbind(0)]
+            for t in x.to_local().flatten(0, dims - 1).unbind(0)]
 
 
 def group_transport(group, device) -> str:

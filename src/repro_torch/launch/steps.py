@@ -21,9 +21,10 @@ still sets the MoE routing groups.
 
 Tensor-parallel serving across ranks (the dense family and its audio
 variant, the moe family with its experts split over the same axis:
-expert parallelism, :mod:`repro_torch.models.moe`, and the hybrid and ssm
+expert parallelism, :mod:`repro_torch.models.moe`, the hybrid and ssm
 families, whose recurrences run on the rank's channels or heads,
-:mod:`repro_torch.models.ssm` and :mod:`repro_torch.models.rwkv`; a
+:mod:`repro_torch.models.ssm` and :mod:`repro_torch.models.rwkv`, and the
+vlm family; a
 ``(1, model)`` mesh of :func:`~repro_torch.launch.mesh.run_on_local_mesh`):
 the serve steps take weights as DTensors by ``param_shardings_serving``
 (:func:`~repro_torch.launch.sharding.distribute_params` of a tree held
@@ -41,8 +42,12 @@ carry is each rank's part of the tokens (a moe block gathers them to route
 every token).  A moe model's experts and their moments are the rank's E/m
 (``[E/m, d, 2, ff]`` and ``[E/m, ff, d]`` a layer), the router and its
 moments whole on every rank; ``global_norm`` sums the experts' squares
-over the ranks once and counts the router's once.  The vlm family, a
-data axis over more than one rank and ``scan_chunks`` are refused
+over the ranks once and counts the router's once.  The vlm family runs
+its cross-attention on the rank's heads against the image rows whole on
+every rank; its prefill writes the image K/V, and every self layer its
+k/v, re-laid from the rank's kv heads into the caches' JAX layout (every
+kv head at the rank's part of head_dim), and decode gathers head_dim back.
+A data axis over more than one rank and ``scan_chunks`` are refused
 (:func:`_check_sharded`).
 
 The abstract trees (:func:`abstract_params`, :func:`abstract_cache`) are
@@ -298,17 +303,19 @@ def init_cache_sharded(cfg: ArchConfig, mesh, batch: int,
 # the families whose blocks run on a rank's shard: the dense one, the
 # audio family (the dense backbone over given embeddings), the moe family
 # (its attention on the rank's heads, its experts on the rank's E/m), the
-# hybrid family (its selective-SSM branch on the rank's inner channels)
-# and the ssm family (rwkv: its recurrence on the rank's heads)
-TP_FAMILIES = ("dense", "audio", "moe", "hybrid", "ssm")
+# hybrid family (its selective-SSM branch on the rank's inner channels),
+# the ssm family (rwkv: its recurrence on the rank's heads) and the vlm
+# family (its cross-attention on the rank's heads against the image rows;
+# its self and image K/V caches keep every kv head at a part of head_dim)
+TP_FAMILIES = ("dense", "audio", "moe", "hybrid", "ssm", "vlm")
 
 
 def _check_sharded(cfg: ArchConfig, params: Params, *,
                    scan_chunks: int = 0) -> None:
     """Refuse DTensor weights where tensor parallelism is not done: a
-    family outside :data:`TP_FAMILIES` (the vlm family), a mesh axis other
-    than ``model`` of more than one rank, and (the train step, which
-    passes ``scan_chunks``) chunked remat."""
+    family outside :data:`TP_FAMILIES`, a mesh axis other than ``model``
+    of more than one rank, and (the train step, which passes
+    ``scan_chunks``) chunked remat."""
     w = leaves(params)[0]
     if not is_dtensor(w):
         return

@@ -45,7 +45,12 @@ host memory when the ranks share a card), so the activations between
 layers stay whole on every rank and plain tensors.  A dim the guard left
 whole (``n_kv_heads`` not dividing the axis: k and v computed whole, the
 cache's head_dim sharded and gathered to decode) is cut to what the
-rank's heads read.  One body serves every case: a plain weight is a whole
+rank's heads read.  The vlm family's self and image K/V caches keep every
+kv head at the rank's part of head_dim while ``wk``/``wv`` split the kv
+heads: each write gathers the ranks' kv heads first (:func:`_cache_part`),
+each read gathers head_dim (:func:`_cache_read`).  Cross-attention
+(``kv_x``) runs on the rank's heads against the image rows, which every
+rank holds whole.  One body serves every case: a plain weight is a whole
 shard, and the one-process path computes what it always did.
 
 Training under autograd takes the collectives' conjugates: the input of a
@@ -341,9 +346,6 @@ def attention(p: Params, x: torch.Tensor, pos=None, *, theta, window: int = 0,
     del pos                                     # positions come from T
     window = int(window)
     wq, wk, wv, wo = p["wq"], p["wk"], p["wv"], p["wo"]
-    if kv_x is not None and is_dtensor(wq):
-        raise NotImplementedError("cross-attention under a model axis (the "
-                                  "vlm family) is not done here")
     if seq and cache is not None:
         raise ValueError("a sequence-parallel carry takes no cache")
     H, hd, KV = wq.shape[1], wq.shape[2], wk.shape[1]
@@ -360,7 +362,8 @@ def attention(p: Params, x: torch.Tensor, pos=None, *, theta, window: int = 0,
     x = _enter(x, wq, split, seq)
     B, T, _ = x.shape
     q = torch.einsum("btd,dnh->btnh", x, _local(wq, split))
-    src = x if kv_x is None else kv_x
+    # the image rows, whole on every rank: a part of their gradient each
+    src = x if kv_x is None else _enter(kv_x, wq, split, False)
     # the guard: kv heads whole on every rank, each reading its heads' own
     kv_read = split and kv_heads.stop - kv_heads.start == KV
     k = torch.einsum("bmd,dnh->bmnh", src, _local(wk, kv_read))
@@ -374,25 +377,14 @@ def attention(p: Params, x: torch.Tensor, pos=None, *, theta, window: int = 0,
     kv_lo, new_cache = kv_heads.start, None
     if cache is not None:
         ck, cv = cache["k"], cache["v"]
-        cb = local_bounds(ck)                   # [B, M, KV, hd]
-        if cb[2].start < kv_heads.start or cb[2].stop > kv_heads.stop:
-            raise ValueError(f"cache kv heads {cb[2]} are not among this "
-                             f"rank's {kv_heads}")
         ckl, cvl = _local(ck), _local(cv)
-        lo, hi = cb[2].start - kv_lo, cb[2].stop - kv_lo
-        ckl[:, start:start + T] = _cut(_cut(k, 2, lo, hi), 3, cb[3].start,
-                                       cb[3].stop).to(ckl.dtype)
-        cvl[:, start:start + T] = _cut(_cut(v, 2, lo, hi), 3, cb[3].start,
-                                       cb[3].stop).to(cvl.dtype)
+        ckl[:, start:start + T] = _cache_part(k, wk, ck).to(ckl.dtype)
+        cvl[:, start:start + T] = _cache_part(v, wv, cv).to(cvl.dtype)
         new_cache = {"k": ck, "v": cv}
         if start == 0:                          # prefill: what was written
             k, v = k.to(ckl.dtype), v.to(cvl.dtype)
         else:                                   # decode: the whole cache
-            k, v, kv_lo = ckl, cvl, cb[2].start
-            if cb[3].stop - cb[3].start != hd:      # head_dim sharded
-                line = _model_line(ck)
-                k = all_gather_cat(k.contiguous(), 3, *line)
-                v = all_gather_cat(v.contiguous(), 3, *line)
+            (k, kv_lo), (v, _) = _cache_read(ck), _cache_read(cv)
     q = _con_heads(q)
     ke = _con_heads(_kv_for_heads(k, kv_lo, heads, H // KV))
     ve = _con_heads(_kv_for_heads(v, kv_lo, heads, H // KV))
@@ -635,6 +627,34 @@ def _row_parallel(h: torch.Tensor, w, seq: bool = False) -> torch.Tensor:
     if seq:
         return reduce_scatter(part.reshape(B, T, -1), 1, *line).to(h.dtype)
     return all_reduce_sum(part, *line).to(h.dtype).reshape(B, T, -1)
+
+
+def _cache_part(kv: torch.Tensor, w, cache) -> torch.Tensor:
+    """This rank's k or v [B, T, n, hd] (the kv heads of its columns of
+    weight ``w``, at the whole head_dim) re-laid as the part of them that
+    the k/v ``cache`` [B, M, KV, hd] keeps here: its kv heads at its
+    head_dim columns.  Where the cache keeps kv heads the rank does not
+    compute (the vlm caches' layout: every kv head at a part of head_dim,
+    while ``w`` splits the kv heads), the ranks' kv heads are gathered
+    first."""
+    kv_heads, cb = local_bounds(w)[1], local_bounds(cache)
+    lo = kv_heads.start
+    if cb[2].start < kv_heads.start or cb[2].stop > kv_heads.stop:
+        if cb[2].stop - cb[2].start != cache.shape[2]:
+            raise ValueError(f"cache kv heads {cb[2]} are not among this "
+                             f"rank's {kv_heads}")
+        kv, lo = all_gather_cat(kv.contiguous(), 2, *_model_line(w)), 0
+    return _cut(_cut(kv, 2, cb[2].start - lo, cb[2].stop - lo), 3,
+                cb[3].start, cb[3].stop)
+
+
+def _cache_read(cache) -> tuple[torch.Tensor, int]:
+    """(the k/v ``cache`` [B, M, KV, hd] kept here at the whole head_dim,
+    gathered where the head_dim is split; the first kv head it holds)."""
+    cb, local = local_bounds(cache), _local(cache)
+    if cb[3].stop - cb[3].start != cache.shape[3]:
+        local = all_gather_cat(local.contiguous(), 3, *_model_line(cache))
+    return local, cb[2].start
 
 
 def _kv_for_heads(kv: torch.Tensor, kv_lo: int, heads: slice,

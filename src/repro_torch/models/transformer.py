@@ -58,10 +58,11 @@ from ..core.spmd_pipeline import (all_gather_cat, all_reduce_sum,
 from ..core.tree import flatten, tree_map, unflatten
 from ..kernels import ops
 from .config import ArchConfig
-from .layers import (SeqParallel, _con_heads, _model_line, attention,
-                     attention_init, embed, embed_init, expand_kv,
-                     gqa_combine, gqa_scores, lm_logits, logits_f32, mlp,
-                     mlp_init, rmsnorm, rmsnorm_init)
+from .layers import (SeqParallel, _cache_part, _cache_read, _con_heads,
+                     _cut, _kv_for_heads, _local, _model_line,
+                     _row_parallel, attention, attention_init, embed,
+                     embed_init, gqa_combine, gqa_scores, lm_logits,
+                     logits_f32, mlp, mlp_init, rmsnorm, rmsnorm_init)
 from .moe import AUX_KEYS, moe_apply, moe_init
 from .rwkv import rwkv_block, rwkv_init, rwkv_init_state
 from .ssm import ssm_apply, ssm_init, ssm_init_state
@@ -139,7 +140,7 @@ def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
                 a = _cross_from_cache(p, h, img_kv, prefill=cache_pos == 0)
             else:
                 a, _ = attention(p["attn"], h, None, theta=theta,
-                                 kv_x=img_kv)
+                                 kv_x=img_kv, seq=seq)
         new_cache = None
     else:
         kv = None if cache is None else {"k": cache["k"], "v": cache["v"]}
@@ -170,17 +171,27 @@ def _cross_from_cache(p: Params, h: torch.Tensor, img_kv: Params, *,
     """Cross-attention of ``h`` [B, T, d] against the cached image K/V
     (``ck``/``cv`` [B, M, KV, hd]), unmasked: through K7 with
     ``causal=False`` in a prefill, a plain softmax in decode (T = 1, where
-    K7's 128-row query tile has one row to fill), as the JAX function."""
-    q = _con_heads(torch.einsum("btd,dnh->btnh", h, p["attn"]["wq"]))
-    B, T, H, hd = q.shape
-    k = _con_heads(expand_kv(img_kv["ck"], H))
-    v = _con_heads(expand_kv(img_kv["cv"], H))
+    K7's 128-row query tile has one row to fill), as the JAX function.
+    Under a model axis, q of this rank's heads against their kv heads (the
+    cache gathered along head_dim where it is split), then its rows of
+    ``wo`` (:func:`~repro_torch.models.layers.attention`'s split)."""
+    wq, wo = p["attn"]["wq"], p["attn"]["wo"]
+    H, hd = wq.shape[1], wq.shape[2]
+    heads, rows = local_bounds(wq)[1], local_bounds(wo)[0]
+    q = _con_heads(torch.einsum("btd,dnh->btnh", h, _local(wq)))
+    B, T, Hl, _ = q.shape
+    G = H // img_kv["ck"].shape[2]
+    (k, kv_lo), (v, _) = _cache_read(img_kv["ck"]), _cache_read(img_kv["cv"])
+    k = _con_heads(_kv_for_heads(k, kv_lo, heads, G))
+    v = _con_heads(_kv_for_heads(v, kv_lo, heads, G))
     if prefill:
-        out = ops.attention(q, k, v, False, 0).reshape(B, T, H * hd)
+        out = ops.attention(q, k, v, False, 0).reshape(B, T, Hl * hd)
     else:
         probs = torch.softmax(gqa_scores(q, k), dim=-1).to(h.dtype)
         out = gqa_combine(probs, v)
-    return torch.einsum("btf,fd->btd", out, p["attn"]["wo"])
+    out = _cut(out, 2, rows.start - heads.start * hd,
+               rows.stop - heads.start * hd)
+    return _row_parallel(out, wo)
 
 
 def _unstack(tree: Params, dims: int = 1) -> list[Params]:
@@ -190,7 +201,7 @@ def _unstack(tree: Params, dims: int = 1) -> list[Params]:
     DTensor leaf (tensor-parallel serving) gives DTensors, views of its
     local tensor."""
     flat, treedef = flatten(tree)
-    cols = [unbind_layers(a) if dims == 1 and is_dtensor(a)
+    cols = [unbind_layers(a, dims) if is_dtensor(a)
             else a.flatten(0, dims - 1).unbind(0) for a in flat]
     return [unflatten(treedef, [c[i] for c in cols])
             for i in range(len(cols[0]))]
@@ -354,9 +365,22 @@ class LM:
         line = (SeqParallel.line(params["final_norm"]["scale"], x.shape[1])
                 if isinstance(act_constraint, SeqParallel) else None)
         x = own_part(x, 1, *line) if line else con(x)
+        seq = line is not None
         if cfg.cross_attn_every:
-            return self._apply_vlm(params, x, self._img_in(img_embeds),
-                                   remat, con, pcon)
+            x, aux = self._apply_vlm(params, x, self._img_in(img_embeds),
+                                     remat, con, pcon, seq)
+        else:
+            x, aux = self._apply_layers(params, x, remat, con, pcon, seq,
+                                        scan_chunks)
+        x = rmsnorm(params["final_norm"], x, split=seq)
+        return (all_gather_cat(x, 1, *line) if line else x), aux
+
+    def _apply_layers(self, params: Params, x: torch.Tensor, remat: bool,
+                      con, pcon, seq: bool, scan_chunks: int
+                      ) -> tuple[torch.Tensor, dict]:
+        """The layer stack of :meth:`apply` (no vlm groups), before the
+        final norm."""
+        cfg = self.cfg
         layers = _unstack(params["layers"])
         meta = self._layer_meta()
 
@@ -364,7 +388,7 @@ class LM:
                   ) -> tuple[torch.Tensor, dict | None]:
             w, th = meta[i]
             h, _, aux = _block_apply(cfg, pcon(layers[i]), h, window=w,
-                                     theta=th, seq=line is not None)
+                                     theta=th, seq=seq)
             return con(h), aux
 
         def run(lo: int, hi: int, h: torch.Tensor, aux: dict
@@ -382,16 +406,15 @@ class LM:
                 x, aux = _remat(run, lo, lo + c, x, aux)
         else:
             x, aux = run(0, cfg.n_layers, x, aux)
-        x = rmsnorm(params["final_norm"], x, split=line is not None)
-        return (all_gather_cat(x, 1, *line) if line else x), aux
+        return x, aux
 
     def _apply_vlm(self, params: Params, x: torch.Tensor,
-                   img_embeds: torch.Tensor, remat: bool,
-                   con=lambda h: h, pcon=lambda p: p
-                   ) -> tuple[torch.Tensor, dict]:
-        """The vlm forward: each group's self layers, then its cross layer
-        over ``img_embeds``, one checkpoint a group (the JAX
-        ``jax.checkpoint(group)``)."""
+                   img_embeds: torch.Tensor, remat: bool, con, pcon,
+                   seq: bool) -> tuple[torch.Tensor, dict]:
+        """The vlm forward before the final norm: each group's self
+        layers, then its cross layer over ``img_embeds``, one checkpoint a
+        group (the JAX ``jax.checkpoint(group)``).  ``seq``: ``x`` is this
+        rank's part of the tokens, as in :meth:`apply`'s other layers."""
         cfg = self.cfg
         n_groups, per = self._vlm_groups()
         layers = _unstack(params["layers"], 2)
@@ -403,19 +426,19 @@ class LM:
             for i in range(g * per, (g + 1) * per):
                 w, th = meta[i]
                 h, _, a = _block_apply(cfg, pcon(layers[i]), h, window=w,
-                                       theta=th)
+                                       theta=th, seq=seq)
                 h = con(h)
                 if a is not None:
                     aux = {k: aux[k] + a[k] for k in aux}
             h, _, _ = _block_apply(cfg, pcon(cross[g]), h, window=0,
                                    theta=cfg.rope_theta, img_kv=img_embeds,
-                                   is_cross=True)
+                                   is_cross=True, seq=seq)
             return con(h), aux
 
         aux = _zero_aux(x.device)
         for g in range(n_groups):
             x, aux = _remat(group, g, x, aux) if remat else group(g, x, aux)
-        return rmsnorm(params["final_norm"], x), aux
+        return x, aux
 
     def loss(self, params: Params, hidden: torch.Tensor,
              targets: torch.Tensor, mask: torch.Tensor | None = None,
@@ -538,15 +561,15 @@ class LM:
         cfg = self.cfg
         n_groups, per = self._vlm_groups()
         cross = _unstack(params["cross"])
-        ck, cv = cache["cross"]["ck"], cache["cross"]["cv"]
+        img_kv = _unstack(cache["cross"])
         if pos == 0:
             img = self._img_in(img_embeds)
             with _range(cfg, "vlm:cross_kv"):
-                for g, cp in enumerate(cross):
-                    ck[g] = torch.einsum("bmd,dnh->bmnh", img,
-                                         cp["attn"]["wk"])
-                    cv[g] = torch.einsum("bmd,dnh->bmnh", img,
-                                         cp["attn"]["wv"])
+                for cp, c in zip(cross, img_kv):
+                    for wn, n in (("wk", "ck"), ("wv", "cv")):
+                        w = cp["attn"][wn]
+                        kv = torch.einsum("bmd,dnh->bmnh", img, _local(w))
+                        local_tensor(c[n]).copy_(_cache_part(kv, w, c[n]))
         layers = _unstack(params["layers"], 2)
         caches = _unstack(cache["self"], 2)
         meta = self._layer_meta()
@@ -558,8 +581,7 @@ class LM:
                                          cache_pos=pos)
                 _write_back(caches[i], new)
             x, _, _ = _block_apply(cfg, cross[g], x, window=0,
-                                   theta=cfg.rope_theta,
-                                   img_kv={"ck": ck[g], "cv": cv[g]},
+                                   theta=cfg.rope_theta, img_kv=img_kv[g],
                                    cache_pos=pos, is_cross=True)
         x = rmsnorm(params["final_norm"], x)
         return x, cache

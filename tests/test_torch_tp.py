@@ -19,8 +19,10 @@ prompt, 4 heads over 2 kv heads):
 * each leaf's local shape is ``local_shape`` of its spec;
 * ``distribute_params`` keeps of each leaf the whole draw at the rank's
   ``local_bounds``, and ``init_cache_sharded`` allocates only the shards,
-  for a dense and a moe config (``tests/test_torch_ep.py`` serves the moe
-  family); a data axis of 2 and a DTensor handed to K7 (whose plain
+  for a dense, a moe and a vlm config (``tests/test_torch_ep.py`` serves
+  the moe family, ``tests/test_torch_tp_vlm.py`` the vlm family; the vlm
+  self cache takes "data" on its per-group dim, as the JAX rule puts it);
+  a data axis of 2 and a DTensor handed to K7 (whose plain
   version must not take it) are refused;
 * plain tensors (one process) take today's path, bit for bit, with a
   layout registered or not.
@@ -136,42 +138,64 @@ def test_tensor_parallel_steps_match_jax_unsharded(reference, model):
 def test_sharded_init_and_cache_and_what_is_refused():
     """On a (data 2, model 2) mesh: each rank's shards are the whole draw
     at its bounds, the sharded cache holds zeros of the local shapes, for
-    a dense and a moe config (the experts half a rank, the router whole);
-    a data axis of 2 is refused for both."""
+    a dense, a moe (the experts half a rank, the router whole) and a vlm
+    config (its [G, per, ...] self layers, its self and image K/V caches
+    with every kv head at half of head_dim); a data axis of 2 is refused
+    for each."""
     cfg = get_config("gemma3-12b").reduced()
     moe = get_config("moonshot-v1-16b-a3b").reduced()
+    vlm = get_config("llama-3.2-vision-11b").reduced(cross_attn_every=3,
+                                                      n_layers=6)
     res = TMESH.run_on_local_mesh((2, 2), ("data", "model"), tp_init_rank,
-                                  cfg, moe, 5, device="cpu", timeout=240)
+                                  cfg, moe, vlm, 5, device="cpu",
+                                  timeout=240)
     layout = TMESH.MeshLayout((2, 2), ("data", "model"))
 
-    def cache_specs(c):
+    def by_path(tree, fn) -> dict:
         out = {}
-        whole = TST.abstract_cache(c, 4, 16)
-        TS.map_with_path(lambda p, sh: out.__setitem__(
-            TS.path_str(p), (tuple(sh.spec), tuple(whole[p[-1]].shape))),
-            TS.cache_shardings(layout, c, whole))
+        TS.map_with_path(lambda p, a: out.__setitem__(TS.path_str(p),
+                                                      fn(a)), tree)
         return out
 
-    specs = {c.arch_id: cache_specs(c) for c in (cfg, moe)}
-    moe_whole = TST.abstract_params(moe)
-    moe_specs = {}
-    TS.map_with_path(lambda p, sh: moe_specs.__setitem__(
-        TS.path_str(p), tuple(sh.spec)),
-        TS.param_shardings_serving(layout, moe_whole))
-    moe_shapes = {}
-    TS.map_with_path(lambda p, a: moe_shapes.__setitem__(
-        TS.path_str(p), tuple(a.shape)), moe_whole)
+    def cache_specs(c):
+        whole = TST.abstract_cache(c, 4, 16)
+        shapes = by_path(whole, lambda a: tuple(a.shape))
+        return {p: (spec, shapes[p]) for p, spec in by_path(
+            TS.cache_shardings(layout, c, whole),
+            lambda sh: tuple(sh.spec)).items()}
+
+    specs = {c.arch_id: cache_specs(c) for c in (cfg, moe, vlm)}
+    wholes = {c.arch_id: TST.abstract_params(c) for c in (moe, vlm)}
+    pspecs = {k: by_path(TS.param_shardings_serving(layout, w),
+                         lambda sh: tuple(sh.spec))
+              for k, w in wholes.items()}
+    pshapes = {k: by_path(w, lambda a: tuple(a.shape))
+               for k, w in wholes.items()}
     for r in res:
         assert r["shards_of_whole_draw"]
-        for c, key in ((cfg, "cache_shapes"), (moe, "moe_cache_shapes")):
+        for c, key in ((cfg, "cache_shapes"), (moe, "moe_cache_shapes"),
+                       (vlm, "vlm_cache_shapes")):
             assert set(r[key]) == set(specs[c.arch_id])
             for path, local in r[key].items():
                 spec, shape = specs[c.arch_id][path]
                 assert local == TS.local_shape(layout, spec, shape)
-        assert set(r["moe_shapes"]) == set(moe_specs)
-        for path, local in r["moe_shapes"].items():
-            assert local == TS.local_shape(layout, moe_specs[path],
-                                           moe_shapes[path]), path
+        for c, key in ((moe, "moe_shapes"), (vlm, "vlm_shapes")):
+            a = c.arch_id
+            assert set(r[key]) == set(pspecs[a])
+            for path, local in r[key].items():
+                assert local == TS.local_shape(layout, pspecs[a][path],
+                                               pshapes[a][path]), path
+        G, per, KV, hd = 2, 2, vlm.n_kv_heads, vlm.hd
+        assert r["vlm_shapes"]["layers/attn/wq"] == (
+            G, per, vlm.d_model, vlm.n_heads // 2, hd)
+        assert r["vlm_shapes"]["cross/attn/wk"] == (G, vlm.d_model, KV // 2,
+                                                    hd)
+        # the JAX rule puts "data" on the self cache's dim 1, per, not B
+        assert r["vlm_cache_shapes"]["self/k"] == (G, per // 2, 4, 16, KV,
+                                                   hd // 2)
+        assert r["vlm_cache_shapes"]["cross/ck"] == (
+            G, 4 // 2, vlm.n_img_tokens, KV, hd // 2)
+        assert "(1, model) mesh" in r["vlm_data_refused"]
         L, E = moe.n_layers, moe.n_experts
         assert r["moe_shapes"]["layers/moe/wi"] == (
             L, E // 2, moe.d_model, 2, moe.d_ff)

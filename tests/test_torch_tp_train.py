@@ -36,9 +36,9 @@ beyond the vocab are masked), B 2 x S 16, loss chunk 8 (two chunks):
   each rank's use of ``x``, ``wq``, ``wk`` and ``wv`` is a part and their
   gradients are summed; loss and every gradient against ``jax.grad``,
   ``seq_parallel`` on and off;
-* the refusals: the vlm family under a model axis, a data axis of 2 (the
-  moe, ssm and hybrid families' too; the moe params and moments take
-  their local shapes), ``scan_chunks``;
+* the refusals: a data axis of 2 (the moe, ssm, hybrid and vlm
+  families' too; the moe and vlm params and moments take their local
+  shapes), ``scan_chunks``;
 * plain tensors (one process) take today's path, bit for bit, with a
   layout registered or not;
 * ``models/``, ``core/`` and ``kernels/`` import nothing from ``launch/``.
@@ -393,15 +393,16 @@ def test_audio_family_serves_and_trains_under_the_model_axis(reference):
 
 
 def test_train_step_refuses_what_is_not_ported(reference):
-    """The vlm family under a model axis, a data axis over two ranks, and
-    ``scan_chunks`` raise ``NotImplementedError``; nothing runs whole
-    instead.  The moe family is taken (expert parallelism,
-    ``tests/test_torch_ep.py``), and so are the ssm (rwkv) and hybrid
-    (hymba) families (``tests/test_torch_tp_recurrent.py``): each is
-    refused for the data axis alone, as the dense family is.  On the
-    (data 2, model 2) mesh the moe family's params and moments are at
-    their ``param_shardings`` local shapes (the experts split over model,
-    d over data, the router whole)."""
+    """A data axis over two ranks and ``scan_chunks`` raise
+    ``NotImplementedError``; nothing runs whole instead.  The moe family
+    is taken (expert parallelism, ``tests/test_torch_ep.py``), and so are
+    the ssm (rwkv), hybrid (hymba) and vlm families
+    (``tests/test_torch_tp_recurrent.py``, ``tests/test_torch_tp_vlm.py``):
+    each is refused for the data axis alone, as the dense family is.  On
+    the (data 2, model 2) mesh the moe and vlm families' params and
+    moments are at their ``param_shardings`` local shapes (the experts
+    split over model, d over data, the router whole; the vlm self layers'
+    [G, per, d, H, hd] with d over data and the heads over model)."""
     moe = get_config("moonshot-v1-16b-a3b").reduced()
     families = [get_config(a).reduced() for a in (
         "rwkv6-1.6b", "hymba-1.5b", "llama-3.2-vision-11b")]
@@ -414,23 +415,32 @@ def test_train_step_refuses_what_is_not_ported(reference):
                                   reference["cfg"], 7, ids, device="cpu",
                                   timeout=240)
     layout = TMESH.MeshLayout((2, 2), ("data", "model"))
-    whole = TST.abstract_params(moe)
-    specs = _paths(TS.param_shardings(layout, whole))
-    want = {f"{n}/{p}": TS.local_shape(layout, specs[p].spec,
-                                       tuple(a.shape))
-            for p, a in _paths(whole).items() for n in ("params", "m", "v")}
+
+    def local_shapes(c) -> dict:
+        whole = TST.abstract_params(c)
+        specs = _paths(TS.param_shardings(layout, whole))
+        return {f"{n}/{p}": TS.local_shape(layout, specs[p].spec,
+                                           tuple(a.shape))
+                for p, a in _paths(whole).items()
+                for n in ("params", "m", "v")}
+
+    vlm = families[-1]
+    want, want_vlm = local_shapes(moe), local_shapes(vlm)
     L, E, d, ff = moe.n_layers, moe.n_experts, moe.d_model, moe.d_ff
     for r in res:
         for c in families:
-            if c.family == "vlm":
-                assert "the vlm family under a model axis is not done" in (
-                    r[c.arch_id]), (c.arch_id, r[c.arch_id])
-            else:
-                assert "(1, model) mesh" in r[c.arch_id], (c.arch_id,
-                                                           r[c.arch_id])
+            assert "(1, model) mesh" in r[c.arch_id], (c.arch_id,
+                                                       r[c.arch_id])
         assert "(1, model) mesh" in r[reference["cfg"].arch_id]
         assert "(1, model) mesh" in r[moe.arch_id], r[moe.arch_id]
         assert r["shapes"][moe.arch_id] == want
+        assert r["shapes"][vlm.arch_id] == want_vlm
+        for n in ("params", "m", "v"):
+            got = r["shapes"][vlm.arch_id]
+            assert got[f"{n}/layers/attn/wq"] == (
+                2, 1, vlm.d_model // 2, vlm.n_heads // 2, vlm.hd)
+            assert got[f"{n}/cross/attn/wo"] == (
+                2, vlm.n_heads * vlm.hd // 2, vlm.d_model // 2)
         for n in ("params", "m", "v"):
             got = r["shapes"][moe.arch_id]
             assert got[f"{n}/layers/moe/wi"] == (L, E // 2, d // 2, 2, ff)

@@ -95,7 +95,7 @@ def gemma_pipeline_rank(mesh, first, seed, xs_seed, n_micro, seq_len):
             "routes": {k: dict(v) for k, v in fa.ROUTE_LAUNCHES.items()}}
 
 
-def tp_serve_rank(mesh, cfg, params, ids, steps, pins=None):
+def tp_serve_rank(mesh, cfg, params, ids, steps, pins=None, img=None):
     """Tensor-parallel serving of ``cfg`` on the mesh's model axis from a
     params tree held whole: each leaf's local and global shape and its
     spec, the prefill step's logits, the cache filled by ``LM.prefill``,
@@ -104,7 +104,8 @@ def tp_serve_rank(mesh, cfg, params, ids, steps, pins=None):
     K7 launches by route.  ``pins``: a moe config's routing to pin
     (:class:`PinRouting`; phases "p0" for the prefill step, "fill" for
     ``LM.prefill``, "dec<j>" for decode step j), and the rank's own
-    choices returned under ``"own"``."""
+    choices returned under ``"own"``.  ``img``: a vlm config's image
+    embeddings [B, M, d], given to the prefill step and ``LM.prefill``."""
     from repro_torch.core.spmd_pipeline import is_dtensor, local_bounds
     from repro_torch.core.tree import leaves, tree_map
     from repro_torch.kernels import flash_attention as fa
@@ -128,13 +129,14 @@ def tp_serve_rank(mesh, cfg, params, ids, steps, pins=None):
         TS.map_with_path(lambda p, sh: spec_of.__setitem__(
             TS.path_str(p), tuple(sh.spec)), specs)
         ids = ids.to(mesh.device)
+        kw = {} if img is None else {"img_embeds": img.to(mesh.device)}
         model, pre = TST.make_prefill_step(cfg, mesh)
         pin.phase = "p0"
-        logits = pre(sharded, {"ids": ids})
+        logits = pre(sharded, {"ids": ids, **kw})
         S, n = ids.shape[1], steps.shape[1]
         cache = TST.init_cache_sharded(cfg, mesh, ids.shape[0], S + n)
         pin.phase = "fill"
-        model.prefill(sharded, ids, cache)
+        model.prefill(sharded, ids, cache, **kw)
         _, dec = TST.make_decode_step(cfg, mesh)
         dec_logits = []
         for j in range(n):
@@ -159,12 +161,13 @@ def tp_serve_rank(mesh, cfg, params, ids, steps, pins=None):
         layers.set_attention_mesh(None)
 
 
-def tp_init_rank(mesh, cfg, moe_cfg, seed):
+def tp_init_rank(mesh, cfg, moe_cfg, vlm_cfg, seed):
     """``distribute_params`` of a whole draw: each leaf's local tensor is
     the whole leaf at its ``local_bounds``, contiguous, and nothing else;
     ``init_cache_sharded``'s local shapes; the same of a moe config (its
-    experts split over the model axis); the refusals: the serve step's of
-    a data axis over more than one rank (the dense and the moe config), and
+    experts split over the model axis) and of ``vlm_cfg`` (its ``[G, per,
+    ...]`` self layers and ``{"self", "cross"}`` cache); the refusals: the
+    serve step's of a data axis over more than one rank (each config), and
     K7's of a DTensor (its plain version must not take one)."""
     from repro_torch.core.spmd_pipeline import local_bounds
     from repro_torch.core.tree import leaves
@@ -191,6 +194,7 @@ def tp_init_rank(mesh, cfg, moe_cfg, seed):
 
     drawn, same = cut(cfg)
     moe_drawn, moe_same = cut(moe_cfg)
+    vlm_drawn, vlm_same = cut(vlm_cfg)
     cache = TST.init_cache_sharded(cfg, mesh, 4, 16)
     shapes = local_shapes(cache)
     ids = torch.zeros((4, 8), dtype=torch.long)
@@ -206,7 +210,8 @@ def tp_init_rank(mesh, cfg, moe_cfg, seed):
         refused["dtensor_kernel"] = str(e)
     try:
         for key, c, p in (("data_refused", cfg, drawn),
-                          ("moe_data_refused", moe_cfg, moe_drawn)):
+                          ("moe_data_refused", moe_cfg, moe_drawn),
+                          ("vlm_data_refused", vlm_cfg, vlm_drawn)):
             try:
                 TST.make_prefill_step(c, mesh)[1](p, {"ids": ids})
                 refused[key] = ""
@@ -215,11 +220,15 @@ def tp_init_rank(mesh, cfg, moe_cfg, seed):
     finally:
         layers.set_attention_mesh(None)
     moe_cache = TST.init_cache_sharded(moe_cfg, mesh, 4, 16)
-    return {"shards_of_whole_draw": same and moe_same,
+    vlm_cache = TST.init_cache_sharded(vlm_cfg, mesh, 4, 16)
+    return {"shards_of_whole_draw": same and moe_same and vlm_same,
             "cache_shapes": shapes,
-            "cache_zero": all(not a.to_local().any() for a in leaves(cache)),
+            "cache_zero": all(not a.to_local().any() for a in
+                              leaves(cache) + leaves(vlm_cache)),
             "moe_shapes": local_shapes(moe_drawn),
-            "moe_cache_shapes": local_shapes(moe_cache), **refused}
+            "moe_cache_shapes": local_shapes(moe_cache),
+            "vlm_shapes": local_shapes(vlm_drawn),
+            "vlm_cache_shapes": local_shapes(vlm_cache), **refused}
 
 
 def _shards(tree) -> dict:
@@ -367,14 +376,15 @@ def tp_train_rank(mesh, cfg, params, batch, batches, kw, audio=None,
     return out
 
 
-def tp_recurrent_rank(mesh, jobs, kw):
-    """The hybrid and ssm families under the mesh's model axis, for each
-    job of ``jobs`` (name → (cfg, params held whole, prompt ids [B, S],
-    teacher-forced decode tokens [B, n], a train batch, the two train
-    steps' batches, and the (params, optimizer state) to start the second
-    step from)): :func:`tp_serve_rank`'s serving run (the prefill step's
-    logits, each decode step's, this rank's cache shards), and with
-    ``seq_parallel`` on and off the loss and gradient shards
+def tp_family_rank(mesh, jobs, kw):
+    """The hybrid, ssm and vlm families under the mesh's model axis, for
+    each job of ``jobs`` (name → (cfg, params held whole, prompt ids [B,
+    S], teacher-forced decode tokens [B, n], a train batch, the two train
+    steps' batches, the (params, optimizer state) to start the second step
+    from, and for a vlm config its image embeddings [B, M, d], which the
+    train batches hold too)): :func:`tp_serve_rank`'s serving run (the
+    prefill step's logits, each decode step's, this rank's cache shards),
+    and with ``seq_parallel`` on and off the loss and gradient shards
     (:func:`_grads_of`), the two train steps (:func:`_train_steps`), each
     from its own start, and the two steps carried on from the first
     (``"carried"``)."""
@@ -383,9 +393,10 @@ def tp_recurrent_rank(mesh, jobs, kw):
     out = {}
     try:
         for name, job in jobs.items():
-            cfg, params, ids, steps, batch, batches, (mid, opt) = job
+            cfg, params, ids, steps, batch, batches, (mid, opt), *img = job
+            img = img[0] if img else None
             r = out[name] = {"serve": tp_serve_rank(mesh, cfg, params, ids,
-                                                    steps),
+                                                    steps, img=img),
                              "loss": {}, "grads": {}, "laid_out": {},
                              "steps": {}, "carried": {}}
             for sp in (True, False):
@@ -397,8 +408,42 @@ def tp_recurrent_rank(mesh, jobs, kw):
                     _train_steps(mesh, cfg, mid, batches[1:], kw, sp, opt)]
                 r["carried"][sp] = _train_steps(mesh, cfg, params, batches,
                                                 kw, sp)
+            if cfg.cross_attn_every:
+                r["unstack"] = _unstack_probe(mesh, cfg, params)
     finally:
         layers.set_attention_mesh(None)
+    return out
+
+
+def _unstack_probe(mesh, cfg, params) -> dict:
+    """Whether ``_unstack(tree, 2)`` of the vlm self layers' DTensor
+    weights (serving layout) and of the sharded self cache gives, in the
+    order g * per + j, DTensors of the layer's shape and bounds whose local
+    tensors are views of the stack's local tensor at [g, j]."""
+    from repro_torch.core.spmd_pipeline import is_dtensor, local_bounds
+    from repro_torch.core.tree import leaves
+    from repro_torch.launch import sharding as TS
+    from repro_torch.launch import steps as TST
+    from repro_torch.models.transformer import _unstack
+
+    trees = {"params": TS.distribute_params(mesh, params)["layers"],
+             "cache": TST.init_cache_sharded(cfg, mesh, 2, 4)["self"]}
+    out = {}
+    for name, tree in trees.items():
+        stack = leaves(tree)
+        G, per = stack[0].shape[:2]
+        layers = _unstack(tree, 2)
+        ok = len(layers) == G * per
+        for i, lp in enumerate(layers):
+            g, j = divmod(i, per)
+            for a, st in zip(leaves(lp), stack):
+                ok = ok and (
+                    is_dtensor(a) and a.shape == st.shape[2:]
+                    and local_bounds(a) == local_bounds(st)[2:]
+                    and a.to_local().data_ptr()
+                    == st.to_local()[g, j].data_ptr()
+                    and a.to_local().shape == st.to_local()[g, j].shape)
+        out[name] = bool(ok)
     return out
 
 
