@@ -466,14 +466,15 @@ MOE = dict(arch="moonshot-v1-16b-a3b", layers=6, batch=4, prompt_len=4096,
 # multiple of 256: the chunked scans) and 32 new tokens, the prefill
 # profiled at 1 layer and the decode for 2 steps (the profiler's parse of
 # more events costs tens of seconds); the decode held to a full-prefix
-# rerun at batch 1 x 1024 (16 tokens); trained at 2 layers (batch 2 x 4096,
-# 4 steps); the state checks at [2, 64, d], the remat check at [1, 512,
-# 2048]
+# rerun at batch 1 x 1024 (16 tokens); trained at 2 layers, rwkv6-1.6b at
+# 1 (cut from 2 to make room for the fsdp phase: its eager scan's step
+# took 5.4-5.9 s at 2 layers) (batch 2 x 4096, 4 steps); the state checks
+# at [2, 64, d], the remat check at [1, 512, 2048]
 SSM = dict(archs=("rwkv6-1.6b", "hymba-1.5b"), layers=8, batch=4,
            prompt_len=4096, tokens=32, decode_prompt=1024, decode_tokens=16,
            state_batch=2, state_len=64, remat_len=512, profile_layers=1,
-           profile_steps=2, train_layers=2, train_batch=2, train_seq=4096,
-           train_steps=4, lr=3e-3)
+           profile_steps=2, train_layers={"rwkv6-1.6b": 1, "hymba-1.5b": 2},
+           train_batch=2, train_seq=4096, train_steps=4, lr=3e-3)
 # the leaves ssm_init and rwkv_init set to zeros or ones, drawn from the
 # seed instead: name -> (low, high) of a uniform draw
 STATE_LEAF_DRAWS = {"dt_bias": (-2.0, 0.0), "A_log": (-1.0, 1.0),
@@ -514,8 +515,9 @@ TP_TRAIN = dict(arch="gemma3-12b", layers=6, mesh=(1, 2), batch=2,
                 seq_len=2048, loss_chunk=512, lr=3e-4, seed=2029,
                 checked=(0, 5), timeout=600)
 
-# the hybrid and ssm families tensor-parallel: hymba-1.5b served at 8 of
-# 32 layers and rwkv6-1.6b at 6 of 24, full widths, on a (data 1, model 2)
+# the hybrid and ssm families tensor-parallel: hymba-1.5b served at 4 of
+# 32 layers and rwkv6-1.6b at 3 of 24 (cut from 8 and 6 to make room for
+# the fsdp phase), full widths, on a (data 1, model 2)
 # mesh sharing the card (2 prompts of 2048 tokens, over hymba's 1024
 # window; 16 teacher-forced decode steps), each trained at 2 layers (batch
 # 2 x 2048, cut from 2 x 4096 to keep the script within its time; loss
@@ -526,7 +528,7 @@ TP_TRAIN = dict(arch="gemma3-12b", layers=6, mesh=(1, 2), batch=2,
 # passes within ``control_limit`` times the whole bf16 run's own distance
 # to the same run in f32 (PERF.md, cell 15)
 TP_RECURRENT = dict(tag="tp_recurrent", archs=("hymba-1.5b", "rwkv6-1.6b"),
-                    layers={"hymba-1.5b": 8, "rwkv6-1.6b": 6}, mesh=(1, 2),
+                    layers={"hymba-1.5b": 4, "rwkv6-1.6b": 3}, mesh=(1, 2),
                     batch=2, prompt_len=2048, decode=16, train_layers=2,
                     train_batch=2, train_seq=2048, loss_chunk=512, lr=3e-4,
                     seed=2031, timeout=600,
@@ -562,6 +564,30 @@ EP = dict(arch="moonshot-v1-16b-a3b", layers=4, mesh=(1, 2), batch=2,
           prompt_len=2048, decode=16, train_layers=2, train_batch=2,
           train_seq=4096, loss_chunk=512, lr=3e-4, seed=2030,
           experts=(0, 32), timeout=600)
+
+# a data axis over more than one rank (FSDP): a (data 2, model 2) mesh of
+# 4 ranks sharing the card, each data rank one row of the batch.
+# gemma3-12b at full widths: served at 4 of 48 layers (2 prompts of 2048
+# tokens, 16 teacher-forced decode steps) with weights by
+# param_shardings_serving, then the prefill step and 2 decode steps with
+# weights by param_shardings (the FSDP storage: each layer and the embed
+# table gathered over data as they are read); trained at 2 layers (2 x
+# 2048, loss chunk 512, one step with seq_parallel and one without from
+# the same start).  moonshot-v1-16b-a3b at full widths: served at 2 layers
+# (2 x 2048: the sort dispatch in 2 groups, one a data rank; 8 decode
+# steps, one group across both data ranks), trained at 2 layers (2 x
+# 4096: the einsum dispatch, 16 groups, 8 a data rank), the whole run's
+# routing pinned, experts 0 and 32 checked.  The reference: the port's
+# one-process whole run of the same weights with the same layout
+# registered (the same routing groups and capacity).  ``control_limit``:
+# a moonshot gradient over 2e-2 of max|g_ref| passes within that many
+# times the whole bf16 run's own distance to the same step in f32
+FSDP = dict(mesh=(2, 2), dense="gemma3-12b", dense_layers=4,
+            train_layers=2, moe="moonshot-v1-16b-a3b", moe_layers=2,
+            batch=2, prompt_len=2048, decode=16, fsdp_decode=2,
+            moe_decode=8, train_seq=2048, moe_train_seq=4096,
+            loss_chunk=512, lr=3e-4, seed=2033, experts=(0, 32),
+            control_limit=2.0, timeout=600)
 
 
 class SmokeFailure(RuntimeError):
@@ -3479,10 +3505,11 @@ def recurrent_decode_vs_rerun(cfg, params, dtype: str) -> dict:
 
 
 def recurrent_train(cfg_full) -> tuple[dict, dict]:
-    """(e) training at 2 layers through ``launch.train.build``'s step, the
-    state leaves drawn first; hymba: the kernel step against a
-    plain-attention step and an SDPA control, then K8/K9 at this shape;
-    rwkv: the step against the same step without the per-layer remat."""
+    """(e) training at ``SSM["train_layers"]`` layers through
+    ``launch.train.build``'s step, the state leaves drawn first; hymba:
+    the kernel step against a plain-attention step and an SDPA control,
+    then K8/K9 at this shape; rwkv: the step against the same step
+    without the per-layer remat."""
     import dataclasses
     import gc
 
@@ -3498,7 +3525,8 @@ def recurrent_train(cfg_full) -> tuple[dict, dict]:
     from repro_torch.models import layers as ml
 
     s = SSM
-    cfg = dataclasses.replace(cfg_full, n_layers=s["train_layers"])
+    cfg = dataclasses.replace(cfg_full,
+                              n_layers=s["train_layers"][cfg_full.arch_id])
     B, S = s["train_batch"], s["train_seq"]
     torch.cuda.reset_peak_memory_stats()
     state, step, data = build(cfg, s["train_steps"], s["lr"], S, B,
@@ -3648,7 +3676,7 @@ def recurrent_train(cfg_full) -> tuple[dict, dict]:
 def ssm_model(arch: str) -> tuple[dict, dict]:
     """One model at full widths and the served depth: (f) K7 at the serving
     shape (hymba), (c) serve_lm twice, (g) the profile, (d) decode vs the
-    rerun in bf16 and f32, (e) training at 2 layers."""
+    rerun in bf16 and f32, (e) training at ``SSM["train_layers"]`` layers."""
     import dataclasses
     import gc
 
@@ -4652,7 +4680,7 @@ def tp_serve(model, params, cache, ids, prefill, decode, tokens=None,
              "decode_ms": dec_ms})
 
 
-def timed_collectives(stats: dict):
+def timed_collectives(stats: dict, groups: dict | None = None):
     """Patch the two collectives under every autograd function of the
     model axis (``spmd_pipeline.reduce_over_ranks`` and
     ``gather_over_ranks``) so each first waits for the card's queued work
@@ -4661,14 +4689,19 @@ def timed_collectives(stats: dict):
     ``"<name> backward"``) in ``calls``, with ``bytes`` and its ms by pass
     in ``by_pass``; the patch is undone on exit.  A gloo collective waits
     for the card anyway (the copy to pinned host memory blocks), so the
-    patch adds little to a run's time."""
+    patch adds little to a run's time.  ``groups``: the group's ranks
+    (a tuple) → a name (``"data"``, ``"model"``): each collective's
+    calls, bytes and ms also by that name in ``by_group``."""
     import torch
 
     from repro_torch.core import spmd_pipeline as sp
 
+    import torch.distributed as dist
+
     names = ("reduce_over_ranks", "gather_over_ranks")
     saved = {n: getattr(sp, n) for n in names}
     stats.setdefault("by_pass", {})
+    stats.setdefault("by_group", {})
 
     def wrap(name, fn):
         def call(t, *args, **kw):
@@ -4690,6 +4723,16 @@ def timed_collectives(stats: dict):
             p["calls"] += 1
             p["bytes"] += nbytes
             p["ms"] += 1e3 * (t2 - t1)
+            if groups is not None:
+                grp = next(a for a in args if isinstance(a, dist.ProcessGroup))
+                gname = groups.get(
+                    tuple(dist.get_process_group_ranks(grp)), "other")
+                q = stats["by_group"].setdefault(gname, {"calls": 0,
+                                                         "bytes": 0,
+                                                         "ms": 0.0})
+                q["calls"] += 1
+                q["bytes"] += nbytes
+                q["ms"] += 1e3 * (t2 - t1)
             return out
         return call
 
@@ -5304,10 +5347,12 @@ class RoutingLog:
     is a view of the stacked [L, d, E] one, so its storage offset names the
     layer) and replaces them with ``pins[phase][layer]`` for the phases
     ``pins`` holds; ``dropped[phase]`` gathers each moe call's
-    ``dropped_frac`` (:func:`moe_spy`)."""
+    ``dropped_frac`` (:func:`moe_spy`).  ``part`` (i, n): the rank holds
+    the i-th of n equal parts of the batch's tokens (its rows of a batch
+    split over a data axis) and takes that part of each pin."""
 
-    def __init__(self, pins: dict | None = None):
-        self.pins, self.phase = pins or {}, None
+    def __init__(self, pins: dict | None = None, part=None):
+        self.pins, self.phase, self.part = pins or {}, None, part
         self.own, self.dropped = {}, {}
 
     def set(self, phase: str) -> None:
@@ -5318,7 +5363,15 @@ class RoutingLog:
         self.own.setdefault((self.phase, layer), []).append(
             idx.detach().cpu())
         pin = self.pins.get(self.phase)
-        return idx if pin is None else pin[layer].to(idx.device)
+        if pin is None:
+            return idx
+        pin = pin[layer].to(idx.device)
+        if self.part is not None:
+            i, n = self.part
+            flat = pin.reshape(-1, pin.shape[-1])
+            m = flat.shape[0] // n
+            pin = flat[i * m:(i + 1) * m]
+        return pin.reshape(idx.shape)
 
     def first(self) -> dict:
         """phase -> each layer's first choices (the forward's, before any
@@ -7000,6 +7053,703 @@ def phase_tp_vlm() -> tuple[dict, dict]:
     return counts, out
 
 
+# --------------------------------------------------------------------------- #
+# cell 17: a data axis over more than one rank (FSDP)
+# --------------------------------------------------------------------------- #
+def fsdp_config(fam: str, layers: int):
+    """gemma3-12b ("dense") or moonshot-v1-16b-a3b ("moe") at full widths
+    and ``layers`` layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(FSDP[fam]), n_layers=layers)
+    if fam == "dense":
+        check(cfg.d_model == 3840 and cfg.n_heads == 16
+              and cfg.n_kv_heads == 8 and cfg.hd == 256
+              and cfg.d_ff == 15360 and cfg.vocab == 262144
+              and cfg.dtype == "bfloat16", f"unexpected fsdp config {cfg}")
+    else:
+        check(cfg.d_model == 2048 and cfg.n_experts == 64 and cfg.top_k == 6
+              and cfg.hd == 128 and cfg.dtype == "bfloat16",
+              f"unexpected fsdp config {cfg}")
+    return cfg
+
+
+def fsdp_draws(cfg, fam: str, device) -> dict:
+    """The phase's inputs for ``fam`` from its seed: the served prompts
+    [B, T] and the training batch [B, S] (every token counts)."""
+    import torch
+
+    f = FSDP
+    off = 0 if fam == "dense" else 10
+    g = torch.Generator(device).manual_seed(f["seed"] + off + 1)
+    S = f["train_seq"] if fam == "dense" else f["moe_train_seq"]
+    shape = (f["batch"], S)
+    return {"ids": torch.randint(0, cfg.vocab, (f["batch"], f["prompt_len"]),
+                                 generator=g, device=device),
+            "train": {"ids": torch.randint(0, cfg.vocab, shape, generator=g,
+                                           device=device),
+                      "labels": torch.randint(0, cfg.vocab, shape,
+                                              generator=g, device=device),
+                      "mask": torch.ones(shape, device=device)}}
+
+
+def fsdp_weights(cfg, fam: str, part: str, device):
+    """The whole weights of ``fam``'s serving or training run (``part``),
+    drawn from the phase's seed (any process draws the same)."""
+    import torch
+
+    from repro_torch.models import LM
+
+    seed = FSDP["seed"] + (0 if fam == "dense" else 10) + (
+        2 if part == "train" else 3)
+    return LM(cfg).init(torch.Generator(device).manual_seed(seed))
+
+
+def fsdp_checked(tree, fam: str, n_layers: int) -> dict:
+    """name → (leaf, its bounds in the whole leaf) of the gradients the
+    phase holds to the whole run: for gemma3 every leaf of every layer
+    (``"<path>@<layer>"``) and the embed table and final norm; for
+    moonshot each layer's router, ``ln2`` and ``wq``, ``wi``/``wo`` of
+    the experts in ``FSDP["experts"]`` the rank holds, and the embed
+    table.  A DTensor's local tensor at its ``local_bounds`` (its data
+    shard too), a plain tensor whole."""
+    from repro_torch.core.spmd_pipeline import local_bounds, local_tensor
+    from repro_torch.launch import sharding as TS
+
+    out = {}
+
+    def take(path, a):
+        name, local, at = TS.path_str(path), local_tensor(a), local_bounds(a)
+        moe = name.startswith("layers/moe/w")
+        if fam == "moe" and not (moe or name == "embed/table" or any(
+                name.endswith(k) for k in ("moe/router", "ln2/scale",
+                                           "attn/wq"))):
+            return
+        if not name.startswith("layers/"):
+            out[name] = (local, at)
+            return
+        for i in range(n_layers):
+            if not moe:
+                out[f"{name}@{i}"] = (local[i], at[1:])
+                continue
+            for e in FSDP["experts"]:
+                if at[1].start <= e < at[1].stop:
+                    out[f"{name}@{i}/expert{e}"] = (
+                        local[i, e - at[1].start], at[2:])
+
+    TS.map_with_path(take, tree)
+    return out
+
+
+def fsdp_serve_reference(fam: str, layout) -> dict:
+    """The whole-model serving run of ``fam`` on plain tensors in this
+    process, the (2, 2) layout registered (the moe routing groups): the
+    prefill step, ``LM.prefill`` and greedy decode steps; its routing
+    recorded by phase (moonshot); → logits, decode logits, the tokens it
+    fed, the cache, the pins, ms."""
+    import torch
+
+    from repro_torch.core.tree import leaves
+    from repro_torch.launch import steps as TST
+    from repro_torch.models import LM, layers
+
+    f = FSDP
+    L = f["dense_layers"] if fam == "dense" else f["moe_layers"]
+    n = f["decode"] if fam == "dense" else f["moe_decode"]
+    cfg = fsdp_config(fam, L)
+    model = LM(cfg)
+    params = fsdp_weights(cfg, fam, "serve", "cuda")
+    nbytes = sum(a.numel() * a.element_size() for a in leaves(params))
+    ids = fsdp_draws(cfg, fam, "cuda")["ids"]
+    cache = model.init_cache(f["batch"], f["prompt_len"] + n, device="cuda")
+    log = RoutingLog()
+    try:
+        _, prefill = TST.make_prefill_step(cfg, layout)
+        _, decode = TST.make_decode_step(cfg, layout)
+        with routing_hook(log):
+            logits, dec, tokens, ms = tp_serve(model, params, cache, ids,
+                                               prefill, decode, steps=n,
+                                               phase=log.set)
+    finally:
+        layers.set_attention_mesh(None)
+    out = {"logits": logits, "decode": dec, "tokens": tokens, "ms": ms,
+           "ids": ids.cpu(), "weights_gb": nbytes / 1e9,
+           "cache": {k: cache[k].cpu() for k in ("k", "v")},
+           "pins": {k: torch.stack(v) for k, v in log.first().items()}}
+    del params, cache
+    return out
+
+
+def fsdp_train_reference(fam: str, layout) -> dict:
+    """The whole-model training step of ``fam`` on plain tensors in this
+    process, the (2, 2) layout registered: step 1's loss, grad_norm
+    (before clipping) and checked gradients (:func:`fsdp_checked`), its
+    routing (moonshot), and for moonshot the control: the same step in
+    f32 with the same routing pinned, its checked gradients."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.tree import flatten, leaves, tree_map, unflatten
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import LM, layers
+    from repro_torch.optim import global_norm
+
+    f = FSDP
+    cfg = fsdp_config(fam, f["train_layers"] if fam == "dense"
+                      else f["moe_layers"])
+    params = fsdp_weights(cfg, fam, "train", "cuda")
+    nbytes = sum(a.numel() * a.element_size() for a in leaves(params))
+    batch = fsdp_draws(cfg, fam, "cuda")["train"]
+    log = RoutingLog()
+    log.set("train")
+    layers.set_attention_mesh(layout)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with routing_hook(log):
+            ce, grads, aux = loss_and_grads(LM(cfg), params, batch,
+                                            loss_chunk=f["loss_chunk"])
+        gnorm = float(global_norm(grads))
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        plain = {k: g.cpu() for k, (g, _) in fsdp_checked(
+            unflatten(flatten(params)[1], grads), fam, cfg.n_layers).items()}
+        del grads
+        out = {"loss": float(ce), "grad_norm": gnorm, "step_ms": ms,
+               "dropped_frac": float(aux["dropped_frac"]),
+               "weights_gb": nbytes / 1e9, "plain": plain,
+               "pins": {k: torch.stack(v) for k, v in log.first().items()}}
+        if fam == "moe":
+            c32 = dataclasses.replace(cfg, dtype="float32")
+            p32 = tree_map(lambda a: a.float(), params)
+            del params
+            log32 = RoutingLog({"train": out["pins"]["train"]})
+            log32.set("train")
+            with routing_hook(log32):
+                _, g32, _ = loss_and_grads(LM(c32), p32, batch,
+                                           loss_chunk=f["loss_chunk"])
+            out["f32"] = {k: g.cpu() for k, (g, _) in fsdp_checked(
+                unflatten(flatten(p32)[1], g32), fam, cfg.n_layers).items()}
+            del p32, g32
+    finally:
+        layers.set_attention_mesh(None)
+    torch.cuda.empty_cache()
+    return out
+
+
+def fsdp_serve_rank(mesh, fam: str, ref: dict, groups: dict) -> dict:
+    """One rank's serving of ``fam``: the whole weights drawn from the
+    seed, kept by ``param_shardings_serving`` (and, gemma3, by
+    ``param_shardings`` too: the FSDP storage), the prompts split over the
+    data axis by ``distribute_batch`` (one row a data rank); the prefill
+    step, ``LM.prefill`` and the whole run's tokens teacher-forced, the
+    whole run's routing pinned, each collective timed by group; the
+    rank's logits rows, cache shards, ms, peak GB, local shapes and the
+    q/k/v the first layer gave K7."""
+    import torch
+
+    from repro_torch.core.spmd_pipeline import local_bounds
+    from repro_torch.launch import sharding as TS
+    from repro_torch.launch import steps as TST
+    from repro_torch.models import LM
+
+    f = FSDP
+    L = f["dense_layers"] if fam == "dense" else f["moe_layers"]
+    cfg = fsdp_config(fam, L)
+    B, T = f["batch"], f["prompt_len"]
+    part = (mesh.axis_index("data"), mesh.shape["data"])
+    t0 = time.perf_counter()
+    whole = fsdp_weights(cfg, fam, "serve", mesh.device)
+    specs = {"serving": TS.param_shardings_serving(mesh, whole)}
+    if fam == "dense":
+        specs["fsdp"] = TS.param_shardings(mesh, whole)
+    sharded = {k: TS.distribute_params(mesh, whole, v)
+               for k, v in specs.items()}
+    del whole
+    torch.cuda.empty_cache()
+    ids = TS.distribute_batch(mesh, {"ids": ref["ids"].to(mesh.device)})
+    draw_s = time.perf_counter() - t0
+    out = {"draw_s": draw_s, "runs": {}}
+    model, prefill = TST.make_prefill_step(cfg, mesh)
+    _, decode = TST.make_decode_step(cfg, mesh)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, 1e3 * (time.perf_counter() - t1)
+
+    for layout, params in sharded.items():
+        n = (f["decode"] if fam == "dense" else f["moe_decode"]) if (
+            layout == "serving") else f["fsdp_decode"]
+        log = RoutingLog(ref["pins"], part)
+        coll = {"sync_ms": 0.0, "collective_ms": 0.0, "calls": {},
+                "bytes": 0}
+        cache = TST.init_cache_sharded(cfg, mesh, B, T + n)
+        kq: dict = {}
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        with routing_hook(log), timed_collectives(coll, groups), \
+                attention_spy(keep=kq, kind=lambda c, w: "k7"):
+            log.set("prefill")
+            logits, pre_ms = timed(lambda: prefill(params, ids))
+            log.set("fill")
+            _, fill_ms = timed(lambda: model.prefill(params, ids["ids"],
+                                                     cache))
+            dec, dec_ms = [], []
+            for j in range(n):
+                log.set(f"dec{j}")
+                tok = TS.distribute_batch(
+                    mesh, {"ids": ref["tokens"][:, j:j + 1].to(mesh.device)})
+                (lg, _), ms = timed(lambda: decode(params, cache,
+                                                   {**tok, "pos": T + j}))
+                dec.append(lg.to_local().cpu())
+                dec_ms.append(ms)
+        coll["run_ms"] = 1e3 * (time.perf_counter() - t1)
+        lp = params["layers"]
+        shapes = {k: tuple(lp[a][b].to_local().shape) for k, (a, b) in (
+            ("attn/wq", ("attn", "wq")), ("attn/wo", ("attn", "wo")),
+            *((("mlp/wi", ("mlp", "wi")),) if fam == "dense" else
+              (("moe/wi", ("moe", "wi")), ("moe/router", ("moe", "router")))))}
+        shapes["embed"] = tuple(params["embed"]["table"].to_local().shape)
+        shapes["cache_k"] = tuple(cache["k"].to_local().shape)
+        shapes["ids"] = tuple(ids["ids"].to_local().shape)
+        out["runs"][layout] = {
+            "logits": logits.to_local().cpu(),
+            "collected": TS.collect_batch(logits).cpu()
+            if layout == "serving" else None,
+            "rows": local_bounds(logits)[0], "decode": dec,
+            "ms": {"prefill_step_ms": pre_ms, "prefill_cache_ms": fill_ms,
+                   "decode_ms": dec_ms},
+            "collectives": coll, "shapes": shapes,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "cache": {k: (cache[k].to_local().cpu(), local_bounds(cache[k]))
+                      for k in ("k", "v")} if layout == "serving" else None,
+            "k7": tuple(t.cpu() if torch.is_tensor(t) else t
+                        for t in kq["k7"]) if layout == "serving" else None}
+        del cache
+    return out
+
+
+def fsdp_train_rank(mesh, fam: str, ref: dict, groups: dict) -> dict:
+    """One rank's training of ``fam``: the whole weights drawn from the
+    seed, kept by ``param_shardings`` (``init_train_state_sharded``), the
+    batch split over the data axis; one ``make_train_step`` step with
+    seq_parallel (and, gemma3, one without from the same start), the
+    whole run's routing pinned, each collective timed by group; each
+    step's checked gradients, before AdamW, against the whole run's at
+    this rank's bounds (and moonshot's against the f32 control's); the
+    moments' local shapes; the q, k, v and dO layer 0's attention gave K8
+    and K9 in the first step."""
+    import torch
+
+    from repro_torch.core.spmd_pipeline import local_tensor
+    from repro_torch.core.tree import leaves
+    from repro_torch.launch import sharding as TS
+    from repro_torch.launch import steps as TST
+    from repro_torch.models import layers
+    from repro_torch.optim import adamw_init
+
+    f = FSDP
+    cfg = fsdp_config(fam, f["train_layers"] if fam == "dense"
+                      else f["moe_layers"])
+    part = (mesh.axis_index("data"), mesh.shape["data"])
+    t0 = time.perf_counter()
+    whole = fsdp_weights(cfg, fam, "train", mesh.device)
+    state = TST.init_train_state_sharded(cfg, mesh, whole)
+    del whole
+    start = [local_tensor(a).clone() for a in leaves(state["params"])]
+    torch.cuda.empty_cache()
+    batch = TS.distribute_batch(mesh, fsdp_draws(cfg, fam,
+                                                 mesh.device)["train"])
+    draw_s = time.perf_counter() - t0
+    steps, inputs = [], {}
+    real_update, real_attention = TST.adamw_update, layers.ops.attention
+    spent = [0.0]
+
+    def spy(grads, st, params, **kw):
+        t1 = time.perf_counter()
+        e = {}
+        for k, (g, at) in fsdp_checked(grads, fam, cfg.n_layers).items():
+            for name in ("plain", "f32"):
+                if name in ref:
+                    want = ref[name][k][at].to(g.device).float()
+                    d = float((g.float() - want).abs().max())
+                    e[k if name == "plain" else f"{k} f32"] = d
+        steps[-1]["grad_err"] = e
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t1
+        return real_update(grads, st, params, **kw)
+
+    def keep_attention(q, k, v, causal=True, window=0):
+        o = real_attention(q, k, v, causal, window)
+        if "train" not in inputs and torch.is_grad_enabled():
+            inputs["train"] = [t.detach().clone() for t in (q, k, v)] + [
+                None, int(window)]
+            o.register_hook(lambda g: inputs["train"].__setitem__(
+                3, g.detach().clone()))
+        return o
+
+    plan = [True, False] if fam == "dense" else [True]
+    TST.adamw_update = spy
+    try:
+        for i, sp in enumerate(plan):
+            if i:                         # the same start, no moments yet
+                for a, s0 in zip(leaves(state["params"]), start):
+                    local_tensor(a).copy_(s0)
+                state = {"params": state["params"],
+                         "opt": adamw_init(state["params"])}
+            _, step = TST.make_train_step(cfg, mesh, seq_parallel=sp,
+                                          lr=f["lr"], warmup=1,
+                                          total_steps=10,
+                                          loss_chunk=f["loss_chunk"])
+            layers.ops.attention = keep_attention if i == 0 else \
+                real_attention
+            coll = {"sync_ms": 0.0, "collective_ms": 0.0, "calls": {},
+                    "bytes": 0}
+            log = RoutingLog({"train": ref["pins"]["train"]}, part) \
+                if fam == "moe" else RoutingLog()
+            log.set("train")
+            spent[0] = 0.0
+            steps.append({"seq_parallel": sp})
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with routing_hook(log), timed_collectives(coll, groups):
+                state, met = step(state, batch)
+                loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+            steps[-1].update(
+                loss=loss, grad_norm=gnorm,
+                dropped_frac=float(met.get("dropped_frac", 0.0)),
+                ms=1e3 * (time.perf_counter() - t1 - spent[0]),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                collectives=coll)
+            if i == 0:
+                moments = {}
+                TS.map_with_path(lambda p, a: moments.__setitem__(
+                    TS.path_str(p), (tuple(local_tensor(a).shape),
+                                     tuple(a.shape))), state["opt"].m)
+    finally:
+        TST.adamw_update = real_update
+        layers.ops.attention = real_attention
+    return {"draw_s": draw_s, "steps": steps, "moments": moments,
+            "inputs": tuple(t.cpu() if torch.is_tensor(t) else t
+                            for t in inputs["train"])}
+
+
+def fsdp_rank(mesh, ref_path: str) -> dict:
+    """One rank of the fsdp phase: gemma3-12b served and trained, then
+    moonshot-v1-16b-a3b served and trained (:func:`fsdp_serve_rank`,
+    :func:`fsdp_train_rank`), every K7-K9 launch counted."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers
+
+    ref = torch.load(ref_path, mmap=True, map_location="cpu")
+    t0 = time.perf_counter()
+    dm = mesh.device_mesh                 # the DeviceMesh and its groups
+    groups = {tuple(dist.get_process_group_ranks(dm.get_group(a))): a
+              for a in ("data", "model")}
+    out = {"rank": mesh.rank, "coord": mesh.coord,
+           "transport": mesh.transport, "mesh_s": time.perf_counter() - t0}
+    fa.reset_launches()
+    try:
+        for fam in ("dense", "moe"):
+            out[f"{fam}_serve"] = fsdp_serve_rank(mesh, fam,
+                                                  ref[f"{fam}_serve"], groups)
+            torch.cuda.empty_cache()
+            out[f"{fam}_train"] = fsdp_train_rank(mesh, fam,
+                                                  ref[f"{fam}_train"], groups)
+            torch.cuda.empty_cache()
+    finally:
+        layers.set_attention_mesh(None)
+    out["launches"] = dict(fa.LAUNCHES)
+    out["routes"] = {k: dict(v) for k, v in fa.ROUTE_LAUNCHES.items()}
+    return out
+
+
+def fsdp_share(got, want, limit: float = 2e-2) -> float:
+    """max |got - want| over ``limit`` * max |want|."""
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / (limit * want.abs().max())).item()
+
+
+def fsdp_check_serve(fam: str, ref: dict, res: list) -> dict:
+    """The ranks' serving of ``fam`` against the whole run: each rank's
+    logits rows within 2e-2 of max|ref| (and ``collect_batch``'s whole
+    logits equal to the rows), decode within 2.5e-2, the reassembled
+    cache within 2e-2, the local shapes; prints each rank's ms, peak,
+    shapes and collectives by group."""
+    import torch
+
+    reads = {}
+    for layout in res[0][f"{fam}_serve"]["runs"]:
+        pre, dec = [], []
+        for r in res:
+            g = r[f"{fam}_serve"]["runs"][layout]
+            rows = g["rows"]
+            pre.append(fsdp_share(g["logits"], ref["logits"][rows]))
+            dec += [fsdp_share(a, w[rows], 2.5e-2)
+                    for a, w in zip(g["decode"], ref["decode"])]
+            if g["collected"] is not None:
+                check(torch.equal(g["collected"][rows], g["logits"]),
+                      f"fsdp {fam}: collect_batch's logits differ from the "
+                      f"rank's rows")
+            c, ms = g["collectives"], g["ms"]
+            print(f"[fsdp] {fam} {layout} rank {r['rank']} {r['coord']}: "
+                  f"local shapes {g['shapes']}; prefill step "
+                  f"{ms['prefill_step_ms']:.3f} ms, prefill into the cache "
+                  f"{ms['prefill_cache_ms']:.3f} ms, decode "
+                  f"{statistics.median(ms['decode_ms']):.3f} ms a step "
+                  f"(median of {len(ms['decode_ms'])}); peak "
+                  f"{g['peak_gb']:.3f} GB; collectives "
+                  f"{c['collective_ms']:.3f} ms of {c['run_ms']:.3f} ms, "
+                  f"by group "
+                  f"{json.dumps(c['by_group'])}")
+            check(g["shapes"]["ids"][0] == FSDP["batch"] // 2,
+                  f"fsdp {fam} rank {r['rank']}: the batch's local rows "
+                  f"{g['shapes']['ids']}")
+        reads[f"{layout}_prefill_logits"] = max(pre)
+        reads[f"{layout}_decode_logits"] = max(dec)
+    for name in ("k", "v"):
+        full = torch.zeros(ref["cache"][name].shape,
+                           dtype=ref["cache"][name].dtype)
+        seen = torch.zeros(full.shape, dtype=torch.bool)
+        for r in res:
+            local, bounds = r[f"{fam}_serve"]["runs"]["serving"]["cache"][name]
+            full[tuple(bounds)] = local
+            seen[tuple(bounds)] = True
+        check(bool(seen.all()), f"fsdp {fam}: the ranks' cache {name} does "
+                                f"not cover the whole")
+        reads[f"cache_{name}"] = fsdp_share(full, ref["cache"][name])
+    for k, v in reads.items():
+        lim = "2.5e-2" if "decode" in k else "2e-2"
+        print(f"[fsdp] {fam} {k}: max |err| at {v:.4f} of {lim} * max|ref|")
+        check(v <= 1.0, f"fsdp {fam} {k}: {v:.4f} of the limit")
+    return reads
+
+
+def fsdp_check_train(fam: str, ref: dict, res: list) -> dict:
+    """The ranks' training of ``fam`` against the whole run's step 1:
+    loss within 1e-3 and grad_norm within 1e-2 relative (equal on every
+    rank), moonshot's ``dropped_frac`` within 1e-6 (the data ranks' means
+    averaged: ``1 - kept / k`` rounds a shard at a time), every checked
+    gradient within 2e-2 of max|g_ref| — or, for
+    moonshot, where a leaf reads over that, within ``control_limit`` times
+    the whole bf16 run's own distance to the f32 run (the ep phase's
+    control); the moments' local shapes; prints each step's ms, peak and
+    collectives by group."""
+    reads = {}
+    n_steps = len(res[0][f"{fam}_train"]["steps"])
+    lim = FSDP["control_limit"]
+    scales = {k: 2e-2 * float(w.float().abs().max())
+              for k, w in ref["plain"].items()}
+    for i in range(n_steps):
+        sts = [r[f"{fam}_train"]["steps"][i] for r in res]
+        label = "seq_parallel" if sts[0]["seq_parallel"] else \
+            "no seq_parallel"
+        norms = {st["grad_norm"] for st in sts}
+        check(len(norms) == 1, f"fsdp {fam} {label}: grad_norm differs "
+                               f"between the ranks: {norms}")
+        st = sts[0]
+        lrel = abs(st["loss"] - ref["loss"]) / abs(ref["loss"])
+        grel = abs(st["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+        check(lrel <= 1e-3 and grel <= 1e-2
+              and abs(st["dropped_frac"] - ref["dropped_frac"]) <= 1e-6,
+              f"fsdp {fam} {label}: loss {st['loss']} grad_norm "
+              f"{st['grad_norm']} dropped_frac {st['dropped_frac']} against "
+              f"the whole run's {ref['loss']} {ref['grad_norm']} "
+              f"{ref['dropped_frac']}")
+        shares, fails = {}, []
+        for k, want in ref["plain"].items():
+            scale = scales[k]
+            got = [r[f"{fam}_train"]["steps"][i]["grad_err"][k] for r in res
+                   if k in r[f"{fam}_train"]["steps"][i]["grad_err"]]
+            check(len(got) >= 1, f"fsdp {fam}: no rank checked {k}")
+            shares[k] = max(got) / scale
+            if shares[k] <= 1.0:
+                continue
+            if "f32" not in ref:
+                fails.append(k)
+                continue
+            own = float((want.float() - ref["f32"][k].float()).abs().max())
+            ranks = max(r[f"{fam}_train"]["steps"][i]["grad_err"][f"{k} f32"]
+                        for r in res
+                        if k in r[f"{fam}_train"]["steps"][i]["grad_err"])
+            ratio = ranks / max(own, 1e-30)
+            print(f"[fsdp] {fam} {label} gradient {k}: {shares[k]:.4f} of "
+                  f"2e-2 * max|g_ref|; the f32 control: the whole bf16 run's "
+                  f"own distance to the f32 run {own / scale:.4f} of that "
+                  f"limit, the ranks' distance to it {ratio:.4f} x that "
+                  f"(limit {lim})")
+            reads[f"{label} {k} f32_control"] = ratio
+            if ratio > lim:
+                fails.append(k)
+        top = dict(sorted(shares.items(), key=lambda kv: -kv[1])[:4])
+        print(f"[fsdp] {fam} {label} step: loss {st['loss']} ({lrel:.3g} "
+              f"rel), grad_norm {st['grad_norm']} ({grel:.3g} rel); every "
+              f"checked gradient's max |g - g_ref| over 2e-2 * max|g_ref|, "
+              f"the largest: {top}")
+        for r in res:
+            s = r[f"{fam}_train"]["steps"][i]
+            c = s["collectives"]
+            print(f"[fsdp] {fam} {label} rank {r['rank']}: step "
+                  f"{s['ms']:.3f} ms, peak {s['peak_gb']:.3f} GB; "
+                  f"collectives {c['collective_ms']:.3f} ms, by group "
+                  f"{json.dumps(c['by_group'])}")
+        check(not fails, f"fsdp {fam} {label}: gradients over their limit "
+                         f"{fails}")
+        reads[f"{label} loss_rel"] = lrel
+        reads[f"{label} grad_norm_rel"] = grel
+        reads[f"{label} grad_share_of_limit"] = max(shares.values())
+    return reads
+
+
+def phase_fsdp() -> tuple[dict, dict]:
+    """A data axis over more than one rank: gemma3-12b and
+    moonshot-v1-16b-a3b served and trained on a (data 2, model 2) mesh of
+    4 ranks sharing the card, each held to the whole-model run on the same
+    weights in this process (the same layout registered)."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.mesh import MeshLayout, run_on_local_mesh
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    f = FSDP
+    layout = MeshLayout(f["mesh"], ("data", "model"))
+    print(f"[fsdp] mesh (data, model) = {f['mesh']}, 4 ranks sharing the "
+          f"card; {f['dense']} served at {f['dense_layers']} layers "
+          f"({f['batch']} x {f['prompt_len']}, one row a data rank, "
+          f"{f['decode']} decode steps; {f['fsdp_decode']} under the FSDP "
+          f"storage) and trained at {f['train_layers']} "
+          f"({f['batch']} x {f['train_seq']}); {f['moe']} served at "
+          f"{f['moe_layers']} ({f['moe_decode']} decode steps) and trained "
+          f"({f['batch']} x {f['moe_train_seq']})")
+    ref = {}
+    for fam in ("dense", "moe"):
+        ref[f"{fam}_serve"] = fsdp_serve_reference(fam, layout)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ref[f"{fam}_train"] = fsdp_train_reference(fam, layout)
+        gc.collect()
+        torch.cuda.empty_cache()
+        s, t = ref[f"{fam}_serve"], ref[f"{fam}_train"]
+        print(f"[fsdp] {fam} whole-model run: {s['weights_gb']:.3f} GB "
+              f"served, prefill step {s['ms']['prefill_step_ms']:.3f} ms, "
+              f"decode {statistics.median(s['ms']['decode_ms']):.3f} ms a "
+              f"step; training step 1 (loss and gradients) "
+              f"{t['step_ms']:.3f} ms, loss {t['loss']}, grad_norm "
+              f"{t['grad_norm']}")
+    t_ref = time.perf_counter() - t_phase
+    fd, path = tempfile.mkstemp(suffix=".pt")
+    os.close(fd)
+    try:
+        torch.save({k: {n: v for n, v in r.items() if n in (
+            "ids", "tokens", "pins", "plain", "f32")}
+            for k, r in ref.items()}, path)
+        t1 = time.perf_counter()
+        res = run_on_local_mesh(f["mesh"], ("data", "model"), fsdp_rank,
+                                path, device="cuda", timeout=f["timeout"])
+        ranks_s = time.perf_counter() - t1
+    finally:
+        os.unlink(path)
+    counts: dict = {}
+    for r in res:
+        check(r["launches"]["flash_attention"] > 0
+              and r["launches"]["flash_attention_bwd_dq"] > 0
+              and r["launches"]["flash_attention_bwd_dkv"] > 0
+              and all(v.get("simt_f32", 0) == 0
+                      for v in r["routes"].values()),
+              f"fsdp rank {r['rank']}: K7-K9 launches {r['launches']}, "
+              f"routes {r['routes']}")
+        for k, v in r["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    reads = {}
+    for fam in ("dense", "moe"):
+        reads[f"{fam}_serve"] = fsdp_check_serve(fam, ref[f"{fam}_serve"],
+                                                 res)
+        reads[f"{fam}_train"] = fsdp_check_train(fam, ref[f"{fam}_train"],
+                                                 res)
+    # the moments at their opt_shardings local shapes (d over data too)
+    for r in res:
+        for fam in ("dense", "moe"):
+            m = r[f"{fam}_train"]["moments"]
+            wq = m["layers/attn/wq"]
+            check(wq[0][1] * 2 == wq[1][1] and wq[0][2] * 2 == wq[1][2],
+                  f"fsdp rank {r['rank']} {fam}: attn/wq moments {wq}")
+    # K7 at a data rank's serving shapes, K8/K9 at its training shapes,
+    # element by element on every rank, rank 0's timed
+    k7, bwd = {}, {}
+    for r in res:
+        for fam in ("dense", "moe"):
+            q, k, v, w = (t.to("cuda") if torch.is_tensor(t) else t
+                          for t in r[f"{fam}_serve"]["runs"]["serving"]["k7"])
+            check(q.shape[0] == 1 and q.dtype == torch.bfloat16,
+                  f"fsdp rank {r['rank']} {fam}: K7 q {tuple(q.shape)}")
+            if r["rank"] == 0:
+                k7[f"fsdp {fam}"] = k7_at(q, k, v, w, f"fsdp {fam}",
+                                          tag="[fsdp]")
+            else:
+                d, worst = flash_err(q, k, v, True, w)
+                print(f"[fsdp] rank {r['rank']} K7 {fam} at {list(q.shape)}: "
+                      f"max abs err {d}, {worst} of the element-wise limit")
+                k7[f"fsdp {fam} rank {r['rank']}"] = {
+                    "max_abs_err": d, "err_of_elementwise_limit": worst}
+            q, k, v, do, w = (t.to("cuda") if torch.is_tensor(t) else t
+                              for t in r[f"{fam}_train"]["inputs"])
+            check(do is not None and q.shape[0] == 1,
+                  f"fsdp rank {r['rank']} {fam}: K8/K9 inputs {q.shape}")
+            if r["rank"] == 0:
+                bwd[f"fsdp {fam}"] = k8_k9_at(q, k, v, do, w,
+                                              f"fsdp {fam} train",
+                                              tag="[fsdp]")
+            else:
+                e = flash_bwd_err(q, k, v, do, True, w)
+                print(f"[fsdp] rank {r['rank']} K8/K9 {fam} at "
+                      f"{list(q.shape)}: {e}")
+                bwd[f"fsdp {fam} rank {r['rank']}"] = e
+            del q, k, v
+    out = {"reads": reads, "k7": k7, "k8_k9": bwd, "ranks_s": ranks_s,
+           "reference_s": t_ref,
+           "whole": {k: {n: v for n, v in r.items() if n in (
+               "ms", "step_ms", "loss", "grad_norm", "weights_gb")}
+               for k, r in ref.items()},
+           "ranks": [{"rank": r["rank"], "coord": r["coord"],
+                      "mesh_s": r["mesh_s"], "launches": r["launches"],
+                      **{f"{fam}_{p}": {
+                          "draw_s": r[f"{fam}_{p}"]["draw_s"],
+                          **({"runs": {lay: {n: g[n] for n in (
+                              "ms", "collectives", "shapes", "peak_gb")}
+                              for lay, g in r[f"{fam}_{p}"]["runs"].items()}}
+                             if p == "serve" else
+                             {"steps": [{n: s[n] for n in (
+                                 "seq_parallel", "loss", "grad_norm", "ms",
+                                 "peak_gb", "collectives")}
+                                 for s in r[f"{fam}_{p}"]["steps"]]})}
+                         for fam in ("dense", "moe")
+                         for p in ("serve", "train")}}
+                     for r in res],
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"[fsdp] phase {out['phase_s']:.3f} s (aim 100): whole runs "
+          f"{t_ref:.3f} s, ranks {ranks_s:.3f} s; K7-K9 launches on the "
+          f"ranks {counts}")
+    del res
+    gc.collect()
+    return counts, out
+
+
 def main() -> int:
     sys.path.insert(0, os.path.join(HERE, "src"))
     t_start = time.perf_counter()
@@ -7105,13 +7855,22 @@ def main() -> int:
             d = r[n]["max_abs_err"] if "rank" not in label else r[n][0]
             rows[n]["max_abs_err"] = max(rows[n]["max_abs_err"], d)
     lap("tp_vlm")
+    fscounts, fsdp_out = phase_fsdp()
+    rows["flash_attention"]["max_abs_err"] = max(
+        rows["flash_attention"]["max_abs_err"],
+        *(r["max_abs_err"] for r in fsdp_out["k7"].values()))
+    for label, r in fsdp_out["k8_k9"].items():
+        for n in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            d = r[n]["max_abs_err"] if "rank" not in label else r[n][0]
+            rows[n]["max_abs_err"] = max(rows[n]["max_abs_err"], d)
+    lap("fsdp")
     print(f"[time] total {time.perf_counter() - t_start:.3f}")
     for k, v in (*counts.items(), *hcounts.items(), *rcounts.items(),
                  *ccounts.items(), *fcounts.items(), *tcounts.items(),
                  *dcounts.items(), *mcounts.items(), *scounts.items(),
                  *vcounts.items(), *pcounts.items(), *tpcounts.items(),
                  *ttcounts.items(), *ecounts.items(), *trcounts.items(),
-                 *tvcounts.items()):
+                 *tvcounts.items(), *fscounts.items()):
         launches[k] = launches.get(k, 0) + v
     replaces = {"cvt_color": "src/repro/kernels/harris.py:44",
                 "corner_harris": "src/repro/kernels/harris.py:101",
@@ -7147,7 +7906,7 @@ def main() -> int:
                       "ssm": ssm_out, "vlm": vlm_out, "spmd": spmd_out,
                       "tp": tp_out, "tp_train": tp_train_out,
                       "ep": ep_out, "tp_recurrent": tpr_out,
-                      "tp_vlm": tpv_out,
+                      "tp_vlm": tpv_out, "fsdp": fsdp_out,
                       "tc_resources": tc_res, "k7_train_shape": k7_train,
                       "k6_resources": rows["rmsnorm_matmul"]["resources"],
                       "local_layer": {n: {k: v for k, v in rows[n].items()

@@ -42,7 +42,11 @@ and :func:`own_part`, and for the sequence-parallel carry
 :func:`reduce_over_ranks` and :func:`gather_over_ranks`), and the DTensor
 helpers (:func:`local_bounds`, :func:`unbind_layers`, :func:`with_spec`,
 :func:`group_transport`) also serve the tensor-parallel layers of
-:mod:`repro_torch.models.layers`.  The rank mesh of a process of
+:mod:`repro_torch.models.layers`; over a data axis, :func:`unshard`
+gathers a weight's storage-only dim (its gradient summed back by
+:func:`gather_seq`'s rule), :func:`batch_line` names the axis a batch is
+split over and :func:`batch_like` lays a result out as the batch.  The
+rank mesh of a process of
 :func:`~repro_torch.launch.mesh.run_on_local_mesh` is registered here
 (:func:`current_mesh`), so nothing below the launcher imports it.
 """
@@ -63,7 +67,8 @@ __all__ = ["stack_stage_params", "stage_apply", "spmd_pipeline_fn",
            "copy_to_ranks", "all_gather_cat", "own_part", "gather_seq",
            "reduce_scatter", "is_dtensor", "local_tensor", "like_dtensor",
            "sharded_dims", "placements", "with_spec", "shard_bounds",
-           "local_bounds", "unbind_layers", "group_transport"]
+           "local_bounds", "unbind_layers", "group_transport", "unshard",
+           "batch_line", "batch_like"]
 
 
 # --------------------------------------------------------------------------- #
@@ -479,15 +484,100 @@ def with_spec(x, spec):
     """``x`` redistributed to ``spec`` when it is a DTensor laid out
     otherwise; a DTensor already in that layout (its placements may differ
     only on mesh dims of one rank) and a plain tensor (held whole by one
-    process) unchanged."""
+    process) unchanged.  Where a dim split over a batch axis (``data`` or
+    ``pod``) of more than one rank would have to move, it raises instead:
+    DTensor would move it over a gloo group, which has no CUDA all-gather
+    and no reduce-scatter, and the layers gather a weight's ``data`` dim
+    themselves (:func:`unshard`).  (A replicated dim taking its shard
+    there is a local slice.)"""
     if not is_dtensor(x):
         return x
     dm = x.device_mesh
     want = placements(dm, spec)
-    if all(a == b for m, (a, b) in enumerate(zip(x.placements, want))
-           if dm.size(m) > 1):
+    moved = [m for m, (a, b) in enumerate(zip(x.placements, want))
+             if dm.size(m) > 1 and a != b]
+    if not moved:
         return x
+    batch = [dm.mesh_dim_names[m] for m in moved
+             if dm.mesh_dim_names[m] in ("data", "pod")
+             and not x.placements[m].is_replicate()]
+    if batch:
+        raise NotImplementedError(
+            f"with_spec: {tuple(x.placements)} -> {want} moves a batch "
+            f"axis {batch}; gather a weight's data dim with unshard, "
+            f"never by DTensor.redistribute")
     return x.redistribute(dm, want)
+
+
+def unshard(x, axis: str, sum_grad: bool):
+    """DTensor ``x`` with its shard over mesh axis ``axis`` (of more than
+    one rank) gathered: the ranks' local tensors concatenated along the
+    sharded dim in group-rank order (:func:`gather_over_ranks`, exact), as
+    a DTensor replicated over ``axis`` and laid out as ``x`` on the other
+    mesh dims; ``x`` itself where it is not sharded there, and a plain
+    tensor unchanged.  The gradient of the whole is summed over the axis in
+    f32, rounded once, and this rank's part kept (:func:`gather_seq`) when
+    ``sum_grad`` (the ranks' uses are parts: each its own batch rows), else
+    this rank's part of it (:func:`all_gather_cat`: each rank's gradient
+    is already the whole)."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import DTensor, Replicate
+
+    dm = x.device_mesh
+    names = dm.mesh_dim_names
+    if axis not in names:
+        return x
+    m = names.index(axis)
+    pl = x.placements[m]
+    if not pl.is_shard() or dm.size(m) == 1:
+        return x
+    if any(q.is_shard(pl.dim) for i, q in enumerate(x.placements)
+           if i != m and dm.size(i) > 1):
+        raise ValueError(f"unshard: dim {pl.dim} of {tuple(x.placements)} "
+                         f"is split over another axis too")
+    group = dm.get_group(axis)
+    local = x.to_local()
+    whole = _Gather.apply(local.contiguous(), pl.dim, group,
+                          group_transport(group, local.device), sum_grad)
+    pls = list(x.placements)
+    pls[m] = Replicate()
+    return DTensor.from_local(whole, dm, tuple(pls), run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
+def batch_line(x) -> tuple | None:
+    """(process group, transport) of the mesh axis over which DTensor
+    ``x``'s dim 0, its batch, is split (each rank holding its rows); None
+    for a plain tensor and a batch whole on every rank."""
+    if not is_dtensor(x):
+        return None
+    dm = x.device_mesh
+    dims = [m for m, pl in enumerate(x.placements)
+            if pl.is_shard(0) and dm.size(m) > 1]
+    if not dims:
+        return None
+    if len(dims) > 1:
+        raise NotImplementedError(f"a batch split over the mesh axes "
+                                  f"{[dm.mesh_dim_names[m] for m in dims]}")
+    group = dm.get_group(dims[0])
+    return group, group_transport(group, x.to_local().device)
+
+
+def batch_like(local: torch.Tensor, x):
+    """``local``, this rank's rows of a result, as a DTensor whose dim 0
+    is laid out as batch DTensor ``x``'s (its mesh and placements, the
+    global batch ``x.shape[0]``); ``local`` itself when ``x`` is a plain
+    tensor.  No communication."""
+    if not is_dtensor(x):
+        return local
+    from torch.distributed.tensor import DTensor
+
+    shape = torch.Size((x.shape[0], *local.shape[1:]))
+    return DTensor.from_local(local, x.device_mesh, x.placements,
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
 
 
 def shard_bounds(device_mesh, placements, shape) -> tuple:

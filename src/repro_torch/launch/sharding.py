@@ -23,7 +23,10 @@ launcher) turns a spec into DTensor placements on a realised
 DTensors by its shardings — params by :func:`param_shardings_serving`
 (serving) or :func:`param_shardings` (training), moments by
 :func:`opt_shardings` — each rank keeping its own shard (the
-tensor-parallel layers of :mod:`repro_torch.models.layers`).
+tensor-parallel layers of :mod:`repro_torch.models.layers`), and
+:func:`distribute_batch` a batch by :func:`batch_spec` (each rank its rows
+over the batch axes); :func:`collect_batch` reads a result laid out so
+whole again.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ __all__ = ["P", "NamedSharding", "guard_spec", "param_spec",
            "opt_shardings", "batch_spec", "act_spec", "cache_spec",
            "cache_shardings", "placements", "local_shape", "with_spec",
            "map_with_path", "path_str", "to_dtensor",
-           "distribute_params"]
+           "distribute_params", "distribute_batch", "collect_batch"]
 
 
 class P(tuple):
@@ -317,3 +320,44 @@ def distribute_params(mesh, params: Any, shardings: Any = None) -> Any:
         return to_dtensor(mesh, local, sh.spec, tuple(a.shape))
 
     return tree_map(cut, params, shardings)
+
+
+def distribute_batch(mesh, batch: dict) -> dict:
+    """A batch held whole on every rank (``{"ids", "labels", "mask",
+    "embeds", ...}``, each leaf's dim 0 the batch) as DTensors by the
+    shardings of :func:`~repro_torch.launch.steps.batch_structs`:
+    :func:`batch_spec`'s entry on dim 0, guarded, so a batch the batch axes
+    do not divide stays whole on every rank (replicated, as the JAX guard
+    leaves ``long_500k``'s batch of 1); each rank keeps a contiguous copy
+    of its rows and nothing is moved.  A 0-d tensor or a number (decode's
+    ``pos``) stays as it is."""
+    import torch
+
+    from ..core.spmd_pipeline import shard_bounds
+
+    dm = mesh.device_mesh
+    b = batch_spec(mesh)[0]
+
+    def cut(a):
+        if not isinstance(a, torch.Tensor) or a.dim() == 0:
+            return a
+        spec = guard_spec(mesh, P(b), tuple(a.shape))
+        at = shard_bounds(dm, placements(dm, spec), a.shape)
+        return to_dtensor(mesh, a[at].clone(
+            memory_format=torch.contiguous_format), spec, tuple(a.shape))
+
+    return {k: cut(v) for k, v in batch.items()}
+
+
+def collect_batch(x):
+    """A result laid out by the batch (a DTensor whose dim 0 is split over
+    a batch axis: the serve steps' logits) as the plain tensor of every
+    rank's rows, gathered over that axis in rank order (exact); the local
+    tensor of one whole on every rank, a plain tensor as it is."""
+    from ..core.spmd_pipeline import (batch_line, gather_over_ranks,
+                                      local_tensor)
+
+    line = batch_line(x)
+    if line is None:
+        return local_tensor(x)
+    return gather_over_ranks(x.to_local().contiguous(), 0, *line)

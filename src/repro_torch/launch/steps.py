@@ -14,10 +14,10 @@ Given a mesh layout, each builder registers it
 (:func:`~repro_torch.models.layers.set_attention_mesh`, which the anchors
 and ``moe_groups`` read), and the train and decode steps re-anchor each
 layer's weights to their storage spec without the "data" axis
-(:func:`_layer_param_constraint`); the train step also anchors the layer
-carry to the sequence-parallel spec.  On plain tensors (one process
-holding the model whole) every anchor is the identity, and the layout
-still sets the MoE routing groups.
+(:func:`_layer_param_constraint`, after the model gathered them over it);
+the train step also anchors the layer carry to the sequence-parallel spec.
+On plain tensors (one process holding the model whole) every anchor is the
+identity, and the layout still sets the MoE routing groups.
 
 Tensor-parallel serving across ranks (the dense family and its audio
 variant, the moe family with its experts split over the same axis:
@@ -47,8 +47,25 @@ its cross-attention on the rank's heads against the image rows whole on
 every rank; its prefill writes the image K/V, and every self layer its
 k/v, re-laid from the rank's kv heads into the caches' JAX layout (every
 kv head at the rank's part of head_dim), and decode gathers head_dim back.
-A data axis over more than one rank and ``scan_chunks`` are refused
-(:func:`_check_sharded`).
+A data axis over more than one rank (FSDP; the dense, audio and moe
+families, a ``(data, model)`` mesh): the batch comes as DTensors split
+over ``data``
+(:func:`~repro_torch.launch.sharding.distribute_batch`), each rank
+computing its rows; weights by ``param_shardings`` keep their
+storage-only dim split over ``data`` and each layer (and the embedding
+table) is gathered over it as it is read, its gradient summed back over
+it (:func:`~repro_torch.models.layers.gather_data`); weights by
+``param_shardings_serving`` are whole over ``data``, and
+:func:`loss_and_grads` sums their gradients (and every other leaf's that
+is whole over ``data``) over it once, in f32, after the backward.  The
+loss is the global batch's mean on every rank, a moe layer routes by the
+global batch's groups, and the cache holds each rank's rows.  The serve
+steps' logits come back as a DTensor laid out as the batch (the rank's
+rows; :func:`~repro_torch.launch.sharding.collect_batch` reads them
+whole).  A batch the axis does not divide stays whole on every rank:
+computed whole, nothing summed.  The hybrid, ssm and vlm families under a
+data axis, a ``pod`` axis over more than one rank and ``scan_chunks`` are
+refused (:func:`_check_sharded`).
 
 The abstract trees (:func:`abstract_params`, :func:`abstract_cache`) are
 meta tensors, drawing and allocating nothing; :func:`batch_structs`,
@@ -64,11 +81,14 @@ from typing import Any
 
 import torch
 
-from ..core.spmd_pipeline import is_dtensor, like_dtensor, local_tensor
+from ..core.spmd_pipeline import (batch_like, batch_line, is_dtensor,
+                                   like_dtensor, local_tensor,
+                                   reduce_over_ranks)
 from ..core.tree import flatten, leaves, tree_map, unflatten
 from ..models import LM
 from ..models.config import ArchConfig, ShapeConfig
-from ..models.layers import NO_DRAW, SeqParallel, set_attention_mesh
+from ..models.layers import (NO_DRAW, SeqParallel, gather_data,
+                             set_attention_mesh)
 from ..models.transformer import torch_dtype
 from ..optim import adamw_init, adamw_update, cosine_schedule
 from .sharding import (NamedSharding, P, batch_spec, cache_shardings,
@@ -83,7 +103,11 @@ Params = Any
 def _layer_param_constraint(mesh):
     """Constraint for a sliced layer's weights: the storage rules with the
     "data" (FSDP) axis dropped — gathered on data, still sharded on model.
-    A plain tensor passes unchanged."""
+    The model gathers a layer over data before it applies this
+    (:func:`~repro_torch.models.layers.gather_data`, whose gradient sum
+    depends on whether the batch is split), so here the layout is only
+    held: ``with_spec`` raises rather than move a data dim.  A plain tensor
+    passes unchanged."""
 
     def con(lp):
         return map_with_path(
@@ -91,6 +115,15 @@ def _layer_param_constraint(mesh):
             lp)
 
     return con
+
+
+def _table_gathered(params: Params, data) -> Params:
+    """``params`` with the embed table gathered over ``data`` once for the
+    step (:func:`~repro_torch.models.layers.gather_data`; ``data`` the
+    batch's axis or None): the embedding and the logits (or the loss)
+    both read it, so the step moves it, and sums its gradient, once.  The
+    same tree where the table is whole over ``data``."""
+    return {**params, "embed": gather_data(params["embed"], data)}
 
 
 def _act_constraint(mesh) -> SeqParallel:
@@ -188,15 +221,17 @@ def loss_and_grads(model: LM, params: Params, batch: dict, *,
     kw = {"embeds": batch["embeds"]} if cfg.embeds_in else {}
     if cfg.cross_attn_every:
         kw["img_embeds"] = batch["img_embeds"]
+    data = batch_line(batch["labels"])
     try:
         with torch.enable_grad():
             for p in flat:
                 p.requires_grad_(True)
-            h, aux = model.apply(params, batch.get("ids"), remat=remat,
+            step = _table_gathered(params, data)
+            h, aux = model.apply(step, batch.get("ids"), remat=remat,
                                  act_constraint=act_constraint,
                                  param_constraint=param_constraint,
                                  scan_chunks=scan_chunks, **kw)
-            ce = model.loss(params, h, batch["labels"], batch["mask"],
+            ce = model.loss(step, h, batch["labels"], batch["mask"],
                             chunk=loss_chunk)
             total = ce
             if cfg.n_experts:
@@ -207,8 +242,45 @@ def loss_and_grads(model: LM, params: Params, batch: dict, *,
         for p in flat:
             p.requires_grad_(False)
     aux = {k: v.detach() for k, v in {**aux, "total": total}.items()}
-    return ce.detach(), [like_dtensor(torch.zeros_like(local_tensor(p)), p)
-                         if g is None else g for p, g in zip(flat, grads)], aux
+    grads = [like_dtensor(torch.zeros_like(local_tensor(p)), p)
+             if g is None else g for p, g in zip(flat, grads)]
+    if data is not None:
+        _sum_whole_over_data(flat, grads, data)
+    return ce.detach(), grads, aux
+
+
+def _whole_over_data(p) -> bool:
+    """Parameter ``p`` is held whole over the data axis (not a DTensor
+    split over a ``data`` mesh dim of more than one rank)."""
+    if not is_dtensor(p):
+        return True
+    dm = p.device_mesh
+    names = dm.mesh_dim_names
+    if "data" not in names:
+        return True
+    m = names.index("data")
+    return dm.size(m) == 1 or not p.placements[m].is_shard()
+
+
+@torch.no_grad()
+def _sum_whole_over_data(flat: list, grads: list, data: tuple) -> None:
+    """The one rule for the data axis, after the backward, where the batch
+    is split over it: the gradient of every leaf held whole over ``data``
+    (the norms, the router, the leaves the guard left whole, every leaf by
+    ``param_shardings_serving``) is each rank's rows' part, so it is
+    summed over the axis, in place, in f32 and rounded once to its type,
+    all of them in one bucket (one all-reduce).  A leaf split over
+    ``data`` took its sum from its gather's backward."""
+    whole = [local_tensor(g) for p, g in zip(flat, grads)
+             if _whole_over_data(p)]
+    if not whole:
+        return
+    bucket = torch.cat([g.reshape(-1).to(torch.float32) for g in whole])
+    bucket = reduce_over_ranks(bucket, *data, backward=True)
+    at = 0
+    for g in whole:
+        g.copy_(bucket[at:at + g.numel()].view(g.shape))
+        at += g.numel()
 
 
 def make_train_step(cfg: ArchConfig, mesh=None, *, scan_chunks: int = 0,
@@ -226,9 +298,11 @@ def make_train_step(cfg: ArchConfig, mesh=None, *, scan_chunks: int = 0,
     ``batch`` a dict of tensors on the parameters' device: ``labels`` and
     ``mask`` [B, S], and ``ids`` [B, S] (or ``embeds`` [B, S, d] for a
     model that takes embeddings), plus ``img_embeds`` [B, n_img_tokens, d]
-    in the config's dtype for a vlm model.  ``train_step`` updates the
-    state's tensors in place and returns (state, metrics): ``loss`` (the
-    cross-entropy), ``grad_norm`` and ``lr``, and for a moe config
+    in the config's dtype for a vlm model; on a data axis, DTensors by
+    :func:`~repro_torch.launch.sharding.distribute_batch`.
+    ``train_step`` updates the state's tensors in place and returns
+    (state, metrics): ``loss`` (the cross-entropy), ``grad_norm`` and
+    ``lr``, and for a moe config
     ``dropped_frac`` (summed over the layers, as the JAX step reports it),
     as 0-d tensors on the device.
     """
@@ -273,8 +347,9 @@ def train_state_structs(cfg: ArchConfig, mesh):
 
 
 def init_train_state_sharded(cfg: ArchConfig, mesh, params: Params) -> dict:
-    """``{"params", "opt"}`` for tensor-parallel training on a ``(1,
-    model)`` mesh from a params tree held whole on every rank (drawn from
+    """``{"params", "opt"}`` for training across the ranks of ``mesh`` (a
+    model axis, and a data axis for the families :func:`_check_sharded`
+    admits) from a params tree held whole on every rank (drawn from
     one seed, or converted): each rank keeps its shard of each leaf by
     :func:`param_shardings` (:func:`distribute_params`) and allocates its
     moments at their local shapes (:func:`adamw_init`, laid out as the
@@ -291,7 +366,7 @@ def init_cache_sharded(cfg: ArchConfig, mesh, batch: int,
                        cache_len: int) -> Params:
     """``LM(cfg).init_cache``'s zero cache as DTensors by
     ``cache_shardings``: each rank allocates its shard alone, on its
-    device."""
+    device (its rows of the batch over a data axis that divides it)."""
     whole = abstract_cache(cfg, batch, cache_len)
     return tree_map(
         lambda w, sh: to_dtensor(mesh, torch.zeros(
@@ -308,13 +383,19 @@ def init_cache_sharded(cfg: ArchConfig, mesh, batch: int,
 # family (its cross-attention on the rank's heads against the image rows;
 # its self and image K/V caches keep every kv head at a part of head_dim)
 TP_FAMILIES = ("dense", "audio", "moe", "hybrid", "ssm", "vlm")
+# the families that also run on a data axis over more than one rank (the
+# batch split, each layer gathered over data): the hybrid and ssm
+# families' states and the vlm self cache (whose "data" entry falls on its
+# per-group dim) are not re-laid by the batch yet
+DATA_FAMILIES = ("dense", "audio", "moe")
 
 
 def _check_sharded(cfg: ArchConfig, params: Params, *,
                    scan_chunks: int = 0) -> None:
-    """Refuse DTensor weights where tensor parallelism is not done: a
-    family outside :data:`TP_FAMILIES`, a mesh axis other than ``model``
-    of more than one rank, and (the train step, which passes
+    """Refuse DTensor weights where it is not done: a family outside
+    :data:`TP_FAMILIES`; a ``data`` axis over more than one rank for a
+    family outside :data:`DATA_FAMILIES`; any other axis but ``model``
+    over more than one rank (``pod``); and (the train step, which passes
     ``scan_chunks``) chunked remat."""
     w = leaves(params)[0]
     if not is_dtensor(w):
@@ -327,9 +408,16 @@ def _check_sharded(cfg: ArchConfig, params: Params, *,
     dm = w.device_mesh
     other = {n: dm.size(i) for i, n in enumerate(dm.mesh_dim_names)
              if n != "model" and dm.size(i) > 1}
+    if "data" in other and cfg.family not in DATA_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: a data axis of {other['data']} ranks runs the "
+            f"{', '.join(DATA_FAMILIES)} families; the {cfg.family} family "
+            f"under a data axis is not done here")
+    other.pop("data", None)
     if other:
-        raise NotImplementedError(f"tensor parallelism takes a "
-                                  f"(1, model) mesh, not one with {other}")
+        raise NotImplementedError(f"a mesh axis {other} over more than one "
+                                  f"rank: the port runs a (data, model) "
+                                  f"mesh")
     if scan_chunks:
         raise NotImplementedError(f"scan_chunks={scan_chunks} under a model "
                                   f"axis is not done here")
@@ -337,8 +425,9 @@ def _check_sharded(cfg: ArchConfig, params: Params, *,
 
 def make_prefill_step(cfg: ArchConfig, mesh=None):
     """→ (model, ``prefill_step(params, batch)``): the full forward without
-    a cache and the last token's logits [B, 1, vocab] f32 (whole on every
-    rank when ``params`` are DTensors, the module docstring)."""
+    a cache and the last token's logits [B, 1, vocab] f32 (whole over the
+    model axis when ``params`` are DTensors; a DTensor of the rank's rows
+    for a batch split over a data axis, the module docstring)."""
     model = LM(cfg)
     if mesh is not None:
         set_attention_mesh(mesh)
@@ -351,16 +440,18 @@ def make_prefill_step(cfg: ArchConfig, mesh=None):
             kw["embeds"] = batch["embeds"]
         if cfg.cross_attn_every:
             kw["img_embeds"] = batch["img_embeds"]
-        h, _ = model.apply(params, batch.get("ids"), remat=False, **kw)
-        return model.logits(params, h[:, -1:])
+        step = _table_gathered(params, None)
+        h, _ = model.apply(step, batch.get("ids"), remat=False, **kw)
+        return batch_like(model.logits(step, h[:, -1:]),
+                          kw.get("embeds", batch.get("ids")))
 
     return model, prefill_step
 
 
 def make_decode_step(cfg: ArchConfig, mesh=None):
     """→ (model, ``serve_step(params, cache, batch)``): one token for every
-    sequence at ``batch["pos"]``; returns (logits, the cache, updated in
-    place)."""
+    sequence at ``batch["pos"]``; returns (logits, laid out as the
+    prefill step's, and the cache, updated in place)."""
     model = LM(cfg)
     pcon = _layer_param_constraint(mesh) if mesh is not None else None
     if mesh is not None:
@@ -370,9 +461,11 @@ def make_decode_step(cfg: ArchConfig, mesh=None):
     def serve_step(params: Params, cache: Params, batch: dict):
         _check_sharded(cfg, params)
         kw = {"embeds": batch["embeds"]} if cfg.embeds_in else {}
-        return model.decode_step(params, batch.get("ids"), cache,
-                                 int(batch["pos"]), param_constraint=pcon,
-                                 **kw)
+        logits, cache = model.decode_step(_table_gathered(params, None),
+                                          batch.get("ids"), cache,
+                                          int(batch["pos"]),
+                                          param_constraint=pcon, **kw)
+        return batch_like(logits, kw.get("embeds", batch.get("ids"))), cache
 
     return model, serve_step
 

@@ -71,6 +71,14 @@ families' recurrences run on each rank's channels or heads by the same
 helpers (:mod:`repro_torch.models.ssm`, :mod:`repro_torch.models.rwkv`).
 The anchors therefore see local, plain activations here, and pass them
 unchanged.
+
+A data axis over more than one rank (FSDP): weights by ``param_shardings``
+keep a storage-only dim split over ``data``; :func:`gather_data` gathers a
+layer's weights (and the embedding table) over it just before they are
+read, so every layer above sees the model-axis layout alone, and its
+gradient is summed back over ``data`` (each rank's part of the batch gives
+a part of it).  The activations, the cache and the batch stay each rank's
+rows.
 """
 from __future__ import annotations
 
@@ -83,7 +91,9 @@ import torch.nn.functional as F
 from ..core.spmd_pipeline import (all_gather_cat, all_reduce_sum,
                                    copy_to_ranks, gather_seq,
                                    group_transport, is_dtensor, local_bounds,
-                                   own_part, reduce_scatter, with_spec)
+                                   own_part, reduce_scatter, unshard,
+                                   with_spec)
+from ..core.tree import tree_map
 from ..kernels import ops
 
 Params = Any
@@ -577,6 +587,20 @@ def _local(x, split: bool = False):
             and not x.placements[names.index("model")].is_shard()):
         return copy_to_ranks(local, *_model_line(x))
     return local
+
+
+def gather_data(tree: Params, data) -> Params:
+    """``tree``'s weights with their ``data`` (FSDP storage) dim gathered
+    over the data axis (:func:`~repro_torch.core.spmd_pipeline.unshard`),
+    still split over ``model``; plain tensors and leaves whole over
+    ``data`` unchanged.  ``data``: the (process group, transport) over
+    which the batch is split
+    (:func:`~repro_torch.core.spmd_pipeline.batch_line`), or None.  The
+    rule of :func:`_local`, for the data axis: the gradient is summed over
+    the axis exactly when the batch is split over it (each rank's rows
+    give a part of it); with the batch whole on every rank each rank's
+    gradient is already the whole, and it keeps its part."""
+    return tree_map(lambda a: unshard(a, "data", data is not None), tree)
 
 
 def _cut(x: torch.Tensor, dim: int, lo: int, hi: int) -> torch.Tensor:

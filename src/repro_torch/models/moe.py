@@ -67,6 +67,17 @@ the normalised gates as they enter the combine and on the tokens as they
 enter the dispatch (:func:`~repro_torch.core.spmd_pipeline.copy_to_ranks`),
 so the router, the norm and everything upstream see whole gradients.
 
+A batch split over a data axis (each rank its rows, ``data`` in
+:func:`moe_apply`): the mode, the group count G and the capacity C are
+decided from the global token count, as the JAX function decides them on
+the global batch; each rank runs its G/n groups, or, where a group spans
+several ranks' rows (G = 1 in decode), its part of the group, the
+positions in each expert's segment counted on from the assignments of the
+ranks before it (:func:`_peer_counts`; only counts move).  The aux losses
+take the means over every group and token: ``me``, ``ce``, the router z
+term and ``dropped_frac`` are averaged over the data axis (equal shards)
+before the load-balance product, the sum's gradient passing as it is.
+
 :func:`moe_ref` is a plain version that tests and ``chip_smoke.py`` hold
 the dispatches to: each kept assignment's expert FFN in f32, under a given
 routing.  The main path never calls it.
@@ -76,12 +87,13 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.profiler import record_function
 
 from ..core.spmd_pipeline import (all_gather_cat, all_reduce_sum,
-                                   copy_to_ranks, local_bounds, own_part,
-                                   reduce_scatter)
+                                   copy_to_ranks, gather_over_ranks,
+                                   local_bounds, own_part, reduce_scatter)
 from .layers import _cut, _dense_init, _local, _model_line, attention_mesh
 
 Params = Any
@@ -127,13 +139,39 @@ def _route(p: Params, xg: torch.Tensor, top_k: int):
     return logits, probs, gate, idx
 
 
-def _aux(logits, probs, idx, dropped) -> dict:
+def _aux(logits, probs, idx, dropped, data=None) -> dict:
+    """The aux losses of this rank's groups; over a batch split by the
+    data axis (``data``) the means ``me`` and ``ce``, the router z term
+    and ``dropped_frac`` are averaged over it first (in f32, one sum), so
+    the load-balance product is of the global means."""
     E = probs.shape[-1]
     me = torch.mean(probs, dim=(0, 1))
     ce = torch.mean(F.one_hot(idx[..., 0], E).to(torch.float32), dim=(0, 1))
+    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    if data is not None:
+        n = dist.get_world_size(data[0])
+        s = all_reduce_sum(torch.cat([me, ce, z[None], torch.as_tensor(
+            dropped, dtype=torch.float32, device=me.device).reshape(1)]),
+            *data) / n
+        me, ce, z, dropped = s[:E], s[E:2 * E], s[2 * E], s[2 * E + 1]
     return {"load_balance_loss": E * torch.sum(me * ce),
-            "router_z_loss": torch.mean(torch.logsumexp(logits, dim=-1) ** 2),
-            "dropped_frac": dropped}
+            "router_z_loss": z, "dropped_frac": dropped}
+
+
+def _peer_counts(counts: torch.Tensor, data: tuple, G: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Where a routing group spans several ranks' rows of a batch split
+    over the data axis (G of them over its n ranks, n/G ranks a group, in
+    rank order): (the sum of ``counts`` over the ranks before this one in
+    its group, their sum over the whole group).  ``counts`` are this
+    rank's assignments by expert (exact integers); they are gathered over
+    the axis, nothing else."""
+    group, transport = data
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    span = n // G
+    lo = r // span * span
+    every = gather_over_ranks(counts[None].contiguous(), 0, group, transport)
+    return every[lo:r].sum(0), every[lo:lo + span].sum(0)
 
 
 def _expert_ffn(p: Params, eb: torch.Tensor) -> torch.Tensor:
@@ -204,12 +242,15 @@ def _record(routing, logits, gate, idx, keep, C) -> None:
 
 
 def _grouped_dispatch(p: Params, xg: torch.Tensor, top_k: int, C: int,
-                      routing: dict | None = None
-                      ) -> tuple[torch.Tensor, dict]:
+                      routing: dict | None = None, data=None,
+                      peers=None) -> tuple[torch.Tensor, dict]:
     """Sort-based dispatch and gather combine, batched over groups.
     xg: [G, Ng, d] → y [G, Ng, d] in f64 (each token's k rows weighted and
     summed in f64, for the caller to round once); under expert parallelism
-    this rank's partial sum (the module docstring)."""
+    this rank's partial sum (the module docstring).  ``data``: the batch's
+    data axis (the aux means over it); ``peers``: the group count when
+    this rank's tokens are a part of one group spanning ranks
+    (:func:`_peer_counts`)."""
     G, N, d = xg.shape
     E = p["router"].shape[1]
     lo, hi, line = _experts(p)
@@ -228,6 +269,11 @@ def _grouped_dispatch(p: Params, xg: torch.Tensor, top_k: int, C: int,
             se, torch.arange(E, device=dev).expand(G, E).contiguous())
         pos = (torch.arange(Nk, device=dev)[None]
                - torch.gather(seg_start, 1, se))
+        if peers is not None:           # the group's earlier ranks' first
+            ends = torch.cat([seg_start[:, 1:], torch.full(
+                (G, 1), Nk, device=dev, dtype=seg_start.dtype)], 1)
+            before, _ = _peer_counts(ends - seg_start, data, peers)
+            pos = pos + torch.gather(before, 1, se)
         keep_s = pos < C
         dest_s = torch.where(keep_s, se * C + pos,
                              torch.full((), E * C, device=dev))
@@ -249,17 +295,20 @@ def _grouped_dispatch(p: Params, xg: torch.Tensor, top_k: int, C: int,
 
     _record(routing, logits, gate, idx, keep, C)
     return y, _aux(logits, probs, idx,
-                   1.0 - torch.mean(keep.to(torch.float32)))
+                   1.0 - torch.mean(keep.to(torch.float32)), data)
 
 
 def _einsum_dispatch(p: Params, xg: torch.Tensor, top_k: int, C: int,
-                     routing: dict | None = None
-                     ) -> tuple[torch.Tensor, dict]:
+                     routing: dict | None = None, data=None,
+                     peers=None) -> tuple[torch.Tensor, dict]:
     """GShard-style einsum dispatch and the gather combine, batched over
     groups. xg: [G, Ng, d], many groups of ~512 tokens → y [G, Ng, d] in
     f64 (:func:`_combine`, for the caller to round once).  Under expert
     parallelism the dispatch mask is this rank's experts' and the result
-    its partial sum."""
+    its partial sum.  ``data`` and ``peers`` as in
+    :func:`_grouped_dispatch`: slot j's positions start after every
+    assignment of the slots before it in the group and of the group's
+    earlier ranks in slot j."""
     G, N, d = xg.shape
     E = p["router"].shape[1]
     lo, hi, line = _experts(p)
@@ -269,12 +318,19 @@ def _einsum_dispatch(p: Params, xg: torch.Tensor, top_k: int, C: int,
 
     with record_function("moe:dispatch"):
         xd = xg if line is None else _dispatched(xg, line)
-        counts = torch.zeros((G, E), dtype=torch.float32, device=xg.device)
+        # each slot's assignments by expert [G, k, E] (exact integers)
+        slots = torch.zeros((G, top_k, E), dtype=torch.float32,
+                            device=xg.device).scatter_add_(
+            2, idx.transpose(1, 2), torch.ones(idx.transpose(1, 2).shape,
+                                               device=xg.device))
+        before, total = ((0.0, slots) if peers is None
+                         else _peer_counts(slots, data, peers))
+        base = torch.cumsum(total, dim=1) - total + before
         disp = None
         kept, keeps, dests = 0.0, [], []
         for j in range(top_k):
             oh_e = F.one_hot(idx[..., j], E).to(torch.float32)     # [G,N,E]
-            pos = counts[:, None, :] + torch.cumsum(oh_e, dim=1) - oh_e
+            pos = base[:, j, None, :] + torch.cumsum(oh_e, dim=1) - oh_e
             pos_j = torch.sum(pos * oh_e, dim=-1)                  # [G,N]
             keep_j = pos_j < C
             # jax.nn.one_hot gives a zero row at pos_j >= C, where
@@ -285,7 +341,6 @@ def _einsum_dispatch(p: Params, xg: torch.Tensor, top_k: int, C: int,
             # compute dtype: its entries are exact {0, 1}
             m = _cut(oh_e, 2, lo, hi).to(dt)[..., None] * oh_c[:, :, None, :]
             disp = m if disp is None else disp + m
-            counts = counts + torch.sum(oh_e, dim=1)
             kept = kept + torch.mean(keep_j.to(torch.float32))
             keeps.append(keep_j)
             dests.append(torch.where(keep_j, idx[..., j] * C
@@ -303,7 +358,7 @@ def _einsum_dispatch(p: Params, xg: torch.Tensor, top_k: int, C: int,
                      line)
 
     _record(routing, logits, gate, idx, keep, C)
-    return y, _aux(logits, probs, idx, 1.0 - kept / top_k)
+    return y, _aux(logits, probs, idx, 1.0 - kept / top_k, data)
 
 
 def moe_groups(n_tokens: int, n_experts: int) -> int:
@@ -325,13 +380,14 @@ def moe_groups(n_tokens: int, n_experts: int) -> int:
 def moe_apply(p: Params, x: torch.Tensor, top_k: int,
               capacity_factor: float = 1.25, n_groups: int | None = None,
               mode: str | None = None, routing: dict | None = None, *,
-              seq: bool = False) -> tuple[torch.Tensor, dict]:
+              seq: bool = False, data: tuple | None = None
+              ) -> tuple[torch.Tensor, dict]:
     """x [B, T, d] → (y [B, T, d], aux).  mode: "einsum" (GShard masks),
     "sort", or None: einsum when the tokens make at least 16 groups of
     :data:`EINSUM_GROUP`, else sort.  C = max(1, int(Ng * top_k / E *
     capacity_factor)).  ``routing``, when given, receives the decision:
     ``mode``, ``G``, ``C``, the f32 ``logits``, ``idx`` and ``gate``
-    [G, Ng, k] and the ``keep`` mask [G, Ng, k].
+    [G, Ng, k] and the ``keep`` mask [G, Ng, k] (this rank's groups).
 
     Under expert parallelism (DTensor weights, the module docstring) each
     rank's partial sum is summed over the model axis in f64 and rounded
@@ -339,14 +395,19 @@ def moe_apply(p: Params, x: torch.Tensor, top_k: int,
     T (the sequence-parallel carry); the parts are gathered before the
     routing, which sees every token, and the result is this rank's part
     (the sum's part, or the whole result's).  The gather's gradient is the
-    rank's slice of a gradient already whole on every rank, not summed."""
+    rank's slice of a gradient already whole on every rank, not summed.
+    ``data``: x is this rank's rows of a batch split over the data axis,
+    whose (process group, transport) this is; mode, ``n_groups`` (G) and C
+    are the global batch's, and the aux losses its means (the module
+    docstring)."""
     line = _experts(p)[2]
     if seq:
         seq_line = _model_line(p["wi"])
         x = all_gather_cat(x, 1, *seq_line)
     B, T, d = x.shape
     E = p["router"].shape[1]
-    N = B * T
+    n = 1 if data is None else dist.get_world_size(data[0])
+    N = B * T * n                       # the global batch's tokens
     if mode is None:
         mode = ("einsum" if N % EINSUM_GROUP == 0
                 and N // EINSUM_GROUP >= 16 else "sort")
@@ -358,9 +419,17 @@ def moe_apply(p: Params, x: torch.Tensor, top_k: int,
         dispatch = _grouped_dispatch
     Ng = N // G
     C = max(1, int(Ng * top_k / E * capacity_factor))
+    if G % n == 0:                      # this rank's G/n whole groups
+        Gl, peers = G // n, None
+    elif n % G == 0:                    # its part of a group of n/G ranks
+        Gl, peers = 1, G
+    else:
+        raise NotImplementedError(f"{G} routing groups over a batch split "
+                                  f"{n} ways")
     if routing is not None:
         routing.update(mode=mode, G=G)
-    y, aux = dispatch(p, x.reshape(G, Ng, d), top_k, C, routing)
+    y, aux = dispatch(p, x.reshape(Gl, B * T // Gl, d), top_k, C, routing,
+                      data, peers)
     y = y.reshape(B, T, d)
     if line is not None:                 # the ranks' partial sums, in f64
         y = (reduce_scatter(y, 1, *line) if seq

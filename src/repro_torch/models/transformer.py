@@ -36,6 +36,18 @@ weights and a :class:`~repro_torch.models.layers.SeqParallel`
 ``act_constraint``, :meth:`LM.apply` keeps each rank's part of the tokens
 between layers and gathers the final norm's output.
 
+A batch split over a data axis (its tensors DTensors whose dim 0 is split,
+:func:`~repro_torch.launch.sharding.distribute_batch`): every rank
+computes its own rows, each layer's weights and the embedding table
+gathered over ``data`` as they are read
+(:func:`~repro_torch.models.layers.gather_data`), their gradient summed
+back over it; :meth:`LM.loss` sums the masked losses and token counts over
+the axis before it divides, so every rank holds (and back-propagates once)
+the global batch's mean; the moe blocks route by the global batch's
+groups.  Hidden states, logits and the cache are the rank's rows, plain
+tensors; a batch whole on every rank (a plain tensor, or one the guard
+left whole) is computed whole, the gathers' gradients kept, not summed.
+
 The vlm blocks mark their card time for the profiler: ``vlm:self``,
 ``vlm:cross`` (the attentions), ``vlm:mlp`` and ``vlm:cross_kv`` (the
 prefill's image K/V).
@@ -52,17 +64,18 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.placement import resolve_device
 from ..core.spmd_pipeline import (all_gather_cat, all_reduce_sum,
-                                   copy_to_ranks, is_dtensor, local_bounds,
-                                   local_tensor, own_part, reduce_over_ranks,
-                                   unbind_layers)
+                                   batch_line, copy_to_ranks, is_dtensor,
+                                   local_bounds, local_tensor, own_part,
+                                   reduce_over_ranks, unbind_layers)
 from ..core.tree import flatten, tree_map, unflatten
 from ..kernels import ops
 from .config import ArchConfig
 from .layers import (SeqParallel, _cache_part, _cache_read, _con_heads,
                      _cut, _kv_for_heads, _local, _model_line,
                      _row_parallel, attention, attention_init, embed,
-                     embed_init, gqa_combine, gqa_scores, lm_logits,
-                     logits_f32, mlp, mlp_init, rmsnorm, rmsnorm_init)
+                     embed_init, gather_data, gqa_combine, gqa_scores,
+                     lm_logits, logits_f32, mlp, mlp_init, rmsnorm,
+                     rmsnorm_init)
 from .moe import AUX_KEYS, moe_apply, moe_init
 from .rwkv import rwkv_block, rwkv_init, rwkv_init_state
 from .ssm import ssm_apply, ssm_init, ssm_init_state
@@ -117,7 +130,8 @@ def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
                  window: int, theta: float, cache: Params | None = None,
                  cache_pos: int | None = None,
                  img_kv: torch.Tensor | Params | None = None,
-                 is_cross: bool = False, seq: bool = False
+                 is_cross: bool = False, seq: bool = False,
+                 data: tuple | None = None
                  ) -> tuple[torch.Tensor, Params | None, dict | None]:
     """One block. Returns (x, new_cache, aux); aux is None but for a moe
     block (the JAX block's zeros).  ``seq``: ``x`` is this rank's part of
@@ -128,7 +142,9 @@ def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
     tensors, written in place) and the hybrid block's new ``ssm`` state;
     None without a cache, and always None for a cross block (``is_cross``),
     which attends to ``img_kv``: raw image embeddings [B, M, d], or a dict
-    of the cached ``ck``/``cv`` (:func:`_cross_from_cache`)."""
+    of the cached ``ck``/``cv`` (:func:`_cross_from_cache`).  ``data``: x
+    is this rank's rows of a batch split over the data axis (the moe
+    block's routing groups are the global batch's)."""
     if cfg.rwkv:
         x, new_state = rwkv_block(p["rwkv"], x, p["ln1"], p["ln2"],
                                   state=cache, seq=seq)
@@ -159,7 +175,7 @@ def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
     h2 = rmsnorm(p["ln2"], x, split=seq)
     if "moe" in p:
         y, aux = moe_apply(p["moe"], h2, cfg.top_k, cfg.moe_capacity_factor,
-                           seq=seq)
+                           seq=seq, data=data)
     else:
         with _range(cfg, "vlm:mlp"):
             y, aux = mlp(p["mlp"], h2, seq=seq), None
@@ -330,8 +346,20 @@ class LM:
                             f"{img_embeds.dtype}, the model is {want}")
         return img_embeds
 
-    def _embed_in(self, params: Params, ids, embeds) -> torch.Tensor:
-        x = embeds if self.cfg.embeds_in else embed(params["embed"], ids)
+    def _batch(self, ids, embeds) -> tuple | None:
+        """The data axis's (process group, transport) where the batch's
+        input is split over it
+        (:func:`~repro_torch.core.spmd_pipeline.batch_line`), else None."""
+        return batch_line(embeds if self.cfg.embeds_in else ids)
+
+    def _embed_in(self, params: Params, ids, embeds,
+                  data=None) -> torch.Tensor:
+        """This rank's rows of the input, embedded (the table gathered over
+        ``data`` first, :func:`~repro_torch.models.layers.gather_data`)."""
+        if self.cfg.embeds_in:
+            x = local_tensor(embeds)
+        else:
+            x = embed(gather_data(params["embed"], data), local_tensor(ids))
         return x.to(torch_dtype(self.cfg.dtype))
 
     # -- full-sequence forward ------------------------------------------------ #
@@ -357,11 +385,14 @@ class LM:
         part of the carry between layers (the dense blocks, the norms on
         the part, the final norm's output gathered);
         ``param_constraint``: one applied to each layer's weights before
-        the layer runs."""
+        the layer runs, after their ``data`` dim is gathered.  ``ids`` or
+        ``embeds`` may be DTensors split over a data axis (the module
+        docstring): the hidden states are then this rank's rows."""
         cfg = self.cfg
         con = act_constraint or (lambda h: h)
         pcon = param_constraint or (lambda p: p)
-        x = self._embed_in(params, ids, embeds)
+        data = self._batch(ids, embeds)
+        x = self._embed_in(params, ids, embeds, data)
         line = (SeqParallel.line(params["final_norm"]["scale"], x.shape[1])
                 if isinstance(act_constraint, SeqParallel) else None)
         x = own_part(x, 1, *line) if line else con(x)
@@ -371,15 +402,16 @@ class LM:
                                      remat, con, pcon, seq)
         else:
             x, aux = self._apply_layers(params, x, remat, con, pcon, seq,
-                                        scan_chunks)
+                                        scan_chunks, data)
         x = rmsnorm(params["final_norm"], x, split=seq)
         return (all_gather_cat(x, 1, *line) if line else x), aux
 
     def _apply_layers(self, params: Params, x: torch.Tensor, remat: bool,
-                      con, pcon, seq: bool, scan_chunks: int
+                      con, pcon, seq: bool, scan_chunks: int, data=None
                       ) -> tuple[torch.Tensor, dict]:
         """The layer stack of :meth:`apply` (no vlm groups), before the
-        final norm."""
+        final norm; each layer's weights gathered over ``data`` inside its
+        checkpoint, so the backward gathers them again."""
         cfg = self.cfg
         layers = _unstack(params["layers"])
         meta = self._layer_meta()
@@ -387,8 +419,9 @@ class LM:
         def layer(i: int, h: torch.Tensor
                   ) -> tuple[torch.Tensor, dict | None]:
             w, th = meta[i]
-            h, _, aux = _block_apply(cfg, pcon(layers[i]), h, window=w,
-                                     theta=th, seq=seq)
+            h, _, aux = _block_apply(cfg, pcon(gather_data(layers[i], data)),
+                                     h, window=w, theta=th, seq=seq,
+                                     data=data)
             return con(h), aux
 
         def run(lo: int, hi: int, h: torch.Tensor, aux: dict
@@ -452,10 +485,18 @@ class LM:
         alive at a time.  Over a vocab-sharded table (a DTensor) each rank
         takes the logits of its rows (:func:`_chunk_nll_sharded`), and
         ``hidden``'s gradient, a part on each rank, is summed over the
-        model axis."""
+        model axis.  ``targets`` and ``mask`` split over a data axis
+        (DTensors, ``hidden`` the rank's rows): the table is gathered over
+        it, and the loss and token sums are summed over it before the
+        division, so every rank returns the global batch's mean, whose
+        gradient is its rows' part (the sum's backward passes it as it
+        is)."""
+        data = batch_line(targets)
+        hidden, targets = local_tensor(hidden), local_tensor(targets)
+        mask = None if mask is None else local_tensor(mask)
         B, S, _ = hidden.shape
         chunk = min(chunk, S)
-        table = params["embed"]["table"]
+        table = gather_data(params["embed"], data)["table"]
         vocab, vb = self.cfg.vocab, local_bounds(table)[0]
         sharded = vb.stop - vb.start != table.shape[0]
         if sharded:                        # this rank's vocab rows
@@ -473,13 +514,19 @@ class LM:
                 tot = tot + _remat(_chunk_nll_sharded, hidden[:, sl], rows,
                                    vb.start, t, m, vocab, *line)
             else:
-                tot = tot + _remat(_chunk_nll, hidden[:, sl], table, t, m,
-                                   vocab)
+                tot = tot + _remat(_chunk_nll, hidden[:, sl], _local(table),
+                                   t, m, vocab)
             cnt = cnt + m.sum()
+        if data is not None:                # the global batch's sums
+            tot = all_reduce_sum(tot, *data)
+            cnt = reduce_over_ranks(cnt, *data)
         return tot / torch.clamp(cnt, min=1.0)
 
     def logits(self, params: Params, hidden: torch.Tensor) -> torch.Tensor:
-        return lm_logits(params["embed"], hidden, self.cfg.vocab)
+        """[B, T, vocab] f32 logits of ``hidden`` (the table gathered over
+        ``data`` first; serving, no gradient summed over it)."""
+        return lm_logits(gather_data(params["embed"], None), hidden,
+                         self.cfg.vocab)
 
     # -- KV cache / serving ----------------------------------------------------- #
     def init_cache(self, batch: int, cache_len: int, device=None) -> Params:
@@ -518,7 +565,9 @@ class LM:
                 ) -> tuple[torch.Tensor, Params]:
         """Fill the cache with the prompt; returns (last-token hidden, cache).
         A vlm model also writes the image K/V of ``img_embeds`` into the
-        cache's ``cross`` leaves, which its decode steps read."""
+        cache's ``cross`` leaves, which its decode steps read.  ``ids``
+        (``embeds``) split over a data axis: the rank's rows of the cache
+        and of the hidden states."""
         h, cache = self._forward_cached(params, ids, cache, 0, embeds=embeds,
                                         img_embeds=img_embeds)
         return h[:, -1:], cache
@@ -540,14 +589,16 @@ class LM:
                         embeds=None, img_embeds=None, param_constraint=None
                         ) -> tuple[torch.Tensor, Params]:
         pcon = param_constraint or (lambda p: p)
-        x = self._embed_in(params, ids, embeds)
+        data = self._batch(ids, embeds)
+        x = self._embed_in(params, ids, embeds, data)
         if self.cfg.cross_attn_every:
             return self._forward_cached_vlm(params, x, cache, int(pos),
                                             img_embeds)
         for lp, lc, (w, th) in zip(_unstack(params["layers"]),
                                    _unstack(cache), self._layer_meta()):
-            x, new, _ = _block_apply(self.cfg, pcon(lp), x, window=w,
-                                     theta=th, cache=lc, cache_pos=int(pos))
+            x, new, _ = _block_apply(self.cfg, pcon(gather_data(lp, data)),
+                                     x, window=w, theta=th, cache=lc,
+                                     cache_pos=int(pos), data=data)
             _write_back(lc, new)
         x = rmsnorm(params["final_norm"], x)
         return x, cache

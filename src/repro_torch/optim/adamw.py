@@ -14,8 +14,9 @@ Parameters that are DTensors (tensor-parallel training across ranks) get
 moments that are DTensors laid out as their parameter (``opt_shardings``),
 each rank allocating only its shard; the update runs on each rank's local
 tensors, in place, with the same arithmetic, and :func:`global_norm` sums
-the squares of the sharded leaves' shards over the ranks once, so the norm
-and the clip scale are the same number on every rank.
+the squares of the sharded leaves' shards over the ranks once (over the
+model axis, and over ``data`` for a leaf whose storage-only dim is split
+there), so the norm and the clip scale are the same number on every rank.
 """
 from __future__ import annotations
 

@@ -36,9 +36,9 @@ beyond the vocab are masked), B 2 x S 16, loss chunk 8 (two chunks):
   each rank's use of ``x``, ``wq``, ``wk`` and ``wv`` is a part and their
   gradients are summed; loss and every gradient against ``jax.grad``,
   ``seq_parallel`` on and off;
-* the refusals: a data axis of 2 (the moe, ssm, hybrid and vlm
-  families' too; the moe and vlm params and moments take their local
-  shapes), ``scan_chunks``;
+* the refusals: a data axis of 2 for the ssm, hybrid and vlm families
+  (the dense and moe families run on it; the moe and vlm params and
+  moments take their local shapes), ``scan_chunks``;
 * plain tensors (one process) take today's path, bit for bit, with a
   layout registered or not;
 * ``models/``, ``core/`` and ``kernels/`` import nothing from ``launch/``.
@@ -393,12 +393,13 @@ def test_audio_family_serves_and_trains_under_the_model_axis(reference):
 
 
 def test_train_step_refuses_what_is_not_ported(reference):
-    """A data axis over two ranks and ``scan_chunks`` raise
-    ``NotImplementedError``; nothing runs whole instead.  The moe family
-    is taken (expert parallelism, ``tests/test_torch_ep.py``), and so are
-    the ssm (rwkv), hybrid (hymba) and vlm families
-    (``tests/test_torch_tp_recurrent.py``, ``tests/test_torch_tp_vlm.py``):
-    each is refused for the data axis alone, as the dense family is.  On
+    """``scan_chunks`` raises ``NotImplementedError``, and so does a data
+    axis over two ranks for the ssm (rwkv), hybrid (hymba) and vlm
+    families (taken under a model axis alone:
+    ``tests/test_torch_tp_recurrent.py``, ``tests/test_torch_tp_vlm.py``),
+    each by its family's name; nothing runs whole instead.  The dense and
+    moe families run on it (``tests/test_torch_fsdp.py``: here the batch
+    is whole on every rank).  On
     the (data 2, model 2) mesh the moe and vlm families' params and
     moments are at their ``param_shardings`` local shapes (the experts
     split over model, d over data, the router whole; the vlm self layers'
@@ -429,10 +430,10 @@ def test_train_step_refuses_what_is_not_ported(reference):
     L, E, d, ff = moe.n_layers, moe.n_experts, moe.d_model, moe.d_ff
     for r in res:
         for c in families:
-            assert "(1, model) mesh" in r[c.arch_id], (c.arch_id,
-                                                       r[c.arch_id])
-        assert "(1, model) mesh" in r[reference["cfg"].arch_id]
-        assert "(1, model) mesh" in r[moe.arch_id], r[moe.arch_id]
+            assert f"the {c.family} family under a data axis" in r[
+                c.arch_id], (c.arch_id, r[c.arch_id])
+        assert r[reference["cfg"].arch_id] == ""
+        assert r[moe.arch_id] == "", r[moe.arch_id]
         assert r["shapes"][moe.arch_id] == want
         assert r["shapes"][vlm.arch_id] == want_vlm
         for n in ("params", "m", "v"):

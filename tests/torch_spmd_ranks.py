@@ -166,9 +166,10 @@ def tp_init_rank(mesh, cfg, moe_cfg, vlm_cfg, seed):
     the whole leaf at its ``local_bounds``, contiguous, and nothing else;
     ``init_cache_sharded``'s local shapes; the same of a moe config (its
     experts split over the model axis) and of ``vlm_cfg`` (its ``[G, per,
-    ...]`` self layers and ``{"self", "cross"}`` cache); the refusals: the
-    serve step's of a data axis over more than one rank (each config), and
-    K7's of a DTensor (its plain version must not take one)."""
+    ...]`` self layers and ``{"self", "cross"}`` cache); the serve step
+    on a data axis over more than one rank (each config's refusal, or ""
+    where it ran), and K7's refusal of a DTensor (its plain version must
+    not take one)."""
     from repro_torch.core.spmd_pipeline import local_bounds
     from repro_torch.core.tree import leaves
     from repro_torch.launch import sharding as TS
@@ -268,12 +269,14 @@ def _grads_of(mesh, cfg, params, batch, sp, loss_chunk):
     return float(ce), _shards(tree), laid_out
 
 
-def _train_steps(mesh, cfg, params, batches, kw, sp, opt=None) -> dict:
+def _train_steps(mesh, cfg, params, batches, kw, sp, opt=None,
+                 pin=None) -> dict:
     """One ``make_train_step`` step a batch of ``batches`` from a params
     tree held whole (``sp``: seq_parallel), and from ``opt``, a whole
     optimizer state laid out by ``opt_shardings`` (fresh moments when
     None): the metrics, the params' and moments' shards, and the moments'
-    placements equal to the params'."""
+    placements equal to the params'.  ``pin``: a :class:`PinRouting` whose
+    phase is ``p<i>`` for step i."""
     from repro_torch.core.spmd_pipeline import is_dtensor
     from repro_torch.core.tree import leaves
     from repro_torch.launch import sharding as TS
@@ -285,7 +288,9 @@ def _train_steps(mesh, cfg, params, batches, kw, sp, opt=None) -> dict:
         state["opt"] = TS.distribute_params(
             mesh, opt, TS.opt_shardings(mesh, opt, params))
     mets = []
-    for b in batches:
+    for i, b in enumerate(batches):
+        if pin is not None:
+            pin.phase = f"p{i}"
         state, met = step(state, b)
         mets.append({k: float(v) for k, v in met.items()})
     opt = state["opt"]
@@ -513,10 +518,14 @@ class PinRouting:
     ``phase`` before each call) and keeps the rank's own choices, before
     pinning, by (phase, layer) in ``own``.  ``choices`` None: nothing is
     pinned.  A layer's router is a view of the stacked ``[L, d, E]`` one,
-    so its storage offset names the layer (0 for one layer alone)."""
+    so its storage offset names the layer (0 for one layer alone).
+    ``part`` (i, n): the rank holds the i-th of n equal parts of the
+    global batch's tokens (its rows of a batch split over a data axis), so
+    it takes that part of the global choices."""
 
     def __init__(self, choices=None):
         self.choices, self.phase, self.own = choices, None, {}
+        self.part = None
 
     def __call__(self, router, logits, idx):
         layer = router.storage_offset() // router.numel()
@@ -524,8 +533,14 @@ class PinRouting:
             idx.detach().cpu().clone())
         if self.choices is None:
             return idx
-        return torch.as_tensor(self.choices[self.phase][layer],
-                               dtype=torch.long, device=idx.device)
+        chosen = torch.as_tensor(self.choices[self.phase][layer],
+                                 dtype=torch.long, device=idx.device)
+        if self.part is not None:
+            i, n = self.part
+            flat = chosen.reshape(-1, chosen.shape[-1])
+            m = flat.shape[0] // n
+            chosen = flat[i * m:(i + 1) * m]
+        return chosen.reshape(idx.shape)
 
 
 def _ep_grads(mesh, cfg, params, batch, sp, weights, loss_chunk):
@@ -536,8 +551,8 @@ def _ep_grads(mesh, cfg, params, batch, sp, weights, loss_chunk):
     loss differentiated (the same forward and constraints) → (the loss
     differentiated, the gradient shards, every gradient a DTensor laid
     out as its param, the aux values)."""
-    from repro_torch.core.spmd_pipeline import (is_dtensor, like_dtensor,
-                                                local_tensor)
+    from repro_torch.core.spmd_pipeline import (batch_line, is_dtensor,
+                                                like_dtensor, local_tensor)
     from repro_torch.core.tree import flatten, leaves, unflatten
     from repro_torch.launch import steps as TST
     from repro_torch.models import LM, layers
@@ -558,8 +573,10 @@ def _ep_grads(mesh, cfg, params, batch, sp, weights, loss_chunk):
             with torch.enable_grad():
                 for a in flat:
                     a.requires_grad_(True)
-                h, aux = model.apply(p, batch["ids"], act_constraint=con,
-                                     param_constraint=pcon)
+                kw = ({"embeds": batch["embeds"]} if cfg.embeds_in
+                      else {})
+                h, aux = model.apply(p, batch.get("ids"), act_constraint=con,
+                                     param_constraint=pcon, **kw)
                 ce = model.loss(p, h, batch["labels"], batch["mask"],
                                 chunk=loss_chunk)
                 loss = (weights[0] * ce
@@ -571,6 +588,9 @@ def _ep_grads(mesh, cfg, params, batch, sp, weights, loss_chunk):
                 a.requires_grad_(False)
         grads = [like_dtensor(torch.zeros_like(local_tensor(a)), a)
                  if g is None else g for a, g in zip(flat, grads)]
+        if batch_line(batch["labels"]) is not None:   # the train step's rule
+            TST._sum_whole_over_data(flat, grads,
+                                     batch_line(batch["labels"]))
     laid_out = all(is_dtensor(g) and g.placements == a.placements
                    and g.shape == a.shape for g, a in zip(grads, flat))
     return (float(loss), _shards(unflatten(flatten(p)[1], grads)), laid_out,
@@ -703,4 +723,231 @@ def ep_rank(mesh, job):
         moe.ROUTING_HOOK = None
         layers.set_attention_mesh(None)
     out["own"] = pin.own
+    return out
+
+
+def _fsdp_serve(mesh, cfg, params, job, layout, pin) -> dict:
+    """Serving across a (data, model) mesh: the params by
+    ``param_shardings_serving`` (``layout`` "serving") or
+    ``param_shardings`` ("fsdp"), the prompt split over the data axis by
+    ``distribute_batch``; the prefill step's logits, ``LM.prefill`` into a
+    sharded cache, and the decode step's logits for each teacher-forced
+    token of ``job["dec"]``: each as (local tensor, bounds, global
+    shape), the logits also read whole by ``collect_batch``; the cache's
+    shards; whether the logits are DTensors split over the data axis
+    exactly when the batch is."""
+    from repro_torch.core.spmd_pipeline import batch_line, is_dtensor
+    from repro_torch.launch import sharding as TS
+    from repro_torch.launch import steps as TST
+
+    shard = (TS.param_shardings_serving if layout == "serving"
+             else TS.param_shardings)(mesh, params)
+    p = TS.distribute_params(mesh, params, shard)
+    key = "embeds" if cfg.embeds_in else "ids"
+    whole = job["batches"][0][key]
+    inp = TS.distribute_batch(mesh, {key: whole})[key]
+    model, pre = TST.make_prefill_step(cfg, mesh)
+    pin.phase = "p0"
+    logits = pre(p, {key: inp})
+    B, S, n = whole.shape[0], whole.shape[1], job["dec"].shape[1]
+    cache = TST.init_cache_sharded(cfg, mesh, B, S + n)
+    pin.phase = "fill"
+    model.prefill(p, None if cfg.embeds_in else inp, cache,
+                  **({"embeds": inp} if cfg.embeds_in else {}))
+    _, dec = TST.make_decode_step(cfg, mesh)
+    decs, split = [], batch_line(inp) is not None
+    laid_out = is_dtensor(logits) and (batch_line(logits) is not None) == split
+    for j in range(n):
+        pin.phase = f"dec{j}"
+        tok = TS.distribute_batch(mesh, {key: job["dec"][:, j:j + 1]})[key]
+        lg, cache = dec(p, cache, {key: tok, "pos": S + j})
+        laid_out = laid_out and is_dtensor(lg) and (
+            batch_line(lg) is not None) == split
+        decs.append(_shards({"x": lg})["x"])
+    return {"logits": _shards({"x": logits})["x"],
+            "collected": TS.collect_batch(logits).cpu(), "decode": decs,
+            "cache": _shards(cache), "laid_out": laid_out,
+            "input_local": tuple(inp.to_local().shape)}
+
+
+def _fsdp_moe_apply(mesh, job, pin) -> dict:
+    """``moe_apply`` on one layer's weights (whole over the data axis) and
+    x [B, T, d] split over it, for each (mode, G) of ``job["cases"]``:
+    the output, aux, C and the gradient of sum(y²) (the global batch's)
+    for x and the weights, the weights' summed over the data axis as the
+    train step sums a leaf whole over it."""
+    from repro_torch.core.spmd_pipeline import (batch_like, batch_line,
+                                                like_dtensor, local_tensor,
+                                                reduce_over_ranks)
+    from repro_torch.launch import sharding as TS
+    from repro_torch.models import moe
+
+    w = TS.distribute_params(mesh, {"moe": job["w"]})["moe"]
+    xb = TS.distribute_batch(mesh, {"x": job["x"]})["x"]
+    data = batch_line(xb)
+    names = ("router", "wi", "wo")
+    out = {}
+    for mode, groups in job["cases"]:
+        pin.phase = f"moe_{mode}{groups}"
+        routing = {}
+        x = xb.to_local().clone().requires_grad_(True)
+        try:
+            with torch.enable_grad():
+                for nm in names:
+                    w[nm].requires_grad_(True)
+                y, aux = moe.moe_apply(w, x, job["k"], job["cf"], groups,
+                                       mode, routing=routing, data=data)
+                gs = torch.autograd.grad((y * y).sum(), [x] + [w[nm] for nm
+                                                            in names])
+        finally:
+            for nm in names:
+                w[nm].requires_grad_(False)
+        grads = {"x": batch_like(gs[0], xb)}
+        for nm, g in zip(names, gs[1:]):
+            grads[nm] = like_dtensor(reduce_over_ranks(
+                local_tensor(g), *data, backward=True), g)
+        out[f"{mode}{groups}"] = {
+            "y": _shards({"y": batch_like(y.detach(), xb)})["y"],
+            "aux": {k: float(v) for k, v in aux.items()},
+            "G": routing["G"], "C": routing["C"], "grads": _shards(grads)}
+    return out
+
+
+def _fsdp_refusals(mesh, cfgs, dense) -> dict:
+    """What a (data, model) mesh refuses, each message ("" where it ran):
+    the prefill step of each of ``cfgs`` (the hybrid, ssm and vlm
+    families) with weights by ``param_shardings``; ``dense`` on a (pod 2,
+    model 2) mesh of the same ranks; the train step's ``scan_chunks``; and
+    ``with_spec`` moving a dim split over ``data`` (which ``unshard``
+    gathers instead)."""
+    import types
+
+    from repro_torch.core.spmd_pipeline import unshard, with_spec
+    from repro_torch.launch import mesh as TMESH
+    from repro_torch.launch import sharding as TS
+    from repro_torch.launch import steps as TST
+    from repro_torch.models import LM, layers
+
+    def refused(fn) -> str:
+        try:
+            fn()
+        except NotImplementedError as e:
+            return str(e)
+        return ""
+
+    out = {}
+    ids = torch.zeros((4, 8), dtype=torch.long)
+    try:
+        for c in cfgs:
+            whole = LM(c).init(torch.Generator().manual_seed(7))
+            p = TS.distribute_params(mesh, whole,
+                                     TS.param_shardings(mesh, whole))
+            kw = ({"img_embeds": torch.zeros((4, c.n_img_tokens,
+                                              c.d_model))}
+                  if c.cross_attn_every else {})
+            out[c.family] = refused(lambda: TST.make_prefill_step(c, mesh)[
+                1](p, {"ids": ids, **kw}))
+        whole = LM(dense).init(torch.Generator().manual_seed(7))
+        pods = TMESH.MeshLayout((2, 2), ("pod", "model"))
+        pod = types.SimpleNamespace(axis_names=pods.axis_names,
+                                    shape=pods.shape,
+                                    device_mesh=pods.device_mesh("cpu"))
+        p = TS.distribute_params(pod, whole, TS.param_shardings(pod, whole))
+        out["pod"] = refused(lambda: TST.make_prefill_step(dense, pod)[1](
+            p, {"ids": ids}))
+        batch = {"ids": ids, "labels": ids,
+                 "mask": torch.ones(ids.shape)}
+        _, step = TST.make_train_step(dense, mesh, scan_chunks=2)
+        out["scan_chunks"] = refused(lambda: step(
+            TST.init_train_state_sharded(dense, mesh, whole),
+            TS.distribute_batch(mesh, batch)))
+        x = TS.to_dtensor(mesh, torch.arange(8.0).reshape(2, 4) + 8 * (
+            mesh.axis_index("data")), TS.P("data", None), (4, 4))
+        out["with_spec"] = refused(lambda: with_spec(x, TS.P(None, None)))
+        out["with_spec_same"] = with_spec(x, TS.P("data", None)) is x
+        g = unshard(x, "data", False)
+        out["unshard"] = (tuple(g.to_local().shape), [q.is_replicate() for q
+                                                      in g.placements],
+                          bool(torch.equal(g.to_local(),
+                                           torch.arange(16.0).reshape(4, 4))))
+    finally:
+        layers.set_attention_mesh(None)
+    return out
+
+
+def fsdp_rank(mesh, jobs, moe_job=None, refusals=None) -> dict:
+    """A data axis over more than one rank (FSDP), for each job of
+    ``jobs`` (name → {"cfg", "params" held whole, "batches" (whole), "dec"
+    teacher-forced tokens or embeddings [B, n(, d)], "pins" (a moe
+    config's routing, or None), "serve", "grads", "steps": what to run}):
+    serving under both layouts (:func:`_fsdp_serve`), the loss and
+    gradient shards with ``seq_parallel`` on and off (the train step's,
+    and for a moe config the aux terms' and the cross-entropy's alone,
+    :func:`_ep_grads` on the batch split by ``distribute_batch``), two
+    ``make_train_step`` steps (:func:`_train_steps`); the batch's and the
+    cache's local shapes.  Given ``moe_job``, :func:`_fsdp_moe_apply`;
+    given ``refusals`` (cfgs, a dense cfg), :func:`_fsdp_refusals`; and
+    ``global_norm`` of a params tree by ``param_shardings`` against the
+    whole tree's.  ``DTensor.redistribute`` raises in this rank
+    throughout: no path may reach it."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.core.spmd_pipeline import batch_line
+    from repro_torch.core.tree import leaves
+    from repro_torch.launch import sharding as TS
+    from repro_torch.models import layers, moe
+    from repro_torch.optim.adamw import global_norm
+
+    def no_redistribute(self, *a, **k):
+        raise AssertionError("DTensor.redistribute reached")
+
+    saved = DTensor.redistribute
+    DTensor.redistribute = no_redistribute
+    pin = PinRouting()
+    moe.ROUTING_HOOK = pin
+    out: dict = {}
+    try:
+        for name, job in jobs.items():
+            cfg, params = job["cfg"], job["params"]
+            pin.choices = job.get("pins")
+            first = TS.distribute_batch(mesh, job["batches"][0])
+            r = out[name] = {"batch_local": {
+                k: tuple(v.to_local().shape) for k, v in first.items()}}
+            split = batch_line(first["labels"]) is not None
+            pin.part = ((mesh.axis_index("data"), mesh.shape["data"])
+                        if split else None)
+            if job.get("serve"):
+                r["serve"] = {lay: _fsdp_serve(mesh, cfg, params, job, lay,
+                                               pin)
+                              for lay in ("serving", "fsdp")}
+            chunk = job["kw"]["loss_chunk"]
+            if job.get("grads"):
+                r["grads"] = {}
+                for sp in (True, False):
+                    pin.phase = "p0"
+                    r["grads"][sp] = {
+                        part: _ep_grads(mesh, cfg, params, first, sp,
+                                        weights, chunk)
+                        for part, weights in job["grads"].items()}
+            if job.get("steps"):
+                batches = [TS.distribute_batch(mesh, b)
+                           for b in job["batches"]]
+                r["steps"] = {sp: _train_steps(mesh, cfg, params, batches,
+                                               job["kw"], sp, pin=pin)
+                              for sp in (True, False)}
+        if moe_job is not None:
+            pin.choices = moe_job["pins"]
+            pin.part = (mesh.axis_index("data"), mesh.shape["data"])
+            out["moe_apply"] = _fsdp_moe_apply(mesh, moe_job, pin)
+        if refusals is not None:
+            out["refused"] = _fsdp_refusals(mesh, *refusals)
+        job = next(iter(jobs.values()))
+        whole = job["params"]
+        p = TS.distribute_params(mesh, whole, TS.param_shardings(mesh, whole))
+        out["norm"] = (float(global_norm(p)), float(global_norm(whole)),
+                       len(leaves(p)))
+    finally:
+        DTensor.redistribute = saved
+        moe.ROUTING_HOOK = None
+        layers.set_attention_mesh(None)
     return out
