@@ -45,13 +45,13 @@ version there:
   tokens through the einsum dispatch, 32 greedy tokens through the sort
   dispatch; K7 on every prefill self-attention), and training at 2 layers
   (batch 2 x 4096, loss chunk 512, per-layer remat, AdamW; K7-K9);
-* the ssm and hybrid families at full widths, served at 8 of their
+* the ssm and hybrid families at full widths, served at 4 of their
   layers: rwkv6-1.6b (d 2048, 32 RWKV-6 heads of 64, d_ff 7168, vocab
-  65536; 8 of 24 layers) and hymba-1.5b (d 1600, 25 heads x 64 over 5 kv
-  heads, window 1024 on every layer, a selective-SSM branch of state 16; 8
+  65536; 4 of 24 layers) and hymba-1.5b (d 1600, 25 heads x 64 over 5 kv
+  heads, window 1024 on every layer, a selective-SSM branch of state 16; 4
   of 32 layers), bf16 with the recurrences in f32: ``serve_lm`` with 4
   prompts of 4096 tokens (the chunked scans) and 32 greedy tokens (K7 on
-  every hymba prefill self-attention), and training at 2 layers (batch 2 x
+  every hymba prefill self-attention), and training at 1 layer (batch 2 x
   4096, remat nesting the scans' chunk checkpoints; K7-K9 for hymba);
 * the vlm family at llama-3.2-vision-11b's full widths and all its layers
   (d 4096, 32 heads x 128 over 8 kv heads, d_ff 14336, vocab 128256; 40
@@ -89,16 +89,16 @@ version there:
   sharing the card draws the whole weights and keeps its 32 of the 64
   experts, 8 of the 16 heads and half of the vocab rows; served at 4 of
   its 48 layers (2 prompts of 2048 tokens through the sort dispatch, 16
-  teacher-forced decode steps) and trained at 2 layers (2 x 4096 tokens
+  teacher-forced decode steps) and trained at 1 layer (2 x 4096 tokens
   through the einsum dispatch, ``seq_parallel`` on and off), with the
   whole-model run's routing pinned (K7 on each rank's local heads, K8 and
   K9 in the backward);
 * the hybrid and ssm families tensor-parallel (their recurrences on each
   rank's channels or heads, the state in the cache's layout) at
   hymba-1.5b's and rwkv6-1.6b's full widths on a (data 1, model 2) mesh
-  sharing the card: served at 8 of 32 and 6 of 24 layers (2 prompts of
+  sharing the card: served at 2 of 32 and 2 of 24 layers (2 prompts of
   2048 tokens, 16 teacher-forced decode steps; K7 on all 25 of hymba's
-  heads on each rank, since 25 does not divide 2) and trained at 2 layers
+  heads on each rank, since 25 does not divide 2) and trained at 1 layer
   (2 x 2048 tokens, ``seq_parallel`` on and off; K7-K9 for hymba);
 * the vlm family tensor-parallel at llama-3.2-vision-11b's full widths on
   a (data 1, model 2) mesh sharing the card: each rank holds 16 of the 32
@@ -109,7 +109,18 @@ version there:
   teacher-forced decode steps; K7 on each rank's heads, causal on the 8
   self layers and causal=False on the 2 cross layers) and trained at one
   group (2 x 2048 tokens, ``seq_parallel`` on and off; K7-K9 on the self
-  and the cross layers).
+  and the cross layers);
+* a data axis over more than one rank (FSDP) on a (data 2, model 2) mesh
+  of 4 ranks sharing the card, one row of each batch a data rank:
+  gemma3-12b (4 layers served, 2 trained), moonshot-v1-16b-a3b (2 and
+  2), hymba-1.5b and rwkv6-1.6b (2 served, 1 trained; every recurrent
+  state holding the rank's row) at full widths, served by
+  ``param_shardings_serving`` (2 prompts of 2048 tokens, 16 or 8
+  teacher-forced decode steps) and, but for moonshot, by
+  ``param_shardings`` (the prefill and 2 decode steps, each layer and the
+  embed table gathered over data as they are read), trained with
+  ``seq_parallel`` on and off (moonshot on); K7 on each rank's heads, K8
+  and K9 in the backward (none for rwkv).
 
 Phases:
 
@@ -209,11 +220,11 @@ Phases:
               carrying their state (2e-4, every zero- or one-initialised
               leaf drawn first); (b) time_mix at [1, 512, 2048] with the
               scan's chunked remat on and off (outputs and every gradient,
-              1e-5 relative); (c) serve_lm at 8 layers: K7 launches
-              (hymba 8 in the prefill, rwkv none), finite logits, served
+              1e-5 relative); (c) serve_lm at 4 layers: K7 launches
+              (hymba 4 in the prefill, rwkv none), finite logits, served
               twice bit for bit; (d) decode against LM.apply over prompt +
               generated at batch 1 x 1024, f32 1e-4 and bf16 2.5e-2 of the
-              largest logit; (e) 4 training steps at 2 layers (the loss
+              largest logit; (e) 4 training steps at 1 layer (the loss
               falls, launches and routes, every gradient finite), hymba's
               kernel step against a plain-attention step (loss 1e-3) and
               each leaf's gradient error within 1.5x an SDPA control's,
@@ -298,7 +309,7 @@ Phases:
               pinned routing (the whole run's too) each within 2e-2 of
               max|ref|; K7 at each
               rank's [2, 2048, 8, 128] element by element, rank 0's timed
-              beside the bound and SDPA; training (2 layers): steps 1 and 3
+              beside the bound and SDPA; training (1 layer): steps 1 and 3
               (seq_parallel, then without from the same start) pinned, loss
               1e-3 and grad_norm 1e-2 relative of the whole run's,
               dropped_frac equal, each layer's router, ln2, wq and experts
@@ -324,7 +335,7 @@ Phases:
               shapes (hymba's ssm/in_proj, attn/wq whole, attn/wo's half
               of the rows, ssm h/conv and the k/v cache's half of
               head_dim; rwkv's wr, wo, ck, S split on its last dim,
-              tm_last), K7 launches (16 on each hymba rank, wgmma route),
+              tm_last), K7 launches (4 on each hymba rank, wgmma route),
               prefill and decode ms, peak GB, the collectives' count, MB
               and ms in a rerun; the prefill and decode logits and every
               cache leaf reassembled (hymba's k/v, h, conv; rwkv's S,
@@ -333,7 +344,7 @@ Phases:
               an f32 run of the same weights fed the same tokens (the
               control; rwkv's deepest token-shift states read ~1.05 of
               the first limit), the decode within 2.5e-2 of LM.apply over
-              the prompt and the fed tokens on the ranks; training (2 layers):
+              the prompt and the fed tokens on the ranks; training (1 layer):
               steps 1 and 3 (seq_parallel, then without from the same
               start) loss 1e-3 and grad_norm 1e-2 relative of the whole
               run's, every gradient leaf within 2e-2 of max|g_ref| or
@@ -372,7 +383,24 @@ Phases:
               16, 128], 2048 or 1601 keys) element by element, rank 0's
               timed beside the bound, the plain version and SDPA; the
               phase's seconds (budget 90)
-17. the ``kernels`` JSON line (the ranks' launches added), the nvidia-smi
+17. fsdp    — gemma3-12b, moonshot-v1-16b-a3b, hymba-1.5b and rwkv6-1.6b
+              on a (data 2, model 2) mesh of 4 ranks sharing the card,
+              each whole-model run in this process first (the same layout
+              registered; moonshot's routing pinned into the ranks; f32
+              controls for moonshot and rwkv): per rank its local shapes
+              (the cache's rows one a data rank), prefill, decode and step
+              ms, peak GB and collectives by group (data, model: calls,
+              bytes, ms); logits and every cache leaf within 2e-2 of
+              max|ref|, decode 2.5e-2 (gemma3, moonshot) or 2e-2 (hymba,
+              rwkv), step 1's loss 1e-3 and grad_norm 1e-2 relative,
+              every checked gradient 2e-2 of max|g_ref| (a moonshot
+              gradient, or a read CONTROLLED names, over that
+              passing by the f32 control at 2.0x); K7-K9 launches by
+              family; K7 and K8/K9 at each rank's inputs (gemma3 [1, 2048,
+              8, 256], moonshot [1, 2048 / 4096, 8, 128], hymba [1, 2048,
+              25, 64]) element by element, rank 0's timed; the phase's
+              seconds (aim 160)
+18. the ``kernels`` JSON line (the ranks' launches added), the nvidia-smi
    line, and the result line;
    a ``[time] <phase> <seconds>`` line after each phase
 
@@ -461,19 +489,21 @@ MOE = dict(arch="moonshot-v1-16b-a3b", layers=6, batch=4, prompt_len=4096,
 
 
 # the ssm and hybrid families at full widths: rwkv6-1.6b and hymba-1.5b
-# served at 8 of their 24 and 32 layers (cut to keep the script within its
-# time: the eager scans are host-bound), 4 prompts of 4096 tokens (a
+# served at 4 of their 24 and 32 layers (cut from 8 to make room for the
+# fsdp phase's hybrid and ssm families: the eager scans are host-bound),
+# 4 prompts of 4096 tokens (a
 # multiple of 256: the chunked scans) and 32 new tokens, the prefill
 # profiled at 1 layer and the decode for 2 steps (the profiler's parse of
 # more events costs tens of seconds); the decode held to a full-prefix
-# rerun at batch 1 x 1024 (16 tokens); trained at 2 layers, rwkv6-1.6b at
-# 1 (cut from 2 to make room for the fsdp phase: its eager scan's step
-# took 5.4-5.9 s at 2 layers) (batch 2 x 4096, 4 steps); the state checks
+# rerun at batch 1 x 1024 (16 tokens); trained at 1 layer (cut from 2 to
+# make room for the fsdp phase: rwkv6-1.6b's eager scan's step took
+# 5.4-5.9 s at 2 layers, hymba-1.5b's step 2.5-2.8 s) (batch 2 x 4096, 4
+# steps); the state checks
 # at [2, 64, d], the remat check at [1, 512, 2048]
-SSM = dict(archs=("rwkv6-1.6b", "hymba-1.5b"), layers=8, batch=4,
+SSM = dict(archs=("rwkv6-1.6b", "hymba-1.5b"), layers=4, batch=4,
            prompt_len=4096, tokens=32, decode_prompt=1024, decode_tokens=16,
            state_batch=2, state_len=64, remat_len=512, profile_layers=1,
-           profile_steps=2, train_layers={"rwkv6-1.6b": 1, "hymba-1.5b": 2},
+           profile_steps=2, train_layers={"rwkv6-1.6b": 1, "hymba-1.5b": 1},
            train_batch=2, train_seq=4096, train_steps=4, lr=3e-3)
 # the leaves ssm_init and rwkv_init set to zeros or ones, drawn from the
 # seed instead: name -> (low, high) of a uniform draw
@@ -515,26 +545,28 @@ TP_TRAIN = dict(arch="gemma3-12b", layers=6, mesh=(1, 2), batch=2,
                 seq_len=2048, loss_chunk=512, lr=3e-4, seed=2029,
                 checked=(0, 5), timeout=600)
 
-# the hybrid and ssm families tensor-parallel: hymba-1.5b served at 4 of
-# 32 layers and rwkv6-1.6b at 3 of 24 (cut from 8 and 6 to make room for
-# the fsdp phase), full widths, on a (data 1, model 2)
+# the hybrid and ssm families tensor-parallel: hymba-1.5b served at 2 of
+# 32 layers and rwkv6-1.6b at 2 of 24 (cut from 8 and 6, then 4 and 3, to
+# make room for the fsdp phase), full widths, on a (data 1, model 2)
 # mesh sharing the card (2 prompts of 2048 tokens, over hymba's 1024
-# window; 16 teacher-forced decode steps), each trained at 2 layers (batch
-# 2 x 2048, cut from 2 x 4096 to keep the script within its time; loss
+# window; 16 teacher-forced decode steps), each trained at 1 layer (cut
+# from 2 for the fsdp phase's hybrid and ssm families; batch 2 x 2048,
+# cut from 2 x 4096 to keep the script within its time; loss
 # chunk 512, per-layer remat, AdamW); the state leaves drawn from the seed
-# as in the ssm phase.  ``controlled``: the reads whose bf16 drift alone
-# passes 2e-2 of max|ref| on the card (rwkv's token-shift states at the
-# deepest layers, its embedding gradient); a layer of one of these also
-# passes within ``control_limit`` times the whole bf16 run's own distance
-# to the same run in f32 (PERF.md, cell 15)
+# as in the ssm phase.  ``control_limit``: a read CONTROLLED names for
+# the arch passes within that many times the whole bf16 run's own
+# distance to the same run in f32 (per layer for a layer's leaf)
 TP_RECURRENT = dict(tag="tp_recurrent", archs=("hymba-1.5b", "rwkv6-1.6b"),
-                    layers={"hymba-1.5b": 4, "rwkv6-1.6b": 3}, mesh=(1, 2),
-                    batch=2, prompt_len=2048, decode=16, train_layers=2,
+                    layers={"hymba-1.5b": 2, "rwkv6-1.6b": 2}, mesh=(1, 2),
+                    batch=2, prompt_len=2048, decode=16, train_layers=1,
                     train_batch=2, train_seq=2048, loss_chunk=512, lr=3e-4,
-                    seed=2031, timeout=600,
-                    controlled={"rwkv6-1.6b": (
-                        "cache_tm_last", "cache_cm_last", "embed/table")},
-                    control_limit=2.0)
+                    seed=2031, timeout=600, control_limit=2.0)
+# the reads, by arch, whose bf16 drift alone passes 2e-2 of max|ref| on the
+# card (rwkv's token-shift states at the deepest layers, its embedding
+# gradient; PERF.md, cell 15), held by an f32 control instead in the
+# tp_recurrent and fsdp phases (their ``control_limit``)
+CONTROLLED = {"rwkv6-1.6b": ("cache_tm_last", "cache_cm_last",
+                             "embed/table")}
 
 # the vlm family tensor-parallel: llama-3.2-vision-11b at full widths on a
 # (data 1, model 2) mesh sharing the card, each rank holding 16 of the 32
@@ -544,24 +576,25 @@ TP_RECURRENT = dict(tag="tp_recurrent", archs=("hymba-1.5b", "rwkv6-1.6b"),
 # tokens against 1601 image rows drawn from the seed in bf16, 16
 # teacher-forced decode steps), trained at one group (5 layers, 2 x 2048
 # tokens, seq_parallel on and off; loss chunk 512, group remat, AdamW);
-# ``controlled`` and ``control_limit`` as in TP_RECURRENT
+# ``control_limit`` as in TP_RECURRENT (CONTROLLED names no vlm read)
 TP_VLM = dict(tag="tp_vlm", archs=("llama-3.2-vision-11b",),
               layers={"llama-3.2-vision-11b": 10}, mesh=(1, 2), batch=2,
               prompt_len=2048, decode=16, train_layers=5, train_batch=2,
               train_seq=2048, loss_chunk=512, lr=3e-4, seed=2032,
-              timeout=600, controlled={}, control_limit=2.0)
+              timeout=600, control_limit=2.0)
 
 # expert parallelism: moonshot-v1-16b-a3b at full widths on a (data 1,
 # model 2) mesh sharing the card, each rank holding 32 of the 64 experts,
 # 8 of the 16 heads and half of the vocab rows: served at 4 of 48 layers
 # (cut from 6 to keep the script within its time; 2 prompts of 2048
-# tokens, the sort dispatch; 16 decode steps), trained
-# at 2 layers (batch 2 x 4096 tokens: the einsum dispatch, 16 groups of
+# tokens, the sort dispatch; 16 decode steps), trained at 1 layer (cut
+# from 2 to make room for the fsdp phase's hybrid and ssm families; batch
+# 2 x 4096 tokens: the einsum dispatch, 16 groups of
 # 512; loss chunk 512, per-layer remat, AdamW); every check against the
 # whole-model run pins its routing; the gradients of experts 0 and 32
 # (one from each rank's range) are checked leaf by leaf
 EP = dict(arch="moonshot-v1-16b-a3b", layers=4, mesh=(1, 2), batch=2,
-          prompt_len=2048, decode=16, train_layers=2, train_batch=2,
+          prompt_len=2048, decode=16, train_layers=1, train_batch=2,
           train_seq=4096, loss_chunk=512, lr=3e-4, seed=2030,
           experts=(0, 32), timeout=600)
 
@@ -579,15 +612,32 @@ EP = dict(arch="moonshot-v1-16b-a3b", layers=4, mesh=(1, 2), batch=2,
 # 4096: the einsum dispatch, 16 groups, 8 a data rank), the whole run's
 # routing pinned, experts 0 and 32 checked.  The reference: the port's
 # one-process whole run of the same weights with the same layout
-# registered (the same routing groups and capacity).  ``control_limit``:
-# a moonshot gradient over 2e-2 of max|g_ref| passes within that many
-# times the whole bf16 run's own distance to the same step in f32
+# registered (the same routing groups and capacity).  hymba-1.5b
+# ("hybrid": 25 heads whole on each model rank, attn/wo's rows split) and
+# rwkv6-1.6b ("ssm") at full widths, their zero- and one-initialised
+# leaves drawn from the seed: each served at 2 layers under both layouts
+# (16 decode steps by param_shardings_serving, 2 by param_shardings),
+# every recurrent state holding a data rank's row, and trained at 1 (2 x
+# 2048, seq_parallel on and off); logits, decode and cache within 2e-2.
+# ``control_limit``: a moonshot gradient, or a read CONTROLLED names
+# (cell 15's rwkv reads), over 2e-2 of max|ref| passes within that many
+# times the whole bf16 run's own distance to the same run in f32 (per
+# layer for a layer's leaf)
 FSDP = dict(mesh=(2, 2), dense="gemma3-12b", dense_layers=4,
             train_layers=2, moe="moonshot-v1-16b-a3b", moe_layers=2,
+            hybrid="hymba-1.5b", ssm="rwkv6-1.6b", rec_layers=2,
+            rec_train_layers=1,
             batch=2, prompt_len=2048, decode=16, fsdp_decode=2,
             moe_decode=8, train_seq=2048, moe_train_seq=4096,
             loss_chunk=512, lr=3e-4, seed=2033, experts=(0, 32),
             control_limit=2.0, timeout=600)
+# the fsdp phase's families, in the order they run, and their seed offsets
+FSDP_FAMS = {"dense": 0, "moe": 10, "hybrid": 20, "ssm": 30}
+# the layer leaves whose local shapes a serving rank prints, by family
+FSDP_SHAPES = {"dense": ("attn/wq", "attn/wo", "mlp/wi"),
+               "moe": ("attn/wq", "attn/wo", "moe/wi", "moe/router"),
+               "hybrid": ("ssm/in_proj", "attn/wq", "attn/wo"),
+               "ssm": ("rwkv/wr", "rwkv/wo", "rwkv/ck")}
 
 
 class SmokeFailure(RuntimeError):
@@ -3847,8 +3897,8 @@ def ssm_model(arch: str) -> tuple[dict, dict]:
 
 def phase_ssm() -> tuple[dict, dict]:
     """The ssm and hybrid families on the card: the state and remat checks,
-    then rwkv6-1.6b and hymba-1.5b, each served at 8 layers and trained at
-    2."""
+    then rwkv6-1.6b and hymba-1.5b, each served at 4 layers and trained at
+    1."""
     t0 = time.perf_counter()
     out = {"state": ssm_state_checks()}
     print(f"[ssm] (a), (b): {time.perf_counter() - t0:.3f} s")
@@ -6321,7 +6371,7 @@ def tpr_reference(arch: str, path: str) -> dict:
     gradients at the training depth, the gradients saved to ``path`` for
     the ranks (each reads its shards' bounds); and the controls: the same
     weights served in f32, fed the same tokens, and, for an arch with
-    ``controlled`` reads, the same training step in f32, its gradients
+    CONTROLLED reads, the same training step in f32, its gradients
     saved beside the bf16 ones (``own_f32`` None without it)."""
     import dataclasses
     import gc
@@ -6384,7 +6434,7 @@ def tpr_reference(arch: str, path: str) -> dict:
                         for k, g in checked.items()})
     del grads, tree
     out.update(f32_loss=None, own_f32=None)
-    if not s["controlled"].get(arch):
+    if not CONTROLLED.get(arch):
         del params, checked
         gc.collect()
         torch.cuda.empty_cache()
@@ -6634,11 +6684,28 @@ def tpr_share(got, want) -> float:
             / (2e-2 * want.abs().max())).item()
 
 
+def layer_controls(got, whole, w32) -> list:
+    """Each layer's (share, f32 control, own share) of a cache leaf [L,
+    ...] (a vlm leaf's [G, ...]: a group's): ``got``'s distance to the
+    whole bf16 run's ``whole`` as a share of 2e-2 * max |whole|, its
+    distance to the f32 run's ``w32`` over the whole run's own, and that
+    own distance as a share of the limit."""
+    got, whole, w32 = (t.float() for t in (got, whole, w32))
+    scale, by = 2e-2 * whole.abs().max(), []
+    for i in range(whole.shape[0]):
+        own = (whole[i] - w32[i]).abs().max()
+        by.append((((got[i] - whole[i]).abs().max() / scale).item(),
+                   ((got[i] - w32[i]).abs().max()
+                    / own.clamp_min(1e-30)).item(),
+                   (own / scale).item()))
+    return by
+
+
 def tpr_check_serve(arch: str, ref: dict, res: list) -> tuple[dict, dict]:
     """The serving gates of one arch over the ranks' results: local shapes,
     K7 launches (hymba), the prefill and decode logits and every cache
     leaf reassembled within 2e-2 of max |ref| of the whole run, each
-    layer of a ``controlled`` leaf also passing within ``control_limit``
+    layer of a CONTROLLED leaf also passing within ``control_limit``
     times the whole bf16 run's own distance to the f32 run on the same
     weights and tokens (each layer's two reads printed); the decode
     within 2.5e-2 of its rerun; every read printed before the gates
@@ -6719,7 +6786,7 @@ def tpr_check_serve(arch: str, ref: dict, res: list) -> tuple[dict, dict]:
             full[tuple(bounds)] = local
         got[f"cache_{name}"] = [full]
         want[f"cache_{name}"] = (whole, f32["cache"][name])
-    ctl, lim = s["controlled"].get(arch, ()), s["control_limit"]
+    ctl, lim = CONTROLLED.get(arch, ()), s["control_limit"]
     reads, controls, fails = {}, {}, []
     for k, outs in got.items():
         whole, w32 = (t.float() for t in want[k])
@@ -6727,17 +6794,7 @@ def tpr_check_serve(arch: str, ref: dict, res: list) -> tuple[dict, dict]:
         line = f"{tag} {k}: max |err| at {reads[k]:.4f} of 2e-2 * max|ref|"
         ok = reads[k] <= 1.0
         if k.startswith("cache_"):
-            # each layer's share of the limit, its f32 control (its
-            # distance to the f32 run over the whole bf16 run's own) and
-            # that own distance as a share of the limit
-            full, scale = outs[0].float(), 2e-2 * whole.abs().max()
-            by = []
-            for i in range(whole.shape[0]):     # a layer, or a vlm group
-                own = (whole[i] - w32[i]).abs().max()
-                by.append((((full[i] - whole[i]).abs().max() / scale).item(),
-                           ((full[i] - w32[i]).abs().max()
-                            / own.clamp_min(1e-30)).item(),
-                           (own / scale).item()))
+            by = layer_controls(outs[0], whole, w32)
             line += "; by layer (share, f32 control, own share) " + str(
                 [tuple(round(x, 4) for x in b) for b in by])
             if k in ctl:
@@ -6764,7 +6821,7 @@ def tpr_check_train(arch: str, ref: dict, res: list) -> tuple[dict, dict]:
     """The training gates of one arch over the ranks' results: K7/K8/K9
     launches a step (hymba), step 1's loss and grad_norm, every gradient
     within 2e-2 of max |g_ref| with and without seq_parallel, each layer
-    of a ``controlled`` leaf also passing within ``control_limit`` times
+    of a CONTROLLED leaf also passing within ``control_limit`` times
     the whole bf16 step's own distance to the f32 step (as for serving),
     grad_norm equal on the ranks, the whole leaves equal on both ranks
     after steps 2 and 3, the loss falling; every read printed before the
@@ -6797,7 +6854,7 @@ def tpr_check_train(arch: str, ref: dict, res: list) -> tuple[dict, dict]:
                   f"the backward pass")
             for k, v in st["launches"].items():
                 counts[k] = counts.get(k, 0) + v
-    ctl = [k for k in s["controlled"].get(arch, ()) if k in ref["max_ref"]]
+    ctl = [k for k in CONTROLLED.get(arch, ()) if k in ref["max_ref"]]
     lim = s["control_limit"]
     reads, fails = {}, []
     for i in (0, 2):                        # from the same start
@@ -7056,13 +7113,31 @@ def phase_tp_vlm() -> tuple[dict, dict]:
 # --------------------------------------------------------------------------- #
 # cell 17: a data axis over more than one rank (FSDP)
 # --------------------------------------------------------------------------- #
+def fsdp_shape(fam: str) -> dict:
+    """``fam``'s served layers, decode steps (by param_shardings_serving),
+    trained layers and training length."""
+    f = FSDP
+    if fam == "dense":
+        return dict(layers=f["dense_layers"], decode=f["decode"],
+                    train_layers=f["train_layers"], train_seq=f["train_seq"])
+    if fam == "moe":
+        return dict(layers=f["moe_layers"], decode=f["moe_decode"],
+                    train_layers=f["moe_layers"],
+                    train_seq=f["moe_train_seq"])
+    return dict(layers=f["rec_layers"], decode=f["decode"],
+                train_layers=f["rec_train_layers"], train_seq=f["train_seq"])
+
+
 def fsdp_config(fam: str, layers: int):
-    """gemma3-12b ("dense") or moonshot-v1-16b-a3b ("moe") at full widths
-    and ``layers`` layers."""
+    """gemma3-12b ("dense"), moonshot-v1-16b-a3b ("moe"), hymba-1.5b
+    ("hybrid") or rwkv6-1.6b ("ssm") at full widths and ``layers``
+    layers."""
     import dataclasses
 
     from repro_torch.configs import get_config
 
+    if fam in ("hybrid", "ssm"):
+        return tpr_config(FSDP[fam], layers)
     cfg = dataclasses.replace(get_config(FSDP[fam]), n_layers=layers)
     if fam == "dense":
         check(cfg.d_model == 3840 and cfg.n_heads == 16
@@ -7082,10 +7157,8 @@ def fsdp_draws(cfg, fam: str, device) -> dict:
     import torch
 
     f = FSDP
-    off = 0 if fam == "dense" else 10
-    g = torch.Generator(device).manual_seed(f["seed"] + off + 1)
-    S = f["train_seq"] if fam == "dense" else f["moe_train_seq"]
-    shape = (f["batch"], S)
+    g = torch.Generator(device).manual_seed(f["seed"] + FSDP_FAMS[fam] + 1)
+    shape = (f["batch"], fsdp_shape(fam)["train_seq"])
     return {"ids": torch.randint(0, cfg.vocab, (f["batch"], f["prompt_len"]),
                                  generator=g, device=device),
             "train": {"ids": torch.randint(0, cfg.vocab, shape, generator=g,
@@ -7097,20 +7170,27 @@ def fsdp_draws(cfg, fam: str, device) -> dict:
 
 def fsdp_weights(cfg, fam: str, part: str, device):
     """The whole weights of ``fam``'s serving or training run (``part``),
-    drawn from the phase's seed (any process draws the same)."""
+    drawn from the phase's seed (any process draws the same); a hybrid or
+    ssm block's zero- and one-initialised leaves drawn too
+    (:func:`draw_state_leaves`)."""
     import torch
 
     from repro_torch.models import LM
 
-    seed = FSDP["seed"] + (0 if fam == "dense" else 10) + (
-        2 if part == "train" else 3)
-    return LM(cfg).init(torch.Generator(device).manual_seed(seed))
+    seed = FSDP["seed"] + FSDP_FAMS[fam] + (2 if part == "train" else 3)
+    g = torch.Generator(device).manual_seed(seed)
+    params = LM(cfg).init(g)
+    if cfg.rwkv or cfg.hybrid:
+        blk = "rwkv" if cfg.rwkv else "ssm"
+        params["layers"][blk] = draw_state_leaves(params["layers"][blk], g)
+    return params
 
 
 def fsdp_checked(tree, fam: str, n_layers: int) -> dict:
     """name → (leaf, its bounds in the whole leaf) of the gradients the
-    phase holds to the whole run: for gemma3 every leaf of every layer
-    (``"<path>@<layer>"``) and the embed table and final norm; for
+    phase holds to the whole run: for gemma3, hymba and rwkv every leaf of
+    every layer (``"<path>@<layer>"``) and the embed table and final
+    norm; for
     moonshot each layer's router, ``ln2`` and ``wq``, ``wi``/``wo`` of
     the experts in ``FSDP["experts"]`` the rank holds, and the embed
     table.  A DTensor's local tensor at its ``local_bounds`` (its data
@@ -7148,16 +7228,18 @@ def fsdp_serve_reference(fam: str, layout) -> dict:
     process, the (2, 2) layout registered (the moe routing groups): the
     prefill step, ``LM.prefill`` and greedy decode steps; its routing
     recorded by phase (moonshot); → logits, decode logits, the tokens it
-    fed, the cache, the pins, ms."""
+    fed, the cache, the pins, ms; for a family with CONTROLLED reads,
+    the control: the same weights served in f32, fed the same tokens."""
+    import dataclasses
+
     import torch
 
-    from repro_torch.core.tree import leaves
+    from repro_torch.core.tree import leaves, tree_map
     from repro_torch.launch import steps as TST
     from repro_torch.models import LM, layers
 
     f = FSDP
-    L = f["dense_layers"] if fam == "dense" else f["moe_layers"]
-    n = f["decode"] if fam == "dense" else f["moe_decode"]
+    L, n = fsdp_shape(fam)["layers"], fsdp_shape(fam)["decode"]
     cfg = fsdp_config(fam, L)
     model = LM(cfg)
     params = fsdp_weights(cfg, fam, "serve", "cuda")
@@ -7172,13 +7254,27 @@ def fsdp_serve_reference(fam: str, layout) -> dict:
             logits, dec, tokens, ms = tp_serve(model, params, cache, ids,
                                                prefill, decode, steps=n,
                                                phase=log.set)
+        out = {"logits": logits, "decode": dec, "tokens": tokens, "ms": ms,
+               "ids": ids.cpu(), "weights_gb": nbytes / 1e9,
+               "cache": {k: v.cpu() for k, (v, _) in
+                         tpr_leaves(cache).items()},
+               "pins": {k: torch.stack(v) for k, v in log.first().items()}}
+        del cache
+        if CONTROLLED.get(f[fam]):
+            c32 = dataclasses.replace(cfg, dtype="float32")
+            p32 = tree_map(lambda a: a.float(), params)
+            del params
+            m32 = LM(c32)
+            cache = m32.init_cache(f["batch"], f["prompt_len"] + n,
+                                   device="cuda")
+            lg32, dec32, _, _ = tp_serve(
+                m32, p32, cache, ids, TST.make_prefill_step(c32, layout)[1],
+                TST.make_decode_step(c32, layout)[1], tokens, steps=n)
+            out["f32"] = {"logits": lg32, "decode": dec32, "cache": {
+                k: v.cpu() for k, (v, _) in tpr_leaves(cache).items()}}
+            del p32, cache
     finally:
         layers.set_attention_mesh(None)
-    out = {"logits": logits, "decode": dec, "tokens": tokens, "ms": ms,
-           "ids": ids.cpu(), "weights_gb": nbytes / 1e9,
-           "cache": {k: cache[k].cpu() for k in ("k", "v")},
-           "pins": {k: torch.stack(v) for k, v in log.first().items()}}
-    del params, cache
     return out
 
 
@@ -7186,8 +7282,9 @@ def fsdp_train_reference(fam: str, layout) -> dict:
     """The whole-model training step of ``fam`` on plain tensors in this
     process, the (2, 2) layout registered: step 1's loss, grad_norm
     (before clipping) and checked gradients (:func:`fsdp_checked`), its
-    routing (moonshot), and for moonshot the control: the same step in
-    f32 with the same routing pinned, its checked gradients."""
+    routing (moonshot), and for moonshot and a family with CONTROLLED
+    reads the control: the same step in f32 (moonshot's with the same
+    routing pinned), its checked gradients."""
     import dataclasses
 
     import torch
@@ -7198,8 +7295,7 @@ def fsdp_train_reference(fam: str, layout) -> dict:
     from repro_torch.optim import global_norm
 
     f = FSDP
-    cfg = fsdp_config(fam, f["train_layers"] if fam == "dense"
-                      else f["moe_layers"])
+    cfg = fsdp_config(fam, fsdp_shape(fam)["train_layers"])
     params = fsdp_weights(cfg, fam, "train", "cuda")
     nbytes = sum(a.numel() * a.element_size() for a in leaves(params))
     batch = fsdp_draws(cfg, fam, "cuda")["train"]
@@ -7222,11 +7318,12 @@ def fsdp_train_reference(fam: str, layout) -> dict:
                "dropped_frac": float(aux["dropped_frac"]),
                "weights_gb": nbytes / 1e9, "plain": plain,
                "pins": {k: torch.stack(v) for k, v in log.first().items()}}
-        if fam == "moe":
+        if fam == "moe" or CONTROLLED.get(f[fam]):
             c32 = dataclasses.replace(cfg, dtype="float32")
             p32 = tree_map(lambda a: a.float(), params)
             del params
-            log32 = RoutingLog({"train": out["pins"]["train"]})
+            log32 = RoutingLog({"train": out["pins"]["train"]}
+                               if fam == "moe" else None)
             log32.set("train")
             with routing_hook(log32):
                 _, g32, _ = loss_and_grads(LM(c32), p32, batch,
@@ -7242,29 +7339,28 @@ def fsdp_train_reference(fam: str, layout) -> dict:
 
 def fsdp_serve_rank(mesh, fam: str, ref: dict, groups: dict) -> dict:
     """One rank's serving of ``fam``: the whole weights drawn from the
-    seed, kept by ``param_shardings_serving`` (and, gemma3, by
+    seed, kept by ``param_shardings_serving`` (and, but for moonshot, by
     ``param_shardings`` too: the FSDP storage), the prompts split over the
     data axis by ``distribute_batch`` (one row a data rank); the prefill
     step, ``LM.prefill`` and the whole run's tokens teacher-forced, the
     whole run's routing pinned, each collective timed by group; the
-    rank's logits rows, cache shards, ms, peak GB, local shapes and the
-    q/k/v the first layer gave K7."""
+    rank's logits rows, cache shards, ms, peak GB, local shapes (the
+    cache's too) and the q/k/v the first layer gave K7 (none for rwkv)."""
     import torch
 
     from repro_torch.core.spmd_pipeline import local_bounds
     from repro_torch.launch import sharding as TS
     from repro_torch.launch import steps as TST
-    from repro_torch.models import LM
 
     f = FSDP
-    L = f["dense_layers"] if fam == "dense" else f["moe_layers"]
+    L = fsdp_shape(fam)["layers"]
     cfg = fsdp_config(fam, L)
     B, T = f["batch"], f["prompt_len"]
     part = (mesh.axis_index("data"), mesh.shape["data"])
     t0 = time.perf_counter()
     whole = fsdp_weights(cfg, fam, "serve", mesh.device)
     specs = {"serving": TS.param_shardings_serving(mesh, whole)}
-    if fam == "dense":
+    if fam != "moe":
         specs["fsdp"] = TS.param_shardings(mesh, whole)
     sharded = {k: TS.distribute_params(mesh, whole, v)
                for k, v in specs.items()}
@@ -7284,7 +7380,7 @@ def fsdp_serve_rank(mesh, fam: str, ref: dict, groups: dict) -> dict:
         return res, 1e3 * (time.perf_counter() - t1)
 
     for layout, params in sharded.items():
-        n = (f["decode"] if fam == "dense" else f["moe_decode"]) if (
+        n = fsdp_shape(fam)["decode"] if (
             layout == "serving") else f["fsdp_decode"]
         log = RoutingLog(ref["pins"], part)
         coll = {"sync_ms": 0.0, "collective_ms": 0.0, "calls": {},
@@ -7310,13 +7406,12 @@ def fsdp_serve_rank(mesh, fam: str, ref: dict, groups: dict) -> dict:
                 dec.append(lg.to_local().cpu())
                 dec_ms.append(ms)
         coll["run_ms"] = 1e3 * (time.perf_counter() - t1)
-        lp = params["layers"]
-        shapes = {k: tuple(lp[a][b].to_local().shape) for k, (a, b) in (
-            ("attn/wq", ("attn", "wq")), ("attn/wo", ("attn", "wo")),
-            *((("mlp/wi", ("mlp", "wi")),) if fam == "dense" else
-              (("moe/wi", ("moe", "wi")), ("moe/router", ("moe", "router")))))}
-        shapes["embed"] = tuple(params["embed"]["table"].to_local().shape)
-        shapes["cache_k"] = tuple(cache["k"].to_local().shape)
+        pl, held = tpr_leaves(params), tpr_leaves(cache)
+        shapes = {n: tuple(pl[f"layers/{n}"][0].shape)
+                  for n in FSDP_SHAPES[fam]}
+        shapes["embed"] = tuple(pl["embed/table"][0].shape)
+        shapes.update({f"cache_{k}": tuple(v.shape)
+                       for k, (v, _) in held.items()})
         shapes["ids"] = tuple(ids["ids"].to_local().shape)
         out["runs"][layout] = {
             "logits": logits.to_local().cpu(),
@@ -7327,10 +7422,11 @@ def fsdp_serve_rank(mesh, fam: str, ref: dict, groups: dict) -> dict:
                    "decode_ms": dec_ms},
             "collectives": coll, "shapes": shapes,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "cache": {k: (cache[k].to_local().cpu(), local_bounds(cache[k]))
-                      for k in ("k", "v")} if layout == "serving" else None,
+            "cache": {k: (v.cpu(), b) for k, (v, b) in held.items()}
+            if layout == "serving" else None,
             "k7": tuple(t.cpu() if torch.is_tensor(t) else t
-                        for t in kq["k7"]) if layout == "serving" else None}
+                        for t in kq["k7"])
+            if layout == "serving" and "k7" in kq else None}
         del cache
     return out
 
@@ -7339,12 +7435,13 @@ def fsdp_train_rank(mesh, fam: str, ref: dict, groups: dict) -> dict:
     """One rank's training of ``fam``: the whole weights drawn from the
     seed, kept by ``param_shardings`` (``init_train_state_sharded``), the
     batch split over the data axis; one ``make_train_step`` step with
-    seq_parallel (and, gemma3, one without from the same start), the
-    whole run's routing pinned, each collective timed by group; each
-    step's checked gradients, before AdamW, against the whole run's at
-    this rank's bounds (and moonshot's against the f32 control's); the
-    moments' local shapes; the q, k, v and dO layer 0's attention gave K8
-    and K9 in the first step."""
+    seq_parallel (and, but for moonshot, one without from the same
+    start), the whole run's routing pinned, each collective timed by
+    group; each step's checked gradients, before AdamW, against the whole
+    run's at this rank's bounds (and against the f32 control's where the
+    whole run took one); the moments' local shapes; the q, k, v and dO
+    layer 0's attention gave K8 and K9 in the first step (none for
+    rwkv)."""
     import torch
 
     from repro_torch.core.spmd_pipeline import local_tensor
@@ -7355,8 +7452,7 @@ def fsdp_train_rank(mesh, fam: str, ref: dict, groups: dict) -> dict:
     from repro_torch.optim import adamw_init
 
     f = FSDP
-    cfg = fsdp_config(fam, f["train_layers"] if fam == "dense"
-                      else f["moe_layers"])
+    cfg = fsdp_config(fam, fsdp_shape(fam)["train_layers"])
     part = (mesh.axis_index("data"), mesh.shape["data"])
     t0 = time.perf_counter()
     whole = fsdp_weights(cfg, fam, "train", mesh.device)
@@ -7394,7 +7490,7 @@ def fsdp_train_rank(mesh, fam: str, ref: dict, groups: dict) -> dict:
                 3, g.detach().clone()))
         return o
 
-    plan = [True, False] if fam == "dense" else [True]
+    plan = [True] if fam == "moe" else [True, False]
     TST.adamw_update = spy
     try:
         for i, sp in enumerate(plan):
@@ -7438,13 +7534,17 @@ def fsdp_train_rank(mesh, fam: str, ref: dict, groups: dict) -> dict:
         layers.ops.attention = real_attention
     return {"draw_s": draw_s, "steps": steps, "moments": moments,
             "inputs": tuple(t.cpu() if torch.is_tensor(t) else t
-                            for t in inputs["train"])}
+                            for t in inputs["train"])
+            if "train" in inputs else None}
 
 
 def fsdp_rank(mesh, ref_path: str) -> dict:
-    """One rank of the fsdp phase: gemma3-12b served and trained, then
-    moonshot-v1-16b-a3b served and trained (:func:`fsdp_serve_rank`,
-    :func:`fsdp_train_rank`), every K7-K9 launch counted."""
+    """One rank of the fsdp phase: gemma3-12b, moonshot-v1-16b-a3b,
+    hymba-1.5b and rwkv6-1.6b each served and trained
+    (:func:`fsdp_serve_rank`, :func:`fsdp_train_rank`), every K7-K9 launch
+    counted, and by family."""
+    import gc
+
     import torch
     import torch.distributed as dist
 
@@ -7460,13 +7560,20 @@ def fsdp_rank(mesh, ref_path: str) -> dict:
            "transport": mesh.transport, "mesh_s": time.perf_counter() - t0}
     fa.reset_launches()
     try:
-        for fam in ("dense", "moe"):
+        for fam in FSDP_FAMS:
+            gc.collect()                  # the last family's tensors gone
+            torch.cuda.empty_cache()      # before the peaks are read
+            before = dict(fa.LAUNCHES)
+            t1 = time.perf_counter()
             out[f"{fam}_serve"] = fsdp_serve_rank(mesh, fam,
                                                   ref[f"{fam}_serve"], groups)
             torch.cuda.empty_cache()
             out[f"{fam}_train"] = fsdp_train_rank(mesh, fam,
                                                   ref[f"{fam}_train"], groups)
             torch.cuda.empty_cache()
+            out[f"{fam}_launches"] = {k: v - before.get(k, 0)
+                                      for k, v in fa.LAUNCHES.items()}
+            out[f"{fam}_s"] = time.perf_counter() - t1
     finally:
         layers.set_attention_mesh(None)
     out["launches"] = dict(fa.LAUNCHES)
@@ -7484,19 +7591,23 @@ def fsdp_share(got, want, limit: float = 2e-2) -> float:
 def fsdp_check_serve(fam: str, ref: dict, res: list) -> dict:
     """The ranks' serving of ``fam`` against the whole run: each rank's
     logits rows within 2e-2 of max|ref| (and ``collect_batch``'s whole
-    logits equal to the rows), decode within 2.5e-2, the reassembled
-    cache within 2e-2, the local shapes; prints each rank's ms, peak,
-    shapes and collectives by group."""
+    logits equal to the rows), decode within 2.5e-2 (gemma3, moonshot) or
+    2e-2 (hymba, rwkv), every cache leaf reassembled within 2e-2 (a leaf
+    CONTROLLED names also passing, layer by layer, within
+    ``control_limit`` times the whole bf16 run's own distance to the f32
+    run), the local shapes; prints each rank's ms, peak, shapes and
+    collectives by group, and every read before a gate fails."""
     import torch
 
-    reads = {}
+    dlim = 2.5e-2 if fam in ("dense", "moe") else 2e-2
+    reads, fails = {}, []
     for layout in res[0][f"{fam}_serve"]["runs"]:
         pre, dec = [], []
         for r in res:
             g = r[f"{fam}_serve"]["runs"][layout]
             rows = g["rows"]
             pre.append(fsdp_share(g["logits"], ref["logits"][rows]))
-            dec += [fsdp_share(a, w[rows], 2.5e-2)
+            dec += [fsdp_share(a, w[rows], dlim)
                     for a, w in zip(g["decode"], ref["decode"])]
             if g["collected"] is not None:
                 check(torch.equal(g["collected"][rows], g["logits"]),
@@ -7516,11 +7627,15 @@ def fsdp_check_serve(fam: str, ref: dict, res: list) -> dict:
             check(g["shapes"]["ids"][0] == FSDP["batch"] // 2,
                   f"fsdp {fam} rank {r['rank']}: the batch's local rows "
                   f"{g['shapes']['ids']}")
+            check(all(v[1] == FSDP["batch"] // 2 for k, v in
+                      g["shapes"].items() if k.startswith("cache_")),
+                  f"fsdp {fam} rank {r['rank']}: the cache's local rows "
+                  f"{g['shapes']}")
         reads[f"{layout}_prefill_logits"] = max(pre)
         reads[f"{layout}_decode_logits"] = max(dec)
-    for name in ("k", "v"):
-        full = torch.zeros(ref["cache"][name].shape,
-                           dtype=ref["cache"][name].dtype)
+    ctl, lim = CONTROLLED.get(FSDP[fam], ()), FSDP["control_limit"]
+    for name, whole in ref["cache"].items():
+        full = torch.zeros(whole.shape, dtype=whole.dtype)
         seen = torch.zeros(full.shape, dtype=torch.bool)
         for r in res:
             local, bounds = r[f"{fam}_serve"]["runs"]["serving"]["cache"][name]
@@ -7528,11 +7643,25 @@ def fsdp_check_serve(fam: str, ref: dict, res: list) -> dict:
             seen[tuple(bounds)] = True
         check(bool(seen.all()), f"fsdp {fam}: the ranks' cache {name} does "
                                 f"not cover the whole")
-        reads[f"cache_{name}"] = fsdp_share(full, ref["cache"][name])
+        k = f"cache_{name}"
+        reads[k] = fsdp_share(full, whole)
+        if reads[k] <= 1.0 or k not in ctl:
+            continue
+        by = layer_controls(full, whole, ref["f32"]["cache"][name])
+        print(f"[fsdp] {fam} {k}: by layer (share, f32 control, own share) "
+              f"{[tuple(round(x, 4) for x in b) for b in by]} (limit {lim})")
+        reads[f"{k} f32_control"] = [c for _, c, _ in by]
+        if not all(a <= 1.0 or c <= lim for a, c, _ in by):
+            fails.append(k)
     for k, v in reads.items():
-        lim = "2.5e-2" if "decode" in k else "2e-2"
-        print(f"[fsdp] {fam} {k}: max |err| at {v:.4f} of {lim} * max|ref|")
-        check(v <= 1.0, f"fsdp {fam} {k}: {v:.4f} of the limit")
+        if k.endswith("f32_control"):
+            continue
+        lim_k = dlim if "decode" in k else 2e-2
+        print(f"[fsdp] {fam} {k}: max |err| at {v:.4f} of {lim_k:g} * "
+              f"max|ref|")
+        if v > 1.0 and f"{k} f32_control" not in reads:
+            fails.append(k)
+    check(not fails, f"fsdp {fam} serving: reads over their limit {fails}")
     return reads
 
 
@@ -7541,14 +7670,15 @@ def fsdp_check_train(fam: str, ref: dict, res: list) -> dict:
     loss within 1e-3 and grad_norm within 1e-2 relative (equal on every
     rank), moonshot's ``dropped_frac`` within 1e-6 (the data ranks' means
     averaged: ``1 - kept / k`` rounds a shard at a time), every checked
-    gradient within 2e-2 of max|g_ref| — or, for
-    moonshot, where a leaf reads over that, within ``control_limit`` times
+    gradient within 2e-2 of max|g_ref| — or, where a moonshot leaf or one
+    CONTROLLED names reads over that, within ``control_limit`` times
     the whole bf16 run's own distance to the f32 run (the ep phase's
     control); the moments' local shapes; prints each step's ms, peak and
     collectives by group."""
     reads = {}
     n_steps = len(res[0][f"{fam}_train"]["steps"])
     lim = FSDP["control_limit"]
+    ctl = CONTROLLED.get(FSDP[fam], ())
     scales = {k: 2e-2 * float(w.float().abs().max())
               for k, w in ref["plain"].items()}
     for i in range(n_steps):
@@ -7576,7 +7706,8 @@ def fsdp_check_train(fam: str, ref: dict, res: list) -> dict:
             shares[k] = max(got) / scale
             if shares[k] <= 1.0:
                 continue
-            if "f32" not in ref:
+            if "f32" not in ref or (fam != "moe"
+                                    and k.split("@")[0] not in ctl):
                 fails.append(k)
                 continue
             own = float((want.float() - ref["f32"][k].float()).abs().max())
@@ -7613,10 +7744,11 @@ def fsdp_check_train(fam: str, ref: dict, res: list) -> dict:
 
 
 def phase_fsdp() -> tuple[dict, dict]:
-    """A data axis over more than one rank: gemma3-12b and
-    moonshot-v1-16b-a3b served and trained on a (data 2, model 2) mesh of
-    4 ranks sharing the card, each held to the whole-model run on the same
-    weights in this process (the same layout registered)."""
+    """A data axis over more than one rank: gemma3-12b,
+    moonshot-v1-16b-a3b, hymba-1.5b and rwkv6-1.6b served and trained on
+    a (data 2, model 2) mesh of 4 ranks sharing the card, each held to the
+    whole-model run on the same weights in this process (the same layout
+    registered)."""
     import gc
     import tempfile
 
@@ -7636,9 +7768,14 @@ def phase_fsdp() -> tuple[dict, dict]:
           f"storage) and trained at {f['train_layers']} "
           f"({f['batch']} x {f['train_seq']}); {f['moe']} served at "
           f"{f['moe_layers']} ({f['moe_decode']} decode steps) and trained "
-          f"({f['batch']} x {f['moe_train_seq']})")
-    ref = {}
-    for fam in ("dense", "moe"):
+          f"({f['batch']} x {f['moe_train_seq']}); {f['hybrid']} and "
+          f"{f['ssm']} served at {f['rec_layers']} ({f['decode']} "
+          f"decode steps; {f['fsdp_decode']} under the FSDP storage) and "
+          f"trained at {f['rec_train_layers']} ({f['batch']} x "
+          f"{f['train_seq']})")
+    ref, ref_s = {}, {}
+    for fam in FSDP_FAMS:
+        t0 = time.perf_counter()
         ref[f"{fam}_serve"] = fsdp_serve_reference(fam, layout)
         gc.collect()
         torch.cuda.empty_cache()
@@ -7646,18 +7783,22 @@ def phase_fsdp() -> tuple[dict, dict]:
         gc.collect()
         torch.cuda.empty_cache()
         s, t = ref[f"{fam}_serve"], ref[f"{fam}_train"]
+        ref_s[fam] = time.perf_counter() - t0
+        ctl = ", ".join(n for n in ("serve", "train")
+                        if "f32" in ref[f"{fam}_{n}"])
         print(f"[fsdp] {fam} whole-model run: {s['weights_gb']:.3f} GB "
               f"served, prefill step {s['ms']['prefill_step_ms']:.3f} ms, "
               f"decode {statistics.median(s['ms']['decode_ms']):.3f} ms a "
               f"step; training step 1 (loss and gradients) "
               f"{t['step_ms']:.3f} ms, loss {t['loss']}, grad_norm "
-              f"{t['grad_norm']}")
+              f"{t['grad_norm']}; {ref_s[fam]:.3f} s, its f32 controls "
+              f"included ({ctl or 'none'})")
     t_ref = time.perf_counter() - t_phase
     fd, path = tempfile.mkstemp(suffix=".pt")
     os.close(fd)
     try:
         torch.save({k: {n: v for n, v in r.items() if n in (
-            "ids", "tokens", "pins", "plain", "f32")}
+            "ids", "tokens", "pins", "plain") or (n == "f32" and "plain" in r)}
             for k, r in ref.items()}, path)
         t1 = time.perf_counter()
         res = run_on_local_mesh(f["mesh"], ("data", "model"), fsdp_rank,
@@ -7677,26 +7818,39 @@ def phase_fsdp() -> tuple[dict, dict]:
         for k, v in r["launches"].items():
             counts[k] = counts.get(k, 0) + v
     reads = {}
-    for fam in ("dense", "moe"):
+    for fam in FSDP_FAMS:
         reads[f"{fam}_serve"] = fsdp_check_serve(fam, ref[f"{fam}_serve"],
                                                  res)
         reads[f"{fam}_train"] = fsdp_check_train(fam, ref[f"{fam}_train"],
                                                  res)
-    # the moments at their opt_shardings local shapes (d over data too)
+        print(f"[fsdp] {fam} K7-K9 launches by rank "
+              f"{[r[f'{fam}_launches'] for r in res]}; the ranks' seconds "
+              f"{[round(r[f'{fam}_s'], 3) for r in res]}")
+    # the moments at their opt_shardings local shapes: (leaf, the dims
+    # split over data and over model, half the whole on a rank)
+    moments = {"dense": ("layers/attn/wq", (1, 2)),
+               "moe": ("layers/attn/wq", (1, 2)),
+               "hybrid": ("layers/ssm/in_proj", (1, 3)),
+               "ssm": ("layers/rwkv/wr", (1, 2))}
     for r in res:
-        for fam in ("dense", "moe"):
-            m = r[f"{fam}_train"]["moments"]
-            wq = m["layers/attn/wq"]
-            check(wq[0][1] * 2 == wq[1][1] and wq[0][2] * 2 == wq[1][2],
-                  f"fsdp rank {r['rank']} {fam}: attn/wq moments {wq}")
+        for fam, (leaf, dims) in moments.items():
+            local, shape = r[f"{fam}_train"]["moments"][leaf]
+            check(all(local[i] * 2 == shape[i] for i in dims),
+                  f"fsdp rank {r['rank']} {fam}: {leaf} moments "
+                  f"{(local, shape)}")
     # K7 at a data rank's serving shapes, K8/K9 at its training shapes,
-    # element by element on every rank, rank 0's timed
+    # element by element on every rank, rank 0's timed (hymba's all 25
+    # heads a model rank, window 1024)
     k7, bwd = {}, {}
+    hy, m = fsdp_config("hybrid", 1), f["mesh"][1]
+    want_q = {"hybrid": (1, f["prompt_len"], hy.n_heads // m
+                         if hy.n_heads % m == 0 else hy.n_heads, hy.hd)}
     for r in res:
-        for fam in ("dense", "moe"):
+        for fam in ("dense", "moe", "hybrid"):
             q, k, v, w = (t.to("cuda") if torch.is_tensor(t) else t
                           for t in r[f"{fam}_serve"]["runs"]["serving"]["k7"])
-            check(q.shape[0] == 1 and q.dtype == torch.bfloat16,
+            check(q.shape[0] == 1 and q.dtype == torch.bfloat16
+                  and tuple(q.shape) == want_q.get(fam, tuple(q.shape)),
                   f"fsdp rank {r['rank']} {fam}: K7 q {tuple(q.shape)}")
             if r["rank"] == 0:
                 k7[f"fsdp {fam}"] = k7_at(q, k, v, w, f"fsdp {fam}",
@@ -7709,7 +7863,8 @@ def phase_fsdp() -> tuple[dict, dict]:
                     "max_abs_err": d, "err_of_elementwise_limit": worst}
             q, k, v, do, w = (t.to("cuda") if torch.is_tensor(t) else t
                               for t in r[f"{fam}_train"]["inputs"])
-            check(do is not None and q.shape[0] == 1,
+            check(do is not None and q.shape[0] == 1
+                  and tuple(q.shape) == want_q.get(fam, tuple(q.shape)),
                   f"fsdp rank {r['rank']} {fam}: K8/K9 inputs {q.shape}")
             if r["rank"] == 0:
                 bwd[f"fsdp {fam}"] = k8_k9_at(q, k, v, do, w,
@@ -7722,12 +7877,14 @@ def phase_fsdp() -> tuple[dict, dict]:
                 bwd[f"fsdp {fam} rank {r['rank']}"] = e
             del q, k, v
     out = {"reads": reads, "k7": k7, "k8_k9": bwd, "ranks_s": ranks_s,
-           "reference_s": t_ref,
+           "reference_s": t_ref, "reference_s_by_family": ref_s,
            "whole": {k: {n: v for n, v in r.items() if n in (
                "ms", "step_ms", "loss", "grad_norm", "weights_gb")}
                for k, r in ref.items()},
            "ranks": [{"rank": r["rank"], "coord": r["coord"],
                       "mesh_s": r["mesh_s"], "launches": r["launches"],
+                      **{f"{fam}_launches": r[f"{fam}_launches"]
+                         for fam in FSDP_FAMS},
                       **{f"{fam}_{p}": {
                           "draw_s": r[f"{fam}_{p}"]["draw_s"],
                           **({"runs": {lay: {n: g[n] for n in (
@@ -7738,11 +7895,11 @@ def phase_fsdp() -> tuple[dict, dict]:
                                  "seq_parallel", "loss", "grad_norm", "ms",
                                  "peak_gb", "collectives")}
                                  for s in r[f"{fam}_{p}"]["steps"]]})}
-                         for fam in ("dense", "moe")
+                         for fam in FSDP_FAMS
                          for p in ("serve", "train")}}
                      for r in res],
            "phase_s": time.perf_counter() - t_phase}
-    print(f"[fsdp] phase {out['phase_s']:.3f} s (aim 100): whole runs "
+    print(f"[fsdp] phase {out['phase_s']:.3f} s (aim 160): whole runs "
           f"{t_ref:.3f} s, ranks {ranks_s:.3f} s; K7-K9 launches on the "
           f"ranks {counts}")
     del res

@@ -47,9 +47,9 @@ its cross-attention on the rank's heads against the image rows whole on
 every rank; its prefill writes the image K/V, and every self layer its
 k/v, re-laid from the rank's kv heads into the caches' JAX layout (every
 kv head at the rank's part of head_dim), and decode gathers head_dim back.
-A data axis over more than one rank (FSDP; the dense, audio and moe
-families, a ``(data, model)`` mesh): the batch comes as DTensors split
-over ``data``
+A data axis over more than one rank (FSDP; the dense, audio, moe, hybrid
+and ssm families, a ``(data, model)`` mesh): the batch comes as DTensors
+split over ``data``
 (:func:`~repro_torch.launch.sharding.distribute_batch`), each rank
 computing its rows; weights by ``param_shardings`` keep their
 storage-only dim split over ``data`` and each layer (and the embedding
@@ -62,9 +62,13 @@ loss is the global batch's mean on every rank, a moe layer routes by the
 global batch's groups, and the cache holds each rank's rows.  The serve
 steps' logits come back as a DTensor laid out as the batch (the rank's
 rows; :func:`~repro_torch.launch.sharding.collect_batch` reads them
-whole).  A batch the axis does not divide stays whole on every rank:
-computed whole, nothing summed.  The hybrid, ssm and vlm families under a
-data axis, a ``pod`` axis over more than one rank and ``scan_chunks`` are
+whole).  The hybrid and ssm families' recurrent states (``ssm/h``,
+``ssm/conv``; rwkv's ``S``, ``tm_last``, ``cm_last``) hold the rank's rows
+of B on ``data`` and its part of the channels, heads or last dim on
+``model``, as ``cache_shardings`` lays them out; each recurrence runs on
+the rank's rows alone.  A batch the axis does not divide stays whole on
+every rank: computed whole, nothing summed.  The vlm family under a data
+axis, a ``pod`` axis over more than one rank and ``scan_chunks`` are
 refused (:func:`_check_sharded`).
 
 The abstract trees (:func:`abstract_params`, :func:`abstract_cache`) are
@@ -384,10 +388,10 @@ def init_cache_sharded(cfg: ArchConfig, mesh, batch: int,
 # its self and image K/V caches keep every kv head at a part of head_dim)
 TP_FAMILIES = ("dense", "audio", "moe", "hybrid", "ssm", "vlm")
 # the families that also run on a data axis over more than one rank (the
-# batch split, each layer gathered over data): the hybrid and ssm
-# families' states and the vlm self cache (whose "data" entry falls on its
-# per-group dim) are not re-laid by the batch yet
-DATA_FAMILIES = ("dense", "audio", "moe")
+# batch split, each layer gathered over data; the hybrid and ssm states
+# hold the rank's rows): the vlm self cache, whose "data" entry falls on
+# its per-group dim and not on B, is not re-laid by the batch yet
+DATA_FAMILIES = ("dense", "audio", "moe", "hybrid", "ssm")
 
 
 def _check_sharded(cfg: ArchConfig, params: Params, *,

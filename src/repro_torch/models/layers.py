@@ -89,7 +89,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.spmd_pipeline import (all_gather_cat, all_reduce_sum,
-                                   copy_to_ranks, gather_seq,
+                                   batch_line, copy_to_ranks, gather_seq,
                                    group_transport, is_dtensor, local_bounds,
                                    own_part, reduce_scatter, unshard,
                                    with_spec)
@@ -601,6 +601,24 @@ def gather_data(tree: Params, data) -> Params:
     give a part of it); with the batch whole on every rank each rank's
     gradient is already the whole, and it keeps its part."""
     return tree_map(lambda a: unshard(a, "data", data is not None), tree)
+
+
+def _state_rows(state, rows: int, data, what: str) -> None:
+    """Raise unless recurrent ``state`` (a cache leaf, B its dim 0) holds
+    the rows of B that the activations hold: as many (``rows``), and split
+    over the same ranks as the batch (``data``, the batch's line,
+    :func:`~repro_torch.core.spmd_pipeline.batch_line`; None where the
+    batch is whole here, and then so must B be), so that a rank's state is
+    its own rows and not another rank's or a whole batch's."""
+    at = local_bounds(state)[0]
+    ranks = [None if line is None
+             else torch.distributed.get_process_group_ranks(line[0])
+             for line in (batch_line(state), data)]
+    if at.stop - at.start != rows or ranks[0] != ranks[1]:
+        raise ValueError(f"the {what} state holds rows {at} of its batch "
+                         f"of {state.shape[0]}, split over ranks "
+                         f"{ranks[0]}; the activations {rows} rows, split "
+                         f"over ranks {ranks[1]}")
 
 
 def _cut(x: torch.Tensor, dim: int, lo: int, hi: int) -> torch.Tensor:

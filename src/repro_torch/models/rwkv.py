@@ -36,7 +36,10 @@ along d.  The state keeps the cache's layout: ``S`` [B, H, hd, hd] split
 on its last dim (the cache path is ``S``, so the general rule shards its
 last dim) is gathered along it as a step comes in and re-laid from the
 rank's heads as it goes out; ``tm_last`` and ``cm_last`` [B, d], split on
-d, are gathered to be read, and each rank stores its columns.
+d, are gathered to be read, and each rank stores its columns.  Under a
+data axis every state leaf holds the rank's rows of B, the activations'
+rows (checked as it is read); the gathers above run over the model axis
+alone and leave the rows as they are.
 """
 from __future__ import annotations
 
@@ -49,7 +52,7 @@ from torch.profiler import record_function
 from ..core.spmd_pipeline import (all_gather_cat, gather_seq, is_dtensor,
                                    local_bounds, own_part, reduce_scatter)
 from .layers import (_MmF32, _cut, _dense_init, _enter, _local, _model_line,
-                     _row_parallel, rmsnorm)
+                     _row_parallel, _state_rows, rmsnorm)
 from .scan_utils import chunked_scan
 
 Params = Any
@@ -256,14 +259,17 @@ def channel_mix(p: Params, x: torch.Tensor, last: torch.Tensor | None, *,
 
 
 def rwkv_block(p: Params, x: torch.Tensor, norm1: Params, norm2: Params,
-               state: Params | None = None, *, seq: bool = False
-               ) -> tuple[torch.Tensor, Params]:
+               state: Params | None = None, *, seq: bool = False,
+               data=None) -> tuple[torch.Tensor, Params]:
     """Full RWKV block: time-mix + channel-mix with residuals.
 
     ``state`` = {"S": [B,H,hd,hd] f32, "tm_last": [B,d], "cm_last": [B,d]};
     DTensors by ``cache_shardings`` under DTensor weights, and then the
     new state holds the local tensors of their layout.  ``seq``: ``x`` is
-    this rank's part of the tokens, and so is the result (no state)."""
+    this rank's part of the tokens, and so is the result (no state).
+    ``data``: x is this rank's rows of a batch split over that data line
+    (:func:`~repro_torch.core.spmd_pipeline.batch_line`), as ``state``'s
+    must be (:func:`~.layers._state_rows`)."""
     B, T, d = x.shape
     H = d // HEAD_DIM
     if state is None:
@@ -271,6 +277,8 @@ def rwkv_block(p: Params, x: torch.Tensor, norm1: Params, norm2: Params,
             torch.zeros((B, H, HEAD_DIM, HEAD_DIM), dtype=torch.float32,
                         device=x.device), None, None)
     else:
+        for k in ("S", "tm_last", "cm_last"):
+            _state_rows(state[k], B, data, "rwkv")
         S0, tm_last, cm_last = (state["S"], _whole_d(state["tm_last"]),
                                 _whole_d(state["cm_last"]))
     h1 = rmsnorm(norm1, x, split=seq)

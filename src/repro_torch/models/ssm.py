@@ -32,7 +32,8 @@ on dim 2); B and C contract over the channels too, a partial product on
 each rank summed in f32 and rounded once to the activation type, as a row
 split's, and since each rank's scan reads them for its channels alone,
 their gradient is summed as well.  ``out_proj`` is a row split
-(:func:`~.layers._row_parallel`).
+(:func:`~.layers._row_parallel`).  Under a data axis the state holds the
+rank's rows of B, the activations' rows (checked as it is read).
 """
 from __future__ import annotations
 
@@ -45,7 +46,7 @@ from torch.profiler import record_function
 from ..core.spmd_pipeline import (all_reduce_sum, copy_to_ranks, gather_seq,
                                    local_bounds)
 from .layers import (_MmF32, _cut, _dense_init, _enter, _local, _model_line,
-                     _row_parallel)
+                     _row_parallel, _state_rows)
 from .scan_utils import chunked_scan
 
 Params = Any
@@ -141,18 +142,22 @@ def _ssm_core(p: Params, xc: torch.Tensor, h0: torch.Tensor,
     return y, hT
 
 
-def _state_local(leaf: torch.Tensor, dim: int, ch: slice) -> torch.Tensor:
+def _state_local(leaf: torch.Tensor, dim: int, ch: slice, rows: int,
+                 data) -> torch.Tensor:
     """This rank's part of a state leaf (a DTensor by ``cache_shardings``,
-    or a plain tensor), which must hold channels ``ch`` along ``dim``."""
+    or a plain tensor), which must hold channels ``ch`` along ``dim`` and
+    the rows of B that x holds: ``rows`` of them, on the batch's data line
+    ``data`` (:func:`~.layers._state_rows`)."""
     at = local_bounds(leaf)[dim]
     if (at.start, at.stop) != (ch.start, ch.stop):
         raise ValueError(f"the ssm state holds channels {at}, this rank "
                          f"computes {ch}")
+    _state_rows(leaf, rows, data, "ssm")
     return _local(leaf)
 
 
 def ssm_apply(p: Params, x: torch.Tensor, state: Params | None = None, *,
-              seq: bool = False) -> tuple[torch.Tensor, Params]:
+              seq: bool = False, data=None) -> tuple[torch.Tensor, Params]:
     """Full-sequence (train/prefill), or decode from ``state``.
     x: [B,T,d] → (y [B,T,d], {"h": [B,d,N] f32, "conv": [B,K-1,d]}).
 
@@ -160,7 +165,10 @@ def ssm_apply(p: Params, x: torch.Tensor, state: Params | None = None, *,
     channels of ``in_proj``, and the new state holds them: the local
     tensors of ``state``'s shards.  ``seq``: ``x`` is this rank's part of
     the tokens (:class:`~.layers.SeqParallel`), gathered along S for the
-    scan, and so is the output."""
+    scan, and so is the output.  ``data``: x is this rank's rows of a
+    batch split over that data line
+    (:func:`~repro_torch.core.spmd_pipeline.batch_line`), as ``state``'s
+    must be."""
     in_proj = p["in_proj"]
     di = in_proj.shape[2]
     ch = local_bounds(in_proj)[2]
@@ -172,8 +180,8 @@ def ssm_apply(p: Params, x: torch.Tensor, state: Params | None = None, *,
     xi, z = xz[:, :, 0], xz[:, :, 1]
     conv0 = h0 = None
     if state is not None:
-        conv0 = _state_local(state["conv"], 2, ch)
-        h0 = _state_local(state["h"], 1, ch)
+        conv0 = _state_local(state["conv"], 2, ch, B, data)
+        h0 = _state_local(state["h"], 1, ch, B, data)
     with record_function("ssm:conv"):
         xc = _causal_conv(xi, _cut(_local(p["conv"], split), 1, ch.start,
                                    ch.stop), conv0)

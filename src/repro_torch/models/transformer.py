@@ -144,10 +144,11 @@ def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
     which attends to ``img_kv``: raw image embeddings [B, M, d], or a dict
     of the cached ``ck``/``cv`` (:func:`_cross_from_cache`).  ``data``: x
     is this rank's rows of a batch split over the data axis (the moe
-    block's routing groups are the global batch's)."""
+    block's routing groups are the global batch's; a recurrent state must
+    hold the same rows)."""
     if cfg.rwkv:
         x, new_state = rwkv_block(p["rwkv"], x, p["ln1"], p["ln2"],
-                                  state=cache, seq=seq)
+                                  state=cache, seq=seq, data=data)
         return x, new_state, None
     h = rmsnorm(p["ln1"], x, split=seq)
     if is_cross:
@@ -167,7 +168,7 @@ def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
     if cfg.hybrid:
         s, s_new = ssm_apply(p["ssm"], h,
                              state=None if cache is None else cache["ssm"],
-                             seq=seq)
+                             seq=seq, data=data)
         a = (a + s) * 0.5
         if new_cache is not None:
             new_cache["ssm"] = s_new

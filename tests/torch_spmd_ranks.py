@@ -815,23 +815,24 @@ def _fsdp_moe_apply(mesh, job, pin) -> dict:
 
 def _fsdp_refusals(mesh, cfgs, dense) -> dict:
     """What a (data, model) mesh refuses, each message ("" where it ran):
-    the prefill step of each of ``cfgs`` (the hybrid, ssm and vlm
-    families) with weights by ``param_shardings``; ``dense`` on a (pod 2,
+    the prefill step of each of ``cfgs`` (the vlm family) with weights by
+    ``param_shardings``; ``dense`` on a (pod 2,
     model 2) mesh of the same ranks; the train step's ``scan_chunks``; and
     ``with_spec`` moving a dim split over ``data`` (which ``unshard``
-    gathers instead)."""
+    gathers instead); and a recurrent state whose rows of B are not the
+    activations' (``"state_rows"``, the ValueError's message)."""
     import types
 
-    from repro_torch.core.spmd_pipeline import unshard, with_spec
+    from repro_torch.core.spmd_pipeline import batch_line, unshard, with_spec
     from repro_torch.launch import mesh as TMESH
     from repro_torch.launch import sharding as TS
     from repro_torch.launch import steps as TST
     from repro_torch.models import LM, layers
 
-    def refused(fn) -> str:
+    def refused(fn, error=NotImplementedError) -> str:
         try:
             fn()
-        except NotImplementedError as e:
+        except error as e:
             return str(e)
         return ""
 
@@ -870,6 +871,22 @@ def _fsdp_refusals(mesh, cfgs, dense) -> dict:
                                                       in g.placements],
                           bool(torch.equal(g.to_local(),
                                            torch.arange(16.0).reshape(4, 4))))
+        # a recurrent state's rows against the activations': 2 rows of a
+        # batch of 4 split over data, beside a state of 4 split the same
+        # way, one of 4 split over data beside a whole batch of 2, and a
+        # whole state of 2 beside the split batch
+        line = batch_line(TS.to_dtensor(mesh, torch.zeros(2, 3),
+                                        TS.P("data", None), (4, 3)))
+        split = TS.to_dtensor(mesh, torch.zeros(2, 4), TS.P("data", None),
+                              (4, 4))
+        whole = TS.to_dtensor(mesh, torch.zeros(2, 4), TS.P(None, None),
+                              (2, 4))
+        out["state_rows"] = {
+            k: refused(lambda: layers._state_rows(s, 2, d, "rwkv"),
+                       ValueError)
+            for k, (s, d) in {"same": (split, line),
+                              "batch whole": (split, None),
+                              "state whole": (whole, line)}.items()}
     finally:
         layers.set_attention_mesh(None)
     return out
@@ -879,16 +896,19 @@ def fsdp_rank(mesh, jobs, moe_job=None, refusals=None) -> dict:
     """A data axis over more than one rank (FSDP), for each job of
     ``jobs`` (name → {"cfg", "params" held whole, "batches" (whole), "dec"
     teacher-forced tokens or embeddings [B, n(, d)], "pins" (a moe
-    config's routing, or None), "serve", "grads", "steps": what to run}):
-    serving under both layouts (:func:`_fsdp_serve`), the loss and
-    gradient shards with ``seq_parallel`` on and off (the train step's,
-    and for a moe config the aux terms' and the cross-entropy's alone,
-    :func:`_ep_grads` on the batch split by ``distribute_batch``), two
-    ``make_train_step`` steps (:func:`_train_steps`); the batch's and the
-    cache's local shapes.  Given ``moe_job``, :func:`_fsdp_moe_apply`;
-    given ``refusals`` (cfgs, a dense cfg), :func:`_fsdp_refusals`; and
-    ``global_norm`` of a params tree by ``param_shardings`` against the
-    whole tree's.  ``DTensor.redistribute`` raises in this rank
+    config's routing, or None), "serve", "grads", "steps": what to run,
+    "restart": None, or the (params, optimizer state) held whole to start
+    the second step from}): serving under both layouts
+    (:func:`_fsdp_serve`), the loss and gradient shards with
+    ``seq_parallel`` on and off (the train step's, and for a moe config
+    the aux terms' and the cross-entropy's alone, :func:`_ep_grads` on the
+    batch split by ``distribute_batch``), two ``make_train_step`` steps
+    (:func:`_train_steps`; given ``restart``, one from the start and one
+    from it, and the two carried on, ``"carried"``); the batch's and the
+    cache's local shapes; ``global_norm`` of the params tree by
+    ``param_shardings`` against the whole tree's.  Given ``moe_job``,
+    :func:`_fsdp_moe_apply`; given ``refusals`` (cfgs, a dense cfg),
+    :func:`_fsdp_refusals`.  ``DTensor.redistribute`` raises in this rank
     throughout: no path may reach it."""
     from torch.distributed.tensor import DTensor
 
@@ -932,20 +952,30 @@ def fsdp_rank(mesh, jobs, moe_job=None, refusals=None) -> dict:
             if job.get("steps"):
                 batches = [TS.distribute_batch(mesh, b)
                            for b in job["batches"]]
-                r["steps"] = {sp: _train_steps(mesh, cfg, params, batches,
-                                               job["kw"], sp, pin=pin)
-                              for sp in (True, False)}
+                r["steps"], r["carried"] = {}, {}
+                for sp in (True, False):
+                    carried = _train_steps(mesh, cfg, params, batches,
+                                           job["kw"], sp, pin=pin)
+                    if job.get("restart") is None:
+                        r["steps"][sp] = carried
+                        continue
+                    mid, opt = job["restart"]
+                    r["carried"][sp] = carried
+                    r["steps"][sp] = [
+                        _train_steps(mesh, cfg, params, batches[:1],
+                                     job["kw"], sp),
+                        _train_steps(mesh, cfg, mid, batches[1:], job["kw"],
+                                     sp, opt)]
+            p = TS.distribute_params(mesh, params,
+                                     TS.param_shardings(mesh, params))
+            r["norm"] = (float(global_norm(p)), float(global_norm(params)),
+                         len(leaves(p)))
         if moe_job is not None:
             pin.choices = moe_job["pins"]
             pin.part = (mesh.axis_index("data"), mesh.shape["data"])
             out["moe_apply"] = _fsdp_moe_apply(mesh, moe_job, pin)
         if refusals is not None:
             out["refused"] = _fsdp_refusals(mesh, *refusals)
-        job = next(iter(jobs.values()))
-        whole = job["params"]
-        p = TS.distribute_params(mesh, whole, TS.param_shardings(mesh, whole))
-        out["norm"] = (float(global_norm(p)), float(global_norm(whole)),
-                       len(leaves(p)))
     finally:
         DTensor.redistribute = saved
         moe.ROUTING_HOOK = None
