@@ -622,22 +622,32 @@ EP = dict(arch="moonshot-v1-16b-a3b", layers=4, mesh=(1, 2), batch=2,
 # ``control_limit``: a moonshot gradient, or a read CONTROLLED names
 # (cell 15's rwkv reads), over 2e-2 of max|ref| passes within that many
 # times the whole bf16 run's own distance to the same run in f32 (per
-# layer for a layer's leaf)
+# layer for a layer's leaf).  llama-3.2-vision-11b ("vlm") at full widths
+# and one group (4 self + 1 cross layer): served (2 prompts of 2048 tokens
+# against 1601 bf16 image rows drawn from the seed, one row a data rank; 16
+# decode steps by param_shardings_serving, 2 by param_shardings) with its
+# self cache in the JAX layout (each group's 4 self layers split over data:
+# each data rank holds 2 of them for both rows, writes the rows gathered
+# over data and sends the other rank its row to decode), trained at one
+# group (2 x 2048, seq_parallel on, its own image rows)
 FSDP = dict(mesh=(2, 2), dense="gemma3-12b", dense_layers=4,
             train_layers=2, moe="moonshot-v1-16b-a3b", moe_layers=2,
             hybrid="hymba-1.5b", ssm="rwkv6-1.6b", rec_layers=2,
-            rec_train_layers=1,
+            rec_train_layers=1, vlm="llama-3.2-vision-11b", vlm_layers=5,
             batch=2, prompt_len=2048, decode=16, fsdp_decode=2,
             moe_decode=8, train_seq=2048, moe_train_seq=4096,
             loss_chunk=512, lr=3e-4, seed=2033, experts=(0, 32),
             control_limit=2.0, timeout=600)
 # the fsdp phase's families, in the order they run, and their seed offsets
-FSDP_FAMS = {"dense": 0, "moe": 10, "hybrid": 20, "ssm": 30}
+FSDP_FAMS = {"dense": 0, "moe": 10, "hybrid": 20, "ssm": 30, "vlm": 40}
 # the layer leaves whose local shapes a serving rank prints, by family
 FSDP_SHAPES = {"dense": ("attn/wq", "attn/wo", "mlp/wi"),
                "moe": ("attn/wq", "attn/wo", "moe/wi", "moe/router"),
                "hybrid": ("ssm/in_proj", "attn/wq", "attn/wo"),
-               "ssm": ("rwkv/wr", "rwkv/wo", "rwkv/ck")}
+               "ssm": ("rwkv/wr", "rwkv/wo", "rwkv/ck"),
+               "vlm": ("attn/wq", "attn/wk", "mlp/wi")}
+# the families trained with seq_parallel alone (no second step without it)
+FSDP_SP_ONLY = ("moe", "vlm")
 
 
 class SmokeFailure(RuntimeError):
@@ -4390,9 +4400,25 @@ def spmd_inputs(cfg, seed: int, device):
                        device=device).bfloat16()
 
 
-def spmd_rank(mesh, bounds: list, n_layers: int, n_micro: int,
-              train: bool) -> dict:
-    """One rank of the phase: draw this stage's layers, run the pipeline
+def spmd_rank(mesh, runs: list) -> list:
+    """One rank of the phase, one spawn for every run of ``runs`` (each
+    the (bounds, layers, microbatches, train) of :func:`spmd_run`) on this
+    mesh, in turn; → their results."""
+    import gc
+
+    import torch
+
+    out = []
+    for run in runs:
+        out.append(spmd_run(mesh, *run))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def spmd_run(mesh, bounds: list, n_layers: int, n_micro: int,
+             train: bool) -> dict:
+    """One run on a rank: draw this stage's layers, run the pipeline
     (forward, or forward and mean(out²)'s backward), return its numbers,
     the last stage's outputs and, training, its layers' gradients."""
     import torch
@@ -4585,15 +4611,36 @@ def phase_spmd() -> tuple[dict, dict]:
             for k, v in r["launches"].items():
                 counts[k] = counts.get(k, 0) + v
 
-    # served: the sequential reference, then 4 and 3 stages
+    # the sequential references (served; layers 0-7 trained, M = 4
+    # microbatches of 1 x 4096), then one spawn of 4 ranks that serves in
+    # 4 stages and trains in 4, then one of 3 that serves after the re-plan
+    n, Mt = SPMD["train_layers"], SPMD["train_microbatches"]
+    check(SPMD["train_stages"] == SPMD["stages"],
+          "spmd: the served and trained pipelines share one spawn")
     xs = spmd_inputs(cfg, SPMD["seed"], "cuda")
     ref, _ = spmd_reference(cfg, cfg.n_layers, xs, False)
     scale = ref.float().abs().max().item()
     lap("reference")
+    tref, grads = spmd_reference(cfg, n, xs[:Mt], True)
+    grads = [[g.detach() for g in leaves(lg)] for lg in grads]
+    del xs
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("train_reference")
+    both = run_on_local_mesh((SPMD["stages"],), ("stage",), spmd_rank,
+                             [(plans["served"], cfg.n_layers, M, False),
+                              (plans["train"], n, Mt, True)],
+                             device="cuda", timeout=SPMD["timeout"])
+    runs = {"served": [r[0] for r in both], "train": [r[1] for r in both]}
+    del both
+    lap("served_and_train_ranks")
+    runs["replan"] = [r[0] for r in run_on_local_mesh(
+        (SPMD["replan"],), ("stage",), spmd_rank,
+        [(plans["replan"], cfg.n_layers, M, False)], device="cuda",
+        timeout=SPMD["timeout"])]
+    lap("replan_ranks")
     for key, n_st in (("served", SPMD["stages"]), ("replan", SPMD["replan"])):
-        res = run_on_local_mesh((n_st,), ("stage",), spmd_rank, plans[key],
-                                cfg.n_layers, M, False, device="cuda",
-                                timeout=SPMD["timeout"])
+        res = runs.pop(key)
         got = res[-1]["out"].to("cuda")
         err = (got.float() - ref.float()).abs().max().item()
         k7 = sum(r["launches"]["flash_attention"] for r in res)
@@ -4611,26 +4658,16 @@ def phase_spmd() -> tuple[dict, dict]:
         check(k7 == cfg.n_layers * M, f"spmd {key}: {k7} K7 launches")
         out[key] = rep
         del res, got
-        lap(key)
-    del ref, xs
+    del ref
     gc.collect()
     torch.cuda.empty_cache()
 
     # trained: layers 0-7 in 4 stages, M = 4 microbatches of 1 x 4096
-    n, Mt = SPMD["train_layers"], SPMD["train_microbatches"]
-    xs = spmd_inputs(cfg, SPMD["seed"], "cuda")[:Mt]
-    ref, grads = spmd_reference(cfg, n, xs, True)
-    grads = [[g.detach() for g in leaves(lg)] for lg in grads]
-    gc.collect()
-    torch.cuda.empty_cache()
-    lap("train_reference")
-    res = run_on_local_mesh((SPMD["train_stages"],), ("stage",), spmd_rank,
-                            plans["train"], n, Mt, True, device="cuda",
-                            timeout=SPMD["timeout"])
+    res = runs.pop("train")
     add(res)
     rep = spmd_report("train", res, SPMD["train_stages"], Mt)
     got = res[-1]["out"].to("cuda")
-    out_err = (got.float() - ref.float()).abs().max().item()
+    out_err = (got.float() - tref.float()).abs().max().item()
     worst = (0.0, None)
     for r in res:
         for j, lg in enumerate(r["grads"]):
@@ -4654,10 +4691,10 @@ def phase_spmd() -> tuple[dict, dict]:
                 "flash_attention_bwd_dkv": n * Mt},
           f"spmd train: launches {k}")
     out["train"] = rep
-    del res, got, ref, grads, xs
+    del res, got, tref, grads
     gc.collect()
     torch.cuda.empty_cache()
-    lap("train")
+    lap("checks")
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"[spmd] phase {out['phase_s']:.3f} s (budget 90); seconds by part "
           f"{ {k_: round(v_, 3) for k_, v_ in secs.items()} }; K7/K8/K9 "
@@ -4870,16 +4907,16 @@ def tp_rank(mesh, ids, tokens) -> dict:
                           local_bounds(cache[n])) for n in ("k", "v")}}
 
 
-def phase_tp() -> tuple[dict, dict]:
-    """gemma3-12b served tensor-parallel on 2 ranks sharing the card, held
-    to the whole-model run on the same weights in this process."""
+def tp_prepare() -> dict:
+    """Cell 12's reference: the whole-model serving run of gemma3-12b,
+    alone on the card; → what :func:`tp_rank` and :func:`tp_check`
+    read."""
     import gc
 
     import torch
 
     from repro_torch.core.tree import leaves
     from repro_torch.launch import steps as TST
-    from repro_torch.launch.mesh import run_on_local_mesh
     from repro_torch.models import LM
 
     gc.collect()
@@ -4914,12 +4951,24 @@ def phase_tp() -> tuple[dict, dict]:
           f"{ref_ms['prefill_cache_ms']:.3f} ms, decode "
           f"{statistics.median(ref_ms['decode_ms']):.3f} ms a step "
           f"(median of {n}); {t_ref:.3f} s")
+    return {"cfg": cfg, "ids": ids.cpu(), "tokens": tokens, "ref": ref,
+            "ref_dec": ref_dec, "ref_ms": ref_ms, "ref_cache": ref_cache,
+            "nbytes": nbytes, "t_ref": t_ref}
 
-    t1 = time.perf_counter()
-    res = run_on_local_mesh(TP["mesh"], ("data", "model"), tp_rank,
-                            ids.cpu(), tokens, device="cuda",
-                            timeout=TP["timeout"])
-    ranks_s = time.perf_counter() - t1
+
+def tp_check(prep: dict, res: list) -> tuple[dict, dict]:
+    """gemma3-12b served tensor-parallel on 2 ranks sharing the card
+    (``res``: each rank's :func:`tp_rank`), held to the whole-model run on
+    the same weights (:func:`tp_prepare`)."""
+    import gc
+
+    import torch
+
+    t0 = time.perf_counter()
+    cfg, ref, ref_dec = prep["cfg"], prep["ref"], prep["ref_dec"]
+    ref_ms, ref_cache, t_ref = prep["ref_ms"], prep["ref_cache"], prep["t_ref"]
+    B, T, n = TP["batch"], TP["prompt_len"], TP["decode"]
+    ranks_s = max(r["part_s"] for r in res)
     half = {"wq": (cfg.d_model, cfg.n_heads // 2, cfg.hd),
             "wk": (cfg.d_model, cfg.n_kv_heads // 2, cfg.hd),
             "attn/wo": (cfg.n_heads * cfg.hd // 2, cfg.d_model),
@@ -5009,9 +5058,9 @@ def phase_tp() -> tuple[dict, dict]:
                                         "ms", "draw_s", "mesh_s", "peak_gb",
                                         "launches", "collectives")}
                      for r in res],
-           "ranks_s": ranks_s, "weights_gb": nbytes / 1e9,
-           "phase_s": time.perf_counter() - t_phase}
-    print(f"[tp] phase {out['phase_s']:.3f} s (budget 60): whole run "
+           "ranks_s": ranks_s, "weights_gb": prep["nbytes"] / 1e9,
+           "phase_s": t_ref + ranks_s + time.perf_counter() - t0}
+    print(f"[tp] cell {out['phase_s']:.3f} s (budget 60): whole run "
           f"{t_ref:.3f} s, ranks {ranks_s:.3f} s; K7 launches on the ranks "
           f"{counts}")
     del res
@@ -5216,19 +5265,13 @@ def tp_train_rank(mesh, ref_path: str) -> dict:
                                 for t in v) for n, v in inputs.items()}}
 
 
-def phase_tp_train() -> tuple[dict, dict]:
-    """gemma3-12b trained tensor-parallel on 2 ranks sharing the card,
-    held to the whole-model run on the same weights and batch in this
-    process."""
+def tp_train_prepare(tmp: str) -> dict:
+    """Cell 13's reference: the whole-model step of gemma3-12b, its
+    gradients saved under ``tmp`` for the ranks; → what
+    :func:`tp_train_rank` and :func:`tp_train_check` read."""
     import gc
-    import tempfile
 
     import torch
-
-    from repro_torch.launch import sharding as TS
-    from repro_torch.launch import steps as TST
-    from repro_torch.launch.mesh import MeshLayout, run_on_local_mesh
-    from repro_torch.optim import adamw_init
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -5242,22 +5285,35 @@ def phase_tp_train() -> tuple[dict, dict]:
           f"tokens, loss chunk {TP_TRAIN['loss_chunk']}, per-layer remat, "
           f"AdamW lr {TP_TRAIN['lr']}; mesh (data, model) = "
           f"{TP_TRAIN['mesh']}")
-    with tempfile.TemporaryDirectory(prefix="tp_train_") as tmp:
-        ref_path = os.path.join(tmp, "reference.pt")
-        ref = tp_train_reference(ref_path)
-        gc.collect()
-        torch.cuda.empty_cache()
-        t_ref = time.perf_counter() - t_phase
-        print(f"[tp_train] whole-model run: {ref['weights_gb']:.3f} GB of "
-              f"weights; loss {ref['loss']} grad_norm {ref['grad_norm']}; "
-              f"loss and gradients {ref['step_ms']:.3f} ms; {t_ref:.3f} s "
-              f"with the draw and the saved gradients")
-        t1 = time.perf_counter()
-        res = run_on_local_mesh(TP_TRAIN["mesh"], ("data", "model"),
-                                tp_train_rank, ref_path, device="cuda",
-                                timeout=TP_TRAIN["timeout"])
-        ranks_s = time.perf_counter() - t1
+    ref_path = os.path.join(tmp, "reference.pt")
+    ref = tp_train_reference(ref_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t_phase
+    print(f"[tp_train] whole-model run: {ref['weights_gb']:.3f} GB of "
+          f"weights; loss {ref['loss']} grad_norm {ref['grad_norm']}; "
+          f"loss and gradients {ref['step_ms']:.3f} ms; {t_ref:.3f} s "
+          f"with the draw and the saved gradients")
+    return {"cfg": cfg, "path": ref_path, "ref": ref, "t_ref": t_ref}
 
+
+def tp_train_check(prep: dict, res: list) -> tuple[dict, dict]:
+    """gemma3-12b trained tensor-parallel on 2 ranks sharing the card
+    (``res``: each rank's :func:`tp_train_rank`), held to the whole-model
+    run on the same weights and batch (:func:`tp_train_prepare`)."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch import sharding as TS
+    from repro_torch.launch import steps as TST
+    from repro_torch.launch.mesh import MeshLayout
+    from repro_torch.optim import adamw_init
+
+    t0 = time.perf_counter()
+    cfg, ref, t_ref = prep["cfg"], prep["ref"], prep["t_ref"]
+    B, S = TP_TRAIN["batch"], TP_TRAIN["seq_len"]
+    ranks_s = max(r["part_s"] for r in res)
     layout = MeshLayout(TP_TRAIN["mesh"], ("data", "model"))
     abstract = TST.abstract_params(cfg)
     specs = {}
@@ -5366,8 +5422,9 @@ def phase_tp_train() -> tuple[dict, dict]:
            "reads": reads, "peak_gb": peak, "k8_k9": bwd,
            "ranks": [{"rank": r["rank"], "draw_s": r["draw_s"],
                       "steps": r["steps"]} for r in res],
-           "ranks_s": ranks_s, "phase_s": time.perf_counter() - t_phase}
-    print(f"[tp_train] phase {out['phase_s']:.3f} s (budget 90): whole run "
+           "ranks_s": ranks_s,
+           "phase_s": t_ref + ranks_s + time.perf_counter() - t0}
+    print(f"[tp_train] cell {out['phase_s']:.3f} s (budget 90): whole run "
           f"{t_ref:.3f} s, ranks {ranks_s:.3f} s; K7/K8/K9 launches on the "
           f"ranks {counts}")
     del res
@@ -5897,17 +5954,32 @@ def ep_same_choices(res: list, label: str) -> dict:
     return {"calls": n, "keys": len(own)}
 
 
-def phase_ep_serve() -> tuple[dict, dict]:
-    """moonshot-v1-16b-a3b served expert-parallel (4 layers) on 2 ranks
-    sharing the card, held to the whole-model run on the same weights in
-    this process with its routing pinned."""
+def cells_rank(mesh, parts: list) -> list:
+    """One rank of several cells on one mesh, one spawn: each (rank
+    function, its arguments after the mesh) of ``parts`` in turn, the
+    card's memory freed between them; → their results, each with its
+    seconds (``part_s``)."""
     import gc
-    import tempfile
 
     import torch
 
-    from repro_torch.launch.mesh import run_on_local_mesh
-    from repro_torch.models import moe
+    out = []
+    for fn, args in parts:
+        t0 = time.perf_counter()
+        out.append(fn(mesh, *args))
+        out[-1]["part_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def ep_serve_prepare(tmp: str) -> dict:
+    """The ep phase's serving reference: the whole-model run of
+    moonshot-v1-16b-a3b (4 layers), alone on the card, saved under
+    ``tmp`` for the ranks; → what :func:`ep_serve_check` reads."""
+    import gc
+
+    import torch
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -5922,25 +5994,37 @@ def phase_ep_serve() -> tuple[dict, dict]:
           f"{B} x {T} tokens, {n} decode steps; mesh (data, model) = "
           f"{EP['mesh']}: {cfg.n_experts // m} experts and "
           f"{cfg.n_heads // m} heads a rank")
+    path = os.path.join(tmp, "serve.pt")
+    ref = ep_serve_reference(cfg, path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t_phase
+    print(f"[ep] whole-model serving run: {ref['weights_gb']:.3f} GB of "
+          f"weights; prefill step {ref['ms']['prefill_step_ms']:.3f} ms, "
+          f"prefill into the cache {ref['ms']['prefill_cache_ms']:.3f} "
+          f"ms, decode {statistics.median(ref['ms']['decode_ms']):.3f} ms "
+          f"a step (median of {n}); {t_ref:.3f} s")
+    return {"cfg": cfg, "path": path, "ref": ref, "t_ref": t_ref}
+
+
+def ep_serve_check(prep: dict, res: list) -> tuple[dict, dict]:
+    """moonshot-v1-16b-a3b served expert-parallel (4 layers) on 2 ranks
+    sharing the card (``res``: each rank's :func:`ep_serve_rank`), held to
+    the whole-model run on the same weights (:func:`ep_serve_prepare`)
+    with its routing pinned."""
+    import gc
+
+    import torch
+
+    from repro_torch.models import moe
+
+    t0 = time.perf_counter()
+    cfg, ref, t_ref = prep["cfg"], prep["ref"], prep["t_ref"]
+    B, T, n = EP["batch"], EP["prompt_len"], EP["decode"]
+    m = EP["mesh"][1]
+    serve_s = max(r["part_s"] for r in res)
     out: dict = {}
     counts: dict = {}
-    with tempfile.TemporaryDirectory(prefix="ep_") as tmp:
-        # serving: the whole-model run, alone on the card, then the ranks
-        path = os.path.join(tmp, "serve.pt")
-        ref = ep_serve_reference(cfg, path)
-        gc.collect()
-        torch.cuda.empty_cache()
-        t_ref = time.perf_counter() - t_phase
-        print(f"[ep] whole-model serving run: {ref['weights_gb']:.3f} GB of "
-              f"weights; prefill step {ref['ms']['prefill_step_ms']:.3f} ms, "
-              f"prefill into the cache {ref['ms']['prefill_cache_ms']:.3f} "
-              f"ms, decode {statistics.median(ref['ms']['decode_ms']):.3f} ms "
-              f"a step (median of {n}); {t_ref:.3f} s")
-        t1 = time.perf_counter()
-        res = run_on_local_mesh(EP["mesh"], ("data", "model"), ep_serve_rank,
-                                cfg, path, device="cuda",
-                                timeout=EP["timeout"])
-        serve_s = time.perf_counter() - t1
     half = {"moe/wi": (cfg.n_layers, cfg.n_experts // m, cfg.d_model, 2,
                        cfg.d_ff),
             "moe/wo": (cfg.n_layers, cfg.n_experts // m, cfg.d_ff,
@@ -6053,7 +6137,7 @@ def phase_ep_serve() -> tuple[dict, dict]:
                                           "err_of_elementwise_limit": worst}
         del q, k_, v
     out["k7"] = k7
-    out["serve"]["serve_s"] = time.perf_counter() - t_phase
+    out["serve"]["serve_s"] = t_ref + serve_s + time.perf_counter() - t0
     print(f"[ep] serving {out['serve']['serve_s']:.3f} s: whole run "
           f"{t_ref:.3f} s, ranks {serve_s:.3f} s")
     del res, ref, p0
@@ -6062,43 +6146,52 @@ def phase_ep_serve() -> tuple[dict, dict]:
     return counts, out
 
 
-def phase_ep_train() -> tuple[dict, dict]:
-    """moonshot-v1-16b-a3b trained expert-parallel (2 layers) on 2 ranks
-    sharing the card, held to the whole-model step in this process with
-    its routing pinned."""
+def ep_train_prepare(tmp: str) -> dict:
+    """The ep phase's training reference: the whole-model step of
+    moonshot-v1-16b-a3b (2 layers) with its controls, saved under ``tmp``
+    for the ranks; → what :func:`ep_train_check` reads."""
     import gc
-    import tempfile
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tcfg = ep_train_config()
+    path = os.path.join(tmp, "train.pt")
+    tref = ep_train_reference(path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[ep] whole-model training run ({tcfg.n_layers} layers, "
+          f"{EP['train_batch']} x {EP['train_seq']} tokens, loss chunk "
+          f"{EP['loss_chunk']}): {tref['weights_gb']:.3f} GB of weights; "
+          f"loss {tref['loss']} grad_norm {tref['grad_norm']} "
+          f"dropped_frac {tref['dropped_frac']}; loss and gradients "
+          f"{tref['step_ms']:.3f} ms")
+    return {"cfg": tcfg, "path": path, "ref": tref,
+            "t_ref": time.perf_counter() - t0}
+
+
+def ep_train_check(prep: dict, res: list) -> tuple[dict, dict]:
+    """moonshot-v1-16b-a3b trained expert-parallel (2 layers) on 2 ranks
+    sharing the card (``res``: each rank's :func:`ep_train_rank`), held
+    to the whole-model step (:func:`ep_train_prepare`) with its routing
+    pinned."""
+    import gc
 
     import torch
 
     from repro_torch.launch import sharding as TS
     from repro_torch.launch import steps as TST
-    from repro_torch.launch.mesh import MeshLayout, run_on_local_mesh
+    from repro_torch.launch.mesh import MeshLayout
     from repro_torch.optim import adamw_init
 
-    gc.collect()
-    torch.cuda.empty_cache()
     m = EP["mesh"][1]
     counts: dict = {}
-    tcfg = ep_train_config()
+    tcfg, tref = prep["cfg"], prep["ref"]
     S = EP["train_seq"]
     t_train = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="ep_train_") as tmp:
-        path = os.path.join(tmp, "train.pt")
-        tref = ep_train_reference(path)
-        gc.collect()
-        torch.cuda.empty_cache()
-        print(f"[ep] whole-model training run ({tcfg.n_layers} layers, "
-              f"{EP['train_batch']} x {S} tokens, loss chunk "
-              f"{EP['loss_chunk']}): {tref['weights_gb']:.3f} GB of weights; "
-              f"loss {tref['loss']} grad_norm {tref['grad_norm']} "
-              f"dropped_frac {tref['dropped_frac']}; loss and gradients "
-              f"{tref['step_ms']:.3f} ms")
-        t1 = time.perf_counter()
-        res = run_on_local_mesh(EP["mesh"], ("data", "model"), ep_train_rank,
-                                tcfg, path, device="cuda",
-                                timeout=EP["timeout"])
-        train_s = time.perf_counter() - t1
+    train_s = max(r["part_s"] for r in res)
     layout = MeshLayout(EP["mesh"], ("data", "model"))
     abstract = TST.abstract_params(tcfg)
     specs = {}
@@ -6244,27 +6337,60 @@ def phase_ep_train() -> tuple[dict, dict]:
            "reads": treads, "k8_k9": bwd, "same_choices": same,
            "ranks": [{"rank": r["rank"], "draw_s": r["draw_s"],
                       "steps": r["steps"]} for r in res],
-           "ranks_s": train_s, "train_s": time.perf_counter() - t_train}
-    print(f"[ep] training {out['train_s']:.3f} s: ranks {train_s:.3f} s")
+           "ranks_s": train_s,
+           "train_s": prep["t_ref"] + train_s + time.perf_counter() - t_train}
+    print(f"[ep] training {out['train_s']:.3f} s: whole run "
+          f"{prep['t_ref']:.3f} s, ranks {train_s:.3f} s")
     del res
     gc.collect()
     return counts, out
 
 
-def phase_ep() -> tuple[dict, dict]:
-    """moonshot-v1-16b-a3b served and trained expert-parallel on 2 ranks
-    sharing the card (:func:`phase_ep_serve`, :func:`phase_ep_train`)."""
+def phase_tp_cells() -> tuple[tuple, tuple, tuple]:
+    """Cells 12, 13 and 14 on one spawn of the (data 1, model 2) mesh:
+    gemma3-12b served (:func:`tp_rank`) and trained (:func:`tp_train_rank`)
+    tensor-parallel, moonshot-v1-16b-a3b served and trained
+    expert-parallel (:func:`ep_serve_rank`, :func:`ep_train_rank`); every
+    whole-model reference first, alone on the card, then the ranks
+    (:func:`cells_rank`), then each cell's checks; → ((launches, numbers)
+    of cell 12, of 13, of 14)."""
+    import tempfile
+
+    from repro_torch.launch.mesh import run_on_local_mesh
+
     t_phase = time.perf_counter()
-    counts, out = phase_ep_serve()
-    tcounts, out["train"] = phase_ep_train()
+    check(TP["mesh"] == TP_TRAIN["mesh"] == EP["mesh"],
+          "cells 12-14 share one mesh")
+    with tempfile.TemporaryDirectory(prefix="tp_cells_") as tmp:
+        tp, tt = tp_prepare(), tp_train_prepare(tmp)
+        serve, train = ep_serve_prepare(tmp), ep_train_prepare(tmp)
+        t1 = time.perf_counter()
+        res = run_on_local_mesh(
+            TP["mesh"], ("data", "model"), cells_rank,
+            [(tp_rank, (tp["ids"], tp["tokens"])),
+             (tp_train_rank, (tt["path"],)),
+             (ep_serve_rank, (serve["cfg"], serve["path"])),
+             (ep_train_rank, (train["cfg"], train["path"]))],
+            device="cuda", timeout=max(TP["timeout"], TP_TRAIN["timeout"],
+                                       EP["timeout"]))
+        ranks_s = time.perf_counter() - t1
+    cells = (tp_check(tp, [r[0] for r in res]),
+             tp_train_check(tt, [r[1] for r in res]))
+    counts, out = ep_serve_check(serve, [r[2] for r in res])
+    tcounts, out["train"] = ep_train_check(train, [r[3] for r in res])
+    del res
     for k, v in tcounts.items():
         counts[k] = counts.get(k, 0) + v
-    out["phase_s"] = time.perf_counter() - t_phase
-    print(f"[ep] phase {out['phase_s']:.3f} s (budget 90): serving "
+    out["phase_s"] = out["serve"]["serve_s"] + out["train"]["train_s"]
+    print(f"[ep] cell {out['phase_s']:.3f} s (budget 90): serving "
           f"{out['serve']['serve_s']:.3f} s, training "
           f"{out['train']['train_s']:.3f} s; K7/K8/K9 launches on the ranks "
           f"{counts}")
-    return counts, out
+    print(f"[tp] [tp_train] [ep] cells 12-14, one spawn: "
+          f"{time.perf_counter() - t_phase:.3f} s, the ranks {ranks_s:.3f} s")
+    for o in (cells[0][1], cells[1][1], out):
+        o["spawn_s"] = ranks_s
+    return cells[0], cells[1], (counts, out)
 
 
 # --------------------------------------------------------------------------- #
@@ -6924,13 +7050,13 @@ def tpr_check_train(arch: str, ref: dict, res: list) -> tuple[dict, dict]:
     return counts, reads
 
 
-def tpr_cells(s: dict) -> tuple[dict, dict, list]:
-    """The archs of settings ``s`` (TP_RECURRENT or TP_VLM) served and
-    trained on 2 ranks sharing the card, each held to its whole-model runs
-    on the same weights in this process (:func:`tpr_reference`), every
-    gate checked (:func:`tpr_check_serve`, :func:`tpr_check_train`);
-    → (launches on the ranks, the reads and numbers, the ranks'
-    results)."""
+def tpr_cells(settings: list) -> tuple[dict, dict, list]:
+    """The archs of each of ``settings`` (TP_RECURRENT, TP_VLM) served and
+    trained on 2 ranks sharing the card, in one spawn, each held to its
+    whole-model runs on the same weights in this process
+    (:func:`tpr_reference`), every gate checked (:func:`tpr_check_serve`,
+    :func:`tpr_check_train`); → (launches on the ranks, the reads and
+    numbers by arch, the ranks' results)."""
     import gc
     import tempfile
 
@@ -6941,8 +7067,13 @@ def tpr_cells(s: dict) -> tuple[dict, dict, list]:
     gc.collect()
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
-    tag = f"[{s['tag']}]"
-    for arch in s["archs"]:
+    archs = [a for s in settings for a in s["archs"]]
+    mesh = settings[0]["mesh"]
+    check(all(s["mesh"] == mesh for s in settings),
+          f"one spawn, one mesh: {[s['mesh'] for s in settings]}")
+    for arch in archs:
+        s = tpr_settings(arch)
+        tag = f"[{s['tag']}]"
         c = tpr_config(arch, s["layers"][arch])
         print(f"{tag} {arch}: {c.n_layers} layers served, "
               f"{s['train_layers']} trained; d {c.d_model}, "
@@ -6957,9 +7088,10 @@ def tpr_cells(s: dict) -> tuple[dict, dict, list]:
               f"teacher-forced decode steps, training {s['train_batch']} x "
               f"{s['train_seq']}; mesh (data, model) = {s['mesh']}")
     out: dict = {}
-    with tempfile.TemporaryDirectory(prefix=f"{s['tag']}_") as tmp:
+    with tempfile.TemporaryDirectory(prefix="tp_cells_") as tmp:
         refs, jobs = {}, {}
-        for arch in s["archs"]:
+        for arch in archs:
+            tag = f"[{tpr_settings(arch)['tag']}]"
             path = os.path.join(tmp, f"{arch}.pt")
             refs[arch] = tpr_reference(arch, path)
             jobs[arch] = (refs[arch]["tokens"], path)
@@ -6977,11 +7109,12 @@ def tpr_cells(s: dict) -> tuple[dict, dict, list]:
         torch.cuda.empty_cache()
         t_ref = time.perf_counter() - t_phase
         t1 = time.perf_counter()
-        res = run_on_local_mesh(s["mesh"], ("data", "model"), tpr_rank, jobs,
-                                device="cuda", timeout=s["timeout"])
+        res = run_on_local_mesh(mesh, ("data", "model"), tpr_rank, jobs,
+                                device="cuda",
+                                timeout=max(s["timeout"] for s in settings))
         ranks_s = time.perf_counter() - t1
     counts: dict = {}
-    for arch in s["archs"]:
+    for arch in archs:
         c1, serve_reads = tpr_check_serve(arch, refs[arch], res)
         c2, train_reads = tpr_check_train(arch, refs[arch], res)
         for k, v in (*c1.items(), *c2.items()):
@@ -7052,41 +7185,30 @@ def tpr_kernels(s: dict, res: list, arch: str, serve: dict,
     return kern
 
 
-def phase_tp_recurrent() -> tuple[dict, dict]:
-    """hymba-1.5b and rwkv6-1.6b served and trained tensor-parallel on 2
-    ranks sharing the card, held to the whole-model runs on the same
-    weights in this process; K7 (serving), K8 and K9 (training) at the
-    hymba ranks' own inputs against their plain versions, rank 0's timed."""
+def phase_tp_families() -> tuple[dict, dict, dict]:
+    """Cells 15 and 16 in one spawn of 2 ranks sharing the card:
+    hymba-1.5b and rwkv6-1.6b (TP_RECURRENT) and llama-3.2-vision-11b
+    (TP_VLM) served and trained tensor-parallel, held to the whole-model
+    runs on the same weights in this process; K7 (serving), K8 and K9
+    (training) at each rank's own inputs against their plain versions,
+    rank 0's timed: hymba's self-attention, the vlm model's self and cross
+    attentions; → (launches on the ranks, the tp_recurrent cells' reads
+    and kernels, the tp_vlm cell's)."""
     import gc
 
+    counts, cells, res = tpr_cells([TP_RECURRENT, TP_VLM])
+    outs = {}
+    for s in (TP_RECURRENT, TP_VLM):
+        outs[s["tag"]] = {a: cells[a] for a in s["archs"]}
     s = TP_RECURRENT
-    counts, out, res = tpr_cells(s)
     B, T, Bt, Tt = (s["batch"], s["prompt_len"], s["train_batch"],
                     s["train_seq"])
-    out.update(tpr_kernels(
+    outs["tp_recurrent"].update(tpr_kernels(
         s, res, "hymba-1.5b",
         {"self": ("tp_recurrent serve", (B, T, 25, 64), T, 1024)},
         {"train": ("tp_recurrent train", (Bt, Tt, 25, 64), Tt, 1024)}))
-    out["phase_s"] = time.perf_counter() - out.pop("t_phase")
-    print(f"[tp_recurrent] phase {out['phase_s']:.3f} s (budget 150): whole "
-          f"runs {out['reference_s']:.3f} s, ranks {out['ranks_s']:.3f} s; "
-          f"K7/K8/K9 launches on the ranks {counts}")
-    del res
-    gc.collect()
-    return counts, out
-
-
-def phase_tp_vlm() -> tuple[dict, dict]:
-    """llama-3.2-vision-11b served and trained tensor-parallel on 2 ranks
-    sharing the card, held to the whole-model runs on the same weights in
-    this process; K7 (self and cross, serving), K8 and K9 (self and cross,
-    training) at each rank's own inputs against their plain versions, rank
-    0's timed."""
-    import gc
-
     s = TP_VLM
     arch = s["archs"][0]
-    counts, out, res = tpr_cells(s)
     B, T, Bt, Tt = (s["batch"], s["prompt_len"], s["train_batch"],
                     s["train_seq"])
     for r in res:                        # both attentions on every rank
@@ -7095,19 +7217,23 @@ def phase_tp_vlm() -> tuple[dict, dict]:
             check(len(got) == 2, f"[tp_vlm] rank {r['rank']}: the K7 calls "
                                  f"kept were {sorted(got)}")
     h, M = 32 // s["mesh"][1], 1601     # each rank's heads; image rows
-    out.update(tpr_kernels(
+    outs["tp_vlm"].update(tpr_kernels(
         s, res, arch,
         {"self": ("tp_vlm self serve", (B, T, h, 128), T, 0),
          "cross": ("tp_vlm cross serve", (B, T, h, 128), M, 0)},
         {"train": ("tp_vlm self train", (Bt, Tt, h, 128), Tt, 0),
          "train cross": ("tp_vlm cross train", (Bt, Tt, h, 128), M, 0)}))
-    out["phase_s"] = time.perf_counter() - out.pop("t_phase")
-    print(f"[tp_vlm] phase {out['phase_s']:.3f} s (budget 90): whole runs "
-          f"{out['reference_s']:.3f} s, ranks {out['ranks_s']:.3f} s; "
+    phase_s = time.perf_counter() - cells["t_phase"]
+    for o in outs.values():
+        o.update({k: cells[k] for k in ("ranks_s", "reference_s",
+                                         "mesh_s")}, phase_s=phase_s)
+    print(f"[tp_recurrent] [tp_vlm] cells 15 and 16, one spawn: "
+          f"{phase_s:.3f} s (budget 180): whole runs "
+          f"{cells['reference_s']:.3f} s, ranks {cells['ranks_s']:.3f} s; "
           f"K7/K8/K9 launches on the ranks {counts}")
     del res
     gc.collect()
-    return counts, out
+    return counts, outs["tp_recurrent"], outs["tp_vlm"]
 
 
 # --------------------------------------------------------------------------- #
@@ -7124,19 +7250,22 @@ def fsdp_shape(fam: str) -> dict:
         return dict(layers=f["moe_layers"], decode=f["moe_decode"],
                     train_layers=f["moe_layers"],
                     train_seq=f["moe_train_seq"])
+    if fam == "vlm":
+        return dict(layers=f["vlm_layers"], decode=f["decode"],
+                    train_layers=f["vlm_layers"], train_seq=f["train_seq"])
     return dict(layers=f["rec_layers"], decode=f["decode"],
                 train_layers=f["rec_train_layers"], train_seq=f["train_seq"])
 
 
 def fsdp_config(fam: str, layers: int):
     """gemma3-12b ("dense"), moonshot-v1-16b-a3b ("moe"), hymba-1.5b
-    ("hybrid") or rwkv6-1.6b ("ssm") at full widths and ``layers``
-    layers."""
+    ("hybrid"), rwkv6-1.6b ("ssm") or llama-3.2-vision-11b ("vlm") at full
+    widths and ``layers`` layers."""
     import dataclasses
 
     from repro_torch.configs import get_config
 
-    if fam in ("hybrid", "ssm"):
+    if fam in ("hybrid", "ssm", "vlm"):
         return tpr_config(FSDP[fam], layers)
     cfg = dataclasses.replace(get_config(FSDP[fam]), n_layers=layers)
     if fam == "dense":
@@ -7153,19 +7282,26 @@ def fsdp_config(fam: str, layers: int):
 
 def fsdp_draws(cfg, fam: str, device) -> dict:
     """The phase's inputs for ``fam`` from its seed: the served prompts
-    [B, T] and the training batch [B, S] (every token counts)."""
+    [B, T] and the training batch [B, S] (every token counts); a vlm
+    config's served image rows (``"img"``, [B, M, d]) and the training
+    batch's own, in its dtype."""
     import torch
 
     f = FSDP
     g = torch.Generator(device).manual_seed(f["seed"] + FSDP_FAMS[fam] + 1)
     shape = (f["batch"], fsdp_shape(fam)["train_seq"])
-    return {"ids": torch.randint(0, cfg.vocab, (f["batch"], f["prompt_len"]),
-                                 generator=g, device=device),
-            "train": {"ids": torch.randint(0, cfg.vocab, shape, generator=g,
-                                           device=device),
-                      "labels": torch.randint(0, cfg.vocab, shape,
-                                              generator=g, device=device),
-                      "mask": torch.ones(shape, device=device)}}
+    out = {"ids": torch.randint(0, cfg.vocab, (f["batch"], f["prompt_len"]),
+                                generator=g, device=device),
+           "train": {"ids": torch.randint(0, cfg.vocab, shape, generator=g,
+                                          device=device),
+                     "labels": torch.randint(0, cfg.vocab, shape,
+                                             generator=g, device=device),
+                     "mask": torch.ones(shape, device=device)}}
+    if cfg.cross_attn_every:
+        out["img"], out["train"]["img_embeds"] = (torch.randn(
+            (f["batch"], cfg.n_img_tokens, cfg.d_model), generator=g,
+            device=device).to(torch.bfloat16) for _ in range(2))
+    return out
 
 
 def fsdp_weights(cfg, fam: str, part: str, device):
@@ -7188,9 +7324,10 @@ def fsdp_weights(cfg, fam: str, part: str, device):
 
 def fsdp_checked(tree, fam: str, n_layers: int) -> dict:
     """name → (leaf, its bounds in the whole leaf) of the gradients the
-    phase holds to the whole run: for gemma3, hymba and rwkv every leaf of
-    every layer (``"<path>@<layer>"``) and the embed table and final
-    norm; for
+    phase holds to the whole run: for gemma3, hymba, rwkv and
+    llama-3.2-vision every leaf of every layer (``"<path>@<layer>"``; a
+    vlm self layer's in the order g * per + j, a cross layer's by group)
+    and the embed table and final norm; for
     moonshot each layer's router, ``ln2`` and ``wq``, ``wi``/``wo`` of
     the experts in ``FSDP["experts"]`` the rank holds, and the embed
     table.  A DTensor's local tensor at its ``local_bounds`` (its data
@@ -7206,6 +7343,11 @@ def fsdp_checked(tree, fam: str, n_layers: int) -> dict:
         if fam == "moe" and not (moe or name == "embed/table" or any(
                 name.endswith(k) for k in ("moe/router", "ln2/scale",
                                            "attn/wq"))):
+            return
+        if fam == "vlm" and name.startswith(("layers/", "cross/")):
+            k = 2 if name.startswith("layers/") else 1
+            for i, t in enumerate(local.flatten(0, k - 1).unbind(0)):
+                out[f"{name}@{i}"] = (t, at[k:])
             return
         if not name.startswith("layers/"):
             out[name] = (local, at)
@@ -7244,7 +7386,8 @@ def fsdp_serve_reference(fam: str, layout) -> dict:
     model = LM(cfg)
     params = fsdp_weights(cfg, fam, "serve", "cuda")
     nbytes = sum(a.numel() * a.element_size() for a in leaves(params))
-    ids = fsdp_draws(cfg, fam, "cuda")["ids"]
+    draws = fsdp_draws(cfg, fam, "cuda")
+    ids, img = draws["ids"], draws.get("img")
     cache = model.init_cache(f["batch"], f["prompt_len"] + n, device="cuda")
     log = RoutingLog()
     try:
@@ -7253,7 +7396,7 @@ def fsdp_serve_reference(fam: str, layout) -> dict:
         with routing_hook(log):
             logits, dec, tokens, ms = tp_serve(model, params, cache, ids,
                                                prefill, decode, steps=n,
-                                               phase=log.set)
+                                               phase=log.set, img=img)
         out = {"logits": logits, "decode": dec, "tokens": tokens, "ms": ms,
                "ids": ids.cpu(), "weights_gb": nbytes / 1e9,
                "cache": {k: v.cpu() for k, (v, _) in
@@ -7269,7 +7412,8 @@ def fsdp_serve_reference(fam: str, layout) -> dict:
                                    device="cuda")
             lg32, dec32, _, _ = tp_serve(
                 m32, p32, cache, ids, TST.make_prefill_step(c32, layout)[1],
-                TST.make_decode_step(c32, layout)[1], tokens, steps=n)
+                TST.make_decode_step(c32, layout)[1], tokens, steps=n,
+                img=None if img is None else img.float())
             out["f32"] = {"logits": lg32, "decode": dec32, "cache": {
                 k: v.cpu() for k, (v, _) in tpr_leaves(cache).items()}}
             del p32, cache
@@ -7345,7 +7489,9 @@ def fsdp_serve_rank(mesh, fam: str, ref: dict, groups: dict) -> dict:
     step, ``LM.prefill`` and the whole run's tokens teacher-forced, the
     whole run's routing pinned, each collective timed by group; the
     rank's logits rows, cache shards, ms, peak GB, local shapes (the
-    cache's too) and the q/k/v the first layer gave K7 (none for rwkv)."""
+    cache's too) and the q/k/v the first layer gave K7 (none for rwkv; a
+    vlm model's first cross layer's too, and its self-cache exchanges:
+    :func:`held_exchanges`)."""
     import torch
 
     from repro_torch.core.spmd_pipeline import local_bounds
@@ -7367,6 +7513,10 @@ def fsdp_serve_rank(mesh, fam: str, ref: dict, groups: dict) -> dict:
     del whole
     torch.cuda.empty_cache()
     ids = TS.distribute_batch(mesh, {"ids": ref["ids"].to(mesh.device)})
+    img = {}
+    if cfg.cross_attn_every:                # the same rows as the prompt
+        img = TS.distribute_batch(mesh, {"img_embeds": fsdp_draws(
+            cfg, fam, mesh.device)["img"]})
     draw_s = time.perf_counter() - t0
     out = {"draw_s": draw_s, "runs": {}}
     model, prefill = TST.make_prefill_step(cfg, mesh)
@@ -7387,22 +7537,28 @@ def fsdp_serve_rank(mesh, fam: str, ref: dict, groups: dict) -> dict:
                 "bytes": 0}
         cache = TST.init_cache_sharded(cfg, mesh, B, T + n)
         kq: dict = {}
+        exch = {"prefill": [], "decode": []}
         torch.cuda.reset_peak_memory_stats()
         t1 = time.perf_counter()
         with routing_hook(log), timed_collectives(coll, groups), \
-                attention_spy(keep=kq, kind=lambda c, w: "k7"):
+                attention_spy(keep=kq, kind=lambda c, w: "k7" if c
+                              else "k7 cross"):
             log.set("prefill")
-            logits, pre_ms = timed(lambda: prefill(params, ids))
+            logits, pre_ms = timed(lambda: prefill(params, {**ids, **img}))
             log.set("fill")
-            _, fill_ms = timed(lambda: model.prefill(params, ids["ids"],
-                                                     cache))
+            with held_exchanges(exch["prefill"]):
+                _, fill_ms = timed(lambda: model.prefill(params, ids["ids"],
+                                                         cache, **img))
             dec, dec_ms = [], []
             for j in range(n):
                 log.set(f"dec{j}")
                 tok = TS.distribute_batch(
                     mesh, {"ids": ref["tokens"][:, j:j + 1].to(mesh.device)})
-                (lg, _), ms = timed(lambda: decode(params, cache,
-                                                   {**tok, "pos": T + j}))
+                step = []
+                with held_exchanges(step):
+                    (lg, _), ms = timed(lambda: decode(params, cache,
+                                                       {**tok, "pos": T + j}))
+                exch["decode"].append(step)
                 dec.append(lg.to_local().cpu())
                 dec_ms.append(ms)
         coll["run_ms"] = 1e3 * (time.perf_counter() - t1)
@@ -7424,24 +7580,56 @@ def fsdp_serve_rank(mesh, fam: str, ref: dict, groups: dict) -> dict:
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
             "cache": {k: (v.cpu(), b) for k, (v, b) in held.items()}
             if layout == "serving" else None,
-            "k7": tuple(t.cpu() if torch.is_tensor(t) else t
-                        for t in kq["k7"])
-            if layout == "serving" and "k7" in kq else None}
+            "k7": {name: tuple(t.cpu() if torch.is_tensor(t) else t
+                               for t in qkv) for name, qkv in kq.items()}
+            if layout == "serving" else None,
+            "held": exch}
         del cache
     return out
+
+
+@contextlib.contextmanager
+def held_exchanges(calls: list):
+    """Each self-cache exchange (``layers.held_rows``: the owner of a vlm
+    self layer sending the other data ranks their rows) timed alone, the
+    card synchronised around it, appended to ``calls`` as (ms, bytes sent,
+    bytes received) of this rank."""
+    import torch
+
+    from repro_torch.models import layers
+
+    real = layers.held_rows
+
+    def timed(x, split):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = real(x, split)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        n = x.device_mesh.size(x.device_mesh.mesh_dim_names.index(x.axis))
+        nbytes = got.numel() * got.element_size()
+        calls.append((ms, nbytes * (n - 1), 0) if x.layer is not None
+                     else (ms, 0, nbytes))
+        return got
+
+    layers.held_rows = timed
+    try:
+        yield calls
+    finally:
+        layers.held_rows = real
 
 
 def fsdp_train_rank(mesh, fam: str, ref: dict, groups: dict) -> dict:
     """One rank's training of ``fam``: the whole weights drawn from the
     seed, kept by ``param_shardings`` (``init_train_state_sharded``), the
     batch split over the data axis; one ``make_train_step`` step with
-    seq_parallel (and, but for moonshot, one without from the same
-    start), the whole run's routing pinned, each collective timed by
-    group; each step's checked gradients, before AdamW, against the whole
-    run's at this rank's bounds (and against the f32 control's where the
-    whole run took one); the moments' local shapes; the q, k, v and dO
-    layer 0's attention gave K8 and K9 in the first step (none for
-    rwkv)."""
+    seq_parallel (and, but for the families of ``FSDP_SP_ONLY``, one
+    without from the same start), the whole run's routing pinned, each
+    collective timed by group; each step's checked gradients, before
+    AdamW, against the whole run's at this rank's bounds (and against the
+    f32 control's where the whole run took one); the moments' local
+    shapes; the q, k, v and dO layer 0's attention gave K8 and K9 in the
+    first step (none for rwkv; a vlm model's first cross layer's too)."""
     import torch
 
     from repro_torch.core.spmd_pipeline import local_tensor
@@ -7483,14 +7671,15 @@ def fsdp_train_rank(mesh, fam: str, ref: dict, groups: dict) -> dict:
 
     def keep_attention(q, k, v, causal=True, window=0):
         o = real_attention(q, k, v, causal, window)
-        if "train" not in inputs and torch.is_grad_enabled():
-            inputs["train"] = [t.detach().clone() for t in (q, k, v)] + [
+        name = "train" if causal else "train cross"
+        if name not in inputs and torch.is_grad_enabled():
+            inputs[name] = [t.detach().clone() for t in (q, k, v)] + [
                 None, int(window)]
-            o.register_hook(lambda g: inputs["train"].__setitem__(
+            o.register_hook(lambda g: inputs[name].__setitem__(
                 3, g.detach().clone()))
         return o
 
-    plan = [True] if fam == "moe" else [True, False]
+    plan = [True] if fam in FSDP_SP_ONLY else [True, False]
     TST.adamw_update = spy
     try:
         for i, sp in enumerate(plan):
@@ -7533,9 +7722,9 @@ def fsdp_train_rank(mesh, fam: str, ref: dict, groups: dict) -> dict:
         TST.adamw_update = real_update
         layers.ops.attention = real_attention
     return {"draw_s": draw_s, "steps": steps, "moments": moments,
-            "inputs": tuple(t.cpu() if torch.is_tensor(t) else t
-                            for t in inputs["train"])
-            if "train" in inputs else None}
+            "inputs": {name: tuple(t.cpu() if torch.is_tensor(t) else t
+                                   for t in qkv)
+                       for name, qkv in inputs.items()}}
 
 
 def fsdp_rank(mesh, ref_path: str) -> dict:
@@ -7596,11 +7785,14 @@ def fsdp_check_serve(fam: str, ref: dict, res: list) -> dict:
     CONTROLLED names also passing, layer by layer, within
     ``control_limit`` times the whole bf16 run's own distance to the f32
     run), the local shapes; prints each rank's ms, peak, shapes and
-    collectives by group, and every read before a gate fails."""
+    collectives by group (a vlm model's self-cache exchanges a decode
+    step too), and every read before a gate fails."""
     import torch
 
     dlim = 2.5e-2 if fam in ("dense", "moe") else 2e-2
-    reads, fails = {}, []
+    cfg = fsdp_config(fam, fsdp_shape(fam)["layers"])
+    per = cfg.cross_attn_every - 1 if cfg.cross_attn_every else 0
+    reads, fails, exchange = {}, [], {}
     for layout in res[0][f"{fam}_serve"]["runs"]:
         pre, dec = [], []
         for r in res:
@@ -7627,10 +7819,37 @@ def fsdp_check_serve(fam: str, ref: dict, res: list) -> dict:
             check(g["shapes"]["ids"][0] == FSDP["batch"] // 2,
                   f"fsdp {fam} rank {r['rank']}: the batch's local rows "
                   f"{g['shapes']['ids']}")
-            check(all(v[1] == FSDP["batch"] // 2 for k, v in
-                      g["shapes"].items() if k.startswith("cache_")),
+            # the rank's rows of B; the vlm self cache: every row of B for
+            # half of each group's self layers (the JAX layout)
+            check(all(v[2] == FSDP["batch"] and 2 * v[1] == per
+                      if k.startswith("cache_self/") else
+                      v[1] == FSDP["batch"] // 2
+                      for k, v in g["shapes"].items()
+                      if k.startswith("cache_")),
                   f"fsdp {fam} rank {r['rank']}: the cache's local rows "
                   f"{g['shapes']}")
+            if per:
+                steps = g["held"]["decode"]
+                ms = [sum(c[0] for c in st) for st in steps]
+                sent = [sum(c[1] for c in st) for st in steps]
+                got = [sum(c[2] for c in st) for st in steps]
+                check(not g["held"]["prefill"]
+                      and all(len(st) == 2 * per * cfg.n_layers
+                              // cfg.cross_attn_every for st in steps),
+                      f"fsdp {fam} rank {r['rank']}: self-cache exchanges "
+                      f"{[len(st) for st in steps]} a decode step, "
+                      f"{len(g['held']['prefill'])} in the prefill")
+                exchange[f"{layout} rank {r['rank']}"] = {
+                    "calls_a_step": len(steps[0]),
+                    "ms_a_step_median": statistics.median(ms),
+                    "bytes_sent_a_step": sent[0],
+                    "bytes_received_a_step": got[0]}
+                print(f"[fsdp] {fam} {layout} rank {r['rank']}: self-cache "
+                      f"exchange a decode step {len(steps[0])} calls, "
+                      f"{statistics.median(ms):.3f} ms (median of "
+                      f"{len(ms)}), {sent[0] / 1e6:.3f} MB sent and "
+                      f"{got[0] / 1e6:.3f} MB received; decode step "
+                      f"{statistics.median(g['ms']['decode_ms']):.3f} ms")
         reads[f"{layout}_prefill_logits"] = max(pre)
         reads[f"{layout}_decode_logits"] = max(dec)
     ctl, lim = CONTROLLED.get(FSDP[fam], ()), FSDP["control_limit"]
@@ -7662,6 +7881,8 @@ def fsdp_check_serve(fam: str, ref: dict, res: list) -> dict:
         if v > 1.0 and f"{k} f32_control" not in reads:
             fails.append(k)
     check(not fails, f"fsdp {fam} serving: reads over their limit {fails}")
+    if exchange:
+        reads["self_cache_exchange"] = exchange
     return reads
 
 
@@ -7772,7 +7993,9 @@ def phase_fsdp() -> tuple[dict, dict]:
           f"{f['ssm']} served at {f['rec_layers']} ({f['decode']} "
           f"decode steps; {f['fsdp_decode']} under the FSDP storage) and "
           f"trained at {f['rec_train_layers']} ({f['batch']} x "
-          f"{f['train_seq']})")
+          f"{f['train_seq']}); {f['vlm']} served and trained at "
+          f"{f['vlm_layers']} (one group) against 1601 image rows, its self "
+          f"cache's layers split over data")
     ref, ref_s = {}, {}
     for fam in FSDP_FAMS:
         t0 = time.perf_counter()
@@ -7826,56 +8049,89 @@ def phase_fsdp() -> tuple[dict, dict]:
         print(f"[fsdp] {fam} K7-K9 launches by rank "
               f"{[r[f'{fam}_launches'] for r in res]}; the ranks' seconds "
               f"{[round(r[f'{fam}_s'], 3) for r in res]}")
+    # the vlm family's launches on every rank: 5 K7 a prefill (4 self, 1
+    # cross) in the prefill step and LM.prefill under both layouts, and a
+    # train step's forward and group recompute, 5 K8 and 5 K9
+    L = f["vlm_layers"]
+    want = {"flash_attention": 6 * L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkv": L}
+    for r in res:
+        check(r["vlm_launches"] == want,
+              f"fsdp rank {r['rank']} vlm: K7-K9 launches "
+              f"{r['vlm_launches']}, want {want}")
     # the moments at their opt_shardings local shapes: (leaf, the dims
     # split over data and over model, half the whole on a rank)
     moments = {"dense": ("layers/attn/wq", (1, 2)),
                "moe": ("layers/attn/wq", (1, 2)),
                "hybrid": ("layers/ssm/in_proj", (1, 3)),
-               "ssm": ("layers/rwkv/wr", (1, 2))}
+               "ssm": ("layers/rwkv/wr", (1, 2)),
+               "vlm": ("layers/attn/wq", (2, 3))}
     for r in res:
-        for fam, (leaf, dims) in moments.items():
+        for fam in FSDP_FAMS:
+            leaf, dims = moments[fam]
             local, shape = r[f"{fam}_train"]["moments"][leaf]
             check(all(local[i] * 2 == shape[i] for i in dims),
                   f"fsdp rank {r['rank']} {fam}: {leaf} moments "
                   f"{(local, shape)}")
     # K7 at a data rank's serving shapes, K8/K9 at its training shapes,
     # element by element on every rank, rank 0's timed (hymba's all 25
-    # heads a model rank, window 1024)
+    # heads a model rank, window 1024; the vlm self layers causal and its
+    # cross layer against the 1601 image rows, 16 of 32 heads a rank)
     k7, bwd = {}, {}
     hy, m = fsdp_config("hybrid", 1), f["mesh"][1]
-    want_q = {"hybrid": (1, f["prompt_len"], hy.n_heads // m
-                         if hy.n_heads % m == 0 else hy.n_heads, hy.hd)}
+    vl = fsdp_config("vlm", f["vlm_layers"])
+    T, M = f["prompt_len"], vl.n_img_tokens
+    want_q = {"hybrid": (1, T, hy.n_heads // m if hy.n_heads % m == 0
+                         else hy.n_heads, hy.hd),
+              "vlm": (1, T, vl.n_heads // m, vl.hd)}
+    kept = {"dense": (("k7", "train"),), "moe": (("k7", "train"),),
+            "hybrid": (("k7", "train"),),
+            "vlm": (("k7", "train"), ("k7 cross", "train cross"))}
     for r in res:
-        for fam in ("dense", "moe", "hybrid"):
-            q, k, v, w = (t.to("cuda") if torch.is_tensor(t) else t
-                          for t in r[f"{fam}_serve"]["runs"]["serving"]["k7"])
-            check(q.shape[0] == 1 and q.dtype == torch.bfloat16
-                  and tuple(q.shape) == want_q.get(fam, tuple(q.shape)),
-                  f"fsdp rank {r['rank']} {fam}: K7 q {tuple(q.shape)}")
-            if r["rank"] == 0:
-                k7[f"fsdp {fam}"] = k7_at(q, k, v, w, f"fsdp {fam}",
-                                          tag="[fsdp]")
-            else:
-                d, worst = flash_err(q, k, v, True, w)
-                print(f"[fsdp] rank {r['rank']} K7 {fam} at {list(q.shape)}: "
-                      f"max abs err {d}, {worst} of the element-wise limit")
-                k7[f"fsdp {fam} rank {r['rank']}"] = {
-                    "max_abs_err": d, "err_of_elementwise_limit": worst}
-            q, k, v, do, w = (t.to("cuda") if torch.is_tensor(t) else t
-                              for t in r[f"{fam}_train"]["inputs"])
-            check(do is not None and q.shape[0] == 1
-                  and tuple(q.shape) == want_q.get(fam, tuple(q.shape)),
-                  f"fsdp rank {r['rank']} {fam}: K8/K9 inputs {q.shape}")
-            if r["rank"] == 0:
-                bwd[f"fsdp {fam}"] = k8_k9_at(q, k, v, do, w,
-                                              f"fsdp {fam} train",
-                                              tag="[fsdp]")
-            else:
-                e = flash_bwd_err(q, k, v, do, True, w)
-                print(f"[fsdp] rank {r['rank']} K8/K9 {fam} at "
-                      f"{list(q.shape)}: {e}")
-                bwd[f"fsdp {fam} rank {r['rank']}"] = e
-            del q, k, v
+        for fam, names in ((f_, kept[f_]) for f_ in FSDP_FAMS
+                           if f_ in kept):
+            for serve_name, train_name in names:
+                cross = "cross" in serve_name
+                label = f"fsdp {fam}" + (" cross" if cross else "")
+                keys = M if cross else T
+                for part, name in (("serve", serve_name),
+                                   ("train", train_name)):
+                    got = (r[f"{fam}_serve"]["runs"]["serving"]["k7"]
+                           if part == "serve"
+                           else r[f"{fam}_train"]["inputs"])
+                    check(name in got, f"fsdp rank {r['rank']} {fam}: no "
+                                       f"{name} inputs kept ({sorted(got)})")
+                    q, k, v, *do, w = (t.to("cuda") if torch.is_tensor(t)
+                                       else t for t in got[name])
+                    do = [t for t in do if t is not None]
+                    check(q.shape[0] == 1 and q.dtype == torch.bfloat16
+                          and tuple(q.shape) == want_q.get(fam,
+                                                           tuple(q.shape))
+                          and (fam != "vlm" or k.shape[1] == keys)
+                          and (part == "serve" or len(do) == 1),
+                          f"fsdp rank {r['rank']} {fam} {part}: q "
+                          f"{tuple(q.shape)}, k {tuple(k.shape)}")
+                    if part == "serve" and r["rank"] == 0:
+                        k7[label] = k7_at(q, k, v, w, label,
+                                          causal=not cross, tag="[fsdp]")
+                    elif part == "serve":
+                        d, worst = flash_err(q, k, v, not cross, w)
+                        print(f"[fsdp] rank {r['rank']} K7 {label} at "
+                              f"{list(q.shape)} x {k.shape[1]} keys: max abs "
+                              f"err {d}, {worst} of the element-wise limit")
+                        k7[f"{label} rank {r['rank']}"] = {
+                            "max_abs_err": d,
+                            "err_of_elementwise_limit": worst}
+                    elif r["rank"] == 0:
+                        bwd[label] = k8_k9_at(q, k, v, do[0], w,
+                                              f"{label} train",
+                                              causal=not cross, tag="[fsdp]")
+                    else:
+                        e = flash_bwd_err(q, k, v, do[0], not cross, w)
+                        print(f"[fsdp] rank {r['rank']} K8/K9 {label} at "
+                              f"{list(q.shape)} x {k.shape[1]} keys: {e}")
+                        bwd[f"{label} rank {r['rank']}"] = e
+                    del q, k, v, do
     out = {"reads": reads, "k7": k7, "k8_k9": bwd, "ranks_s": ranks_s,
            "reference_s": t_ref, "reference_s_by_family": ref_s,
            "whole": {k: {n: v for n, v in r.items() if n in (
@@ -7974,52 +8230,29 @@ def main() -> int:
     lap("vlm")
     pcounts, spmd_out = phase_spmd()
     lap("spmd")
-    tpcounts, tp_out = phase_tp()
-    rows["flash_attention"]["max_abs_err"] = max(
-        rows["flash_attention"]["max_abs_err"],
-        *(r["max_abs_err"] for r in tp_out["k7"].values()))
-    lap("tp")
-    ttcounts, tp_train_out = phase_tp_train()
-    for label, r in tp_train_out["k8_k9"].items():
-        for n in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
-            d = r[n]["max_abs_err"] if "rank" not in label else r[n][0]
-            rows[n]["max_abs_err"] = max(rows[n]["max_abs_err"], d)
-    lap("tp_train")
-    ecounts, ep_out = phase_ep()
-    rows["flash_attention"]["max_abs_err"] = max(
-        rows["flash_attention"]["max_abs_err"],
-        *(r["max_abs_err"] for r in ep_out["k7"].values()))
-    for label, r in ep_out["train"]["k8_k9"].items():
-        for n in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
-            d = r[n]["max_abs_err"] if "rank" not in label else r[n][0]
-            rows[n]["max_abs_err"] = max(rows[n]["max_abs_err"], d)
-    lap("ep")
-    trcounts, tpr_out = phase_tp_recurrent()
-    rows["flash_attention"]["max_abs_err"] = max(
-        rows["flash_attention"]["max_abs_err"],
-        *(r["max_abs_err"] for r in tpr_out["k7"].values()))
-    for label, r in tpr_out["k8_k9"].items():
-        for n in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
-            d = r[n]["max_abs_err"] if "rank" not in label else r[n][0]
-            rows[n]["max_abs_err"] = max(rows[n]["max_abs_err"], d)
-    lap("tp_recurrent")
-    tvcounts, tpv_out = phase_tp_vlm()
-    rows["flash_attention"]["max_abs_err"] = max(
-        rows["flash_attention"]["max_abs_err"],
-        *(r["max_abs_err"] for r in tpv_out["k7"].values()))
-    for label, r in tpv_out["k8_k9"].items():
-        for n in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
-            d = r[n]["max_abs_err"] if "rank" not in label else r[n][0]
-            rows[n]["max_abs_err"] = max(rows[n]["max_abs_err"], d)
-    lap("tp_vlm")
+    def fold(k7: dict, bwd: dict) -> None:
+        """The kernels line's max_abs_err: the largest of every rank's K7
+        read in ``k7`` and K8/K9 read in ``bwd`` (a timed rank's a dict,
+        another rank's a (max abs err, share) pair)."""
+        rows["flash_attention"]["max_abs_err"] = max(
+            rows["flash_attention"]["max_abs_err"],
+            *(r["max_abs_err"] for r in k7.values()))
+        for label, r in bwd.items():
+            for n in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+                d = r[n]["max_abs_err"] if "rank" not in label else r[n][0]
+                rows[n]["max_abs_err"] = max(rows[n]["max_abs_err"], d)
+
+    ((tpcounts, tp_out), (ttcounts, tp_train_out),
+     (ecounts, ep_out)) = phase_tp_cells()
+    fold(tp_out["k7"], tp_train_out["k8_k9"])
+    fold(ep_out["k7"], ep_out["train"]["k8_k9"])
+    lap("tp_cells")
+    trcounts, tpr_out, tpv_out = phase_tp_families()
+    fold(tpr_out["k7"], tpr_out["k8_k9"])
+    fold(tpv_out["k7"], tpv_out["k8_k9"])
+    lap("tp_families")
     fscounts, fsdp_out = phase_fsdp()
-    rows["flash_attention"]["max_abs_err"] = max(
-        rows["flash_attention"]["max_abs_err"],
-        *(r["max_abs_err"] for r in fsdp_out["k7"].values()))
-    for label, r in fsdp_out["k8_k9"].items():
-        for n in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
-            d = r[n]["max_abs_err"] if "rank" not in label else r[n][0]
-            rows[n]["max_abs_err"] = max(rows[n]["max_abs_err"], d)
+    fold(fsdp_out["k7"], fsdp_out["k8_k9"])
     lap("fsdp")
     print(f"[time] total {time.perf_counter() - t_start:.3f}")
     for k, v in (*counts.items(), *hcounts.items(), *rcounts.items(),
@@ -8027,7 +8260,7 @@ def main() -> int:
                  *dcounts.items(), *mcounts.items(), *scounts.items(),
                  *vcounts.items(), *pcounts.items(), *tpcounts.items(),
                  *ttcounts.items(), *ecounts.items(), *trcounts.items(),
-                 *tvcounts.items(), *fscounts.items()):
+                 *fscounts.items()):
         launches[k] = launches.get(k, 0) + v
     replaces = {"cvt_color": "src/repro/kernels/harris.py:44",
                 "corner_harris": "src/repro/kernels/harris.py:101",

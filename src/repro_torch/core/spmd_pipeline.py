@@ -45,15 +45,19 @@ helpers (:func:`local_bounds`, :func:`unbind_layers`, :func:`with_spec`,
 :mod:`repro_torch.models.layers`; over a data axis, :func:`unshard`
 gathers a weight's storage-only dim (its gradient summed back by
 :func:`gather_seq`'s rule), :func:`batch_line` names the axis a batch is
-split over and :func:`batch_like` lays a result out as the batch.  The
-rank mesh of a process of
+split over and :func:`batch_like` lays a result out as the batch; a stack
+whose layer dim is split over the axis unbinds into :class:`HeldBy`
+records, each layer held by one rank, which sends the others their rows
+(:func:`held_rows`).  The rank mesh of a process of
 :func:`~repro_torch.launch.mesh.run_on_local_mesh` is registered here
 (:func:`current_mesh`), so nothing below the launcher imports it.
 """
 from __future__ import annotations
 
+import math
 import sys
 import time
+from dataclasses import dataclass
 from typing import Any, Callable, Sequence
 
 import torch
@@ -67,8 +71,8 @@ __all__ = ["stack_stage_params", "stage_apply", "spmd_pipeline_fn",
            "copy_to_ranks", "all_gather_cat", "own_part", "gather_seq",
            "reduce_scatter", "is_dtensor", "local_tensor", "like_dtensor",
            "sharded_dims", "placements", "with_spec", "shard_bounds",
-           "local_bounds", "unbind_layers", "group_transport", "unshard",
-           "batch_line", "batch_like"]
+           "local_bounds", "unbind_layers", "HeldBy", "held_rows",
+           "group_transport", "unshard", "batch_line", "batch_like"]
 
 
 # --------------------------------------------------------------------------- #
@@ -598,34 +602,129 @@ def shard_bounds(device_mesh, placements, shape) -> tuple:
 
 def local_bounds(x) -> tuple:
     """:func:`shard_bounds` of DTensor ``x``'s local tensor; the whole of
-    each dim for a plain tensor (one process holds it whole)."""
+    each dim for a plain tensor (one process holds it whole); a
+    :class:`HeldBy` layer's ``bounds``."""
+    if isinstance(x, HeldBy):
+        return x.bounds
     if not is_dtensor(x):
         return tuple(slice(0, n) for n in x.shape)
     return shard_bounds(x.device_mesh, x.placements, x.shape)
+
+
+@dataclass(frozen=True, eq=False)
+class HeldBy:
+    """A layer of a stacked DTensor whose layer dim is split over mesh axis
+    ``axis`` of more than one rank (the vlm self cache's ``per`` over
+    ``data``, as the JAX rule lays it out): one rank of that axis, its
+    group rank ``owner``, holds the layer whole over the axis, at
+    ``index`` of its local stack (flattened over the stack dims).
+    ``layer``: on the owner, the layer's DTensor (a view of its local
+    stack, replicated over ``axis``); None on the other ranks of the axis.
+    ``shape`` and ``dtype``: the layer's; ``bounds``: the slice of each dim
+    the owner holds, which is this rank's too on the other mesh axes (the
+    ranks of ``axis`` share their other coordinates); ``device_mesh``, and
+    ``device`` the local tensors'.  Every rank of the axis gets a record
+    for every layer, so all of them meet at each layer's exchange
+    (:func:`held_rows`) in the same order."""
+
+    axis: str
+    owner: int
+    index: int
+    layer: Any
+    shape: torch.Size
+    dtype: torch.dtype
+    bounds: tuple
+    device_mesh: Any
+    device: torch.device
 
 
 def unbind_layers(x, dims: int = 1) -> list:
     """A stacked ``[L, ...]`` DTensor (or, ``dims=2``, a ``[G, per, ...]``
     one, in the order g * per + j) as its layers' DTensors, views of its
     local tensor: no communication, and an in-place write to a layer lands
-    in the stack.  A stack dim may be sharded only over mesh dims of one
-    rank (the vlm self cache's ``data`` on ``per``), where the layers are
-    replicated."""
+    in the stack.  A stack dim sharded over mesh dims of one rank gives
+    layers replicated there.  A stack dim split over one mesh axis of more
+    than one rank (the vlm self cache's ``per`` over ``data``) gives a
+    :class:`HeldBy` record for every layer, on every rank: the owner's
+    holds its view, and its local index; no layer is copied."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
-    dm, pls = x.device_mesh, []
+    dm, pls, split = x.device_mesh, [], None
     for m, pl in enumerate(x.placements):
         if pl.is_shard() and pl.dim < dims:
             if dm.size(m) > 1:
-                raise ValueError(f"the layer dims of {x.placements} are "
-                                 f"sharded")
+                if split is not None:
+                    raise ValueError(f"the layer dims of {x.placements} are "
+                                     f"split over two mesh axes")
+                split = m
             pls.append(Replicate())
         else:
             pls.append(Shard(pl.dim - dims) if pl.is_shard() else pl)
     shape, stride = x.shape[dims:], x.stride()[dims:]
-    return [DTensor.from_local(t, dm, tuple(pls), run_check=False,
-                               shape=shape, stride=stride)
-            for t in x.to_local().flatten(0, dims - 1).unbind(0)]
+    local = x.to_local()
+    views = [DTensor.from_local(t, dm, tuple(pls), run_check=False,
+                                shape=shape, stride=stride)
+             for t in local.flatten(0, dims - 1).unbind(0)]
+    if split is None:
+        return views
+    d, n = x.placements[split].dim, dm.size(split)
+    if x.shape[d] % n:
+        raise ValueError(f"stack dim {d} of {tuple(x.shape)} does not divide "
+                         f"over {n} ranks")
+    per_rank, me = x.shape[d] // n, dm.get_coordinate()[split]
+    bounds = shard_bounds(dm, tuple(pls), shape)
+    out = []
+    for i in range(math.prod(x.shape[:dims])):
+        coord, rest = [], i                    # i's stack coordinates
+        for size in reversed(x.shape[:dims]):
+            rest, c = divmod(rest, size)
+            coord.insert(0, c)
+        owner, coord[d] = divmod(coord[d], per_rank)
+        index = 0
+        for c, size in zip(coord, local.shape[:dims]):
+            index = index * size + c
+        out.append(HeldBy(axis=dm.mesh_dim_names[split], owner=owner,
+                          index=index,
+                          layer=views[index] if owner == me else None,
+                          shape=shape, dtype=x.dtype, bounds=bounds,
+                          device_mesh=dm, device=local.device))
+    return out
+
+
+def held_rows(x: HeldBy, split: bool) -> torch.Tensor:
+    """This rank's rows (dim 0) of layer ``x``'s local tensor, held by the
+    owner: it sends every other rank of ``x``'s axis that rank's rows in
+    one point-to-point batch and keeps its own; the others receive theirs
+    from it (exact: raw bytes, through pinned host memory when the ranks
+    share a card).  ``split``: the batch is split over the axis, each rank
+    taking its part of the rows in group-rank order; else every rank takes
+    all of them.  Every rank of the axis must call it for the same layer
+    at the same point."""
+    group = x.device_mesh.get_group(x.axis)
+    transport = group_transport(group, x.device)
+    line = dist.get_process_group_ranks(group)
+    n = len(line)
+    me = x.device_mesh.get_coordinate()[
+        x.device_mesh.mesh_dim_names.index(x.axis)]
+    rows = x.shape[0] // n if split else x.shape[0]
+
+    def part(r: int) -> slice:
+        return slice(r * rows, (r + 1) * rows) if split else slice(0, rows)
+
+    if x.layer is not None:
+        local = x.layer.to_local()
+        ops = [dist.P2POp(dist.isend, _to_wire(local[part(r)], transport),
+                          line[r], group) for r in range(n) if r != x.owner]
+        for w in (dist.batch_isend_irecv(ops) if ops else ()):
+            w.wait()
+        return local[part(me)]
+    shape = (rows, *(b.stop - b.start for b in x.bounds[1:]))
+    like = torch.empty(shape, dtype=x.dtype, device=x.device)
+    buf = _wire_empty(like, transport)
+    for w in dist.batch_isend_irecv([dist.P2POp(dist.irecv, buf,
+                                                line[x.owner], group)]):
+        w.wait()
+    return _from_wire(buf, like, transport)
 
 
 def group_transport(group, device) -> str:

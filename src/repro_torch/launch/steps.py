@@ -47,9 +47,8 @@ its cross-attention on the rank's heads against the image rows whole on
 every rank; its prefill writes the image K/V, and every self layer its
 k/v, re-laid from the rank's kv heads into the caches' JAX layout (every
 kv head at the rank's part of head_dim), and decode gathers head_dim back.
-A data axis over more than one rank (FSDP; the dense, audio, moe, hybrid
-and ssm families, a ``(data, model)`` mesh): the batch comes as DTensors
-split over ``data``
+A data axis over more than one rank (FSDP; every family, a ``(data,
+model)`` mesh): the batch comes as DTensors split over ``data``
 (:func:`~repro_torch.launch.sharding.distribute_batch`), each rank
 computing its rows; weights by ``param_shardings`` keep their
 storage-only dim split over ``data`` and each layer (and the embedding
@@ -66,10 +65,17 @@ whole).  The hybrid and ssm families' recurrent states (``ssm/h``,
 ``ssm/conv``; rwkv's ``S``, ``tm_last``, ``cm_last``) hold the rank's rows
 of B on ``data`` and its part of the channels, heads or last dim on
 ``model``, as ``cache_shardings`` lays them out; each recurrence runs on
-the rank's rows alone.  A batch the axis does not divide stays whole on
-every rank: computed whole, nothing summed.  The vlm family under a data
-axis, a ``pod`` axis over more than one rank and ``scan_chunks`` are
-refused (:func:`_check_sharded`).
+the rank's rows alone.  The vlm family's image embeddings and image K/V
+hold the rank's rows too; its self cache keeps the JAX layout, which
+splits each group's self layers over ``data`` and keeps B whole: each
+layer is held, for every row, by one data rank (or by every one, where
+``data`` does not divide the group's layers), each write gathers the
+ranks' rows over ``data`` for the holder, and each decode read sends
+every rank its rows from the holder
+(:func:`~repro_torch.models.layers.attention`).  A batch the axis does
+not divide stays whole on every rank: computed whole, nothing summed.  A
+``pod`` axis over more than one rank and ``scan_chunks`` under sharded
+weights are refused (:func:`_check_sharded`).
 
 The abstract trees (:func:`abstract_params`, :func:`abstract_cache`) are
 meta tensors, drawing and allocating nothing; :func:`batch_structs`,
@@ -379,28 +385,23 @@ def init_cache_sharded(cfg: ArchConfig, mesh, batch: int,
         whole, cache_shardings(mesh, cfg, whole))
 
 
-# the families whose blocks run on a rank's shard: the dense one, the
-# audio family (the dense backbone over given embeddings), the moe family
-# (its attention on the rank's heads, its experts on the rank's E/m), the
-# hybrid family (its selective-SSM branch on the rank's inner channels),
-# the ssm family (rwkv: its recurrence on the rank's heads) and the vlm
-# family (its cross-attention on the rank's heads against the image rows;
-# its self and image K/V caches keep every kv head at a part of head_dim)
+# the families whose blocks run on a rank's shard, under a model axis and
+# a data axis alike: the dense one, the audio family (the dense backbone
+# over given embeddings), the moe family (its attention on the rank's
+# heads, its experts on the rank's E/m), the hybrid family (its
+# selective-SSM branch on the rank's inner channels), the ssm family (rwkv:
+# its recurrence on the rank's heads) and the vlm family (its
+# cross-attention on the rank's heads against the image rows; its self and
+# image K/V caches keep every kv head at a part of head_dim)
 TP_FAMILIES = ("dense", "audio", "moe", "hybrid", "ssm", "vlm")
-# the families that also run on a data axis over more than one rank (the
-# batch split, each layer gathered over data; the hybrid and ssm states
-# hold the rank's rows): the vlm self cache, whose "data" entry falls on
-# its per-group dim and not on B, is not re-laid by the batch yet
-DATA_FAMILIES = ("dense", "audio", "moe", "hybrid", "ssm")
 
 
 def _check_sharded(cfg: ArchConfig, params: Params, *,
                    scan_chunks: int = 0) -> None:
     """Refuse DTensor weights where it is not done: a family outside
-    :data:`TP_FAMILIES`; a ``data`` axis over more than one rank for a
-    family outside :data:`DATA_FAMILIES`; any other axis but ``model``
-    over more than one rank (``pod``); and (the train step, which passes
-    ``scan_chunks``) chunked remat."""
+    :data:`TP_FAMILIES`; an axis other than ``data`` and ``model`` over
+    more than one rank (``pod``); and (the train step, which passes
+    ``scan_chunks``) chunked remat under sharded weights."""
     w = leaves(params)[0]
     if not is_dtensor(w):
         return
@@ -411,20 +412,14 @@ def _check_sharded(cfg: ArchConfig, params: Params, *,
             f"under a model axis is not done here")
     dm = w.device_mesh
     other = {n: dm.size(i) for i, n in enumerate(dm.mesh_dim_names)
-             if n != "model" and dm.size(i) > 1}
-    if "data" in other and cfg.family not in DATA_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: a data axis of {other['data']} ranks runs the "
-            f"{', '.join(DATA_FAMILIES)} families; the {cfg.family} family "
-            f"under a data axis is not done here")
-    other.pop("data", None)
+             if n not in ("data", "model") and dm.size(i) > 1}
     if other:
         raise NotImplementedError(f"a mesh axis {other} over more than one "
                                   f"rank: the port runs a (data, model) "
                                   f"mesh")
     if scan_chunks:
-        raise NotImplementedError(f"scan_chunks={scan_chunks} under a model "
-                                  f"axis is not done here")
+        raise NotImplementedError(f"scan_chunks={scan_chunks} under "
+                                  f"sharded weights is not done here")
 
 
 def make_prefill_step(cfg: ArchConfig, mesh=None):

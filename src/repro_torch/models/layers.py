@@ -49,9 +49,10 @@ rank's heads read.  The vlm family's self and image K/V caches keep every
 kv head at the rank's part of head_dim while ``wk``/``wv`` split the kv
 heads: each write gathers the ranks' kv heads first (:func:`_cache_part`),
 each read gathers head_dim (:func:`_cache_read`).  Cross-attention
-(``kv_x``) runs on the rank's heads against the image rows, which every
-rank holds whole.  One body serves every case: a plain weight is a whole
-shard, and the one-process path computes what it always did.
+(``kv_x``) runs on the rank's heads against the image rows of its batch
+rows, which every model rank holds whole.  One body serves every case: a
+plain weight is a whole shard, and the one-process path computes what it
+always did.
 
 Training under autograd takes the collectives' conjugates: the input of a
 column split passes through
@@ -78,7 +79,17 @@ layer's weights (and the embedding table) over it just before they are
 read, so every layer above sees the model-axis layout alone, and its
 gradient is summed back over ``data`` (each rank's part of the batch gives
 a part of it).  The activations, the cache and the batch stay each rank's
-rows.
+rows, but for the vlm self cache, whose JAX layout splits each group's
+self layers over ``data`` and keeps every row of B: its layers come
+unstacked as :class:`~repro_torch.core.spmd_pipeline.HeldBy` records,
+each layer held by one data rank (or, where ``data`` does not divide the
+group's layers, whole on every rank).  Each write gathers the ranks' rows
+over ``data`` in rank order (exact) and the holder writes them
+(:func:`_cache_write`); each decode read takes the rank's rows, sent by
+the owner in a point-to-point exchange every data rank joins
+(:func:`_cache_read`, :func:`~repro_torch.core.spmd_pipeline.held_rows`).
+A cache whose rows are neither the batch's nor all of them raises
+(:func:`_cache_rows`).
 """
 from __future__ import annotations
 
@@ -86,13 +97,14 @@ import math
 from typing import Any
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
-from ..core.spmd_pipeline import (all_gather_cat, all_reduce_sum,
+from ..core.spmd_pipeline import (HeldBy, all_gather_cat, all_reduce_sum,
                                    batch_line, copy_to_ranks, gather_seq,
-                                   group_transport, is_dtensor, local_bounds,
-                                   own_part, reduce_scatter, unshard,
-                                   with_spec)
+                                   group_transport, held_rows, is_dtensor,
+                                   local_bounds, own_part, reduce_scatter,
+                                   unshard, with_spec)
 from ..core.tree import tree_map
 from ..kernels import ops
 
@@ -334,7 +346,8 @@ class SeqParallel:
 
 def attention(p: Params, x: torch.Tensor, pos=None, *, theta, window: int = 0,
               kv_x: torch.Tensor | None = None, cache: Params | None = None,
-              cache_pos: int | None = None, seq: bool = False
+              cache_pos: int | None = None, seq: bool = False,
+              data: tuple | None = None
               ) -> tuple[torch.Tensor, Params | None]:
     """Self-attention, causal (+ window), or cross-attention.
 
@@ -352,6 +365,10 @@ def attention(p: Params, x: torch.Tensor, pos=None, *, theta, window: int = 0,
     module docstring): q, k and v of its heads, K7 on them, and its rows of
     ``wo``; a plain tensor is a whole shard.  ``seq``: ``x`` is this rank's
     part of the tokens (:class:`SeqParallel`), and so is the output.
+    ``data``: ``x`` is this rank's rows of a batch split over the data axis
+    (its line, :func:`~repro_torch.core.spmd_pipeline.batch_line`), which
+    the cache must hold, or hold every row of (:func:`_cache_rows`: the
+    vlm self cache).
     """
     del pos                                     # positions come from T
     window = int(window)
@@ -387,14 +404,13 @@ def attention(p: Params, x: torch.Tensor, pos=None, *, theta, window: int = 0,
     kv_lo, new_cache = kv_heads.start, None
     if cache is not None:
         ck, cv = cache["k"], cache["v"]
-        ckl, cvl = _local(ck), _local(cv)
-        ckl[:, start:start + T] = _cache_part(k, wk, ck).to(ckl.dtype)
-        cvl[:, start:start + T] = _cache_part(v, wv, cv).to(cvl.dtype)
+        _cache_write(ck, _cache_part(k, wk, ck), start, data)
+        _cache_write(cv, _cache_part(v, wv, cv), start, data)
         new_cache = {"k": ck, "v": cv}
         if start == 0:                          # prefill: what was written
-            k, v = k.to(ckl.dtype), v.to(cvl.dtype)
+            k, v = k.to(ck.dtype), v.to(cv.dtype)
         else:                                   # decode: the whole cache
-            (k, kv_lo), (v, _) = _cache_read(ck), _cache_read(cv)
+            (k, kv_lo), (v, _) = _cache_read(ck, data), _cache_read(cv, data)
     q = _con_heads(q)
     ke = _con_heads(_kv_for_heads(k, kv_lo, heads, H // KV))
     ve = _con_heads(_kv_for_heads(v, kv_lo, heads, H // KV))
@@ -604,9 +620,11 @@ def gather_data(tree: Params, data) -> Params:
 
 
 def _state_rows(state, rows: int, data, what: str) -> None:
-    """Raise unless recurrent ``state`` (a cache leaf, B its dim 0) holds
-    the rows of B that the activations hold: as many (``rows``), and split
-    over the same ranks as the batch (``data``, the batch's line,
+    """Raise unless ``state`` (a recurrent state or a k/v cache leaf, or
+    an input beside the batch such as the vlm image embeddings; B its dim
+    0; ``what`` names it) holds the rows of B that the activations hold:
+    as many (``rows``), and split over the same ranks as the batch
+    (``data``, the batch's line,
     :func:`~repro_torch.core.spmd_pipeline.batch_line`; None where the
     batch is whole here, and then so must B be), so that a rank's state is
     its own rows and not another rank's or a whole batch's."""
@@ -615,7 +633,7 @@ def _state_rows(state, rows: int, data, what: str) -> None:
              else torch.distributed.get_process_group_ranks(line[0])
              for line in (batch_line(state), data)]
     if at.stop - at.start != rows or ranks[0] != ranks[1]:
-        raise ValueError(f"the {what} state holds rows {at} of its batch "
+        raise ValueError(f"the {what} holds rows {at} of its batch "
                          f"of {state.shape[0]}, split over ranks "
                          f"{ranks[0]}; the activations {rows} rows, split "
                          f"over ranks {ranks[1]}")
@@ -630,9 +648,11 @@ def _cut(x: torch.Tensor, dim: int, lo: int, hi: int) -> torch.Tensor:
 
 
 def _model_line(w) -> tuple:
-    """(process group, transport) of DTensor ``w``'s ``model`` mesh axis."""
+    """(process group, transport) of DTensor ``w``'s ``model`` mesh axis
+    (or a :class:`~repro_torch.core.spmd_pipeline.HeldBy` layer's)."""
     group = w.device_mesh.get_group("model")
-    return group, group_transport(group, w.to_local().device)
+    device = w.device if isinstance(w, HeldBy) else w.to_local().device
+    return group, group_transport(group, device)
 
 
 def _enter(x: torch.Tensor, w, split: bool, seq: bool) -> torch.Tensor:
@@ -690,10 +710,59 @@ def _cache_part(kv: torch.Tensor, w, cache) -> torch.Tensor:
                 cb[3].start, cb[3].stop)
 
 
-def _cache_read(cache) -> tuple[torch.Tensor, int]:
+def _cache_rows(cache, rows: int, data) -> bool:
+    """Whether k/v ``cache`` [B, M, KV, hd] (a layer's leaf, or its
+    :class:`~repro_torch.core.spmd_pipeline.HeldBy` record) holds every row
+    of the global batch while the activations hold a data rank's ``rows``
+    of it (True: the vlm self cache, whose JAX layout splits its per-group
+    dim over ``data`` and keeps B whole), or the activations' own rows
+    (False: :func:`_state_rows`'s rule, B split as the batch is); any
+    other layout raises."""
+    at = local_bounds(cache)[0]
+    if (data is not None and at.stop - at.start == cache.shape[0]
+            and batch_line(cache) is None
+            and cache.shape[0] == rows * dist.get_world_size(data[0])):
+        return True
+    _state_rows(cache, rows, data, "k/v cache")
+    return False
+
+
+def _cache_write(cache, part: torch.Tensor, start: int, data) -> None:
+    """Write ``part`` [rows, T, ...] (this rank's rows of the new k or v,
+    re-laid by :func:`_cache_part`) into k/v ``cache`` at positions
+    ``start..start+T-1``.  Where the cache holds every row of the batch
+    (:func:`_cache_rows`) the ranks' rows are gathered over ``data`` first,
+    in rank order and exact; then the rank that holds the layer writes
+    them (all of them where the layer is whole over ``data``, each a bit
+    equal replica; only the owner of a
+    :class:`~repro_torch.core.spmd_pipeline.HeldBy` layer)."""
+    part = part.to(cache.dtype)
+    if _cache_rows(cache, part.shape[0], data):
+        part = all_gather_cat(part.contiguous(), 0, *data)
+    if isinstance(cache, HeldBy):
+        if cache.layer is None:
+            return
+        cache = cache.layer
+    _local(cache)[:, start:start + part.shape[1]] = part
+
+
+def _cache_read(cache, data=None) -> tuple[torch.Tensor, int]:
     """(the k/v ``cache`` [B, M, KV, hd] kept here at the whole head_dim,
-    gathered where the head_dim is split; the first kv head it holds)."""
-    cb, local = local_bounds(cache), _local(cache)
+    gathered where the head_dim is split; the first kv head it holds), of
+    the activations' rows: where the cache holds every row of a batch
+    split over ``data`` (:func:`_cache_rows`), this rank's part of them,
+    its own slice of a layer held whole, or, of a
+    :class:`~repro_torch.core.spmd_pipeline.HeldBy` layer, the rows its
+    owner sends (:func:`~repro_torch.core.spmd_pipeline.held_rows`; every
+    rank of the data axis joins the exchange)."""
+    cb = local_bounds(cache)
+    if isinstance(cache, HeldBy):
+        local = held_rows(cache, data is not None)
+    else:
+        local = _local(cache)
+        if data is not None and batch_line(cache) is None:
+            n = local.shape[0] // dist.get_world_size(data[0])
+            local = local.narrow(0, dist.get_rank(data[0]) * n, n)
     if cb[3].stop - cb[3].start != cache.shape[3]:
         local = all_gather_cat(local.contiguous(), 3, *_model_line(cache))
     return local, cb[2].start

@@ -278,7 +278,7 @@ def rwkv_block(p: Params, x: torch.Tensor, norm1: Params, norm2: Params,
                         device=x.device), None, None)
     else:
         for k in ("S", "tm_last", "cm_last"):
-            _state_rows(state[k], B, data, "rwkv")
+            _state_rows(state[k], B, data, "rwkv state")
         S0, tm_last, cm_last = (state["S"], _whole_d(state["tm_last"]),
                                 _whole_d(state["cm_last"]))
     h1 = rmsnorm(norm1, x, split=seq)

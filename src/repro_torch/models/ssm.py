@@ -152,7 +152,7 @@ def _state_local(leaf: torch.Tensor, dim: int, ch: slice, rows: int,
     if (at.start, at.stop) != (ch.start, ch.stop):
         raise ValueError(f"the ssm state holds channels {at}, this rank "
                          f"computes {ch}")
-    _state_rows(leaf, rows, data, "ssm")
+    _state_rows(leaf, rows, data, "ssm state")
     return _local(leaf)
 
 

@@ -72,8 +72,8 @@ from ..kernels import ops
 from .config import ArchConfig
 from .layers import (SeqParallel, _cache_part, _cache_read, _con_heads,
                      _cut, _kv_for_heads, _local, _model_line,
-                     _row_parallel, attention, attention_init, embed,
-                     embed_init, gather_data, gqa_combine, gqa_scores,
+                     _row_parallel, _state_rows, attention, attention_init,
+                     embed, embed_init, gather_data, gqa_combine, gqa_scores,
                      lm_logits, logits_f32, mlp, mlp_init, rmsnorm,
                      rmsnorm_init)
 from .moe import AUX_KEYS, moe_apply, moe_init
@@ -144,8 +144,9 @@ def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
     which attends to ``img_kv``: raw image embeddings [B, M, d], or a dict
     of the cached ``ck``/``cv`` (:func:`_cross_from_cache`).  ``data``: x
     is this rank's rows of a batch split over the data axis (the moe
-    block's routing groups are the global batch's; a recurrent state must
-    hold the same rows)."""
+    block's routing groups are the global batch's; a recurrent state and
+    the image K/V must hold the same rows, a k/v cache the same rows or
+    every row: :func:`~repro_torch.models.layers.attention`)."""
     if cfg.rwkv:
         x, new_state = rwkv_block(p["rwkv"], x, p["ln1"], p["ln2"],
                                   state=cache, seq=seq, data=data)
@@ -154,7 +155,8 @@ def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
     if is_cross:
         with _range(cfg, "vlm:cross"):
             if isinstance(img_kv, dict):
-                a = _cross_from_cache(p, h, img_kv, prefill=cache_pos == 0)
+                a = _cross_from_cache(p, h, img_kv, prefill=cache_pos == 0,
+                                      data=data)
             else:
                 a, _ = attention(p["attn"], h, None, theta=theta,
                                  kv_x=img_kv, seq=seq)
@@ -164,7 +166,7 @@ def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
         with _range(cfg, "vlm:self"):
             a, new_cache = attention(p["attn"], h, None, theta=theta,
                                      window=window, cache=kv,
-                                     cache_pos=cache_pos, seq=seq)
+                                     cache_pos=cache_pos, seq=seq, data=data)
     if cfg.hybrid:
         s, s_new = ssm_apply(p["ssm"], h,
                              state=None if cache is None else cache["ssm"],
@@ -184,15 +186,19 @@ def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
 
 
 def _cross_from_cache(p: Params, h: torch.Tensor, img_kv: Params, *,
-                      prefill: bool) -> torch.Tensor:
+                      prefill: bool, data=None) -> torch.Tensor:
     """Cross-attention of ``h`` [B, T, d] against the cached image K/V
     (``ck``/``cv`` [B, M, KV, hd]), unmasked: through K7 with
     ``causal=False`` in a prefill, a plain softmax in decode (T = 1, where
     K7's 128-row query tile has one row to fill), as the JAX function.
     Under a model axis, q of this rank's heads against their kv heads (the
     cache gathered along head_dim where it is split), then its rows of
-    ``wo`` (:func:`~repro_torch.models.layers.attention`'s split)."""
+    ``wo`` (:func:`~repro_torch.models.layers.attention`'s split).  The
+    image K/V must hold the rows of ``h``, split over ``data`` as they are
+    (:func:`~repro_torch.models.layers._state_rows`)."""
     wq, wo = p["attn"]["wq"], p["attn"]["wo"]
+    for n in ("ck", "cv"):
+        _state_rows(img_kv[n], h.shape[0], data, "image K/V cache")
     H, hd = wq.shape[1], wq.shape[2]
     heads, rows = local_bounds(wq)[1], local_bounds(wo)[0]
     q = _con_heads(torch.einsum("btd,dnh->btnh", h, _local(wq)))
@@ -216,7 +222,10 @@ def _unstack(tree: Params, dims: int = 1) -> list[Params]:
     ``[G, per, ...]`` one, in the order g * per + j; views, no copies): one
     ``unbind`` per leaf, so autograd stacks the layers' gradients once.  A
     DTensor leaf (tensor-parallel serving) gives DTensors, views of its
-    local tensor."""
+    local tensor; one whose stack dim is split over the data axis (the vlm
+    self cache's ``per``) a
+    :class:`~repro_torch.core.spmd_pipeline.HeldBy` record a layer
+    (:func:`~repro_torch.core.spmd_pipeline.unbind_layers`)."""
     flat, treedef = flatten(tree)
     cols = [unbind_layers(a, dims) if is_dtensor(a)
             else a.flatten(0, dims - 1).unbind(0) for a in flat]
@@ -333,8 +342,10 @@ class LM:
         return [(int(w), float(t)) for w, t in
                 zip(cfg.layer_windows[keep], cfg.layer_thetas[keep])]
 
-    def _img_in(self, img_embeds) -> torch.Tensor:
-        """The vlm model's image embeddings, which must come in the
+    def _img_in(self, img_embeds, rows: int, data) -> torch.Tensor:
+        """This rank's rows of the vlm model's image embeddings, which must
+        be the activations' ``rows`` (split over ``data`` as they are,
+        :func:`~repro_torch.models.layers._state_rows`) and come in the
         config's dtype: a bf16 model's blocks take bf16 K/V, as the JAX
         trainer feeds them (an f32 draw breaks the JAX layer scan)."""
         want = torch_dtype(self.cfg.dtype)
@@ -345,7 +356,8 @@ class LM:
         if img_embeds.dtype != want:
             raise TypeError(f"{self.cfg.arch_id}: img_embeds are "
                             f"{img_embeds.dtype}, the model is {want}")
-        return img_embeds
+        _state_rows(img_embeds, rows, data, "image embeddings")
+        return local_tensor(img_embeds)
 
     def _batch(self, ids, embeds) -> tuple | None:
         """The data axis's (process group, transport) where the batch's
@@ -399,8 +411,9 @@ class LM:
         x = own_part(x, 1, *line) if line else con(x)
         seq = line is not None
         if cfg.cross_attn_every:
-            x, aux = self._apply_vlm(params, x, self._img_in(img_embeds),
-                                     remat, con, pcon, seq)
+            x, aux = self._apply_vlm(
+                params, x, self._img_in(img_embeds, x.shape[0], data), remat,
+                con, pcon, seq, data)
         else:
             x, aux = self._apply_layers(params, x, remat, con, pcon, seq,
                                         scan_chunks, data)
@@ -444,11 +457,14 @@ class LM:
 
     def _apply_vlm(self, params: Params, x: torch.Tensor,
                    img_embeds: torch.Tensor, remat: bool, con, pcon,
-                   seq: bool) -> tuple[torch.Tensor, dict]:
+                   seq: bool, data=None) -> tuple[torch.Tensor, dict]:
         """The vlm forward before the final norm: each group's self
-        layers, then its cross layer over ``img_embeds``, one checkpoint a
-        group (the JAX ``jax.checkpoint(group)``).  ``seq``: ``x`` is this
-        rank's part of the tokens, as in :meth:`apply`'s other layers."""
+        layers, then its cross layer over ``img_embeds`` (the rows of
+        ``x``), one checkpoint a group (the JAX ``jax.checkpoint(group)``).
+        ``seq``: ``x`` is this rank's part of the tokens, as in
+        :meth:`apply`'s other layers; every layer's weights gathered over
+        ``data`` inside the group's checkpoint, so the backward gathers
+        them again, as :meth:`_apply_layers` gathers a layer."""
         cfg = self.cfg
         n_groups, per = self._vlm_groups()
         layers = _unstack(params["layers"], 2)
@@ -459,14 +475,16 @@ class LM:
                   ) -> tuple[torch.Tensor, dict]:
             for i in range(g * per, (g + 1) * per):
                 w, th = meta[i]
-                h, _, a = _block_apply(cfg, pcon(layers[i]), h, window=w,
-                                       theta=th, seq=seq)
+                h, _, a = _block_apply(cfg, pcon(gather_data(layers[i], data)),
+                                       h, window=w, theta=th, seq=seq,
+                                       data=data)
                 h = con(h)
                 if a is not None:
                     aux = {k: aux[k] + a[k] for k in aux}
-            h, _, _ = _block_apply(cfg, pcon(cross[g]), h, window=0,
-                                   theta=cfg.rope_theta, img_kv=img_embeds,
-                                   is_cross=True, seq=seq)
+            h, _, _ = _block_apply(cfg, pcon(gather_data(cross[g], data)), h,
+                                   window=0, theta=cfg.rope_theta,
+                                   img_kv=img_embeds, is_cross=True, seq=seq,
+                                   data=data)
             return con(h), aux
 
         aux = _zero_aux(x.device)
@@ -579,8 +597,9 @@ class LM:
                     param_constraint=None) -> tuple[torch.Tensor, Params]:
         """One token for every sequence. pos: current cache length (an int
         or a 0-d tensor).  ``param_constraint``: applied to each layer's
-        weights before the layer runs (not to a vlm model's, as in the JAX
-        package)."""
+        weights before the layer runs, after their ``data`` dim is
+        gathered (a vlm model's too: the JAX package skips it there, where
+        it changes no value)."""
         h, cache = self._forward_cached(params, ids_step, cache, pos,
                                         embeds=embeds,
                                         param_constraint=param_constraint)
@@ -594,7 +613,7 @@ class LM:
         x = self._embed_in(params, ids, embeds, data)
         if self.cfg.cross_attn_every:
             return self._forward_cached_vlm(params, x, cache, int(pos),
-                                            img_embeds)
+                                            img_embeds, data, pcon)
         for lp, lc, (w, th) in zip(_unstack(params["layers"]),
                                    _unstack(cache), self._layer_meta()):
             x, new, _ = _block_apply(self.cfg, pcon(gather_data(lp, data)),
@@ -605,36 +624,53 @@ class LM:
         return x, cache
 
     def _forward_cached_vlm(self, params: Params, x: torch.Tensor,
-                            cache: Params, pos: int, img_embeds
-                            ) -> tuple[torch.Tensor, Params]:
+                            cache: Params, pos: int, img_embeds, data=None,
+                            pcon=lambda p: p) -> tuple[torch.Tensor, Params]:
         """The vlm prefill (``pos == 0``: the image K/V of ``img_embeds``
         written into ``cache["cross"]`` first) or decode step (the cached
-        image K/V reused)."""
+        image K/V reused).  ``x``: this rank's rows of a batch split over
+        ``data``, which the image embeddings and K/V hold too; each
+        layer's weights gathered over ``data`` as it is read, then
+        ``pcon``.  The self cache must hold every row of B for each self
+        layer it holds (the JAX layout, its per-group dim split over
+        ``data``; any other raises); its k/v are written and read through
+        the data line (:func:`~repro_torch.models.layers.attention`)."""
         cfg = self.cfg
         n_groups, per = self._vlm_groups()
+        for leaf in cache["self"].values():
+            at = local_bounds(leaf)[2]
+            if at.stop - at.start != leaf.shape[2]:
+                raise ValueError(f"the vlm self cache holds rows {at} of its "
+                                 f"batch of {leaf.shape[2]}: each self layer "
+                                 f"it holds must hold every row (the JAX "
+                                 f"layout)")
         cross = _unstack(params["cross"])
         img_kv = _unstack(cache["cross"])
         if pos == 0:
-            img = self._img_in(img_embeds)
+            img = self._img_in(img_embeds, x.shape[0], data)
             with _range(cfg, "vlm:cross_kv"):
                 for cp, c in zip(cross, img_kv):
+                    w = gather_data({n: cp["attn"][n] for n in ("wk", "wv")},
+                                    data)
                     for wn, n in (("wk", "ck"), ("wv", "cv")):
-                        w = cp["attn"][wn]
-                        kv = torch.einsum("bmd,dnh->bmnh", img, _local(w))
-                        local_tensor(c[n]).copy_(_cache_part(kv, w, c[n]))
+                        _state_rows(c[n], x.shape[0], data, "image K/V cache")
+                        kv = torch.einsum("bmd,dnh->bmnh", img, _local(w[wn]))
+                        local_tensor(c[n]).copy_(_cache_part(kv, w[wn], c[n]))
         layers = _unstack(params["layers"], 2)
         caches = _unstack(cache["self"], 2)
         meta = self._layer_meta()
         for g in range(n_groups):
             for i in range(g * per, (g + 1) * per):
                 w, th = meta[i]
-                x, new, _ = _block_apply(cfg, layers[i], x, window=w,
-                                         theta=th, cache=caches[i],
-                                         cache_pos=pos)
+                lp = pcon(gather_data(layers[i], data))
+                x, new, _ = _block_apply(cfg, lp, x, window=w, theta=th,
+                                         cache=caches[i], cache_pos=pos,
+                                         data=data)
                 _write_back(caches[i], new)
-            x, _, _ = _block_apply(cfg, cross[g], x, window=0,
-                                   theta=cfg.rope_theta, img_kv=img_kv[g],
-                                   cache_pos=pos, is_cross=True)
+            x, _, _ = _block_apply(cfg, pcon(gather_data(cross[g], data)), x,
+                                   window=0, theta=cfg.rope_theta,
+                                   img_kv=img_kv[g], cache_pos=pos,
+                                   is_cross=True, data=data)
         x = rmsnorm(params["final_norm"], x)
         return x, cache
 

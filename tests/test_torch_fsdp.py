@@ -56,9 +56,10 @@ seed as ``tests/test_torch_tp_recurrent.py`` draws them:
 * ``global_norm`` over each config's tree by ``param_shardings`` counts
   each leaf once; no path reaches ``DTensor.redistribute`` (it raises in
   the ranks);
-* the refusals: the vlm family under a data axis, a ``pod`` axis of 2,
-  ``scan_chunks``, and ``with_spec`` where a ``data`` dim of 2 would
-  move; a recurrent state whose rows of B are not the activations';
+* the refusals: a ``pod`` axis of 2, ``scan_chunks``, and ``with_spec``
+  where a ``data`` dim of 2 would move; a recurrent state whose rows of B
+  are not the activations' (the vlm family under a data axis:
+  ``tests/test_torch_fsdp_vlm.py``);
 * plain tensors in one process, bit for bit, with a (2, 2) layout
   registered or not.
 
@@ -508,11 +509,10 @@ def runs(tmp_path_factory):
                     "steps": "steps" in what,
                     "restart": restart.get(name)}
 
-        fams = [get_config("llama-3.2-vision-11b").reduced()]
         port = {}
         for mesh in ((2, 2), (2, 1)):
             names = [n for n, j in JOBS.items() if j[1] == mesh]
-            extra = ({"moe_job": moe_job, "refusals": (fams, cfgs["dense"])}
+            extra = ({"moe_job": moe_job, "refusals": cfgs["dense"]}
                      if mesh == (2, 2) else {})
             port[mesh] = TMESH.run_on_local_mesh(
                 mesh, ("data", "model"), fsdp_rank,
@@ -846,17 +846,17 @@ def test_fsdp_global_norm_counts_each_leaf_once(runs):
                 np.testing.assert_allclose(got, want, rtol=1e-6)
 
 
-REFUSED = {"vlm": "vlm family under a data axis",
-           "pod": "'pod': 2",
+REFUSED = {"pod": "'pod': 2",
            "scan_chunks": "scan_chunks=2",
            "with_spec": "moves a batch axis ['data']"}
 
 
 @pytest.mark.parametrize("what", list(REFUSED))
 def test_fsdp_refuses_what_is_not_done(runs, what):
-    """Refused on a (2, 2) mesh, each by name: the vlm family under a
-    data axis; a pod axis of 2; scan_chunks; with_spec
-    where a data dim of 2 would have to move (unshard gathers it)."""
+    """Refused on a (2, 2) mesh, each by name: a pod axis of 2;
+    scan_chunks; with_spec where a data dim of 2 would have to move
+    (unshard gathers it).  (The vlm family runs under a data axis:
+    ``tests/test_torch_fsdp_vlm.py``.)"""
     for r in runs["port"][(2, 2)]:
         got = r["refused"]
         assert REFUSED[what] in got[what], got[what]

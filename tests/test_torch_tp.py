@@ -22,9 +22,10 @@ prompt, 4 heads over 2 kv heads):
   for a dense, a moe and a vlm config (``tests/test_torch_ep.py`` serves
   the moe family, ``tests/test_torch_tp_vlm.py`` the vlm family; the vlm
   self cache takes "data" on its per-group dim, as the JAX rule puts it);
-  a data axis of 2 for the vlm family (the dense and moe families serve
-  on it, ``tests/test_torch_fsdp.py``) and a DTensor handed to K7 (whose
-  plain version must not take it) are refused;
+  the dense, moe and vlm prefill steps run on a data axis of 2
+  (``tests/test_torch_fsdp.py`` and ``tests/test_torch_fsdp_vlm.py``
+  serve them on it) and a DTensor handed to K7 (whose plain version must
+  not take it) is refused;
 * plain tensors (one process) take today's path, bit for bit, with a
   layout registered or not.
 
@@ -141,9 +142,8 @@ def test_sharded_init_and_cache_and_what_is_refused():
     at its bounds, the sharded cache holds zeros of the local shapes, for
     a dense, a moe (the experts half a rank, the router whole) and a vlm
     config (its [G, per, ...] self layers, its self and image K/V caches
-    with every kv head at half of head_dim); a data axis of 2 is refused
-    for the vlm config, and the dense and moe configs' prefill steps run
-    on it."""
+    with every kv head at half of head_dim); the dense, moe and vlm
+    configs' prefill steps run on a data axis of 2."""
     cfg = get_config("gemma3-12b").reduced()
     moe = get_config("moonshot-v1-16b-a3b").reduced()
     vlm = get_config("llama-3.2-vision-11b").reduced(cross_attn_every=3,
@@ -197,7 +197,7 @@ def test_sharded_init_and_cache_and_what_is_refused():
                                                    hd // 2)
         assert r["vlm_cache_shapes"]["cross/ck"] == (
             G, 4 // 2, vlm.n_img_tokens, KV, hd // 2)
-        assert "the vlm family under a data axis" in r["vlm_data_refused"]
+        assert r["vlm_data_refused"] == ""      # the vlm prefill runs
         L, E = moe.n_layers, moe.n_experts
         assert r["moe_shapes"]["layers/moe/wi"] == (
             L, E // 2, moe.d_model, 2, moe.d_ff)

@@ -168,8 +168,8 @@ def tp_init_rank(mesh, cfg, moe_cfg, vlm_cfg, seed):
     experts split over the model axis) and of ``vlm_cfg`` (its ``[G, per,
     ...]`` self layers and ``{"self", "cross"}`` cache); the serve step
     on a data axis over more than one rank (each config's refusal, or ""
-    where it ran), and K7's refusal of a DTensor (its plain version must
-    not take one)."""
+    where it ran; the vlm config's against zero image embeddings), and
+    K7's refusal of a DTensor (its plain version must not take one)."""
     from repro_torch.core.spmd_pipeline import local_bounds
     from repro_torch.core.tree import leaves
     from repro_torch.launch import sharding as TS
@@ -213,8 +213,10 @@ def tp_init_rank(mesh, cfg, moe_cfg, vlm_cfg, seed):
         for key, c, p in (("data_refused", cfg, drawn),
                           ("moe_data_refused", moe_cfg, moe_drawn),
                           ("vlm_data_refused", vlm_cfg, vlm_drawn)):
+            kw = ({"img_embeds": torch.zeros((4, c.n_img_tokens, c.d_model))}
+                  if c.cross_attn_every else {})
             try:
-                TST.make_prefill_step(c, mesh)[1](p, {"ids": ids})
+                TST.make_prefill_step(c, mesh)[1](p, {"ids": ids, **kw})
                 refused[key] = ""
             except NotImplementedError as e:
                 refused[key] = str(e)
@@ -480,8 +482,9 @@ def _tp_audio(mesh, cfg, params, embeds, steps, batch, *, grads_of):
 def tp_refusal_rank(mesh, cfgs, cfg, seed, batch):
     """On a mesh with a data axis over more than one rank: the train
     step's refusal of each of ``cfgs``' families and of ``cfg`` (a dense
-    config) for the data axis; each message, or "" if it ran; and of
-    each config's params and moments (``adamw_init`` of the params by
+    config) for the data axis; each message, or "" if it ran (a vlm
+    config's batch with zero image embeddings); and of each config's
+    params and moments (``adamw_init`` of the params by
     ``param_shardings``), their local shapes by path (``"shapes"``)."""
     from repro_torch.launch import sharding as TS
     from repro_torch.launch import steps as TST
@@ -502,8 +505,11 @@ def tp_refusal_rank(mesh, cfgs, cfg, seed, batch):
                     f"{n}/{TS.path_str(p)}", tuple(a.to_local().shape)),
                     tree)
             _, step = TST.make_train_step(c, mesh)
+            b = ({**batch, "img_embeds": torch.zeros(
+                (batch["ids"].shape[0], c.n_img_tokens, c.d_model))}
+                 if c.cross_attn_every else batch)
             try:
-                step({"params": params, "opt": opt}, batch)
+                step({"params": params, "opt": opt}, b)
                 out[c.arch_id] = ""
             except NotImplementedError as e:
                 out[c.arch_id] = str(e)
@@ -735,7 +741,9 @@ def _fsdp_serve(mesh, cfg, params, job, layout, pin) -> dict:
     token of ``job["dec"]``: each as (local tensor, bounds, global
     shape), the logits also read whole by ``collect_batch``; the cache's
     shards; whether the logits are DTensors split over the data axis
-    exactly when the batch is."""
+    exactly when the batch is.  A vlm config's prompt is served against
+    ``job["img"]`` [B, M, d], split by ``distribute_batch`` as the
+    prompt is."""
     from repro_torch.core.spmd_pipeline import batch_line, is_dtensor
     from repro_torch.launch import sharding as TS
     from repro_torch.launch import steps as TST
@@ -746,14 +754,17 @@ def _fsdp_serve(mesh, cfg, params, job, layout, pin) -> dict:
     key = "embeds" if cfg.embeds_in else "ids"
     whole = job["batches"][0][key]
     inp = TS.distribute_batch(mesh, {key: whole})[key]
+    img = ({"img_embeds": TS.distribute_batch(
+        mesh, {"img_embeds": job["img"]})["img_embeds"]}
+        if cfg.cross_attn_every else {})
     model, pre = TST.make_prefill_step(cfg, mesh)
     pin.phase = "p0"
-    logits = pre(p, {key: inp})
+    logits = pre(p, {key: inp, **img})
     B, S, n = whole.shape[0], whole.shape[1], job["dec"].shape[1]
     cache = TST.init_cache_sharded(cfg, mesh, B, S + n)
     pin.phase = "fill"
     model.prefill(p, None if cfg.embeds_in else inp, cache,
-                  **({"embeds": inp} if cfg.embeds_in else {}))
+                  **({"embeds": inp} if cfg.embeds_in else {}), **img)
     _, dec = TST.make_decode_step(cfg, mesh)
     decs, split = [], batch_line(inp) is not None
     laid_out = is_dtensor(logits) and (batch_line(logits) is not None) == split
@@ -813,14 +824,13 @@ def _fsdp_moe_apply(mesh, job, pin) -> dict:
     return out
 
 
-def _fsdp_refusals(mesh, cfgs, dense) -> dict:
+def _fsdp_refusals(mesh, dense) -> dict:
     """What a (data, model) mesh refuses, each message ("" where it ran):
-    the prefill step of each of ``cfgs`` (the vlm family) with weights by
-    ``param_shardings``; ``dense`` on a (pod 2,
-    model 2) mesh of the same ranks; the train step's ``scan_chunks``; and
-    ``with_spec`` moving a dim split over ``data`` (which ``unshard``
-    gathers instead); and a recurrent state whose rows of B are not the
-    activations' (``"state_rows"``, the ValueError's message)."""
+    ``dense`` on a (pod 2, model 2) mesh of the same ranks; the train
+    step's ``scan_chunks``; and ``with_spec`` moving a dim split over
+    ``data`` (which ``unshard`` gathers instead); and a recurrent state
+    whose rows of B are not the activations' (``"state_rows"``, the
+    ValueError's message)."""
     import types
 
     from repro_torch.core.spmd_pipeline import batch_line, unshard, with_spec
@@ -839,15 +849,6 @@ def _fsdp_refusals(mesh, cfgs, dense) -> dict:
     out = {}
     ids = torch.zeros((4, 8), dtype=torch.long)
     try:
-        for c in cfgs:
-            whole = LM(c).init(torch.Generator().manual_seed(7))
-            p = TS.distribute_params(mesh, whole,
-                                     TS.param_shardings(mesh, whole))
-            kw = ({"img_embeds": torch.zeros((4, c.n_img_tokens,
-                                              c.d_model))}
-                  if c.cross_attn_every else {})
-            out[c.family] = refused(lambda: TST.make_prefill_step(c, mesh)[
-                1](p, {"ids": ids, **kw}))
         whole = LM(dense).init(torch.Generator().manual_seed(7))
         pods = TMESH.MeshLayout((2, 2), ("pod", "model"))
         pod = types.SimpleNamespace(axis_names=pods.axis_names,
@@ -907,7 +908,7 @@ def fsdp_rank(mesh, jobs, moe_job=None, refusals=None) -> dict:
     from it, and the two carried on, ``"carried"``); the batch's and the
     cache's local shapes; ``global_norm`` of the params tree by
     ``param_shardings`` against the whole tree's.  Given ``moe_job``,
-    :func:`_fsdp_moe_apply`; given ``refusals`` (cfgs, a dense cfg),
+    :func:`_fsdp_moe_apply`; given ``refusals`` (a dense cfg),
     :func:`_fsdp_refusals`.  ``DTensor.redistribute`` raises in this rank
     throughout: no path may reach it."""
     from torch.distributed.tensor import DTensor
@@ -975,9 +976,167 @@ def fsdp_rank(mesh, jobs, moe_job=None, refusals=None) -> dict:
             pin.part = (mesh.axis_index("data"), mesh.shape["data"])
             out["moe_apply"] = _fsdp_moe_apply(mesh, moe_job, pin)
         if refusals is not None:
-            out["refused"] = _fsdp_refusals(mesh, *refusals)
+            out["refused"] = _fsdp_refusals(mesh, refusals)
     finally:
         DTensor.redistribute = saved
         moe.ROUTING_HOOK = None
         layers.set_attention_mesh(None)
+    return out
+
+
+def _vlm_layouts(mesh, cfg, params, ids, img) -> dict:
+    """The vlm family's caches and image rows laid out against the batch
+    on a (data, model) mesh, ``LM.prefill`` of ``ids`` [B, S] (split over
+    data by ``distribute_batch``) and one decode step each: "" where it
+    ran, else the ValueError's message.  "jax": the ``cache_shardings``
+    layout; "self split by batch": the self cache's B split over data;
+    "self of another batch": a self cache of 2B rows; "image whole": the
+    image K/V whole over B; "image embeddings whole": the image rows
+    whole beside the prompt's split rows.  Also the train step's and the
+    prefill step's refusals of ``scan_chunks`` and a (pod 2, model 2)
+    mesh, by name (NotImplementedError)."""
+    import types
+
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch import mesh as TMESH
+    from repro_torch.launch import sharding as TS
+    from repro_torch.launch import steps as TST
+    from repro_torch.models import LM, layers
+
+    B, S = ids.shape
+    p = TS.distribute_params(mesh, params)
+    split = TS.distribute_batch(mesh, {"ids": ids, "img_embeds": img})
+    model, out = LM(cfg), {}
+
+    def relaid(cache, name, spec_of):
+        """``cache`` with leaf group ``name`` zeros laid out by
+        ``spec_of(spec, shape)`` (a spec and a global shape) instead of
+        ``cache_shardings``'s ``spec``."""
+        whole = TST.abstract_cache(cfg, B, S + 1)
+        specs = TS.cache_shardings(mesh, cfg, whole)
+
+        def leaf(w, sh):
+            spec, shape = spec_of(sh.spec, tuple(w.shape))
+            return TS.to_dtensor(mesh, torch.zeros(
+                TS.local_shape(mesh, spec, shape), dtype=w.dtype), spec,
+                shape)
+
+        return {**cache, name: tree_map(leaf, whole[name], specs[name])}
+
+    def run(cache, image) -> str:
+        try:
+            model.prefill(p, split["ids"], cache, img_embeds=image)
+            _, dec = TST.make_decode_step(cfg, mesh)
+            dec(p, cache, {"ids": TS.distribute_batch(
+                mesh, {"ids": ids[:, :1]})["ids"], "pos": S})
+        except ValueError as e:
+            return str(e)
+        return ""
+
+    try:
+        layers.set_attention_mesh(mesh)
+
+        def fresh():
+            return TST.init_cache_sharded(cfg, mesh, B, S + 1)
+
+        out["jax"] = run(fresh(), split["img_embeds"])
+        out["self split by batch"] = run(relaid(
+            fresh(), "self", lambda sp, sh: (TS.P(None, None, "data", None,
+                                                  None, "model"), sh)),
+            split["img_embeds"])
+        out["self of another batch"] = run(relaid(
+            fresh(), "self", lambda sp, sh: (sp, (*sh[:2], 2 * B, *sh[3:]))),
+            split["img_embeds"])
+        out["image whole"] = run(relaid(
+            fresh(), "cross", lambda sp, sh: (TS.P(None, None, None, None,
+                                                   "model"), sh)),
+            split["img_embeds"])
+        out["image embeddings whole"] = run(fresh(), img)
+        refused = {}
+        batch = {**split, "labels": split["ids"], "mask": TS.distribute_batch(
+            mesh, {"m": torch.ones(ids.shape)})["m"]}
+        try:
+            _, step = TST.make_train_step(cfg, mesh, scan_chunks=2)
+            step(TST.init_train_state_sharded(cfg, mesh, params), batch)
+            refused["scan_chunks"] = ""
+        except NotImplementedError as e:
+            refused["scan_chunks"] = str(e)
+        pods = TMESH.MeshLayout((2, 2), ("pod", "model"))
+        pod = types.SimpleNamespace(axis_names=pods.axis_names,
+                                    shape=pods.shape,
+                                    device_mesh=pods.device_mesh("cpu"))
+        pp = TS.distribute_params(pod, params, TS.param_shardings(pod,
+                                                                  params))
+        try:
+            TST.make_prefill_step(cfg, pod)[1](pp, {"ids": ids,
+                                                    "img_embeds": img})
+            refused["pod"] = ""
+        except NotImplementedError as e:
+            refused["pod"] = str(e)
+        out["refused"] = refused
+    finally:
+        layers.set_attention_mesh(None)
+    return out
+
+
+def _held_probe(mesh, cfg, B, S) -> dict:
+    """``_unstack`` of a vlm self cache laid out by ``cache_shardings`` on
+    a (data, model) mesh: per layer, in the order g * per + j, the record's
+    type, owner and local index; whether the owner's view is its local
+    stack's at [g, j % (per / data)] (no copy) and a write to it lands in
+    the stack; whether the other ranks hold no view."""
+    from repro_torch.core.spmd_pipeline import HeldBy
+    from repro_torch.launch import steps as TST
+    from repro_torch.models.transformer import _unstack
+
+    stack = TST.init_cache_sharded(cfg, mesh, B, S)["self"]
+    layers = _unstack(stack, 2)
+    G, per = stack["k"].shape[:2]
+    me = mesh.axis_index("data")
+    local = stack["k"].to_local()
+    out = []
+    for i, lc in enumerate(layers):
+        g, j = divmod(i, per)
+        rec = lc["k"]
+        if not isinstance(rec, HeldBy):
+            out.append(("view", None, None, True))
+            continue
+        ok = (rec.layer is None) == (rec.owner != me)
+        if rec.layer is not None:
+            jl = j % local.shape[1]
+            view = rec.layer.to_local()
+            ok = ok and view.data_ptr() == local[g, jl].data_ptr()
+            view[0, 0, 0, 0] = float(i + 1)
+            ok = ok and float(local[g, jl, 0, 0, 0, 0]) == float(i + 1)
+        out.append(("held", rec.owner, rec.index, ok))
+    return out
+
+
+def fsdp_vlm_rank(mesh, jobs, layouts=None) -> dict:
+    """The vlm family under a data axis: :func:`fsdp_rank` for ``jobs``
+    (each with ``"img"``, the served image embeddings), each serving run's
+    self-cache exchanges counted (the calls of ``layers.held_rows``, by
+    job); given ``layouts`` (cfg, params, ids [B, S], image embeddings [B,
+    M, d]), :func:`_vlm_layouts`, and :func:`_held_probe` of that config
+    at that batch."""
+    from repro_torch.models import layers
+
+    real, calls = layers.held_rows, {}
+
+    def counted(x, split):
+        calls[job] = calls.get(job, 0) + 1
+        return real(x, split)
+
+    out = {}
+    layers.held_rows = counted
+    try:
+        for job in jobs:
+            out.update(fsdp_rank(mesh, {job: jobs[job]}))
+            out[job]["held_rows_calls"] = calls.get(job, 0)
+    finally:
+        layers.held_rows = real
+    if layouts is not None:
+        cfg, params, ids, img = layouts
+        out["layouts"] = _vlm_layouts(mesh, cfg, params, ids, img)
+        out["held"] = _held_probe(mesh, cfg, *ids.shape)
     return out
