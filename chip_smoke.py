@@ -120,7 +120,13 @@ version there:
   ``param_shardings`` (the prefill and 2 decode steps, each layer and the
   embed table gathered over data as they are read), trained with
   ``seq_parallel`` on and off (moonshot on); K7 on each rank's heads, K8
-  and K9 in the backward (none for rwkv).
+  and K9 in the backward (none for rwkv);
+* pod as a second batch axis on a (pod 2, data 2, model 1) mesh of 4
+  ranks sharing the card (a spawn of its own), one row of a batch of 4 a
+  rank, pod-major: the same five archs, served as in cell 17 and trained
+  (gemma3 at 1 layer) with ``seq_parallel``; every head on each rank; the
+  vlm self cache's 4 layers one a rank; hymba's trained state saved by
+  ``CheckpointStore`` and restored by ``shardings=``, bit-equal.
 
 Phases:
 
@@ -400,7 +406,17 @@ Phases:
               8, 256], moonshot [1, 2048 / 4096, 8, 128], hymba [1, 2048,
               25, 64]) element by element, rank 0's timed; the phase's
               seconds (aim 160)
-18. the ``kernels`` JSON line (the ranks' launches added), the nvidia-smi
+18. pod     — the same archs and gates on a (pod 2, data 2, model 1) mesh
+              of 4 ranks (a spawn of its own; ``POD``), a batch of 4
+              split over (pod, data): per rank its pod, data and pod+data
+              collectives, the vlm self-cache exchange a decode step,
+              prefill, decode and step ms, peak GB; K7 and K8/K9 at a
+              rank's inputs with every head (gemma3 [1, 2048, 16, 256],
+              moonshot [1, 2048 / 4096, 16, 128], hymba [1, 2048, 25,
+              64], the vlm [1, 2048, 32, 128], 2048 or 1601 keys); hymba's
+              trained state through ``CheckpointStore`` (save, restore by
+              ``shardings=``, bit-equal on every rank, bytes and ms)
+19. the ``kernels`` JSON line (the ranks' launches added), the nvidia-smi
    line, and the result line;
    a ``[time] <phase> <seconds>`` line after each phase
 
@@ -637,7 +653,29 @@ FSDP = dict(mesh=(2, 2), dense="gemma3-12b", dense_layers=4,
             batch=2, prompt_len=2048, decode=16, fsdp_decode=2,
             moe_decode=8, train_seq=2048, moe_train_seq=4096,
             loss_chunk=512, lr=3e-4, seed=2033, experts=(0, 32),
-            control_limit=2.0, timeout=600)
+            control_limit=2.0, timeout=600, axes=("data", "model"),
+            tag="fsdp", cell=17)
+# cell 18: pod as a second batch axis, a (pod 2, data 2, model 1) mesh of
+# 4 ranks sharing the card (a spawn of its own, after cell 17's), the
+# batch split over (pod, data) pod-major, one row of 4 a batch rank,
+# every head on each rank (model 1); the families, depths
+# and gates of cell 17 (its weights, drawn from the same seed), 4 x 2048
+# prompts (16 teacher-forced decode steps; moonshot 8) and training at 4 x
+# 2048 (moonshot 4 x 4096); the vlm self cache's 4 self layers one a batch
+# rank; hymba's trained state (``ckpt``) saved by CheckpointStore under
+# build/ and restored by shardings= (every rank's local tensors
+# bit-equal), the directory deleted after.  gemma3 trains at 1 layer here
+# (2 in cell 17): with model 1 a rank's step holds half of the 262144 x
+# 3840 table in bf16 with its two f32 moments (5.0 GB), the table gathered
+# whole and its gradient (4.0 GB) and each loss chunk's f32 table
+# gradient (4.0 GB); at 2 layers the 4 ranks ran out of an H100's 80 GB,
+# and at 1 layer with loss chunks of 512 too, so its loss runs in chunks
+# of 256 tokens (each chunk's [256, 262144] f32 logits and their bf16
+# gradient terms half as large; PERF.md, cell 18).  With one model rank a
+# family trains one step, with seq_parallel: the step without it is the
+# same computation (the same loss and grad_norm to the bit on the card)
+POD = dict(FSDP, mesh=(2, 2, 1), axes=("pod", "data", "model"), batch=4,
+           tag="pod", cell=18, ckpt="hybrid", train_layers=1, loss_chunk=256)
 # the fsdp phase's families, in the order they run, and their seed offsets
 FSDP_FAMS = {"dense": 0, "moe": 10, "hybrid": 20, "ssm": 30, "vlm": 40}
 # the layer leaves whose local shapes a serving rank prints, by family
@@ -4777,8 +4815,11 @@ def timed_collectives(stats: dict, groups: dict | None = None):
     in ``by_pass``; the patch is undone on exit.  A gloo collective waits
     for the card anyway (the copy to pinned host memory blocks), so the
     patch adds little to a run's time.  ``groups``: the group's ranks
-    (a tuple) → a name (``"data"``, ``"model"``): each collective's
-    calls, bytes and ms also by that name in ``by_group``."""
+    (a tuple) → a name (``"data"``, ``"model"``, ``"pod"``,
+    ``"pod+data"``): each collective's calls, bytes and ms also by that
+    name in ``by_group``.  The modules that bind the two functions by name
+    (the train step's gradient buckets, the loss's sums, the moe counts,
+    ``global_norm``) are patched too."""
     import torch
 
     from repro_torch.core import spmd_pipeline as sp
@@ -4786,7 +4827,13 @@ def timed_collectives(stats: dict, groups: dict | None = None):
     import torch.distributed as dist
 
     names = ("reduce_over_ranks", "gather_over_ranks")
+    mods = [sp] + [sys.modules[m] for m in (
+        "repro_torch.launch.steps", "repro_torch.models.transformer",
+        "repro_torch.models.moe", "repro_torch.optim.adamw")
+        if m in sys.modules]
     saved = {n: getattr(sp, n) for n in names}
+    bound = [(m, n) for m in mods for n in names
+             if getattr(m, n, None) is saved[n]]
     stats.setdefault("by_pass", {})
     stats.setdefault("by_group", {})
 
@@ -4825,13 +4872,14 @@ def timed_collectives(stats: dict, groups: dict | None = None):
 
     @contextlib.contextmanager
     def patched():
-        for n, fn in saved.items():
-            setattr(sp, n, wrap(n, fn))
+        wrapped = {n: wrap(n, fn) for n, fn in saved.items()}
+        for m, n in bound:
+            setattr(m, n, wrapped[n])
         try:
             yield stats
         finally:
-            for n, fn in saved.items():
-                setattr(sp, n, fn)
+            for m, n in bound:
+                setattr(m, n, saved[n])
 
     return patched()
 
@@ -7239,10 +7287,10 @@ def phase_tp_families() -> tuple[dict, dict, dict]:
 # --------------------------------------------------------------------------- #
 # cell 17: a data axis over more than one rank (FSDP)
 # --------------------------------------------------------------------------- #
-def fsdp_shape(fam: str) -> dict:
+def fsdp_shape(fam: str, c: dict = FSDP) -> dict:
     """``fam``'s served layers, decode steps (by param_shardings_serving),
-    trained layers and training length."""
-    f = FSDP
+    trained layers and training length in cell ``c``."""
+    f = c
     if fam == "dense":
         return dict(layers=f["dense_layers"], decode=f["decode"],
                     train_layers=f["train_layers"], train_seq=f["train_seq"])
@@ -7280,16 +7328,16 @@ def fsdp_config(fam: str, layers: int):
     return cfg
 
 
-def fsdp_draws(cfg, fam: str, device) -> dict:
-    """The phase's inputs for ``fam`` from its seed: the served prompts
-    [B, T] and the training batch [B, S] (every token counts); a vlm
-    config's served image rows (``"img"``, [B, M, d]) and the training
-    batch's own, in its dtype."""
+def fsdp_draws(cfg, fam: str, device, c: dict = FSDP) -> dict:
+    """The inputs of cell ``c`` (:data:`FSDP` or :data:`POD`) for ``fam``
+    from its seed: the served prompts [B, T] and the training batch [B, S]
+    (every token counts); a vlm config's served image rows (``"img"``,
+    [B, M, d]) and the training batch's own, in its dtype."""
     import torch
 
-    f = FSDP
+    f = c
     g = torch.Generator(device).manual_seed(f["seed"] + FSDP_FAMS[fam] + 1)
-    shape = (f["batch"], fsdp_shape(fam)["train_seq"])
+    shape = (f["batch"], fsdp_shape(fam, c)["train_seq"])
     out = {"ids": torch.randint(0, cfg.vocab, (f["batch"], f["prompt_len"]),
                                 generator=g, device=device),
            "train": {"ids": torch.randint(0, cfg.vocab, shape, generator=g,
@@ -7365,9 +7413,9 @@ def fsdp_checked(tree, fam: str, n_layers: int) -> dict:
     return out
 
 
-def fsdp_serve_reference(fam: str, layout) -> dict:
+def fsdp_serve_reference(fam: str, layout, c: dict = FSDP) -> dict:
     """The whole-model serving run of ``fam`` on plain tensors in this
-    process, the (2, 2) layout registered (the moe routing groups): the
+    process, cell ``c``'s layout registered (the moe routing groups): the
     prefill step, ``LM.prefill`` and greedy decode steps; its routing
     recorded by phase (moonshot); → logits, decode logits, the tokens it
     fed, the cache, the pins, ms; for a family with CONTROLLED reads,
@@ -7380,13 +7428,13 @@ def fsdp_serve_reference(fam: str, layout) -> dict:
     from repro_torch.launch import steps as TST
     from repro_torch.models import LM, layers
 
-    f = FSDP
-    L, n = fsdp_shape(fam)["layers"], fsdp_shape(fam)["decode"]
+    f = c
+    L, n = fsdp_shape(fam, c)["layers"], fsdp_shape(fam, c)["decode"]
     cfg = fsdp_config(fam, L)
     model = LM(cfg)
     params = fsdp_weights(cfg, fam, "serve", "cuda")
     nbytes = sum(a.numel() * a.element_size() for a in leaves(params))
-    draws = fsdp_draws(cfg, fam, "cuda")
+    draws = fsdp_draws(cfg, fam, "cuda", c)
     ids, img = draws["ids"], draws.get("img")
     cache = model.init_cache(f["batch"], f["prompt_len"] + n, device="cuda")
     log = RoutingLog()
@@ -7422,9 +7470,9 @@ def fsdp_serve_reference(fam: str, layout) -> dict:
     return out
 
 
-def fsdp_train_reference(fam: str, layout) -> dict:
+def fsdp_train_reference(fam: str, layout, c: dict = FSDP) -> dict:
     """The whole-model training step of ``fam`` on plain tensors in this
-    process, the (2, 2) layout registered: step 1's loss, grad_norm
+    process, cell ``c``'s layout registered: step 1's loss, grad_norm
     (before clipping) and checked gradients (:func:`fsdp_checked`), its
     routing (moonshot), and for moonshot and a family with CONTROLLED
     reads the control: the same step in f32 (moonshot's with the same
@@ -7438,11 +7486,11 @@ def fsdp_train_reference(fam: str, layout) -> dict:
     from repro_torch.models import LM, layers
     from repro_torch.optim import global_norm
 
-    f = FSDP
-    cfg = fsdp_config(fam, fsdp_shape(fam)["train_layers"])
+    f = c
+    cfg = fsdp_config(fam, fsdp_shape(fam, c)["train_layers"])
     params = fsdp_weights(cfg, fam, "train", "cuda")
     nbytes = sum(a.numel() * a.element_size() for a in leaves(params))
-    batch = fsdp_draws(cfg, fam, "cuda")["train"]
+    batch = fsdp_draws(cfg, fam, "cuda", c)["train"]
     log = RoutingLog()
     log.set("train")
     layers.set_attention_mesh(layout)
@@ -7481,11 +7529,23 @@ def fsdp_train_reference(fam: str, layout) -> dict:
     return out
 
 
-def fsdp_serve_rank(mesh, fam: str, ref: dict, groups: dict) -> dict:
-    """One rank's serving of ``fam``: the whole weights drawn from the
-    seed, kept by ``param_shardings_serving`` (and, but for moonshot, by
-    ``param_shardings`` too: the FSDP storage), the prompts split over the
-    data axis by ``distribute_batch`` (one row a data rank); the prefill
+def batch_part(mesh) -> tuple:
+    """(i, n): this rank holds the i-th of n equal parts of a batch split
+    over the mesh's batch axes, ``pod`` and ``data`` (pod-major)."""
+    i, n = 0, 1
+    for a in ("pod", "data"):
+        if a in mesh.axis_names:
+            i, n = i * mesh.shape[a] + mesh.axis_index(a), n * mesh.shape[a]
+    return i, n
+
+
+def fsdp_serve_rank(mesh, fam: str, ref: dict, groups: dict,
+                    c: dict = FSDP) -> dict:
+    """One rank's serving of ``fam`` in cell ``c``: the whole weights
+    drawn from the seed, kept by ``param_shardings_serving`` (and, but for
+    moonshot, by ``param_shardings`` too: the FSDP storage), the prompts
+    split over the batch axes by ``distribute_batch`` (one row a data
+    rank, or a pod x data rank); the prefill
     step, ``LM.prefill`` and the whole run's tokens teacher-forced, the
     whole run's routing pinned, each collective timed by group; the
     rank's logits rows, cache shards, ms, peak GB, local shapes (the
@@ -7498,11 +7558,11 @@ def fsdp_serve_rank(mesh, fam: str, ref: dict, groups: dict) -> dict:
     from repro_torch.launch import sharding as TS
     from repro_torch.launch import steps as TST
 
-    f = FSDP
-    L = fsdp_shape(fam)["layers"]
+    f = c
+    L = fsdp_shape(fam, c)["layers"]
     cfg = fsdp_config(fam, L)
     B, T = f["batch"], f["prompt_len"]
-    part = (mesh.axis_index("data"), mesh.shape["data"])
+    part = batch_part(mesh)
     t0 = time.perf_counter()
     whole = fsdp_weights(cfg, fam, "serve", mesh.device)
     specs = {"serving": TS.param_shardings_serving(mesh, whole)}
@@ -7516,7 +7576,7 @@ def fsdp_serve_rank(mesh, fam: str, ref: dict, groups: dict) -> dict:
     img = {}
     if cfg.cross_attn_every:                # the same rows as the prompt
         img = TS.distribute_batch(mesh, {"img_embeds": fsdp_draws(
-            cfg, fam, mesh.device)["img"]})
+            cfg, fam, mesh.device, c)["img"]})
     draw_s = time.perf_counter() - t0
     out = {"draw_s": draw_s, "runs": {}}
     model, prefill = TST.make_prefill_step(cfg, mesh)
@@ -7530,7 +7590,7 @@ def fsdp_serve_rank(mesh, fam: str, ref: dict, groups: dict) -> dict:
         return res, 1e3 * (time.perf_counter() - t1)
 
     for layout, params in sharded.items():
-        n = fsdp_shape(fam)["decode"] if (
+        n = fsdp_shape(fam, c)["decode"] if (
             layout == "serving") else f["fsdp_decode"]
         log = RoutingLog(ref["pins"], part)
         coll = {"sync_ms": 0.0, "collective_ms": 0.0, "calls": {},
@@ -7591,7 +7651,7 @@ def fsdp_serve_rank(mesh, fam: str, ref: dict, groups: dict) -> dict:
 @contextlib.contextmanager
 def held_exchanges(calls: list):
     """Each self-cache exchange (``layers.held_rows``: the owner of a vlm
-    self layer sending the other data ranks their rows) timed alone, the
+    self layer sending the other batch ranks their rows) timed alone, the
     card synchronised around it, appended to ``calls`` as (ms, bytes sent,
     bytes received) of this rank."""
     import torch
@@ -7606,7 +7666,7 @@ def held_exchanges(calls: list):
         got = real(x, split)
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0)
-        n = x.device_mesh.size(x.device_mesh.mesh_dim_names.index(x.axis))
+        n = x.size                         # the ranks of its line
         nbytes = got.numel() * got.element_size()
         calls.append((ms, nbytes * (n - 1), 0) if x.layer is not None
                      else (ms, 0, nbytes))
@@ -7619,17 +7679,21 @@ def held_exchanges(calls: list):
         layers.held_rows = real
 
 
-def fsdp_train_rank(mesh, fam: str, ref: dict, groups: dict) -> dict:
-    """One rank's training of ``fam``: the whole weights drawn from the
-    seed, kept by ``param_shardings`` (``init_train_state_sharded``), the
-    batch split over the data axis; one ``make_train_step`` step with
-    seq_parallel (and, but for the families of ``FSDP_SP_ONLY``, one
+def fsdp_train_rank(mesh, fam: str, ref: dict, groups: dict,
+                    c: dict = FSDP) -> dict:
+    """One rank's training of ``fam`` in cell ``c``: the whole weights
+    drawn from the seed, kept by ``param_shardings``
+    (``init_train_state_sharded``), the batch split over the batch axes;
+    one ``make_train_step`` step with seq_parallel (and, but for the
+    families of ``FSDP_SP_ONLY`` and a model axis of one rank, one
     without from the same start), the whole run's routing pinned, each
     collective timed by group; each step's checked gradients, before
     AdamW, against the whole run's at this rank's bounds (and against the
     f32 control's where the whole run took one); the moments' local
     shapes; the q, k, v and dO layer 0's attention gave K8 and K9 in the
-    first step (none for rwkv; a vlm model's first cross layer's too)."""
+    first step (none for rwkv; a vlm model's first cross layer's too);
+    for the family ``c["ckpt"]`` names, the trained state's checkpoint
+    round trip (:func:`pod_checkpoint`)."""
     import torch
 
     from repro_torch.core.spmd_pipeline import local_tensor
@@ -7639,17 +7703,24 @@ def fsdp_train_rank(mesh, fam: str, ref: dict, groups: dict) -> dict:
     from repro_torch.models import layers
     from repro_torch.optim import adamw_init
 
-    f = FSDP
-    cfg = fsdp_config(fam, fsdp_shape(fam)["train_layers"])
-    part = (mesh.axis_index("data"), mesh.shape["data"])
+    f = c
+    cfg = fsdp_config(fam, fsdp_shape(fam, c)["train_layers"])
+    part = batch_part(mesh)
     t0 = time.perf_counter()
     whole = fsdp_weights(cfg, fam, "train", mesh.device)
     state = TST.init_train_state_sharded(cfg, mesh, whole)
     del whole
-    start = [local_tensor(a).clone() for a in leaves(state["params"])]
+    # one step with seq_parallel, and one without from the same start but
+    # for FSDP_SP_ONLY's families and a model axis of one rank, where the
+    # carry splits nothing (SeqParallel.line is None): the same step twice
+    plan = ([True] if fam in FSDP_SP_ONLY or c["mesh"][-1] == 1
+            else [True, False])
+    # the start of the second step, kept on the host
+    start = [local_tensor(a).to("cpu", copy=True)
+             for a in leaves(state["params"])] if len(plan) > 1 else []
     torch.cuda.empty_cache()
-    batch = TS.distribute_batch(mesh, fsdp_draws(cfg, fam,
-                                                 mesh.device)["train"])
+    batch = TS.distribute_batch(mesh, fsdp_draws(cfg, fam, mesh.device,
+                                                 c)["train"])
     draw_s = time.perf_counter() - t0
     steps, inputs = [], {}
     real_update, real_attention = TST.adamw_update, layers.ops.attention
@@ -7679,7 +7750,6 @@ def fsdp_train_rank(mesh, fam: str, ref: dict, groups: dict) -> dict:
                 3, g.detach().clone()))
         return o
 
-    plan = [True] if fam in FSDP_SP_ONLY else [True, False]
     TST.adamw_update = spy
     try:
         for i, sp in enumerate(plan):
@@ -7721,53 +7791,116 @@ def fsdp_train_rank(mesh, fam: str, ref: dict, groups: dict) -> dict:
     finally:
         TST.adamw_update = real_update
         layers.ops.attention = real_attention
+    ckpt = pod_checkpoint(mesh, state) if c.get("ckpt") == fam else None
     return {"draw_s": draw_s, "steps": steps, "moments": moments,
             "inputs": {name: tuple(t.cpu() if torch.is_tensor(t) else t
                                    for t in qkv)
-                       for name, qkv in inputs.items()}}
+                       for name, qkv in inputs.items()}, "ckpt": ckpt}
 
 
-def fsdp_rank(mesh, ref_path: str) -> dict:
-    """One rank of the fsdp phase: gemma3-12b, moonshot-v1-16b-a3b,
-    hymba-1.5b and rwkv6-1.6b each served and trained
-    (:func:`fsdp_serve_rank`, :func:`fsdp_train_rank`), every K7-K9 launch
-    counted, and by family."""
+def pod_checkpoint(mesh, state: dict) -> dict:
+    """A trained state's round trip through ``CheckpointStore`` on the
+    ranks of ``mesh``: saved under ``build/pod_ckpt`` (every DTensor leaf
+    gathered whole, rank 0 writing), restored by ``shardings=``
+    (``param_shardings``, ``opt_shardings``); → the file's bytes, the save
+    and restore ms (the card synchronised), the leaves, and whether every
+    local tensor, placement and plain leaf came back bit-equal.  The
+    directory is deleted after every rank has read it."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.core.spmd_pipeline import is_dtensor, local_tensor
+    from repro_torch.core.tree import leaves
+    from repro_torch.launch import sharding as TS
+
+    root = os.path.join(HERE, "build", "pod_ckpt")
+    if mesh.rank == 0:
+        shutil.rmtree(root, ignore_errors=True)
+    dist.barrier()
+    store = CheckpointStore(root, keep=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = store.save(1, state, {"next_step": 1})
+    t1 = time.perf_counter()
+    sh = {"params": TS.param_shardings(mesh, state["params"]),
+          "opt": TS.opt_shardings(mesh, state["opt"], state["params"])}
+    got, extra = store.restore(1, like=state, shardings=sh)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    pairs = list(zip(leaves(got), leaves(state)))
+    equal = extra == {"next_step": 1} and all(
+        is_dtensor(a) == is_dtensor(b)
+        and (not is_dtensor(a) or a.placements == b.placements)
+        and torch.equal(local_tensor(a), local_tensor(b)) for a, b in pairs)
+    nbytes = os.path.getsize(os.path.join(path, "arrays.npz"))
+    dist.barrier()
+    if mesh.rank == 0:
+        shutil.rmtree(root)
+    dist.barrier()
+    return {"bytes": nbytes, "save_ms": 1e3 * (t1 - t0),
+            "restore_ms": 1e3 * (t2 - t1), "leaves": len(pairs),
+            "equal": equal, "gone": not os.path.exists(root)}
+
+
+def fsdp_cell_rank(mesh, ref: dict, c: dict) -> dict:
+    """One rank of cell ``c`` (:data:`FSDP` on ``mesh``, or :data:`POD`):
+    every family of :data:`FSDP_FAMS` served and trained
+    (:func:`fsdp_serve_rank`, :func:`fsdp_train_rank`), the K7-K9 launch
+    counts set to 0 before the cell and read after it, and by family; each
+    collective named by its group (``pod``, ``data``, ``model``, and
+    ``pod+data``: the batch line)."""
     import gc
 
     import torch
     import torch.distributed as dist
 
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models import layers
 
-    ref = torch.load(ref_path, mmap=True, map_location="cpu")
     t0 = time.perf_counter()
     dm = mesh.device_mesh                 # the DeviceMesh and its groups
     groups = {tuple(dist.get_process_group_ranks(dm.get_group(a))): a
-              for a in ("data", "model")}
+              for a in c["axes"]}
+    if "pod" in c["axes"]:
+        groups[tuple(mesh.axis_group(("pod", "data"))[1])] = "pod+data"
     out = {"rank": mesh.rank, "coord": mesh.coord,
            "transport": mesh.transport, "mesh_s": time.perf_counter() - t0}
     fa.reset_launches()
-    try:
-        for fam in FSDP_FAMS:
-            gc.collect()                  # the last family's tensors gone
-            torch.cuda.empty_cache()      # before the peaks are read
-            before = dict(fa.LAUNCHES)
-            t1 = time.perf_counter()
-            out[f"{fam}_serve"] = fsdp_serve_rank(mesh, fam,
-                                                  ref[f"{fam}_serve"], groups)
-            torch.cuda.empty_cache()
-            out[f"{fam}_train"] = fsdp_train_rank(mesh, fam,
-                                                  ref[f"{fam}_train"], groups)
-            torch.cuda.empty_cache()
-            out[f"{fam}_launches"] = {k: v - before.get(k, 0)
-                                      for k, v in fa.LAUNCHES.items()}
-            out[f"{fam}_s"] = time.perf_counter() - t1
-    finally:
-        layers.set_attention_mesh(None)
+    for fam in FSDP_FAMS:
+        gc.collect()                      # the last family's tensors gone
+        torch.cuda.empty_cache()          # before the peaks are read
+        before = dict(fa.LAUNCHES)
+        t1 = time.perf_counter()
+        out[f"{fam}_serve"] = fsdp_serve_rank(mesh, fam, ref[f"{fam}_serve"],
+                                              groups, c)
+        torch.cuda.empty_cache()
+        out[f"{fam}_train"] = fsdp_train_rank(mesh, fam, ref[f"{fam}_train"],
+                                              groups, c)
+        torch.cuda.empty_cache()
+        out[f"{fam}_launches"] = {k: v - before.get(k, 0)
+                                  for k, v in fa.LAUNCHES.items()}
+        out[f"{fam}_s"] = time.perf_counter() - t1
     out["launches"] = dict(fa.LAUNCHES)
     out["routes"] = {k: dict(v) for k, v in fa.ROUTE_LAUNCHES.items()}
     return out
+
+
+def fsdp_rank(mesh, ref_path: str, tag: str) -> dict:
+    """One rank of the fsdp phase's cell ``tag`` (:data:`FSDP` or
+    :data:`POD`, on ``mesh``): :func:`fsdp_cell_rank` against the parent's
+    references in ``ref_path``."""
+    import torch
+
+    from repro_torch.models import layers
+
+    c = next(x for x in (FSDP, POD) if x["tag"] == tag)
+    ref = torch.load(ref_path, mmap=True, map_location="cpu")
+    try:
+        return fsdp_cell_rank(mesh, ref, c)
+    finally:
+        layers.set_attention_mesh(None)
 
 
 def fsdp_share(got, want, limit: float = 2e-2) -> float:
@@ -7777,9 +7910,10 @@ def fsdp_share(got, want, limit: float = 2e-2) -> float:
             / (limit * want.abs().max())).item()
 
 
-def fsdp_check_serve(fam: str, ref: dict, res: list) -> dict:
-    """The ranks' serving of ``fam`` against the whole run: each rank's
-    logits rows within 2e-2 of max|ref| (and ``collect_batch``'s whole
+def fsdp_check_serve(fam: str, ref: dict, res: list,
+                     cell: dict = FSDP) -> dict:
+    """The ranks' serving of ``fam`` in cell ``cell`` against the whole
+    run: each rank's logits rows within 2e-2 of max|ref| (and ``collect_batch``'s whole
     logits equal to the rows), decode within 2.5e-2 (gemma3, moonshot) or
     2e-2 (hymba, rwkv), every cache leaf reassembled within 2e-2 (a leaf
     CONTROLLED names also passing, layer by layer, within
@@ -7790,8 +7924,9 @@ def fsdp_check_serve(fam: str, ref: dict, res: list) -> dict:
     import torch
 
     dlim = 2.5e-2 if fam in ("dense", "moe") else 2e-2
-    cfg = fsdp_config(fam, fsdp_shape(fam)["layers"])
+    cfg = fsdp_config(fam, fsdp_shape(fam, cell)["layers"])
     per = cfg.cross_attn_every - 1 if cfg.cross_attn_every else 0
+    nb = math.prod(cell["mesh"][:-1])        # the batch ranks, pod x data
     reads, fails, exchange = {}, [], {}
     for layout in res[0][f"{fam}_serve"]["runs"]:
         pre, dec = [], []
@@ -7803,10 +7938,10 @@ def fsdp_check_serve(fam: str, ref: dict, res: list) -> dict:
                     for a, w in zip(g["decode"], ref["decode"])]
             if g["collected"] is not None:
                 check(torch.equal(g["collected"][rows], g["logits"]),
-                      f"fsdp {fam}: collect_batch's logits differ from the "
-                      f"rank's rows")
+                      f"{cell['tag']} {fam}: collect_batch's logits differ "
+                      f"from the rank's rows")
             c, ms = g["collectives"], g["ms"]
-            print(f"[fsdp] {fam} {layout} rank {r['rank']} {r['coord']}: "
+            print(f"[{cell['tag']}] {fam} {layout} rank {r['rank']} {r['coord']}: "
                   f"local shapes {g['shapes']}; prefill step "
                   f"{ms['prefill_step_ms']:.3f} ms, prefill into the cache "
                   f"{ms['prefill_cache_ms']:.3f} ms, decode "
@@ -7816,17 +7951,17 @@ def fsdp_check_serve(fam: str, ref: dict, res: list) -> dict:
                   f"{c['collective_ms']:.3f} ms of {c['run_ms']:.3f} ms, "
                   f"by group "
                   f"{json.dumps(c['by_group'])}")
-            check(g["shapes"]["ids"][0] == FSDP["batch"] // 2,
-                  f"fsdp {fam} rank {r['rank']}: the batch's local rows "
+            check(g["shapes"]["ids"][0] == cell["batch"] // nb,
+                  f"{cell['tag']} {fam} rank {r['rank']}: the batch's local rows "
                   f"{g['shapes']['ids']}")
             # the rank's rows of B; the vlm self cache: every row of B for
-            # half of each group's self layers (the JAX layout)
-            check(all(v[2] == FSDP["batch"] and 2 * v[1] == per
+            # its part of each group's self layers (the JAX layout)
+            check(all(v[2] == cell["batch"] and nb * v[1] == per
                       if k.startswith("cache_self/") else
-                      v[1] == FSDP["batch"] // 2
+                      v[1] == cell["batch"] // nb
                       for k, v in g["shapes"].items()
                       if k.startswith("cache_")),
-                  f"fsdp {fam} rank {r['rank']}: the cache's local rows "
+                  f"{cell['tag']} {fam} rank {r['rank']}: the cache's local rows "
                   f"{g['shapes']}")
             if per:
                 steps = g["held"]["decode"]
@@ -7836,7 +7971,7 @@ def fsdp_check_serve(fam: str, ref: dict, res: list) -> dict:
                 check(not g["held"]["prefill"]
                       and all(len(st) == 2 * per * cfg.n_layers
                               // cfg.cross_attn_every for st in steps),
-                      f"fsdp {fam} rank {r['rank']}: self-cache exchanges "
+                      f"{cell['tag']} {fam} rank {r['rank']}: self-cache exchanges "
                       f"{[len(st) for st in steps]} a decode step, "
                       f"{len(g['held']['prefill'])} in the prefill")
                 exchange[f"{layout} rank {r['rank']}"] = {
@@ -7844,7 +7979,7 @@ def fsdp_check_serve(fam: str, ref: dict, res: list) -> dict:
                     "ms_a_step_median": statistics.median(ms),
                     "bytes_sent_a_step": sent[0],
                     "bytes_received_a_step": got[0]}
-                print(f"[fsdp] {fam} {layout} rank {r['rank']}: self-cache "
+                print(f"[{cell['tag']}] {fam} {layout} rank {r['rank']}: self-cache "
                       f"exchange a decode step {len(steps[0])} calls, "
                       f"{statistics.median(ms):.3f} ms (median of "
                       f"{len(ms)}), {sent[0] / 1e6:.3f} MB sent and "
@@ -7860,14 +7995,14 @@ def fsdp_check_serve(fam: str, ref: dict, res: list) -> dict:
             local, bounds = r[f"{fam}_serve"]["runs"]["serving"]["cache"][name]
             full[tuple(bounds)] = local
             seen[tuple(bounds)] = True
-        check(bool(seen.all()), f"fsdp {fam}: the ranks' cache {name} does "
+        check(bool(seen.all()), f"{cell['tag']} {fam}: the ranks' cache {name} does "
                                 f"not cover the whole")
         k = f"cache_{name}"
         reads[k] = fsdp_share(full, whole)
         if reads[k] <= 1.0 or k not in ctl:
             continue
         by = layer_controls(full, whole, ref["f32"]["cache"][name])
-        print(f"[fsdp] {fam} {k}: by layer (share, f32 control, own share) "
+        print(f"[{cell['tag']}] {fam} {k}: by layer (share, f32 control, own share) "
               f"{[tuple(round(x, 4) for x in b) for b in by]} (limit {lim})")
         reads[f"{k} f32_control"] = [c for _, c, _ in by]
         if not all(a <= 1.0 or c <= lim for a, c, _ in by):
@@ -7876,18 +8011,20 @@ def fsdp_check_serve(fam: str, ref: dict, res: list) -> dict:
         if k.endswith("f32_control"):
             continue
         lim_k = dlim if "decode" in k else 2e-2
-        print(f"[fsdp] {fam} {k}: max |err| at {v:.4f} of {lim_k:g} * "
+        print(f"[{cell['tag']}] {fam} {k}: max |err| at {v:.4f} of {lim_k:g} * "
               f"max|ref|")
         if v > 1.0 and f"{k} f32_control" not in reads:
             fails.append(k)
-    check(not fails, f"fsdp {fam} serving: reads over their limit {fails}")
+    check(not fails, f"{cell['tag']} {fam} serving: reads over their limit {fails}")
     if exchange:
         reads["self_cache_exchange"] = exchange
     return reads
 
 
-def fsdp_check_train(fam: str, ref: dict, res: list) -> dict:
-    """The ranks' training of ``fam`` against the whole run's step 1:
+def fsdp_check_train(fam: str, ref: dict, res: list,
+                     cell: dict = FSDP) -> dict:
+    """The ranks' training of ``fam`` in cell ``cell`` against the whole
+    run's step 1:
     loss within 1e-3 and grad_norm within 1e-2 relative (equal on every
     rank), moonshot's ``dropped_frac`` within 1e-6 (the data ranks' means
     averaged: ``1 - kept / k`` rounds a shard at a time), every checked
@@ -7907,14 +8044,14 @@ def fsdp_check_train(fam: str, ref: dict, res: list) -> dict:
         label = "seq_parallel" if sts[0]["seq_parallel"] else \
             "no seq_parallel"
         norms = {st["grad_norm"] for st in sts}
-        check(len(norms) == 1, f"fsdp {fam} {label}: grad_norm differs "
+        check(len(norms) == 1, f"{cell['tag']} {fam} {label}: grad_norm differs "
                                f"between the ranks: {norms}")
         st = sts[0]
         lrel = abs(st["loss"] - ref["loss"]) / abs(ref["loss"])
         grel = abs(st["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
         check(lrel <= 1e-3 and grel <= 1e-2
               and abs(st["dropped_frac"] - ref["dropped_frac"]) <= 1e-6,
-              f"fsdp {fam} {label}: loss {st['loss']} grad_norm "
+              f"{cell['tag']} {fam} {label}: loss {st['loss']} grad_norm "
               f"{st['grad_norm']} dropped_frac {st['dropped_frac']} against "
               f"the whole run's {ref['loss']} {ref['grad_norm']} "
               f"{ref['dropped_frac']}")
@@ -7923,7 +8060,7 @@ def fsdp_check_train(fam: str, ref: dict, res: list) -> dict:
             scale = scales[k]
             got = [r[f"{fam}_train"]["steps"][i]["grad_err"][k] for r in res
                    if k in r[f"{fam}_train"]["steps"][i]["grad_err"]]
-            check(len(got) >= 1, f"fsdp {fam}: no rank checked {k}")
+            check(len(got) >= 1, f"{cell['tag']} {fam}: no rank checked {k}")
             shares[k] = max(got) / scale
             if shares[k] <= 1.0:
                 continue
@@ -7936,7 +8073,7 @@ def fsdp_check_train(fam: str, ref: dict, res: list) -> dict:
                         for r in res
                         if k in r[f"{fam}_train"]["steps"][i]["grad_err"])
             ratio = ranks / max(own, 1e-30)
-            print(f"[fsdp] {fam} {label} gradient {k}: {shares[k]:.4f} of "
+            print(f"[{cell['tag']}] {fam} {label} gradient {k}: {shares[k]:.4f} of "
                   f"2e-2 * max|g_ref|; the f32 control: the whole bf16 run's "
                   f"own distance to the f32 run {own / scale:.4f} of that "
                   f"limit, the ranks' distance to it {ratio:.4f} x that "
@@ -7945,18 +8082,18 @@ def fsdp_check_train(fam: str, ref: dict, res: list) -> dict:
             if ratio > lim:
                 fails.append(k)
         top = dict(sorted(shares.items(), key=lambda kv: -kv[1])[:4])
-        print(f"[fsdp] {fam} {label} step: loss {st['loss']} ({lrel:.3g} "
+        print(f"[{cell['tag']}] {fam} {label} step: loss {st['loss']} ({lrel:.3g} "
               f"rel), grad_norm {st['grad_norm']} ({grel:.3g} rel); every "
               f"checked gradient's max |g - g_ref| over 2e-2 * max|g_ref|, "
               f"the largest: {top}")
         for r in res:
             s = r[f"{fam}_train"]["steps"][i]
             c = s["collectives"]
-            print(f"[fsdp] {fam} {label} rank {r['rank']}: step "
+            print(f"[{cell['tag']}] {fam} {label} rank {r['rank']}: step "
                   f"{s['ms']:.3f} ms, peak {s['peak_gb']:.3f} GB; "
                   f"collectives {c['collective_ms']:.3f} ms, by group "
                   f"{json.dumps(c['by_group'])}")
-        check(not fails, f"fsdp {fam} {label}: gradients over their limit "
+        check(not fails, f"{cell['tag']} {fam} {label}: gradients over their limit "
                          f"{fails}")
         reads[f"{label} loss_rel"] = lrel
         reads[f"{label} grad_norm_rel"] = grel
@@ -7964,71 +8101,19 @@ def fsdp_check_train(fam: str, ref: dict, res: list) -> dict:
     return reads
 
 
-def phase_fsdp() -> tuple[dict, dict]:
-    """A data axis over more than one rank: gemma3-12b,
-    moonshot-v1-16b-a3b, hymba-1.5b and rwkv6-1.6b served and trained on
-    a (data 2, model 2) mesh of 4 ranks sharing the card, each held to the
-    whole-model run on the same weights in this process (the same layout
-    registered)."""
-    import gc
-    import tempfile
-
+def fsdp_cell_checks(c: dict, ref: dict, res: list) -> tuple[dict, dict]:
+    """Cell ``c``'s checks over its ranks' results ``res``
+    (:func:`fsdp_cell_rank`) against the whole runs ``ref``: every
+    family's serving and training (:func:`fsdp_check_serve`,
+    :func:`fsdp_check_train`), the K7-K9 launches and routes, the vlm
+    family's launches, the moments' local shapes, K7 at a batch rank's
+    serving shapes and K8/K9 at its training shapes element by element on
+    every rank (rank 0's timed), and the checkpoint round trip of
+    ``c["ckpt"]`` → (the K7-K9 launches summed over the ranks, the cell's
+    reads and numbers)."""
     import torch
 
-    from repro_torch.launch.mesh import MeshLayout, run_on_local_mesh
-
-    gc.collect()
-    torch.cuda.empty_cache()
-    t_phase = time.perf_counter()
-    f = FSDP
-    layout = MeshLayout(f["mesh"], ("data", "model"))
-    print(f"[fsdp] mesh (data, model) = {f['mesh']}, 4 ranks sharing the "
-          f"card; {f['dense']} served at {f['dense_layers']} layers "
-          f"({f['batch']} x {f['prompt_len']}, one row a data rank, "
-          f"{f['decode']} decode steps; {f['fsdp_decode']} under the FSDP "
-          f"storage) and trained at {f['train_layers']} "
-          f"({f['batch']} x {f['train_seq']}); {f['moe']} served at "
-          f"{f['moe_layers']} ({f['moe_decode']} decode steps) and trained "
-          f"({f['batch']} x {f['moe_train_seq']}); {f['hybrid']} and "
-          f"{f['ssm']} served at {f['rec_layers']} ({f['decode']} "
-          f"decode steps; {f['fsdp_decode']} under the FSDP storage) and "
-          f"trained at {f['rec_train_layers']} ({f['batch']} x "
-          f"{f['train_seq']}); {f['vlm']} served and trained at "
-          f"{f['vlm_layers']} (one group) against 1601 image rows, its self "
-          f"cache's layers split over data")
-    ref, ref_s = {}, {}
-    for fam in FSDP_FAMS:
-        t0 = time.perf_counter()
-        ref[f"{fam}_serve"] = fsdp_serve_reference(fam, layout)
-        gc.collect()
-        torch.cuda.empty_cache()
-        ref[f"{fam}_train"] = fsdp_train_reference(fam, layout)
-        gc.collect()
-        torch.cuda.empty_cache()
-        s, t = ref[f"{fam}_serve"], ref[f"{fam}_train"]
-        ref_s[fam] = time.perf_counter() - t0
-        ctl = ", ".join(n for n in ("serve", "train")
-                        if "f32" in ref[f"{fam}_{n}"])
-        print(f"[fsdp] {fam} whole-model run: {s['weights_gb']:.3f} GB "
-              f"served, prefill step {s['ms']['prefill_step_ms']:.3f} ms, "
-              f"decode {statistics.median(s['ms']['decode_ms']):.3f} ms a "
-              f"step; training step 1 (loss and gradients) "
-              f"{t['step_ms']:.3f} ms, loss {t['loss']}, grad_norm "
-              f"{t['grad_norm']}; {ref_s[fam]:.3f} s, its f32 controls "
-              f"included ({ctl or 'none'})")
-    t_ref = time.perf_counter() - t_phase
-    fd, path = tempfile.mkstemp(suffix=".pt")
-    os.close(fd)
-    try:
-        torch.save({k: {n: v for n, v in r.items() if n in (
-            "ids", "tokens", "pins", "plain") or (n == "f32" and "plain" in r)}
-            for k, r in ref.items()}, path)
-        t1 = time.perf_counter()
-        res = run_on_local_mesh(f["mesh"], ("data", "model"), fsdp_rank,
-                                path, device="cuda", timeout=f["timeout"])
-        ranks_s = time.perf_counter() - t1
-    finally:
-        os.unlink(path)
+    f, tag = c, c["tag"]
     counts: dict = {}
     for r in res:
         check(r["launches"]["flash_attention"] > 0
@@ -8036,17 +8121,17 @@ def phase_fsdp() -> tuple[dict, dict]:
               and r["launches"]["flash_attention_bwd_dkv"] > 0
               and all(v.get("simt_f32", 0) == 0
                       for v in r["routes"].values()),
-              f"fsdp rank {r['rank']}: K7-K9 launches {r['launches']}, "
+              f"{tag} rank {r['rank']}: K7-K9 launches {r['launches']}, "
               f"routes {r['routes']}")
         for k, v in r["launches"].items():
             counts[k] = counts.get(k, 0) + v
     reads = {}
     for fam in FSDP_FAMS:
         reads[f"{fam}_serve"] = fsdp_check_serve(fam, ref[f"{fam}_serve"],
-                                                 res)
+                                                 res, c)
         reads[f"{fam}_train"] = fsdp_check_train(fam, ref[f"{fam}_train"],
-                                                 res)
-        print(f"[fsdp] {fam} K7-K9 launches by rank "
+                                                 res, c)
+        print(f"[{tag}] {fam} K7-K9 launches by rank "
               f"{[r[f'{fam}_launches'] for r in res]}; the ranks' seconds "
               f"{[round(r[f'{fam}_s'], 3) for r in res]}")
     # the vlm family's launches on every rank: 5 K7 a prefill (4 self, 1
@@ -8057,28 +8142,32 @@ def phase_fsdp() -> tuple[dict, dict]:
             "flash_attention_bwd_dkv": L}
     for r in res:
         check(r["vlm_launches"] == want,
-              f"fsdp rank {r['rank']} vlm: K7-K9 launches "
+              f"{tag} rank {r['rank']} vlm: K7-K9 launches "
               f"{r['vlm_launches']}, want {want}")
-    # the moments at their opt_shardings local shapes: (leaf, the dims
-    # split over data and over model, half the whole on a rank)
-    moments = {"dense": ("layers/attn/wq", (1, 2)),
-               "moe": ("layers/attn/wq", (1, 2)),
-               "hybrid": ("layers/ssm/in_proj", (1, 3)),
-               "ssm": ("layers/rwkv/wr", (1, 2)),
-               "vlm": ("layers/attn/wq", (2, 3))}
+    # the moments at their opt_shardings local shapes: (leaf, the dim
+    # split over data, the dim split over model), a part of the whole on
+    # a rank
+    moments = {"dense": ("layers/attn/wq", 1, 2),
+               "moe": ("layers/attn/wq", 1, 2),
+               "hybrid": ("layers/ssm/in_proj", 1, 3),
+               "ssm": ("layers/rwkv/wr", 1, 2),
+               "vlm": ("layers/attn/wq", 2, 3)}
+    nd, m = f["mesh"][-2], f["mesh"][-1]
     for r in res:
         for fam in FSDP_FAMS:
-            leaf, dims = moments[fam]
+            leaf, dd, dm_ = moments[fam]
             local, shape = r[f"{fam}_train"]["moments"][leaf]
-            check(all(local[i] * 2 == shape[i] for i in dims),
-                  f"fsdp rank {r['rank']} {fam}: {leaf} moments "
+            check(local[dd] * nd == shape[dd] and local[dm_] * m == shape[dm_]
+                  and all(a == b for i, (a, b) in enumerate(zip(local, shape))
+                          if i not in (dd, dm_)),
+                  f"{tag} rank {r['rank']} {fam}: {leaf} moments "
                   f"{(local, shape)}")
-    # K7 at a data rank's serving shapes, K8/K9 at its training shapes,
-    # element by element on every rank, rank 0's timed (hymba's all 25
-    # heads a model rank, window 1024; the vlm self layers causal and its
-    # cross layer against the 1601 image rows, 16 of 32 heads a rank)
+    # K7 at a batch rank's serving shapes, K8/K9 at its training shapes,
+    # element by element on every rank, rank 0's timed (hymba's 25 heads
+    # whole on a model rank, window 1024; the vlm self layers causal and
+    # its cross layer against the 1601 image rows)
     k7, bwd = {}, {}
-    hy, m = fsdp_config("hybrid", 1), f["mesh"][1]
+    hy = fsdp_config("hybrid", 1)
     vl = fsdp_config("vlm", f["vlm_layers"])
     T, M = f["prompt_len"], vl.n_img_tokens
     want_q = {"hybrid": (1, T, hy.n_heads // m if hy.n_heads % m == 0
@@ -8092,14 +8181,14 @@ def phase_fsdp() -> tuple[dict, dict]:
                            if f_ in kept):
             for serve_name, train_name in names:
                 cross = "cross" in serve_name
-                label = f"fsdp {fam}" + (" cross" if cross else "")
+                label = f"{tag} {fam}" + (" cross" if cross else "")
                 keys = M if cross else T
                 for part, name in (("serve", serve_name),
                                    ("train", train_name)):
                     got = (r[f"{fam}_serve"]["runs"]["serving"]["k7"]
                            if part == "serve"
                            else r[f"{fam}_train"]["inputs"])
-                    check(name in got, f"fsdp rank {r['rank']} {fam}: no "
+                    check(name in got, f"{tag} rank {r['rank']} {fam}: no "
                                        f"{name} inputs kept ({sorted(got)})")
                     q, k, v, *do, w = (t.to("cuda") if torch.is_tensor(t)
                                        else t for t in got[name])
@@ -8109,14 +8198,14 @@ def phase_fsdp() -> tuple[dict, dict]:
                                                            tuple(q.shape))
                           and (fam != "vlm" or k.shape[1] == keys)
                           and (part == "serve" or len(do) == 1),
-                          f"fsdp rank {r['rank']} {fam} {part}: q "
+                          f"{tag} rank {r['rank']} {fam} {part}: q "
                           f"{tuple(q.shape)}, k {tuple(k.shape)}")
                     if part == "serve" and r["rank"] == 0:
                         k7[label] = k7_at(q, k, v, w, label,
-                                          causal=not cross, tag="[fsdp]")
+                                          causal=not cross, tag=f"[{tag}]")
                     elif part == "serve":
                         d, worst = flash_err(q, k, v, not cross, w)
-                        print(f"[fsdp] rank {r['rank']} K7 {label} at "
+                        print(f"[{tag}] rank {r['rank']} K7 {label} at "
                               f"{list(q.shape)} x {k.shape[1]} keys: max abs "
                               f"err {d}, {worst} of the element-wise limit")
                         k7[f"{label} rank {r['rank']}"] = {
@@ -8125,18 +8214,30 @@ def phase_fsdp() -> tuple[dict, dict]:
                     elif r["rank"] == 0:
                         bwd[label] = k8_k9_at(q, k, v, do[0], w,
                                               f"{label} train",
-                                              causal=not cross, tag="[fsdp]")
+                                              causal=not cross,
+                                              tag=f"[{tag}]")
                     else:
                         e = flash_bwd_err(q, k, v, do[0], not cross, w)
-                        print(f"[fsdp] rank {r['rank']} K8/K9 {label} at "
+                        print(f"[{tag}] rank {r['rank']} K8/K9 {label} at "
                               f"{list(q.shape)} x {k.shape[1]} keys: {e}")
                         bwd[f"{label} rank {r['rank']}"] = e
                     del q, k, v, do
-    out = {"reads": reads, "k7": k7, "k8_k9": bwd, "ranks_s": ranks_s,
-           "reference_s": t_ref, "reference_s_by_family": ref_s,
-           "whole": {k: {n: v for n, v in r.items() if n in (
+    ckpt = None
+    if c.get("ckpt"):
+        ckpt = [r[f"{c['ckpt']}_train"]["ckpt"] for r in res]
+        for r, ck in zip(res, ckpt):
+            print(f"[{tag}] checkpoint of {FSDP[c['ckpt']]}'s trained state "
+                  f"rank {r['rank']}: {ck['leaves']} leaves, "
+                  f"{ck['bytes'] / 1e9:.3f} GB on disk, save "
+                  f"{ck['save_ms']:.3f} ms, restore by shardings "
+                  f"{ck['restore_ms']:.3f} ms, bit-equal {ck['equal']}, "
+                  f"directory deleted {ck['gone']}")
+            check(ck["equal"] and ck["gone"],
+                  f"{tag} rank {r['rank']}: the checkpoint round trip {ck}")
+    out = {"reads": reads, "k7": k7, "k8_k9": bwd, "ckpt": ckpt,
+           "whole": {k: {n: v for n, v in w.items() if n in (
                "ms", "step_ms", "loss", "grad_norm", "weights_gb")}
-               for k, r in ref.items()},
+               for k, w in ref.items()},
            "ranks": [{"rank": r["rank"], "coord": r["coord"],
                       "mesh_s": r["mesh_s"], "launches": r["launches"],
                       **{f"{fam}_launches": r[f"{fam}_launches"]
@@ -8153,11 +8254,108 @@ def phase_fsdp() -> tuple[dict, dict]:
                                  for s in r[f"{fam}_{p}"]["steps"]]})}
                          for fam in FSDP_FAMS
                          for p in ("serve", "train")}}
-                     for r in res],
-           "phase_s": time.perf_counter() - t_phase}
-    print(f"[fsdp] phase {out['phase_s']:.3f} s (aim 160): whole runs "
-          f"{t_ref:.3f} s, ranks {ranks_s:.3f} s; K7-K9 launches on the "
-          f"ranks {counts}")
+                     for r in res]}
+    return counts, out
+
+
+def phase_fsdp(c: dict = FSDP) -> tuple[dict, dict]:
+    """Cell ``c`` in a spawn of 4 ranks sharing the card: a data axis over
+    more than one rank (:data:`FSDP`, cell 17, a (data 2, model 2) mesh)
+    or pod as a second batch axis (:data:`POD`, cell 18, (pod 2, data 2,
+    model 1)): gemma3-12b, moonshot-v1-16b-a3b, hymba-1.5b, rwkv6-1.6b
+    and llama-3.2-vision-11b served and trained, each held to the
+    whole-model run on the same weights in this process (the cell's layout
+    registered) → (the K7-K9 launches on the ranks, the cell's numbers).
+    Each cell has a spawn of its own: in one spawn the ranks' pinned host
+    buffers of cell 17 and both cells' references in this process outgrew
+    a one-H100 machine's 96 GiB of host memory (PERF.md, cell 18)."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.mesh import MeshLayout, run_on_local_mesh
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    f, tag = c, c["tag"]
+    print(f"[{tag}] cell {c['cell']}: mesh {c['axes']} = {c['mesh']}, 4 "
+          f"ranks sharing the card, the batch split over "
+          f"{tuple(a for a in c['axes'] if a != 'model')}, one row a rank "
+          f"of it; {f['dense']} served at {f['dense_layers']} layers "
+          f"({f['batch']} x {f['prompt_len']}, {f['decode']} decode steps; "
+          f"{f['fsdp_decode']} under the FSDP storage) and trained at "
+          f"{f['train_layers']} ({f['batch']} x {f['train_seq']}, loss "
+          f"chunks of {f['loss_chunk']}); {f['moe']} served at "
+          f"{f['moe_layers']} ({f['moe_decode']} decode steps) and trained "
+          f"({f['batch']} x {f['moe_train_seq']}); {f['hybrid']} and "
+          f"{f['ssm']} served at {f['rec_layers']} ({f['decode']} decode "
+          f"steps; {f['fsdp_decode']} under the FSDP storage) and trained "
+          f"at {f['rec_train_layers']} ({f['batch']} x {f['train_seq']}); "
+          f"{f['vlm']} served and trained at {f['vlm_layers']} (one group) "
+          f"against 1601 image rows, its self cache's layers split over the "
+          f"batch axes")
+    layout = MeshLayout(c["mesh"], c["axes"])
+    ref, ref_s = {}, {}
+    for fam in FSDP_FAMS:
+        t0 = time.perf_counter()
+        ref[f"{fam}_serve"] = fsdp_serve_reference(fam, layout, c)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ref[f"{fam}_train"] = fsdp_train_reference(fam, layout, c)
+        gc.collect()
+        torch.cuda.empty_cache()
+        s, t = ref[f"{fam}_serve"], ref[f"{fam}_train"]
+        ref_s[fam] = time.perf_counter() - t0
+        ctl = ", ".join(n for n in ("serve", "train")
+                        if "f32" in ref[f"{fam}_{n}"])
+        print(f"[{tag}] {fam} whole-model run: {s['weights_gb']:.3f} GB "
+              f"served, prefill step {s['ms']['prefill_step_ms']:.3f} ms, "
+              f"decode {statistics.median(s['ms']['decode_ms']):.3f} ms a "
+              f"step; training step 1 (loss and gradients) "
+              f"{t['step_ms']:.3f} ms, loss {t['loss']}, grad_norm "
+              f"{t['grad_norm']}; {ref_s[fam]:.3f} s, its f32 controls "
+              f"included ({ctl or 'none'})")
+    t_ref = time.perf_counter() - t_phase
+    fd, path = tempfile.mkstemp(suffix=".pt")
+    os.close(fd)
+    try:
+        torch.save({k: {n: v for n, v in r.items() if n in (
+            "ids", "tokens", "pins", "plain") or (n == "f32" and "plain" in r)}
+            for k, r in ref.items()}, path)
+        free, total = torch.cuda.mem_get_info()
+        print(f"[{tag}] before the spawn: the card {free / 1e9:.3f} GB free "
+              f"of {total / 1e9:.3f}; this process holds "
+              f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated, "
+              f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved")
+        # the ranks' allocators map their blocks into growing segments:
+        # 4 ranks near 18 GB each on the one card leave no room for the
+        # blocks a fixed-size segment strands (4.2 GB on a cell-18 rank
+        # before)
+        alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        t1 = time.perf_counter()
+        try:
+            res = run_on_local_mesh(c["mesh"], c["axes"], fsdp_rank, path,
+                                    tag, device="cuda", timeout=c["timeout"])
+        finally:
+            if alloc is None:
+                os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+        ranks_s = time.perf_counter() - t1
+    finally:
+        os.unlink(path)
+    t2 = time.perf_counter()
+    counts, out = fsdp_cell_checks(c, ref, res)
+    out.update(reference_s=t_ref, reference_s_by_family=ref_s,
+               ranks_s=ranks_s, checks_s=time.perf_counter() - t2,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"[{tag}] cell {c['cell']}: phase {out['phase_s']:.3f} s: whole "
+          f"runs {t_ref:.3f} s, ranks (the spawn) {ranks_s:.3f} s, checks "
+          f"and kernel timings {out['checks_s']:.3f} s; K7-K9 launches on "
+          f"the ranks {counts}")
     del res
     gc.collect()
     return counts, out
@@ -8251,16 +8449,19 @@ def main() -> int:
     fold(tpr_out["k7"], tpr_out["k8_k9"])
     fold(tpv_out["k7"], tpv_out["k8_k9"])
     lap("tp_families")
-    fscounts, fsdp_out = phase_fsdp()
+    fscounts, fsdp_out = phase_fsdp(FSDP)
     fold(fsdp_out["k7"], fsdp_out["k8_k9"])
     lap("fsdp")
+    pdcounts, pod_out = phase_fsdp(POD)
+    fold(pod_out["k7"], pod_out["k8_k9"])
+    lap("pod")
     print(f"[time] total {time.perf_counter() - t_start:.3f}")
     for k, v in (*counts.items(), *hcounts.items(), *rcounts.items(),
                  *ccounts.items(), *fcounts.items(), *tcounts.items(),
                  *dcounts.items(), *mcounts.items(), *scounts.items(),
                  *vcounts.items(), *pcounts.items(), *tpcounts.items(),
                  *ttcounts.items(), *ecounts.items(), *trcounts.items(),
-                 *fscounts.items()):
+                 *fscounts.items(), *pdcounts.items()):
         launches[k] = launches.get(k, 0) + v
     replaces = {"cvt_color": "src/repro/kernels/harris.py:44",
                 "corner_harris": "src/repro/kernels/harris.py:101",
@@ -8296,7 +8497,7 @@ def main() -> int:
                       "ssm": ssm_out, "vlm": vlm_out, "spmd": spmd_out,
                       "tp": tp_out, "tp_train": tp_train_out,
                       "ep": ep_out, "tp_recurrent": tpr_out,
-                      "tp_vlm": tpv_out, "fsdp": fsdp_out,
+                      "tp_vlm": tpv_out, "fsdp": fsdp_out, "pod": pod_out,
                       "tc_resources": tc_res, "k7_train_shape": k7_train,
                       "k6_resources": rows["rmsnorm_matmul"]["resources"],
                       "local_layer": {n: {k: v for k, v in rows[n].items()

@@ -44,11 +44,13 @@ helpers (:func:`local_bounds`, :func:`unbind_layers`, :func:`with_spec`,
 :func:`group_transport`) also serve the tensor-parallel layers of
 :mod:`repro_torch.models.layers`; over a data axis, :func:`unshard`
 gathers a weight's storage-only dim (its gradient summed back by
-:func:`gather_seq`'s rule), :func:`batch_line` names the axis a batch is
-split over and :func:`batch_like` lays a result out as the batch; a stack
-whose layer dim is split over the axis unbinds into :class:`HeldBy`
-records, each layer held by one rank, which sends the others their rows
-(:func:`held_rows`).  The rank mesh of a process of
+:func:`gather_seq`'s rule), :func:`batch_line` names the line of ranks a
+batch is split over (one axis, or ``pod`` and ``data`` together: the
+line :func:`axes_group` finds among the rank mesh's groups) and
+:func:`batch_like` lays a result out as the batch; a stack whose layer dim
+is split over that line unbinds into :class:`HeldBy` records, each layer
+held by one rank, which sends the others their rows (:func:`held_rows`).
+The rank mesh of a process of
 :func:`~repro_torch.launch.mesh.run_on_local_mesh` is registered here
 (:func:`current_mesh`), so nothing below the launcher imports it.
 """
@@ -57,7 +59,7 @@ from __future__ import annotations
 import math
 import sys
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable, Sequence
 
 import torch
@@ -72,7 +74,8 @@ __all__ = ["stack_stage_params", "stage_apply", "spmd_pipeline_fn",
            "reduce_scatter", "is_dtensor", "local_tensor", "like_dtensor",
            "sharded_dims", "placements", "with_spec", "shard_bounds",
            "local_bounds", "unbind_layers", "HeldBy", "held_rows",
-           "group_transport", "unshard", "batch_line", "batch_like"]
+           "group_transport", "unshard", "batch_line", "batch_like",
+           "axes_group"]
 
 
 # --------------------------------------------------------------------------- #
@@ -550,10 +553,39 @@ def unshard(x, axis: str, sum_grad: bool):
                               shape=x.shape, stride=x.stride())
 
 
+def axes_group(device_mesh, dims: Sequence[int]):
+    """The process group of this rank's line over mesh dims ``dims`` of
+    ``device_mesh`` (in mesh order): the mesh's own group for one dim; for
+    several (a batch split over ``pod`` and ``data``), the group that
+    :func:`~repro_torch.launch.mesh.run_on_local_mesh` made for those axes
+    (its rank mesh's ``groups``, keyed by the axis names), whose ranks must
+    be the line's, flattened with the outermost dim first (so its group
+    ranks run pod-major, as a spec's ``("pod", "data")`` splits a dim).
+    Raises where no such group was made."""
+    dims = sorted(int(m) for m in dims)
+    if len(dims) == 1:
+        return device_mesh.get_group(dims[0])
+    names = tuple(device_mesh.mesh_dim_names[m] for m in dims)
+    coord = device_mesh.get_coordinate()
+    at = tuple(slice(None) if m in dims else c for m, c in enumerate(coord))
+    ranks = [int(r) for r in device_mesh.mesh[at].reshape(-1)]
+    mesh = current_mesh()
+    entry = None if mesh is None else mesh.groups.get(names)
+    if entry is None or list(entry[1]) != ranks:
+        raise NotImplementedError(
+            f"no process group of the mesh axes {names} over ranks {ranks}: "
+            f"run_on_local_mesh makes the (pod, data) line")
+    return entry[0]
+
+
 def batch_line(x) -> tuple | None:
-    """(process group, transport) of the mesh axis over which DTensor
-    ``x``'s dim 0, its batch, is split (each rank holding its rows); None
-    for a plain tensor and a batch whole on every rank."""
+    """(process group, transport) of the line of ranks over which DTensor
+    ``x``'s dim 0, its batch, is split (each rank holding its rows): the
+    mesh dims of more than one rank that shard it, one axis or ``pod`` and
+    ``data`` together (:func:`axes_group`; group ranks pod-major, as
+    :func:`shard_bounds` orders the rows).  None for a plain tensor and a
+    batch whole on every rank.  Two lines are the same when their ranks
+    are."""
     if not is_dtensor(x):
         return None
     dm = x.device_mesh
@@ -561,10 +593,7 @@ def batch_line(x) -> tuple | None:
             if pl.is_shard(0) and dm.size(m) > 1]
     if not dims:
         return None
-    if len(dims) > 1:
-        raise NotImplementedError(f"a batch split over the mesh axes "
-                                  f"{[dm.mesh_dim_names[m] for m in dims]}")
-    group = dm.get_group(dims[0])
+    group = axes_group(dm, dims)
     return group, group_transport(group, x.to_local().device)
 
 
@@ -613,21 +642,22 @@ def local_bounds(x) -> tuple:
 
 @dataclass(frozen=True, eq=False)
 class HeldBy:
-    """A layer of a stacked DTensor whose layer dim is split over mesh axis
-    ``axis`` of more than one rank (the vlm self cache's ``per`` over
-    ``data``, as the JAX rule lays it out): one rank of that axis, its
-    group rank ``owner``, holds the layer whole over the axis, at
-    ``index`` of its local stack (flattened over the stack dims).
-    ``layer``: on the owner, the layer's DTensor (a view of its local
-    stack, replicated over ``axis``); None on the other ranks of the axis.
-    ``shape`` and ``dtype``: the layer's; ``bounds``: the slice of each dim
-    the owner holds, which is this rank's too on the other mesh axes (the
-    ranks of ``axis`` share their other coordinates); ``device_mesh``, and
-    ``device`` the local tensors'.  Every rank of the axis gets a record
-    for every layer, so all of them meet at each layer's exchange
-    (:func:`held_rows`) in the same order."""
+    """A layer of a stacked DTensor whose layer dim is split over the mesh
+    axes ``axes`` of more than one rank (the vlm self cache's ``per`` over
+    ``data``, or over ``("pod", "data")``, as the JAX rule lays it out):
+    one rank of that line, its position ``owner`` (pod-major over
+    ``axes``, the line's group rank, :func:`axes_group`), holds the layer
+    whole over the line, at ``index`` of its local stack (flattened over
+    the stack dims).  ``layer``: on the owner, the layer's DTensor (a view
+    of its local stack, replicated over ``axes``); None on the other ranks
+    of the line.  ``shape`` and ``dtype``: the layer's; ``bounds``: the
+    slice of each dim the owner holds, which is this rank's too on the
+    other mesh axes (the ranks of the line share their other coordinates);
+    ``device_mesh``, and ``device`` the local tensors'.  Every rank of the
+    line gets a record for every layer, so all of them meet at each
+    layer's exchange (:func:`held_rows`) in the same order."""
 
-    axis: str
+    axes: tuple
     owner: int
     index: int
     layer: Any
@@ -637,41 +667,63 @@ class HeldBy:
     device_mesh: Any
     device: torch.device
 
+    @property
+    def dims(self) -> list:
+        """The mesh dims of ``axes``."""
+        return [self.device_mesh.mesh_dim_names.index(a) for a in self.axes]
+
+    @property
+    def size(self) -> int:
+        """The ranks of the line."""
+        return math.prod(self.device_mesh.size(m) for m in self.dims)
+
+    @property
+    def position(self) -> int:
+        """This rank's position on the line (pod-major)."""
+        coord = self.device_mesh.get_coordinate()
+        pos = 0
+        for m in self.dims:
+            pos = pos * self.device_mesh.size(m) + coord[m]
+        return pos
+
 
 def unbind_layers(x, dims: int = 1) -> list:
     """A stacked ``[L, ...]`` DTensor (or, ``dims=2``, a ``[G, per, ...]``
     one, in the order g * per + j) as its layers' DTensors, views of its
     local tensor: no communication, and an in-place write to a layer lands
     in the stack.  A stack dim sharded over mesh dims of one rank gives
-    layers replicated there.  A stack dim split over one mesh axis of more
-    than one rank (the vlm self cache's ``per`` over ``data``) gives a
+    layers replicated there.  A stack dim split over mesh axes of more
+    than one rank (the vlm self cache's ``per`` over ``data``, or over
+    ``pod`` and ``data``: the line's positions pod-major) gives a
     :class:`HeldBy` record for every layer, on every rank: the owner's
     holds its view, and its local index; no layer is copied."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
-    dm, pls, split = x.device_mesh, [], None
+    dm, pls, split = x.device_mesh, [], []
     for m, pl in enumerate(x.placements):
         if pl.is_shard() and pl.dim < dims:
             if dm.size(m) > 1:
-                if split is not None:
-                    raise ValueError(f"the layer dims of {x.placements} are "
-                                     f"split over two mesh axes")
-                split = m
+                split.append(m)
             pls.append(Replicate())
         else:
             pls.append(Shard(pl.dim - dims) if pl.is_shard() else pl)
+    if len({x.placements[m].dim for m in split}) > 1:
+        raise ValueError(f"the layer dims of {x.placements} are split over "
+                         f"mesh axes along two stack dims")
     shape, stride = x.shape[dims:], x.stride()[dims:]
     local = x.to_local()
     views = [DTensor.from_local(t, dm, tuple(pls), run_check=False,
                                 shape=shape, stride=stride)
              for t in local.flatten(0, dims - 1).unbind(0)]
-    if split is None:
+    if not split:
         return views
-    d, n = x.placements[split].dim, dm.size(split)
+    d = x.placements[split[0]].dim
+    n = math.prod(dm.size(m) for m in split)
     if x.shape[d] % n:
         raise ValueError(f"stack dim {d} of {tuple(x.shape)} does not divide "
                          f"over {n} ranks")
-    per_rank, me = x.shape[d] // n, dm.get_coordinate()[split]
+    axes = tuple(dm.mesh_dim_names[m] for m in split)
+    per_rank = x.shape[d] // n
     bounds = shard_bounds(dm, tuple(pls), shape)
     out = []
     for i in range(math.prod(x.shape[:dims])):
@@ -683,29 +735,28 @@ def unbind_layers(x, dims: int = 1) -> list:
         index = 0
         for c, size in zip(coord, local.shape[:dims]):
             index = index * size + c
-        out.append(HeldBy(axis=dm.mesh_dim_names[split], owner=owner,
-                          index=index,
-                          layer=views[index] if owner == me else None,
-                          shape=shape, dtype=x.dtype, bounds=bounds,
-                          device_mesh=dm, device=local.device))
+        rec = HeldBy(axes=axes, owner=owner, index=index, layer=None,
+                     shape=shape, dtype=x.dtype, bounds=bounds,
+                     device_mesh=dm, device=local.device)
+        if owner == rec.position:
+            rec = replace(rec, layer=views[index])
+        out.append(rec)
     return out
 
 
 def held_rows(x: HeldBy, split: bool) -> torch.Tensor:
     """This rank's rows (dim 0) of layer ``x``'s local tensor, held by the
-    owner: it sends every other rank of ``x``'s axis that rank's rows in
+    owner: it sends every other rank of ``x``'s line that rank's rows in
     one point-to-point batch and keeps its own; the others receive theirs
     from it (exact: raw bytes, through pinned host memory when the ranks
-    share a card).  ``split``: the batch is split over the axis, each rank
-    taking its part of the rows in group-rank order; else every rank takes
-    all of them.  Every rank of the axis must call it for the same layer
-    at the same point."""
-    group = x.device_mesh.get_group(x.axis)
+    share a card).  ``split``: the batch is split over the line, each rank
+    taking its part of the rows in line order (pod-major); else every rank
+    takes all of them.  Every rank of the line must call it for the same
+    layer at the same point."""
+    group = axes_group(x.device_mesh, x.dims)
     transport = group_transport(group, x.device)
     line = dist.get_process_group_ranks(group)
-    n = len(line)
-    me = x.device_mesh.get_coordinate()[
-        x.device_mesh.mesh_dim_names.index(x.axis)]
+    n, me = x.size, x.position
     rows = x.shape[0] // n if split else x.shape[0]
 
     def part(r: int) -> slice:

@@ -154,6 +154,7 @@ class RankMesh:
     device: Any
     transport: str
     groups: dict = field(default_factory=dict)   # axis -> (group, ranks)
+    # (and ("pod", "data") -> the batch line's, where both axes exist)
     _device_mesh: Any = None
 
     @property
@@ -191,20 +192,30 @@ class RankMesh:
 
 
 def _axis_groups(layout: MeshLayout) -> dict:
-    """Every axis line's process group, made in the same order on every
-    rank (``new_group`` is a collective); this rank's line kept."""
+    """Every axis line's process group, and, where the layout has both
+    batch axes, every ``(pod, data)`` line's (keyed by that tuple: the
+    batch split over both, its ranks pod-major, as ``P(("pod", "data"))``
+    splits a dim), made in the same order on every rank (``new_group`` is
+    a collective); this rank's lines kept."""
     import torch.distributed as dist
 
     ranks = np.arange(layout.size).reshape(layout.sizes)
     me = dist.get_rank()
+    names = layout.axis_names
+    batch = [d for d, a in enumerate(names) if a in ("pod", "data")]
+    cuts = [((d,), axis) for d, axis in enumerate(names)]
+    if len(batch) > 1:
+        cuts.append((tuple(batch), tuple(names[d] for d in batch)))
     out = {}
-    for d, axis in enumerate(layout.axis_names):
-        lines = np.moveaxis(ranks, d, -1).reshape(-1, layout.sizes[d])
+    for dims, key in cuts:
+        rest = [d for d in range(len(names)) if d not in dims]
+        n = math.prod(layout.sizes[d] for d in dims)
+        lines = np.transpose(ranks, rest + list(dims)).reshape(-1, n)
         for line in lines:
             line = [int(r) for r in line]
             group = dist.new_group(line)
             if me in line:
-                out[axis] = (group, line)
+                out[key] = (group, line)
     return out
 
 

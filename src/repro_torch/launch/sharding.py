@@ -324,24 +324,28 @@ def distribute_params(mesh, params: Any, shardings: Any = None) -> Any:
 
 def distribute_batch(mesh, batch: dict) -> dict:
     """A batch held whole on every rank (``{"ids", "labels", "mask",
-    "embeds", ...}``, each leaf's dim 0 the batch) as DTensors by the
-    shardings of :func:`~repro_torch.launch.steps.batch_structs`:
-    :func:`batch_spec`'s entry on dim 0, guarded, so a batch the batch axes
-    do not divide stays whole on every rank (replicated, as the JAX guard
-    leaves ``long_500k``'s batch of 1); each rank keeps a contiguous copy
-    of its rows and nothing is moved.  A 0-d tensor or a number (decode's
-    ``pos``) stays as it is."""
+    "embeds", ...}``, each leaf's dim 0 the batch) as DTensors split by
+    :func:`batch_spec`'s entry on dim 0 (over ``("pod", "data")``
+    pod-major where both exist), each rank keeping a contiguous copy of its
+    rows and nothing moved.  A batch that the batch axes together do not
+    divide stays whole on every rank (replicated, as the JAX guard leaves
+    ``long_500k``'s batch of 1): all of them or none, as
+    :func:`cache_spec` splits the cache's B, so the batch's rows are always
+    the cache's (where one batch axis divides B and the other does not,
+    JAX's ``guard_spec`` would split B over that one while the cache stays
+    whole).  A 0-d tensor or a number (decode's ``pos``) stays as it is."""
     import torch
 
     from ..core.spmd_pipeline import shard_bounds
 
     dm = mesh.device_mesh
     b = batch_spec(mesh)[0]
+    n = math.prod(mesh.shape[a] for a in batch_axes(mesh))
 
     def cut(a):
         if not isinstance(a, torch.Tensor) or a.dim() == 0:
             return a
-        spec = guard_spec(mesh, P(b), tuple(a.shape))
+        spec = P(b) if b is not None and a.shape[0] % n == 0 else P()
         at = shard_bounds(dm, placements(dm, spec), a.shape)
         return to_dtensor(mesh, a[at].clone(
             memory_format=torch.contiguous_format), spec, tuple(a.shape))

@@ -73,9 +73,21 @@ layer is held, for every row, by one data rank (or by every one, where
 ranks' rows over ``data`` for the holder, and each decode read sends
 every rank its rows from the holder
 (:func:`~repro_torch.models.layers.attention`).  A batch the axis does
-not divide stays whole on every rank: computed whole, nothing summed.  A
-``pod`` axis over more than one rank and ``scan_chunks`` under sharded
-weights are refused (:func:`_check_sharded`).
+not divide stays whole on every rank: computed whole, nothing summed.
+A ``pod`` axis over more than one rank (a ``(pod, data, model)`` mesh,
+JAX's ``make_production_mesh(multi_pod=True)``) is a second batch axis:
+the batch is split over ``("pod", "data")``, pod-major, a rank's rows its
+line's (:func:`~repro_torch.core.spmd_pipeline.batch_line`); weights are
+never split over ``pod`` (replicated there, split over ``data`` for
+storage and over ``model`` for compute), a layer is gathered over
+``data`` alone, and after the backward a leaf whole over ``data`` has
+its gradient summed over the whole line, one split over ``data`` over
+``pod`` (:func:`_sum_over_batch`).  The loss sums, the moe means and
+routing counts, the recurrent states and the vlm self cache (its ``per``
+dim split over both axes where they divide it) read the same line.  A
+batch that ``pod`` x ``data`` do not divide stays whole on every rank.
+Another axis over more than one rank (``stage``) and ``scan_chunks``
+under sharded weights are refused (:func:`_check_sharded`).
 
 The abstract trees (:func:`abstract_params`, :func:`abstract_cache`) are
 meta tensors, drawing and allocating nothing; :func:`batch_structs`,
@@ -255,7 +267,7 @@ def loss_and_grads(model: LM, params: Params, batch: dict, *,
     grads = [like_dtensor(torch.zeros_like(local_tensor(p)), p)
              if g is None else g for p, g in zip(flat, grads)]
     if data is not None:
-        _sum_whole_over_data(flat, grads, data)
+        _sum_over_batch(flat, grads, data)
     return ce.detach(), grads, aux
 
 
@@ -272,25 +284,57 @@ def _whole_over_data(p) -> bool:
     return dm.size(m) == 1 or not p.placements[m].is_shard()
 
 
+def _beyond_data(p, data: tuple) -> tuple | None:
+    """(process group, transport) of the ``pod`` axis where the batch's
+    line ``data`` spans it besides ``p``'s ``data`` axis (the batch split
+    over ``("pod", "data")``), else None: a leaf split over ``data`` took
+    its ``data`` sum from its gather's backward, and its pod sum is this
+    line's."""
+    dm = p.device_mesh
+    names = dm.mesh_dim_names
+    n = torch.distributed.get_world_size(data[0])
+    d = dm.size(names.index("data"))
+    if n == d:
+        return None
+    if "pod" not in names or n != d * dm.size(names.index("pod")):
+        raise NotImplementedError(f"a batch split over {n} ranks beside a "
+                                  f"weight split over data {d}")
+    return dm.get_group("pod"), data[1]
+
+
 @torch.no_grad()
-def _sum_whole_over_data(flat: list, grads: list, data: tuple) -> None:
-    """The one rule for the data axis, after the backward, where the batch
-    is split over it: the gradient of every leaf held whole over ``data``
-    (the norms, the router, the leaves the guard left whole, every leaf by
-    ``param_shardings_serving``) is each rank's rows' part, so it is
-    summed over the axis, in place, in f32 and rounded once to its type,
-    all of them in one bucket (one all-reduce).  A leaf split over
-    ``data`` took its sum from its gather's backward."""
-    whole = [local_tensor(g) for p, g in zip(flat, grads)
-             if _whole_over_data(p)]
-    if not whole:
+def _sum_bucket(gs: list, line: tuple) -> None:
+    """Each of ``gs`` summed over ``line``'s ranks, in place, in f32 and
+    rounded once to its type, all of them in one all-reduce."""
+    if not gs:
         return
-    bucket = torch.cat([g.reshape(-1).to(torch.float32) for g in whole])
-    bucket = reduce_over_ranks(bucket, *data, backward=True)
+    bucket = torch.cat([g.reshape(-1).to(torch.float32) for g in gs])
+    bucket = reduce_over_ranks(bucket, *line, backward=True)
     at = 0
-    for g in whole:
+    for g in gs:
         g.copy_(bucket[at:at + g.numel()].view(g.shape))
         at += g.numel()
+
+
+def _sum_over_batch(flat: list, grads: list, data: tuple) -> None:
+    """The one rule for the batch axes (``data``, and ``pod`` beside it),
+    after the backward, where the batch is split over the line ``data``
+    (:func:`~repro_torch.core.spmd_pipeline.batch_line`): the gradient of
+    every leaf held whole over ``data`` (the norms, the router, the leaves
+    the guard left whole, every leaf by ``param_shardings_serving``) is
+    each rank's rows' part, so it is summed over the whole line; a leaf
+    split over ``data`` took its ``data`` sum from its gather's backward
+    (:func:`~repro_torch.models.layers.gather_data`) and is summed over
+    ``pod`` where the line spans it (weights are never split over
+    ``pod``).  In place, in f32, rounded once to each leaf's type, one
+    bucket (one all-reduce) a line."""
+    whole, split = [], []
+    for p, g in zip(flat, grads):
+        (whole if _whole_over_data(p) else split).append((p, g))
+    _sum_bucket([local_tensor(g) for _, g in whole], data)
+    pod = _beyond_data(split[0][0], data) if split else None
+    if pod is not None:
+        _sum_bucket([local_tensor(g) for _, g in split], pod)
 
 
 def make_train_step(cfg: ArchConfig, mesh=None, *, scan_chunks: int = 0,
@@ -399,9 +443,11 @@ TP_FAMILIES = ("dense", "audio", "moe", "hybrid", "ssm", "vlm")
 def _check_sharded(cfg: ArchConfig, params: Params, *,
                    scan_chunks: int = 0) -> None:
     """Refuse DTensor weights where it is not done: a family outside
-    :data:`TP_FAMILIES`; an axis other than ``data`` and ``model`` over
-    more than one rank (``pod``); and (the train step, which passes
-    ``scan_chunks``) chunked remat under sharded weights."""
+    :data:`TP_FAMILIES`; an axis other than ``pod``, ``data`` and
+    ``model`` over more than one rank (``stage``: the pipeline's axis runs
+    :mod:`~repro_torch.core.spmd_pipeline`, not these steps); and (the
+    train step, which passes ``scan_chunks``) chunked remat under sharded
+    weights."""
     w = leaves(params)[0]
     if not is_dtensor(w):
         return
@@ -412,11 +458,11 @@ def _check_sharded(cfg: ArchConfig, params: Params, *,
             f"under a model axis is not done here")
     dm = w.device_mesh
     other = {n: dm.size(i) for i, n in enumerate(dm.mesh_dim_names)
-             if n not in ("data", "model") and dm.size(i) > 1}
+             if n not in ("pod", "data", "model") and dm.size(i) > 1}
     if other:
         raise NotImplementedError(f"a mesh axis {other} over more than one "
-                                  f"rank: the port runs a (data, model) "
-                                  f"mesh")
+                                  f"rank: the port's steps run a (pod, "
+                                  f"data, model) mesh")
     if scan_chunks:
         raise NotImplementedError(f"scan_chunks={scan_chunks} under "
                                   f"sharded weights is not done here")

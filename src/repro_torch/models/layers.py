@@ -89,7 +89,13 @@ over ``data`` in rank order (exact) and the holder writes them
 the owner in a point-to-point exchange every data rank joins
 (:func:`_cache_read`, :func:`~repro_torch.core.spmd_pipeline.held_rows`).
 A cache whose rows are neither the batch's nor all of them raises
-(:func:`_cache_rows`).
+(:func:`_cache_rows`).  A ``pod`` axis beside ``data`` (a ``(pod, data,
+model)`` mesh) is a second batch axis: the batch's line, the ``data``
+argument of these functions, is then the ``(pod, data)`` group (its ranks
+pod-major, :func:`~repro_torch.core.spmd_pipeline.batch_line`), which the
+states, the caches' rows, the vlm self cache's gathers and exchanges and
+the sums read; weights are never split over ``pod`` and
+:func:`gather_data` stays over ``data``.
 """
 from __future__ import annotations
 

@@ -77,6 +77,9 @@ ranks before it (:func:`_peer_counts`; only counts move).  The aux losses
 take the means over every group and token: ``me``, ``ce``, the router z
 term and ``dropped_frac`` are averaged over the data axis (equal shards)
 before the load-balance product, the sum's gradient passing as it is.
+With a ``pod`` axis beside ``data`` the batch's line is the ``(pod,
+data)`` group, its ranks pod-major, as the rows and ``moe_groups``'s
+pod x data shards run.
 
 :func:`moe_ref` is a plain version that tests and ``chip_smoke.py`` hold
 the dispatches to: each kept assignment's expert FFN in f32, under a given
@@ -161,8 +164,8 @@ def _aux(logits, probs, idx, dropped, data=None) -> dict:
 def _peer_counts(counts: torch.Tensor, data: tuple, G: int
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Where a routing group spans several ranks' rows of a batch split
-    over the data axis (G of them over its n ranks, n/G ranks a group, in
-    rank order): (the sum of ``counts`` over the ranks before this one in
+    over the batch's line ``data`` (G of them over its n ranks, n/G ranks
+    a group, in group-rank order: pod-major over ``(pod, data)``): (the sum of ``counts`` over the ranks before this one in
     its group, their sum over the whole group).  ``counts`` are this
     rank's assignments by expert (exact integers); they are gathered over
     the axis, nothing else."""

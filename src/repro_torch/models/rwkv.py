@@ -37,8 +37,8 @@ on its last dim (the cache path is ``S``, so the general rule shards its
 last dim) is gathered along it as a step comes in and re-laid from the
 rank's heads as it goes out; ``tm_last`` and ``cm_last`` [B, d], split on
 d, are gathered to be read, and each rank stores its columns.  Under a
-data axis every state leaf holds the rank's rows of B, the activations'
-rows (checked as it is read); the gathers above run over the model axis
+data axis (and ``pod`` beside it) every state leaf holds the rank's rows
+of B over the batch's line, the activations' rows (checked as it is read); the gathers above run over the model axis
 alone and leave the rows as they are.
 """
 from __future__ import annotations

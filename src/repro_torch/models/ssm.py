@@ -32,8 +32,9 @@ on dim 2); B and C contract over the channels too, a partial product on
 each rank summed in f32 and rounded once to the activation type, as a row
 split's, and since each rank's scan reads them for its channels alone,
 their gradient is summed as well.  ``out_proj`` is a row split
-(:func:`~.layers._row_parallel`).  Under a data axis the state holds the
-rank's rows of B, the activations' rows (checked as it is read).
+(:func:`~.layers._row_parallel`).  Under a data axis (and ``pod`` beside
+it) the state holds the rank's rows of B over the batch's line, the
+activations' rows (checked as it is read).
 """
 from __future__ import annotations
 

@@ -506,10 +506,10 @@ class LM:
         ``hidden``'s gradient, a part on each rank, is summed over the
         model axis.  ``targets`` and ``mask`` split over a data axis
         (DTensors, ``hidden`` the rank's rows): the table is gathered over
-        it, and the loss and token sums are summed over it before the
-        division, so every rank returns the global batch's mean, whose
-        gradient is its rows' part (the sum's backward passes it as it
-        is)."""
+        ``data``, and the loss and token sums are summed over the batch's
+        line (``data``, or ``pod`` and ``data``) before the division, so
+        every rank returns the global batch's mean, whose gradient is its
+        rows' part (the sum's backward passes it as it is)."""
         data = batch_line(targets)
         hidden, targets = local_tensor(hidden), local_tensor(targets)
         mask = None if mask is None else local_tensor(mask)

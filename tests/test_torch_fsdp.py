@@ -56,10 +56,11 @@ seed as ``tests/test_torch_tp_recurrent.py`` draws them:
 * ``global_norm`` over each config's tree by ``param_shardings`` counts
   each leaf once; no path reaches ``DTensor.redistribute`` (it raises in
   the ranks);
-* the refusals: a ``pod`` axis of 2, ``scan_chunks``, and ``with_spec``
-  where a ``data`` dim of 2 would move; a recurrent state whose rows of B
-  are not the activations' (the vlm family under a data axis:
-  ``tests/test_torch_fsdp_vlm.py``);
+* the refusals: ``scan_chunks``, ``with_spec`` where a ``data`` dim of
+  2 would move, and a ``stage`` axis of 2 (a ``pod`` axis of 2 runs: a
+  (pod 2, model 2) prefill equals the whole run's); a recurrent state
+  whose rows of B are not the activations' (the vlm family under a data
+  axis: ``tests/test_torch_fsdp_vlm.py``);
 * plain tensors in one process, bit for bit, with a (2, 2) layout
   registered or not.
 
@@ -160,7 +161,7 @@ JAX_SCRIPT = textwrap.dedent("""
     out = {}
     for name, j in jobs.items():
         cfg = get_config(j["arch"]).reduced(**j["overrides"])
-        mesh = _mesh(j["mesh"], ("data", "model"))
+        mesh = _mesh(j["mesh"], tuple(j.get("axes", ("data", "model"))))
         jm = LM(cfg)
         key = "embeds" if cfg.embeds_in else "ids"
         b0 = j["batches"][0]
@@ -283,14 +284,15 @@ def _draws(rng, cfg, nb: int) -> tuple[list, np.ndarray]:
     return batches, dec
 
 
-def _pins(jc, jp, batches, dec, params1, gaps: list) -> dict:
+def _pins(jc, jp, batches, dec, params1, gaps: list,
+          shards: int = 2) -> dict:
     """The routing of every moe call of the port's runs, recorded from the
     JAX package's unsharded functions with its routing groups those of a
-    2-shard batch (``moe_groups``): the prefill step ("p0", also the
-    gradients' and step 1's), ``LM.prefill`` ("fill"), the decode steps
-    ("dec<j>") and step 2's forward ("p1") from ``params1``, the sharded
-    JAX run's after its step 1 (an unsharded step's differ where AdamW's
-    first update takes its sign from f32 noise)."""
+    batch of ``shards`` shards (``moe_groups``): the prefill step ("p0",
+    also the gradients' and step 1's), ``LM.prefill`` ("fill"), the decode
+    steps ("dec<j>") and step 2's forward ("p1") from ``params1``, the
+    sharded JAX run's after its step 1 (an unsharded step's differ where
+    AdamW's first update takes its sign from f32 noise)."""
     jm = JLM(jc)
     pins = {}
 
@@ -306,7 +308,7 @@ def _pins(jc, jp, batches, dec, params1, gaps: list) -> dict:
         return out
 
     real = JM.moe_groups
-    JM.moe_groups = _groups_of(2)
+    JM.moe_groups = _groups_of(shards)
     try:
         ids0 = jnp.asarray(batches[0]["ids"])
         _, jpre = JST.make_prefill_step(jc)
@@ -326,15 +328,16 @@ def _pins(jc, jp, batches, dec, params1, gaps: list) -> dict:
     return pins
 
 
-def _unsharded_steps(jc, jp, batches, opt=None) -> dict:
+def _unsharded_steps(jc, jp, batches, opt=None, shards: int = 2,
+                     moments: bool = False) -> dict:
     """The JAX package's ``make_train_step`` steps with no mesh (the
-    routing groups of a 2-shard batch), one a batch of ``batches``, from
-    ``jp`` and ``opt`` (a JAX optimizer state; fresh moments when None):
-    path → params after them, the control for the sharded steps'
-    params."""
-    jm = JLM(jc)
+    routing groups of a batch of ``shards`` shards), one a batch of
+    ``batches``, from ``jp`` and ``opt`` (a JAX optimizer state; fresh
+    moments when None): path → params after them, the control for the
+    sharded steps' params; with ``moments``, {"params", "m", "v"}, each
+    path → leaf."""
     real = JM.moe_groups
-    JM.moe_groups = _groups_of(2)
+    JM.moe_groups = _groups_of(shards)
     try:
         _, step = JST.make_train_step(jc, None, **KW)
         step = jax.jit(step)
@@ -344,7 +347,10 @@ def _unsharded_steps(jc, jp, batches, opt=None) -> dict:
             state, _ = step(state, {k: jnp.asarray(v) for k, v in b.items()})
     finally:
         JM.moe_groups = real
-    del jm
+    if moments:
+        return {"params": _np_paths(state["params"]),
+                "m": _np_paths(state["opt"].m),
+                "v": _np_paths(state["opt"].v)}
     return _np_paths(state["params"])
 
 
@@ -846,20 +852,30 @@ def test_fsdp_global_norm_counts_each_leaf_once(runs):
                 np.testing.assert_allclose(got, want, rtol=1e-6)
 
 
-REFUSED = {"pod": "'pod': 2",
+REFUSED = {"pod": None,
            "scan_chunks": "scan_chunks=2",
-           "with_spec": "moves a batch axis ['data']"}
+           "with_spec": "moves a batch axis ['data']",
+           "stage": "'stage': 2"}
 
 
 @pytest.mark.parametrize("what", list(REFUSED))
 def test_fsdp_refuses_what_is_not_done(runs, what):
-    """Refused on a (2, 2) mesh, each by name: a pod axis of 2;
-    scan_chunks; with_spec where a data dim of 2 would have to move
-    (unshard gathers it).  (The vlm family runs under a data axis:
+    """Refused on a (2, 2) mesh, each by name: scan_chunks; with_spec
+    where a data dim of 2 would have to move (unshard gathers it); a
+    stage axis of 2 (the pipeline's, not the steps').  A pod axis of 2 is
+    a batch axis now: the prefill step on a (pod 2, model 2) mesh of the
+    same ranks, the prompt split over pod, equals the whole run's logits
+    within 2e-4 of their max (``tests/test_torch_pod.py`` holds the pod
+    axis to JAX).  (The vlm family runs under a data axis:
     ``tests/test_torch_fsdp_vlm.py``.)"""
     for r in runs["port"][(2, 2)]:
         got = r["refused"]
-        assert REFUSED[what] in got[what], got[what]
+        if what == "pod":
+            logits, whole = got["pod"]
+            assert logits.shape == whole.shape and logits.shape[0] == 4
+            assert _err(logits, whole.numpy()) <= 2e-4
+        else:
+            assert REFUSED[what] in got[what], got[what]
         assert got["with_spec_same"]
         assert got["unshard"] == ((4, 4), [True, True], True)
 

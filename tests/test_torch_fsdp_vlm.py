@@ -39,7 +39,7 @@ after the first, and two carried on the ranks (as
 exchange runs in case (a) alone; no path reaches ``DTensor.redistribute``;
 ``_unstack`` of the split self cache gives each layer's owner a view of its
 stack; a self or image cache (or image rows) laid out otherwise raises;
-``scan_chunks`` and a ``pod`` axis are refused.
+``scan_chunks`` is refused, and a (pod 2, model 2) prefill runs.
 
 One JAX subprocess and two spawns (one a mesh), each with a deadline.
 """
@@ -108,7 +108,7 @@ JAX_SCRIPT = textwrap.dedent("""
     out = {}
     for name, j in jobs.items():
         cfg = get_config(j["arch"]).reduced(**j["overrides"])
-        mesh = _mesh(j["mesh"], ("data", "model"))
+        mesh = _mesh(j["mesh"], tuple(j.get("axes", ("data", "model"))))
         jm = LM(cfg)
         b0 = j["batches"][0]
         nb, ns = b0["ids"].shape
@@ -554,10 +554,19 @@ def test_fsdp_vlm_cache_laid_out_otherwise_raises(runs, what):
                                       ("pod", "'pod': 2")])
 def test_fsdp_vlm_still_refuses_pod_and_scan_chunks(runs, what, msg):
     """The vlm family runs under a data axis, and still refuses
-    ``scan_chunks`` (its train step) and a pod axis of 2 (its prefill
-    step), by name."""
+    ``scan_chunks`` (its train step), by name.  A pod axis of 2 (``msg``:
+    the axis) is a batch axis now: its prefill step on a (pod 2, model 2)
+    mesh of the same ranks, the prompt and the image rows split over pod,
+    equals the whole run's logits within 2e-4 of their max
+    (``tests/test_torch_pod.py`` holds the pod axis to JAX)."""
     for r in runs["port"][(2, 2)]:
-        assert msg in r["layouts"]["refused"][what]
+        got = r["layouts"]["refused"][what]
+        if what == "pod":
+            logits, whole = got
+            assert logits.shape == whole.shape
+            assert _err(logits, whole.numpy()) <= 2e-4, msg
+        else:
+            assert msg in got
 
 
 def test_fsdp_vlm_global_norm_counts_each_leaf_once(runs):

@@ -272,13 +272,13 @@ def _grads_of(mesh, cfg, params, batch, sp, loss_chunk):
 
 
 def _train_steps(mesh, cfg, params, batches, kw, sp, opt=None,
-                 pin=None) -> dict:
+                 pin=None, first: int = 0) -> dict:
     """One ``make_train_step`` step a batch of ``batches`` from a params
     tree held whole (``sp``: seq_parallel), and from ``opt``, a whole
     optimizer state laid out by ``opt_shardings`` (fresh moments when
     None): the metrics, the params' and moments' shards, and the moments'
     placements equal to the params'.  ``pin``: a :class:`PinRouting` whose
-    phase is ``p<i>`` for step i."""
+    phase is ``p<first + i>`` for the i-th step here."""
     from repro_torch.core.spmd_pipeline import is_dtensor
     from repro_torch.core.tree import leaves
     from repro_torch.launch import sharding as TS
@@ -292,7 +292,7 @@ def _train_steps(mesh, cfg, params, batches, kw, sp, opt=None,
     mets = []
     for i, b in enumerate(batches):
         if pin is not None:
-            pin.phase = f"p{i}"
+            pin.phase = f"p{first + i}"
         state, met = step(state, b)
         mets.append({k: float(v) for k, v in met.items()})
     opt = state["opt"]
@@ -549,6 +549,16 @@ class PinRouting:
         return chosen.reshape(idx.shape)
 
 
+def _batch_part(mesh) -> tuple:
+    """(i, n): this rank holds the i-th of the n equal parts of a batch
+    split over the mesh's batch axes, ``pod`` and ``data`` (pod-major)."""
+    i, n = 0, 1
+    for a in ("pod", "data"):
+        if a in mesh.axis_names:
+            i, n = i * mesh.shape[a] + mesh.axis_index(a), n * mesh.shape[a]
+    return i, n
+
+
 def _ep_grads(mesh, cfg, params, batch, sp, weights, loss_chunk):
     """Expert-parallel training's loss and gradient shards on ``batch``
     from a params tree held whole: ``weights`` None is the train step's
@@ -595,8 +605,7 @@ def _ep_grads(mesh, cfg, params, batch, sp, weights, loss_chunk):
         grads = [like_dtensor(torch.zeros_like(local_tensor(a)), a)
                  if g is None else g for a, g in zip(flat, grads)]
         if batch_line(batch["labels"]) is not None:   # the train step's rule
-            TST._sum_whole_over_data(flat, grads,
-                                     batch_line(batch["labels"]))
+            TST._sum_over_batch(flat, grads, batch_line(batch["labels"]))
     laid_out = all(is_dtensor(g) and g.placements == a.placements
                    and g.shape == a.shape for g, a in zip(grads, flat))
     return (float(loss), _shards(unflatten(flatten(p)[1], grads)), laid_out,
@@ -824,17 +833,46 @@ def _fsdp_moe_apply(mesh, job, pin) -> dict:
     return out
 
 
-def _fsdp_refusals(mesh, dense) -> dict:
-    """What a (data, model) mesh refuses, each message ("" where it ran):
-    ``dense`` on a (pod 2, model 2) mesh of the same ranks; the train
-    step's ``scan_chunks``; and ``with_spec`` moving a dim split over
-    ``data`` (which ``unshard`` gathers instead); and a recurrent state
-    whose rows of B are not the activations' (``"state_rows"``, the
-    ValueError's message)."""
+def _pod_mesh(axes=("pod", "model")):
+    """A (2, 2) mesh of the same 4 ranks with axes ``axes`` (a layout and
+    its own ``DeviceMesh``, read as the sharding rules read a mesh)."""
     import types
 
-    from repro_torch.core.spmd_pipeline import batch_line, unshard, with_spec
     from repro_torch.launch import mesh as TMESH
+
+    lay = TMESH.MeshLayout((2, 2), tuple(axes))
+    return types.SimpleNamespace(axis_names=lay.axis_names, shape=lay.shape,
+                                 device_mesh=lay.device_mesh("cpu"))
+
+
+def _pod_prefill(cfg, whole, batch) -> tuple:
+    """The prefill step of ``cfg`` on a (pod 2, model 2) mesh of the same
+    ranks (the params by ``param_shardings``, ``batch`` split over ``pod``
+    by ``distribute_batch``) and on the whole params in this process: (its
+    logits read whole by ``collect_batch``, the whole run's)."""
+    from repro_torch.launch import sharding as TS
+    from repro_torch.launch import steps as TST
+    from repro_torch.models import layers
+
+    pod = _pod_mesh()
+    p = TS.distribute_params(pod, whole, TS.param_shardings(pod, whole))
+    try:
+        got = TS.collect_batch(TST.make_prefill_step(cfg, pod)[1](
+            p, TS.distribute_batch(pod, batch)))
+    finally:
+        layers.set_attention_mesh(None)
+    return got, TST.make_prefill_step(cfg)[1](whole, batch)
+
+
+def _fsdp_refusals(mesh, dense) -> dict:
+    """What a (data, model) mesh runs and refuses, each message ("" where
+    it ran): ``dense`` on a (pod 2, model 2) mesh of the same ranks, which
+    runs (``"pod"``: :func:`_pod_prefill`), and on a (stage 2, model 2)
+    one, refused; the train step's ``scan_chunks``; and ``with_spec``
+    moving a dim split over ``data`` (which ``unshard`` gathers instead);
+    and a recurrent state whose rows of B are not the activations'
+    (``"state_rows"``, the ValueError's message)."""
+    from repro_torch.core.spmd_pipeline import batch_line, unshard, with_spec
     from repro_torch.launch import sharding as TS
     from repro_torch.launch import steps as TST
     from repro_torch.models import LM, layers
@@ -850,12 +888,12 @@ def _fsdp_refusals(mesh, dense) -> dict:
     ids = torch.zeros((4, 8), dtype=torch.long)
     try:
         whole = LM(dense).init(torch.Generator().manual_seed(7))
-        pods = TMESH.MeshLayout((2, 2), ("pod", "model"))
-        pod = types.SimpleNamespace(axis_names=pods.axis_names,
-                                    shape=pods.shape,
-                                    device_mesh=pods.device_mesh("cpu"))
-        p = TS.distribute_params(pod, whole, TS.param_shardings(pod, whole))
-        out["pod"] = refused(lambda: TST.make_prefill_step(dense, pod)[1](
+        out["pod"] = _pod_prefill(dense, whole, {
+            "ids": torch.arange(32).reshape(4, 8) * 7 % dense.vocab})
+        stage = _pod_mesh(("stage", "model"))
+        p = TS.distribute_params(stage, whole,
+                                 TS.param_shardings(stage, whole))
+        out["stage"] = refused(lambda: TST.make_prefill_step(dense, stage)[1](
             p, {"ids": ids}))
         batch = {"ids": ids, "labels": ids,
                  "mask": torch.ones(ids.shape)}
@@ -935,8 +973,7 @@ def fsdp_rank(mesh, jobs, moe_job=None, refusals=None) -> dict:
             r = out[name] = {"batch_local": {
                 k: tuple(v.to_local().shape) for k, v in first.items()}}
             split = batch_line(first["labels"]) is not None
-            pin.part = ((mesh.axis_index("data"), mesh.shape["data"])
-                        if split else None)
+            pin.part = _batch_part(mesh) if split else None
             if job.get("serve"):
                 r["serve"] = {lay: _fsdp_serve(mesh, cfg, params, job, lay,
                                                pin)
@@ -964,16 +1001,16 @@ def fsdp_rank(mesh, jobs, moe_job=None, refusals=None) -> dict:
                     r["carried"][sp] = carried
                     r["steps"][sp] = [
                         _train_steps(mesh, cfg, params, batches[:1],
-                                     job["kw"], sp),
+                                     job["kw"], sp, pin=pin),
                         _train_steps(mesh, cfg, mid, batches[1:], job["kw"],
-                                     sp, opt)]
+                                     sp, opt, pin=pin, first=1)]
             p = TS.distribute_params(mesh, params,
                                      TS.param_shardings(mesh, params))
             r["norm"] = (float(global_norm(p)), float(global_norm(params)),
                          len(leaves(p)))
         if moe_job is not None:
             pin.choices = moe_job["pins"]
-            pin.part = (mesh.axis_index("data"), mesh.shape["data"])
+            pin.part = _batch_part(mesh)
             out["moe_apply"] = _fsdp_moe_apply(mesh, moe_job, pin)
         if refusals is not None:
             out["refused"] = _fsdp_refusals(mesh, refusals)
@@ -992,13 +1029,11 @@ def _vlm_layouts(mesh, cfg, params, ids, img) -> dict:
     layout; "self split by batch": the self cache's B split over data;
     "self of another batch": a self cache of 2B rows; "image whole": the
     image K/V whole over B; "image embeddings whole": the image rows
-    whole beside the prompt's split rows.  Also the train step's and the
-    prefill step's refusals of ``scan_chunks`` and a (pod 2, model 2)
-    mesh, by name (NotImplementedError)."""
-    import types
-
+    whole beside the prompt's split rows.  Also the train step's refusal
+    of ``scan_chunks``, by name (NotImplementedError), and
+    :func:`_pod_prefill` (``"refused"`` ``"pod"``: a (pod 2, model 2) mesh
+    runs)."""
     from repro_torch.core.tree import tree_map
-    from repro_torch.launch import mesh as TMESH
     from repro_torch.launch import sharding as TS
     from repro_torch.launch import steps as TST
     from repro_torch.models import LM, layers
@@ -1061,18 +1096,8 @@ def _vlm_layouts(mesh, cfg, params, ids, img) -> dict:
             refused["scan_chunks"] = ""
         except NotImplementedError as e:
             refused["scan_chunks"] = str(e)
-        pods = TMESH.MeshLayout((2, 2), ("pod", "model"))
-        pod = types.SimpleNamespace(axis_names=pods.axis_names,
-                                    shape=pods.shape,
-                                    device_mesh=pods.device_mesh("cpu"))
-        pp = TS.distribute_params(pod, params, TS.param_shardings(pod,
-                                                                  params))
-        try:
-            TST.make_prefill_step(cfg, pod)[1](pp, {"ids": ids,
+        refused["pod"] = _pod_prefill(cfg, params, {"ids": ids,
                                                     "img_embeds": img})
-            refused["pod"] = ""
-        except NotImplementedError as e:
-            refused["pod"] = str(e)
         out["refused"] = refused
     finally:
         layers.set_attention_mesh(None)
@@ -1081,8 +1106,9 @@ def _vlm_layouts(mesh, cfg, params, ids, img) -> dict:
 
 def _held_probe(mesh, cfg, B, S) -> dict:
     """``_unstack`` of a vlm self cache laid out by ``cache_shardings`` on
-    a (data, model) mesh: per layer, in the order g * per + j, the record's
-    type, owner and local index; whether the owner's view is its local
+    a (data, model) or (pod, data, model) mesh (its ``per`` split over the
+    batch axes, the owner a rank's pod-major position): per layer, in the
+    order g * per + j, the record's type, owner and local index; whether the owner's view is its local
     stack's at [g, j % (per / data)] (no copy) and a write to it lands in
     the stack; whether the other ranks hold no view."""
     from repro_torch.core.spmd_pipeline import HeldBy
@@ -1092,7 +1118,7 @@ def _held_probe(mesh, cfg, B, S) -> dict:
     stack = TST.init_cache_sharded(cfg, mesh, B, S)["self"]
     layers = _unstack(stack, 2)
     G, per = stack["k"].shape[:2]
-    me = mesh.axis_index("data")
+    me = _batch_part(mesh)[0]
     local = stack["k"].to_local()
     out = []
     for i, lc in enumerate(layers):
@@ -1140,3 +1166,156 @@ def fsdp_vlm_rank(mesh, jobs, layouts=None) -> dict:
         out["layouts"] = _vlm_layouts(mesh, cfg, params, ids, img)
         out["held"] = _held_probe(mesh, cfg, *ids.shape)
     return out
+
+
+def ckpt_rank(mesh, cfg, params, batch, kw, root, jax_root=None) -> dict:
+    """The checkpoint store on a sharded train state: one
+    ``make_train_step`` step from ``params`` (held whole) on ``batch``
+    (split by ``distribute_batch``), saved under ``root`` by
+    ``CheckpointStore.save`` (every rank), restored by ``shardings=``
+    (``param_shardings``, ``opt_shardings``) and without; then
+    ``save_async`` of step 2 and ``wait``.  Returns this rank's shards of
+    the saved and the restored state (``_shards``), whether each restored
+    leaf is a DTensor exactly where the saved one is, with its placements,
+    the whole leaves of the plain restore (path -> tensor), each rank's
+    ``latest_step`` after either save, and a planted fault: the restored
+    shards with the first split leaf read one row (along its split dim)
+    off its bounds on rank 1.  Given ``jax_root`` (a checkpoint the JAX
+    package's store wrote from a state on a mesh of the same shape), its
+    restore by ``shardings=``'s shards."""
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.core.spmd_pipeline import is_dtensor, local_bounds
+    from repro_torch.core.tree import leaves
+    from repro_torch.launch import sharding as TS
+    from repro_torch.launch import steps as TST
+    from repro_torch.models import layers
+
+    try:
+        _, step = TST.make_train_step(cfg, mesh, **kw)
+        state = TST.init_train_state_sharded(cfg, mesh, params)
+        state, _ = step(state, TS.distribute_batch(mesh, batch))
+        sh = {"params": TS.param_shardings(mesh, params),
+              "opt": TS.opt_shardings(mesh, state["opt"], params)}
+        store = CheckpointStore(root, keep=2)
+        store.save(1, state, {"next_step": 1})
+        latest = [store.latest_step()]
+        got, extra = store.restore(1, like=state, shardings=sh)
+        whole, _ = store.restore(None, like=state)
+        laid_out = all(
+            is_dtensor(a) == is_dtensor(b)
+            and (not is_dtensor(a) or a.placements == b.placements)
+            for a, b in zip(leaves(got), leaves(state)))
+        restored = _shards(got)
+        planted = dict(restored)
+        path, dim = next(
+            (p, d) for p, (_, at, shape) in restored.items()
+            for d, n in enumerate(shape) if at[d].stop - at[d].start < n)
+        if mesh.rank == 1:
+            full = {}
+            TS.map_with_path(lambda p, a: full.__setitem__(TS.path_str(p), a),
+                             whole)
+            _, at, shape = restored[path]
+            planted[path] = (full[path].roll(-1, dim)[at].clone(), at, shape)
+        store.save_async(2, state, {"next_step": 2})
+        store.wait()
+        latest.append(store.latest_step())
+        out = {"saved": _shards(state), "restored": restored,
+               "planted": planted, "planted_path": path,
+               "laid_out": laid_out, "extra": extra, "latest": latest,
+               "whole": {p: t for p, (t, _, _) in _shards(whole).items()},
+               "whole_plain": not any(is_dtensor(a) for a in leaves(whole)),
+               "step_plain": not is_dtensor(got["opt"].step),
+               "bounds_equal": all(
+                   local_bounds(a) == local_bounds(b)
+                   for a, b in zip(leaves(got), leaves(state)))}
+        if jax_root is not None:
+            theirs, _ = CheckpointStore(jax_root).restore(None, like=state,
+                                                          shardings=sh)
+            out["jax"] = _shards(theirs)
+        return out
+    finally:
+        layers.set_attention_mesh(None)
+
+
+def _planted_owner(mesh, job) -> dict:
+    """The vlm ``job`` served under the serving layout (:func:`_fsdp_serve`)
+    with a planted fault: every self-cache layer's owner one rank on along
+    its line (``owner + 1``), that rank holding the view at the layer's
+    local index, so each layer's rows are written and read on the wrong
+    rank's stack; its cache's shards."""
+    from dataclasses import replace
+
+    from repro_torch.core.spmd_pipeline import HeldBy
+    from repro_torch.models import transformer
+
+    real = transformer.unbind_layers
+
+    def planted(x, dims=1):
+        recs = real(x, dims)
+        if not recs or not isinstance(recs[0], HeldBy):
+            return recs
+        mine = {r.index: r.layer for r in recs if r.layer is not None}
+        out = []
+        for r in recs:
+            owner = (r.owner + 1) % r.size
+            out.append(replace(r, owner=owner, layer=mine.get(r.index)
+                               if owner == r.position else None))
+        return out
+
+    transformer.unbind_layers = planted
+    try:
+        return _fsdp_serve(mesh, job["cfg"], job["params"], job, "serving",
+                           PinRouting())["cache"]
+    finally:
+        transformer.unbind_layers = real
+
+
+def pod_rank(mesh, jobs, moe_job=None, plant=None) -> dict:
+    """``pod`` as a second batch axis (a (pod, data, model) mesh): the
+    jobs of :func:`fsdp_rank` (a vlm config's through
+    :func:`fsdp_vlm_rank`, its self-cache exchanges counted, and
+    :func:`_held_probe` of its config at its batch), ``moe_job`` as there,
+    and given ``plant`` (a vlm job's name), :func:`_planted_owner` of that
+    job."""
+    vlm = {n: j for n, j in jobs.items() if j["cfg"].cross_attn_every}
+    out = fsdp_rank(mesh, {n: j for n, j in jobs.items() if n not in vlm},
+                    moe_job)
+    out.update(fsdp_vlm_rank(mesh, vlm))
+    for name, job in vlm.items():
+        out[name]["held"] = _held_probe(mesh, job["cfg"],
+                                        *job["batches"][0]["ids"].shape)
+    if plant is not None:
+        out["planted"] = _planted_owner(mesh, jobs[plant])
+    return out
+
+
+def pod_card_rank(mesh, cfg, params, batch, kw) -> dict:
+    """A (pod, data, model) mesh on the rank's device: the params (held
+    whole) by ``param_shardings``, ``batch`` split over ``("pod",
+    "data")`` by ``distribute_batch``; the prefill step's logits read
+    whole, one ``make_train_step`` step's metrics, and the ranks of the
+    batch's line (``batch_line``: the (pod, data) group)."""
+    import torch.distributed as dist
+
+    from repro_torch.core.spmd_pipeline import batch_line
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch import sharding as TS
+    from repro_torch.launch import steps as TST
+    from repro_torch.models import layers
+
+    try:
+        whole = tree_map(lambda a: a.to(mesh.device), params)
+        split = TS.distribute_batch(mesh, {k: v.to(mesh.device)
+                                           for k, v in batch.items()})
+        p = TS.distribute_params(mesh, whole, TS.param_shardings(mesh, whole))
+        logits = TS.collect_batch(TST.make_prefill_step(cfg, mesh)[1](
+            p, {"ids": split["ids"]}))
+        _, step = TST.make_train_step(cfg, mesh, **kw)
+        _, met = step(TST.init_train_state_sharded(cfg, mesh, whole), split)
+        return {"logits": logits.cpu(),
+                "metrics": {k: float(v) for k, v in met.items()},
+                "line": dist.get_process_group_ranks(
+                    batch_line(split["ids"])[0]),
+                "rows": tuple(split["ids"].to_local().shape)}
+    finally:
+        layers.set_attention_mesh(None)
