@@ -645,7 +645,16 @@ EP = dict(arch="moonshot-v1-16b-a3b", layers=4, mesh=(1, 2), batch=2,
 # self cache in the JAX layout (each group's 4 self layers split over data:
 # each data rank holds 2 of them for both rows, writes the rows gathered
 # over data and sends the other rank its row to decode), trained at one
-# group (2 x 2048, seq_parallel on, its own image rows)
+# group (2 x 2048, seq_parallel on, its own image rows).  ``nested``: the
+# families whose first step (c = 0, seq_parallel on) the same ranks take
+# again from the same weights on the same batch with nested remat,
+# ``scan_chunks=default_scan_chunks(L)`` at the training depth (gemma3
+# and moonshot at 2 layers: c = 2; hymba and rwkv at 1: c = 1, the
+# chunk's checkpoint around the layer's, around the recurrence's time
+# chunks), through make_train_step; every checked gradient, the loss and
+# grad_norm held to the c = 0 step's, bit for bit or within the bf16
+# limit (the vlm family ignores scan_chunks, as JAX does: its step stays
+# in the CPU tests, tests/test_torch_remat_sharded.py)
 FSDP = dict(mesh=(2, 2), dense="gemma3-12b", dense_layers=4,
             train_layers=2, moe="moonshot-v1-16b-a3b", moe_layers=2,
             hybrid="hymba-1.5b", ssm="rwkv6-1.6b", rec_layers=2,
@@ -654,7 +663,7 @@ FSDP = dict(mesh=(2, 2), dense="gemma3-12b", dense_layers=4,
             moe_decode=8, train_seq=2048, moe_train_seq=4096,
             loss_chunk=512, lr=3e-4, seed=2033, experts=(0, 32),
             control_limit=2.0, timeout=600, axes=("data", "model"),
-            tag="fsdp", cell=17)
+            tag="fsdp", cell=17, nested=("dense", "moe", "hybrid", "ssm"))
 # cell 18: pod as a second batch axis, a (pod 2, data 2, model 1) mesh of
 # 4 ranks sharing the card (a spawn of its own, after cell 17's), the
 # batch split over (pod, data) pod-major, one row of 4 a batch rank,
@@ -675,7 +684,8 @@ FSDP = dict(mesh=(2, 2), dense="gemma3-12b", dense_layers=4,
 # family trains one step, with seq_parallel: the step without it is the
 # same computation (the same loss and grad_norm to the bit on the card)
 POD = dict(FSDP, mesh=(2, 2, 1), axes=("pod", "data", "model"), batch=4,
-           tag="pod", cell=18, ckpt="hybrid", train_layers=1, loss_chunk=256)
+           tag="pod", cell=18, ckpt="hybrid", train_layers=1, loss_chunk=256,
+           nested=())
 # the fsdp phase's families, in the order they run, and their seed offsets
 FSDP_FAMS = {"dense": 0, "moe": 10, "hybrid": 20, "ssm": 30, "vlm": 40}
 # the layer leaves whose local shapes a serving rank prints, by family
@@ -7692,19 +7702,26 @@ def fsdp_train_rank(mesh, fam: str, ref: dict, groups: dict,
     f32 control's where the whole run took one); the moments' local
     shapes; the q, k, v and dO layer 0's attention gave K8 and K9 in the
     first step (none for rwkv; a vlm model's first cross layer's too);
-    for the family ``c["ckpt"]`` names, the trained state's checkpoint
-    round trip (:func:`pod_checkpoint`)."""
+    for a family ``c["nested"]`` names, the first step taken again from
+    the same start with ``scan_chunks=default_scan_chunks(L)``
+    (``"nested"``: its c, metrics, ms, peak, collectives and K7-K9
+    launches, and each checked gradient's max |g - g_first|, 0.0 where
+    the two are bit-equal); for the family ``c["ckpt"]`` names, the
+    trained state's checkpoint round trip (:func:`pod_checkpoint`)."""
     import torch
 
     from repro_torch.core.spmd_pipeline import local_tensor
     from repro_torch.core.tree import leaves
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import sharding as TS
     from repro_torch.launch import steps as TST
+    from repro_torch.launch.dryrun import default_scan_chunks
     from repro_torch.models import layers
     from repro_torch.optim import adamw_init
 
     f = c
     cfg = fsdp_config(fam, fsdp_shape(fam, c)["train_layers"])
+    nest = fam in c["nested"]
     part = batch_part(mesh)
     t0 = time.perf_counter()
     whole = fsdp_weights(cfg, fam, "train", mesh.device)
@@ -7715,9 +7732,11 @@ def fsdp_train_rank(mesh, fam: str, ref: dict, groups: dict,
     # carry splits nothing (SeqParallel.line is None): the same step twice
     plan = ([True] if fam in FSDP_SP_ONLY or c["mesh"][-1] == 1
             else [True, False])
-    # the start of the second step, kept on the host
+    # the start of the second step (and of the nested one), kept on the
+    # host
     start = [local_tensor(a).to("cpu", copy=True)
-             for a in leaves(state["params"])] if len(plan) > 1 else []
+             for a in leaves(state["params"])] if len(plan) > 1 or nest \
+        else []
     torch.cuda.empty_cache()
     batch = TS.distribute_batch(mesh, fsdp_draws(cfg, fam, mesh.device,
                                                  c)["train"])
@@ -7725,17 +7744,29 @@ def fsdp_train_rank(mesh, fam: str, ref: dict, groups: dict,
     steps, inputs = [], {}
     real_update, real_attention = TST.adamw_update, layers.ops.attention
     spent = [0.0]
+    # the first step's checked gradients on the host (the nested step's
+    # yardstick), and the nested step's distances to them
+    first, nested = {}, {}
 
     def spy(grads, st, params, **kw):
         t1 = time.perf_counter()
-        e = {}
-        for k, (g, at) in fsdp_checked(grads, fam, cfg.n_layers).items():
-            for name in ("plain", "f32"):
-                if name in ref:
-                    want = ref[name][k][at].to(g.device).float()
-                    d = float((g.float() - want).abs().max())
-                    e[k if name == "plain" else f"{k} f32"] = d
-        steps[-1]["grad_err"] = e
+        checked = fsdp_checked(grads, fam, cfg.n_layers)
+        if "c" in nested:
+            nested["diff"] = {
+                k: 0.0 if torch.equal(g, first[k].to(g.device)) else float(
+                    (g.float() - first[k].to(g.device).float()).abs().max())
+                for k, (g, _) in checked.items()}
+        else:
+            e = {}
+            for k, (g, at) in checked.items():
+                for name in ("plain", "f32"):
+                    if name in ref:
+                        want = ref[name][k][at].to(g.device).float()
+                        d = float((g.float() - want).abs().max())
+                        e[k if name == "plain" else f"{k} f32"] = d
+                if nest and len(steps) == 1:
+                    first[k] = g.to("cpu", copy=True)
+            steps[-1]["grad_err"] = e
         torch.cuda.synchronize()
         spent[0] += time.perf_counter() - t1
         return real_update(grads, st, params, **kw)
@@ -7788,6 +7819,40 @@ def fsdp_train_rank(mesh, fam: str, ref: dict, groups: dict,
                 TS.map_with_path(lambda p, a: moments.__setitem__(
                     TS.path_str(p), (tuple(local_tensor(a).shape),
                                      tuple(a.shape))), state["opt"].m)
+        if nest:
+            # the first step again, its layers checkpointed in chunks of c
+            # too: the same start, fresh moments, the same batch and pins
+            layers.ops.attention = real_attention
+            for a, s0 in zip(leaves(state["params"]), start):
+                local_tensor(a).copy_(s0)
+            state = {"params": state["params"],
+                     "opt": adamw_init(state["params"])}
+            nested["c"] = default_scan_chunks(cfg.n_layers)
+            _, step = TST.make_train_step(cfg, mesh, seq_parallel=plan[0],
+                                          scan_chunks=nested["c"],
+                                          lr=f["lr"], warmup=1,
+                                          total_steps=10,
+                                          loss_chunk=f["loss_chunk"])
+            coll = {"sync_ms": 0.0, "collective_ms": 0.0, "calls": {},
+                    "bytes": 0}
+            log = RoutingLog({"train": ref["pins"]["train"]}, part) \
+                if fam == "moe" else RoutingLog()
+            log.set("train")
+            spent[0] = 0.0
+            before = dict(fa.LAUNCHES)
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with routing_hook(log), timed_collectives(coll, groups):
+                state, met = step(state, batch)
+                nested.update(loss=float(met["loss"]),
+                              grad_norm=float(met["grad_norm"]))
+            nested.update(
+                ms=1e3 * (time.perf_counter() - t1 - spent[0]),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                collectives=coll,
+                launches={k: v - before.get(k, 0)
+                          for k, v in fa.LAUNCHES.items()})
     finally:
         TST.adamw_update = real_update
         layers.ops.attention = real_attention
@@ -7795,7 +7860,8 @@ def fsdp_train_rank(mesh, fam: str, ref: dict, groups: dict,
     return {"draw_s": draw_s, "steps": steps, "moments": moments,
             "inputs": {name: tuple(t.cpu() if torch.is_tensor(t) else t
                                    for t in qkv)
-                       for name, qkv in inputs.items()}, "ckpt": ckpt}
+                       for name, qkv in inputs.items()}, "ckpt": ckpt,
+            "nested": nested or None}
 
 
 def pod_checkpoint(mesh, state: dict) -> dict:
@@ -8101,11 +8167,73 @@ def fsdp_check_train(fam: str, ref: dict, res: list,
     return reads
 
 
+def fsdp_check_nested(fam: str, ref: dict, res: list, cell: dict) -> dict:
+    """The ranks' nested-remat step of ``fam`` (``scan_chunks`` c, the
+    first step again from the same start) against their first step (c =
+    0): the count of checked gradients that are not bit-equal on some
+    rank, the largest max |g - g_first| as a share of the bf16 limit (2e-2
+    * max|g_ref| of the whole run's gradient; failing above 1.0), the loss
+    and grad_norm (equal on every rank, within the first step's gates of
+    it); prints, for rank 0, both steps' ms, peak memory and ``data``
+    collectives (GB and s) and the nested step's K7-K9 launches."""
+    tag = cell["tag"]
+    nests = [r[f"{fam}_train"]["nested"] for r in res]
+    firsts = [r[f"{fam}_train"]["steps"][0] for r in res]
+    c = nests[0]["c"]
+    check(len({(n["loss"], n["grad_norm"]) for n in nests}) == 1,
+          f"{tag} {fam} scan_chunks={c}: loss or grad_norm differs between "
+          f"the ranks: {[(n['loss'], n['grad_norm']) for n in nests]}")
+    n0, s0 = nests[0], firsts[0]
+    lrel = abs(n0["loss"] - s0["loss"]) / abs(s0["loss"])
+    grel = abs(n0["grad_norm"] - s0["grad_norm"]) / s0["grad_norm"]
+    scales = {k: 2e-2 * float(w.float().abs().max())
+              for k, w in ref["plain"].items()}
+    unequal, share = set(), 0.0
+    for n in nests:
+        for k, d in n["diff"].items():
+            if d != 0.0:
+                unequal.add(k)
+                share = max(share, d / scales[k])
+    checked = len(set().union(*(n["diff"] for n in nests)))
+    print(f"[{tag}] {fam} scan_chunks={c} step (the first step again, "
+          f"nested remat): loss {n0['loss']} (bit-equal to c = 0: "
+          f"{n0['loss'] == s0['loss']}), grad_norm {n0['grad_norm']} "
+          f"(bit-equal: {n0['grad_norm'] == s0['grad_norm']}); "
+          f"{len(unequal)} of {checked} checked gradients not bit-equal on "
+          f"some rank, the largest share of the bf16 limit {share:.4g}"
+          + (f" ({sorted(unequal)[:6]})" if unequal else ""))
+
+    def data(st) -> tuple:
+        g = st["collectives"]["by_group"].get("data", {})
+        return g.get("bytes", 0) / 1e9, g.get("ms", 0.0) / 1e3
+
+    rows = {}
+    for label, st in (("c=0", s0), (f"c={c}", n0)):
+        gb, sec = data(st)
+        rows[label] = {"ms": st["ms"], "peak_gb": st["peak_gb"],
+                       "data_gb": gb, "data_s": sec}
+        print(f"[{tag}] {fam} rank 0 {label}: step {st['ms']:.3f} ms, peak "
+              f"{st['peak_gb']:.3f} GB, data collectives {gb:.4f} GB in "
+              f"{sec:.3f} s")
+    print(f"[{tag}] {fam} rank 0 scan_chunks={c} step's K7-K9 launches "
+          f"{n0['launches']}")
+    check(share <= 1.0 and lrel <= 1e-3 and grel <= 1e-2,
+          f"{tag} {fam} scan_chunks={c}: against its c = 0 step, loss "
+          f"{lrel:.3g} rel, grad_norm {grel:.3g} rel, gradients at "
+          f"{share:.4g} of the bf16 limit ({sorted(unequal)[:6]})")
+    return {"c": c, "unequal": len(unequal), "checked": checked,
+            "share_of_limit": share, "loss_equal": n0["loss"] == s0["loss"],
+            "grad_norm_equal": n0["grad_norm"] == s0["grad_norm"],
+            "launches": n0["launches"], "rank0": rows}
+
+
 def fsdp_cell_checks(c: dict, ref: dict, res: list) -> tuple[dict, dict]:
     """Cell ``c``'s checks over its ranks' results ``res``
     (:func:`fsdp_cell_rank`) against the whole runs ``ref``: every
     family's serving and training (:func:`fsdp_check_serve`,
-    :func:`fsdp_check_train`), the K7-K9 launches and routes, the vlm
+    :func:`fsdp_check_train`; the nested-remat step of the families
+    ``c["nested"]`` names, :func:`fsdp_check_nested`), the K7-K9 launches
+    and routes, the vlm
     family's launches, the moments' local shapes, K7 at a batch rank's
     serving shapes and K8/K9 at its training shapes element by element on
     every rank (rank 0's timed), and the checkpoint round trip of
@@ -8131,6 +8259,9 @@ def fsdp_cell_checks(c: dict, ref: dict, res: list) -> tuple[dict, dict]:
                                                  res, c)
         reads[f"{fam}_train"] = fsdp_check_train(fam, ref[f"{fam}_train"],
                                                  res, c)
+        if fam in c["nested"]:
+            reads[f"{fam}_nested"] = fsdp_check_nested(
+                fam, ref[f"{fam}_train"], res, c)
         print(f"[{tag}] {fam} K7-K9 launches by rank "
               f"{[r[f'{fam}_launches'] for r in res]}; the ranks' seconds "
               f"{[round(r[f'{fam}_s'], 3) for r in res]}")

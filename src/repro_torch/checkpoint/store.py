@@ -22,7 +22,10 @@ every rank returns after a barrier that follows the rename, so
 ``shardings`` (a tree of the port's ``NamedSharding``, as
 ``param_shardings``/``opt_shardings`` give them) cuts each whole leaf to
 the rank's shard and wraps it as a DTensor, as ``distribute_params``
-does: every rank reads the file, nothing is communicated.
+does: every rank reads the file, nothing is communicated.  On a mesh
+with a ``stage`` axis (replicated: no rule splits over it) the gathers
+run over the axes that split a leaf alone, global rank 0 still writes
+once, and ``restore(shardings=)`` gives every stage index the same shard.
 """
 from __future__ import annotations
 

@@ -276,28 +276,34 @@ class _FromLast(torch.autograd.Function):
 
 
 def reduce_over_ranks(t: torch.Tensor, group, transport: str, *,
-                      op: str = "sum", backward: bool = False
-                      ) -> torch.Tensor:
+                      op: str = "sum", backward: bool = False,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
     """The sum (``op="sum"``) or the max (``op="max"``) of ``t`` over
-    ``group``'s ranks, a new tensor like ``t``, outside autograd: NCCL
-    reduces on the card in ``t``'s type; gloo (which takes no CUDA tensor
-    and lacks bf16 sums) in f32 on the host (f64 for an f64 ``t``), staged
-    in pinned host memory when the ranks share a card.  On an H100 shared
-    by 2 ranks, gathering the f32 partials instead and adding them on the
-    card took 1.5-1.8x the host add's time.  ``backward`` tells an
-    instrumented copy of this function that a backward pass called it; it
-    changes nothing here."""
+    ``group``'s ranks, a new tensor like ``t`` (or written into ``out``,
+    ``t`` itself allowed, and returned), outside autograd: NCCL reduces on
+    the card in ``t``'s type; gloo (which takes no CUDA tensor and lacks
+    bf16 sums) in f32 on the host (f64 for an f64 ``t``), staged in pinned
+    host memory when the ranks share a card.  On an H100 shared by 2
+    ranks, gathering the f32 partials instead and adding them on the card
+    took 1.5-1.8x the host add's time.  ``backward`` tells an instrumented
+    copy of this function that a backward pass called it; it changes
+    nothing here."""
     del backward
     rop = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
     if transport == "nccl":
-        t = t.contiguous().clone()
-        dist.all_reduce(t, op=rop, group=group)
-        return t
+        if out is None:
+            out = t.contiguous().clone()
+        elif out is not t:
+            out.copy_(t)
+        dist.all_reduce(out, op=rop, group=group)
+        return out
     f = torch.empty(t.shape, dtype=torch.float64 if t.dtype == torch.float64
                     else torch.float32, pin_memory=transport == "gloo+pinned")
     f.copy_(t)
     dist.all_reduce(f, op=rop, group=group)
-    return f.to(device=t.device, dtype=t.dtype)
+    if out is None:
+        return f.to(device=t.device, dtype=t.dtype)
+    return out.copy_(f)
 
 
 def gather_over_ranks(t: torch.Tensor, dim: int, group, transport: str, *,
@@ -584,8 +590,9 @@ def batch_line(x) -> tuple | None:
     mesh dims of more than one rank that shard it, one axis or ``pod`` and
     ``data`` together (:func:`axes_group`; group ranks pod-major, as
     :func:`shard_bounds` orders the rows).  None for a plain tensor and a
-    batch whole on every rank.  Two lines are the same when their ranks
-    are."""
+    batch whole on every rank.  A mesh's other axes (``model``, and
+    ``stage``, over which every batch is replicated) are never part of
+    the line.  Two lines are the same when their ranks are."""
     if not is_dtensor(x):
         return None
     dm = x.device_mesh

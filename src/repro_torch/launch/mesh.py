@@ -109,7 +109,12 @@ def make_pipeline_mesh(*, n_stages: int = 4,
                        multi_pod: bool = False) -> MeshLayout:
     """Courier pipeline mode: the model axis split into (stage, model), so
     the Pipeline Generator's stage boundaries map onto the ``stage``
-    axis."""
+    axis (:mod:`~repro_torch.core.spmd_pipeline` runs a pipeline over
+    it).  The step builders of :mod:`repro_torch.launch.steps` run such a
+    mesh too, with every tensor replicated over ``stage``, as the JAX
+    rules leave it; :func:`run_on_local_mesh` makes the ``stage`` line's
+    group beside the others, and the batch line stays ``data`` (and
+    ``pod``)."""
     tp = 16 // n_stages
     if n_stages * tp != 16:
         raise ValueError("n_stages must divide 16")

@@ -10,9 +10,13 @@ Scheme (the JAX package's, rule for rule):
   * activations (train): the sequence-parallel spec (batch, "model", —)
 
 Every rule is divisibility-guarded: a dim that does not divide its mesh
-axis is left unsharded.  A spec is a :class:`P`, one entry a tensor dim:
-None, an axis name, or a tuple of names (the dim split over all of them,
-the first outermost).  ``mesh`` is anything with ``axis_names`` and
+axis is left unsharded.  No rule names a ``stage`` axis (the layout of
+:func:`~repro_torch.launch.mesh.make_pipeline_mesh`): on such a mesh
+every param, moment, batch, activation and cache spec leaves it
+replicated, as the JAX rules do, and the step builders run it so (each
+stage index computing the same step).  A spec is a :class:`P`, one entry
+a tensor dim: None, an axis name, or a tuple of names (the dim split over
+all of them, the first outermost).  ``mesh`` is anything with ``axis_names`` and
 ``shape[axis]``: a :class:`~repro_torch.launch.mesh.MeshLayout`, a
 :class:`~repro_torch.launch.mesh.RankMesh`.  Paths are the port's
 nested-dict keys joined by "/" (the JAX ``_path_str`` of the same leaf).

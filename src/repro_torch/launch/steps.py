@@ -86,8 +86,15 @@ its gradient summed over the whole line, one split over ``data`` over
 routing counts, the recurrent states and the vlm self cache (its ``per``
 dim split over both axes where they divide it) read the same line.  A
 batch that ``pod`` x ``data`` do not divide stays whole on every rank.
-Another axis over more than one rank (``stage``) and ``scan_chunks``
-under sharded weights are refused (:func:`_check_sharded`).
+A ``stage`` axis (JAX's ``make_pipeline_mesh`` layout, ``(data, stage,
+model)``) splits nothing in these steps, as no JAX rule names it: every
+leaf, moment, batch row and cache is replicated over it, the batch line
+leaves it out, nothing is summed over it, and each stage index computes
+the same step.  ``scan_chunks`` nests the remat under sharded weights as
+on plain ones (:meth:`~repro_torch.models.transformer.LM.apply`): each
+layer's ``data`` gather sits inside its checkpoint, which the chunk's
+nests, so a recompute gathers the layer again and its gradient is summed
+back once a step.
 
 The abstract trees (:func:`abstract_params`, :func:`abstract_cache`) are
 meta tensors, drawing and allocating nothing; :func:`batch_structs`,
@@ -106,7 +113,7 @@ import torch
 from ..core.spmd_pipeline import (batch_like, batch_line, is_dtensor,
                                    like_dtensor, local_tensor,
                                    reduce_over_ranks)
-from ..core.tree import flatten, leaves, tree_map, unflatten
+from ..core.tree import flatten, tree_map, unflatten
 from ..models import LM
 from ..models.config import ArchConfig, ShapeConfig
 from ..models.layers import (NO_DRAW, SeqParallel, gather_data,
@@ -305,11 +312,20 @@ def _beyond_data(p, data: tuple) -> tuple | None:
 @torch.no_grad()
 def _sum_bucket(gs: list, line: tuple) -> None:
     """Each of ``gs`` summed over ``line``'s ranks, in place, in f32 and
-    rounded once to its type, all of them in one all-reduce."""
+    rounded once to its type, all of them in one all-reduce.  The bucket
+    is filled leaf by leaf and summed in place, so a step holds one
+    bucket on the device at a time: 4 ranks sharing an H100, each with a
+    3.0 GiB bucket (llama-3.2-vision-11b on (pod 2, data 2, model 1)),
+    ran out of the card with a second one."""
     if not gs:
         return
-    bucket = torch.cat([g.reshape(-1).to(torch.float32) for g in gs])
-    bucket = reduce_over_ranks(bucket, *line, backward=True)
+    bucket = torch.empty(sum(g.numel() for g in gs), dtype=torch.float32,
+                         device=gs[0].device)
+    at = 0
+    for g in gs:
+        bucket[at:at + g.numel()].copy_(g.reshape(-1))
+        at += g.numel()
+    reduce_over_ranks(bucket, *line, backward=True, out=bucket)
     at = 0
     for g in gs:
         g.copy_(bucket[at:at + g.numel()].view(g.shape))
@@ -371,7 +387,6 @@ def make_train_step(cfg: ArchConfig, mesh=None, *, scan_chunks: int = 0,
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         params = state["params"]
-        _check_sharded(cfg, params, scan_chunks=scan_chunks)
         ce, grads, aux = loss_and_grads(model, params, batch, remat=remat,
                                         scan_chunks=scan_chunks,
                                         loss_chunk=loss_chunk,
@@ -401,15 +416,14 @@ def train_state_structs(cfg: ArchConfig, mesh):
 
 
 def init_train_state_sharded(cfg: ArchConfig, mesh, params: Params) -> dict:
-    """``{"params", "opt"}`` for training across the ranks of ``mesh`` (a
-    model axis, and a data axis for the families :func:`_check_sharded`
-    admits) from a params tree held whole on every rank (drawn from
-    one seed, or converted): each rank keeps its shard of each leaf by
+    """``{"params", "opt"}`` for training across the ranks of ``mesh``
+    (its model and batch axes; every family) from a params tree held whole
+    on every rank (drawn from one seed, or converted): each rank keeps its
+    shard of each leaf by
     :func:`param_shardings` (:func:`distribute_params`) and allocates its
     moments at their local shapes (:func:`adamw_init`, laid out as the
     parameters: :func:`opt_shardings`)."""
     sharded = distribute_params(mesh, params, param_shardings(mesh, params))
-    _check_sharded(cfg, sharded)
     return {"params": sharded, "opt": adamw_init(sharded)}
 
 
@@ -429,45 +443,6 @@ def init_cache_sharded(cfg: ArchConfig, mesh, batch: int,
         whole, cache_shardings(mesh, cfg, whole))
 
 
-# the families whose blocks run on a rank's shard, under a model axis and
-# a data axis alike: the dense one, the audio family (the dense backbone
-# over given embeddings), the moe family (its attention on the rank's
-# heads, its experts on the rank's E/m), the hybrid family (its
-# selective-SSM branch on the rank's inner channels), the ssm family (rwkv:
-# its recurrence on the rank's heads) and the vlm family (its
-# cross-attention on the rank's heads against the image rows; its self and
-# image K/V caches keep every kv head at a part of head_dim)
-TP_FAMILIES = ("dense", "audio", "moe", "hybrid", "ssm", "vlm")
-
-
-def _check_sharded(cfg: ArchConfig, params: Params, *,
-                   scan_chunks: int = 0) -> None:
-    """Refuse DTensor weights where it is not done: a family outside
-    :data:`TP_FAMILIES`; an axis other than ``pod``, ``data`` and
-    ``model`` over more than one rank (``stage``: the pipeline's axis runs
-    :mod:`~repro_torch.core.spmd_pipeline`, not these steps); and (the
-    train step, which passes ``scan_chunks``) chunked remat under sharded
-    weights."""
-    w = leaves(params)[0]
-    if not is_dtensor(w):
-        return
-    if cfg.family not in TP_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: tensor parallelism runs the "
-            f"{', '.join(TP_FAMILIES)} families; the {cfg.family} family "
-            f"under a model axis is not done here")
-    dm = w.device_mesh
-    other = {n: dm.size(i) for i, n in enumerate(dm.mesh_dim_names)
-             if n not in ("pod", "data", "model") and dm.size(i) > 1}
-    if other:
-        raise NotImplementedError(f"a mesh axis {other} over more than one "
-                                  f"rank: the port's steps run a (pod, "
-                                  f"data, model) mesh")
-    if scan_chunks:
-        raise NotImplementedError(f"scan_chunks={scan_chunks} under "
-                                  f"sharded weights is not done here")
-
-
 def make_prefill_step(cfg: ArchConfig, mesh=None):
     """→ (model, ``prefill_step(params, batch)``): the full forward without
     a cache and the last token's logits [B, 1, vocab] f32 (whole over the
@@ -479,7 +454,6 @@ def make_prefill_step(cfg: ArchConfig, mesh=None):
 
     @torch.no_grad()
     def prefill_step(params: Params, batch: dict) -> torch.Tensor:
-        _check_sharded(cfg, params)
         kw = {}
         if cfg.embeds_in:
             kw["embeds"] = batch["embeds"]
@@ -504,7 +478,6 @@ def make_decode_step(cfg: ArchConfig, mesh=None):
 
     @torch.no_grad()
     def serve_step(params: Params, cache: Params, batch: dict):
-        _check_sharded(cfg, params)
         kw = {"embeds": batch["embeds"]} if cfg.embeds_in else {}
         logits, cache = model.decode_step(_table_gathered(params, None),
                                           batch.get("ids"), cache,

@@ -530,6 +530,12 @@ def bf16_terms(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# vocab rows of the table's f32 gradient held at a time on the card: the
+# whole one (gemma3's 262144 x 3840, 4.0 GB) beside its bf16 copy took 4
+# ranks sharing an H100 past the card's memory
+_DT_ROWS = 32768
+
+
 class _LogitsF32(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -545,8 +551,13 @@ class _LogitsF32(torch.autograd.Function):
         n = g.shape[0]
         terms = bf16_terms(g).reshape(3 * n, -1)
         dh = torch.mm(terms, table, out_dtype=torch.float32)
-        dt = torch.mm(terms.t(), h.repeat(3, 1), out_dtype=torch.float32)
-        return dh.reshape(3, n, -1).sum(0).to(h.dtype), dt.to(table.dtype)
+        h3 = h.repeat(3, 1)
+        dt = torch.empty_like(table)
+        for lo in range(0, table.shape[0], _DT_ROWS):
+            hi = min(lo + _DT_ROWS, table.shape[0])
+            dt[lo:hi] = torch.mm(terms[:, lo:hi].t(), h3,
+                                 out_dtype=torch.float32)
+        return dh.reshape(3, n, -1).sum(0).to(h.dtype), dt
 
 
 def logits_f32(h: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -558,7 +569,9 @@ def logits_f32(h: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     cotangent by the other operand with ``preferred_element_type`` f32): on
     the card g goes in as the three bf16 terms of :func:`bf16_terms`, so
     each product is bf16 x bf16 summed in f32 and equals the f32 product
-    up to the order of sums.  f32 sums come out in the inputs' types."""
+    up to the order of sums.  f32 sums come out in the inputs' types; the
+    table's is summed :data:`_DT_ROWS` vocab rows at a time, each block
+    rounded to the table's type as it is done."""
     return _LogitsF32.apply(h, table)
 
 

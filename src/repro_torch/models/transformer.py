@@ -25,10 +25,18 @@ its ``[L, ...]`` stack after the layer runs, and the vlm cache's image K/V
 
 Training: ``apply(remat=True)`` checkpoints every layer with
 ``torch.utils.checkpoint`` (the JAX ``jax.checkpoint`` body), and with
-``scan_chunks=c`` every chunk of c layers as well; the recurrences'
-time-chunk checkpoints (:mod:`.scan_utils`) nest inside them.  A vlm model
-checkpoints each group instead, as the JAX ``_apply_vlm`` does, and
-ignores ``scan_chunks``.  :meth:`LM.loss` is the chunked cross-entropy, one
+``scan_chunks=c`` every chunk of c layers as well (the JAX nested-remat
+scan); the recurrences' time-chunk checkpoints (:mod:`.scan_utils`) nest
+inside them.  The nest is the same under DTensor weights, a
+sequence-parallel carry and a batch split over ``data`` (or ``pod`` and
+``data``): a layer's ``data`` gather runs inside its checkpoint, so each
+recompute that reaches the layer gathers it again, while its gradient is
+summed back once a step (the forward's graph is the one differentiated).
+A chunk's recompute stops once the chunk's saved tensors are back (torch's
+early stop: its first c - 1 layers, the last layer's input being the
+last of them), and it stops at the same op on every rank (:func:`_remat`).
+A vlm model checkpoints each group instead, as the JAX ``_apply_vlm``
+does, and ignores ``scan_chunks``.  :meth:`LM.loss` is the chunked cross-entropy, one
 checkpointed chunk of ``[B, chunk, V]`` f32 logits alive at a time; over a
 vocab-sharded table (tensor parallelism) each rank's chunk holds the
 logits of its rows only (:func:`_chunk_nll_sharded`).  Under DTensor
@@ -247,7 +255,13 @@ def _write_back(dst: Params, src: Params) -> None:
 
 def _remat(fn, *args):
     """``fn(*args)``, its activations recomputed in the backward pass (the
-    JAX ``jax.checkpoint``); a plain call where no gradient is recorded."""
+    JAX ``jax.checkpoint``); a plain call where no gradient is recorded.
+    Non-reentrant, with torch's early stop (a recompute ends once the
+    tensors the backward needs are back): across ranks a recompute that
+    stopped before a collective on one rank and after it on another would
+    hang the group, but every rank runs the same ops and saves the same
+    sequence of tensors (no branch on the path depends on a rank's data),
+    so each recompute stops at the same op on every rank."""
     if not torch.is_grad_enabled():
         return fn(*args)
     return checkpoint(fn, *args, use_reentrant=False)
@@ -389,8 +403,9 @@ class LM:
         ``remat``: recompute each layer's activations in the backward pass
         (each group's, for a vlm model, which needs ``img_embeds``).
         ``scan_chunks=c``: also checkpoint each chunk of c layers (the JAX
-        nested-remat scan), ignored unless c divides ``n_layers``, and by a
-        vlm model.  ``act_constraint``: a function applied to the embedded
+        nested-remat scan), under DTensor weights too (the module
+        docstring), ignored unless c divides ``n_layers``, and by a vlm
+        model.  ``act_constraint``: a function applied to the embedded
         input and each layer's output (the sequence-parallel layout of
         :func:`repro_torch.launch.steps.make_train_step`); a
         :class:`~repro_torch.models.layers.SeqParallel` one under DTensor

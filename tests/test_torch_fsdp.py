@@ -56,11 +56,13 @@ seed as ``tests/test_torch_tp_recurrent.py`` draws them:
 * ``global_norm`` over each config's tree by ``param_shardings`` counts
   each leaf once; no path reaches ``DTensor.redistribute`` (it raises in
   the ranks);
-* the refusals: ``scan_chunks``, ``with_spec`` where a ``data`` dim of
-  2 would move, and a ``stage`` axis of 2 (a ``pod`` axis of 2 runs: a
-  (pod 2, model 2) prefill equals the whole run's); a recurrent state
-  whose rows of B are not the activations' (the vlm family under a data
-  axis: ``tests/test_torch_fsdp_vlm.py``);
+* beside the data axis: a (pod 2, model 2) and a (stage 2, model 2)
+  prefill each equal the whole run's, and the train step at
+  ``scan_chunks`` 2 equals its step at 0 bit for bit
+  (``tests/test_torch_remat_sharded.py`` holds both to JAX); refused,
+  ``with_spec`` where a ``data`` dim of 2 would move, and a recurrent
+  state whose rows of B are not the activations' (the vlm family under a
+  data axis: ``tests/test_torch_fsdp_vlm.py``);
 * plain tensors in one process, bit for bit, with a (2, 2) layout
   registered or not.
 
@@ -150,6 +152,7 @@ JAX_SCRIPT = textwrap.dedent("""
                                        cache_shardings, guard_spec)
     from repro.models import LM
     from repro.models.config import ShapeConfig
+    from repro.models.layers import set_attention_mesh
     from repro.optim import adamw_init
 
     def paths(tree):
@@ -162,6 +165,7 @@ JAX_SCRIPT = textwrap.dedent("""
     for name, j in jobs.items():
         cfg = get_config(j["arch"]).reduced(**j["overrides"])
         mesh = _mesh(j["mesh"], tuple(j.get("axes", ("data", "model"))))
+        set_attention_mesh(mesh)        # the job's own, as its steps do
         jm = LM(cfg)
         key = "embeds" if cfg.embeds_in else "ids"
         b0 = j["batches"][0]
@@ -218,7 +222,8 @@ JAX_SCRIPT = textwrap.dedent("""
                 h, aux = jm.apply(
                     q, b.get("ids"), remat=True, param_constraint=pcon,
                     act_constraint=lambda h: jax.lax.with_sharding_constraint(
-                        h, sp), **kw_of(b.get("embeds")))
+                        h, sp), scan_chunks=j["kw"].get("scan_chunks", 0),
+                    **kw_of(b.get("embeds")))
                 ce = jm.loss(q, h, b["labels"], b["mask"],
                              chunk=j["kw"]["loss_chunk"])
                 return jnp.stack([ce, aux["load_balance_loss"],
@@ -289,8 +294,9 @@ def _pins(jc, jp, batches, dec, params1, gaps: list,
     """The routing of every moe call of the port's runs, recorded from the
     JAX package's unsharded functions with its routing groups those of a
     batch of ``shards`` shards (``moe_groups``): the prefill step ("p0",
-    also the gradients' and step 1's), ``LM.prefill`` ("fill"), the decode
-    steps ("dec<j>") and step 2's forward ("p1") from ``params1``, the
+    also the gradients' and step 1's), and where ``dec`` is given,
+    ``LM.prefill`` ("fill") and a decode step a column of ``dec``
+    ("dec<j>"); where ``params1`` is, step 2's forward ("p1") from it, the
     sharded JAX run's after its step 1 (an unsharded step's differ where
     AdamW's first update takes its sign from f32 noise)."""
     jm = JLM(jc)
@@ -313,33 +319,36 @@ def _pins(jc, jp, batches, dec, params1, gaps: list,
         ids0 = jnp.asarray(batches[0]["ids"])
         _, jpre = JST.make_prefill_step(jc)
         record("p0", jax.jit(jpre), jp, {"ids": ids0})
-        _, cache = record("fill", jax.jit(jm.prefill), jp, ids0,
-                          jm.init_cache(B, S + N_DEC))
-        _, jdec = JST.make_decode_step(jc)
-        jdec = jax.jit(jdec)
-        for j in range(N_DEC):
+        n = 0 if dec is None else dec.shape[1]
+        if n:
+            _, cache = record("fill", jax.jit(jm.prefill), jp, ids0,
+                              jm.init_cache(B, S + n))
+            _, jdec = JST.make_decode_step(jc)
+            jdec = jax.jit(jdec)
+        for j in range(n):
             _, cache = record(f"dec{j}", jdec, jp, cache,
                               {"ids": jnp.asarray(dec[:, j:j + 1]),
                                "pos": S + j})
-        record("p1", jax.jit(lambda p, t: jm.apply(p, t, remat=False)),
-               params1, jnp.asarray(batches[1]["ids"]))
+        if params1 is not None:
+            record("p1", jax.jit(lambda p, t: jm.apply(p, t, remat=False)),
+                   params1, jnp.asarray(batches[1]["ids"]))
     finally:
         JM.moe_groups = real
     return pins
 
 
 def _unsharded_steps(jc, jp, batches, opt=None, shards: int = 2,
-                     moments: bool = False) -> dict:
+                     moments: bool = False, kw: dict = KW) -> dict:
     """The JAX package's ``make_train_step`` steps with no mesh (the
-    routing groups of a batch of ``shards`` shards), one a batch of
-    ``batches``, from ``jp`` and ``opt`` (a JAX optimizer state; fresh
-    moments when None): path → params after them, the control for the
-    sharded steps' params; with ``moments``, {"params", "m", "v"}, each
-    path → leaf."""
+    routing groups of a batch of ``shards`` shards; its options ``kw``),
+    one a batch of ``batches``, from ``jp`` and ``opt`` (a JAX optimizer
+    state; fresh moments when None): path → params after them, the control
+    for the sharded steps' params; with ``moments``, {"params", "m", "v"},
+    each path → leaf."""
     real = JM.moe_groups
     JM.moe_groups = _groups_of(shards)
     try:
-        _, step = JST.make_train_step(jc, None, **KW)
+        _, step = JST.make_train_step(jc, None, **kw)
         step = jax.jit(step)
         state = {"params": jp,
                  "opt": j_adamw_init(jp) if opt is None else opt}
@@ -852,30 +861,32 @@ def test_fsdp_global_norm_counts_each_leaf_once(runs):
                 np.testing.assert_allclose(got, want, rtol=1e-6)
 
 
-REFUSED = {"pod": None,
-           "scan_chunks": "scan_chunks=2",
-           "with_spec": "moves a batch axis ['data']",
-           "stage": "'stage': 2"}
+OTHERS = ("pod", "scan_chunks", "with_spec", "stage")
 
 
-@pytest.mark.parametrize("what", list(REFUSED))
-def test_fsdp_refuses_what_is_not_done(runs, what):
-    """Refused on a (2, 2) mesh, each by name: scan_chunks; with_spec
-    where a data dim of 2 would have to move (unshard gathers it); a
-    stage axis of 2 (the pipeline's, not the steps').  A pod axis of 2 is
-    a batch axis now: the prefill step on a (pod 2, model 2) mesh of the
-    same ranks, the prompt split over pod, equals the whole run's logits
-    within 2e-4 of their max (``tests/test_torch_pod.py`` holds the pod
-    axis to JAX).  (The vlm family runs under a data axis:
+@pytest.mark.parametrize("what", OTHERS)
+def test_fsdp_runs_beside_the_data_axis_and_with_spec_raises(runs, what):
+    """Beside the (2, 2) mesh's own steps: a pod axis of 2 and a stage
+    axis of 2 run, the prefill step on a (pod 2, model 2) and on a (stage
+    2, model 2) mesh of the same ranks (the prompt split over pod; stage
+    splits nothing) each equal to the whole run's logits within 2e-4 of
+    their max (``tests/test_torch_pod.py`` and
+    ``tests/test_torch_remat_sharded.py`` hold them to JAX); the train
+    step at scan_chunks 2 equals its step at 0 bit for bit; with_spec
+    still raises, by name, where a data dim of 2 would have to move
+    (unshard gathers it).  (The vlm family runs under a data axis:
     ``tests/test_torch_fsdp_vlm.py``.)"""
     for r in runs["port"][(2, 2)]:
         got = r["refused"]
-        if what == "pod":
-            logits, whole = got["pod"]
+        if what in ("pod", "stage"):
+            logits, whole = got[what]
             assert logits.shape == whole.shape and logits.shape[0] == 4
             assert _err(logits, whole.numpy()) <= 2e-4
+        elif what == "scan_chunks":
+            equal, loss = got[what]
+            assert equal and np.isfinite(loss)
         else:
-            assert REFUSED[what] in got[what], got[what]
+            assert "moves a batch axis ['data']" in got[what], got[what]
         assert got["with_spec_same"]
         assert got["unshard"] == ((4, 4), [True, True], True)
 

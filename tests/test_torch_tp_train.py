@@ -36,9 +36,9 @@ beyond the vocab are masked), B 2 x S 16, loss chunk 8 (two chunks):
   each rank's use of ``x``, ``wq``, ``wk`` and ``wv`` is a part and their
   gradients are summed; loss and every gradient against ``jax.grad``,
   ``seq_parallel`` on and off;
-* the refusals: a data axis of 2 for the ssm, hybrid and vlm families
-  (the dense and moe families run on it; the moe and vlm params and
-  moments take their local shapes), ``scan_chunks``;
+* every family's train step on a data axis of 2 (the moe and vlm params
+  and moments take their local shapes), and the train step at
+  ``scan_chunks`` 2 equal to its step at 0 bit for bit;
 * plain tensors (one process) take today's path, bit for bit, with a
   layout registered or not;
 * ``models/``, ``core/`` and ``kernels/`` import nothing from ``launch/``.
@@ -392,9 +392,10 @@ def test_audio_family_serves_and_trains_under_the_model_axis(reference):
     assert max(errs.values()) <= 2e-4, errs
 
 
-def test_train_step_refuses_what_is_not_ported(reference):
-    """``scan_chunks`` raises ``NotImplementedError``; nothing runs whole
-    instead.  The dense, moe, ssm (rwkv), hybrid (hymba) and vlm families'
+def test_train_step_runs_scan_chunks_and_every_family_on_data(reference):
+    """``scan_chunks`` 2 under sharded weights: the train step equals its
+    step at 0 bit for bit (the metrics, params and moments) on both
+    ranks.  The dense, moe, ssm (rwkv), hybrid (hymba) and vlm families'
     train steps run on a data axis over two ranks
     (``tests/test_torch_fsdp.py``, ``tests/test_torch_fsdp_vlm.py``: here
     the batch is whole on every rank).  On
@@ -445,7 +446,8 @@ def test_train_step_refuses_what_is_not_ported(reference):
             assert got[f"{n}/layers/moe/wo"] == (L, E // 2, ff // 2, d)
             assert got[f"{n}/layers/moe/router"] == (L, d, E)
     for r in _ranks(reference, 2):
-        assert "scan_chunks=2" in r["scan_refused"]
+        equal, loss = r["scan"]
+        assert equal and np.isfinite(loss)
 
 
 def test_plain_tensor_train_step_is_unchanged_by_a_layout(reference):

@@ -314,7 +314,8 @@ def tp_train_rank(mesh, cfg, params, batch, batches, kw, audio=None,
     ``batches`` from the same start (:func:`_train_steps`).  Also a whole
     optimizer state through ``distribute_params`` by ``opt_shardings``,
     the replicated-leaf rule on a 3-element leaf (each rank's use weighted
-    by its rank + 1), the train step's refusal of ``scan_chunks``, and,
+    by its rank + 1), the train step at ``scan_chunks`` 2 against 0
+    (:func:`_scan_steps`), and,
     given ``audio`` (cfg, params, embeds, step embeds, batch), tensor-
     parallel serving and training of that config; given ``odd``, a batch
     whose length the model axis does not divide, its loss and gradient
@@ -327,7 +328,6 @@ def tp_train_rank(mesh, cfg, params, batch, batches, kw, audio=None,
                                                 local_tensor)
     from repro_torch.core.tree import leaves, tree_map
     from repro_torch.launch import sharding as TS
-    from repro_torch.launch import steps as TST
     from repro_torch.models import layers
     from repro_torch.optim import AdamWState
 
@@ -361,12 +361,7 @@ def tp_train_rank(mesh, cfg, params, batch, batches, kw, audio=None,
                 y = (layers._local(w, split) * x).sum()
                 (g,) = torch.autograd.grad(y, [w])
             out["rule"][split] = local_tensor(g).cpu()
-        try:
-            _, step = TST.make_train_step(cfg, mesh, scan_chunks=2, **kw)
-            step(TST.init_train_state_sharded(cfg, mesh, params), batch)
-            out["scan_refused"] = ""
-        except NotImplementedError as e:
-            out["scan_refused"] = str(e)
+        out["scan"] = _scan_steps(mesh, cfg, params, batch)
         if audio is not None:
             out["audio"] = _tp_audio(mesh, *audio, grads_of=grads_of)
         if odd is not None:
@@ -559,12 +554,14 @@ def _batch_part(mesh) -> tuple:
     return i, n
 
 
-def _ep_grads(mesh, cfg, params, batch, sp, weights, loss_chunk):
+def _ep_grads(mesh, cfg, params, batch, sp, weights, loss_chunk,
+              scan_chunks=0):
     """Expert-parallel training's loss and gradient shards on ``batch``
     from a params tree held whole: ``weights`` None is the train step's
     own ``loss_and_grads`` (cross-entropy plus 1e-2 x load balance plus
-    1e-3 x router z), else (w_ce, w_lb, w_z) weight the three terms of the
-    loss differentiated (the same forward and constraints) → (the loss
+    1e-3 x router z; its layers checkpointed in chunks of ``scan_chunks``
+    too), else (w_ce, w_lb, w_z) weight the three terms of the loss
+    differentiated (the same forward and constraints) → (the loss
     differentiated, the gradient shards, every gradient a DTensor laid
     out as its param, the aux values)."""
     from repro_torch.core.spmd_pipeline import (batch_line, is_dtensor,
@@ -582,7 +579,7 @@ def _ep_grads(mesh, cfg, params, batch, sp, weights, loss_chunk):
     if weights is None:
         loss, grads, aux = TST.loss_and_grads(
             model, p, batch, act_constraint=con, param_constraint=pcon,
-            loss_chunk=loss_chunk)
+            loss_chunk=loss_chunk, scan_chunks=scan_chunks)
         loss = aux["total"]
     else:
         try:
@@ -833,28 +830,39 @@ def _fsdp_moe_apply(mesh, job, pin) -> dict:
     return out
 
 
-def _pod_mesh(axes=("pod", "model")):
-    """A (2, 2) mesh of the same 4 ranks with axes ``axes`` (a layout and
-    its own ``DeviceMesh``, read as the sharding rules read a mesh)."""
+def _same_ranks(mesh, shape, axes):
+    """A layout of ``shape`` over ``axes`` on the ranks of ``mesh`` (a rank
+    mesh of as many ranks): the rank mesh itself where the axes and shape
+    are its own, else a record read as the sharding rules and the step
+    builders read a mesh (``axis_names``, ``shape``, its own
+    ``DeviceMesh``, ``device``, ``axis_index``).  A ``DeviceMesh`` is a
+    collective: every rank builds the layouts in one order."""
     import types
 
     from repro_torch.launch import mesh as TMESH
 
-    lay = TMESH.MeshLayout((2, 2), tuple(axes))
-    return types.SimpleNamespace(axis_names=lay.axis_names, shape=lay.shape,
-                                 device_mesh=lay.device_mesh("cpu"))
+    lay = TMESH.MeshLayout(tuple(shape), tuple(axes))
+    if lay == mesh.layout:
+        return mesh
+    dm = lay.device_mesh(mesh.device.type)
+    return types.SimpleNamespace(
+        axis_names=lay.axis_names, shape=lay.shape, device_mesh=dm,
+        device=mesh.device,
+        axis_index=lambda a: dm.get_coordinate()[lay.axis_names.index(a)])
 
 
-def _pod_prefill(cfg, whole, batch) -> tuple:
-    """The prefill step of ``cfg`` on a (pod 2, model 2) mesh of the same
-    ranks (the params by ``param_shardings``, ``batch`` split over ``pod``
-    by ``distribute_batch``) and on the whole params in this process: (its
+def _pod_prefill(mesh, cfg, whole, batch, axes=("pod", "model")) -> tuple:
+    """The prefill step of ``cfg`` on a (pod 2, model 2) mesh of the ranks
+    of ``mesh`` (or a (2, 2) mesh of other ``axes``: ``("stage",
+    "model")``, whose ``stage`` splits nothing) — the params by
+    ``param_shardings``, ``batch`` split over ``pod`` by
+    ``distribute_batch`` — and on the whole params in this process: (its
     logits read whole by ``collect_batch``, the whole run's)."""
     from repro_torch.launch import sharding as TS
     from repro_torch.launch import steps as TST
     from repro_torch.models import layers
 
-    pod = _pod_mesh()
+    pod = _same_ranks(mesh, (2, 2), axes)
     p = TS.distribute_params(pod, whole, TS.param_shardings(pod, whole))
     try:
         got = TS.collect_batch(TST.make_prefill_step(cfg, pod)[1](
@@ -864,17 +872,35 @@ def _pod_prefill(cfg, whole, batch) -> tuple:
     return got, TST.make_prefill_step(cfg)[1](whole, batch)
 
 
+def _scan_steps(mesh, cfg, whole, batch) -> tuple:
+    """One ``make_train_step`` step of ``cfg`` on ``mesh`` from ``whole``
+    (held whole) on ``batch`` (whole; split by ``distribute_batch``) at
+    ``scan_chunks`` 2 and at 0: (whether the two give the same metrics,
+    params and moments, bit for bit; the loss at 2)."""
+    from repro_torch.launch import sharding as TS
+
+    b = [TS.distribute_batch(mesh, batch)]
+    one = {c: _train_steps(mesh, cfg, whole, b,
+                           {"loss_chunk": 8, "scan_chunks": c}, True)
+           for c in (2, 0)}
+    return (one[0]["metrics"] == one[2]["metrics"] and all(
+        torch.equal(x[0], y[0]) for n in ("params", "m", "v")
+        for x, y in zip(one[0][n].values(), one[2][n].values())),
+        one[2]["metrics"][0]["loss"])
+
+
 def _fsdp_refusals(mesh, dense) -> dict:
-    """What a (data, model) mesh runs and refuses, each message ("" where
-    it ran): ``dense`` on a (pod 2, model 2) mesh of the same ranks, which
-    runs (``"pod"``: :func:`_pod_prefill`), and on a (stage 2, model 2)
-    one, refused; the train step's ``scan_chunks``; and ``with_spec``
-    moving a dim split over ``data`` (which ``unshard`` gathers instead);
-    and a recurrent state whose rows of B are not the activations'
-    (``"state_rows"``, the ValueError's message)."""
+    """What a (data, model) mesh runs beside its own layout, and what it
+    refuses: ``dense`` on a (pod 2, model 2) and on a (stage 2, model 2)
+    mesh of the same ranks, each prefill against the whole run's
+    (``"pod"``, ``"stage"``: :func:`_pod_prefill`); the train step at
+    ``scan_chunks`` 2 against 0 (``"scan_chunks"``: :func:`_scan_steps`);
+    ``with_spec`` moving a dim split over ``data`` (which ``unshard``
+    gathers instead; the message, "" where it ran); and a recurrent state
+    whose rows of B are not the activations' (``"state_rows"``, the
+    ValueError's message)."""
     from repro_torch.core.spmd_pipeline import batch_line, unshard, with_spec
     from repro_torch.launch import sharding as TS
-    from repro_torch.launch import steps as TST
     from repro_torch.models import LM, layers
 
     def refused(fn, error=NotImplementedError) -> str:
@@ -885,22 +911,17 @@ def _fsdp_refusals(mesh, dense) -> dict:
         return ""
 
     out = {}
-    ids = torch.zeros((4, 8), dtype=torch.long)
+    toks = torch.arange(32).reshape(4, 8)
     try:
         whole = LM(dense).init(torch.Generator().manual_seed(7))
-        out["pod"] = _pod_prefill(dense, whole, {
-            "ids": torch.arange(32).reshape(4, 8) * 7 % dense.vocab})
-        stage = _pod_mesh(("stage", "model"))
-        p = TS.distribute_params(stage, whole,
-                                 TS.param_shardings(stage, whole))
-        out["stage"] = refused(lambda: TST.make_prefill_step(dense, stage)[1](
-            p, {"ids": ids}))
-        batch = {"ids": ids, "labels": ids,
-                 "mask": torch.ones(ids.shape)}
-        _, step = TST.make_train_step(dense, mesh, scan_chunks=2)
-        out["scan_chunks"] = refused(lambda: step(
-            TST.init_train_state_sharded(dense, mesh, whole),
-            TS.distribute_batch(mesh, batch)))
+        out["pod"] = _pod_prefill(mesh, dense, whole,
+                                  {"ids": toks * 7 % dense.vocab})
+        out["stage"] = _pod_prefill(mesh, dense, whole,
+                                    {"ids": toks * 5 % dense.vocab},
+                                    ("stage", "model"))
+        out["scan_chunks"] = _scan_steps(mesh, dense, whole, {
+            "ids": toks * 3 % dense.vocab, "labels": toks * 11 % dense.vocab,
+            "mask": torch.ones(toks.shape)})
         x = TS.to_dtensor(mesh, torch.arange(8.0).reshape(2, 4) + 8 * (
             mesh.axis_index("data")), TS.P("data", None), (4, 4))
         out["with_spec"] = refused(lambda: with_spec(x, TS.P(None, None)))
@@ -1029,10 +1050,10 @@ def _vlm_layouts(mesh, cfg, params, ids, img) -> dict:
     layout; "self split by batch": the self cache's B split over data;
     "self of another batch": a self cache of 2B rows; "image whole": the
     image K/V whole over B; "image embeddings whole": the image rows
-    whole beside the prompt's split rows.  Also the train step's refusal
-    of ``scan_chunks``, by name (NotImplementedError), and
-    :func:`_pod_prefill` (``"refused"`` ``"pod"``: a (pod 2, model 2) mesh
-    runs)."""
+    whole beside the prompt's split rows.  Also (``"others"``) the train
+    step at ``scan_chunks`` 2 against 0 (:func:`_scan_steps`; the vlm
+    family ignores it) and :func:`_pod_prefill` (``"pod"``: a (pod 2,
+    model 2) mesh)."""
     from repro_torch.core.tree import tree_map
     from repro_torch.launch import sharding as TS
     from repro_torch.launch import steps as TST
@@ -1087,18 +1108,12 @@ def _vlm_layouts(mesh, cfg, params, ids, img) -> dict:
                                                    "model"), sh)),
             split["img_embeds"])
         out["image embeddings whole"] = run(fresh(), img)
-        refused = {}
-        batch = {**split, "labels": split["ids"], "mask": TS.distribute_batch(
-            mesh, {"m": torch.ones(ids.shape)})["m"]}
-        try:
-            _, step = TST.make_train_step(cfg, mesh, scan_chunks=2)
-            step(TST.init_train_state_sharded(cfg, mesh, params), batch)
-            refused["scan_chunks"] = ""
-        except NotImplementedError as e:
-            refused["scan_chunks"] = str(e)
-        refused["pod"] = _pod_prefill(cfg, params, {"ids": ids,
-                                                    "img_embeds": img})
-        out["refused"] = refused
+        out["others"] = {
+            "scan_chunks": _scan_steps(mesh, cfg, params, {
+                "ids": ids, "labels": ids.roll(-1, 1),
+                "mask": torch.ones(ids.shape), "img_embeds": img}),
+            "pod": _pod_prefill(mesh, cfg, params, {"ids": ids,
+                                              "img_embeds": img})}
     finally:
         layers.set_attention_mesh(None)
     return out
@@ -1319,3 +1334,168 @@ def pod_card_rank(mesh, cfg, params, batch, kw) -> dict:
                 "rows": tuple(split["ids"].to_local().shape)}
     finally:
         layers.set_attention_mesh(None)
+
+
+class _DataGathers:
+    """Counts ``spmd_pipeline._Gather``'s forwards and backwards over the
+    ranks of ``layout``'s ``data`` line (the gathers of a weight's ``data``
+    dim and the sums of their gradients) while it is entered."""
+
+    def __init__(self, layout):
+        import torch.distributed as dist
+
+        self.line = (dist.get_process_group_ranks(
+            layout.device_mesh.get_group("data"))
+            if layout.shape["data"] > 1 else None)
+        self.counts = {"forward": 0, "backward": 0}
+
+    def _mine(self, group) -> bool:
+        import torch.distributed as dist
+
+        return (self.line is not None
+                and dist.get_process_group_ranks(group) == self.line)
+
+    def __enter__(self):
+        from repro_torch.core import spmd_pipeline as SP
+
+        self.counts = {"forward": 0, "backward": 0}
+        fwd, bwd = self.saved = (SP._Gather.forward, SP._Gather.backward)
+
+        def forward(ctx, t, dim, group, transport, sum_grad):
+            self.counts["forward"] += self._mine(group)
+            return fwd(ctx, t, dim, group, transport, sum_grad)
+
+        def backward(ctx, g):
+            self.counts["backward"] += self._mine(ctx.group)
+            return bwd(ctx, g)
+
+        SP._Gather.forward = staticmethod(forward)
+        SP._Gather.backward = staticmethod(backward)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import spmd_pipeline as SP
+
+        SP._Gather.forward = staticmethod(self.saved[0])
+        SP._Gather.backward = staticmethod(self.saved[1])
+
+
+def _equal_runs(a, b) -> bool:
+    """Two :func:`_ep_grads` results hold the same loss and the same
+    gradient shards, bit for bit."""
+    return a[0] == b[0] and all(
+        torch.equal(x[0], y[0]) and x[1:] == y[1:]
+        for x, y in zip(a[1].values(), b[1].values())) and (
+        a[1].keys() == b[1].keys())
+
+
+def _stored(layout, cfg, params, batch, kw, root) -> dict:
+    """One ``make_train_step`` step of ``cfg`` (its ``kw``) from
+    ``params`` (held whole) on ``batch`` (split), the trained state saved
+    under ``root`` by ``CheckpointStore`` and restored by ``shardings=``:
+    the trained state's shards, and whether the restored state holds the
+    same placements and local tensors, bit for bit."""
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.core.spmd_pipeline import is_dtensor, local_tensor
+    from repro_torch.core.tree import leaves
+    from repro_torch.launch import sharding as TS
+    from repro_torch.launch import steps as TST
+
+    _, step = TST.make_train_step(cfg, layout, **kw)
+    state, _ = step(TST.init_train_state_sharded(cfg, layout, params), batch)
+    store = CheckpointStore(root, keep=1)
+    store.save(1, state, {"next_step": 1})
+    got, extra = store.restore(1, like=state, shardings={
+        "params": TS.param_shardings(layout, params),
+        "opt": TS.opt_shardings(layout, state["opt"], params)})
+    return {"trained": _shards(state), "equal": extra == {"next_step": 1}
+            and all(is_dtensor(a) == is_dtensor(b)
+                    and (not is_dtensor(a) or a.placements == b.placements)
+                    and torch.equal(local_tensor(a), local_tensor(b))
+                    for a, b in zip(leaves(got), leaves(state)))}
+
+
+def remat_rank(mesh, layouts, jobs, vlm=None, root=None) -> dict:
+    """Nested remat (``scan_chunks``) under sharded weights, and a
+    ``stage`` axis, on the layouts ``layouts`` (key → (shape, axes)) built
+    over this spawn's ranks (:func:`_same_ranks`), for each job of
+    ``jobs`` (name → {"cfg", "params" held whole, "batches", "dec",
+    "layout": a key of ``layouts``, "pins" (a moe config's routing, or
+    None), "kw" (with its ``scan_chunks``), "grads": the seq_parallel
+    settings to run, "steps", "serve", "ckpt"}): the loss and gradient
+    shards of ``loss_and_grads`` at ``scan_chunks`` 2, whether the runs at
+    0 and 3 (which 4 layers ignore) give the same bits, and the ``data``
+    gathers of each (:class:`_DataGathers`); two ``make_train_step`` steps
+    (:func:`_train_steps`); serving under both layouts
+    (:func:`_fsdp_serve`); and a trained state's round trip through the
+    checkpoint store under ``root`` (:func:`_stored`).  ``vlm`` (cfg,
+    params, batch held whole): :func:`_scan_steps` on each layout with a
+    data axis of 2.
+    ``DTensor.redistribute`` raises in this rank throughout."""
+    import os
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.core.spmd_pipeline import batch_line
+    from repro_torch.launch import sharding as TS
+    from repro_torch.models import layers, moe
+
+    def no_redistribute(self, *a, **k):
+        raise AssertionError("DTensor.redistribute reached")
+
+    built = {k: _same_ranks(mesh, *v) for k, v in layouts.items()}
+    saved = DTensor.redistribute
+    DTensor.redistribute = no_redistribute
+    pin = PinRouting()
+    moe.ROUTING_HOOK = pin
+    out: dict = {"coord": {k: tuple(lay.axis_index(a) for a in lay.axis_names)
+                           for k, lay in built.items()}}
+    try:
+        for name, job in jobs.items():
+            lay, cfg, params = built[job["layout"]], job["cfg"], job["params"]
+            kw = job["kw"]
+            pin.choices = job.get("pins")
+            first = TS.distribute_batch(lay, job["batches"][0])
+            split = batch_line(first["labels"]) is not None
+            pin.part = _batch_part(lay) if split else None
+            r = out[name] = {}
+            count = _DataGathers(lay)
+            if job.get("grads"):
+                r["grads"] = {}
+                for sp in job["grads"]:
+                    runs, gathers = {}, {}
+                    for c in (2, 0, 3):
+                        pin.phase = "p0"
+                        with count:
+                            runs[c] = _ep_grads(lay, cfg, params, first, sp,
+                                                None, kw["loss_chunk"], c)
+                        gathers[c] = dict(count.counts)
+                    r["grads"][sp] = {
+                        "run": runs[2], "gathers": gathers,
+                        "equal": {c: _equal_runs(runs[c], runs[2])
+                                  for c in (0, 3)}}
+            if job.get("steps"):
+                batches = [TS.distribute_batch(lay, b)
+                           for b in job["batches"]]
+                r["steps"] = _train_steps(lay, cfg, params, batches, kw, True,
+                                          pin=pin)
+            if job.get("serve"):
+                r["serve"] = {s: _fsdp_serve(lay, cfg, params, job, s, pin)
+                              for s in ("serving", "fsdp")}
+            if job.get("ckpt"):
+                pin.phase = "p0"
+                r["ckpt"] = _stored(lay, cfg, params, first, kw,
+                                    os.path.join(root, name))
+            layers.set_attention_mesh(None)
+        if vlm is not None:
+            cfg, params, batch = vlm
+            pin.choices, pin.part = None, None
+            out["vlm"] = {}
+            for key, lay in built.items():
+                if lay.shape.get("data", 1) > 1:
+                    out["vlm"][key] = _scan_steps(lay, cfg, params, batch)
+    finally:
+        DTensor.redistribute = saved
+        moe.ROUTING_HOOK = None
+        layers.set_attention_mesh(None)
+    return out
